@@ -12,19 +12,28 @@ caught):
    equality: K1 on the golden problem of the kernel tests, on seeded random
    problems (dead nodes, masked custom resources, over-subscribed classes)
    and on the 10k-node x 256-class stream problem; K2, K3 and K4 at the
-   bucket edges. K1 is also held against the NumPy reference (kernel_np).
-   Median device times of each kernel and its plain version.
+   bucket edges; K5 (rounds) and K6 (chunked) on the rounds kernels' golden
+   problems, the random problems and the stream problem. K1, K5 and K6 are
+   also held against the NumPy reference (kernel_np). Median device times
+   of each kernel and its plain version.
 2. the 1M-task stream over 10k nodes (20% of the fleet held back, an
    autoscale flip, completions releasing resources) through
    TorchScheduler.schedule_async / fetch / apply_delta / update_rows, with
-   the standing invariants asserted on every fetched round.
+   the standing invariants asserted on every fetched round; once for each
+   scheduler_kernel_algo (scan K1, rounds K5, chunked K6).
 3. a torch_cuda policy on CUDA and one on the CPU, in lockstep on
    identical 10k-node states, over synchronous and pipelined rounds;
    decisions must be equal every round and the invariant guard silent.
 4. the user entry points: ray_tpu_torch.init / @remote / get with
    dependencies and an actor, scheduled through the CUDA kernel.
+5. the GCS scheduling loop (cluster/gcs.py) over 10k fake nodes and 256
+   task classes, for each algorithm: (a) a torch_cuda GCS on CUDA and a
+   hybrid (NumPy) GCS in lockstep on one submission sequence, placements
+   equal task for task; (b) a pipelined torch_cuda GCS draining every task
+   with nothing leaked; (c) a GCS built with the default config, its
+   scheduler loop live, fed over an RPC connection as a driver feeds it.
 
-Launch counters are set to 0 just before phase 2 and read after phase 4:
+Launch counters are set to 0 just before phase 2 and read after phase 5:
 every kernel of the path must have launched in that run. The second to
 last JSON line lists the kernels; the last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
@@ -138,6 +147,39 @@ def random_problem(seed, N=2048, C=48):
     demands[:, 5] = np.where(rng.random(C) < 0.2, 1, 0)
     counts = rng.integers(0, 4000, C).astype(np.int32)
     return avail, total, alive, demands, counts
+
+
+def rounds_problem(seed, N=96, C=9):
+    """The problems of the rounds kernels' golden tests
+    (tests/test_sched_rounds.py _random_problem)."""
+    from ray_tpu_torch.sched.resources import (
+        NodeResourceState, ResourceSpace, pack_demands,
+    )
+
+    rng = np.random.default_rng(seed)
+    space = ResourceSpace()
+    st = NodeResourceState(space=space)
+    for i in range(N):
+        st.add_node(
+            f"n{i}",
+            {"CPU": float(rng.integers(1, 32)),
+             "memory": float(rng.integers(8, 128)),
+             "TPU": float(rng.choice([0, 0, 4, 8]))},
+        )
+    st.available = np.floor(
+        st.available * rng.uniform(0.3, 1.0, size=st.available.shape)
+    ).astype(np.float32)
+    demand_maps = []
+    for _ in range(C):
+        d = {"CPU": float(rng.integers(1, 4))}
+        if rng.random() < 0.4:
+            d["TPU"] = float(rng.integers(1, 4))
+        if rng.random() < 0.5:
+            d["memory"] = float(rng.integers(1, 8))
+        demand_maps.append(d)
+    demands = pack_demands(space, demand_maps)
+    counts = rng.integers(1, 200, size=C).astype(np.int32)
+    return st.available, st.total, st.alive, demands, counts
 
 
 # ------------------------------------------------------------------- timing
@@ -290,13 +332,67 @@ def phase1_kernels(torch, KT, kernel_np, dev):
     )
     log(f"K4 compact_nonzero: [{C_}, {N_}] nnz={nnz}, caps "
         f"{KT.TorchScheduler._NONZERO_BUCKETS} + edges, 4 dtype sets == plain")
+
+    phase1_rounds(torch, KT, kernel_np, dev, rec, err, problems)
     for name, r in rec.items():
         log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms by {r['bound'][1]})")
     return rec
 
 
-def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000):
+def phase1_rounds(torch, KT, kernel_np, dev, rec, err, k1_problems):
+    """K5 and K6 against their plain versions (assignments and availability
+    exact) and against kernel_np (assignments exact, availability within
+    1e-3), then timed at the stream's first-round shape as TorchScheduler
+    calls them: padded to 256 classes, the demanded columns active."""
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    algos = (
+        ("schedule_classes_rounds", KT.schedule_classes_rounds,
+         KT._schedule_classes_rounds_plain, kernel_np.schedule_classes_rounds, 4, {}),
+        ("schedule_classes_chunked", KT.schedule_classes_chunked,
+         KT._schedule_classes_chunked_plain, kernel_np.schedule_classes_chunked, 2,
+         {"chunk": 16}),
+    )
+    problems = [(f"rounds_golden{s}", rounds_problem(s)) for s in range(4)]
+    problems += [(n, p) for n, p in k1_problems if n.startswith(("random", "stream"))]
+    for name, (avail, total, alive, demands, counts) in problems:
+        args = (T(avail), T(total), T(alive), T(demands), T(counts))
+        for kname, kern, plain, ref, _, _ in algos:
+            a_k, v_k = kern(*args)
+            a_p, v_p = plain(*args)
+            err(kname, a_k, a_p)
+            err(kname, v_k, v_p)
+            a_n, v_n = ref(avail, total, alive, demands, counts)
+            if not np.array_equal(a_n, a_k.cpu().numpy()):
+                raise AssertionError(f"{kname} {name}: kernel != kernel_np")
+            if not np.allclose(v_n, v_k.cpu().numpy(), atol=1e-3):
+                raise AssertionError(f"{kname} {name}: avail differs from kernel_np")
+        log(f"K5/K6 {name}: N={len(total)} C={len(demands)} placed "
+            f"{int(a_k.sum())} (chunked) == plain == kernel_np")
+    avail, total, alive, demands, counts = next(
+        p for n, p in k1_problems if n == "stream_first_round")
+    d_pad, k_pad = KT.pad_problem(demands, counts, KT.bucket_size(len(demands)))
+    active = tuple(int(i) for i in np.flatnonzero((d_pad > 0).any(axis=0)))
+    args = (T(avail), T(total), T(alive), T(d_pad), T(k_pad))
+    N, C = len(total), len(d_pad)
+    A = len(active)
+    # each input read once, each output written once
+    bytes_rounds = 3 * N * R * 4 + N + C * R * 4 + C * 4 + C * N * 4
+    for kname, kern, plain, _, rounds, kw in algos:
+        kw = {**kw, "rounds": rounds, "active_idx": active}
+        # per round and (class, node) cell: fit and threshold cap in phase
+        # A (9 per active column), fit in phase B (4 per column), the
+        # class-priority trim in both phases (9 per column), ~8 per cell
+        # per phase for the cap, prefix fill and clip
+        ops = rounds * C * N * (9 * A + 4 * A + 2 * 9 * A + 2 * 8)
+        rec[kname].update(
+            ms=time_ms(torch, lambda: kern(*args, **kw)),
+            plain_ms=time_ms(torch, lambda: plain(*args, **kw), reps=3, warm=1),
+            library_ms=None, bound=bound(bytes_rounds, ops),
+        )
+
+
+def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000, algo="scan"):
     """The 1M-task stream through TorchScheduler (bench.py's headline)."""
     rng = np.random.default_rng(5)
     total, alive, demands, counts = build_stream_problem(
@@ -361,7 +457,7 @@ def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000):
         submit = np.maximum(st["backlog"] - st["inflight_counts"], 0).astype(np.int32)
         did_work = False
         if submit.sum() > 0:
-            pipe.append((sched.schedule_async(demands, submit), submit))
+            pipe.append((sched.schedule_async(demands, submit, algo=algo), submit))
             st["inflight_counts"] = st["inflight_counts"] + submit
             did_work = True
         if pipe and (len(pipe) > pipe_depth or submit.sum() == 0):
@@ -378,6 +474,7 @@ def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000):
     assert placed == int(counts.sum()), (placed, int(counts.sum()))
     assert np.isfinite(st["host_avail"]).all()
     res = {
+        "algo": algo,
         "rounds": len(round_times),
         "round_ms_median": float(np.median(round_times)) * 1e3,
         "decisions": placed,
@@ -528,6 +625,180 @@ def phase4_entry_points(torch, KT):
     return k1
 
 
+# the GCS phase's 256 task classes: CPU 1..16 x memory 0..15
+GCS_CLASSES = [(cpu, mem) for cpu in range(1, 17) for mem in range(16)]
+
+
+def gcs_submissions(n_tasks, seed, n_classes=len(GCS_CLASSES), deps=None, prefix="t"):
+    """Task metas as a driver submits them, classes drawn uniformly."""
+    rng = np.random.default_rng(seed)
+    metas = []
+    for i, c in enumerate(rng.integers(0, n_classes, n_tasks)):
+        cpu, mem = GCS_CLASSES[int(c)]
+        res = {"CPU": cpu}
+        if mem:
+            res["memory"] = mem
+        meta = {"task_id": f"{prefix}-{i}", "class_key": (("CPU", cpu), ("memory", mem)),
+                "resources": res, "num_returns": 1}
+        if deps is not None:
+            meta["deps"] = [dict(d) for d in deps]
+        metas.append(meta)
+    return metas
+
+
+def register_gcs_nodes(testing, gcs, n_nodes):
+    """10k fake nodes, CPU 8..64 and memory 32..256, drawn as the JAX
+    package's GCS policy tests draw them."""
+    rng = np.random.default_rng(42)
+    cpus = rng.integers(8, 65, n_nodes)
+    mems = rng.integers(32, 257, n_nodes)
+    testing.register_fake_nodes(
+        gcs, n_nodes, lambda i: {"CPU": int(cpus[i]), "memory": int(mems[i])})
+
+
+def assert_gcs_drained(gcs):
+    with gcs._lock:
+        assert not gcs.pending, "GCS: pending not empty"
+        assert not gcs.waiting_tasks, "GCS: waiting_tasks not empty"
+        assert not gcs.active_outputs, "GCS: active_outputs not empty"
+        assert not gcs._class_buckets, "GCS: queued tasks left"
+
+
+def phase5_gcs(torch, KT, n_nodes=10_000, n_lockstep=50_000, n_pipelined=100_000,
+               n_wire=4_000, gpu="cuda"):
+    """The GCS scheduling loop at 10k nodes x 256 classes, per algorithm:
+    (a) torch_cuda on the card in lockstep with hybrid (NumPy), (b) the
+    pipelined torch_cuda GCS, and (c) the wire path into a default GCS."""
+    from ray_tpu_torch.cluster import testing
+    from ray_tpu_torch.cluster.gcs import GcsServer
+    from ray_tpu_torch.cluster.rpc import RpcClient
+    from ray_tpu_torch.core.config import Config
+    from ray_tpu_torch.core.object_ref import ObjectRef
+
+    out = {}
+    for algo in KT.ALGOS:
+        # (a) lockstep: synchronous rounds, every round on the device
+        base = {"scheduler_kernel_algo": algo, "scheduler_round_interval_ms": 60_000.0,
+                "jax_policy_min_cells": 0, "jax_policy_pipeline_depth": 0}
+        placements, secs = {}, {}
+        for pol in ("torch_cuda", "hybrid"):
+            cfg = {**base, "scheduling_policy": pol, "scheduler_device": gpu}
+            gcs = GcsServer(config=Config(cfg))
+            try:
+                testing.park_scheduler_loop(gcs)
+                if pol == "torch_cuda":
+                    assert gcs.policy.device.type == gpu
+                register_gcs_nodes(testing, gcs, n_nodes)
+                conn = testing.FakeConn()
+                for meta in gcs_submissions(n_lockstep, seed=7):
+                    gcs.rpc_submit_task(meta, conn)
+                t0 = time.perf_counter()
+                placements[pol] = testing.run_rounds_to_quiescence(gcs, max_rounds=400)
+                secs[pol] = time.perf_counter() - t0
+                assert_gcs_drained(gcs)
+            finally:
+                gcs.shutdown()
+        p_dev, p_np = placements["torch_cuda"], placements["hybrid"]
+        assert len(p_dev) == len(p_np) == n_lockstep, (len(p_dev), len(p_np))
+        differ = sum(1 for t in p_np if p_dev[t] != p_np[t])
+        if differ:
+            raise AssertionError(f"GCS lockstep {algo}: {differ} placements differ")
+        rec = {"lockstep_tasks": n_lockstep,
+               "lockstep_decisions_per_sec": n_lockstep / secs["torch_cuda"],
+               "lockstep_numpy_decisions_per_sec": n_lockstep / secs["hybrid"]}
+
+        # (b) pipelined at the default window and size threshold, as
+        # bench.py's gcs_loop_bench drives it
+        cfg = {"scheduler_kernel_algo": algo, "scheduler_round_interval_ms": 60_000.0,
+               "scheduler_device": gpu}
+        gcs = GcsServer(config=Config(cfg))
+        try:
+            testing.park_scheduler_loop(gcs)
+            assert gcs.policy.name == "torch_cuda" and gcs.policy.pipelined
+            register_gcs_nodes(testing, gcs, n_nodes)
+            conn = testing.FakeConn()
+            metas = gcs_submissions(n_pipelined, seed=8)
+            t0 = time.perf_counter()
+            for meta in metas:
+                gcs.rpc_submit_task(meta, conn)
+            t_submit = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            placed = testing.run_rounds_to_quiescence(gcs, max_rounds=2000,
+                                                      drain_fraction=1.0)
+            t_sched = time.perf_counter() - t0
+            assert len(placed) == n_pipelined, (len(placed), n_pipelined)
+            assert_gcs_drained(gcs)
+            with gcs._lock:
+                assert not gcs.policy.has_inflight(), "GCS: rounds left in flight"
+                assert not gcs.running
+                st = gcs.state
+                assert np.allclose(st.available, st.total * st.alive[:, None], atol=1e-3)
+        finally:
+            gcs.shutdown()
+        rec.update(tasks=n_pipelined, placed=len(placed),
+                   submit_per_sec=n_pipelined / t_submit,
+                   decisions_per_sec=len(placed) / t_sched)
+        out[algo] = rec
+        log(f"phase 5 GCS {algo}: {json.dumps(rec)}")
+
+    # (c) the wire path: a GCS with the default config (torch_cuda on
+    # CUDA), its scheduler loop live, fed over an RPC connection. A
+    # producer task runs first; the consumers wait at the dependency gate
+    # on its output, and the report of that output (as the producer's
+    # node sends it) releases all of them into one round, which the
+    # policy solves on the card.
+    before = KT.schedule_classes.launches
+    gcs = GcsServer() if gpu == "cuda" else GcsServer(config=Config({"scheduler_device": gpu}))
+    try:
+        assert gcs.policy.name == "torch_cuda" and gcs.policy.device.type == gpu
+        register_gcs_nodes(testing, gcs, n_nodes)
+        client = RpcClient("127.0.0.1", gcs.port, name="driver", peer="gcs")
+        try:
+            driver = "chip-smoke-driver"
+            client.call("register_driver", {"driver_id": driver, "worker": False,
+                                            "logs": False})
+            producer = gcs_submissions(1, seed=0, prefix="producer")[0]
+            producer["owner"] = driver
+            assert client.call("submit_task", producer).get("ok")
+            deadline = time.monotonic() + 60
+            while producer["task_id"] not in gcs.running:
+                assert time.monotonic() < deadline, "wire path: producer never placed"
+                time.sleep(0.01)
+            oid = ObjectRef.for_task_output(producer["task_id"], 0).id
+            consumers = gcs_submissions(n_wire, seed=9, n_classes=64,
+                                        deps=[{"id": oid}], prefix="consumer")
+            futs = []
+            for meta in consumers:
+                meta["owner"] = driver
+                futs.append(client.call_async("submit_task", meta))
+            for f in futs:
+                reply = f.result(timeout=60)
+                assert reply.get("ok") and not reply.get("deps_lost"), reply
+            with gcs._lock:
+                assert len(gcs.waiting_tasks) == n_wire, len(gcs.waiting_tasks)
+            node = gcs.running[producer["task_id"]]["node_id"]
+            t0 = time.perf_counter()
+            client.call("add_object_location", {"object_id": oid, "node_id": node})
+            deadline = time.monotonic() + 120
+            while True:
+                with gcs._lock:
+                    n_running = sum(1 for m in consumers if m["task_id"] in gcs.running)
+                if n_running == n_wire:
+                    break
+                assert time.monotonic() < deadline, f"wire path: {n_running}/{n_wire} placed"
+                time.sleep(0.005)
+            t_place = time.perf_counter() - t0
+        finally:
+            client.close()
+    finally:
+        gcs.shutdown()
+    k1 = KT.schedule_classes.launches - before
+    assert k1 > 0 or gpu != "cuda", "wire path never reached the CUDA kernel"
+    out["wire"] = {"tasks": n_wire, "classes": 64, "placed_s": t_place, "k1_launches": k1}
+    log(f"phase 5 GCS wire path: {json.dumps(out['wire'])}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -574,7 +845,7 @@ def main() -> int:
     plog.addHandler(_Guard(level=logging.WARNING))
     KT.reset_launch_counts()
     t0 = time.perf_counter()
-    stream = phase2_stream(torch, KT, dev)
+    stream = {algo: phase2_stream(torch, KT, dev, algo=algo) for algo in KT.ALGOS}
     after2 = KT.launch_counts()
     log(f"phase 2: {time.perf_counter() - t0:.1f} s, launches {after2}")
     t0 = time.perf_counter()
@@ -583,8 +854,12 @@ def main() -> int:
     log(f"phase 3: {time.perf_counter() - t0:.1f} s, launches {after3}")
     t0 = time.perf_counter()
     phase4_entry_points(torch, KT)
+    after4 = KT.launch_counts()
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s, launches {after4}")
+    t0 = time.perf_counter()
+    gcs = phase5_gcs(torch, KT)
     launches = KT.launch_counts()
-    log(f"phase 4: {time.perf_counter() - t0:.1f} s, launches {launches}")
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s, launches {launches}")
     if guard_records:
         raise AssertionError(f"invariant guard fired: {guard_records}")
     missing = [k for k, v in launches.items() if v == 0]
@@ -596,6 +871,8 @@ def main() -> int:
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
         "delta_clip": "ray_tpu/sched/kernel_jax.py:474",
         "compact_nonzero": "ray_tpu/sched/kernel_jax.py:546",
+        "schedule_classes_rounds": "ray_tpu/sched/kernel_jax.py:317",
+        "schedule_classes_chunked": "ray_tpu/sched/kernel_jax.py:367",
     }
     kernels = []
     for name, r in rec.items():
@@ -606,7 +883,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
-    log(json.dumps({"stream": stream, "card": card}))
+    log(json.dumps({"stream": stream, "gcs": gcs, "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,10 @@ _runtime = None
 
 _CLUSTER_TODO = (
     "cluster mode (init(address=...) / init(cluster=True)) is not ported "
-    "yet: the GCS, node daemon, RPC and client are the next slice of the "
-    "port (ROADMAP.md, queue 1); use local mode (init() with no address)"
+    "yet: the GCS head (ray_tpu_torch.cluster.gcs) is, but the node daemon, "
+    "workers, client, shm store and the native object store are the next "
+    "slice of the port (ROADMAP.md, queue 1, first item); use local mode "
+    "(init() with no address)"
 )
 
 
@@ -44,11 +46,13 @@ def init(
     """Start the runtime.
 
     address=None -> local mode (one in-process node, reference local Ray),
-    the only mode of this slice of the port: address= and cluster=True
-    raise NotImplementedError until cluster mode is ported. With
-    ``_system_config={"scheduling_policy": "torch_cuda"}`` every
-    scheduling round runs on the CUDA kernels (``scheduler_device``,
-    default "cuda"; "cpu" runs their plain PyTorch versions).
+    the only mode the port has so far: address= and cluster=True raise
+    NotImplementedError until the node daemon and client are ported. By
+    default (scheduling_policy "torch_cuda", scheduler_device "cuda")
+    every device-sized scheduling round runs on the CUDA kernels, and
+    init() raises without a card; ``_system_config={"scheduler_device":
+    "cpu"}`` runs their plain PyTorch versions, ``{"scheduling_policy":
+    "hybrid"}`` the NumPy policy.
     """
     global _runtime
     if kwargs:

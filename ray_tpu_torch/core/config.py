@@ -17,10 +17,13 @@ from typing import Any, Dict
 _DEFS: Dict[str, tuple] = {
     "scheduler_spread_threshold": (float, 0.5),
     "scheduler_top_k_fraction": (float, 0.2),  # reserved; kernel is deterministic
-    # hybrid | torch_cuda | spread | random; torch_cuda runs the round on
-    # the hand-written CUDA kernels of sched/kernel_torch.py
-    "scheduling_policy": (str, "hybrid"),
-    # "scan" ("rounds" and "chunked" have no CUDA kernel yet)
+    # torch_cuda | hybrid | spread | random; torch_cuda runs the round on
+    # the hand-written CUDA kernels of sched/kernel_torch.py. The default
+    # differs from the JAX package's ("hybrid", the NumPy policy) on
+    # purpose: the port's entry points run on the card unless the caller
+    # asks for the CPU (scheduler_device="cpu", or "hybrid")
+    "scheduling_policy": (str, "torch_cuda"),
+    # "scan" (K1) | "rounds" (K5) | "chunked" (K6)
     "scheduler_kernel_algo": (str, "scan"),
     # torch_cuda policy: the device its rounds run on — "cuda" (default) or
     # "cpu" (the plain PyTorch versions of the kernels). No quiet fallback:

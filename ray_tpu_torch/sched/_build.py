@@ -46,6 +46,7 @@ _lib_flags: tuple = ()
 build_seconds = 0.0
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ULL = ctypes.c_ulonglong
 # name -> (argument types, result type); pointers and the stream are c_void_p
 _SIGNATURES = {
     "sched_schedule_classes": (
@@ -56,6 +57,8 @@ _SIGNATURES = {
     "sched_nonzero_tiles": ([_LL], _I),
     "sched_compact_nonzero": (
         [_P, _LL, _I, _LL, _P, _I, _P, _I, _P, _I, _P, _P, _P], _I),
+    "sched_schedule_rounds": (
+        [_P, _P, _P, _P, _P, _ULL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
     "sched_error_string": ([_I], ctypes.c_char_p),
 }
 

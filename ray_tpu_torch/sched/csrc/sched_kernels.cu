@@ -22,6 +22,10 @@
 //                              kernel_jax.py JaxScheduler.schedule_async
 //                              (jnp.nonzero(size=cap, fill_value=0) + gather
 //                              + narrowing)
+//   K5 sched_schedule_rounds   replaces kernel_jax.py schedule_classes_rounds
+//      (chunk = C)             (+ _rounds_core, _sat_cumsum)
+//   K6 sched_schedule_rounds   replaces kernel_jax.py schedule_classes_chunked
+//      (chunk = 16)
 // Every entry point launches on the stream it is given, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after its launches.
 
@@ -365,6 +369,276 @@ cudaError_t launch_k1(cudaStream_t st, float* avail, const float* total, const u
 }
 
 // ---------------------------------------------------------------------------
+// K5/K6: the two-phase [C, N] rounds core (kernel_np.schedule_classes_rounds
+// semantics, op for op). Per global round, phase A (fill nodes under the
+// spread threshold up to it) then phase B (equal-share the rest over the
+// feasible nodes); each phase is three launches on one stream, no host sync:
+//   1. rounds_caps_kernel   one thread per node, a tile of classes per block:
+//                           the [C, N] cap matrix (A: min(fit, threshold
+//                           cap) x under-threshold mask; B: fit, and the
+//                           per-class count of feasible nodes);
+//   2. rounds_prefix_kernel one block per class: the saturating prefix fill
+//                           along N in node order -> want [C, N] (in place);
+//   3. rounds_trim_kernel   one thread per node, classes in index order: the
+//                           class-priority trim against the usage of earlier
+//                           classes -> take; assigned += take; the debit of
+//                           the node's row; per-class placed counts.
+// The prefix kernel of the next phase settles `remaining -= placed` first.
+// K6 runs the same launches chunk after chunk on [16, N] slices, the
+// availability carried from one chunk to the next on the device.
+//
+// Bound on this card: bytes. Every phase writes and reads the [C, N] f32
+// cap/want matrix twice (10 MB at 256 x 10k) and the trim reads it once
+// more, against a few hundred operations per cell; the round itself must
+// move only the [N, R] views and the [C, N] int32 result once. Design: the
+// per-node kernels keep the node's active columns in registers and read
+// the [C, N] scratch coalesced across a warp (row-major, one node per
+// lane); the per-class prefix is an exact int64 block scan, tile by tile.
+// Fusing the three launches (and the phases) is the next step (PERF.md).
+//
+// Numerics (decisions bit-identical to kernel_np on integer-granular
+// problems): IEEE division, no contraction (--fmad=false plus explicit
+// __fmul_rn / __fadd_rn where numpy rounds a product before a sum), float
+// -> int conversions truncate. The saturating prefixes mirror the
+// reference literally: along N an exact int64 inclusive prefix clipped at
+// SAT, cast to float32, minus the element (when saturated that is NOT the
+// exclusive prefix); along C each column's usage want*d is rounded to
+// float32 and accumulated in double (kernel_np._sat_cumsum_f), clipped at
+// SAT, cast to float32, minus the element. The debit sums take*d in double
+// and rounds once (exact for integer-granular demands, like the
+// reference's float32 product).
+// ---------------------------------------------------------------------------
+constexpr int kNodeThreads = 128;     // per-node kernels of K5/K6
+constexpr int kCapClassTile = 16;     // classes per block of the cap kernel
+constexpr int kPrefixThreads = 1024;
+constexpr float kSat = 8388608.0f;    // SAT = 2**23
+constexpr float kMinDemand = 1e-9f;   // np.float32(1e-9)
+
+// The active columns (bits of `mask`, lowest first) as AMAX register slots.
+template <int AMAX>
+__device__ __forceinline__ void active_columns(unsigned long long mask, int (&col)[AMAX]) {
+#pragma unroll
+  for (int j = 0; j < AMAX; ++j) {
+    col[j] = mask ? __ffsll((long long)mask) - 1 : 0;
+    mask &= mask - 1;
+  }
+}
+
+template <int AMAX, bool PHASE_A>
+__global__ void __launch_bounds__(kNodeThreads)
+rounds_caps_kernel(const float* __restrict__ avail, const float* __restrict__ total,
+                   const uint8_t* __restrict__ alive, const float* __restrict__ demands,
+                   unsigned long long mask, int A, int N, int R, int C, float thr,
+                   float* __restrict__ cap, int* __restrict__ n_feas) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = n < N;
+  int col[AMAX];
+  active_columns<AMAX>(mask, col);
+  float av[AMAX] = {}, head[AMAX] = {};
+  float alive_f = 0.f, under_f = 0.f;
+  if (in) {
+    const float* a = avail + (size_t)n * R;
+    const float* t = total + (size_t)n * R;
+    alive_f = alive[n] ? 1.f : 0.f;
+#pragma unroll
+    for (int j = 0; j < AMAX; ++j) {
+      if (j < A) {
+        av[j] = a[col[j]];
+        if (PHASE_A) {
+          const float tj = t[col[j]];
+          head[j] = __fsub_rn(__fmul_rn(thr, tj), __fsub_rn(tj, av[j]));
+        }
+      }
+    }
+    if (PHASE_A) {
+      // critical_util over every column, as kernel_np.critical_util
+      float util = __int_as_float(0xff800000);  // -inf
+      for (int r = 0; r < R; ++r) {
+        const float tt = t[r];
+        const float frac = tt > 0.f ? __fdiv_rn(__fsub_rn(tt, a[r]), fmaxf(tt, kEps)) : 0.f;
+        util = fmaxf(util, frac);
+      }
+      under_f = (util < thr ? 1.f : 0.f) * alive_f;
+    }
+  }
+  const int c1 = min((int)(blockIdx.y + 1) * kCapClassTile, C);
+  for (int c = blockIdx.y * kCapClassTile; c < c1; ++c) {
+    const float* d = demands + (size_t)c * R;
+    float fit = kInfFit, k = kInfFit;
+#pragma unroll
+    for (int j = 0; j < AMAX; ++j) {
+      if (j < A) {
+        const float dj = __ldg(d + col[j]);
+        if (dj > 0.f) {
+          const float dm = fmaxf(dj, kMinDemand);
+          fit = fminf(fit, floorf(__fdiv_rn(__fadd_rn(av[j], kEps), dm)));
+          if (PHASE_A) k = fminf(k, floorf(__fdiv_rn(__fadd_rn(head[j], kEps), dm)));
+        }
+      }
+    }
+    fit = __fmul_rn(fminf(fmaxf(fit, 0.f), kInfFit), alive_f);
+    float out = fit;
+    if (PHASE_A) {
+      // clip(k, 0, float32(INF_FIT) - 1) + 1; float32(2**30 - 1) == 2**30
+      k = __fadd_rn(fminf(fmaxf(k, 0.f), kInfFit), 1.f);
+      out = __fmul_rn(fminf(fit, k), under_f);
+    }
+    if (in) cap[(size_t)c * N + n] = out;
+    if (!PHASE_A) {
+      const unsigned feas = __ballot_sync(kFull, in && out > 0.f);
+      if ((threadIdx.x & 31) == 0 && feas) atomicAdd(&n_feas[c], __popc(feas));
+    }
+  }
+}
+
+// One block per class. Settles the previous phase's placements into
+// `remaining` (or loads the counts on the first phase), then turns the cap
+// row into the want row in place.
+template <bool PHASE_B>
+__global__ void __launch_bounds__(kPrefixThreads)
+rounds_prefix_kernel(float* __restrict__ cap, const int* __restrict__ counts,
+                     float* __restrict__ remaining, int* __restrict__ placed,
+                     int* __restrict__ n_feas, int N, int first) {
+  __shared__ long long s_warp[32];
+  __shared__ long long s_tile;
+  __shared__ float s_rem, s_share;
+  const int c = blockIdx.x;
+  if (threadIdx.x == 0) {
+    const float rem = first ? (float)counts[c] : __fsub_rn(remaining[c], (float)placed[c]);
+    remaining[c] = rem;
+    placed[c] = 0;
+    s_rem = rem;
+    if (PHASE_B) {
+      s_share = ceilf(__fdiv_rn(rem, fmaxf((float)n_feas[c], 1.f)));
+    } else {
+      n_feas[c] = 0;  // phase B's cap kernel counts into it
+    }
+  }
+  __syncthreads();
+  const float rem = s_rem;
+  const float satcap = fminf(rem, kSat);
+  float* row = cap + (size_t)c * N;
+  long long carry = 0;
+  for (int start = 0; start < N; start += blockDim.x) {
+    const int n = start + threadIdx.x;
+    float capc = 0.f;
+    if (n < N) {
+      float cp = row[n];
+      if (PHASE_B) cp = fminf(cp, s_share);
+      capc = fminf(cp, satcap);
+    }
+    const long long v = (long long)capc;
+    const long long ex = block_exclusive_scan(v, s_warp);
+    if (n < N) {
+      const long long incl = min(carry + ex + v, (long long)kSat);
+      const float prev = __fsub_rn((float)incl, capc);
+      row[n] = fminf(fmaxf(__fsub_rn(rem, prev), 0.f), capc);
+    }
+    if (threadIdx.x == blockDim.x - 1) s_tile = ex + v;
+    __syncthreads();
+    carry += s_tile;
+    __syncthreads();
+  }
+}
+
+template <int AMAX>
+__global__ void __launch_bounds__(kNodeThreads)
+rounds_trim_kernel(float* __restrict__ avail, const float* __restrict__ want,
+                   const float* __restrict__ demands, unsigned long long mask, int A, int N,
+                   int R, int C, int* __restrict__ assigned, int* __restrict__ placed) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = n < N;
+  int col[AMAX];
+  active_columns<AMAX>(mask, col);
+  float av[AMAX];
+  double acc[AMAX], use[AMAX];
+#pragma unroll
+  for (int j = 0; j < AMAX; ++j) {
+    av[j] = (in && j < A) ? avail[(size_t)n * R + col[j]] : 0.f;
+    acc[j] = 0.0;
+    use[j] = 0.0;
+  }
+  for (int c = 0; c < C; ++c) {
+    const float w = in ? want[(size_t)c * N + n] : 0.f;
+    int take_i = 0;
+    // want == 0 adds nothing to the usage prefixes and takes nothing
+    if (w > 0.f) {
+      const float* d = demands + (size_t)c * R;
+      float t = w;
+#pragma unroll
+      for (int j = 0; j < AMAX; ++j) {
+        if (j < A) {
+          const float dj = __ldg(d + col[j]);
+          if (dj > 0.f) {
+            const float u = __fmul_rn(w, dj);
+            acc[j] += (double)u;
+            const float prev = __fsub_rn((float)fmin(acc[j], (double)kSat), u);
+            const float head = __fsub_rn(av[j], prev);
+            const float fr =
+                floorf(__fdiv_rn(__fadd_rn(head, kEps), fmaxf(dj, kMinDemand)));
+            t = fminf(t, fminf(fmaxf(fr, 0.f), kSat));
+          }
+        }
+      }
+      t = fminf(fmaxf(t, 0.f), w);
+      take_i = (int)t;
+      if (take_i > 0) {
+        assigned[(size_t)c * N + n] += take_i;
+#pragma unroll
+        for (int j = 0; j < AMAX; ++j)
+          if (j < A) use[j] += (double)t * (double)__ldg(d + col[j]);
+      }
+    }
+    const int got = __reduce_add_sync(kFull, take_i);
+    if ((threadIdx.x & 31) == 0 && got) atomicAdd(&placed[c], got);
+  }
+  if (in) {
+    // avail = max(avail - usage, 0) over every column (inactive ones have
+    // zero usage but are clamped all the same, as the reference does)
+    float* a = avail + (size_t)n * R;
+#pragma unroll
+    for (int j = 0; j < AMAX; ++j)
+      if (j < A) a[col[j]] = __fsub_rn(av[j], (float)use[j]);
+    for (int r = 0; r < R; ++r) a[r] = fmaxf(a[r], 0.f);
+  }
+}
+
+template <int AMAX>
+cudaError_t launch_rounds(cudaStream_t st, float* avail, const float* total,
+                          const uint8_t* alive, const float* demands, const int* counts,
+                          unsigned long long mask, int A, int* assigned, float* cap,
+                          float* remaining, int* placed, int* n_feas, int N, int R, int C,
+                          int chunk, float thr, int rounds) {
+  const unsigned node_blocks = (unsigned)((N + kNodeThreads - 1) / kNodeThreads);
+  for (int s = 0; s < C; s += chunk) {
+    const int Cc = min(chunk, C - s);
+    const float* d = demands + (size_t)s * R;
+    int* asg = assigned + (size_t)s * N;
+    float* rem = remaining + s;
+    int* plc = placed + s;
+    int* nf = n_feas + s;
+    const dim3 cap_grid(node_blocks, (unsigned)((Cc + kCapClassTile - 1) / kCapClassTile));
+    for (int r = 0; r < rounds; ++r) {
+      rounds_caps_kernel<AMAX, true><<<cap_grid, kNodeThreads, 0, st>>>(
+          avail, total, alive, d, mask, A, N, R, Cc, thr, cap, nf);
+      rounds_prefix_kernel<false><<<Cc, kPrefixThreads, 0, st>>>(cap, counts + s, rem, plc, nf,
+                                                                 N, r == 0);
+      rounds_trim_kernel<AMAX><<<node_blocks, kNodeThreads, 0, st>>>(avail, cap, d, mask, A, N,
+                                                                     R, Cc, asg, plc);
+      rounds_caps_kernel<AMAX, false><<<cap_grid, kNodeThreads, 0, st>>>(
+          avail, total, alive, d, mask, A, N, R, Cc, thr, cap, nf);
+      rounds_prefix_kernel<true><<<Cc, kPrefixThreads, 0, st>>>(cap, counts + s, rem, plc, nf,
+                                                                N, 0);
+      rounds_trim_kernel<AMAX><<<node_blocks, kNodeThreads, 0, st>>>(avail, cap, d, mask, A, N,
+                                                                     R, Cc, asg, plc);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // K2: avail[idx[i], :] = rows[i, :]; indices outside [0, N) (the padding
 // value N) are dropped. Bound: bytes (pad*(4 + 8R)); one thread per element,
 // neighbouring threads on neighbouring columns of one row.
@@ -547,6 +821,30 @@ int sched_delta_clip(float* out, const float* avail, const float* delta, const f
   delta_clip_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(out, avail, delta,
                                                                             total, n);
   return (int)cudaGetLastError();
+}
+
+// K5 (chunk >= C) and K6 (chunk = 16). Scratch, allocated by the caller:
+// cap [min(chunk, C), N] float32; remaining [C] float32, placed and n_feas
+// [C] int32. `mask` has bit r set for each active resource column r (the
+// columns any class demands); `assigned` must be zeroed.
+int sched_schedule_rounds(float* avail, const float* total, const uint8_t* alive,
+                          const float* demands, const int* counts, unsigned long long mask,
+                          int* assigned, float* cap, float* remaining, int* placed,
+                          int* n_feas, int N, int R, int C, int chunk, float thr, int rounds,
+                          void* stream) {
+  if (R > kMaxR || R < 1 || chunk < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
+  if (R < 64 && (mask >> R) != 0ull) return (int)cudaErrorInvalidValue;
+  if (C == 0 || N == 0 || rounds == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int A = __builtin_popcountll(mask);
+  if (A <= 4)
+    return (int)launch_rounds<4>(st, avail, total, alive, demands, counts, mask, A, assigned,
+                                 cap, remaining, placed, n_feas, N, R, C, chunk, thr, rounds);
+  if (A <= 16)
+    return (int)launch_rounds<16>(st, avail, total, alive, demands, counts, mask, A, assigned,
+                                  cap, remaining, placed, n_feas, N, R, C, chunk, thr, rounds);
+  return (int)launch_rounds<kMaxR>(st, avail, total, alive, demands, counts, mask, A, assigned,
+                                   cap, remaining, placed, n_feas, N, R, C, chunk, thr, rounds);
 }
 
 // tile_counts: n_tiles int32, tile_offsets: n_tiles + 1 int64, where

@@ -9,14 +9,20 @@ it, a plain PyTorch version of the same function:
   K2 scatter_rows_     dirty-row refresh of the device availability
   K3 delta_clip        clip(avail + delta, 0, total)
   K4 compact_nonzero   COO compaction of the [C, N] assignment for download
+  K5 schedule_classes_rounds   the fully parallel two-phase [C, N] round
+                               (scheduler_kernel_algo="rounds")
+  K6 schedule_classes_chunked  K5's core over chunks of 16 classes
+                               (scheduler_kernel_algo="chunked")
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback from one to the other.
 Each wrapper carries a plain integer ``launches`` counter, bumped once per
 call that launched its kernel.
 
-Decisions are bit-identical to kernel_np.schedule_classes (golden-tested in
-tests/test_torch_sched_kernel.py against kernel_np and kernel_jax): IEEE
+Decisions are bit-identical to kernel_np.schedule_classes (and, for K5/K6,
+to kernel_np.schedule_classes_rounds / _chunked on integer-granular
+problems), golden-tested in tests/test_torch_sched_kernel.py and
+tests/test_torch_sched_rounds.py against kernel_np and kernel_jax: IEEE
 float32 division, no fast math, no product-into-sum contraction, and exact
 integer prefix sums in the score-ordered fill.
 
@@ -44,12 +50,6 @@ SCORE_BUCKETS = 64
 # saturate at 2**23 (the kernels here use exact int64 prefixes instead,
 # which agree wherever the result depends on them: counts < 2**23)
 SAT = float(1 << 23)
-
-_ALGO_TODO = (
-    "scheduler_kernel_algo={!r} has no CUDA kernel yet (kernels K5/K6 of the "
-    "port, ROADMAP.md 'Kernel queue'); use 'scan'"
-)
-
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
@@ -242,14 +242,15 @@ def schedule_classes(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tens
     counts = counts.to(torch.int32).contiguous()
     assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
     scratch = torch.empty(lib.sched_k1_scratch_words(N), dtype=torch.int32, device=dev)
-    rc = lib.sched_schedule_classes(
-        new_avail.data_ptr(), total.data_ptr(), alive_u8.data_ptr(),
-        demands.data_ptr(), counts.data_ptr(), assigned.data_ptr(),
-        scratch.data_ptr(), N, R, C,
-        float(np.float32(spread_threshold)),
-        float(np.float32(max(1e-6, 1.0 - spread_threshold))),
-        int(max_passes), _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        rc = lib.sched_schedule_classes(
+            new_avail.data_ptr(), total.data_ptr(), alive_u8.data_ptr(),
+            demands.data_ptr(), counts.data_ptr(), assigned.data_ptr(),
+            scratch.data_ptr(), N, R, C,
+            float(np.float32(spread_threshold)),
+            float(np.float32(max(1e-6, 1.0 - spread_threshold))),
+            int(max_passes), _stream(dev),
+        )
     _check(lib, rc, "schedule_classes")
     schedule_classes.launches += 1
     return assigned, new_avail
@@ -289,8 +290,9 @@ def scatter_rows_(avail: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
     lib = _build.load()
     idx = idx.to(torch.int32).contiguous()
     rows = rows.to(torch.float32).contiguous()
-    rc = lib.sched_scatter_rows(avail.data_ptr(), idx.data_ptr(), rows.data_ptr(),
-                                pad, N, R, _stream(dev))
+    with torch.cuda.device(dev):
+        rc = lib.sched_scatter_rows(avail.data_ptr(), idx.data_ptr(), rows.data_ptr(),
+                                    pad, N, R, _stream(dev))
     _check(lib, rc, "scatter_rows")
     scatter_rows_.launches += 1
     return avail
@@ -323,8 +325,9 @@ def delta_clip(avail: torch.Tensor, delta: torch.Tensor, total: torch.Tensor):
     delta = delta.to(torch.float32).contiguous()
     total = total.to(torch.float32).contiguous()
     out = torch.empty_like(avail)
-    rc = lib.sched_delta_clip(out.data_ptr(), avail.data_ptr(), delta.data_ptr(),
-                              total.data_ptr(), avail.numel(), _stream(dev))
+    with torch.cuda.device(dev):
+        rc = lib.sched_delta_clip(out.data_ptr(), avail.data_ptr(), delta.data_ptr(),
+                                  total.data_ptr(), avail.numel(), _stream(dev))
     _check(lib, rc, "delta_clip")
     delta_clip.launches += 1
     return out
@@ -384,11 +387,12 @@ def compact_nonzero(out: torch.Tensor, cap: int, ci_dtype=torch.int32,
     n_tiles = lib.sched_nonzero_tiles(M)
     tile_counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     tile_offsets = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
-    rc = lib.sched_compact_nonzero(
-        x.data_ptr(), M, N, cap, ci.data_ptr(), ci.element_size(), ni.data_ptr(),
-        ni.element_size(), vals.data_ptr(), vals.element_size(),
-        tile_counts.data_ptr(), tile_offsets.data_ptr(), _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        rc = lib.sched_compact_nonzero(
+            x.data_ptr(), M, N, cap, ci.data_ptr(), ci.element_size(), ni.data_ptr(),
+            ni.element_size(), vals.data_ptr(), vals.element_size(),
+            tile_counts.data_ptr(), tile_offsets.data_ptr(), _stream(dev),
+        )
     _check(lib, rc, "compact_nonzero")
     compact_nonzero.launches += 1
     return ci, ni, vals
@@ -396,13 +400,215 @@ def compact_nonzero(out: torch.Tensor, cap: int, ci_dtype=torch.int32,
 
 compact_nonzero.launches = 0
 
+
+# ------------------------------------------------------------------- K5 / K6
+
+
+def _active_columns(demands: torch.Tensor, active_idx) -> Tuple[int, ...]:
+    R = demands.shape[1]
+    active = tuple(range(R)) if active_idx is None else tuple(int(r) for r in active_idx)
+    if any(r < 0 or r >= R for r in active) or len(set(active)) != len(active):
+        raise ValueError(f"active_idx {active_idx} is not a set of columns of R={R}")
+    return tuple(sorted(active))
+
+
+def _rounds_core_plain(avail, total, alive, demands, counts, spread_threshold,
+                       rounds, active):
+    """Plain PyTorch version of the K5/K6 core: kernel_np.schedule_classes_
+    rounds op for op over the `active` columns (the columns any class
+    demands; the others cannot change a decision). Returns (assigned [C, N]
+    int32, avail [N, R] float32); `avail` is not modified."""
+    dev = avail.device
+    avail = avail.to(torch.float32).clone()
+    total = total.to(torch.float32)
+    demands = demands.to(torch.float32)
+    C = demands.shape[0]
+    N = avail.shape[0]
+    eps = _f32(EPS).to(dev)
+    thr = _f32(spread_threshold).to(dev)
+    sat = _f32(SAT).to(dev)
+    inf_fit = _f32(float(INF_FIT)).to(dev)
+    zero = _f32(0.0).to(dev)
+    alive_f = alive.to(torch.bool).to(torch.float32)
+    d_div = torch.maximum(demands, _f32(1e-9).to(dev))
+    remaining = counts.to(torch.float32)
+    assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
+
+    def fit_matrix(avail):
+        fit = inf_fit.expand(C, N)
+        for r in active:
+            ratio = torch.floor((avail[:, r][None, :] + eps) / d_div[:, r][:, None])
+            fit = torch.where(demands[:, r][:, None] > 0, torch.minimum(fit, ratio), fit)
+        return torch.clamp(fit, 0.0, float(INF_FIT)) * alive_f[None, :]
+
+    def threshold_cap_matrix(avail):
+        k = inf_fit.expand(C, N)
+        for r in active:
+            head = thr * total[:, r] - (total[:, r] - avail[:, r])
+            cap_r = torch.floor((head[None, :] + eps) / d_div[:, r][:, None])
+            k = torch.where(demands[:, r][:, None] > 0, torch.minimum(k, cap_r), k)
+        # clip(k, 0, float32(INF_FIT) - 1) + 1; float32(2**30 - 1) == 2**30
+        return torch.clamp(k, 0.0, float(INF_FIT)) + 1.0
+
+    def claim_phase(avail_p, remaining, cap):
+        capc = torch.minimum(cap, torch.minimum(remaining[:, None], sat))
+        # saturating prefix along N: exact int64, clipped, minus the element
+        incl = torch.cumsum(capc.to(torch.int64), dim=1).clamp(max=int(SAT))
+        prev = incl.to(torch.float32) - capc
+        want = torch.minimum(torch.maximum(remaining[:, None] - prev, zero), capc)
+        take = want
+        for r in active:
+            d_r = demands[:, r]
+            usage = want * d_r[:, None]
+            # earlier classes' usage: float64 prefix over C, clipped at SAT
+            prev_r = torch.cumsum(usage.to(torch.float64), dim=0).clamp(max=SAT)
+            prev_r = prev_r.to(torch.float32) - usage
+            head = avail_p[None, :, r] - prev_r
+            fit_r = torch.floor((head + eps) / d_div[:, r][:, None])
+            take = torch.where(d_r[:, None] > 0,
+                               torch.minimum(take, torch.clamp(fit_r, 0.0, SAT)), take)
+        return torch.minimum(torch.maximum(take, zero), want)
+
+    def run_phase(avail, remaining, cap):
+        nonlocal assigned
+        take = claim_phase(avail, remaining, cap)
+        usage = (take.to(torch.float64).T @ demands.to(torch.float64)).to(torch.float32)
+        assigned += take.to(torch.int32)
+        placed = take.to(torch.int64).sum(dim=1).to(torch.float32)
+        return torch.maximum(avail - usage, zero), remaining - placed
+
+    for _ in range(rounds):
+        used = total - avail
+        frac = torch.where(total > 0, used / torch.maximum(total, eps), zero)
+        util = frac.max(dim=1).values
+        under = (util < thr).to(torch.float32) * alive_f
+        cap_a = torch.minimum(fit_matrix(avail), threshold_cap_matrix(avail))
+        avail, remaining = run_phase(avail, remaining, cap_a * under[None, :])
+        fit = fit_matrix(avail)
+        n_feas = (fit > 0).sum(dim=1).to(torch.float32)
+        share = torch.ceil(remaining / torch.maximum(n_feas, _f32(1.0).to(dev)))
+        avail, remaining = run_phase(avail, remaining, torch.minimum(fit, share[:, None]))
+    return assigned, avail
+
+
+def _schedule_classes_chunked_plain(avail, total, alive, demands, counts,
+                                    spread_threshold=DEFAULT_SPREAD_THRESHOLD,
+                                    chunk=16, rounds=2, active_idx=None):
+    """Plain version of K6: the rounds core chunk after chunk (a trailing
+    partial chunk is allowed, as in kernel_np), avail carried between."""
+    active = _active_columns(demands, active_idx)
+    C = demands.shape[0]
+    parts = []
+    for s in range(0, C, chunk):
+        a, avail = _rounds_core_plain(avail, total, alive, demands[s:s + chunk],
+                                      counts[s:s + chunk], spread_threshold, rounds,
+                                      active)
+        parts.append(a)
+    if not parts:
+        return (torch.zeros((0, avail.shape[0]), dtype=torch.int32, device=avail.device),
+                avail.to(torch.float32).clone())
+    return torch.cat(parts, dim=0), avail
+
+
+def _schedule_classes_rounds_plain(avail, total, alive, demands, counts,
+                                   spread_threshold=DEFAULT_SPREAD_THRESHOLD,
+                                   rounds=4, active_idx=None):
+    """Plain version of K5: the rounds core over all classes at once."""
+    return _rounds_core_plain(avail, total, alive, demands, counts, spread_threshold,
+                              rounds, _active_columns(demands, active_idx))
+
+
+def _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk,
+                   rounds, active_idx, kernel):
+    """The CUDA launch of K5 (chunk >= C) and K6: one C call that enqueues
+    six launches per round and chunk on the current stream."""
+    dev = avail.device
+    N, R = avail.shape
+    C = demands.shape[0]
+    if total.shape != (N, R) or alive.shape != (N,) or demands.shape != (C, R)             or counts.shape != (C,):
+        raise ValueError(
+            f"shape mismatch: avail {tuple(avail.shape)} total {tuple(total.shape)} "
+            f"alive {tuple(alive.shape)} demands {tuple(demands.shape)} "
+            f"counts {tuple(counts.shape)}"
+        )
+    if chunk < 1 or rounds < 0:
+        raise ValueError(f"{kernel}: chunk={chunk} rounds={rounds}")
+    mask = sum(1 << r for r in _active_columns(demands, active_idx))
+    lib = _build.load()
+    new_avail = avail.to(torch.float32).contiguous().clone()
+    total = total.to(torch.float32).contiguous()
+    alive_u8 = alive.to(torch.bool).contiguous()
+    demands = demands.to(torch.float32).contiguous()
+    counts = counts.to(torch.int32).contiguous()
+    assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
+    cap = torch.empty((min(chunk, max(C, 1)), N), dtype=torch.float32, device=dev)
+    remaining = torch.empty(C, dtype=torch.float32, device=dev)
+    placed = torch.empty(C, dtype=torch.int32, device=dev)
+    n_feas = torch.empty(C, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.sched_schedule_rounds(
+            new_avail.data_ptr(), total.data_ptr(), alive_u8.data_ptr(),
+            demands.data_ptr(), counts.data_ptr(), mask, assigned.data_ptr(),
+            cap.data_ptr(), remaining.data_ptr(), placed.data_ptr(), n_feas.data_ptr(),
+            N, R, C, chunk, float(np.float32(spread_threshold)), int(rounds), _stream(dev),
+        )
+    _check(lib, rc, kernel)
+    return assigned, new_avail
+
+
+def schedule_classes_rounds(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tensor,
+                            demands: torch.Tensor, counts: torch.Tensor,
+                            spread_threshold: float = DEFAULT_SPREAD_THRESHOLD,
+                            rounds: int = 4, active_idx=None):
+    """K5. The fully parallel two-phase [C, N] placement, the semantics of
+    kernel_np.schedule_classes_rounds (decisions bit-identical on integer-
+    granular problems). active_idx: the resource columns any class demands
+    (None: all). Same arguments and result as schedule_classes."""
+    dev = _device_of(avail, total, alive, demands, counts)
+    if dev.type == "cpu":
+        return _schedule_classes_rounds_plain(avail, total, alive, demands, counts,
+                                              spread_threshold, rounds, active_idx)
+    out = _launch_rounds(avail, total, alive, demands, counts, spread_threshold,
+                         max(demands.shape[0], 1), rounds, active_idx,
+                         "schedule_classes_rounds")
+    schedule_classes_rounds.launches += 1
+    return out
+
+
+schedule_classes_rounds.launches = 0
+
+
+def schedule_classes_chunked(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tensor,
+                             demands: torch.Tensor, counts: torch.Tensor,
+                             spread_threshold: float = DEFAULT_SPREAD_THRESHOLD,
+                             chunk: int = 16, rounds: int = 2, active_idx=None):
+    """K6. K5's core over `chunk` classes at a time, the availability carried
+    from chunk to chunk (kernel_np.schedule_classes_chunked). One call is one
+    count of `launches`, whatever the number of chunks."""
+    dev = _device_of(avail, total, alive, demands, counts)
+    if dev.type == "cpu":
+        return _schedule_classes_chunked_plain(avail, total, alive, demands, counts,
+                                               spread_threshold, chunk, rounds, active_idx)
+    out = _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk,
+                         rounds, active_idx, "schedule_classes_chunked")
+    schedule_classes_chunked.launches += 1
+    return out
+
+
+schedule_classes_chunked.launches = 0
+
 #: the kernels of this module by name, each with its `launches` counter
 KERNELS = {
     "schedule_classes": schedule_classes,
     "scatter_rows": scatter_rows_,
     "delta_clip": delta_clip,
     "compact_nonzero": compact_nonzero,
+    "schedule_classes_rounds": schedule_classes_rounds,
+    "schedule_classes_chunked": schedule_classes_chunked,
 }
+
+#: scheduler_kernel_algo values and the kernels behind them
+ALGOS = ("scan", "rounds", "chunked")
 
 
 def launch_counts() -> dict:
@@ -467,14 +673,25 @@ class TorchScheduler:
         scatter_rows_(self.avail, self._put(ii), self._put(vv))
 
     def _round(self, demands, counts, spread_threshold, algo):
-        if algo in ("rounds", "chunked"):
-            raise NotImplementedError(_ALGO_TODO.format(algo))
+        if algo not in ALGOS:
+            raise ValueError(f"scheduler_kernel_algo {algo!r} is not one of {ALGOS}")
         pad = bucket_size(demands.shape[0])
         d, k = pad_problem(np.asarray(demands, np.float32), np.asarray(counts), pad)
-        assigned, self.avail = schedule_classes(
-            self.avail, self.total, self.alive, self._put(d), self._put(k),
-            spread_threshold,
-        )
+        args = (self.avail, self.total, self.alive, self._put(d), self._put(k),
+                spread_threshold)
+        if algo == "scan":
+            assigned, self.avail = schedule_classes(*args)
+        else:
+            # padded classes demand INF_FIT of resource 0, so they are inert
+            # in the matrix passes, but resource 0 must stay in the active
+            # set for that guard to execute (as JaxScheduler does)
+            active = tuple(int(i) for i in np.flatnonzero((d > 0).any(axis=0)))
+            if algo == "rounds":
+                assigned, self.avail = schedule_classes_rounds(
+                    *args, rounds=4, active_idx=active)
+            else:
+                assigned, self.avail = schedule_classes_chunked(
+                    *args, chunk=16, rounds=2, active_idx=active)
         return assigned[: demands.shape[0]]
 
     def _download(self, t: torch.Tensor) -> torch.Tensor:

@@ -78,17 +78,27 @@ def test_local_runtime_equals_ray_tpu_on_torch_cuda_policy():
 
 
 def test_default_cuda_device_without_cuda_raises(monkeypatch):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU: the bare default (torch_cuda on CUDA) raises without one, and
+    both explicit CPU requests work."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        ray_tpu_torch.init(num_cpus=2)
+    assert not ray_tpu_torch.is_initialized()
     with pytest.raises(RuntimeError, match="is_available"):
         ray_tpu_torch.init(num_cpus=2, _system_config={
             "scheduling_policy": "torch_cuda"})
     assert not ray_tpu_torch.is_initialized()
-    # the default policy needs no device at all
-    ray_tpu_torch.init(num_cpus=2)
-    try:
-        assert ray_tpu_torch.get(ray_tpu_torch.put(7)) == 7
-    finally:
-        ray_tpu_torch.shutdown()
+    for cpu_request, name, device in (({"scheduler_device": "cpu"}, "torch_cuda", "cpu"),
+                                      ({"scheduling_policy": "hybrid"}, "hybrid", None)):
+        ray_tpu_torch.init(num_cpus=2, _system_config=cpu_request)
+        try:
+            pol = ray_tpu_torch.core.api._runtime.policy
+            assert pol.name == name
+            assert (pol.device.type if pol.device is not None else None) == device
+            assert ray_tpu_torch.get(ray_tpu_torch.put(7)) == 7
+        finally:
+            ray_tpu_torch.shutdown()
 
 
 def test_cluster_mode_not_ported_yet():

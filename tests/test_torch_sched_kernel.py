@@ -250,12 +250,45 @@ def test_torch_scheduler_update_rows_and_delta_equal_jax():
 
 
 def test_torch_scheduler_unported_algos_raise():
+    """Every scheduler_kernel_algo has its kernel now (scan K1, rounds K5,
+    chunked K6); a name with no kernel raises instead of quietly running
+    another algorithm."""
     ts = KT.TorchScheduler(np.ones((4, R), np.float32), np.ones(4, bool), device="cpu")
     demands = np.zeros((1, R), np.float32)
     demands[0, 0] = 1
-    for algo in ("rounds", "chunked"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for algo in KT.ALGOS:
+        assert ts.schedule(demands, np.array([1], np.int32), algo=algo).sum() == 1
+    for algo in ("sharded", "classes"):
+        with pytest.raises(ValueError, match="scheduler_kernel_algo"):
             ts.schedule(demands, np.array([1], np.int32), algo=algo)
+
+
+def test_negative_availability_round_that_places_nothing():
+    """Pins ROADMAP queue 3's first fault: on a view with a negative entry
+    and a round that places nothing, kernel_jax clamps the view at 0 (its
+    _one_class applies max(avail - take*d, 0) in every executed pass) while
+    kernel_np breaks before its update and keeps the negative value. The
+    decisions agree; the port follows kernel_np, the stated authority."""
+    N = 8
+    total = np.zeros((N, R), np.float32)
+    total[:, 0] = 4.0
+    total[:, 3] = 16.0
+    alive = np.ones(N, bool)
+    avail = total.copy()
+    avail[:, 0] = 0.0  # no CPU anywhere: nothing can place
+    avail[2, 3] = -3.0  # over-released memory (reacquire after get)
+    demands = np.zeros((2, R), np.float32)
+    demands[0, 0] = 1.0
+    demands[1, 0] = 2.0
+    demands[1, 3] = 1.0
+    counts = np.array([5, 3], np.int32)
+    (np_a, np_v), (jx_a, jx_v), (th_a, th_v) = _run_all(avail, total, alive, demands, counts)
+    assert np_a.sum() == 0
+    np.testing.assert_array_equal(th_a, np_a)
+    np.testing.assert_array_equal(th_a, jx_a)
+    np.testing.assert_array_equal(th_v, np_v)
+    assert th_v[2, 3] == -3.0
+    assert jx_v[2, 3] != np_v[2, 3]  # the divergence the port does not follow
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero (no phase's exception is
 caught):
 
 0. the card's name and power limit; build the CUDA kernels from
-   ray_tpu_torch/sched/csrc (build seconds printed).
+   ray_tpu_torch/sched/csrc and ray_tpu_torch/models/csrc, one nvcc each,
+   started together (build seconds printed).
 1. every kernel against its plain PyTorch version on the card, with exact
    equality: K1 on the golden problem of the kernel tests, on seeded random
    problems (dead nodes, masked custom resources, over-subscribed classes)
@@ -33,9 +34,25 @@ caught):
    with nothing leaked; (c) a GCS built with the default config, its
    scheduler loop live, fed over an RPC connection as a driver feeds it.
 
-Launch counters are set to 0 just before phase 2 and read after phase 5:
-every kernel of the path must have launched in that run. The second to
-last JSON line lists the kernels; the last line is the result.
+6. the flagship transformer's forward (ray_tpu_torch.models, the default
+   TransformerConfig in bf16, weights from a numpy seed): (a) K8 (both
+   forms), K10a and K10b against their plain versions at the forward's
+   shapes, in bf16 and f32, with times, bounds and the library yardsticks
+   (scaled_dot_product_attention, rms_norm); (b) make_forward_step on
+   [8, 2048] tokens, finite logits, timed; (c) the model held by an actor
+   of ray_tpu_torch.init(), answering 8 requests; (d) the checks of what
+   (b) and (c) gave: two sequences against the plain forward on the CPU,
+   the loss at [8, 2049], both dtypes against the JAX package's golden
+   (tests/data/transformer_golden.npz), each served answer equal to the
+   direct call, and the ring's schedule of K8 block steps on one card
+   against the whole-sequence kernel.
+
+Launch counters are set to 0 just before phase 2 and read after phase 5,
+and the model kernels' just before 6b and after 6c: every kernel of each
+path must have launched in its run. K8's block form runs on no ported
+path yet (the ring across cards is still to port); its launches in (d)'s
+check are printed on a line of their own, not among the kernels. The
+second to last JSON line lists the kernels; the last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
 port's package is not beside this script.
 """
@@ -53,10 +70,14 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 R = 16
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 (non-tensor) op/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 (non-tensor) op/s
+# and bf16 dense tensor-core op/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 CU_SOURCE = "ray_tpu_torch/sched/csrc/sched_kernels.cu"
+MODEL_CU_SOURCE = "ray_tpu_torch/models/csrc/model_kernels.cu"
+GOLDEN_PATH = os.path.join(HERE, "tests", "data", "transformer_golden.npz")
 
 
 def log(msg: str) -> None:
@@ -205,9 +226,11 @@ def time_ms(torch, fn, reps=7, warm=2):
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def bound(bytes_moved, ops):
+def bound(bytes_moved, ops, peak_ops_per_s=PEAK_F32_OPS_PER_S):
+    """The least time for the work: bytes at the HBM rate or operations at
+    the peak rate of their type (float32 unless given), whichever is larger."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -664,7 +687,7 @@ def assert_gcs_drained(gcs):
         assert not gcs._class_buckets, "GCS: queued tasks left"
 
 
-def phase5_gcs(torch, KT, n_nodes=10_000, n_lockstep=50_000, n_pipelined=100_000,
+def phase5_gcs(torch, KT, n_nodes=10_000, n_lockstep=25_000, n_pipelined=100_000,
                n_wire=4_000, gpu="cuda"):
     """The GCS scheduling loop at 10k nodes x 256 classes, per algorithm:
     (a) torch_cuda on the card in lockstep with hybrid (NumPy), (b) the
@@ -799,6 +822,301 @@ def phase5_gcs(torch, KT, n_nodes=10_000, n_lockstep=50_000, n_pipelined=100_000
     return out
 
 
+# ------------------------------------------------------------ phase 6: model
+
+# kernel vs plain on the card: (rtol, atol). float32 results: the same
+# arithmetic summed in another order; a result rounded to bf16 may differ
+# by one rounding (2**-8 relative). block_update's state (o, l) is an
+# unnormalised sum over up to 4 096 weighted keys, so its rounding follows
+# the largest entry, not each one: there atol is rtol x max |state|.
+KERNEL_TOL = {"f32": (1e-5, 1e-5), "bf16": (2.0 ** -7, 1e-3)}
+# the model kernels that the forward runs; K8's block form belongs to the
+# ring across cards, not written yet, and is checked here on its own
+FORWARD_KERNELS = ("attention", "rmsnorm", "rope_split")
+MODEL_REPLACES = {
+    "block_update": "ray_tpu/parallel/ring_attention.py:41",
+    "attention": "ray_tpu/models/transformer.py:113",
+    "rmsnorm": "ray_tpu/models/transformer.py:93",
+    "rope_split": "ray_tpu/models/transformer.py:98",
+}
+
+
+def phase6a_model_kernels(torch, MK, dev, S=2048):
+    """Each model kernel against its plain version on the card at the
+    flagship's shapes (B 8, S 2048, H 8, Dh 64, D 512), in bf16 and f32,
+    then timed in bf16 at the shapes the forward gives it."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(6)
+    B, H, Dh = 8, 8, 64
+    D = H * Dh
+    rec = {name: {"max_abs_err": 0.0} for name in MK.KERNELS}
+    names = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+    def rnd(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev, dt)
+
+    def check(name, got, want, what, sum_state=False):
+        rtol, atol = KERNEL_TOL["f32" if want.dtype == torch.float32 else "bf16"]
+        got, want = got.double(), want.double()
+        if sum_state:
+            atol = max(atol, rtol * float(want.abs().max()))
+        d = float((got - want).abs().max())
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], d)
+        bad = (got - want).abs() > atol + rtol * want.abs()
+        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} {what}: kernel != plain (max abs err {d}, "
+                                 f"tolerance rtol {rtol} atol {atol})")
+
+    for dt in (torch.bfloat16, torch.float32):
+        for s_len in (S, S - 1):
+            q, k, v = (rnd((B, s_len, H, Dh), dt) for _ in range(3))
+            check("attention", MK.attention(q, k, v), MK._attention_plain(q, k, v),
+                  f"{names[dt]} S={s_len}")
+        # a fully visible block sets the state, then the diagonal block, then
+        # one wholly above the diagonal (must leave the state as it is)
+        q, k, v = (rnd((B, S, H, Dh), dt) for _ in range(3))
+        state = (torch.zeros((B, S, H, Dh), device=dev),
+                 torch.full((B, H, S), MK.NEG_INF, device=dev),
+                 torch.zeros((B, H, S), device=dev))
+        for q_off, k_off, what in ((S, 0, "visible"), (S, S, "diagonal"),
+                                   (S, 2 * S, "fully masked")):
+            got = MK.block_update(q, k, v, *state, q_off, k_off, True, 1.0 / np.sqrt(Dh))
+            want = MK._block_update_plain(q, k, v, *state, q_off, k_off, True,
+                                          1.0 / np.sqrt(Dh))
+            for part, a, b in zip("oml", got, want):
+                check("block_update", a, b, f"{names[dt]} {what} block, {part}",
+                      sum_state=True)
+            if what == "fully masked" and not all(torch.equal(a, b)
+                                                  for a, b in zip(got, state)):
+                raise AssertionError("block_update: a fully masked block changed the state")
+            state = want
+        x, scale = rnd((B * S, D), dt, 3.0), rnd((D,), torch.float32)
+        check("rmsnorm", MK.rmsnorm(x, scale), MK._rmsnorm_plain(x, scale), names[dt])
+        qkv = rnd((B, S, 3 * D), dt)
+        for part, a, b in zip("qkv", MK.rope_split(qkv, H, 1e4),
+                              MK._rope_split_plain(qkv, H, 1e4)):
+            check("rope_split", a, b, f"{names[dt]} {part}")
+
+    bf = torch.bfloat16
+    # K8, whole form, as the forward calls it: causal, [8, 2048, 8, 64] bf16
+    q, k, v = (rnd((B, S, H, Dh), bf) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = S * (S + 1) // 2  # causal (query, key) pairs a head
+    rec["attention"].update(
+        ms=time_ms(torch, lambda: MK.attention(q, k, v)),
+        plain_ms=time_ms(torch, lambda: MK._attention_plain(q, k, v), reps=3, warm=1),
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        bound=bound(4 * B * S * H * Dh * 2, 4 * B * H * Dh * pairs, PEAK_BF16_OPS_PER_S))
+    # K8, block form, as the ring schedule of (d) calls it: a visible
+    # [8, 512, 8, 64] block (4 shards of 2048) against a running state
+    Sb = S // 4
+    qb, kb, vb = (rnd((B, Sb, H, Dh), bf) for _ in range(3))
+    st = (rnd((B, Sb, H, Dh), torch.float32), rnd((B, H, Sb), torch.float32),
+          rnd((B, H, Sb), torch.float32).abs() + 1)
+    args = (qb, kb, vb, *st, Sb, 0, True, 1.0 / np.sqrt(Dh))
+    rec["block_update"].update(
+        ms=time_ms(torch, lambda: MK.block_update(*args)),
+        plain_ms=time_ms(torch, lambda: MK._block_update_plain(*args), reps=3, warm=1),
+        library_ms=None,
+        bound=bound(3 * B * Sb * H * Dh * 2 + 2 * (B * Sb * H * Dh + 2 * B * H * Sb) * 4,
+                    4 * B * H * Dh * Sb * Sb, PEAK_BF16_OPS_PER_S))
+    x, scale = rnd((B * S, D), bf), rnd((D,), torch.float32)
+    scale_bf = scale.to(bf)
+    rec["rmsnorm"].update(
+        ms=time_ms(torch, lambda: MK.rmsnorm(x, scale), reps=21),
+        plain_ms=time_ms(torch, lambda: MK._rmsnorm_plain(x, scale), reps=21),
+        library_ms=time_ms(torch, lambda: F.rms_norm(x, (D,), scale_bf, 1e-6), reps=21),
+        bound=bound(2 * B * S * D * 2 + D * 4, 4 * B * S * D))
+    qkv = rnd((B, S, 3 * D), bf)
+    rec["rope_split"].update(
+        ms=time_ms(torch, lambda: MK.rope_split(qkv, H, 1e4), reps=21),
+        plain_ms=time_ms(torch, lambda: MK._rope_split_plain(qkv, H, 1e4), reps=21),
+        library_ms=None,
+        bound=bound(2 * B * S * 3 * D * 2, 6 * B * S * D))
+    for name, r in rec.items():
+        log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}), "
+            f"max abs err {r['max_abs_err']:.3g}")
+    return rec
+
+
+def _golden_check(torch, PT, tree, golden, dt_name, dev):
+    """The forward and loss on the card at the golden's tokens [2, 513]
+    against the JAX package's numbers (models.transformer.GOLDEN_TOL)."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt_name]
+    model = PT.params_from_numpy(tree, PT.TransformerConfig(dtype=dt), device=dev)
+    tokens = torch.from_numpy(golden["tokens"]).to(dev)
+    pos = [int(p) for p in golden["positions"]]
+    logits = PT.forward(model, tokens[:, :-1])
+    loss = float(PT.loss_fn(model, {"tokens": tokens}))
+    atol_logits, atol_loss, agree = PT.GOLDEN_TOL[dt_name]
+    err = float(np.abs(logits[:, pos].cpu().numpy() - golden[f"logits_{dt_name}"]).max())
+    share = float((logits.argmax(-1).cpu().numpy() == golden[f"argmax_{dt_name}"]).mean())
+    loss_err = abs(loss - float(golden[f"loss_{dt_name}"]))
+    if not (err <= atol_logits and share >= agree and loss_err <= atol_loss):
+        raise AssertionError(
+            f"golden {dt_name}: logits err {err} (atol {atol_logits}), argmax agree "
+            f"{share} (>= {agree}), loss err {loss_err} (atol {atol_loss})")
+    return {"logits_err": err, "argmax_agree": share, "loss_err": loss_err}
+
+
+def ring_schedule(torch, MK, q, k, v, n_shards):
+    """The ring's block steps on one card, as check code (the port's
+    ring_attention across cards is not written yet): query block idx meets,
+    at ring step t, the KV block of shard (idx - t) mod n_shards, through
+    K8's block form; then o / max(l, 1e-30) in q's dtype."""
+    B, S, H, Dh = q.shape
+    Sb = S // n_shards
+    outs = []
+    for idx in range(n_shards):
+        qb = q[:, idx * Sb:(idx + 1) * Sb].contiguous()
+        o = torch.zeros((B, Sb, H, Dh), dtype=torch.float32, device=q.device)
+        m = torch.full((B, H, Sb), MK.NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, Sb), dtype=torch.float32, device=q.device)
+        for t in range(n_shards):
+            src = (idx - t) % n_shards
+            kb, vb = (x[:, src * Sb:(src + 1) * Sb].contiguous() for x in (k, v))
+            o, m, l = MK.block_update(qb, kb, vb, o, m, l, idx * Sb, src * Sb, True,
+                                      1.0 / np.sqrt(Dh))
+        outs.append((o / torch.clamp_min(l, 1e-30).transpose(1, 2)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def phase6b_forward(torch, PT, make_forward_step, dev, batch=8, seq=2048, cfg=None):
+    """The main path, called directly: make_forward_step on [batch, seq]
+    tokens, its logits finite and of the right shape, then timed. The
+    weights come from the golden's numpy seed (checksum checked first)."""
+    flagship = PT.TransformerConfig()
+    cfg = cfg or flagship
+    golden = np.load(GOLDEN_PATH)
+    seed = int(golden["weight_seed"])
+    golden_tree = PT.numpy_params(flagship, seed)
+    checksum = PT.weights_checksum(golden_tree)
+    if checksum != str(golden["checksum"]):
+        raise AssertionError(
+            f"numpy_params gave other weights than the golden's (checksum {checksum[:16]} "
+            f"!= {str(golden['checksum'])[:16]}): this numpy draws other numbers from "
+            "the seed, so the golden does not apply")
+    tree = golden_tree if cfg == flagship else PT.numpy_params(cfg, seed)
+    model = PT.params_from_numpy(tree, cfg, device=dev)
+    fwd = make_forward_step(cfg) if dev.type == "cuda" else make_forward_step(cfg, dev)
+    rng = np.random.default_rng(60)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    logits = fwd(model, tokens[:, :-1])
+    sync(torch, dev)
+    if tuple(logits.shape) != (batch, seq, cfg.vocab_size) or logits.dtype != torch.float32 \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"forward: logits {tuple(logits.shape)} {logits.dtype}, "
+                             "or not finite")
+    fwd_ms = time_ms(torch, lambda: fwd(model, tokens[:, :-1]), reps=5, warm=1) \
+        if dev.type == "cuda" else float("nan")
+    res = {"batch": batch, "seq": seq, "forward_ms": fwd_ms,
+           "tokens_per_s": batch * seq / (fwd_ms / 1e3)}
+    log(f"phase 6b forward: {json.dumps(res)}")
+    ctx = {"cfg": cfg, "golden": golden, "golden_tree": golden_tree, "tree": tree,
+           "model": model, "fwd": fwd, "tokens": tokens, "logits": logits}
+    return res, ctx
+
+
+def phase6c_serve(torch, PT, make_forward_step, ctx, sizes=None):
+    """The main path, served: an actor of ray_tpu_torch.init() (default
+    config: the torch_cuda policy on the card) holds the model and answers
+    8 requests with the last position's logits. Checked in 6d."""
+    import ray_tpu_torch as rt
+
+    cfg, tree, dev = ctx["cfg"], ctx["tree"], ctx["model"].device
+    sizes = sizes or [(8, 2048), (4, 1024), (1, 2048), (2, 17), (8, 512), (3, 1000),
+                      (1, 1), (6, 2047)]
+    rng = np.random.default_rng(61)
+    requests = [rng.integers(0, cfg.vocab_size, s).astype(np.int32) for s in sizes]
+    if dev.type == "cuda":
+        rt.init(num_cpus=8)  # the default config: torch_cuda on the card
+    else:
+        rt.init(num_cpus=8, _system_config={"scheduler_device": "cpu"})
+    try:
+        @rt.remote
+        class ModelServer:
+            """User code: holds the model on the card, answers requests."""
+
+            def __init__(self, weights):
+                self.model = PT.params_from_numpy(weights, cfg, device=dev)
+                self.fwd = make_forward_step(cfg) if dev.type == "cuda" \
+                    else make_forward_step(cfg, dev)
+
+            def last_logits(self, tokens):
+                return self.fwd(self.model, tokens)[:, -1].cpu().numpy()
+
+        server = ModelServer.remote(tree)
+        t0 = time.perf_counter()
+        answers = rt.get([server.last_logits.remote(t) for t in requests], timeout=600)
+        t_serve = time.perf_counter() - t0
+        policy = rt.core.api._runtime.policy
+        assert policy.name == "torch_cuda" and policy.device.type == dev.type, policy.name
+    finally:
+        rt.shutdown()
+    res = {"requests": len(requests), "tokens": int(sum(t.size for t in requests)),
+           "serve_s": t_serve}
+    log(f"phase 6c served: {json.dumps(res)}")
+    return res, requests, answers
+
+
+def phase6d_checks(torch, PT, MK, ctx, requests, answers):
+    """The main path's results checked, outside its counting window: two
+    sequences against the port's plain forward on the CPU, the loss at
+    [batch, seq + 1], both dtypes against the JAX golden, each served
+    answer against the direct call, and the ring's schedule of K8 block
+    steps against the whole-sequence kernel."""
+    cfg, model, fwd, logits = ctx["cfg"], ctx["model"], ctx["fwd"], ctx["logits"]
+    dev = model.device
+    tokens = ctx["tokens"]
+    cpu_model = PT.params_from_numpy(ctx["tree"], cfg, device="cpu")
+    cpu_logits = PT.forward(cpu_model, torch.from_numpy(tokens[:2, :-1]))
+    atol_logits, atol_loss, agree = PT.GOLDEN_TOL[
+        "bf16" if cfg.dtype == torch.bfloat16 else "f32"]
+    cpu_err = float((logits[:2].cpu() - cpu_logits).abs().max())
+    cpu_agree = float((logits[:2].argmax(-1).cpu() == cpu_logits.argmax(-1)).float().mean())
+    if cpu_err > atol_logits or cpu_agree < agree:
+        raise AssertionError(f"forward: card vs CPU logits err {cpu_err} (atol "
+                             f"{atol_logits}), argmax agree {cpu_agree} (>= {agree})")
+    # the loss at [batch, seq + 1], held against the cross-entropy of the
+    # forward's logits
+    tok = torch.from_numpy(tokens).to(dev)
+    loss = float(PT.loss_fn(model, {"tokens": tok}))
+    ce = float(torch.nn.functional.cross_entropy(
+        logits.reshape(-1, cfg.vocab_size), tok[:, 1:].reshape(-1).long()))
+    if not np.isfinite(loss) or abs(loss - ce) > 1e-4:
+        raise AssertionError(f"loss_fn {loss} != cross-entropy of the forward {ce}")
+    golden_res = {dt: _golden_check(torch, PT, ctx["golden_tree"], ctx["golden"], dt, dev)
+                  for dt in PT.GOLDEN_TOL}
+    for t, a in zip(requests, answers):
+        want = fwd(model, t)[:, -1].cpu().numpy()
+        if a.shape != want.shape or not np.array_equal(a, want):
+            raise AssertionError(f"served answer for {t.shape} differs from the direct call")
+    # the ring's schedule (4 shards: 16 block steps, 6 of them fully masked)
+    # on layer 0's q, k, v against the whole-sequence kernel
+    blk = model.blocks[0]
+    x = torch.nn.functional.embedding(tok[:, :-1], model.embed).to(cfg.dtype)
+    qkv = torch.matmul(MK.rmsnorm(x, blk.ln1), blk.wqkv.to(cfg.dtype))
+    q, k, v = MK.rope_split(qkv, cfg.n_heads, cfg.rope_theta)
+    before = MK.block_update.launches
+    ring = ring_schedule(torch, MK, q, k, v, n_shards=4)
+    ring_launches = MK.block_update.launches - before
+    whole = MK.attention(q, k, v, causal=True)
+    rtol, atol = KERNEL_TOL["bf16" if cfg.dtype == torch.bfloat16 else "f32"]
+    ring_err = float((ring.double() - whole.double()).abs().max())
+    if bool(((ring.double() - whole.double()).abs() > atol + rtol * whole.double().abs()).any()):
+        raise AssertionError(f"ring schedule != whole attention (max abs err {ring_err})")
+    if dev.type == "cuda" and ring_launches != 16:
+        raise AssertionError(f"ring schedule: {ring_launches} block_update launches, not 16")
+    res = {"cpu_logits_err": cpu_err, "cpu_argmax_agree": cpu_agree, "loss": loss,
+           "golden": golden_res, "served_equal_direct": len(answers),
+           "ring_vs_whole_err": ring_err, "ring_block_update_launches": ring_launches}
+    log(f"phase 6d checks: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -817,15 +1135,19 @@ def main() -> int:
     from ray_tpu_torch.core.config import Config
     from ray_tpu_torch.sched import _build, kernel_np, policy as policy_mod
     from ray_tpu_torch.sched import kernel_torch as KT
+    from ray_tpu_torch.models import kernels as MK, transformer as PT
+    from ray_tpu_torch.parallel import make_forward_step
+    from ray_tpu_torch.util import cuda_build
 
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    _build.load()
+    cuda_build.build_all([_build.LIBRARY, MK.LIBRARY])  # one nvcc each, together
     log(f"phase 0 build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds:.2f} s) -> {_build.library_path().name}")
+        f"(nvcc {_build.build_seconds:.2f} s -> {_build.library_path().name}; "
+        f"nvcc {MK.LIBRARY.build_seconds:.2f} s -> {MK.LIBRARY.library_path().name})")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -866,6 +1188,29 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
 
+    # the model payload: its kernels against their plain versions, then its
+    # main path (the forward, direct and served) with the counters from 0,
+    # then the checks of what it gave, outside the counting window
+    t0 = time.perf_counter()
+    model_rec = phase6a_model_kernels(torch, MK, dev)
+    log(f"phase 6a: {time.perf_counter() - t0:.1f} s")
+    MK.reset_launch_counts()
+    t0 = time.perf_counter()
+    fwd_res, ctx = phase6b_forward(torch, PT, make_forward_step, dev)
+    log(f"phase 6b: {time.perf_counter() - t0:.1f} s, launches {MK.launch_counts()}")
+    log(f"forward [8, 2048] bf16 on {card}: {fwd_res['forward_ms']:.3f} ms, "
+        f"{fwd_res['tokens_per_s']:.0f} tokens/s")
+    t0 = time.perf_counter()
+    serve_res, requests, answers = phase6c_serve(torch, PT, make_forward_step, ctx)
+    model_launches = MK.launch_counts()
+    log(f"phase 6c: {time.perf_counter() - t0:.1f} s, launches {model_launches}")
+    missing = [k for k in FORWARD_KERNELS if model_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"model kernels never launched on the forward's path: {missing}")
+    t0 = time.perf_counter()
+    check_res = phase6d_checks(torch, PT, MK, ctx, requests, answers)
+    log(f"phase 6d: {time.perf_counter() - t0:.1f} s")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -883,7 +1228,23 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
-    log(json.dumps({"stream": stream, "gcs": gcs, "card": card}))
+    off_path = []
+    for name, r in model_rec.items():
+        entry = {
+            "name": name, "route": "cuda", "source": MODEL_CU_SOURCE,
+            "replaces": MODEL_REPLACES[name], "launches": model_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+        }
+        if name in FORWARD_KERNELS:
+            kernels.append(entry)
+        else:  # no ported path runs it yet: its launches are the ring check's
+            entry["check_launches"] = check_res["ring_block_update_launches"]
+            off_path.append(entry)
+    log(json.dumps({"stream": stream, "gcs": gcs, "forward": fwd_res, "serve": serve_res,
+                    "checks": check_res, "card": card}))
+    log(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,9 @@
 """Build and load the scheduler's CUDA kernels (csrc/sched_kernels.cu).
 
-One ``nvcc`` call compiles the source into a shared library with a plain C
-interface, loaded with ctypes: the source includes no PyTorch header, so
-the build takes seconds instead of the minutes a ``torch.utils.
-cpp_extension`` build of PyTorch's headers costs. The library goes into
-``build/torch_ext/`` at the root of the checkout (listed in .gitignore),
-named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.
-
-Nothing here runs at import: the build happens on the first CUDA use
-(``load()``), so importing the package on a machine without ``nvcc`` or a
-card never touches the compiler.
+The library is built by ``ray_tpu_torch.util.cuda_build`` (one ``nvcc``
+call into a plain-C shared library loaded with ctypes, under
+``build/torch_ext/``, at first CUDA use). This module names the source, its
+flags and its symbols.
 
 Flags: ``-O3 -gencode=arch=compute_90a,code=sm_90a`` and ``--fmad=false``.
 Never ``--use_fast_math``: the kernels must stay bit-identical to the
@@ -20,30 +13,13 @@ NumPy reference (IEEE division, no contraction of a product into a sum).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-import time
 from pathlib import Path
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "sched_kernels.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-NVCC_FLAGS = (
-    "-O3",
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "--fmad=false",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-)
+from ray_tpu_torch.util import cuda_build
+from ray_tpu_torch.util.cuda_build import BUILD_DIR, nvcc as _nvcc  # noqa: F401
 
-_lock = threading.Lock()
-_lib = None
-_lib_flags: tuple = ()
-#: wall seconds the last build took (0.0 when the library was already built)
-build_seconds = 0.0
+_SRC = Path(__file__).resolve().parent / "csrc" / "sched_kernels.cu"
+NVCC_FLAGS = cuda_build.BASE_FLAGS + ("--fmad=false",)
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ULL = ctypes.c_ulonglong
@@ -62,24 +38,11 @@ _SIGNATURES = {
     "sched_error_string": ([_I], ctypes.c_char_p),
 }
 
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME:
-        cand = Path(CUDA_HOME) / "bin" / "nvcc"
-        if cand.exists():
-            return str(cand)
-    raise RuntimeError(
-        "nvcc not found (torch.utils.cpp_extension.CUDA_HOME is "
-        f"{CUDA_HOME!r}); the scheduler's CUDA kernels cannot be built"
-    )
+LIBRARY = cuda_build.CudaLibrary("sched", _SRC, NVCC_FLAGS, _SIGNATURES)
 
 
 def library_path(extra_flags: tuple = ()) -> Path:
-    flags = " ".join(NVCC_FLAGS + tuple(extra_flags))
-    h = hashlib.sha256(_SRC.read_bytes() + flags.encode())
-    return BUILD_DIR / f"libray_tpu_torch_sched_{h.hexdigest()[:16]}.so"
+    return LIBRARY.library_path(extra_flags)
 
 
 def load(extra_flags: tuple = None):
@@ -87,33 +50,10 @@ def load(extra_flags: tuple = None):
     A process loads one library: the first call that passes `extra_flags`
     (e.g. ``("-DSCHED_K1_PROFILE",)`` for the K1 phase profile) picks its
     variant, and calls without flags use whatever is loaded."""
-    global _lib, _lib_flags, build_seconds
-    with _lock:
-        if _lib is not None:
-            if extra_flags is not None and tuple(extra_flags) != _lib_flags:
-                raise RuntimeError(
-                    f"kernel library already loaded with flags {_lib_flags}"
-                )
-            return _lib
-        extra_flags = tuple(extra_flags or ())
-        out = library_path(extra_flags)
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-            t0 = time.perf_counter()
-            cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(_SRC)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    "nvcc failed building the scheduler kernels:\n"
-                    + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-                )
-            os.replace(tmp, out)
-            build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(out))
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = restype
-        _lib, _lib_flags = lib, extra_flags
-        return _lib
+    return LIBRARY.load(extra_flags)
+
+
+def __getattr__(name):
+    if name == "build_seconds":  # wall seconds of the last build (0.0: none)
+        return LIBRARY.build_seconds
+    raise AttributeError(name)

@@ -39,6 +39,9 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.sched import _build
+from ray_tpu_torch.util import device as _device
+from ray_tpu_torch.util.device import current_stream as _stream
+from ray_tpu_torch.util.device import device_of as _device_of
 
 EPS = 1e-4
 INF_FIT = np.int32(2**30)
@@ -54,20 +57,9 @@ SAT = float(1 << 23)
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
     the CPU. Never falls back to the CPU quietly."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "ray_tpu_torch: the scheduler runs on a CUDA device, but "
-                "torch.cuda.is_available() is False; pass device='cpu' "
-                "(Config key scheduler_device='cpu') to run the plain "
-                "PyTorch versions on the CPU"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported scheduler device {dev}")
-    return dev
+    return _device.resolve_device(
+        device, what="the scheduler",
+        cpu_hint="pass device='cpu' (Config key scheduler_device='cpu')")
 
 
 def pad_problem(
@@ -96,21 +88,6 @@ def bucket_size(n: int, buckets=(16, 64, 256, 1024, 4096)) -> int:
 
 
 # ------------------------------------------------------------ dispatch helpers
-
-
-def _device_of(*tensors) -> torch.device:
-    """The one device all tensors lie on; raise on a mix."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check(lib, rc: int, kernel: str) -> None:

@@ -7,8 +7,8 @@ Phases, in order; any failure exits non-zero (no phase's exception is
 caught):
 
 0. the card's name and power limit; build the CUDA kernels from
-   ray_tpu_torch/sched/csrc and ray_tpu_torch/models/csrc, one nvcc each,
-   started together (build seconds printed).
+   ray_tpu_torch/sched/csrc and ray_tpu_torch/models/csrc (three sources),
+   one nvcc each, started together (build seconds printed).
 1. every kernel against its plain PyTorch version on the card, with exact
    equality: K1 on the golden problem of the kernel tests, on seeded random
    problems (dead nodes, masked custom resources, over-subscribed classes)
@@ -46,13 +46,28 @@ caught):
    (tests/data/transformer_golden.npz), each served answer equal to the
    direct call, and the ring's schedule of K8 block steps on one card
    against the whole-sequence kernel.
+7. the expert layer (ray_tpu_torch.models.moe, MoEConfig(): d_model 256,
+   d_ff 512, 8 experts, capacity factor 1.25, bf16; weights from the MoE
+   golden's numpy seed; tokens skewed toward expert 0 so that the capacity
+   drops some): (a) K9a routing, K9b dispatch and K9c combine against their
+   plain versions at the main path's shapes (bit-equal; gate within 1e-6),
+   in bf16 and f32, with times, bounds and the gather alone
+   (index_select) as the yardstick; (b) moe_ffn on x [8, 2048, 256] bf16,
+   timed, with a dropped share above 0; (c) the layer held by an actor of
+   ray_tpu_torch.init(), answering 8 requests of assorted [G, S]; (d) the
+   checks: K9a on the JAX golden's logits gives JAX's routing, moe_ffn in
+   both dtypes against the golden (tests/data/moe_golden.npz) over the
+   groups free of near-ties, two groups against the plain moe_ffn on the
+   CPU, each served answer equal to the direct call.
 
 Launch counters are set to 0 just before phase 2 and read after phase 5,
-and the model kernels' just before 6b and after 6c: every kernel of each
-path must have launched in its run. K8's block form runs on no ported
+the model kernels' just before 6b and after 6c, and the expert kernels'
+just before 7b and after 7c: every kernel of each path must have launched
+in its run. K8's block form runs on no ported
 path yet (the ring across cards is still to port); its launches in (d)'s
 check are printed on a line of their own, not among the kernels. The
-second to last JSON line lists the kernels; the last line is the result.
+JSON line before the card's name and power limit lists the kernels; the
+last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
 port's package is not beside this script.
 """
@@ -77,7 +92,9 @@ PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
 CU_SOURCE = "ray_tpu_torch/sched/csrc/sched_kernels.cu"
 MODEL_CU_SOURCE = "ray_tpu_torch/models/csrc/model_kernels.cu"
+MOE_CU_SOURCE = "ray_tpu_torch/models/csrc/moe_kernels.cu"
 GOLDEN_PATH = os.path.join(HERE, "tests", "data", "transformer_golden.npz")
+MOE_GOLDEN_PATH = os.path.join(HERE, "tests", "data", "moe_golden.npz")
 
 
 def log(msg: str) -> None:
@@ -1117,6 +1134,269 @@ def phase6d_checks(torch, PT, MK, ctx, requests, answers):
     return res
 
 
+# ------------------------------------------------------------ phase 7: experts
+
+# the expert layer's main path: MoEConfig() (d_model 256, d_ff 512, 8
+# experts, capacity factor 1.25, bf16) on x [8, 2048, 256] bf16, C = 320
+MOE_SHAPE = (8, 2048, 256)
+MOE_X_SEED = 70
+MOE_REPLACES = {
+    "moe_route": "ray_tpu/models/moe.py:70",
+    "moe_dispatch": "ray_tpu/models/moe.py:83",
+    "moe_combine": "ray_tpu/models/moe.py:110",
+}
+# K9a's gate and probability sums against the plain version's: expf and
+# the order of the sums (relative)
+ROUTE_TOL = 1e-6
+
+
+def _route_err(torch, got, want, what):
+    """K9a's outputs against another's: expert, slot, token_of_slot and the
+    token counts equal, gate and the probability sums within ROUTE_TOL
+    relative. Returns the largest gate / sum difference."""
+    names = ("expert", "gate", "slot", "token_of_slot", "stats")
+    for name, a, b in zip(names, got, want):
+        if name in ("gate", "stats"):
+            continue
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"moe_route {what}: {name} differs "
+                                 f"({int((a.cpu() != b.cpu()).sum())} entries)")
+    if not torch.equal(got[4][:, 0].cpu(), want[4][:, 0].cpu()):
+        raise AssertionError(f"moe_route {what}: token counts differ")
+    err = 0.0
+    for a, b in ((got[1], want[1]), (got[4][:, 1], want[4][:, 1])):
+        a, b = a.double().cpu(), b.double().cpu()
+        d = (a - b).abs()
+        if bool((d > ROUTE_TOL * b.abs()).any()):
+            raise AssertionError(f"moe_route {what}: gate or sums off by {float(d.max())}")
+        err = max(err, float(d.max()))
+    return err
+
+
+def _moe_layer(torch, PM, dev):
+    """The main path's weights (the golden's numpy seed, checksum checked)
+    and its skewed tokens [8, 2048, 256] float32 on `dev`."""
+    golden = np.load(MOE_GOLDEN_PATH)
+    cfg = PM.MoEConfig()
+    tree = PM.numpy_moe_params(cfg, int(golden["weight_seed"]))
+    checksum = PM.moe_weights_checksum(tree)
+    if checksum != str(golden["checksum"]):
+        raise AssertionError(
+            f"numpy_moe_params gave other weights than the golden's (checksum "
+            f"{checksum[:16]} != {str(golden['checksum'])[:16]}): this numpy draws "
+            "other numbers from the seed, so the golden does not apply")
+    x = PM.numpy_moe_inputs(tree, MOE_SHAPE, MOE_X_SEED, float(golden["skew"]))
+    return cfg, tree, golden, torch.from_numpy(x).to(dev)
+
+
+def phase7a_moe_kernels(torch, PM, EK, dev):
+    """Each expert-layer kernel against its plain version on the card at the
+    main path's shapes (logits [8, 2048, 8], C 320, rows of 256), the
+    routing and both copies in bf16 and f32, then timed as the main path
+    calls them (bf16 tokens and experts)."""
+    cfg, tree, _, x32 = _moe_layer(torch, PM, dev)
+    G, S, D = MOE_SHAPE
+    E, C = cfg.n_experts, PM._capacity(cfg, S)
+    logits = torch.matmul(x32, torch.from_numpy(tree["router"]).to(dev))
+    rec = {name: {"max_abs_err": 0.0} for name in EK.KERNELS}
+    got = EK.moe_route(logits, C)
+    rec["moe_route"]["max_abs_err"] = _route_err(torch, got, EK._route_plain(logits, C),
+                                                 "main path")
+    _, gate, slot, tos, _ = got
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for x_name, x_dt in dt.items():
+        x = x32.to(x_dt)
+        for o_name, o_dt in dt.items():
+            if not torch.equal(EK.moe_dispatch(x, tos, o_dt), EK._dispatch_plain(x, tos, o_dt)):
+                raise AssertionError(f"moe_dispatch x {x_name} -> {o_name}: kernel != plain")
+    out = torch.randn((E, G, C, D), generator=torch.Generator(dev).manual_seed(7), device=dev)
+    for y_name, y_dt in dt.items():
+        if not torch.equal(EK.moe_combine(out, slot, gate, y_dt),
+                           EK._combine_plain(out, slot, gate, y_dt)):
+            raise AssertionError(f"moe_combine -> {y_name}: kernel != plain")
+
+    bf = torch.bfloat16
+    x = x32.to(bf)
+    kept = int((tos >= 0).sum())
+    rec["moe_route"].update(
+        ms=time_ms(torch, lambda: EK.moe_route(logits, C), reps=21),
+        plain_ms=time_ms(torch, lambda: EK._route_plain(logits, C), reps=7),
+        library_ms=None,
+        # logits read; expert, gate, slot, token_of_slot and stats written;
+        # a token: E subtractions, exps, additions, divisions, comparisons
+        bound=bound(G * S * E * 4 + G * S * 12 + E * G * C * 4 + G * 2 * E * 4,
+                    5 * G * S * E))
+    # the gather alone as the library yardstick: the same rows of x in one
+    # index_select (no cast, no zero fill)
+    flat = x.reshape(G * S, D)
+    rows = (torch.arange(G, device=dev)[None, :, None] * S + tos.clamp_min(0)).reshape(-1)
+    rec["moe_dispatch"].update(
+        ms=time_ms(torch, lambda: EK.moe_dispatch(x, tos, bf), reps=21),
+        plain_ms=time_ms(torch, lambda: EK._dispatch_plain(x, tos, bf), reps=21),
+        library_ms=time_ms(torch, lambda: torch.index_select(flat, 0, rows), reps=21),
+        bound=bound(E * G * C * 4 + kept * D * 2 + E * G * C * D * 2, 0))
+    out_flat = out.reshape(E * G * C, D)
+    src = torch.where(slot >= 0, (slot // C * G + torch.arange(G, device=dev)[:, None]) * C
+                      + slot % C, 0).reshape(-1).long()
+    rec["moe_combine"].update(
+        ms=time_ms(torch, lambda: EK.moe_combine(out, slot, gate, bf), reps=21),
+        plain_ms=time_ms(torch, lambda: EK._combine_plain(out, slot, gate, bf), reps=21),
+        library_ms=time_ms(torch, lambda: torch.index_select(out_flat, 0, src), reps=21),
+        bound=bound(G * S * 8 + kept * D * 4 + G * S * D * 2, kept * D))
+    log(f"  {kept} of {E * G * C} slots full")
+    for name, r in rec.items():
+        log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, gather alone "
+            f"{r['library_ms']} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}), "
+            f"max abs err {r['max_abs_err']:.3g}")
+    return rec
+
+
+def phase7b_moe(torch, PM, dev):
+    """The expert layer's main path, called directly: moe_ffn on the skewed
+    x [8, 2048, 256] bf16, y finite, in bf16, with some tokens dropped;
+    then timed (CUDA events, and the host clock over 21 calls)."""
+    cfg, tree, golden, x32 = _moe_layer(torch, PM, dev)
+    model = PM.moe_params_from_numpy(tree, cfg, device=dev)
+    x = x32.to(torch.bfloat16)
+    y, aux = PM.moe_ffn(model, x)
+    sync(torch, dev)
+    if tuple(y.shape) != MOE_SHAPE or y.dtype != torch.bfloat16 \
+            or not bool(torch.isfinite(y).all()) or aux.dim() != 0 \
+            or not np.isfinite(float(aux)):
+        raise AssertionError(f"moe_ffn: y {tuple(y.shape)} {y.dtype}, aux {aux}")
+    dropped = float((y == 0).all(-1).float().mean())
+    if not dropped > 0:
+        raise AssertionError("moe_ffn: the skewed routing dropped no token")
+    G, S, _ = MOE_SHAPE
+    res = {"shape": list(MOE_SHAPE), "capacity": PM._capacity(cfg, S),
+           "dropped_share": dropped, "aux": float(aux)}
+    if dev.type == "cuda":
+        ms = time_ms(torch, lambda: PM.moe_ffn(model, x), reps=21)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(21):
+            PM.moe_ffn(model, x)
+        sync(torch, dev)
+        res.update(ms=ms, tokens_per_s=G * S / (ms / 1e3),
+                   wall_ms=(time.perf_counter() - t0) / 21 * 1e3)
+    log(f"phase 7b moe_ffn: {json.dumps(res)}")
+    ctx = {"cfg": cfg, "tree": tree, "golden": golden, "model": model, "x": x, "y": y,
+           "aux": aux}
+    return res, ctx
+
+
+def phase7c_moe_serve(torch, PM, ctx, sizes=None):
+    """The expert layer served: an actor of ray_tpu_torch.init() (default
+    config: the torch_cuda policy on the card) holds the layer and answers
+    8 requests of assorted [G, S] (S = 1, a ragged S and G = 1 among them)
+    with y and aux. Checked in 7d."""
+    import ray_tpu_torch as rt
+
+    cfg, tree, dev = ctx["cfg"], ctx["tree"], ctx["model"].device
+    sizes = sizes or [(8, 2048), (4, 1024), (1, 2048), (2, 17), (8, 512), (3, 1000),
+                      (1, 1), (6, 2047)]
+    rng = np.random.default_rng(71)
+    requests = [PM.numpy_moe_inputs(tree, (g, s, cfg.d_model), int(rng.integers(1 << 30)))
+                for g, s in sizes]
+    if dev.type == "cuda":
+        rt.init(num_cpus=8)  # the default config: torch_cuda on the card
+    else:
+        rt.init(num_cpus=8, _system_config={"scheduler_device": "cpu"})
+    try:
+        @rt.remote
+        class ExpertServer:
+            """User code: holds the expert layer on the card, answers requests."""
+
+            def __init__(self, weights):
+                self.layer = PM.moe_params_from_numpy(weights, cfg, device=dev)
+
+            def forward(self, x):
+                y, aux = self.layer(torch.from_numpy(x).to(dev, torch.bfloat16))
+                return y.float().cpu().numpy(), float(aux)
+
+        server = ExpertServer.remote(tree)
+        t0 = time.perf_counter()
+        answers = rt.get([server.forward.remote(r) for r in requests], timeout=600)
+        t_serve = time.perf_counter() - t0
+        policy = rt.core.api._runtime.policy
+        assert policy.name == "torch_cuda" and policy.device.type == dev.type, policy.name
+    finally:
+        rt.shutdown()
+    res = {"requests": len(requests), "tokens": int(sum(r.shape[0] * r.shape[1]
+                                                        for r in requests)),
+           "serve_s": t_serve}
+    log(f"phase 7c served: {json.dumps(res)}")
+    return res, requests, answers
+
+
+def phase7d_moe_checks(torch, PM, EK, ctx, requests, answers):
+    """The expert layer's results checked, outside its counting window: K9a
+    on the golden's JAX logits against JAX's routing; moe_ffn on the
+    golden's x in both expert dtypes against the golden's y and aux, over
+    the groups free of near-ties; two groups of 7b against the port's plain
+    moe_ffn on the CPU; each served answer against the direct call."""
+    cfg, model, golden, dev = ctx["cfg"], ctx["model"], ctx["golden"], ctx["model"].device
+    S = golden["logits"].shape[1]
+    C = PM._capacity(cfg, S)
+    expert, gate, slot, _, _ = EK.moe_route(torch.from_numpy(golden["logits"]).to(dev), C)
+    if not (np.array_equal(expert.cpu().numpy(), golden["expert"])
+            and np.array_equal(slot.cpu().numpy(), golden["slot"])):
+        raise AssertionError("moe_route on the golden's logits: routing != JAX's")
+    gate_err = float(np.abs(gate.cpu().numpy() - golden["gate"]).max())
+    if gate_err > ROUTE_TOL:
+        raise AssertionError(f"moe_route on the golden's logits: gate off by {gate_err}")
+
+    tree = ctx["tree"]
+    xg = torch.from_numpy(PM.numpy_moe_inputs(tree, golden["logits"].shape[:2] + (cfg.d_model,),
+                                              int(golden["x_seed"]), float(golden["skew"])))
+    clean = golden["gap"].min(axis=1) >= PM.MOE_TIE_GAP
+    if not clean.any():
+        raise AssertionError("every golden group holds a near-tie: nothing to compare")
+    pos = golden["positions"]
+    golden_res = {"groups_left_out": int((~clean).sum()), "routing_equal": True,
+                  "gate_err": gate_err}
+    for dt_name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        layer = PM.moe_params_from_numpy(tree, PM.MoEConfig(dtype=dt), device=dev)
+        y, aux = PM.moe_ffn(layer, xg.to(dev))
+        y = y.cpu().numpy()
+        got = np.stack([y[i, pos[i]] for i in range(len(pos))])[clean]
+        want = golden[f"y_{dt_name}"][clean]
+        y_tol, aux_tol = PM.MOE_GOLDEN_TOL[dt_name]
+        err = float(np.abs(got - want).max())
+        aux_err = abs(float(aux) - float(golden[f"aux_{dt_name}"]))
+        zeros_equal = np.array_equal((got == 0).all(-1), (want == 0).all(-1))
+        if err > y_tol or aux_err > aux_tol or not zeros_equal:
+            raise AssertionError(f"golden {dt_name}: y err {err} (atol {y_tol}), aux err "
+                                 f"{aux_err} (atol {aux_tol}), dropped rows equal {zeros_equal}")
+        golden_res[dt_name] = {"y_err": err, "aux_err": aux_err}
+
+    # two groups of 7b free of near-ties against the plain moe_ffn on the CPU
+    x = ctx["x"]
+    probs = EK.softmax_plain(torch.matmul(x.float(), model.router)).cpu()
+    top2 = probs.topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).amin(-1)
+    groups = [int(g) for g in torch.nonzero(gaps >= PM.MOE_TIE_GAP).flatten()[:2]]
+    if len(groups) < 2:
+        raise AssertionError(f"fewer than two groups of 7b free of near-ties: {gaps.tolist()}")
+    cpu_layer = PM.moe_params_from_numpy(tree, cfg, device="cpu")
+    y_cpu, _ = PM.moe_ffn(cpu_layer, x[groups].cpu())
+    y_dev = ctx["y"][groups].cpu()
+    cpu_err = float((y_dev.float() - y_cpu.float()).abs().max())
+    bad = (y_dev.float() - y_cpu.float()).abs() > \
+        PM.MOE_GOLDEN_TOL["bf16"][0] + 2 ** -7 * y_cpu.float().abs()
+    if bool(bad.any()) or not torch.equal((y_dev == 0).all(-1), (y_cpu == 0).all(-1)):
+        raise AssertionError(f"moe_ffn: card vs CPU on groups {groups}: max err {cpu_err}")
+
+    for r, (y_ans, aux_ans) in zip(requests, answers):
+        y, aux = model(torch.from_numpy(r).to(dev, torch.bfloat16))
+        if not (np.array_equal(y_ans, y.float().cpu().numpy()) and aux_ans == float(aux)):
+            raise AssertionError(f"served answer for {r.shape} differs from the direct call")
+    res = {"golden": golden_res, "cpu_groups": groups, "cpu_y_err": cpu_err,
+           "served_equal_direct": len(answers)}
+    log(f"phase 7d checks: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1136,6 +1416,7 @@ def main() -> int:
     from ray_tpu_torch.sched import _build, kernel_np, policy as policy_mod
     from ray_tpu_torch.sched import kernel_torch as KT
     from ray_tpu_torch.models import kernels as MK, transformer as PT
+    from ray_tpu_torch.models import moe as PM, moe_kernels as EK
     from ray_tpu_torch.parallel import make_forward_step
     from ray_tpu_torch.util import cuda_build
 
@@ -1144,10 +1425,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    cuda_build.build_all([_build.LIBRARY, MK.LIBRARY])  # one nvcc each, together
-    log(f"phase 0 build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds:.2f} s -> {_build.library_path().name}; "
-        f"nvcc {MK.LIBRARY.build_seconds:.2f} s -> {MK.LIBRARY.library_path().name})")
+    libraries = [_build.LIBRARY, MK.LIBRARY, EK.LIBRARY]
+    cuda_build.build_all(libraries)  # one nvcc each, together
+    log(f"phase 0 build: {time.perf_counter() - t0:.2f} s (" + "; ".join(
+        f"nvcc {lib.build_seconds:.2f} s -> {lib.library_path().name}"
+        for lib in libraries) + ")")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -1211,6 +1493,29 @@ def main() -> int:
     check_res = phase6d_checks(torch, PT, MK, ctx, requests, answers)
     log(f"phase 6d: {time.perf_counter() - t0:.1f} s")
 
+    # the expert layer: its kernels against their plain versions, then its
+    # main path (moe_ffn, direct and served) with the counters from 0, then
+    # the checks of what it gave, outside the counting window
+    t0 = time.perf_counter()
+    moe_rec = phase7a_moe_kernels(torch, PM, EK, dev)
+    log(f"phase 7a: {time.perf_counter() - t0:.1f} s")
+    EK.reset_launch_counts()
+    t0 = time.perf_counter()
+    moe_res, moe_ctx = phase7b_moe(torch, PM, dev)
+    log(f"phase 7b: {time.perf_counter() - t0:.1f} s, launches {EK.launch_counts()}")
+    log(f"moe_ffn [8, 2048, 256] bf16 on {card}: {moe_res['ms']:.4f} ms, "
+        f"{moe_res['tokens_per_s']:.0f} tokens/s, dropped {moe_res['dropped_share']:.4f}")
+    t0 = time.perf_counter()
+    moe_serve, moe_requests, moe_answers = phase7c_moe_serve(torch, PM, moe_ctx)
+    moe_launches = EK.launch_counts()
+    log(f"phase 7c: {time.perf_counter() - t0:.1f} s, launches {moe_launches}")
+    missing = [k for k, v in moe_launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"expert kernels never launched on the expert path: {missing}")
+    t0 = time.perf_counter()
+    moe_checks = phase7d_moe_checks(torch, PM, EK, moe_ctx, moe_requests, moe_answers)
+    log(f"phase 7d: {time.perf_counter() - t0:.1f} s")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -1242,8 +1547,17 @@ def main() -> int:
         else:  # no ported path runs it yet: its launches are the ring check's
             entry["check_launches"] = check_res["ring_block_update_launches"]
             off_path.append(entry)
+    for name, r in moe_rec.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": MOE_CU_SOURCE,
+            "replaces": MOE_REPLACES[name], "launches": moe_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+        })
     log(json.dumps({"stream": stream, "gcs": gcs, "forward": fwd_res, "serve": serve_res,
-                    "checks": check_res, "card": card}))
+                    "checks": check_res, "moe": moe_res, "moe_serve": moe_serve,
+                    "moe_checks": moe_checks, "card": card}))
     log(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -60,10 +60,21 @@ caught):
    groups free of near-ties, two groups against the plain moe_ffn on the
    CPU, each served answer equal to the direct call.
 
+8. the sharded scheduler (ray_tpu_torch/sched/kernel_shard.py): (a) K7,
+   one thread-block cluster of p blocks, against its plain version, K1 and
+   kernel_np for p = 1, 2, 4 and 8, exactly (assignments and
+   availability), on the random problems of phase 1, a view with a negative
+   entry and the 10k-node x 256-class stream's first round; its device ms
+   per p there, beside K1's; (b) make_sharded_scheduler(8) on the card over
+   bench.py's sharded_kernel_bench problem, dryrun_multichip's scheduler
+   problem and the stream problem's rounds with carried availability until
+   a round places nothing, every round equal to K1's; decisions a second
+   of both by CUDA events.
+
 Launch counters are set to 0 just before phase 2 and read after phase 5,
-the model kernels' just before 6b and after 6c, and the expert kernels'
-just before 7b and after 7c: every kernel of each path must have launched
-in its run. K8's block form runs on no ported
+the model kernels' just before 6b and after 6c, the expert kernels' just
+before 7b and after 7c, and K7's just before 8b and after it: every kernel
+of each path must have launched in its run. K8's block form runs on no ported
 path yet (the ring across cards is still to port); its launches in (d)'s
 check are printed on a line of their own, not among the kernels. The
 JSON line before the card's name and power limit lists the kernels; the
@@ -327,10 +338,14 @@ def phase1_kernels(torch, KT, kernel_np, dev):
     rows = total5[8000:9000]
     ti, tr = T(idx), T(np.concatenate([rows, np.zeros((24, R), np.float32)]))
     work = base.clone()
+    # the library yardstick: index_copy_ of 1 024 distinct in-range rows (it
+    # cannot drop the padding index, so every index of the same shapes is real)
+    ti_lib, tr_lib = T(np.arange(8000, 9024)).long(), T(total5[8000:9024])
     rec["scatter_rows"].update(
         ms=time_ms(torch, lambda: KT.scatter_rows_(work, ti, tr), reps=21),
         plain_ms=time_ms(torch, lambda: KT._scatter_rows_plain_(work, ti, tr), reps=21),
-        library_ms=None, bound=bound(1024 * 4 + 1024 * R * 4 + 1000 * R * 4, 0),
+        library_ms=time_ms(torch, lambda: work.index_copy_(0, ti_lib, tr_lib), reps=21),
+        bound=bound(1024 * 4 + 1024 * R * 4 + 1000 * R * 4, 0),
     )
     log("K2 scatter_rows: pads 16..4096 with pad index N == plain")
 
@@ -1397,6 +1412,165 @@ def phase7d_moe_checks(torch, PM, EK, ctx, requests, answers):
     return res
 
 
+# ---------------------------------------------- phase 8: the sharded scheduler
+
+SHARD_REPLACES = "ray_tpu/sched/kernel_shard.py:54-196"
+# the shard count of the main path: the JAX tests' 8-device mesh
+PATH_SHARDS = 8
+
+
+def negative_problem():
+    """A view with a negative entry and a round that places nothing
+    (tests/test_torch_sched_kernel.py): K7 keeps the entry, as kernel_np."""
+    N = 8
+    total = np.zeros((N, R), np.float32)
+    total[:, 0] = 4.0
+    total[:, 3] = 16.0
+    avail = total.copy()
+    avail[:, 0] = 0.0
+    avail[2, 3] = -3.0
+    demands = np.zeros((2, R), np.float32)
+    demands[0, 0] = 1.0
+    demands[1, 0] = 2.0
+    demands[1, 3] = 1.0
+    return avail, total, np.ones(N, bool), demands, np.array([5, 3], np.int32)
+
+
+def bench_shard_problem():
+    """bench.py sharded_kernel_bench's problem: N 2048, C 32, seed 0."""
+    rng = np.random.default_rng(0)
+    N, C = 2048, 32
+    total = np.zeros((N, R), np.float32)
+    total[:, 0] = rng.integers(16, 65, N)
+    total[:, 3] = rng.integers(64, 513, N)
+    demands = np.zeros((C, R), np.float32)
+    demands[:, 0] = rng.integers(1, 5, C)
+    counts = rng.integers(0, 500, C).astype(np.int32)
+    return total.copy(), total, np.ones(N, bool), demands, counts
+
+
+def dryrun_shard_problem(n_devices=8):
+    """__graft_entry__.dryrun_multichip's scheduler part: 16 nodes a
+    device, 4 classes, seed 0."""
+    rng = np.random.default_rng(0)
+    n_nodes = 16 * n_devices
+    total = np.zeros((n_nodes, R), np.float32)
+    total[:, 0] = rng.integers(4, 33, n_nodes)
+    demands = np.zeros((4, R), np.float32)
+    demands[:, 0] = rng.integers(1, 4, 4)
+    counts = rng.integers(0, 50, 4).astype(np.int32)
+    return total.copy(), total, np.ones(n_nodes, bool), demands, counts
+
+
+def stream_first_round():
+    """The stream's first round (phase 1): 10k nodes, 20 % held back, 256
+    classes, a tenth of the 1M tasks."""
+    total, alive, demands, counts = build_stream_problem(np.random.default_rng(5))
+    alive = alive.copy()
+    alive[int(len(alive) * 0.8):] = False
+    first = np.floor(counts / 10).astype(np.int32)
+    return total * alive[:, None], total, alive, demands, first
+
+
+def phase8a_sharded_kernel(torch, KT, KS, kernel_np, dev, k1_bound):
+    """K7 against its plain version, K1 and kernel_np on the card for every
+    shard count, exactly (assignments and availability); then timed per
+    shard count at the stream's first round beside K1, in turns."""
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    problems = [(f"random{s}", random_problem(s)) for s in (1, 2, 3)]
+    problems += [("negative", negative_problem()), ("stream_first_round", stream_first_round())]
+    err = 0.0
+    for name, (avail, total, alive, demands, counts) in problems:
+        args = [T(x) for x in (avail, total, alive, demands, counts)]
+        k1_a, k1_v = KT.schedule_classes(*args)
+        np_a, np_v = kernel_np.schedule_classes(avail, total, alive, demands, counts)
+        for p in KS.SHARDS:
+            a_k, v_k = KS.schedule_classes_sharded(*args, shards=p)
+            a_p, v_p = KS._schedule_classes_sharded_plain(*args, shards=p)
+            for what, a, b in (("assigned", a_k, a_p), ("avail", v_k, v_p)):
+                d = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+                err = max(err, d)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K7 {name} p={p}: {what} != plain (max abs err {d})")
+            if not (torch.equal(a_k, k1_a) and torch.equal(v_k, k1_v)):
+                raise AssertionError(f"K7 {name} p={p}: != K1")
+            if not (np.array_equal(a_k.cpu().numpy(), np_a)
+                    and np.array_equal(v_k.cpu().numpy(), np_v)):
+                raise AssertionError(f"K7 {name} p={p}: != kernel_np")
+        log(f"K7 {name}: N={len(total)} C={len(demands)} placed={int(k1_a.sum())}, "
+            f"p = {KS.SHARDS} == plain == K1 == kernel_np")
+    # timed at the stream's first round as K1 is in phase 1 (padded to the
+    # class bucket); the launch without the wrapper's checks, which read
+    # counts' maximum back to the host
+    avail, total, alive, demands, counts = problems[-1][1]
+    d_pad, k_pad = KT.pad_problem(demands, counts, KT.bucket_size(len(demands)))
+    args = [T(x) for x in (avail, total, alive, d_pad, k_pad)]
+    thr, passes = KT.DEFAULT_SPREAD_THRESHOLD, KT.MAX_PASSES
+    k1_ms = [time_ms(torch, lambda: KT.schedule_classes(*args))]
+    ms = {p: time_ms(torch, lambda: KS._launch(*args, thr, passes, p)) for p in KS.SHARDS}
+    k1_ms.append(time_ms(torch, lambda: KT.schedule_classes(*args)))
+    plain_ms = time_ms(torch, lambda: KS._schedule_classes_sharded_plain(
+        *args, shards=PATH_SHARDS), reps=3, warm=1)
+    rec = {"max_abs_err": err, "ms": ms[PATH_SHARDS], "plain_ms": plain_ms,
+           "library_ms": None, "bound": k1_bound, "ms_by_shards": ms, "k1_ms": k1_ms}
+    log(f"  schedule_classes_sharded: {json.dumps({str(p): v for p, v in ms.items()})} ms "
+        f"by shard count (K1 {k1_ms[0]:.4f} / {k1_ms[1]:.4f} ms before / after; plain "
+        f"{plain_ms:.4f} ms at p = {PATH_SHARDS}; bound {k1_bound[0]:.4f} ms by "
+        f"{k1_bound[1]})")
+    return rec
+
+
+def phase8b_sharded_path(torch, KT, KS, dev, max_rounds=30):
+    """The main path: make_sharded_scheduler(8) on the card over bench.py's
+    sharded_kernel_bench problem, dryrun_multichip's, and the stream
+    problem's rounds with the availability carried from round to round
+    (each round's counts 30 fewer, as test_sharded_carried_state_rounds
+    carries them) until a round places nothing; every round's decisions and
+    availability equal to K1's on the same state. Each round of both is
+    timed with CUDA events."""
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    fn = KS.make_sharded_scheduler(PATH_SHARDS)
+    res = {}
+    for name, prob in (("bench", bench_shard_problem()), ("dryrun", dryrun_shard_problem())):
+        a, v = fn(*prob)
+        k1_a, k1_v = KT.schedule_classes(*[T(x) for x in prob])
+        if not (torch.equal(a, k1_a) and torch.equal(v, k1_v)):
+            raise AssertionError(f"sharded path {name}: != K1")
+        res[name] = {"placed": int(a.sum())}
+    avail, total, alive, demands, first = stream_first_round()
+    total, alive, demands = T(total), T(alive), T(demands)
+    av_sh = av_k1 = T(avail)
+    rounds, placed, ms_sh, ms_k1 = 0, 0, 0.0, 0.0
+
+    def timed(f):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = f()
+        e.record()
+        e.synchronize()
+        return out, s.elapsed_time(e)
+
+    for rnd in range(max_rounds):
+        k = np.maximum(first - rnd * 30, 0).astype(np.int32)
+        (a, av_sh), t_sh = timed(lambda: fn(av_sh, total, alive, demands, k))
+        (k1_a, av_k1), t_k1 = timed(lambda: KT.schedule_classes(av_k1, total, alive,
+                                                                demands, T(k)))
+        if not (torch.equal(a, k1_a) and torch.equal(av_sh, av_k1)):
+            raise AssertionError(f"sharded path, stream round {rnd}: != K1")
+        rounds += 1
+        ms_sh += t_sh
+        ms_k1 += t_k1
+        n = int(a.sum())
+        placed += n
+        if n == 0:
+            break
+    res["stream"] = {"rounds": rounds, "placed": placed, "ms_sharded": ms_sh, "ms_k1": ms_k1,
+                     "decisions_per_s_sharded": placed / (ms_sh / 1e3),
+                     "decisions_per_s_k1": placed / (ms_k1 / 1e3)}
+    log(f"phase 8b sharded path: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1414,7 +1588,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from ray_tpu_torch.core.config import Config
     from ray_tpu_torch.sched import _build, kernel_np, policy as policy_mod
-    from ray_tpu_torch.sched import kernel_torch as KT
+    from ray_tpu_torch.sched import kernel_shard as KS, kernel_torch as KT
     from ray_tpu_torch.models import kernels as MK, transformer as PT
     from ray_tpu_torch.models import moe as PM, moe_kernels as EK
     from ray_tpu_torch.parallel import make_forward_step
@@ -1516,6 +1690,21 @@ def main() -> int:
     moe_checks = phase7d_moe_checks(torch, PM, EK, moe_ctx, moe_requests, moe_answers)
     log(f"phase 7d: {time.perf_counter() - t0:.1f} s")
 
+    # the sharded scheduler: K7 against its plain version, K1 and kernel_np,
+    # then its path (make_sharded_scheduler on the card) with the counter
+    # from 0
+    t0 = time.perf_counter()
+    shard_rec = phase8a_sharded_kernel(torch, KT, KS, kernel_np, dev,
+                                       rec["schedule_classes"]["bound"])
+    log(f"phase 8a: {time.perf_counter() - t0:.1f} s")
+    KS.reset_launch_counts()
+    t0 = time.perf_counter()
+    shard_res = phase8b_sharded_path(torch, KT, KS, dev)
+    shard_launches = KS.launch_counts()
+    log(f"phase 8b: {time.perf_counter() - t0:.1f} s, launches {shard_launches}")
+    if shard_launches["schedule_classes_sharded"] == 0:
+        raise AssertionError("K7 never launched on the sharded scheduler's path")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -1555,9 +1744,17 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
+    r = shard_rec
+    kernels.append({
+        "name": "schedule_classes_sharded", "route": "cuda", "source": CU_SOURCE,
+        "replaces": SHARD_REPLACES, "launches": shard_launches["schedule_classes_sharded"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+    })
     log(json.dumps({"stream": stream, "gcs": gcs, "forward": fwd_res, "serve": serve_res,
                     "checks": check_res, "moe": moe_res, "moe_serve": moe_serve,
-                    "moe_checks": moe_checks, "card": card}))
+                    "moe_checks": moe_checks, "sharded": shard_res,
+                    "sharded_ms_by_shards": r["ms_by_shards"], "card": card}))
     log(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -33,12 +33,16 @@ from ray_tpu_torch.sched import kernel_np
 
 
 def __getattr__(name):
-    # kernel_torch is imported lazily so the pure-NumPy policy path never
-    # imports torch at package import time.
-    if name == "kernel_torch":
-        import ray_tpu_torch.sched.kernel_torch as m
+    # kernel_torch and kernel_shard are imported lazily so the pure-NumPy
+    # policy path never imports torch at package import time.
+    if name in ("kernel_torch", "kernel_shard"):
+        import importlib
 
-        return m
+        return importlib.import_module(f"ray_tpu_torch.sched.{name}")
+    if name == "make_sharded_scheduler":
+        from ray_tpu_torch.sched.kernel_shard import make_sharded_scheduler
+
+        return make_sharded_scheduler
     raise AttributeError(name)
 
 __all__ = [
@@ -52,4 +56,5 @@ __all__ = [
     "NodeAffinityPolicy",
     "make_policy",
     "kernel_np",
+    "make_sharded_scheduler",
 ]

@@ -28,6 +28,9 @@ _SIGNATURES = {
     "sched_schedule_classes": (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P], _I),
     "sched_k1_scratch_words": ([_I], _LL),
+    "sched_schedule_classes_sharded": (
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P], _I),
+    "sched_k7_scratch_words": ([_I, _I], _LL),
     "sched_scatter_rows": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "sched_delta_clip": ([_P, _P, _P, _P, _LL, _P], _I),
     "sched_nonzero_tiles": ([_LL], _I),

@@ -26,18 +26,28 @@
 //      (chunk = C)             (+ _rounds_core, _sat_cumsum)
 //   K6 sched_schedule_rounds   replaces kernel_jax.py schedule_classes_chunked
 //      (chunk = 16)
+//   K7 sched_schedule_classes_sharded
+//                              replaces ray_tpu/sched/kernel_shard.py:54-196
+//                              (K1 with the node axis split over the blocks
+//                              of one thread-block cluster)
 // Every entry point launches on the stream it is given, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after its launches.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// Built with -DSCHED_K1_PROFILE (ray_tpu_torch/scripts/k1_phase_profile.py
+namespace cg = cooperative_groups;
+
+// Built with -DSCHED_K1_PROFILE (ray_tpu_torch/scripts/profile_sched.py
 // only), K1's thread 0 sums the cycles of each pass phase into
-// g_k1_profile: [phase 1, phase 2, phase 3, tail, passes]. The production
-// build compiles the stamps away.
+// g_k1_profile: [phase 1, phase 2, phase 3, tail, passes], and thread 0 of
+// K7's block 0 into g_k7_profile: [phase 1, exchange 1 (barrier, feasible
+// counts), phase 2, exchange 2 (barrier, bucket totals, offsets), phase 3,
+// tail, passes]. The production build compiles the stamps away.
 #ifdef SCHED_K1_PROFILE
 __device__ unsigned long long g_k1_profile[5];
+__device__ unsigned long long g_k7_profile[7];
 #define K1_STAMP(t) const long long t = clock64()
 #define K1_PROFILE_PASS(t0, t1, t2, t3)                              \
   if (threadIdx.x == 0) {                                           \
@@ -47,9 +57,20 @@ __device__ unsigned long long g_k1_profile[5];
     g_k1_profile[3] += clock64() - t3;                              \
     g_k1_profile[4] += 1;                                           \
   }
+#define K7_PROFILE_PASS(rank, t0, t1, t2, t3, t4, t5)                \
+  if (threadIdx.x == 0 && rank == 0) {                              \
+    g_k7_profile[0] += t1 - t0;                                     \
+    g_k7_profile[1] += t2 - t1;                                     \
+    g_k7_profile[2] += t3 - t2;                                     \
+    g_k7_profile[3] += t4 - t3;                                     \
+    g_k7_profile[4] += t5 - t4;                                     \
+    g_k7_profile[5] += clock64() - t5;                              \
+    g_k7_profile[6] += 1;                                           \
+  }
 #else
 #define K1_STAMP(t)
 #define K1_PROFILE_PASS(t0, t1, t2, t3)
+#define K7_PROFILE_PASS(rank, t0, t1, t2, t3, t4, t5)
 #endif
 
 namespace {
@@ -117,6 +138,181 @@ __device__ __forceinline__ int block_sum_int(int v, int* slot) {
 }
 
 // ---------------------------------------------------------------------------
+// The per-node steps of one pass, shared by K1 and K7 (each block runs them
+// over its own view: the whole [N, R] for K1, one shard's rows for K7).
+// ---------------------------------------------------------------------------
+
+// Phase 1 for node n: fit (0 on a dead node), the threshold cap (-1 when the
+// node is at or above the threshold: its cap is the equal share) and the
+// score bucket.
+template <int RU>
+__device__ __forceinline__ void node_terms(const float* __restrict__ avail,
+                                           const float* __restrict__ total,
+                                           const uint8_t* __restrict__ alive,
+                                           const float* s_d, int n, int R, float thr,
+                                           float over_denom, int& fit_out, int& cap_out,
+                                           uint8_t& bkt_out) {
+  float fit = kInfFit, kcap = kInfFit, util = __int_as_float(0xff800000);  // -inf
+  auto column = [&](int r, float av, float tt) {
+    const float d = s_d[r];
+    const float used = __fsub_rn(tt, av);
+    const float frac = tt > 0.f ? __fdiv_rn(used, fmaxf(tt, kEps)) : 0.f;
+    util = fmaxf(util, frac);
+    if (d > 0.f) {
+      fit = fminf(fit, floorf(__fdiv_rn(__fadd_rn(av, kEps), d)));
+      const float head = __fsub_rn(__fmul_rn(thr, tt), used);
+      kcap = fminf(kcap, floorf(__fdiv_rn(__fadd_rn(head, kEps), d)));
+    }
+  };
+  if constexpr (RU == 16) {
+    const float4* a4 = reinterpret_cast<const float4*>(avail + (size_t)n * 16);
+    const float4* t4 = reinterpret_cast<const float4*>(total + (size_t)n * 16);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 av = a4[q], tv = t4[q];
+      column(4 * q + 0, av.x, tv.x);
+      column(4 * q + 1, av.y, tv.y);
+      column(4 * q + 2, av.z, tv.z);
+      column(4 * q + 3, av.w, tv.w);
+    }
+  } else {
+    const float* a = avail + (size_t)n * R;
+    const float* t = total + (size_t)n * R;
+    for (int r = 0; r < R; ++r) column(r, a[r], t[r]);
+  }
+  fit = fminf(fmaxf(fit, 0.f), kInfFit);
+  fit_out = alive[n] ? (int)fit : 0;
+  // clip(k, 0, float32(INF_FIT - 1)) + 1; float32(2**30 - 1) == 2**30
+  kcap = __fadd_rn(fminf(fmaxf(kcap, 0.f), kInfFit), 1.0f);
+  float over = __fdiv_rn(__fsub_rn(util, thr), over_denom);
+  over = fminf(fmaxf(over, 0.f), 1.f);
+  float b = util >= thr ? __fadd_rn(1.0f, floorf(__fmul_rn(over, (float)(kBuckets - 2)))) : 0.f;
+  b = fminf(fmaxf(b, 0.f), (float)(kBuckets - 1));
+  cap_out = util < thr ? (int)kcap : -1;
+  bkt_out = (uint8_t)b;
+}
+
+// Phase 2: the final per-node cap, min(threshold cap or equal share, fit,
+// remaining), and the per-bucket totals of the caps. Each thread sums runs
+// of one bucket and flushes on a change; the last run is summed over the
+// warp when every lane with something to add agrees on it.
+__device__ __forceinline__ void bucket_totals(int* __restrict__ cap_s,
+                                              const int* __restrict__ fit_s,
+                                              const uint8_t* __restrict__ bkt_s, int N,
+                                              long long share, int remaining,
+                                              unsigned* tot_lo, unsigned* tot_hi) {
+  const int tid = threadIdx.x;
+  int run_b = -1;
+  long long run = 0;
+  for (int n = tid; n < N; n += blockDim.x) {
+    const int ct = cap_s[n];
+    long long cap = ct >= 0 ? (long long)ct : share;
+    cap = min(cap, (long long)fit_s[n]);
+    cap = min(cap, (long long)remaining);
+    cap_s[n] = (int)cap;
+    if (cap > 0) {
+      const int b = bkt_s[n];
+      if (b != run_b) {
+        if (run > 0) shared_add_u64(&tot_lo[run_b], &tot_hi[run_b], run);
+        run_b = b;
+        run = 0;
+      }
+      run += cap;
+    }
+  }
+  const int lane = tid & 31;
+  const unsigned busy = __ballot_sync(kFull, run > 0);
+  const int b0 = busy ? __shfl_sync(kFull, run_b, __ffs(busy) - 1) : -1;
+  if (__all_sync(kFull, run == 0 || run_b == b0)) {
+    long long w = run;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) w += __shfl_down_sync(kFull, w, o);
+    if (lane == 0 && w > 0) shared_add_u64(&tot_lo[b0], &tot_hi[b0], w);
+  } else if (run > 0) {
+    shared_add_u64(&tot_lo[run_b], &tot_hi[run_b], run);
+  }
+}
+
+// Phase 3: the prefix fill in (bucket, node index) order over this block's
+// nodes, each thread owning the contiguous range [lo, hi) so that a block
+// scan gives node order. off[b] is the count placed before this block's
+// first node of bucket b; only buckets with local caps (tot) and an offset
+// below `remaining` can take anything, and off[] never decreases. Adds take
+// to assigned_row and debits the node's row: max(avail - take*d, 0).
+template <int RU>
+__device__ __forceinline__ void fill_by_bucket(float* __restrict__ avail,
+                                               int* __restrict__ assigned_row,
+                                               const int* __restrict__ cap_s,
+                                               const uint8_t* __restrict__ bkt_s, int lo,
+                                               int hi, const unsigned* tot_lo,
+                                               const unsigned* tot_hi, const long long* off,
+                                               int remaining, long long* s_warp,
+                                               const float* s_d, int R) {
+  for (int b = 0; b < kBuckets; ++b) {
+    if (shared_u64(&tot_lo[b], &tot_hi[b]) == 0ull) continue;
+    const long long ob = off[b];
+    if (ob >= remaining) break;
+    long long local = 0;
+    for (int n = lo; n < hi; ++n)
+      if (bkt_s[n] == b) local += cap_s[n];
+    long long prev = ob + block_exclusive_scan(local, s_warp);
+    for (int n = lo; n < hi; ++n) {
+      if (bkt_s[n] != b) continue;
+      const long long cap = cap_s[n];
+      long long take = (long long)remaining - prev;
+      take = take < 0 ? 0 : (take > cap ? cap : take);
+      prev += cap;
+      if (take > 0) {
+        assigned_row[n] += (int)take;
+        const float tf = (float)take;
+        auto debit = [&](float a, int r) {
+          const float v = __fsub_rn(a, __fmul_rn(tf, s_d[r]));
+          return v < 0.f ? 0.f : v;
+        };
+        if constexpr (RU == 16) {
+          float4* a4 = reinterpret_cast<float4*>(avail + (size_t)n * 16);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float4 v = a4[q];
+            v.x = debit(v.x, 4 * q + 0);
+            v.y = debit(v.y, 4 * q + 1);
+            v.z = debit(v.z, 4 * q + 2);
+            v.w = debit(v.w, 4 * q + 3);
+            a4[q] = v;
+          }
+        } else {
+          float* a = avail + (size_t)n * R;
+          for (int r = 0; r < R; ++r) a[r] = debit(a[r], r);
+        }
+      }
+    }
+  }
+}
+
+// numpy clamps every node's availability at 0 on the first pass that places
+// anything (avail = max(avail - take*d, 0) over all nodes); after that no
+// entry can go negative again, so each kernel runs this sweep once
+__device__ __forceinline__ void clamp_at_zero(float* __restrict__ a, size_t n) {
+  for (size_t i = threadIdx.x; i < n; i += blockDim.x)
+    if (a[i] < 0.f) a[i] = 0.f;
+}
+
+// bytes of per-node scratch (fit, cap: int32; bucket: uint8), 16-aligned
+__host__ __device__ size_t k1_scratch_bytes(int N) { return ((size_t)N * 9 + 15) & ~(size_t)15; }
+constexpr size_t kK1MaxDynSmem = 200 * 1024;
+
+// The per-node scratch of one block: in shared memory (SMEM) or at `words`
+// in global memory.
+template <bool SMEM>
+__device__ __forceinline__ void node_scratch(unsigned char* s_dyn, int* words, int N,
+                                             int*& fit_s, int*& cap_s, uint8_t*& bkt_s) {
+  int* base = SMEM ? reinterpret_cast<int*>(s_dyn) : words;
+  fit_s = base;
+  cap_s = base + N;
+  bkt_s = reinterpret_cast<uint8_t*>(base + 2 * (size_t)N);
+}
+
+// ---------------------------------------------------------------------------
 // K1: one scheduling round, classes in order, <= max_passes passes each.
 //
 // Bound on this card: the work is a chain of dependent steps (class c sees
@@ -159,26 +355,14 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
   __shared__ int s_nfeas;
   extern __shared__ __align__(16) unsigned char s_dyn[];
 
-  int* fit_s;
-  int* cap_s;
+  int *fit_s, *cap_s;
   uint8_t* bkt_s;
-  if constexpr (SMEM) {
-    fit_s = reinterpret_cast<int*>(s_dyn);
-    cap_s = fit_s + N;
-    bkt_s = reinterpret_cast<uint8_t*>(cap_s + N);
-  } else {
-    fit_s = scratch;
-    cap_s = scratch + N;
-    bkt_s = reinterpret_cast<uint8_t*>(scratch + 2 * (size_t)N);
-  }
+  node_scratch<SMEM>(s_dyn, scratch, N, fit_s, cap_s, bkt_s);
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int per = (N + nt - 1) / nt;
   const int lo = min(tid * per, N);
   const int hi = min(lo + per, N);
-  // numpy clamps every node's availability at 0 on the first pass that
-  // places anything (avail = max(avail - take*d, 0) over all nodes); after
-  // that no entry can go negative again, so the full sweep runs once
   bool clamped = false;
 
   for (int c = 0; c < C; ++c) {
@@ -194,87 +378,20 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
       // phase 1: per-node fit, score bucket, threshold cap
       int my_feas = 0;
       for (int n = tid; n < N; n += nt) {
-        float fit = kInfFit, kcap = kInfFit, util = __int_as_float(0xff800000);  // -inf
-        auto column = [&](int r, float av, float tt) {
-          const float d = s_d[r];
-          const float used = __fsub_rn(tt, av);
-          const float frac = tt > 0.f ? __fdiv_rn(used, fmaxf(tt, kEps)) : 0.f;
-          util = fmaxf(util, frac);
-          if (d > 0.f) {
-            fit = fminf(fit, floorf(__fdiv_rn(__fadd_rn(av, kEps), d)));
-            const float head = __fsub_rn(__fmul_rn(thr, tt), used);
-            kcap = fminf(kcap, floorf(__fdiv_rn(__fadd_rn(head, kEps), d)));
-          }
-        };
-        if constexpr (RU == 16) {
-          const float4* a4 = reinterpret_cast<const float4*>(avail + (size_t)n * 16);
-          const float4* t4 = reinterpret_cast<const float4*>(total + (size_t)n * 16);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 av = a4[q], tv = t4[q];
-            column(4 * q + 0, av.x, tv.x);
-            column(4 * q + 1, av.y, tv.y);
-            column(4 * q + 2, av.z, tv.z);
-            column(4 * q + 3, av.w, tv.w);
-          }
-        } else {
-          const float* a = avail + (size_t)n * R;
-          const float* t = total + (size_t)n * R;
-          for (int r = 0; r < R; ++r) column(r, a[r], t[r]);
-        }
-        fit = fminf(fmaxf(fit, 0.f), kInfFit);
-        const int fit_i = alive[n] ? (int)fit : 0;
-        // clip(k, 0, float32(INF_FIT - 1)) + 1; float32(2**30 - 1) == 2**30
-        kcap = __fadd_rn(fminf(fmaxf(kcap, 0.f), kInfFit), 1.0f);
-        float over = __fdiv_rn(__fsub_rn(util, thr), over_denom);
-        over = fminf(fmaxf(over, 0.f), 1.f);
-        float b = util >= thr
-                      ? __fadd_rn(1.0f, floorf(__fmul_rn(over, (float)(kBuckets - 2))))
-                      : 0.f;
-        b = fminf(fmaxf(b, 0.f), (float)(kBuckets - 1));
+        int fit_i, cap_t;
+        uint8_t b;
+        node_terms<RU>(avail, total, alive, s_d, n, R, thr, over_denom, fit_i, cap_t, b);
         fit_s[n] = fit_i;
-        cap_s[n] = util < thr ? (int)kcap : -1;
-        bkt_s[n] = (uint8_t)b;
+        cap_s[n] = cap_t;
+        bkt_s[n] = b;
         my_feas += fit_i > 0;
       }
       const int n_feasible = block_sum_int(my_feas, &s_nfeas);
       K1_STAMP(t1);
       if (n_feasible == 0) break;  // uniform: stalled
       const long long share = ((long long)remaining + n_feasible - 1) / n_feasible;
-      // phase 2: final per-node cap and per-bucket totals. Each thread sums
-      // runs of one bucket and flushes on a change; the last run is summed
-      // over the warp when every lane with something to add agrees on it.
-      int run_b = -1;
-      long long run = 0;
-      for (int n = tid; n < N; n += nt) {
-        const int ct = cap_s[n];
-        long long cap = ct >= 0 ? (long long)ct : share;
-        cap = min(cap, (long long)fit_s[n]);
-        cap = min(cap, (long long)remaining);
-        cap_s[n] = (int)cap;
-        if (cap > 0) {
-          const int b = bkt_s[n];
-          if (b != run_b) {
-            if (run > 0) shared_add_u64(&s_tot_lo[run_b], &s_tot_hi[run_b], run);
-            run_b = b;
-            run = 0;
-          }
-          run += cap;
-        }
-      }
-      {
-        const int lane = tid & 31;
-        const unsigned busy = __ballot_sync(kFull, run > 0);
-        const int b0 = busy ? __shfl_sync(kFull, run_b, __ffs(busy) - 1) : -1;
-        if (__all_sync(kFull, run == 0 || run_b == b0)) {
-          long long w = run;
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) w += __shfl_down_sync(kFull, w, o);
-          if (lane == 0 && w > 0) shared_add_u64(&s_tot_lo[b0], &s_tot_hi[b0], w);
-        } else if (run > 0) {
-          shared_add_u64(&s_tot_lo[run_b], &s_tot_hi[run_b], run);
-        }
-      }
+      // phase 2: final per-node cap and per-bucket totals
+      bucket_totals(cap_s, fit_s, bkt_s, N, share, remaining, s_tot_lo, s_tot_hi);
       __syncthreads();
       if (tid == 0) {
         long long acc = 0;
@@ -288,53 +405,14 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
       const int got = (int)min((long long)remaining, s_total);
       K1_STAMP(t2);
       if (got == 0) break;  // uniform: stalled
-      // phase 3: prefix fill in (bucket, node index) order; contiguous node
-      // ranges per thread so a block scan gives node order
-      for (int b = 0; b < kBuckets; ++b) {
-        if (shared_u64(&s_tot_lo[b], &s_tot_hi[b]) == 0ull) continue;
-        const long long off = s_off[b];
-        if (off >= remaining) break;
-        long long local = 0;
-        for (int n = lo; n < hi; ++n)
-          if (bkt_s[n] == b) local += cap_s[n];
-        long long prev = off + block_exclusive_scan(local, s_warp);
-        for (int n = lo; n < hi; ++n) {
-          if (bkt_s[n] != b) continue;
-          const long long cap = cap_s[n];
-          long long take = (long long)remaining - prev;
-          take = take < 0 ? 0 : (take > cap ? cap : take);
-          prev += cap;
-          if (take > 0) {
-            assigned[(size_t)c * N + n] += (int)take;
-            const float tf = (float)take;
-            auto debit = [&](float a, int r) {
-              const float v = __fsub_rn(a, __fmul_rn(tf, s_d[r]));
-              return v < 0.f ? 0.f : v;
-            };
-            if constexpr (RU == 16) {
-              float4* a4 = reinterpret_cast<float4*>(avail + (size_t)n * 16);
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                float4 v = a4[q];
-                v.x = debit(v.x, 4 * q + 0);
-                v.y = debit(v.y, 4 * q + 1);
-                v.z = debit(v.z, 4 * q + 2);
-                v.w = debit(v.w, 4 * q + 3);
-                a4[q] = v;
-              }
-            } else {
-              float* a = avail + (size_t)n * R;
-              for (int r = 0; r < R; ++r) a[r] = debit(a[r], r);
-            }
-          }
-        }
-      }
+      // phase 3: prefix fill in (bucket, node index) order
+      fill_by_bucket<RU>(avail, assigned + (size_t)c * N, cap_s, bkt_s, lo, hi, s_tot_lo,
+                         s_tot_hi, s_off, remaining, s_warp, s_d, R);
       K1_STAMP(t3);
       remaining -= got;
       if (!clamped) {
         __syncthreads();
-        for (size_t i = tid; i < (size_t)N * R; i += nt)
-          if (avail[i] < 0.f) avail[i] = 0.f;
+        clamp_at_zero(avail, (size_t)N * R);
         clamped = true;
       }
       __syncthreads();
@@ -342,10 +420,6 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
     }
   }
 }
-
-// bytes of per-node scratch (fit, cap: int32; bucket: uint8), 16-aligned
-size_t k1_scratch_bytes(int N) { return ((size_t)N * 9 + 15) & ~(size_t)15; }
-constexpr size_t kK1MaxDynSmem = 200 * 1024;
 
 template <int RU>
 cudaError_t launch_k1(cudaStream_t st, float* avail, const float* total, const uint8_t* alive,
@@ -365,6 +439,203 @@ cudaError_t launch_k1(cudaStream_t st, float* avail, const float* total, const u
         avail, total, alive, demands, counts, assigned, scratch, N, R, C, thr, over_denom,
         max_passes);
   }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K7: K1 with the node axis split over P shards (P in 1, 2, 4, 8), replacing
+// ray_tpu/sched/kernel_shard.py:54-196 (_fill_by_bucket_sharded,
+// _one_class_sharded, _sharded_body under shard_map). One launch of one
+// thread-block cluster of P blocks runs the whole round: block r plays
+// device r of the JAX mesh and owns nodes [r*N/P, (r+1)*N/P), on which it
+// runs K1's per-node steps. The values that cross shards go through
+// distributed shared memory (DSMEM) under cluster barriers:
+//  - the feasible count (JAX's psum, :105): lane q of each block's first
+//    warp reads block q's count, and the warp sums them;
+//  - the per-bucket totals (JAX's all_gather, :75, and the recomposition,
+//    :76-91): the first warp reads the peers' 64 totals (exact int64, as
+//    two 32-bit words), two buckets a lane, and forms the shard prefix
+//    (the totals of the ranks before this one) and the global bucket
+//    totals, whose exclusive scan over the lanes gives the bucket
+//    offsets; the offset for bucket b is global offset + shard prefix,
+//    and the within-shard prefix is K1's block scan;
+//  - the placed total (JAX's psum, :117) is min(remaining, sum of the
+//    global totals), which every block forms from the same exchanged
+//    totals: no third exchange.
+// Every block reaches the same n_feasible, got and remaining, so all take
+// the same branches and arrive at every cluster barrier. The exchanged
+// count and totals are double-buffered by the parity of the pass (counted
+// over every class): a block zeroes pass k+2's buffer only after the next
+// pass's first barrier, which every peer reaches after reading pass k's. A
+// last barrier keeps every block resident until its peers are done.
+// Decisions and availability equal K1's and kernel_np's exactly (exact
+// int64 prefixes, counts < 2**23).
+//
+// Bound on this card: the same latency-bound chain as K1; the bytes bound is
+// ~2*N*R*4 plus the [C, N] result, and each pass adds two cluster barriers.
+// Design: a simple, correct kernel first; each block keeps its per-node
+// scratch in shared memory and reads its rows of the view from L2 every
+// pass. Keeping each block's rows of avail and total resident in shared
+// memory (1 250 rows at P = 8 and 10k nodes, ~160 KB) is later work.
+// ---------------------------------------------------------------------------
+constexpr int kMaxShards = 8;
+
+template <int RU, bool SMEM>
+__global__ void __launch_bounds__(kK1Threads)
+schedule_classes_sharded_kernel(float* __restrict__ avail, const float* __restrict__ total,
+                                const uint8_t* __restrict__ alive,
+                                const float* __restrict__ demands,
+                                const int* __restrict__ counts, int* __restrict__ assigned,
+                                int* __restrict__ scratch, int N, int R, int C, float thr,
+                                float over_denom, int max_passes) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int Nl = N / P;
+  const size_t first = (size_t)rank * Nl;
+  __shared__ float s_d[kMaxR];
+  __shared__ unsigned s_tot_lo[2][kBuckets], s_tot_hi[2][kBuckets];
+  __shared__ int s_nfeas[2];
+  __shared__ int s_nfeas_all;
+  __shared__ long long s_off[kBuckets];
+  __shared__ long long s_warp[32];
+  __shared__ long long s_total;
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+
+  int *fit_s, *cap_s;
+  uint8_t* bkt_s;
+  node_scratch<SMEM>(s_dyn, scratch + rank * (k1_scratch_bytes(Nl) / 4), Nl, fit_s, cap_s,
+                     bkt_s);
+  float* av = avail + first * R;
+  const float* tt = total + first * R;
+  const uint8_t* al = alive + first;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int per = (Nl + nt - 1) / nt;
+  const int lo = min(tid * per, Nl);
+  const int hi = min(lo + per, Nl);
+  bool clamped = false;
+  unsigned pass = 0;  // passes begun over every class: the exchange buffer's parity
+
+  for (int c = 0; c < C; ++c) {
+    __syncthreads();
+    if (tid < R) s_d[tid] = demands[(size_t)c * R + tid];
+    __syncthreads();
+    int remaining = counts[c];
+    for (int p = 0; p < max_passes && remaining > 0; ++p) {
+      const int buf = pass++ & 1;
+      if (tid == 0) s_nfeas[buf] = 0;
+      if (tid < kBuckets) s_tot_lo[buf][tid] = s_tot_hi[buf][tid] = 0u;
+      __syncthreads();
+      K1_STAMP(t0);
+      int my_feas = 0;
+      for (int n = tid; n < Nl; n += nt) {
+        int fit_i, cap_t;
+        uint8_t b;
+        node_terms<RU>(av, tt, al, s_d, n, R, thr, over_denom, fit_i, cap_t, b);
+        fit_s[n] = fit_i;
+        cap_s[n] = cap_t;
+        bkt_s[n] = b;
+        my_feas += fit_i > 0;
+      }
+      block_sum_int(my_feas, &s_nfeas[buf]);
+      K1_STAMP(t1);
+      cluster.sync();  // every shard's feasible count is in place
+      if (tid < 32) {  // lane q reads block q's count
+        const int v = tid < P ? *cluster.map_shared_rank(&s_nfeas[buf], tid) : 0;
+        const int sum = __reduce_add_sync(kFull, v);
+        if (tid == 0) s_nfeas_all = sum;
+      }
+      __syncthreads();
+      const int n_feasible = s_nfeas_all;
+      K1_STAMP(t2);
+      if (n_feasible == 0) break;  // uniform over the cluster: stalled
+      const long long share = ((long long)remaining + n_feasible - 1) / n_feasible;
+      bucket_totals(cap_s, fit_s, bkt_s, Nl, share, remaining, s_tot_lo[buf], s_tot_hi[buf]);
+      K1_STAMP(t3);
+      cluster.sync();  // every shard's bucket totals are in place
+      if (tid < 32) {
+        // lane l owns buckets 2l and 2l + 1: their totals over every block
+        // and over the blocks before this one, read from the peers' shared
+        // memory; then an exclusive scan over the lanes gives the offsets
+        long long all0 = 0, all1 = 0, before0 = 0, before1 = 0;
+#pragma unroll
+        for (int q = 0; q < kMaxShards; ++q) {
+          if (q < P) {
+            const unsigned* lo = cluster.map_shared_rank(&s_tot_lo[buf][2 * tid], q);
+            const unsigned* hi = cluster.map_shared_rank(&s_tot_hi[buf][2 * tid], q);
+            const long long v0 = (long long)shared_u64(lo, hi);
+            const long long v1 = (long long)shared_u64(lo + 1, hi + 1);
+            all0 += v0;
+            all1 += v1;
+            before0 += q < rank ? v0 : 0;
+            before1 += q < rank ? v1 : 0;
+          }
+        }
+        const long long pair = all0 + all1;
+        long long incl = pair;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const long long y = __shfl_up_sync(kFull, incl, o);
+          if (tid >= o) incl += y;
+        }
+        s_off[2 * tid] = incl - pair + before0;
+        s_off[2 * tid + 1] = incl - pair + all0 + before1;
+        if (tid == 31) s_total = incl;
+      }
+      __syncthreads();
+      const int got = (int)min((long long)remaining, s_total);
+      K1_STAMP(t4);
+      if (got == 0) break;  // uniform over the cluster: stalled
+      fill_by_bucket<RU>(av, assigned + (size_t)c * N + first, cap_s, bkt_s, lo, hi,
+                         s_tot_lo[buf], s_tot_hi[buf], s_off, remaining, s_warp, s_d, R);
+      K1_STAMP(t5);
+      remaining -= got;
+      if (!clamped) {
+        __syncthreads();
+        clamp_at_zero(av, (size_t)Nl * R);
+        clamped = true;
+      }
+      __syncthreads();
+      K7_PROFILE_PASS(rank, t0, t1, t2, t3, t4, t5)
+    }
+  }
+  cluster.sync();  // no block exits while a peer may still read its shared memory
+}
+
+template <int RU, bool SMEM>
+cudaError_t launch_k7(cudaStream_t st, int P, float* avail, const float* total,
+                      const uint8_t* alive, const float* demands, const int* counts,
+                      int* assigned, int* scratch, int N, int R, int C, float thr,
+                      float over_denom, int max_passes) {
+  void (*kernel)(float*, const float*, const uint8_t*, const float*, const int*, int*, int*,
+                 int, int, int, float, float, int) =
+      schedule_classes_sharded_kernel<RU, SMEM>;
+  const size_t smem = SMEM ? k1_scratch_bytes(N / P) : 0;
+  cudaError_t err;
+  if (SMEM) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)P;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)P, 1, 1);
+  cfg.blockDim = dim3(kK1Threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kernel, avail, total, alive, demands, counts, assigned,
+                           scratch, N, R, C, thr, over_denom, max_passes);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -779,6 +1050,15 @@ int sched_k1_profile(unsigned long long* out, int reset) {
   }
   return (int)err;
 }
+
+int sched_k7_profile(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_k7_profile, sizeof(g_k7_profile));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[7] = {0, 0, 0, 0, 0, 0, 0};
+    err = cudaMemcpyToSymbol(g_k7_profile, zero, sizeof(zero));
+  }
+  return (int)err;
+}
 #endif
 
 const char* sched_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -801,6 +1081,36 @@ int sched_schedule_classes(float* avail, const float* total, const uint8_t* aliv
 // int32 words of global scratch the K1 wrapper allocates (used only when the
 // per-node scratch does not fit in shared memory)
 long long sched_k1_scratch_words(int N) { return (long long)(k1_scratch_bytes(N) / 4); }
+
+// K7 over a cluster of P blocks (P in 1, 2, 4, 8; N divisible by P).
+int sched_schedule_classes_sharded(float* avail, const float* total, const uint8_t* alive,
+                                   const float* demands, const int* counts, int* assigned,
+                                   int* scratch, int N, int R, int C, int P, float thr,
+                                   float over_denom, int max_passes, void* stream) {
+  if (R > kMaxR || R < 1) return (int)cudaErrorInvalidValue;
+  if (P < 1 || P > kMaxShards || (P & (P - 1)) != 0 || N % P != 0)
+    return (int)cudaErrorInvalidValue;
+  if (C == 0 || N == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool rows16 = R == 16 && (((uintptr_t)avail | (uintptr_t)total) & 15) == 0;
+  const bool smem = k1_scratch_bytes(N / P) <= kK1MaxDynSmem;
+  if (rows16 && smem)
+    return (int)launch_k7<16, true>(st, P, avail, total, alive, demands, counts, assigned,
+                                    scratch, N, R, C, thr, over_denom, max_passes);
+  if (rows16)
+    return (int)launch_k7<16, false>(st, P, avail, total, alive, demands, counts, assigned,
+                                     scratch, N, R, C, thr, over_denom, max_passes);
+  if (smem)
+    return (int)launch_k7<0, true>(st, P, avail, total, alive, demands, counts, assigned,
+                                   scratch, N, R, C, thr, over_denom, max_passes);
+  return (int)launch_k7<0, false>(st, P, avail, total, alive, demands, counts, assigned,
+                                  scratch, N, R, C, thr, over_denom, max_passes);
+}
+
+// int32 words of global scratch the K7 wrapper allocates: K1's per shard
+long long sched_k7_scratch_words(int N, int P) {
+  return (long long)P * (long long)(k1_scratch_bytes(N / P) / 4);
+}
 
 int sched_scatter_rows(float* avail, const int* idx, const float* rows, int pad, int N, int R,
                        void* stream) {

@@ -103,6 +103,48 @@ def _f32(x) -> torch.Tensor:
 # ------------------------------------------------------------------------- K1
 
 
+def _pass_consts(spread_threshold, dev):
+    """The float32 constants of _pass_terms on `dev`: (eps, thr, denom, zero)."""
+    return tuple(_f32(x).to(dev) for x in (
+        EPS, spread_threshold, max(1e-6, 1.0 - spread_threshold), 0.0))
+
+
+def _pass_terms(avail, total, alive, pos, dpos, consts):
+    """One pass's per-node terms over a view [..., R] (the leading axes are
+    nodes, or shards and nodes): kernel_np's _class_fit, critical_util,
+    _score_bucket and _threshold_cap, op for op. `pos` are the demanded
+    columns, `dpos` their demands, `consts` _pass_consts(). Returns (fit
+    int32, bucket int32, under bool, cap_thresh int32), each [...]; K1's and
+    K7's plain versions share it as their kernels share node_terms."""
+    eps, thr, denom, zero = consts
+    dev = avail.device
+    inf_fit = float(INF_FIT)
+    # _class_fit
+    if len(pos) == 0:
+        fit = torch.where(alive, INF_FIT, 0).to(torch.int32)
+    else:
+        ratios = torch.floor((avail[..., pos] + eps) / dpos)
+        fit = torch.clamp(ratios.min(dim=-1).values, 0.0, inf_fit)
+        fit = torch.where(alive, fit, zero).to(torch.int32)
+    # critical_util
+    used = total - avail
+    frac = torch.where(total > 0, used / torch.maximum(total, eps), zero)
+    util = frac.max(dim=-1).values
+    # _score_bucket
+    over = torch.clamp((util - thr) / denom, 0.0, 1.0)
+    b = torch.where(util >= thr, 1.0 + torch.floor(over * float(SCORE_BUCKETS - 2)), zero)
+    bucket = torch.clamp(b, 0, SCORE_BUCKETS - 1).to(torch.int32)
+    # _threshold_cap
+    if len(pos) == 0:
+        cap_thresh = torch.full(avail.shape[:-1], int(INF_FIT), dtype=torch.int32, device=dev)
+    else:
+        head = thr * total[..., pos] - used[..., pos]
+        k = torch.floor((head + eps) / dpos).min(dim=-1).values
+        k = torch.clamp(k, 0.0, float(np.float32(inf_fit - 1.0)))
+        cap_thresh = (k + 1.0).to(torch.int32)
+    return fit, bucket, util < thr, cap_thresh
+
+
 def _schedule_classes_plain(avail, total, alive, demands, counts,
                             spread_threshold=DEFAULT_SPREAD_THRESHOLD,
                             max_passes=MAX_PASSES, passes_out=None):
@@ -117,11 +159,8 @@ def _schedule_classes_plain(avail, total, alive, demands, counts,
     demands = demands.to(torch.float32)
     C = d_host.shape[0]
     N = avail.shape[0]
-    eps = _f32(EPS).to(dev)
-    thr = _f32(spread_threshold).to(dev)
-    denom = _f32(max(1e-6, 1.0 - spread_threshold)).to(dev)
-    zero = _f32(0.0).to(dev)
-    inf_fit = float(INF_FIT)
+    consts = _pass_consts(spread_threshold, dev)
+    zero = consts[3]
     assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
     for c in range(C):
         pos = torch.from_numpy(np.flatnonzero(d_host[c] > 0)).to(dev)
@@ -133,35 +172,11 @@ def _schedule_classes_plain(avail, total, alive, demands, counts,
             if remaining <= 0:
                 break
             passes += 1
-            # _class_fit
-            if len(pos) == 0:
-                fit = torch.where(alive, INF_FIT, 0).to(torch.int32)
-            else:
-                ratios = torch.floor((avail[:, pos] + eps) / dpos[None, :])
-                fit = torch.clamp(ratios.min(dim=1).values, 0.0, inf_fit)
-                fit = torch.where(alive, fit, zero).to(torch.int32)
+            fit, bucket, under, cap_thresh = _pass_terms(avail, total, alive, pos, dpos,
+                                                         consts)
             n_feasible = int((fit > 0).sum())
             if n_feasible == 0:
                 break
-            # critical_util
-            used = total - avail
-            frac = torch.where(total > 0, used / torch.maximum(total, eps), zero)
-            util = frac.max(dim=1).values
-            # _score_bucket
-            over = torch.clamp((util - thr) / denom, 0.0, 1.0)
-            b = torch.where(
-                util >= thr, 1.0 + torch.floor(over * float(SCORE_BUCKETS - 2)), zero
-            )
-            bucket = torch.clamp(b, 0, SCORE_BUCKETS - 1).to(torch.int32)
-            under = util < thr
-            # _threshold_cap
-            if len(pos) == 0:
-                cap_thresh = torch.full((N,), int(INF_FIT), dtype=torch.int32, device=dev)
-            else:
-                head = thr * total[:, pos] - used[:, pos]
-                k = torch.floor((head + eps) / dpos[None, :]).min(dim=1).values
-                k = torch.clamp(k, 0.0, float(np.float32(inf_fit - 1.0)))
-                cap_thresh = (k + 1.0).to(torch.int32)
             equal_share = -(-remaining // n_feasible)
             cap = torch.where(under, cap_thresh, equal_share).to(torch.int32)
             cap = torch.clamp(torch.minimum(cap, fit), max=remaining)

@@ -1,6 +1,7 @@
 """Where the scheduling round's time goes on the card.
 
     python -m ray_tpu_torch.scripts.profile_sched k1      # from the repo root
+    python -m ray_tpu_torch.scripts.profile_sched k7
     python -m ray_tpu_torch.scripts.profile_sched stream
 
 ``k1``: builds the kernels with ``-DSCHED_K1_PROFILE`` (K1's thread 0 sums
@@ -9,6 +10,11 @@ shapes (first round: ~100k tasks, 8 000 of 10 000 nodes alive; full
 backlog: 1M tasks, all nodes): cycles per pass for phase 1 (fit, score
 bucket, threshold cap), phase 2 (caps, bucket totals), phase 3 (the fill)
 and the tail (clamp sweep, barrier).
+
+``k7``: the same build and problems through K7 (kernel_shard) for 1, 2, 4
+and 8 blocks a cluster: block 0's cycles per pass for phase 1, exchange 1
+(the cluster barrier and the feasible counts), phase 2, exchange 2 (the
+barrier, the peers' bucket totals and the offsets), phase 3 and the tail.
 
 ``stream``: runs chip_smoke.py's 1M-task stream (phase 2) under
 torch.profiler and reports the device's busy and idle share of the
@@ -33,15 +39,19 @@ def _need_cuda():
         sys.exit(2)
 
 
-def profile_k1() -> dict:
+def _profile_phases(kernel: str, fields, calls) -> dict:
+    """Run each of `calls` (label -> fn(args)) at the stream problem's two
+    shapes in the -DSCHED_K1_PROFILE build, reading `kernel`'s cycle sums
+    (`fields` phase names, then the pass count) around one timed call."""
     import ctypes
 
     import chip_smoke
     from ray_tpu_torch.sched import _build, kernel_torch as KT
 
     lib = _build.load(extra_flags=("-DSCHED_K1_PROFILE",))
-    lib.sched_k1_profile.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.sched_k1_profile.restype = ctypes.c_int
+    read = getattr(lib, f"sched_{kernel}_profile")
+    read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    read.restype = ctypes.c_int
     dev = torch.device("cuda", 0)
     total, alive_all, demands, counts = chip_smoke.build_stream_problem(
         np.random.default_rng(5))
@@ -55,27 +65,41 @@ def profile_k1() -> dict:
         d, kk = KT.pad_problem(demands, k, KT.bucket_size(len(demands)))
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                 for x in (total * alive[:, None], total, alive, d, kk)]
-        buf = (ctypes.c_ulonglong * 5)()
-        KT.schedule_classes(*args)  # warm
-        torch.cuda.synchronize()
-        lib.sched_k1_profile(buf, 1)
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        KT.schedule_classes(*args)
-        e.record()
-        torch.cuda.synchronize()
-        if lib.sched_k1_profile(buf, 1) != 0:
-            raise RuntimeError("reading the K1 profile failed")
-        passes = max(int(buf[4]), 1)
-        out[label] = {
-            "ms": s.elapsed_time(e),
-            "passes": int(buf[4]),
-            "cycles_per_pass": {
-                name: buf[i] / passes
-                for i, name in enumerate(("phase1", "phase2", "phase3", "tail"))
-            },
-        }
+        for call, fn in calls.items():
+            buf = (ctypes.c_ulonglong * (len(fields) + 1))()
+            fn(args)  # warm
+            torch.cuda.synchronize()
+            read(buf, 1)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn(args)
+            e.record()
+            torch.cuda.synchronize()
+            if read(buf, 1) != 0:
+                raise RuntimeError(f"reading the {kernel} profile failed")
+            passes = max(int(buf[len(fields)]), 1)
+            out[f"{label}{call}"] = {
+                "ms": s.elapsed_time(e),
+                "passes": int(buf[len(fields)]),
+                "cycles_per_pass": {name: buf[i] / passes for i, name in enumerate(fields)},
+            }
     return out
+
+
+def profile_k1() -> dict:
+    from ray_tpu_torch.sched import kernel_torch as KT
+
+    return _profile_phases("k1", ("phase1", "phase2", "phase3", "tail"),
+                           {"": lambda a: KT.schedule_classes(*a)})
+
+
+def profile_k7() -> dict:
+    from ray_tpu_torch.sched import kernel_shard as KS
+
+    return _profile_phases(
+        "k7", ("phase1", "exchange1", "phase2", "exchange2", "phase3", "tail"),
+        {f"_p{p}": (lambda a, p=p: KS.schedule_classes_sharded(*a, shards=p))
+         for p in KS.SHARDS})
 
 
 def profile_stream() -> dict:
@@ -128,6 +152,8 @@ def main(argv) -> int:
     what = argv[1] if len(argv) > 1 else "k1"
     if what == "k1":
         res = profile_k1()
+    elif what == "k7":
+        res = profile_k7()
     elif what == "stream":
         res = profile_stream()
     else:

@@ -49,7 +49,8 @@ def test_no_jax_or_ray_tpu_import(path):
 
 def test_package_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    for must in ("ray_tpu_torch/sched/kernel_torch.py", "ray_tpu_torch/sched/policy.py",
+    for must in ("ray_tpu_torch/sched/kernel_torch.py", "ray_tpu_torch/sched/kernel_shard.py",
+                 "ray_tpu_torch/sched/policy.py",
                  "ray_tpu_torch/core/runtime.py", "chip_smoke.py"):
         assert must in names
 

@@ -17,10 +17,40 @@ import torch
 
 from ray_tpu.sched import kernel_jax, kernel_np
 from ray_tpu.sched.kernel_jax import JaxScheduler
+from ray_tpu.sched.resources import NodeResourceState, ResourceSpace, pack_demands
 from ray_tpu_torch.sched import kernel_torch as KT
-from tests.test_sched_rounds import _random_problem
 
 R = 16
+
+
+def _random_problem(seed, N=64, C=7):
+    """tests/test_sched_rounds.py's generator, copied: a test file that
+    imports through the `tests.` package does not collect where another
+    package named `tests` is installed (ROADMAP §3)."""
+    rng = np.random.default_rng(seed)
+    space = ResourceSpace()
+    st = NodeResourceState(space=space)
+    for i in range(N):
+        st.add_node(
+            f"n{i}",
+            {"CPU": float(rng.integers(1, 32)),
+             "memory": float(rng.integers(8, 128)),
+             "TPU": float(rng.choice([0, 0, 4, 8]))},
+        )
+    st.available = np.floor(
+        st.available * rng.uniform(0.3, 1.0, size=st.available.shape)
+    ).astype(np.float32)
+    demand_maps = []
+    for _ in range(C):
+        d = {"CPU": float(rng.integers(1, 4))}
+        if rng.random() < 0.4:
+            d["TPU"] = float(rng.integers(1, 4))
+        if rng.random() < 0.5:
+            d["memory"] = float(rng.integers(1, 8))
+        demand_maps.append(d)
+    demands = pack_demands(space, demand_maps)
+    counts = rng.integers(1, 200, size=C).astype(np.int32)
+    return st, demands, counts
 
 
 def T(a):

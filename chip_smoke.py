@@ -71,10 +71,26 @@ caught):
    a round places nothing, every round equal to K1's; decisions a second
    of both by CUDA events.
 
+9. training (ray_tpu_torch.parallel.tpu_train, the default
+   TransformerConfig in bf16): (a) K8', K10a' and K10b' against their plain
+   versions at the train step's shapes in bf16 and f32, each launched
+   twice with the same bits, with times, bounds and the library
+   yardsticks (the backward of scaled_dot_product_attention and of
+   rms_norm); (b) make_train_state (seed 0) and make_train_step, 10 steps
+   on one seeded [8, 2049] batch, timed, the loss finite and falling; (c)
+   an actor of ray_tpu_torch.init() owning the train state from the same
+   seed takes 4 steps on the batches sent to it: its losses and
+   parameter checksum equal the direct run's bit for bit; (d) one step's
+   loss, gradient norms, sampled gradients and post-AdamW parameters, and
+   the second step's loss, in both dtypes, against the JAX package's
+   golden (tests/data/train_golden.npz).
+
 Launch counters are set to 0 just before phase 2 and read after phase 5,
 the model kernels' just before 6b and after 6c, the expert kernels' just
-before 7b and after 7c, and K7's just before 8b and after it: every kernel
-of each path must have launched in its run. K8's block form runs on no ported
+before 7b and after 7c, K7's just before 8b and after it, and the model
+kernels' again just before 9b and after 9c, where each of the training
+path's six must have launched its predicted count a step times the 14
+steps: every kernel of each path must have launched in its run. K8's block form runs on no ported
 path yet (the ring across cards is still to port); its launches in (d)'s
 check are printed on a line of their own, not among the kernels. The
 JSON line before the card's name and power limit lists the kernels; the
@@ -882,7 +898,7 @@ def phase6a_model_kernels(torch, MK, dev, S=2048):
     g = torch.Generator().manual_seed(6)
     B, H, Dh = 8, 8, 64
     D = H * Dh
-    rec = {name: {"max_abs_err": 0.0} for name in MK.KERNELS}
+    rec = {name: {"max_abs_err": 0.0} for name in MODEL_REPLACES}
     names = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
     def rnd(shape, dt, scale=1.0):
@@ -905,6 +921,10 @@ def phase6a_model_kernels(torch, MK, dev, S=2048):
             q, k, v = (rnd((B, s_len, H, Dh), dt) for _ in range(3))
             check("attention", MK.attention(q, k, v), MK._attention_plain(q, k, v),
                   f"{names[dt]} S={s_len}")
+            # the forward's form: probabilities rounded to the dtype
+            check("attention", MK.attention(q, k, v, round_probs=True),
+                  MK._attention_plain(q, k, v, round_probs=True),
+                  f"{names[dt]} S={s_len} rounded probabilities")
         # a fully visible block sets the state, then the diagonal block, then
         # one wholly above the diagonal (must leave the state as it is)
         q, k, v = (rnd((B, S, H, Dh), dt) for _ in range(3))
@@ -931,13 +951,17 @@ def phase6a_model_kernels(torch, MK, dev, S=2048):
             check("rope_split", a, b, f"{names[dt]} {part}")
 
     bf = torch.bfloat16
-    # K8, whole form, as the forward calls it: causal, [8, 2048, 8, 64] bf16
+    # K8, whole form, as the forward calls it: causal, [8, 2048, 8, 64] bf16,
+    # probabilities rounded (two passes); the one-pass float32-probability
+    # form beside it
     q, k, v = (rnd((B, S, H, Dh), bf) for _ in range(3))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = S * (S + 1) // 2  # causal (query, key) pairs a head
     rec["attention"].update(
-        ms=time_ms(torch, lambda: MK.attention(q, k, v)),
-        plain_ms=time_ms(torch, lambda: MK._attention_plain(q, k, v), reps=3, warm=1),
+        ms=time_ms(torch, lambda: MK.attention(q, k, v, round_probs=True)),
+        ms_unrounded=time_ms(torch, lambda: MK.attention(q, k, v)),
+        plain_ms=time_ms(torch, lambda: MK._attention_plain(q, k, v, round_probs=True),
+                         reps=3, warm=1),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
         bound=bound(4 * B * S * H * Dh * 2, 4 * B * H * Dh * pairs, PEAK_BF16_OPS_PER_S))
@@ -1571,6 +1595,225 @@ def phase8b_sharded_path(torch, KT, KS, dev, max_rounds=30):
     return res
 
 
+# ------------------------------------------------------------ phase 9: training
+
+# the training path's kernels (the forward's three run there too)
+TRAIN_KERNELS = ("attention", "rmsnorm", "rope_split", "attention_bwd", "rmsnorm_bwd",
+                 "rope_split_bwd")
+# launches a train step at the default config (6 layers, each block
+# checkpointed): K8 6 forward + 6 recomputed; K8' 6; K10a 2 a block forward
+# and recomputed, + ln_f; K10a' 2 a block + ln_f; K10b 6 + 6; K10b' 6
+TRAIN_LAUNCHES_PER_STEP = {"attention": 12, "attention_bwd": 6, "rmsnorm": 25,
+                           "rmsnorm_bwd": 13, "rope_split": 12, "rope_split_bwd": 6}
+TRAIN_REPLACES = {
+    "attention_bwd": "ray_tpu/parallel/tpu_train.py:78",
+    "rmsnorm_bwd": "ray_tpu/parallel/tpu_train.py:78",
+    "rope_split_bwd": "ray_tpu/parallel/tpu_train.py:78",
+}
+TRAIN_GOLDEN_PATH = os.path.join(HERE, "tests", "data", "train_golden.npz")
+TRAIN_SEED = 0
+TRAIN_STEPS = 10
+ACTOR_STEPS = 4
+
+
+def phase9a_train_kernels(torch, MK, dev, S=2048):
+    """K8', K10a' and K10b' against their plain versions on the card at
+    the train step's shapes (B 8, S 2048, H 8, Dh 64; rows 16 384 x 512),
+    in bf16 and f32, each launched twice (the bits must agree); then timed
+    in bf16 beside the plain versions, the bound and the backward of the
+    library call where there is one (SDPA, rms_norm)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(9)
+    B, H, Dh = 8, 8, 64
+    D = H * Dh
+    rec = {name: {"max_abs_err": 0.0} for name in ("attention_bwd", "rmsnorm_bwd",
+                                                   "rope_split_bwd")}
+    names = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+    def rnd(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev, dt)
+
+    def check(name, got, want, again, what):
+        # a gradient is a sum over up to 2 048 terms: its rounding follows
+        # the largest entry, as block_update's state does
+        rtol, atol = KERNEL_TOL["f32" if want.dtype == torch.float32 else "bf16"]
+        atol = max(atol, rtol * float(want.abs().max()))
+        gd, wd = got.double(), want.double()
+        d = float((gd - wd).abs().max())
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], d)
+        if bool(((gd - wd).abs() > atol + rtol * wd.abs()).any()) \
+                or not bool(torch.isfinite(gd).all()):
+            raise AssertionError(f"{name} {what}: kernel != plain (max abs err {d}, "
+                                 f"tolerance rtol {rtol} atol {atol})")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {what}: two launches gave different bits")
+
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = (rnd((B, S, H, Dh), dt) for _ in range(4))
+        _, m, l = MK._attention_launch(q, k, v, True, True, stats=True)
+        for part, a, b, c in zip("qkv", MK.attention_bwd(q, k, v, do, m, l),
+                                 MK._attention_bwd_plain(q, k, v, do, m, l, True),
+                                 MK.attention_bwd(q, k, v, do, m, l)):
+            check("attention_bwd", a, b, c, f"{names[dt]} d{part}")
+        x, dy, sc = rnd((B * S, D), dt, 3.0), rnd((B * S, D), dt), rnd((D,), torch.float32)
+        for part, a, b, c in zip(("dx", "dscale"), MK.rmsnorm_bwd(x, sc, dy),
+                                 MK._rmsnorm_bwd_plain(x, sc, dy), MK.rmsnorm_bwd(x, sc, dy)):
+            check("rmsnorm_bwd", a, b, c, f"{names[dt]} {part}")
+        dq, dk, dv = (rnd((B, S, H, Dh), dt) for _ in range(3))
+        check("rope_split_bwd", MK.rope_split_bwd(dq, dk, dv, 1e4),
+              MK._rope_split_bwd_plain(dq, dk, dv, 1e4), MK.rope_split_bwd(dq, dk, dv, 1e4),
+              names[dt])
+
+    bf = torch.bfloat16
+    q, k, v, do = (rnd((B, S, H, Dh), bf) for _ in range(4))
+    _, m, l = MK._attention_launch(q, k, v, True, True, stats=True)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    pairs = S * (S + 1) // 2
+    rec["attention_bwd"].update(
+        ms=time_ms(torch, lambda: MK.attention_bwd(q, k, v, do, m, l)),
+        plain_ms=time_ms(torch, lambda: MK._attention_bwd_plain(q, k, v, do, m, l, True),
+                         reps=3, warm=1),
+        library_ms=time_ms(torch, lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
+                                                              retain_graph=True)),
+        # five causal products; q, k, v, dO read, dq, dk, dv written, m, l read
+        bound=bound(7 * B * S * H * Dh * 2 + 2 * B * H * S * 4, 5 * 2 * B * H * Dh * pairs,
+                    PEAK_BF16_OPS_PER_S))
+    x, dy, sc = rnd((B * S, D), bf, 3.0), rnd((B * S, D), bf), rnd((D,), torch.float32)
+    xl = x.clone().requires_grad_(True)
+    scl = sc.to(bf).requires_grad_(True)
+    y = F.rms_norm(xl, (D,), scl, 1e-6)
+    rec["rmsnorm_bwd"].update(
+        ms=time_ms(torch, lambda: MK.rmsnorm_bwd(x, sc, dy), reps=21),
+        plain_ms=time_ms(torch, lambda: MK._rmsnorm_bwd_plain(x, sc, dy), reps=21),
+        library_ms=time_ms(torch, lambda: torch.autograd.grad(y, (xl, scl), dy,
+                                                              retain_graph=True), reps=21),
+        bound=bound(3 * B * S * D * 2 + 2 * D * 4, 12 * B * S * D))
+    dq, dk, dv = (rnd((B, S, H, Dh), bf) for _ in range(3))
+    rec["rope_split_bwd"].update(
+        ms=time_ms(torch, lambda: MK.rope_split_bwd(dq, dk, dv, 1e4), reps=21),
+        plain_ms=time_ms(torch, lambda: MK._rope_split_bwd_plain(dq, dk, dv, 1e4), reps=21),
+        library_ms=None,
+        bound=bound(2 * B * S * 3 * D * 2, 6 * B * S * D))
+    for name, r in rec.items():
+        log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}), "
+            f"max abs err {r['max_abs_err']:.3g}, two launches bit-equal")
+    return rec
+
+
+def _train_tokens(cfg, batch=8, seq=2048):
+    rng = np.random.default_rng(90)
+    return rng.integers(0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+
+
+def phase9b_train(torch, PT, TT, dev, steps=TRAIN_STEPS, cfg=None, batch=8, seq=2048):
+    """The training path, called directly: make_train_state (seed 0) and
+    make_train_step at the default config in bf16, `steps` steps on one
+    seeded [batch, seq + 1] batch; each step timed by CUDA events; the
+    loss finite and lower after the last step than after the first. The
+    losses and a parameter checksum after ACTOR_STEPS steps are kept for
+    9c."""
+    cfg = cfg or PT.TransformerConfig()
+    params, opt_state, tx, shardings = TT.make_train_state(cfg, seed=TRAIN_SEED, device=dev)
+    step, _ = TT.make_train_step(cfg, None, tx, shardings)
+    tokens = _train_tokens(cfg, batch, seq)
+    losses, ms = [], []
+    checksum = None
+    for i in range(steps):
+        if dev.type == "cuda":
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+        _, _, loss = step(params, opt_state, {"tokens": tokens})
+        if dev.type == "cuda":
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+        losses.append(float(loss))
+        if i + 1 == ACTOR_STEPS:
+            checksum = PT.weights_checksum(PT.to_numpy(params))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training: losses {losses} not finite or not falling")
+    step_ms = float(np.median(ms[1:])) if ms else float("nan")
+    res = {"batch": batch, "seq": seq, "steps": steps, "first_loss": losses[0],
+           "last_loss": losses[-1], "step_ms_median": step_ms,
+           "first_step_ms": ms[0] if ms else float("nan"),
+           "tokens_per_s": batch * seq / (step_ms / 1e3),
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30
+           if dev.type == "cuda" else float("nan")}
+    log(f"phase 9b train: {json.dumps(res)}")
+    return res, {"cfg": cfg, "tokens": tokens, "losses": losses, "checksum": checksum,
+                 "dev": dev}
+
+
+def phase9c_train_actor(torch, PT, TT, ctx, steps=ACTOR_STEPS):
+    """The training path from an actor of ray_tpu_torch.init() (default
+    config: the torch_cuda policy on the card) that owns the train state
+    from the same seed and takes `steps` steps on the batches sent to it:
+    its losses and parameter checksum must equal the direct run's bit for
+    bit."""
+    import ray_tpu_torch as rt
+
+    cfg, dev, tokens = ctx["cfg"], ctx["dev"], ctx["tokens"]
+    if dev.type == "cuda":
+        rt.init(num_cpus=8)
+    else:
+        rt.init(num_cpus=8, _system_config={"scheduler_device": "cpu"})
+    try:
+        @rt.remote
+        class Trainer:
+            """User code: owns the train state on the card, steps on request."""
+
+            def __init__(self, seed):
+                self.params, self.opt_state, tx, sh = TT.make_train_state(cfg, seed=seed,
+                                                                          device=dev)
+                self.step_fn, _ = TT.make_train_step(cfg, None, tx, sh)
+
+            def step(self, batch):
+                _, _, loss = self.step_fn(self.params, self.opt_state, batch)
+                return float(loss)
+
+            def checksum(self):
+                return PT.weights_checksum(PT.to_numpy(self.params))
+
+        trainer = Trainer.remote(TRAIN_SEED)
+        t0 = time.perf_counter()
+        losses = [rt.get(trainer.step.remote({"tokens": tokens}), timeout=600)
+                  for _ in range(steps)]
+        t_train = time.perf_counter() - t0
+        checksum = rt.get(trainer.checksum.remote(), timeout=600)
+    finally:
+        rt.shutdown()
+    if losses != ctx["losses"][:steps] or checksum != ctx["checksum"]:
+        raise AssertionError(f"actor's training differs from the direct run: losses {losses} "
+                             f"vs {ctx['losses'][:steps]}, checksum {checksum[:16]} vs "
+                             f"{ctx['checksum'][:16]}")
+    res = {"steps": steps, "losses_equal_direct": True, "checksum_equal_direct": True,
+           "actor_s": t_train}
+    log(f"phase 9c actor training: {json.dumps(res)}")
+    return res
+
+
+def phase9d_train_checks(torch, PT, TT, dev):
+    """One step's loss, gradient norms, sampled gradients and sampled
+    post-AdamW parameters, and the second step's loss, in both dtypes,
+    against tests/data/train_golden.npz within TRAIN_GOLDEN_TOL."""
+    golden = np.load(TRAIN_GOLDEN_PATH)
+    if PT.weights_checksum(PT.numpy_params(PT.TransformerConfig(), int(golden["weight_seed"]))) \
+            != str(golden["checksum"]):
+        raise AssertionError("numpy_params gave other weights than the train golden's")
+    res = {}
+    for dt in ("f32", "bf16"):
+        res[dt] = TT.train_golden_errors(golden, dt, dev)
+        bad = TT.train_golden_violations(res[dt], dt)
+        if bad:
+            raise AssertionError(f"train golden {dt}: {bad} outside {TT.TRAIN_GOLDEN_TOL[dt]}")
+    log(f"phase 9d train golden: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1591,7 +1834,7 @@ def main() -> int:
     from ray_tpu_torch.sched import kernel_shard as KS, kernel_torch as KT
     from ray_tpu_torch.models import kernels as MK, transformer as PT
     from ray_tpu_torch.models import moe as PM, moe_kernels as EK
-    from ray_tpu_torch.parallel import make_forward_step
+    from ray_tpu_torch.parallel import make_forward_step, tpu_train as TT
     from ray_tpu_torch.util import cuda_build
 
     card = card_line()
@@ -1705,6 +1948,30 @@ def main() -> int:
     if shard_launches["schedule_classes_sharded"] == 0:
         raise AssertionError("K7 never launched on the sharded scheduler's path")
 
+    # training: the backward kernels against their plain versions, then the
+    # train step (direct, then from an actor) with the model kernels'
+    # counters from 0, then the golden, outside the counting window
+    t0 = time.perf_counter()
+    train_rec = phase9a_train_kernels(torch, MK, dev)
+    log(f"phase 9a: {time.perf_counter() - t0:.1f} s")
+    MK.reset_launch_counts()
+    t0 = time.perf_counter()
+    train_res, train_ctx = phase9b_train(torch, PT, TT, dev)
+    log(f"phase 9b: {time.perf_counter() - t0:.1f} s, launches {MK.launch_counts()}")
+    log(f"train step [8, 2048] bf16 on {card}: {train_res['step_ms_median']:.3f} ms, "
+        f"{train_res['tokens_per_s']:.0f} tokens/s")
+    t0 = time.perf_counter()
+    train_actor = phase9c_train_actor(torch, PT, TT, train_ctx)
+    train_launches = MK.launch_counts()
+    log(f"phase 9c: {time.perf_counter() - t0:.1f} s, launches {train_launches}")
+    want = {k: n * (TRAIN_STEPS + ACTOR_STEPS) for k, n in TRAIN_LAUNCHES_PER_STEP.items()}
+    got = {k: train_launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"training path launches {got}, predicted {want}")
+    t0 = time.perf_counter()
+    train_checks = phase9d_train_checks(torch, PT, TT, dev)
+    log(f"phase 9d: {time.perf_counter() - t0:.1f} s")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -1744,6 +2011,14 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
+    for name, r in train_rec.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": MODEL_CU_SOURCE,
+            "replaces": TRAIN_REPLACES[name], "launches": train_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+        })
     r = shard_rec
     kernels.append({
         "name": "schedule_classes_sharded", "route": "cuda", "source": CU_SOURCE,
@@ -1754,7 +2029,10 @@ def main() -> int:
     log(json.dumps({"stream": stream, "gcs": gcs, "forward": fwd_res, "serve": serve_res,
                     "checks": check_res, "moe": moe_res, "moe_serve": moe_serve,
                     "moe_checks": moe_checks, "sharded": shard_res,
-                    "sharded_ms_by_shards": r["ms_by_shards"], "card": card}))
+                    "sharded_ms_by_shards": r["ms_by_shards"], "train": train_res,
+                    "train_actor": train_actor, "train_golden": train_checks,
+                    "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
+                    "card": card}))
     log(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

@@ -25,7 +25,7 @@ _CLUSTER_TODO = (
     "cluster mode (init(address=...) / init(cluster=True)) is not ported "
     "yet: the GCS head (ray_tpu_torch.cluster.gcs) is, but the node daemon, "
     "workers, client, shm store and the native object store are the next "
-    "slice of the port (ROADMAP.md, queue 1, first item); use local mode "
+    "slice of the port (ROADMAP.md, queue 1, item 4); use local mode "
     "(init() with no address)"
 )
 

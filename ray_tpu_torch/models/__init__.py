@@ -2,6 +2,7 @@ from ray_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
     forward,
+    grads_to_numpy,
     init_params,
     loss_fn,
     params_from_numpy,
@@ -13,6 +14,7 @@ __all__ = [
     "TransformerConfig",
     "init_params",
     "forward",
+    "grads_to_numpy",
     "loss_fn",
     "params_from_numpy",
     "to_numpy",

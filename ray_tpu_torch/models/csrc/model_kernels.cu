@@ -1,31 +1,51 @@
-// Hand-written Hopper (sm_90a) kernels of the flagship transformer's forward.
+// Hand-written Hopper (sm_90a) kernels of the flagship transformer: its
+// forward and the backward of its own ops.
 //
 // Built by ray_tpu_torch/models/kernels.py (through util/cuda_build.py) with
 // one nvcc call into a shared library with a plain C interface, loaded with
-// ctypes; the Python wrappers and their plain PyTorch versions live in
-// kernels.py. Every entry point launches on the stream it is given,
-// allocates nothing, does not synchronise, and returns cudaGetLastError()
-// after its launch. Tensors are contiguous, 16-byte aligned, and of the
-// dtype named by the code `dtype`: 0 float32, 1 bfloat16. Arithmetic is
-// float32 throughout.
+// ctypes; the Python wrappers, their autograd Functions and the plain PyTorch
+// versions live in kernels.py. Every entry point launches on the stream it is
+// given, allocates nothing, does not synchronise, and returns
+// cudaGetLastError() after its launches. Tensors are contiguous, 16-byte
+// aligned, and of the dtype named by the code `dtype`: 0 float32, 1 bfloat16.
+// Arithmetic is float32 throughout. Every kernel is deterministic: no
+// atomics, and every sum is taken in a fixed order, so two launches on the
+// same inputs give the same bits.
 //
 // Numerics: the kernels are held to a stated tolerance against their plain
 // versions, not to bit identity, so this source is built without
 // --fmad=false (the scheduler's source keeps it): nvcc may contract a
-// product into a sum, which the attention's dot products need for the FMA
-// rate. Where the reference rounds each product before a sum (RoPE's
-// rotation) the source spells it out with __fmul_rn / __fsub_rn / __fadd_rn.
-// Never fast math: expf, cosf, sinf and IEEE division, not the __expf /
-// __cosf / __sinf intrinsics (RoPE's angles reach 2 047 rad at the
-// flagship's sequence length, where the intrinsics are wrong).
+// product into a sum, which the dot products need for the FMA rate. Where
+// the reference rounds each step on its own (the logits' scale, exp's
+// argument, the softmax and its gradient, RoPE's rotation, the norm's
+// gradient) the source spells it out with __fmul_rn / __fadd_rn / __fsub_rn
+// / __fdiv_rn, which are never contracted, so a forward and the backward
+// that recomputes it get the same bits. Never fast math: expf, cosf, sinf
+// and IEEE division, not the __expf / __cosf / __sinf intrinsics (RoPE's
+// angles reach 2 047 rad at the flagship's sequence length, where the
+// intrinsics are wrong).
 //
 // Kernels:
 //   K8  model_attention     replaces ray_tpu/models/transformer.py
-//                           _attention (:113-124), as ring_attention.py
-//                           _ring_attention_local on one device computes
-//                           it: online softmax from o = 0, m = -1e30, l = 0
-//                           over every KV tile, then o / max(l, 1e-30)
-//                           cast to q's dtype (= reference_attention).
+//                           _attention (:113-124). Two numerics, chosen by
+//                           round_probs:
+//                           - 0: as ring_attention.py _ring_attention_local
+//                             on one device computes it (= reference_attention):
+//                             online softmax from o = 0, m = -1e30, l = 0
+//                             over every KV tile, then o / max(l, 1e-30) cast
+//                             to q's dtype; one pass over the key tiles.
+//                           - 1: as _attention itself computes it: p =
+//                             exp(s - m) / l (IEEE division, as
+//                             jax.nn.softmax divides) rounded to q's dtype
+//                             before P·V, P·V summed in f32 and rounded once.
+//                             In bf16 this is two passes over the key tiles
+//                             of a query tile: the first finds each row's m
+//                             and l (online, no P·V), the second recomputes
+//                             s and p and sums P·V. In f32 the rounding is
+//                             the identity and one pass remains.
+//                           The whole form writes each row's m and l ([B, H,
+//                           Sq] f32) when given buffers: the backward
+//                           recomputes p from them.
 //       model_block_update  replaces ray_tpu/parallel/ring_attention.py
 //                           _block_update (:41-69): (o, m, l) updated by one
 //                           KV block at offsets q_off, k_off, f32 state.
@@ -38,12 +58,35 @@
 //       an odd number of 16-byte units, so the float4 reads of the two
 //       products are free of bank conflicts); each thread holds a 4 x 4
 //       block of the logits and 4 rows x Dh/16 columns of o, and its rows'
-//       running m and l, in registers; row max and sum go through warp
-//       shuffles over the 16 threads of a row; P goes through shared
-//       memory to the PV product. Causal tiles above the diagonal are
-//       never loaded, and the heaviest query tiles are scheduled first.
-//       This is the CUDA-core form; wgmma, TMA and warp specialisation are
-//       the later step to the tensor-core bound.
+//       m and l, in registers; row max and sum go through warp shuffles
+//       over the 16 threads of a row; P goes through shared memory to the
+//       PV product. Causal tiles above the diagonal are never loaded, and
+//       the heaviest query tiles are scheduled first. This is the CUDA-core
+//       form; wgmma, TMA and warp specialisation are the later step to the
+//       tensor-core bound.
+//   K8' model_attention_bwd replaces the gradient of _attention that
+//                           jax.value_and_grad(loss_fn) forms
+//                           (ray_tpu/parallel/tpu_train.py:78), with the
+//                           roundings of its jaxpr: e = exp(s - m), p = e / l,
+//                           dP = dO·V^T rounded to the dtype, Dt = sum_j
+//                           (dP * (1 / (l * l))) * e, dS = ((dP / l) - Dt) *
+//                           e, zero where masked, times the scale; dV =
+//                           round(P)^T·dO, dQ = dS·K and dK = dS^T·Q, each
+//                           summed in f32 and rounded once. Bound: 5 causal
+//                           products, 86 GFLOP at the flagship's shapes,
+//                           against 67 MB of q, k, v, dO, dq, dk, dv:
+//                           operations. Design: K8's tiles and threads, two
+//                           launches. Launch 1, query-tile-major: two sweeps
+//                           over the visible key tiles of a query tile, the
+//                           first for Dt (written to a [B, H, Sq] buffer),
+//                           the second for dS through shared memory into dQ
+//                           held in registers. Launch 2, key-tile-major: the
+//                           K/V tile stays in shared memory while the query
+//                           tiles on and below the diagonal stream past; p
+//                           and dS are recomputed transposed ([key, query])
+//                           from m, l and Dt, and dK and dV are held in
+//                           registers. No atomics: each output row is
+//                           written by one block.
 //   K10a model_rmsnorm      replaces transformer.py _rmsnorm (:93-95):
 //                           (x * rsqrt(mean(x_f32^2) + 1e-6)).astype(x.dtype)
 //                           * scale.astype(x.dtype). Bound by bytes (each
@@ -51,6 +94,19 @@
 //                           per row, float4 / 4 x bf16 loads, f32 sum of
 //                           squares by shuffles; the second read of the row
 //                           hits L1.
+//   K10a' model_rmsnorm_bwd replaces the gradient of _rmsnorm, with its
+//                           jaxpr's roundings: dn = round(dy * round(scale)),
+//                           dx = round(round(dn * r) + round(((sum(x * dn) *
+//                           (-0.5 * r / j)) / D) * (2 x))) with j = mean(x^2)
+//                           + 1e-6 and r = rsqrt(j); dscale = the column sum
+//                           of round(round(x * r) * dy), taken in f32 and
+//                           rounded once to the dtype. Bound by bytes (x and
+//                           dy read, dx written). Design: launch 1 gives a
+//                           warp to each row, as K10a does, 64 rows a block,
+//                           and adds each row's dscale terms into the warp's
+//                           f32 row in shared memory; the block sums its 8
+//                           warp rows in order into one partial row. Launch 2
+//                           sums the partial rows column by column, in order.
 //   K10b model_rope_split   replaces transformer.py _rope (:98-110) on q
 //                           and k with the qkv split of _layer (:132-138):
 //                           qkv [B, S, 3D] -> q, k (rotated), v as
@@ -60,6 +116,12 @@
 //                           pair, which computes its frequency and angle in
 //                           f32 as the reference does, rounds cos and sin to
 //                           x's dtype, and rotates the pair of q and of k.
+//   K10b' model_rope_split_bwd replaces the gradient of _rope and the split:
+//                           dq, dk, dv [B, S, H, Dh] -> dqkv [B, S, 3D] with
+//                           dx1 = round(round(dy2 sin) + round(dy1 cos)),
+//                           dx2 = round(round(dy2 cos) - round(dy1 sin)), as
+//                           the jaxpr rounds them; dv passes through. Bound
+//                           by bytes. Design: K10b's, one block per (b, s).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -119,18 +181,60 @@ struct AttnArgs {
   const float* m_in;
   const float* l_in;
   float* o_out;       // block form: state out (may alias the state in)
-  float* m_out;
+  float* m_out;       // block form: state out; whole form: row stats, or null
   float* l_out;
-  void* out;          // whole form: o / max(l, 1e-30) in q's dtype
+  void* out;          // whole form: the attention in q's dtype
   int B, Sq, Sk, H, Dh;
   long long q_off, k_off;
   int causal;
+  int round_probs;    // whole form: p = exp(s - m) / l rounded before P·V
   float scale;
   int dtype;
 };
 
 __host__ __device__ constexpr int attn_smem_floats(int dh) {
   return 2 * kBQ * (dh + 4) + kBK * dh + kBQ * kLdp;
+}
+
+// s[i][j] += A[ra + 16 i] . Bt[rb + 16 j] over Dh, rows of stride ld in
+// shared memory: the logits (and, in the backward, dO·V^T) of a thread's
+// 4 x 4 block. One summation order for every kernel of this file, so the
+// backward recomputes the forward's logits bit for bit.
+__device__ __forceinline__ void dot_tile(float (&s)[4][4], const float* A, const float* Bt,
+                                         int ra, int rb, int ld, int Dh) {
+  for (int d = 0; d < Dh; d += 4) {
+    float4 qa[4];
+    float4 kb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(A + (ra + 16 * i) * ld + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kb[j] = *reinterpret_cast<const float4*>(Bt + (rb + 16 * j) * ld + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[i][j] += qa[i].x * kb[j].x + qa[i].y * kb[j].y + qa[i].z * kb[j].z + qa[i].w * kb[j].w;
+  }
+}
+
+// The softmax weight of one logit as _attention's softmax computes it:
+// exp(s * scale - m), each step rounded on its own; 0 for a masked key.
+__device__ __forceinline__ float softmax_num(float s, float scale, float m, bool live) {
+  return live ? expf(__fsub_rn(__fmul_rn(s, scale), m)) : 0.f;
+}
+
+// Rows [r0, r0 + 64) of x [*, H, Dh] at head h, as f32, into shared memory
+// with row stride ld; rows at or past n are zeros.
+__device__ __forceinline__ void stage_rows(float* dst, const void* x, int b, int r0, int n,
+                                           int H, int h, int Dh, int ld, int dt, int tid) {
+  const int nd4 = Dh / 4;
+  for (int idx = tid; idx < 64 * nd4; idx += kAttnThreads) {
+    const int r = idx / nd4;
+    const int d = (idx % nd4) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n) val = load4(x, ((long long)(b * n + r0 + r) * H + h) * Dh + d, dt);
+    *reinterpret_cast<float4*>(dst + r * ld + d) = val;
+  }
 }
 
 // Thread (ty, tx) owns query rows ty + 16 i (i < 4) of the tile: logits
@@ -157,16 +261,10 @@ __global__ void __launch_bounds__(kAttnThreads, 2) attention_kernel(const AttnAr
   const int h = bh % a.H;
   const int nd4 = Dh / 4;
   const int nj = Dh / 16;
+  // bf16 with rounded probabilities: a first pass for m and l, then P·V
+  const bool two_pass = kWhole && a.round_probs && a.dtype == kBF16;
 
-  for (int idx = tid; idx < kBQ * nd4; idx += kAttnThreads) {
-    const int r = idx / nd4;
-    const int d = (idx % nd4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < a.Sq) {
-      val = load4(a.q, ((long long)(b * a.Sq + q0 + r) * a.H + h) * Dh + d, a.dtype);
-    }
-    *reinterpret_cast<float4*>(Qs + r * ldq + d) = val;
-  }
+  stage_rows(Qs, a.q, b, q0, a.Sq, a.H, h, Dh, ldq, a.dtype, tid);
 
   float o[4][kMaxNj];
   float m[4];
@@ -199,101 +297,102 @@ __global__ void __launch_bounds__(kAttnThreads, 2) attention_kernel(const AttnAr
     kt_end = lim < 0 ? 0 : (int)min((long long)n_kt, lim / kBK + 1);
   }
 
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the last tile's readers are done; Q is stored
-    for (int idx = tid; idx < kBK * nd4; idx += kAttnThreads) {
-      const int r = idx / nd4;
-      const int d = (idx % nd4) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kv;
-      if (k0 + r < a.Sk) {
-        const long long off = ((long long)(b * a.Sk + k0 + r) * a.H + h) * Dh + d;
-        kv = load4(a.k, off, a.dtype);
-        vv = load4(a.v, off, a.dtype);
+  for (int pass = two_pass ? 0 : 1; pass < 2; ++pass) {
+    const bool stats_only = two_pass && pass == 0;  // block-uniform
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int k0 = kt * kBK;
+      __syncthreads();  // the last tile's readers are done; Q is stored
+      for (int idx = tid; idx < kBK * nd4; idx += kAttnThreads) {
+        const int r = idx / nd4;
+        const int d = (idx % nd4) * 4;
+        float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 vv = kv;
+        if (k0 + r < a.Sk) {
+          const long long off = ((long long)(b * a.Sk + k0 + r) * a.H + h) * Dh + d;
+          kv = load4(a.k, off, a.dtype);
+          if (!stats_only) vv = load4(a.v, off, a.dtype);
+        }
+        *reinterpret_cast<float4*>(Ks + r * ldq + d) = kv;
+        *reinterpret_cast<float4*>(Vs + r * Dh + d) = vv;
       }
-      *reinterpret_cast<float4*>(Ks + r * ldq + d) = kv;
-      *reinterpret_cast<float4*>(Vs + r * Dh + d) = vv;
-    }
-    __syncthreads();
+      __syncthreads();
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < Dh; d += 4) {
-      float4 qa[4];
-      float4 kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * ldq + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * ldq + d);
+      float s[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] += qa[i].x * kb[j].x + qa[i].y * kb[j].y + qa[i].z * kb[j].z + qa[i].w * kb[j].w;
-    }
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      dot_tile(s, Qs, Ks, ty, tx, ldq, Dh);
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long q_pos = a.q_off + q0 + ty + 16 * i;
-      float rmax = -INFINITY;
-      unsigned live = 0;  // bit j: key in range and not masked
+      for (int i = 0; i < 4; ++i) {
+        const long long q_pos = a.q_off + q0 + ty + 16 * i;
+        unsigned live = 0;  // bit j: key in range and not masked
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        if (col >= a.Sk) continue;  // past the ragged edge: not a key
-        float x = s[i][j] * a.scale;
-        if (a.causal && q_pos < a.k_off + col) {
-          x = kNegInf;
-        } else {
-          live |= 1u << j;
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + tx + 16 * j;
+          if (col < a.Sk && !(a.causal && q_pos < a.k_off + col)) live |= 1u << j;
         }
-        s[i][j] = x;
-        rmax = fmaxf(rmax, x);
+        if (two_pass && !stats_only) {
+          // p = exp(s - m) / l with the final m and l, rounded to bf16
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float e = softmax_num(s[i][j], a.scale, m[i], (live >> j) & 1u);
+            Ps[(ty + 16 * i) * kLdp + tx + 16 * j] = round_to(__fdiv_rn(e, l[i]), kBF16);
+          }
+          continue;
+        }
+        float rmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + tx + 16 * j;
+          if (col >= a.Sk) continue;  // past the ragged edge: not a key
+          const float x = (live >> j) & 1u ? __fmul_rn(s[i][j], a.scale) : kNegInf;
+          rmax = fmaxf(rmax, x);
+        }
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1) rmax = fmaxf(rmax, __shfl_xor_sync(kFull, rmax, off));
+        const float m_new = fmaxf(m[i], rmax);
+        const float corr = expf(m[i] - m_new);
+        float rsum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // masked keys weigh 0 (the reference's pmask), even when the whole
+          // row is masked and exp(-1e30 - (-1e30)) would be 1
+          const float p = softmax_num(s[i][j], a.scale, m_new, (live >> j) & 1u);
+          s[i][j] = p;
+          rsum += p;
+        }
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1) rsum += __shfl_xor_sync(kFull, rsum, off);
+        l[i] = l[i] * corr + rsum;
+        m[i] = m_new;
+        if (stats_only) continue;
+#pragma unroll
+        for (int jj = 0; jj < kMaxNj; ++jj) o[i][jj] *= corr;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * kLdp + tx + 16 * j] = s[i][j];
       }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) rmax = fmaxf(rmax, __shfl_xor_sync(kFull, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float corr = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // masked keys weigh 0 (the reference's pmask), even when the whole
-        // row is masked and exp(-1e30 - (-1e30)) would be 1
-        const float p = (live >> j) & 1u ? expf(s[i][j] - m_new) : 0.f;
-        s[i][j] = p;
-        rsum += p;
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) rsum += __shfl_xor_sync(kFull, rsum, off);
-      l[i] = l[i] * corr + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < kMaxNj; ++jj) o[i][jj] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * kLdp + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
+      if (stats_only) continue;
+      __syncthreads();
 
-    const int k_len = min(kBK, a.Sk - k0);
-    for (int kk = 0; kk < k_len; kk += 4) {
-      float4 p4[4];
+      const int k_len = min(kBK, a.Sk - k0);
+      for (int kk = 0; kk < k_len; kk += 4) {
+        float4 p4[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p4[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * kLdp + kk);
+        for (int i = 0; i < 4; ++i) p4[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * kLdp + kk);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vrow = Vs + (kk + u) * Dh + tx;
-        float vv[kMaxNj];
+        for (int u = 0; u < 4; ++u) {
+          const float* vrow = Vs + (kk + u) * Dh + tx;
+          float vv[kMaxNj];
 #pragma unroll
-        for (int jj = 0; jj < kMaxNj; ++jj) vv[jj] = jj < nj ? vrow[16 * jj] : 0.f;
+          for (int jj = 0; jj < kMaxNj; ++jj) vv[jj] = jj < nj ? vrow[16 * jj] : 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0 ? p4[i].x : u == 1 ? p4[i].y : u == 2 ? p4[i].z : p4[i].w;
+          for (int i = 0; i < 4; ++i) {
+            const float p = u == 0 ? p4[i].x : u == 1 ? p4[i].y : u == 2 ? p4[i].z : p4[i].w;
 #pragma unroll
-          for (int jj = 0; jj < kMaxNj; ++jj) o[i][jj] += p * vv[jj];
+            for (int jj = 0; jj < kMaxNj; ++jj) o[i][jj] += p * vv[jj];
+          }
         }
       }
     }
@@ -305,10 +404,15 @@ __global__ void __launch_bounds__(kAttnThreads, 2) attention_kernel(const AttnAr
     if (row >= a.Sq) continue;
     const long long ob = ((long long)(b * a.Sq + row) * a.H + h) * Dh;
     if (kWhole) {
-      const float den = fmaxf(l[i], 1e-30f);
+      // two passes: o already holds round(p)·V; else normalise now
+      const float den = two_pass ? 1.f : fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int jj = 0; jj < kMaxNj; ++jj) {
-        if (jj < nj) store1(a.out, ob + tx + 16 * jj, o[i][jj] / den, a.dtype);
+        if (jj < nj) store1(a.out, ob + tx + 16 * jj, two_pass ? o[i][jj] : o[i][jj] / den, a.dtype);
+      }
+      if (a.m_out != nullptr && tx == 0) {
+        a.m_out[(long long)bh * a.Sq + row] = m[i];
+        a.l_out[(long long)bh * a.Sq + row] = l[i];
       }
     } else {
 #pragma unroll
@@ -323,12 +427,17 @@ __global__ void __launch_bounds__(kAttnThreads, 2) attention_kernel(const AttnAr
   }
 }
 
-template <bool kWhole>
-int launch_attention(const AttnArgs& a, cudaStream_t stream) {
-  if (a.Dh % 16 != 0 || a.Dh <= 0 || a.Dh > kMaxDh || a.Sq <= 0 || a.Sk <= 0 ||
-      a.B <= 0 || a.H <= 0 || (long long)a.B * a.H > 65535) {
+int check_attention_shape(int B, int Sq, int Sk, int H, int Dh) {
+  if (Dh % 16 != 0 || Dh <= 0 || Dh > kMaxDh || Sq <= 0 || Sk <= 0 || B <= 0 || H <= 0 ||
+      (long long)B * H > 65535) {
     return (int)cudaErrorInvalidValue;
   }
+  return 0;
+}
+
+template <bool kWhole>
+int launch_attention(const AttnArgs& a, cudaStream_t stream) {
+  if (int rc = check_attention_shape(a.B, a.Sq, a.Sk, a.H, a.Dh)) return rc;
   const int smem = attn_smem_floats(a.Dh) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<kWhole>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -339,16 +448,311 @@ int launch_attention(const AttnArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ K8'
+
+struct AttnBwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* m;  // [B, H, Sq]: the forward's row max and sum
+  const float* l;
+  float* dsum;     // [B, H, Sq]: Dt of each row, launch 1 -> launch 2
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, Sq, Sk, H, Dh;
+  int causal;
+  float scale;
+  int dtype;
+};
+
+// Launch 1: four f32 tiles of 64 rows (Q, dO, K, V) and one of dS.
+__host__ __device__ constexpr int bwd_dq_smem_floats(int dh) {
+  return 4 * 64 * (dh + 4) + kBQ * kLdp;
+}
+
+// Launch 2: four f32 tiles (K, V, Q, dO), two [key, query] tiles (round(P),
+// dS) and the query rows' m, l, Dt.
+__host__ __device__ constexpr int bwd_dkv_smem_floats(int dh) {
+  return 4 * 64 * (dh + 4) + 2 * kBK * kLdp + 3 * kBQ;
+}
+
+// Thread (ty, tx): query rows ty + 16 i, key columns tx + 16 j, and dQ
+// columns tx + 16 jj (jj < kNj = Dh / 16).
+template <int kNj>
+__global__ void __launch_bounds__(kAttnThreads, 2) attention_bwd_dq_kernel(const AttnBwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  constexpr int Dh = 16 * kNj;
+  constexpr int ldq = Dh + 4;
+  float* const Qs = smem;
+  float* const dOs = Qs + 64 * ldq;
+  float* const Ks = dOs + 64 * ldq;
+  float* const Vs = Ks + 64 * ldq;
+  float* const Ps = Vs + 64 * ldq;  // dS [query, key]
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int n_qt = (a.Sq + kBQ - 1) / kBQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kBQ;  // heaviest tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+
+  stage_rows(Qs, a.q, b, q0, a.Sq, a.H, h, Dh, ldq, a.dtype, tid);
+  stage_rows(dOs, a.dout, b, q0, a.Sq, a.H, h, Dh, ldq, a.dtype, tid);
+
+  float mrow[4], lrow[4], rinv2[4], dt[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    const bool in = row < a.Sq;
+    mrow[i] = in ? a.m[(long long)bh * a.Sq + row] : 0.f;
+    lrow[i] = in ? a.l[(long long)bh * a.Sq + row] : 1.f;
+    rinv2[i] = __fdiv_rn(1.f, __fmul_rn(lrow[i], lrow[i]));  // integer_pow(l, -2)
+    dt[i] = 0.f;
+  }
+  const int q_last = min(q0 + kBQ - 1, a.Sq - 1);
+  const int n_kt = (a.Sk + kBK - 1) / kBK;
+  const int kt_end = a.causal ? min(n_kt, q_last / kBK + 1) : n_kt;
+
+  float acc[4][kNj];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < kNj; ++jj) acc[i][jj] = 0.f;
+
+  // sweep 0: Dt; sweep 1: dS and dQ
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int k0 = kt * kBK;
+      __syncthreads();
+      stage_rows(Ks, a.k, b, k0, a.Sk, a.H, h, Dh, ldq, a.dtype, tid);
+      stage_rows(Vs, a.v, b, k0, a.Sk, a.H, h, Dh, ldq, a.dtype, tid);
+      __syncthreads();
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      dot_tile(s, Qs, Ks, ty, tx, ldq, Dh);
+      dot_tile(dp, dOs, Vs, ty, tx, ldq, Dh);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + tx + 16 * j;
+          const bool live = row < a.Sq && col < a.Sk && !(a.causal && row < col);
+          const float e = softmax_num(s[i][j], a.scale, mrow[i], live);
+          const float dpr = round_to(dp[i][j], a.dtype);
+          if (sweep == 0) {
+            dt[i] += __fmul_rn(__fmul_rn(dpr, rinv2[i]), e);
+          } else {
+            const float ds = live ? __fmul_rn(__fmul_rn(__fsub_rn(__fdiv_rn(dpr, lrow[i]), dt[i]), e),
+                                              a.scale)
+                                  : 0.f;
+            Ps[(ty + 16 * i) * kLdp + tx + 16 * j] = ds;
+          }
+        }
+      }
+      if (sweep == 0) continue;
+      __syncthreads();
+      const int k_len = min(kBK, a.Sk - k0);
+      for (int kk = 0; kk < k_len; kk += 4) {
+        float4 p4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p4[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * kLdp + kk);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float* krow = Ks + (kk + u) * ldq + tx;
+          float kv[kNj];
+#pragma unroll
+          for (int jj = 0; jj < kNj; ++jj) kv[jj] = krow[16 * jj];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = u == 0 ? p4[i].x : u == 1 ? p4[i].y : u == 2 ? p4[i].z : p4[i].w;
+#pragma unroll
+            for (int jj = 0; jj < kNj; ++jj) acc[i][jj] += p * kv[jj];
+          }
+        }
+      }
+    }
+    if (sweep == 0) {
+      // Dt over the 16 threads of a row: a butterfly, so every thread of
+      // the row holds the same bits
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int off = 1; off < 16; off <<= 1) dt[i] += __shfl_xor_sync(kFull, dt[i], off);
+        const int row = q0 + ty + 16 * i;
+        if (tx == 0 && row < a.Sq) a.dsum[(long long)bh * a.Sq + row] = dt[i];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= a.Sq) continue;
+    const long long ob = ((long long)(b * a.Sq + row) * a.H + h) * Dh;
+#pragma unroll
+    for (int jj = 0; jj < kNj; ++jj) store1(a.dq, ob + tx + 16 * jj, acc[i][jj], a.dtype);
+  }
+}
+
+// Thread (ty, tx): key rows ty + 16 i, query columns tx + 16 j, and dK / dV
+// columns tx + 16 jj.
+template <int kNj>
+__global__ void __launch_bounds__(kAttnThreads, 1) attention_bwd_dkv_kernel(const AttnBwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  constexpr int Dh = 16 * kNj;
+  constexpr int ldq = Dh + 4;
+  float* const Ks = smem;
+  float* const Vs = Ks + 64 * ldq;
+  float* const Qs = Vs + 64 * ldq;
+  float* const dOs = Qs + 64 * ldq;
+  float* const P1 = dOs + 64 * ldq;  // round(P) [key, query]
+  float* const P2 = P1 + kBK * kLdp; // dS [key, query]
+  float* const ms = P2 + kBK * kLdp;
+  float* const ls = ms + kBQ;
+  float* const ds_row = ls + kBQ;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int k0 = blockIdx.x * kBK;  // heaviest (most query tiles) first
+  const int bh = blockIdx.y;
+  const int b = bh / a.H;
+  const int h = bh % a.H;
+  const int n_qt = (a.Sq + kBQ - 1) / kBQ;
+  const int qt_begin = a.causal ? min(n_qt, k0 / kBQ) : 0;
+
+  stage_rows(Ks, a.k, b, k0, a.Sk, a.H, h, Dh, ldq, a.dtype, tid);
+  stage_rows(Vs, a.v, b, k0, a.Sk, a.H, h, Dh, ldq, a.dtype, tid);
+
+  float dk[4][kNj], dv[4][kNj];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < kNj; ++jj) dk[i][jj] = dv[i][jj] = 0.f;
+
+  for (int qt = qt_begin; qt < n_qt; ++qt) {
+    const int q0 = qt * kBQ;
+    __syncthreads();
+    stage_rows(Qs, a.q, b, q0, a.Sq, a.H, h, Dh, ldq, a.dtype, tid);
+    stage_rows(dOs, a.dout, b, q0, a.Sq, a.H, h, Dh, ldq, a.dtype, tid);
+    if (tid < kBQ) {
+      const int row = q0 + tid;
+      const bool in = row < a.Sq;
+      ms[tid] = in ? a.m[(long long)bh * a.Sq + row] : 0.f;
+      ls[tid] = in ? a.l[(long long)bh * a.Sq + row] : 1.f;
+      ds_row[tid] = in ? a.dsum[(long long)bh * a.Sq + row] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    // the same products as launch 1 and the forward, transposed: K·Q^T and
+    // V·dO^T (each term q_d k_d, summed in the same order)
+    dot_tile(s, Ks, Qs, ty, tx, ldq, Dh);
+    dot_tile(dp, Vs, dOs, ty, tx, ldq, Dh);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qc = tx + 16 * j;
+        const int query = q0 + qc;
+        const bool live = query < a.Sq && key < a.Sk && !(a.causal && query < key);
+        const float e = softmax_num(s[i][j], a.scale, ms[qc], live);
+        const float pb = round_to(__fdiv_rn(e, ls[qc]), a.dtype);
+        const float dpr = round_to(dp[i][j], a.dtype);
+        const float ds = live ? __fmul_rn(__fmul_rn(__fsub_rn(__fdiv_rn(dpr, ls[qc]), ds_row[qc]), e),
+                                          a.scale)
+                              : 0.f;
+        P1[(ty + 16 * i) * kLdp + qc] = pb;
+        P2[(ty + 16 * i) * kLdp + qc] = ds;
+      }
+    }
+    __syncthreads();
+    const int q_len = min(kBQ, a.Sq - q0);
+    for (int qq = 0; qq < q_len; qq += 4) {
+      float4 p4[4], d4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p4[i] = *reinterpret_cast<const float4*>(P1 + (ty + 16 * i) * kLdp + qq);
+        d4[i] = *reinterpret_cast<const float4*>(P2 + (ty + 16 * i) * kLdp + qq);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* orow = dOs + (qq + u) * ldq + tx;
+        const float* qrow = Qs + (qq + u) * ldq + tx;
+        float ov[kNj], qv[kNj];
+#pragma unroll
+        for (int jj = 0; jj < kNj; ++jj) {
+          ov[jj] = orow[16 * jj];
+          qv[jj] = qrow[16 * jj];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = u == 0 ? p4[i].x : u == 1 ? p4[i].y : u == 2 ? p4[i].z : p4[i].w;
+          const float d = u == 0 ? d4[i].x : u == 1 ? d4[i].y : u == 2 ? d4[i].z : d4[i].w;
+#pragma unroll
+          for (int jj = 0; jj < kNj; ++jj) {
+            dv[i][jj] += p * ov[jj];
+            dk[i][jj] += d * qv[jj];
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= a.Sk) continue;
+    const long long ob = ((long long)(b * a.Sk + key) * a.H + h) * Dh;
+#pragma unroll
+    for (int jj = 0; jj < kNj; ++jj) {
+      store1(a.dk, ob + tx + 16 * jj, dk[i][jj], a.dtype);
+      store1(a.dv, ob + tx + 16 * jj, dv[i][jj], a.dtype);
+    }
+  }
+}
+
+template <int kNj>
+int launch_attention_bwd(const AttnBwdArgs& a, cudaStream_t stream) {
+  constexpr int Dh = 16 * kNj;
+  const int smem1 = bwd_dq_smem_floats(Dh) * (int)sizeof(float);
+  const int smem2 = bwd_dkv_smem_floats(Dh) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_dq_kernel<kNj>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<kNj>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem2);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_dq_kernel<kNj><<<dim3((a.Sq + kBQ - 1) / kBQ, a.B * a.H), kAttnThreads, smem1,
+                                 stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_dkv_kernel<kNj><<<dim3((a.Sk + kBK - 1) / kBK, a.B * a.H), kAttnThreads, smem2,
+                                  stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------------ K10a
 
-constexpr int kNormThreads = 256;  // 8 rows a block, one warp each
+constexpr int kNormThreads = 256;  // 8 rows at a time a block, one warp each
+constexpr int kNormBwdRows = 64;   // K10a' rows a block (8 a warp)
 
-__global__ void __launch_bounds__(kNormThreads) rmsnorm_kernel(
-    const void* x, const float* scale, void* out, int rows, int D, int dt) {
-  const int row = (blockIdx.x * kNormThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const long long base = (long long)row * D;
+// sum of x_f32^2 over a row, by one warp (every lane gets the same bits)
+__device__ __forceinline__ float row_sumsq(const void* x, long long base, int D, int lane, int dt) {
   float ss = 0.f;
   for (int c = lane * 4; c < D; c += 128) {
     const float4 v = load4(x, base + c, dt);
@@ -356,7 +760,16 @@ __global__ void __launch_bounds__(kNormThreads) rmsnorm_kernel(
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(kFull, ss, off);
-  const float r = rsqrtf(ss / (float)D + 1e-6f);
+  return ss;
+}
+
+__global__ void __launch_bounds__(kNormThreads) rmsnorm_kernel(
+    const void* x, const float* scale, void* out, int rows, int D, int dt) {
+  const int row = (blockIdx.x * kNormThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const long long base = (long long)row * D;
+  const float r = rsqrtf(row_sumsq(x, base, D, lane, dt) / (float)D + 1e-6f);
   for (int c = lane * 4; c < D; c += 128) {
     const float4 v = load4(x, base + c, dt);
     const float4 g = *reinterpret_cast<const float4*>(scale + c);
@@ -368,9 +781,101 @@ __global__ void __launch_bounds__(kNormThreads) rmsnorm_kernel(
   }
 }
 
+// ------------------------------------------------------------------ K10a'
+
+__global__ void __launch_bounds__(kNormThreads) rmsnorm_bwd_kernel(
+    const void* x, const float* scale, const void* dy, void* dx, float* partial, int rows,
+    int D, int dt) {
+  extern __shared__ float4 smem4[];
+  float* const acc = reinterpret_cast<float*>(smem4);  // [8 warps][D]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* const mine = acc + warp * D;
+  for (int c = lane * 4; c < D; c += 128) {
+    *reinterpret_cast<float4*>(mine + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const int r0 = blockIdx.x * kNormBwdRows;
+  for (int rr = warp; rr < kNormBwdRows; rr += kNormThreads / 32) {
+    const int row = r0 + rr;
+    if (row >= rows) break;
+    const long long base = (long long)row * D;
+    const float j = row_sumsq(x, base, D, lane, dt) / (float)D + 1e-6f;
+    const float r = rsqrtf(j);  // K10a's r
+    const float mm = __fmul_rn(-0.5f, __fdiv_rn(r, j));
+    float ba = 0.f;  // sum of x * dn over the row
+    for (int c = lane * 4; c < D; c += 128) {
+      const float4 v = load4(x, base + c, dt);
+      const float4 g = load4(dy, base + c, dt);
+      const float4 sc = *reinterpret_cast<const float4*>(scale + c);
+      const float xs[4] = {v.x, v.y, v.z, v.w};
+      const float gs[4] = {g.x, g.y, g.z, g.w};
+      const float ss[4] = {sc.x, sc.y, sc.z, sc.w};
+      float terms[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float dn = round_to(__fmul_rn(gs[u], round_to(ss[u], dt)), dt);
+        ba += xs[u] * dn;
+        // dscale's term: round(n * dy) with n = round(x * r), K10a's n
+        terms[u] = round_to(__fmul_rn(round_to(xs[u] * r, dt), gs[u]), dt);
+      }
+      float4 t = *reinterpret_cast<const float4*>(mine + c);
+      t.x += terms[0];
+      t.y += terms[1];
+      t.z += terms[2];
+      t.w += terms[3];
+      *reinterpret_cast<float4*>(mine + c) = t;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ba += __shfl_xor_sync(kFull, ba, off);
+    const float coef = __fdiv_rn(__fmul_rn(ba, mm), (float)D);
+    for (int c = lane * 4; c < D; c += 128) {
+      const float4 v = load4(x, base + c, dt);
+      const float4 g = load4(dy, base + c, dt);
+      const float4 sc = *reinterpret_cast<const float4*>(scale + c);
+      const float xs[4] = {v.x, v.y, v.z, v.w};
+      const float gs[4] = {g.x, g.y, g.z, g.w};
+      const float ss[4] = {sc.x, sc.y, sc.z, sc.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float dn = round_to(__fmul_rn(gs[u], round_to(ss[u], dt)), dt);
+        const float t1 = round_to(__fmul_rn(dn, r), dt);
+        const float t2 = round_to(__fmul_rn(coef, __fmul_rn(2.f, xs[u])), dt);
+        store1(dx, base + c + u, __fadd_rn(t1, t2), dt);
+      }
+    }
+  }
+  __syncthreads();
+  // the block's partial row: its warps' rows summed in warp order
+  for (int c = threadIdx.x; c < D; c += kNormThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kNormThreads / 32; ++w) s += acc[w * D + c];
+    partial[(long long)blockIdx.x * D + c] = s;
+  }
+}
+
+__global__ void rmsnorm_dscale_kernel(const float* partial, float* dscale, int chunks, int D,
+                                      int dt) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= D) return;
+  float s = 0.f;
+  for (int k = 0; k < chunks; ++k) s += partial[(long long)k * D + c];
+  dscale[c] = round_to(s, dt);
+}
+
 // ------------------------------------------------------------------ K10b
 
 constexpr int kRopeThreads = 256;
+
+// cos and sin of pair i at position pos, rounded to the dtype: freqs =
+// exp(-ln(theta) * i / half), angle = pos * freq, all f32, as _rope
+__device__ __forceinline__ void rope_cs_sn(float pos, int i, int half, float neg_log_theta,
+                                           int dt, float& cs, float& sn) {
+  const float freq = expf(__fdiv_rn(__fmul_rn(neg_log_theta, (float)i), (float)half));
+  const float ang = __fmul_rn(pos, freq);
+  cs = round_to(cosf(ang), dt);
+  sn = round_to(sinf(ang), dt);
+}
 
 __global__ void __launch_bounds__(kRopeThreads) rope_split_kernel(
     const void* qkv, void* q, void* k, void* v, int S, int H, int Dh,
@@ -385,11 +890,8 @@ __global__ void __launch_bounds__(kRopeThreads) rope_split_kernel(
     const int i = p % half;
     const int c1 = (p / half) * Dh + i;
     const int c2 = c1 + half;
-    // freqs = exp(-ln(theta) * i / half); angle = pos * freq, all f32
-    const float freq = expf(__fdiv_rn(__fmul_rn(neg_log_theta, (float)i), (float)half));
-    const float ang = __fmul_rn(pos, freq);
-    const float cs = round_to(cosf(ang), dt);
-    const float sn = round_to(sinf(ang), dt);
+    float cs, sn;
+    rope_cs_sn(pos, i, half, neg_log_theta, dt, cs, sn);
 #pragma unroll
     for (int sec = 0; sec < 2; ++sec) {
       void* dst = sec == 0 ? q : k;
@@ -407,19 +909,56 @@ __global__ void __launch_bounds__(kRopeThreads) rope_split_kernel(
   }
 }
 
+// ------------------------------------------------------------------ K10b'
+
+__global__ void __launch_bounds__(kRopeThreads) rope_split_bwd_kernel(
+    const void* dq, const void* dk, const void* dv, void* dqkv, int S, int H, int Dh,
+    float neg_log_theta, int dt) {
+  const int row = blockIdx.x;  // (b, s)
+  const int D = H * Dh;
+  const int half = Dh / 2;
+  const float pos = (float)(row % S);
+  const long long out_base = (long long)row * 3 * D;
+  const long long in_base = (long long)row * D;
+  for (int p = threadIdx.x; p < H * half; p += kRopeThreads) {
+    const int i = p % half;
+    const int c1 = (p / half) * Dh + i;
+    const int c2 = c1 + half;
+    float cs, sn;
+    rope_cs_sn(pos, i, half, neg_log_theta, dt, cs, sn);
+#pragma unroll
+    for (int sec = 0; sec < 2; ++sec) {
+      const void* src = sec == 0 ? dq : dk;
+      const float g1 = load1(src, in_base + c1, dt);
+      const float g2 = load1(src, in_base + c2, dt);
+      // dx1 = dy2 sin + dy1 cos, dx2 = dy2 cos - dy1 sin, rounded as the
+      // transposed elementwise ops round
+      const float x1 = __fadd_rn(round_to(__fmul_rn(g2, sn), dt), round_to(__fmul_rn(g1, cs), dt));
+      const float x2 = __fsub_rn(round_to(__fmul_rn(g2, cs), dt), round_to(__fmul_rn(g1, sn), dt));
+      store1(dqkv, out_base + sec * D + c1, x1, dt);
+      store1(dqkv, out_base + sec * D + c2, x2, dt);
+    }
+    store1(dqkv, out_base + 2 * D + c1, load1(dv, in_base + c1, dt), dt);
+    store1(dqkv, out_base + 2 * D + c2, load1(dv, in_base + c2, dt), dt);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* model_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-int model_attention(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                    int Sk, int H, int Dh, int causal, float scale, int dtype, void* stream) {
+int model_attention(const void* q, const void* k, const void* v, void* out, float* m_out,
+                    float* l_out, int B, int Sq, int Sk, int H, int Dh, int causal,
+                    int round_probs, float scale, int dtype, void* stream) {
   AttnArgs a{};
   a.q = q;
   a.k = k;
   a.v = v;
   a.out = out;
+  a.m_out = m_out;
+  a.l_out = l_out;
   a.B = B;
   a.Sq = Sq;
   a.Sk = Sk;
@@ -428,6 +967,7 @@ int model_attention(const void* q, const void* k, const void* v, void* out, int 
   a.q_off = 0;
   a.k_off = 0;
   a.causal = causal;
+  a.round_probs = round_probs;
   a.scale = scale;
   a.dtype = dtype;
   return launch_attention<true>(a, (cudaStream_t)stream);
@@ -460,6 +1000,22 @@ int model_block_update(const void* q, const void* k, const void* v, const float*
   return launch_attention<false>(a, (cudaStream_t)stream);
 }
 
+int model_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
+                        const float* m, const float* l, float* dsum, void* dq, void* dk,
+                        void* dv, int B, int Sq, int Sk, int H, int Dh, int causal, float scale,
+                        int dtype, void* stream) {
+  if (int rc = check_attention_shape(B, Sq, Sk, H, Dh)) return rc;
+  AttnBwdArgs a{q, k, v, dout, m, l, dsum, dq, dk, dv, B, Sq, Sk, H, Dh, causal, scale, dtype};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (Dh / 16) {
+    case 1: return launch_attention_bwd<1>(a, s);
+    case 2: return launch_attention_bwd<2>(a, s);
+    case 4: return launch_attention_bwd<4>(a, s);
+    case 8: return launch_attention_bwd<8>(a, s);
+    default: return (int)cudaErrorInvalidValue;  // Dh 48, 80, 96, 112: not built
+  }
+}
+
 int model_rmsnorm(const void* x, const float* scale, void* out, int rows, int D, int dtype,
                   void* stream) {
   if (rows <= 0 || D <= 0 || D % 4 != 0) return (int)cudaErrorInvalidValue;
@@ -470,11 +1026,38 @@ int model_rmsnorm(const void* x, const float* scale, void* out, int rows, int D,
   return (int)cudaGetLastError();
 }
 
+// partial: [ceil(rows / 64), D] f32 scratch
+int model_rmsnorm_bwd(const void* x, const float* scale, const void* dy, void* dx,
+                      float* partial, float* dscale, int rows, int D, int dtype,
+                      void* stream) {
+  if (rows <= 0 || D <= 0 || D % 4 != 0 || D > 4096) return (int)cudaErrorInvalidValue;
+  const int chunks = (rows + kNormBwdRows - 1) / kNormBwdRows;
+  const int smem = (kNormThreads / 32) * D * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(rmsnorm_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  rmsnorm_bwd_kernel<<<chunks, kNormThreads, smem, s>>>(x, scale, dy, dx, partial, rows, D,
+                                                         dtype);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rmsnorm_dscale_kernel<<<(D + 255) / 256, 256, 0, s>>>(partial, dscale, chunks, D, dtype);
+  return (int)cudaGetLastError();
+}
+
 int model_rope_split(const void* qkv, void* q, void* k, void* v, int B, int S, int H, int Dh,
                      float neg_log_theta, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || Dh <= 0 || Dh % 2 != 0) return (int)cudaErrorInvalidValue;
   rope_split_kernel<<<B * S, kRopeThreads, 0, (cudaStream_t)stream>>>(
       qkv, q, k, v, S, H, Dh, neg_log_theta, dtype);
+  return (int)cudaGetLastError();
+}
+
+int model_rope_split_bwd(const void* dq, const void* dk, const void* dv, void* dqkv, int B,
+                         int S, int H, int Dh, float neg_log_theta, int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || Dh <= 0 || Dh % 2 != 0) return (int)cudaErrorInvalidValue;
+  rope_split_bwd_kernel<<<B * S, kRopeThreads, 0, (cudaStream_t)stream>>>(
+      dq, dk, dv, dqkv, S, H, Dh, neg_log_theta, dtype);
   return (int)cudaGetLastError();
 }
 

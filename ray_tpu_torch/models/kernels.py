@@ -2,13 +2,25 @@
 (csrc/model_kernels.cu, built on first CUDA use) each beside its plain
 PyTorch version.
 
-  K8  attention     causal (or full) attention over the whole sequence, in
-                    online-softmax form: ring_attention._ring_attention_local
-                    on one device, = reference_attention
+  K8  attention     causal (or full) attention over the whole sequence.
+                    round_probs=False: online-softmax form, = the reference's
+                    reference_attention (ring_attention._ring_attention_local
+                    on one device); round_probs=True: the reference's
+                    transformer._attention, whose softmax probabilities are
+                    rounded to the dtype before P·V
       block_update  one online-softmax step of (o, m, l) against one KV
                     block: ray_tpu/parallel/ring_attention.py _block_update
   K10a rmsnorm      ray_tpu/models/transformer.py _rmsnorm
   K10b rope_split   transformer.py _rope on q and k, with the qkv split
+  K8'  attention_bwd   the gradient of _attention (round_probs=True)
+  K10a' rmsnorm_bwd    the gradient of _rmsnorm
+  K10b' rope_split_bwd the gradient of _rope and the split
+
+``attention(..., round_probs=True)``, ``rmsnorm`` and ``rope_split`` are
+``torch.autograd.Function``s whose backward is the matching backward
+wrapper. A plain backward is the gradient written out in torch ops with the
+roundings of the reference's ``jax.grad`` jaxpr, not autograd through the
+plain forward.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback from one to the other.
@@ -19,8 +31,10 @@ float32 activations, float32 state and norm scales.
 
 The kernels compute in float32 and are held to their plain versions within
 a tolerance (summation order, and expf / cosf / sinf against PyTorch's),
-not bit for bit: tests/test_torch_model_kernels.py and chip_smoke.py
-state each tolerance.
+not bit for bit: tests/test_torch_model_kernels.py,
+tests/test_torch_model_grads.py and chip_smoke.py state each tolerance.
+Every kernel is deterministic: two launches on the same inputs give the
+same bits.
 """
 
 from __future__ import annotations
@@ -40,11 +54,14 @@ NVCC_FLAGS = cuda_build.BASE_FLAGS
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "model_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+    "model_attention": ([_P] * 6 + [_I] * 7 + [_F, _I, _P], _I),
+    "model_attention_bwd": ([_P] * 10 + [_I] * 6 + [_F, _I, _P], _I),
     "model_block_update": (
         [_P] * 9 + [_I] * 5 + [_LL, _LL, _I, _F, _I, _P], _I),
     "model_rmsnorm": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "model_rmsnorm_bwd": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "model_rope_split": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+    "model_rope_split_bwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
     "model_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -151,9 +168,35 @@ def block_update(q, k, v, o, m, l, q_off, k_off, causal, scale):
 block_update.launches = 0
 
 
-def _attention_plain(q, k, v, causal=True):
-    """Plain version of K8's whole form: _ring_attention_local on one
-    device (one block step from the empty state, then o / max(l, 1e-30))."""
+def _causal_mask(Sq, Sk, device):
+    return torch.arange(Sq, device=device)[:, None] >= torch.arange(Sk, device=device)[None, :]
+
+
+def _attention_rounded_plain(q, k, v, causal):
+    """The reference's _attention step by step, returning (out, m, l): the
+    logits in float32 times the scale, -1e30 where masked, m their row max,
+    e = exp(logits - m), l = sum(e), p = e / l rounded to q's dtype, and
+    p·V summed in float32 and rounded once (a bf16 product with a bf16
+    result)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        logits = torch.where(_causal_mask(q.shape[1], k.shape[1], q.device), logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    e = torch.exp(logits - m[..., None])
+    l = e.sum(dim=-1)
+    p = (e / l[..., None]).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
+    return out, m, l
+
+
+def _attention_plain(q, k, v, causal=True, round_probs=False):
+    """Plain version of K8's whole form. round_probs=False:
+    _ring_attention_local on one device (one block step from the empty
+    state, then o / max(l, 1e-30)); round_probs=True: the reference's
+    _attention (_attention_rounded_plain)."""
+    if round_probs:
+        return _attention_rounded_plain(q, k, v, causal)[0]
     B, Sq, H, Dh = q.shape
     o = torch.zeros((B, Sq, H, Dh), dtype=torch.float32, device=q.device)
     m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -163,29 +206,131 @@ def _attention_plain(q, k, v, causal=True):
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
-def attention(q, k, v, causal=True):
-    """K8, whole form. Attention of q [B,Sq,H,Dh] over k, v [B,Sk,H,Dh]
-    (queries and keys both from position 0; causal: query i sees keys
-    <= i), scale 1/sqrt(Dh), softmax in float32; the result in q's dtype.
-    Equal to reference_attention."""
-    dev = device_of(q, k, v)
-    if dev.type == "cpu":
-        return _attention_plain(q, k, v, causal)
+def _attention_launch(q, k, v, causal, round_probs, stats):
+    """K8's whole form on the card: the output, and with `stats` the rows'
+    m and l ([B, H, Sq] float32) for the backward."""
+    dev = q.device
     dt = _check_attention_shapes("attention", q, k, v)
     _check_layout("attention", q, k, v)
     B, Sq, H, Dh = q.shape
     lib = LIBRARY.load()
     out = torch.empty_like(q)
+    m = l = None
+    if stats:
+        m = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+        l = torch.empty_like(m)
     with torch.cuda.device(dev):
         rc = lib.model_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, k.shape[1],
-            H, Dh, int(bool(causal)), 1.0 / math.sqrt(Dh), dt, current_stream(dev))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            m.data_ptr() if stats else None, l.data_ptr() if stats else None,
+            B, Sq, k.shape[1], H, Dh, int(bool(causal)), int(bool(round_probs)),
+            1.0 / math.sqrt(Dh), dt, current_stream(dev))
     _check(lib, rc, "attention")
     attention.launches += 1
-    return out
+    return out, m, l
+
+
+class _Attention(torch.autograd.Function):
+    """K8 with round_probs=True and K8' as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cpu":
+            out, m, l = _attention_rounded_plain(q, k, v, causal)
+        else:
+            out, m, l = _attention_launch(q, k, v, causal, True, stats=True)
+        ctx.save_for_backward(q, k, v, m, l)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, m, l = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, dout.contiguous(), m, l, ctx.causal)
+        return dq, dk, dv, None
+
+
+def attention(q, k, v, causal=True, round_probs=False):
+    """K8, whole form. Attention of q [B,Sq,H,Dh] over k, v [B,Sk,H,Dh]
+    (queries and keys both from position 0; causal: query i sees keys
+    <= i), scale 1/sqrt(Dh), softmax in float32; the result in q's dtype.
+    round_probs=False: equal to reference_attention, no gradient.
+    round_probs=True: the reference's transformer._attention, the
+    probabilities rounded to q's dtype before P·V; differentiable, its
+    backward K8' (attention_bwd)."""
+    dev = device_of(q, k, v)
+    causal = bool(causal)
+    if round_probs:
+        return _Attention.apply(q, k, v, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("attention: the gradient is written for round_probs=True only")
+    if dev.type == "cpu":
+        return _attention_plain(q, k, v, causal)
+    return _attention_launch(q, k, v, causal, False, stats=False)[0]
 
 
 attention.launches = 0
+
+
+def _attention_bwd_plain(q, k, v, dout, m, l, causal):
+    """Plain version of K8': the gradient of the reference's _attention as
+    its jax.grad jaxpr computes it, from the forward's m and l. dP = dO·V^T
+    rounded to the dtype; Dt = sum_j (dP * (1 / (l * l))) * e; dS = ((dP / l)
+    - Dt) * e, zero where masked, times the scale; dV = round(p)^T·dO, dQ =
+    dS·K, dK = dS^T·Q, each summed in float32 and rounded once."""
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = _causal_mask(q.shape[1], k.shape[1], q.device) if causal else None
+    if causal:
+        logits = torch.where(mask, logits, NEG_INF)
+    e = torch.exp(logits - m[..., None])
+    pb = (e / l[..., None]).to(dt)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float()).to(dt).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", pb.float(), dout.float()).to(dt)
+    rinv2 = 1.0 / (l * l)
+    dsum = ((dp * rinv2[..., None]) * e).sum(dim=-1)
+    ds = (dp / l[..., None] - dsum[..., None]) * e
+    if causal:
+        ds = torch.where(mask, ds, 0.0)
+    ds = ds * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(dt)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(dt)
+    return dq, dk, dv
+
+
+def attention_bwd(q, k, v, dout, m, l, causal=True):
+    """K8'. The gradient of attention(q, k, v, causal, round_probs=True)
+    for the cotangent dout (q's shape and dtype), from the forward's m and
+    l ([B, H, Sq] float32). Returns dq, dk, dv in q's dtype."""
+    dev = device_of(q, k, v, dout, m, l)
+    if dev.type == "cpu":
+        return _attention_bwd_plain(q, k, v, dout, m, l, causal)
+    dt = _check_attention_shapes("attention_bwd", q, k, v)
+    B, Sq, H, Dh = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype or m.shape != (B, H, Sq) \
+            or l.shape != (B, H, Sq) or {m.dtype, l.dtype} != {torch.float32}:
+        raise ValueError(f"attention_bwd: dout {tuple(dout.shape)} {dout.dtype}, m "
+                         f"{tuple(m.shape)} {m.dtype}, l {tuple(l.shape)} {l.dtype} "
+                         "(dout as q, float32 [B,H,Sq] m and l needed)")
+    if Dh not in (16, 32, 64, 128):
+        raise ValueError(f"attention_bwd: head width {Dh} (16, 32, 64 or 128 needed)")
+    _check_layout("attention_bwd", q, k, v, dout, m, l)
+    lib = LIBRARY.load()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dsum = torch.empty_like(m)
+    with torch.cuda.device(dev):
+        rc = lib.model_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), m.data_ptr(),
+            l.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Sq, k.shape[1], H, Dh, int(bool(causal)), 1.0 / math.sqrt(Dh), dt,
+            current_stream(dev))
+    _check(lib, rc, "attention_bwd")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+attention_bwd.launches = 0
 
 
 # ------------------------------------------------------------------ K10a
@@ -197,18 +342,19 @@ def _rmsnorm_plain(x, scale):
     return (x.float() * torch.rsqrt(var + RMS_EPS)).to(x.dtype) * scale.to(x.dtype)
 
 
-def rmsnorm(x, scale):
-    """K10a. x [..., D] (bf16 or f32), scale [D] float32:
-    (x * rsqrt(mean(x_f32 ** 2) + 1e-6)).astype(x.dtype) * scale.astype(x.dtype)."""
-    dev = device_of(x, scale)
-    if dev.type == "cpu":
-        return _rmsnorm_plain(x, scale)
-    dt = _dtype_code(x, "rmsnorm")
+def _check_rmsnorm(what, x, scale):
     D = x.shape[-1]
     if scale.shape != (D,) or scale.dtype != torch.float32 or D % 4 or x.numel() == 0:
-        raise ValueError(f"rmsnorm: x {tuple(x.shape)}, scale {tuple(scale.shape)} "
+        raise ValueError(f"{what}: x {tuple(x.shape)}, scale {tuple(scale.shape)} "
                          f"{scale.dtype} (float32 [D], D a multiple of 4, needed)")
+    return _dtype_code(x, what)
+
+
+def _rmsnorm_launch(x, scale):
+    dev = x.device
+    dt = _check_rmsnorm("rmsnorm", x, scale)
     _check_layout("rmsnorm", x, scale)
+    D = x.shape[-1]
     lib = LIBRARY.load()
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
@@ -219,10 +365,95 @@ def rmsnorm(x, scale):
     return out
 
 
+class _RmsNorm(torch.autograd.Function):
+    """K10a and K10a' as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x, scale)
+        return _rmsnorm_plain(x, scale) if x.device.type == "cpu" else _rmsnorm_launch(x, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        return rmsnorm_bwd(x, scale, dy.contiguous())
+
+
+def rmsnorm(x, scale):
+    """K10a. x [..., D] (bf16 or f32), scale [D] float32:
+    (x * rsqrt(mean(x_f32 ** 2) + 1e-6)).astype(x.dtype) * scale.astype(x.dtype).
+    Differentiable in x and scale; the backward is K10a' (rmsnorm_bwd)."""
+    device_of(x, scale)
+    return _RmsNorm.apply(x, scale)
+
+
 rmsnorm.launches = 0
 
 
+def _rmsnorm_bwd_plain(x, scale, dy):
+    """Plain version of K10a': the gradient of _rmsnorm with its jaxpr's
+    roundings. With j = mean(x_f32 ** 2) + 1e-6 and r = rsqrt(j): dn =
+    round(dy * round(scale)); dx = round(round(dn * r) + round(((sum(x *
+    dn) * (-0.5 * (r / j))) / D) * (2 x))); dscale = the sum over rows of
+    round(round(x * r) * dy). The reference types that sum in the dtype
+    and XLA accumulates it in an order of its own; here it is taken in
+    float32 and rounded once to the dtype, then widened."""
+    dt, D = x.dtype, x.shape[-1]
+    xf = x.float()
+    j = xf.square().sum(dim=-1, keepdim=True) / D + RMS_EPS
+    r = torch.rsqrt(j)
+    mm = -0.5 * (r / j)
+    dn = (dy.float() * scale.to(dt).float()).to(dt).float()
+    coef = ((xf * dn).sum(dim=-1, keepdim=True) * mm) / D
+    dx = ((dn * r).to(dt).float() + (coef * (2.0 * xf)).to(dt).float()).to(dt)
+    n = (xf * r).to(dt).float()
+    dscale = (n * dy.float()).to(dt).float().reshape(-1, D).sum(dim=0).to(dt).float()
+    return dx, dscale
+
+
+def rmsnorm_bwd(x, scale, dy):
+    """K10a'. The gradient of rmsnorm(x, scale) for the cotangent dy (x's
+    shape and dtype): dx in x's dtype, dscale [D] float32."""
+    dev = device_of(x, scale, dy)
+    if dev.type == "cpu":
+        return _rmsnorm_bwd_plain(x, scale, dy)
+    dt = _check_rmsnorm("rmsnorm_bwd", x, scale)
+    D = x.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or D > 4096:
+        raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} for x "
+                         f"{tuple(x.shape)} {x.dtype} (dy as x, D <= 4096, needed)")
+    _check_layout("rmsnorm_bwd", x, scale, dy)
+    rows = x.numel() // D
+    lib = LIBRARY.load()
+    dx = torch.empty_like(x)
+    partial = torch.empty(((rows + 63) // 64, D), dtype=torch.float32, device=dev)
+    dscale = torch.empty((D,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.model_rmsnorm_bwd(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
+                                   dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
+                                   rows, D, dt, current_stream(dev))
+    _check(lib, rc, "rmsnorm_bwd")
+    rmsnorm_bwd.launches += 1
+    return dx, dscale
+
+
+rmsnorm_bwd.launches = 0
+
+
 # ------------------------------------------------------------------ K10b
+
+
+def _rope_cos_sin(S, Dh, theta, dtype, device):
+    """cos and sin [1, S, 1, Dh / 2] rounded to dtype, as the reference's
+    _rope computes them."""
+    half = Dh // 2
+    freqs = torch.exp(
+        -math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=device) / half
+    )
+    pos = torch.arange(S, dtype=torch.float32, device=device)
+    angles = pos[:, None] * freqs[None, :]
+    return (torch.cos(angles)[None, :, None, :].to(dtype),
+            torch.sin(angles)[None, :, None, :].to(dtype))
 
 
 def _rope_plain(x, theta: float):
@@ -230,13 +461,7 @@ def _rope_plain(x, theta: float):
     of x [B, S, H, Dh], positions 0..S-1, cos and sin rounded to x's dtype."""
     _, S, _, Dh = x.shape
     half = Dh // 2
-    freqs = torch.exp(
-        -math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    )
-    pos = torch.arange(S, dtype=torch.float32, device=x.device)
-    angles = pos[:, None] * freqs[None, :]
-    cos = torch.cos(angles)[None, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[None, :, None, :].to(x.dtype)
+    cos, sin = _rope_cos_sin(S, Dh, theta, x.dtype, x.device)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
@@ -251,18 +476,17 @@ def _rope_split_plain(qkv, n_heads: int, theta: float):
         v.reshape(shape)
 
 
-def rope_split(qkv, n_heads: int, theta: float):
-    """K10b. qkv [B, S, 3D] (bf16 or f32) -> q, k, v [B, S, H, Dh] with the
-    rotary embedding applied to q and k (rotate-half: x1 the first half of
-    each head's dims), positions 0..S-1."""
-    dev = device_of(qkv)
-    if dev.type == "cpu":
-        return _rope_split_plain(qkv, n_heads, theta)
-    dt = _dtype_code(qkv, "rope_split")
+def _check_rope(what, qkv, n_heads):
     if qkv.dim() != 3 or qkv.shape[2] % (3 * n_heads) or (qkv.shape[2] // (3 * n_heads)) % 2 \
             or qkv.numel() == 0:
-        raise ValueError(f"rope_split: qkv {tuple(qkv.shape)} with {n_heads} heads "
+        raise ValueError(f"{what}: qkv {tuple(qkv.shape)} with {n_heads} heads "
                          "([B, S, 3 * H * Dh] with Dh even needed)")
+
+
+def _rope_split_launch(qkv, n_heads, theta):
+    dev = qkv.device
+    dt = _dtype_code(qkv, "rope_split")
+    _check_rope("rope_split", qkv, n_heads)
     _check_layout("rope_split", qkv)
     B, S, D3 = qkv.shape
     Dh = D3 // 3 // n_heads
@@ -278,7 +502,78 @@ def rope_split(qkv, n_heads: int, theta: float):
     return q, k, v
 
 
+class _RopeSplit(torch.autograd.Function):
+    """K10b and K10b' as its backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, n_heads, theta):
+        ctx.theta = theta
+        if qkv.device.type == "cpu":
+            q, k, v = _rope_split_plain(qkv, n_heads, theta)
+            return q, k, v.contiguous()  # a copy, as the kernel's, not a view of qkv
+        return _rope_split_launch(qkv, n_heads, theta)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dv):
+        grads = [torch.zeros_like(g) if g is None else g.contiguous() for g in (dq, dk, dv)]
+        return rope_split_bwd(*grads, ctx.theta), None, None
+
+
+def rope_split(qkv, n_heads: int, theta: float):
+    """K10b. qkv [B, S, 3D] (bf16 or f32) -> q, k, v [B, S, H, Dh] with the
+    rotary embedding applied to q and k (rotate-half: x1 the first half of
+    each head's dims), positions 0..S-1. Differentiable in qkv; the
+    backward is K10b' (rope_split_bwd)."""
+    device_of(qkv)
+    return _RopeSplit.apply(qkv, n_heads, theta)
+
+
 rope_split.launches = 0
+
+
+def _rope_bwd_plain(dy, theta: float):
+    """The gradient of _rope for dy [B, S, H, Dh]: dx1 = dy2 sin + dy1 cos,
+    dx2 = dy2 cos - dy1 sin, each product and sum rounded to the dtype."""
+    _, S, _, Dh = dy.shape
+    half = Dh // 2
+    cos, sin = _rope_cos_sin(S, Dh, theta, dy.dtype, dy.device)
+    d1, d2 = dy[..., :half], dy[..., half:]
+    return torch.cat([d2 * sin + d1 * cos, d2 * cos - d1 * sin], dim=-1)
+
+
+def _rope_split_bwd_plain(dq, dk, dv, theta: float):
+    """Plain version of K10b': dq, dk, dv [B, S, H, Dh] -> dqkv [B, S, 3D]."""
+    B, S, H, Dh = dq.shape
+    return torch.cat([_rope_bwd_plain(dq, theta).reshape(B, S, H * Dh),
+                      _rope_bwd_plain(dk, theta).reshape(B, S, H * Dh),
+                      dv.reshape(B, S, H * Dh)], dim=-1)
+
+
+def rope_split_bwd(dq, dk, dv, theta: float):
+    """K10b'. The gradient of rope_split for the cotangents dq, dk, dv
+    [B, S, H, Dh]: dqkv [B, S, 3 H Dh] in their dtype."""
+    dev = device_of(dq, dk, dv)
+    if dev.type == "cpu":
+        return _rope_split_bwd_plain(dq, dk, dv, theta)
+    dt = _dtype_code(dq, "rope_split_bwd")
+    if dq.dim() != 4 or dk.shape != dq.shape or dv.shape != dq.shape or dq.shape[3] % 2 \
+            or dq.numel() == 0 or dk.dtype != dq.dtype or dv.dtype != dq.dtype:
+        raise ValueError(f"rope_split_bwd: dq {tuple(dq.shape)}, dk {tuple(dk.shape)}, dv "
+                         f"{tuple(dv.shape)} (one [B, S, H, Dh] shape and dtype, Dh even)")
+    _check_layout("rope_split_bwd", dq, dk, dv)
+    B, S, H, Dh = dq.shape
+    lib = LIBRARY.load()
+    dqkv = torch.empty((B, S, 3 * H * Dh), dtype=dq.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.model_rope_split_bwd(dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                      dqkv.data_ptr(), B, S, H, Dh, -math.log(theta), dt,
+                                      current_stream(dev))
+    _check(lib, rc, "rope_split_bwd")
+    rope_split_bwd.launches += 1
+    return dqkv
+
+
+rope_split_bwd.launches = 0
 
 #: the kernels of this module by name, each with its `launches` counter
 KERNELS = {
@@ -286,6 +581,9 @@ KERNELS = {
     "attention": attention,
     "rmsnorm": rmsnorm,
     "rope_split": rope_split,
+    "attention_bwd": attention_bwd,
+    "rmsnorm_bwd": rmsnorm_bwd,
+    "rope_split_bwd": rope_split_bwd,
 }
 
 

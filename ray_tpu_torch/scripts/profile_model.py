@@ -1,18 +1,22 @@
-"""Where the flagship transformer's forward, or the expert layer, spends its
-time on the card.
+"""Where the flagship transformer's forward, its train step, or the expert
+layer spends its time on the card.
 
     python -m ray_tpu_torch.scripts.profile_model [--batch 8] [--seq 2048] [--steps 5]
+    python -m ray_tpu_torch.scripts.profile_model --train [--batch 8] [--seq 2048] [--steps 3]
     python -m ray_tpu_torch.scripts.profile_model --moe [--batch 8] [--seq 2048] [--steps 20]
 
 Default: make_forward_step at the default TransformerConfig (bf16, weights
-from a numpy seed). --moe: moe_ffn at MoEConfig() (d_model 256, 8 experts,
+from a numpy seed). --train: make_train_step at the same config on one
+seeded [batch, seq + 1] batch (make_train_state, seed 0), as chip_smoke.py
+phase 9b runs it. --moe: moe_ffn at MoEConfig() (d_model 256, 8 experts,
 bf16) on x [batch, seq, 256] bf16 skewed toward expert 0, as chip_smoke.py
 phase 7b runs it. Prints one JSON line: the card's name and power limit,
 the step's device ms (CUDA events, median) and host ms, and, from
 torch.profiler over `steps` steps, the device busy share of the window
-and the device ms a step by kernel, the port's kernels (K8, K9a-c, K10a,
-K10b) named as such; with --moe also by kind (the port's kernels, the
-cuBLAS products, GELU, casts and copies). Needs a CUDA device.
+and the device ms a step by kernel, the port's kernels (K8, K8', K9a-c,
+K10a, K10a', K10b, K10b') named as such; with --moe and --train also by
+kind (the port's kernels, the cuBLAS products, GELU, casts and copies).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,7 +31,11 @@ import numpy as np
 import torch
 
 # the port's kernels by their CUDA symbol
-_OURS = {"attention_kernel": "K8", "rmsnorm_kernel": "K10a", "rope_split_kernel": "K10b",
+# (backward kernels first: their names contain the forward's)
+_OURS = {"attention_bwd_dq_kernel": "K8' launch 1", "attention_bwd_dkv_kernel": "K8' launch 2",
+         "rmsnorm_bwd_kernel": "K10a' launch 1", "rmsnorm_dscale_kernel": "K10a' launch 2",
+         "rope_split_bwd_kernel": "K10b'",
+         "attention_kernel": "K8", "rmsnorm_kernel": "K10a", "rope_split_kernel": "K10b",
          "route_kernel": "K9a", "dispatch_kernel": "K9b", "combine_kernel": "K9c"}
 
 
@@ -49,6 +57,10 @@ def _kind(label: str) -> str:
         return "GELU"
     if any(k in low for k in ("copy", "cast", "convert")):
         return "casts and copies"
+    if any(k in low for k in ("softmax", "nll", "gather", "scatter", "index")):
+        return "log-softmax, gather, scatter"
+    if any(k in low for k in ("mul", "add", "div", "sqrt", "lerp", "foreach")):
+        return "elementwise (residuals, AdamW)"
     return "other"
 
 
@@ -122,6 +134,34 @@ def profile_forward(batch: int = 8, seq: int = 2048, steps: int = 5) -> dict:
             "device_ms_per_forward_by_kernel": dict(top)}
 
 
+def profile_train(batch: int = 8, seq: int = 2048, steps: int = 3) -> dict:
+    from ray_tpu_torch.models import transformer as PT
+    from ray_tpu_torch.parallel import make_train_state, make_train_step
+
+    cfg = PT.TransformerConfig()
+    params, opt_state, tx, shardings = make_train_state(cfg, seed=0)
+    step, _ = make_train_step(cfg, None, tx, shardings)
+    tokens = np.random.default_rng(90).integers(0, cfg.vocab_size, (batch, seq + 1)) \
+        .astype(np.int32)
+    tok = torch.from_numpy(tokens).to(params.device)
+    r = _profile(lambda: step(params, opt_state, {"tokens": tok}), steps)
+    by_kernel = r.pop("by_kernel")
+    by_kind = {}
+    for label, ms in by_kernel.items():
+        by_kind[_kind(label)] = by_kind.get(_kind(label), 0.0) + ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]
+    return {"card": r["card"], "batch": batch, "seq": seq,
+            "step_ms_median": r["step_ms_median"],
+            "tokens_per_s": batch * seq / (r["step_ms_median"] / 1e3),
+            "host_ms_per_step": r["host_ms_per_step"],
+            "profiled_window_ms": r["profiled_window_ms"],
+            "device_busy_ms": r["device_busy_ms"],
+            "device_busy_share": r["device_busy_share"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "device_ms_per_step_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+            "device_ms_per_step_by_kernel": dict(top)}
+
+
 def profile_moe(batch: int = 8, seq: int = 2048, steps: int = 20) -> dict:
     from ray_tpu_torch.models import moe as PM
 
@@ -151,6 +191,7 @@ def profile_moe(batch: int = 8, seq: int = 2048, steps: int = 20) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--moe", action="store_true", help="profile the expert layer")
+    ap.add_argument("--train", action="store_true", help="profile the train step")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=None)
@@ -160,6 +201,8 @@ def main() -> int:
         return 2
     if args.moe:
         out = profile_moe(args.batch, args.seq, args.steps or 20)
+    elif args.train:
+        out = profile_train(args.batch, args.seq, args.steps or 3)
     else:
         out = profile_forward(args.batch, args.seq, args.steps or 5)
     print(json.dumps(out), flush=True)

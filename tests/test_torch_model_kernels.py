@@ -204,8 +204,13 @@ def test_plain_versions_do_not_count_launches():
     K.rope_split(torch.ones((1, 4, 3 * 16)), 1, 10000.0)
     q = torch.ones((1, 4, 1, 16))
     K.attention(q, q, q)
+    K.attention(q, q, q, round_probs=True)
+    K.attention_bwd(q, q, q, q, torch.zeros((1, 1, 4)), torch.ones((1, 1, 4)))
+    K.rmsnorm_bwd(x, torch.ones(8), x)
+    K.rope_split_bwd(q, q, q, 10000.0)
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
-    assert set(K.KERNELS) == {"block_update", "attention", "rmsnorm", "rope_split"}
+    assert set(K.KERNELS) == {"block_update", "attention", "rmsnorm", "rope_split",
+                              "attention_bwd", "rmsnorm_bwd", "rope_split_bwd"}
 
 
 def test_wrappers_raise_on_mixed_devices_and_bad_shapes():

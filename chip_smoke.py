@@ -85,12 +85,29 @@ caught):
    the second step's loss, in both dtypes, against the JAX package's
    golden (tests/data/train_golden.npz).
 
+10. the expert layer's training (moe_ffn under autograd, MoEConfig() in
+   bf16): (a) K9a', K9b' and K9c' against their plain versions at the main
+   path's shapes in f32 and bf16, each launched twice with the same bits,
+   with times, bounds and the gather alone (index_select) as the
+   yardstick; (b) the layer from the main path's weights, 10 AdamW steps
+   (lr 3e-4, weight decay 0.01) of the loss of
+   tests/test_parallel.py::test_moe_grads_flow on x [8, 2048, 256] bf16,
+   timed by CUDA events and the host clock, the device's busy share under
+   torch.profiler, the loss falling; (c) an actor of ray_tpu_torch.init()
+   owning a layer from the same weights takes 4 steps: its losses and
+   parameter checksum equal the direct run's bit for bit; (d) one step in
+   both expert dtypes against the JAX package's golden
+   (tests/data/moe_grad_golden.npz), and two groups free of near-ties on
+   the card against the plain step on the CPU.
+
 Launch counters are set to 0 just before phase 2 and read after phase 5,
 the model kernels' just before 6b and after 6c, the expert kernels' just
-before 7b and after 7c, K7's just before 8b and after it, and the model
+before 7b and after 7c, K7's just before 8b and after it, the model
 kernels' again just before 9b and after 9c, where each of the training
 path's six must have launched its predicted count a step times the 14
-steps: every kernel of each path must have launched in its run. K8's block form runs on no ported
+steps, and the expert kernels' again just before 10b and after 10c, where
+each of the six (K9a-c, K9a'-c') must have launched once a step over the
+14 steps: every kernel of each path must have launched in its run. K8's block form runs on no ported
 path yet (the ring across cards is still to port); its launches in (d)'s
 check are printed on a line of their own, not among the kernels. The
 JSON line before the card's name and power limit lists the kernels; the
@@ -1179,6 +1196,7 @@ def phase6d_checks(torch, PT, MK, ctx, requests, answers):
 # experts, capacity factor 1.25, bf16) on x [8, 2048, 256] bf16, C = 320
 MOE_SHAPE = (8, 2048, 256)
 MOE_X_SEED = 70
+# (the forward's kernels; the backward's are phase 10's)
 MOE_REPLACES = {
     "moe_route": "ray_tpu/models/moe.py:70",
     "moe_dispatch": "ray_tpu/models/moe.py:83",
@@ -1237,7 +1255,7 @@ def phase7a_moe_kernels(torch, PM, EK, dev):
     G, S, D = MOE_SHAPE
     E, C = cfg.n_experts, PM._capacity(cfg, S)
     logits = torch.matmul(x32, torch.from_numpy(tree["router"]).to(dev))
-    rec = {name: {"max_abs_err": 0.0} for name in EK.KERNELS}
+    rec = {name: {"max_abs_err": 0.0} for name in MOE_REPLACES}
     got = EK.moe_route(logits, C)
     rec["moe_route"]["max_abs_err"] = _route_err(torch, got, EK._route_plain(logits, C),
                                                  "main path")
@@ -1814,6 +1832,314 @@ def phase9d_train_checks(torch, PT, TT, dev):
     return res
 
 
+# ---------------------------------------------- phase 10: the expert layer's training
+
+# the gradient of moe_ffn, which K9a'-c' replace: its reference path is
+# tests/test_parallel.py:179 test_moe_grads_flow
+MOE_BWD_REPLACES = "ray_tpu/models/moe.py:57-116"
+MOE_GRAD_GOLDEN_PATH = os.path.join(HERE, "tests", "data", "moe_grad_golden.npz")
+MOE_TRAIN_STEPS = 10  # direct: step 1 warms up, 2-7 are timed, 8-10 profiled
+MOE_EVENT_STEPS = 7
+MOE_ACTOR_STEPS = 4
+MOE_LR, MOE_WD = 3e-4, 0.01
+
+
+def _moe_loss(y, aux):
+    """tests/test_parallel.py::test_moe_grads_flow's loss."""
+    return (y.float() ** 2).mean() + 0.01 * aux
+
+
+def phase10a_moe_bwd_kernels(torch, PM, EK, dev):
+    """K9a', K9b' and K9c' against their plain versions on the card at the
+    main path's shapes (logits [8, 2048, 8], C 320, rows of 256) in f32 and
+    bf16, each launched twice (the bits must agree): the gathers bit-equal,
+    d_logits and d_gate within BWD_TOL of their largest entry; then timed
+    as the train step calls them (bf16 tokens and experts) beside the
+    bound and the gather alone (index_select)."""
+    cfg, tree, _, x32 = _moe_layer(torch, PM, dev)
+    G, S, D = MOE_SHAPE
+    E, C = cfg.n_experts, PM._capacity(cfg, S)
+    logits = torch.matmul(x32, torch.from_numpy(tree["router"]).to(dev))
+    _, gate, slot, tos, stats = EK.moe_route(logits, C)
+    frac = EK.aux_loss(stats, G * S)[0]
+    gen = torch.Generator(dev).manual_seed(10)
+    rec = {name: {"max_abs_err": 0.0}
+           for name in ("moe_route_bwd", "moe_dispatch_bwd", "moe_combine_bwd")}
+
+    def close(name, got, want, again, what):
+        d = float((got.double() - want.double()).abs().max())
+        scale = float(want.double().abs().max()) or 1.0
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], d)
+        if d > EK.BWD_TOL * scale or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} {what}: kernel != plain (max abs err {d}, largest "
+                                 f"entry {scale}, tolerance {EK.BWD_TOL} of it)")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {what}: two launches gave different bits")
+
+    def equal(name, got, want, again, what):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {what}: kernel != plain")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {what}: two launches gave different bits")
+
+    d_gate = torch.randn((G, S), generator=gen, device=dev)
+    d_aux = torch.full((), 0.01, device=dev)
+    close("moe_route_bwd", EK.moe_route_bwd(logits, d_gate, frac, d_aux),
+          EK._route_bwd_plain(logits, d_gate, frac, d_aux),
+          EK.moe_route_bwd(logits, d_gate, frac, d_aux), "main path")
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    out = torch.randn((E, G, C, D), generator=gen, device=dev)
+    for a_name, a_dt in dt.items():
+        d_in = torch.randn((E, G, C, D), generator=gen, device=dev).to(a_dt)
+        for b_name, b_dt in dt.items():
+            equal("moe_dispatch_bwd", EK.moe_dispatch_bwd(d_in, slot, b_dt),
+                  EK._dispatch_bwd_plain(d_in, slot, b_dt), EK.moe_dispatch_bwd(d_in, slot, b_dt),
+                  f"{a_name} -> {b_name}")
+        dy = torch.randn((G, S, D), generator=gen, device=dev).to(a_dt)
+        got, want, again = (f(dy, out, slot, gate, tos) for f in (
+            EK.moe_combine_bwd, EK._combine_bwd_plain, EK.moe_combine_bwd))
+        equal("moe_combine_bwd", got[0], want[0], again[0], f"dy {a_name}: d_out")
+        close("moe_combine_bwd", got[1], want[1], again[1], f"dy {a_name}: d_gate")
+        if not bool((got[1][slot < 0] == 0).all()):
+            raise AssertionError("moe_combine_bwd: a dropped token has a gate gradient")
+
+    bf = torch.bfloat16
+    kept = int((slot >= 0).sum())
+    d_in, dy = (t.to(bf) for t in (out, torch.randn((G, S, D), generator=gen, device=dev)))
+    rec["moe_route_bwd"].update(
+        ms=time_ms(torch, lambda: EK.moe_route_bwd(logits, d_gate, frac, d_aux), reps=21),
+        plain_ms=time_ms(torch, lambda: EK._route_bwd_plain(logits, d_gate, frac, d_aux),
+                         reps=21),
+        library_ms=None,
+        # logits, d_gate, frac_tokens, d_aux read, d_logits written; a token:
+        # ~17 operations an expert (the softmax again, the tie split, the
+        # aux term, the softmax's backward)
+        bound=bound(2 * G * S * E * 4 + G * S * 4 + E * 4 + 4, 17 * G * S * E))
+    # the gathers alone as the library yardsticks: the same rows in one
+    # index_select (no cast, no gate, no zero fill)
+    src = torch.where(slot >= 0, (slot // C * G + torch.arange(G, device=dev)[:, None]) * C
+                      + slot % C, 0).reshape(-1).long()
+    d_in_flat = d_in.reshape(E * G * C, D)
+    rec["moe_dispatch_bwd"].update(
+        ms=time_ms(torch, lambda: EK.moe_dispatch_bwd(d_in, slot, bf), reps=21),
+        plain_ms=time_ms(torch, lambda: EK._dispatch_bwd_plain(d_in, slot, bf), reps=21),
+        library_ms=time_ms(torch, lambda: torch.index_select(d_in_flat, 0, src), reps=21),
+        # slot read, the kept slots' rows read, dx written
+        bound=bound(G * S * 4 + kept * D * 2 + G * S * D * 2, 0))
+    dy_flat = dy.reshape(G * S, D)
+    rows = (torch.arange(G, device=dev)[None, :, None] * S + tos.clamp_min(0)).reshape(-1)
+    rec["moe_combine_bwd"].update(
+        ms=time_ms(torch, lambda: EK.moe_combine_bwd(dy, out, slot, gate, tos), reps=21),
+        plain_ms=time_ms(torch, lambda: EK._combine_bwd_plain(dy, out, slot, gate, tos),
+                         reps=21),
+        library_ms=time_ms(torch, lambda: torch.index_select(dy_flat, 0, rows), reps=21),
+        # token_of_slot, slot and gate read, the kept tokens' rows of dy and
+        # of out read, d_out and d_gate written; a kept row: D products for
+        # d_out, D products and sums for d_gate
+        bound=bound(E * G * C * 4 + 2 * G * S * 4 + kept * D * (2 + 4)
+                    + E * G * C * D * 4 + G * S * 4, 3 * kept * D))
+    for name, r in rec.items():
+        log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, gather alone "
+            f"{r['library_ms']} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}), "
+            f"max abs err {r['max_abs_err']:.3g}, two launches bit-equal")
+    return rec
+
+
+def _busy_share(torch, fn, steps):
+    """The device's busy share of a window of `steps` calls of fn() under
+    torch.profiler: kernel time over the window's host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.scripts.profile_model import device_ms_by_kernel
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    return sum(device_ms_by_kernel(prof).values()) / window_ms
+
+
+def _moe_train_step(torch, PM, model, x, tx, state):
+    """One training step of the layer, written out: the gradients cleared,
+    the reference test's loss, its backward, AdamW. x requires a gradient
+    (the one the layer below would take), so the step runs K9b' too."""
+    model.zero_grad(set_to_none=True)
+    x.grad = None
+    y, aux = PM.moe_ffn(model, x)
+    loss = _moe_loss(y, aux)
+    loss.backward()
+    tx.update(model, state)
+    return loss.detach()
+
+
+def phase10b_moe_train(torch, PM, TT, dev, steps=MOE_TRAIN_STEPS):
+    """The expert layer's training path, called directly: the layer from
+    the main path's weights with requires_grad on, make_optimizer(3e-4,
+    0.01), `steps` steps on x [8, 2048, 256] bf16 (skew 1.0): step 1 warms
+    up, 2-7 are timed by CUDA events and by the host clock, 8-10 run under
+    torch.profiler for the device's busy share. The loss must be finite and
+    fall. The losses and a parameter checksum after MOE_ACTOR_STEPS steps
+    are kept for 10c."""
+    cfg, tree, _, x32 = _moe_layer(torch, PM, dev)
+    model = PM.moe_params_from_numpy(tree, cfg, device=dev).requires_grad_(True)
+    x = x32.to(torch.bfloat16).requires_grad_(True)
+    tx = TT.make_optimizer(MOE_LR, MOE_WD)
+    state = tx.init(model)
+    cuda = dev.type == "cuda"
+    losses, ms, wall = [], [], []
+    checksum, busy = None, float("nan")
+    for i in range(MOE_EVENT_STEPS):  # step 1 warms up, then the timed ones
+        if cuda:
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            s.record()
+        loss = _moe_train_step(torch, PM, model, x, tx, state)
+        if cuda:
+            e.record()
+            e.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            ms.append(s.elapsed_time(e))
+        losses.append(float(loss))
+        if i + 1 == MOE_ACTOR_STEPS:
+            checksum = PM.moe_weights_checksum(PM.moe_to_numpy(model))
+    profiled = []
+    n = steps - MOE_EVENT_STEPS
+    if cuda:
+        busy = _busy_share(torch, lambda: profiled.append(
+            _moe_train_step(torch, PM, model, x, tx, state)), n)
+    else:
+        profiled = [_moe_train_step(torch, PM, model, x, tx, state) for _ in range(n)]
+    losses += [float(loss) for loss in profiled]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"expert training: losses {losses} not finite or not falling")
+    G, S, _ = MOE_SHAPE
+    step_ms = float(np.median(ms[1:])) if cuda else float("nan")
+    wall_ms = float(np.median(wall[1:])) if cuda else float("nan")
+    res = {"shape": list(MOE_SHAPE), "steps": steps, "first_loss": losses[0],
+           "last_loss": losses[-1], "step_ms_median": step_ms,
+           "first_step_ms": ms[0] if ms else float("nan"), "wall_ms_median": wall_ms,
+           "tokens_per_s": G * S / (step_ms / 1e3), "tokens_per_s_host": G * S / (wall_ms / 1e3),
+           "device_busy_share": busy,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if cuda
+           else float("nan")}
+    log(f"phase 10b expert training: {json.dumps(res)}")
+    return res, {"cfg": cfg, "tree": tree, "x32": x32, "x": x, "losses": losses,
+                 "checksum": checksum, "dev": dev}
+
+
+def phase10c_moe_train_actor(torch, PM, TT, ctx, steps=MOE_ACTOR_STEPS):
+    """The expert layer's training from an actor of ray_tpu_torch.init()
+    (default config: the torch_cuda policy on the card) that owns a layer
+    built from the same weights and takes `steps` steps on the tokens sent
+    to it: its losses and parameter checksum must equal the direct run's
+    bit for bit."""
+    import ray_tpu_torch as rt
+
+    cfg, tree, dev = ctx["cfg"], ctx["tree"], ctx["dev"]
+    tokens = ctx["x32"].cpu().numpy()
+    if dev.type == "cuda":
+        rt.init(num_cpus=8)
+    else:
+        rt.init(num_cpus=8, _system_config={"scheduler_device": "cpu"})
+    try:
+        @rt.remote
+        class ExpertTrainer:
+            """User code: owns the expert layer and its optimizer on the card."""
+
+            def __init__(self, weights):
+                self.layer = PM.moe_params_from_numpy(weights, cfg, device=dev)
+                self.layer.requires_grad_(True)
+                self.tx = TT.make_optimizer(MOE_LR, MOE_WD)
+                self.state = self.tx.init(self.layer)
+
+            def step(self, x):
+                x = torch.from_numpy(x).to(dev, torch.bfloat16).requires_grad_(True)
+                return float(_moe_train_step(torch, PM, self.layer, x, self.tx, self.state))
+
+            def checksum(self):
+                return PM.moe_weights_checksum(PM.moe_to_numpy(self.layer))
+
+        trainer = ExpertTrainer.remote(tree)
+        t0 = time.perf_counter()
+        losses = [rt.get(trainer.step.remote(tokens), timeout=600) for _ in range(steps)]
+        t_train = time.perf_counter() - t0
+        checksum = rt.get(trainer.checksum.remote(), timeout=600)
+    finally:
+        rt.shutdown()
+    if losses != ctx["losses"][:steps] or checksum != ctx["checksum"]:
+        raise AssertionError(f"actor's expert training differs from the direct run: losses "
+                             f"{losses} vs {ctx['losses'][:steps]}, checksum {checksum[:16]} "
+                             f"vs {ctx['checksum'][:16]}")
+    res = {"steps": steps, "losses_equal_direct": True, "checksum_equal_direct": True,
+           "actor_s": t_train}
+    log(f"phase 10c actor expert training: {json.dumps(res)}")
+    return res
+
+
+def phase10d_moe_train_checks(torch, PM, EK, ctx):
+    """One training step in both expert dtypes against the JAX package's
+    golden (tests/data/moe_grad_golden.npz) within MOE_GRAD_GOLDEN_TOL;
+    then two groups of 10b's tokens free of near-ties, one step on the card
+    against the plain step on the CPU (the loss within the bf16 golden's
+    bound, each gradient leaf within one bf16 ulp, 2**-7, of its largest
+    entry)."""
+    dev = ctx["dev"]
+    golden = np.load(MOE_GRAD_GOLDEN_PATH)
+    cfg, tree = ctx["cfg"], ctx["tree"]
+    if PM.moe_weights_checksum(PM.numpy_moe_params(cfg, int(golden["weight_seed"]))) \
+            != str(golden["checksum"]):
+        raise AssertionError("numpy_moe_params gave other weights than the grad golden's")
+    # a weight's gradient sums over every group, so no group can be left
+    # out: the golden's groups must all be free of near-ties
+    left_out = int((golden["group_gap"] < PM.MOE_TIE_GAP).sum())
+    if left_out:
+        raise AssertionError(f"{left_out} golden groups hold a near-tie")
+    res = {"groups_left_out": left_out}
+    for dt in ("f32", "bf16"):
+        res[dt] = PM.moe_grad_golden_errors(golden, dt, dev)
+        bad = PM.moe_grad_golden_violations(res[dt], dt)
+        if bad:
+            raise AssertionError(f"moe grad golden {dt}: {bad} outside "
+                                 f"{PM.MOE_GRAD_GOLDEN_TOL[dt]}")
+
+    x32 = ctx["x32"]
+    probs = EK.softmax_plain(torch.matmul(x32, torch.from_numpy(tree["router"]).to(dev))).cpu()
+    top2 = probs.topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).amin(-1)
+    groups = [int(g) for g in torch.nonzero(gaps >= PM.MOE_TIE_GAP).flatten()[:2]]
+    if len(groups) < 2:
+        raise AssertionError(f"fewer than two groups of 10b free of near-ties: {gaps.tolist()}")
+    grads, losses = [], []
+    for d in (dev, torch.device("cpu")):
+        model = PM.moe_params_from_numpy(tree, cfg, device=d).requires_grad_(True)
+        x = x32[groups].to(d, torch.bfloat16).requires_grad_(True)
+        y, aux = PM.moe_ffn(model, x)
+        loss = _moe_loss(y, aux)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append(dict(PM.moe_grads_to_numpy(model), x=x.grad.float().cpu().numpy()))
+    # each leaf within one bf16 ulp of its largest entry (2**-7 of it): the
+    # cotangents of the bf16 products and dx round to bf16, and a sum taken
+    # in another order (cuBLAS against the CPU) can land on the other side
+    # of a rounding, which moves the entry by one ulp (measured on the H100:
+    # x 4.9e-3, w1 3.3e-3, w2 1.7e-3, the router 5.1e-6)
+    cpu_err = {"loss": abs(losses[0] - losses[1])}
+    for name, want in grads[1].items():
+        cpu_err[name] = float(np.abs(grads[0][name] - want).max() / np.abs(want).max())
+    if cpu_err["loss"] > PM.MOE_GRAD_GOLDEN_TOL["bf16"]["loss"] \
+            or any(cpu_err[name] > 2.0 ** -7 for name in grads[1]):
+        raise AssertionError(f"expert training: card vs CPU on groups {groups}: {cpu_err} "
+                             f"(loss {PM.MOE_GRAD_GOLDEN_TOL['bf16']['loss']}, leaves 2**-7 "
+                             "of their largest entry)")
+    res.update(cpu_groups=groups, cpu=cpu_err)
+    log(f"phase 10d expert training checks: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1926,7 +2252,7 @@ def main() -> int:
     moe_serve, moe_requests, moe_answers = phase7c_moe_serve(torch, PM, moe_ctx)
     moe_launches = EK.launch_counts()
     log(f"phase 7c: {time.perf_counter() - t0:.1f} s, launches {moe_launches}")
-    missing = [k for k, v in moe_launches.items() if v == 0]
+    missing = [k for k in MOE_REPLACES if moe_launches[k] == 0]
     if missing:
         raise AssertionError(f"expert kernels never launched on the expert path: {missing}")
     t0 = time.perf_counter()
@@ -1972,6 +2298,34 @@ def main() -> int:
     train_checks = phase9d_train_checks(torch, PT, TT, dev)
     log(f"phase 9d: {time.perf_counter() - t0:.1f} s")
 
+    # the expert layer's training: its backward kernels against their plain
+    # versions, then the train step (direct, then from an actor) with the
+    # expert kernels' counters from 0, then the golden, outside the window
+    t0 = time.perf_counter()
+    moe_bwd_rec = phase10a_moe_bwd_kernels(torch, PM, EK, dev)
+    log(f"phase 10a: {time.perf_counter() - t0:.1f} s")
+    EK.reset_launch_counts()
+    t0 = time.perf_counter()
+    moe_train_res, moe_train_ctx = phase10b_moe_train(torch, PM, TT, dev)
+    log(f"phase 10b: {time.perf_counter() - t0:.1f} s, launches {EK.launch_counts()}")
+    log(f"expert train step [8, 2048, 256] bf16 on {card}: "
+        f"{moe_train_res['step_ms_median']:.4f} ms by events, "
+        f"{moe_train_res['wall_ms_median']:.4f} ms by the host clock, "
+        f"{moe_train_res['tokens_per_s']:.0f} tokens/s, device busy "
+        f"{moe_train_res['device_busy_share']:.3f}")
+    t0 = time.perf_counter()
+    moe_train_actor = phase10c_moe_train_actor(torch, PM, TT, moe_train_ctx)
+    moe_train_launches = EK.launch_counts()
+    log(f"phase 10c: {time.perf_counter() - t0:.1f} s, launches {moe_train_launches}")
+    # one launch of each of K9a-c and K9a'-c' a step
+    want = {k: MOE_TRAIN_STEPS + MOE_ACTOR_STEPS for k in EK.KERNELS}
+    if moe_train_launches != want:
+        raise AssertionError(f"expert training path launches {moe_train_launches}, "
+                             f"predicted {want}")
+    t0 = time.perf_counter()
+    moe_train_checks = phase10d_moe_train_checks(torch, PM, EK, moe_train_ctx)
+    log(f"phase 10d: {time.perf_counter() - t0:.1f} s")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -2011,6 +2365,14 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
+    for name, r in moe_bwd_rec.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": MOE_CU_SOURCE,
+            "replaces": MOE_BWD_REPLACES, "launches": moe_train_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+        })
     for name, r in train_rec.items():
         kernels.append({
             "name": name, "route": "cuda", "source": MODEL_CU_SOURCE,
@@ -2031,6 +2393,8 @@ def main() -> int:
                     "moe_checks": moe_checks, "sharded": shard_res,
                     "sharded_ms_by_shards": r["ms_by_shards"], "train": train_res,
                     "train_actor": train_actor, "train_golden": train_checks,
+                    "moe_train": moe_train_res, "moe_train_actor": moe_train_actor,
+                    "moe_train_checks": moe_train_checks,
                     "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
                     "card": card}))
     log(json.dumps({"kernels_off_main_path": off_path}))

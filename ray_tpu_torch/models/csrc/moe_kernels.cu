@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels of the expert layer's forward
 // (ray_tpu/models/moe.py moe_ffn: top-1 Switch routing with a capacity
-// drop, GShard-style dispatch to the experts and combine back).
+// drop, GShard-style dispatch to the experts and combine back) and of its
+// backward (the gradient of moe_ffn as jax.grad forms it).
 //
 // Built by ray_tpu_torch/models/moe_kernels.py (through util/cuda_build.py)
 // with one nvcc call into a shared library with a plain C interface, loaded
@@ -15,7 +16,8 @@
 // here needs a contraction, and the routing must equal its plain version
 // bit for bit: the softmax is spelled out as the reference computes it
 // (row max, expf of the difference, a sum in expert order, IEEE division),
-// never with the __expf intrinsic or fast math.
+// never with the __expf intrinsic or fast math. No kernel uses atomics, and
+// every sum is taken in a fixed order, so two launches give the same bits.
 //
 // Layouts are the JAX package's: logits [G, S, E] (G token groups, S tokens
 // a group, E experts), x and y [G, S, D], the experts' rows [E, G, C, D]
@@ -69,6 +71,40 @@
 //                     Each sum of the einsum has one non-zero term, so this
 //                     equals it. Bound by bytes (the kept rows of out read
 //                     once, y written once). Design: as K9b, over y's rows.
+//
+// The backward, the transposes of the jaxpr of jax.vjp(moe_ffn) (each
+// cotangent's one non-zero term taken directly, so no sum is needed where
+// the einsum has one term):
+//   K9c' moe_combine_bwd  the transpose of :110 (combine weights and
+//                     einsum("gsec,egcd->gsd")): d_out[e,g,c,:] = gate[g,t] *
+//                     dy[g,t,:] as one float32 product, t = token_of_slot[e,g,
+//                     c], zeros in an empty slot (K9b's gather with a gate);
+//                     d_gate[g,s] = sum_d dy[g,s,d] * out[slot[g,s], d] for a
+//                     kept token, 0 for a dropped one (the combine weights'
+//                     cotangent summed over (e, c)). Two launches: the rows
+//                     (bound by bytes: the kept rows of dy read, d_out
+//                     written, as K9b) and the row dot products, one warp a
+//                     token, each lane summing its strided elements in order,
+//                     then a butterfly over the warp (a fixed order; every
+//                     lane ends with the same sum).
+//   K9b' moe_dispatch_bwd  the transpose of :89 and :99 (the dispatch
+//                     einsum, the casts): each kept token holds one slot, so
+//                     dx[g,s,:] = d_expert_in[slot[g,s],:] in x's dtype, zeros
+//                     for a dropped token: K9c's gather without the gate.
+//                     Bound by bytes (the kept rows read, dx written once).
+//   K9a' moe_route_bwd  the gradient through :70-72 and :112-114, one thread
+//                     a token: the softmax recomputed as K9a computes it (so
+//                     e = exp(l - max), u and the probabilities equal the
+//                     forward's bit for bit); the gate's cotangent split over
+//                     the experts tied at the max, d_gate / count (jnp.max's
+//                     rule; argmax takes the first, the gradient does not);
+//                     the aux loss's term (frac_tokens[e] * (E * d_aux)) /
+//                     (G*S), a true division, added to it; then the
+//                     softmax's backward in the jaxpr's form, d_logits =
+//                     (dp / u + -(sum_e dp * (1 / (u*u)) * e)) * e, the sum
+//                     in expert order. It moves ~1 MB at the main path's
+//                     shapes (under a microsecond at 3.35 TB/s): latency-
+//                     bound.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -270,10 +306,15 @@ __device__ __forceinline__ void store_vec(void* p, long long i, int dt, const fl
   }
 }
 
+// dst[e,g,c,:] = src[g, token_of_slot[e,g,c], :], times gate[g, that token]
+// when a gate is given (one float32 product), rounded to dst's dtype; zeros
+// in an empty slot (a token outside [0, S), never read).
 template <int kVec>
-__global__ void __launch_bounds__(kCopyThreads) dispatch_kernel(
-    const void* __restrict__ x, const int* __restrict__ token_of_slot, void* __restrict__ out,
-    int G, int S, int C, int D, int x_dt, int out_dt, long long n_pieces) {
+__device__ __forceinline__ void rows_by_slot(const void* __restrict__ src, int src_dt,
+                                             const int* __restrict__ token_of_slot,
+                                             const float* __restrict__ gate,
+                                             void* __restrict__ dst, int dst_dt, int G, int S,
+                                             int C, int D, long long n_pieces) {
   const int per_row = D / kVec;
   for (long long i = (long long)blockIdx.x * kCopyThreads + threadIdx.x; i < n_pieces;
        i += (long long)gridDim.x * kCopyThreads) {
@@ -282,20 +323,31 @@ __global__ void __launch_bounds__(kCopyThreads) dispatch_kernel(
     const int g = (int)((row / C) % G);
     const int tok = token_of_slot[row];
     float v[kVec];
-    if (tok >= 0 && tok < S) {  // anything else is an empty slot, never read
-      load_vec<kVec>(x, ((long long)g * S + tok) * D + col, x_dt, v);
+    if (tok >= 0 && tok < S) {
+      const long long gs = (long long)g * S + tok;
+      load_vec<kVec>(src, gs * D + col, src_dt, v);
+      if (gate != nullptr) {
+        const float gt = gate[gs];
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) v[k] = __fmul_rn(gt, v[k]);
+      }
     } else {
 #pragma unroll
       for (int k = 0; k < kVec; ++k) v[k] = 0.f;
     }
-    store_vec<kVec>(out, row * D + col, out_dt, v);
+    store_vec<kVec>(dst, row * D + col, dst_dt, v);
   }
 }
 
+// dst[g,s,:] = src[e, g, pos, :] with slot[g,s] = e*C + pos, times gate[g,s]
+// when a gate is given (one float32 product), rounded to dst's dtype; zeros
+// for a dropped token (a slot outside [0, E*C), never read).
 template <int kVec>
-__global__ void __launch_bounds__(kCopyThreads) combine_kernel(
-    const float* __restrict__ out, const int* __restrict__ slot, const float* __restrict__ gate,
-    void* __restrict__ y, int E, int G, int S, int C, int D, int y_dt, long long n_pieces) {
+__device__ __forceinline__ void rows_by_token(const void* __restrict__ src, int src_dt,
+                                              const int* __restrict__ slot,
+                                              const float* __restrict__ gate,
+                                              void* __restrict__ dst, int dst_dt, int E, int G,
+                                              int S, int C, int D, long long n_pieces) {
   const int per_row = D / kVec;
   for (long long i = (long long)blockIdx.x * kCopyThreads + threadIdx.x; i < n_pieces;
        i += (long long)gridDim.x * kCopyThreads) {
@@ -303,19 +355,162 @@ __global__ void __launch_bounds__(kCopyThreads) combine_kernel(
     const int col = (int)(i - row * per_row) * kVec;
     const int sl = slot[row];
     float v[kVec];
-    if (sl >= 0 && sl < E * C) {  // anything else is a dropped token, never read
+    if (sl >= 0 && sl < E * C) {
       const int g = (int)(row / S);
-      const long long src = ((long long)(sl / C) * G + g) * C + sl % C;
-      load_vec<kVec>(out, src * D + col, kF32, v);
-      const float gt = gate[row];
+      const long long src_row = ((long long)(sl / C) * G + g) * C + sl % C;
+      load_vec<kVec>(src, src_row * D + col, src_dt, v);
+      if (gate != nullptr) {
+        const float gt = gate[row];
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) v[k] = __fmul_rn(gt, v[k]);
+        for (int k = 0; k < kVec; ++k) v[k] = __fmul_rn(gt, v[k]);
+      }
     } else {
 #pragma unroll
       for (int k = 0; k < kVec; ++k) v[k] = 0.f;
     }
-    store_vec<kVec>(y, row * D + col, y_dt, v);
+    store_vec<kVec>(dst, row * D + col, dst_dt, v);
   }
+}
+
+// K9b: the kept tokens' rows of x into the experts' slots
+template <int kVec>
+__global__ void __launch_bounds__(kCopyThreads) dispatch_kernel(
+    const void* __restrict__ x, const int* __restrict__ token_of_slot, void* __restrict__ out,
+    int G, int S, int C, int D, int x_dt, int out_dt, long long n_pieces) {
+  rows_by_slot<kVec>(x, x_dt, token_of_slot, nullptr, out, out_dt, G, S, C, D, n_pieces);
+}
+
+// K9c: each token's expert row times its gate
+template <int kVec>
+__global__ void __launch_bounds__(kCopyThreads) combine_kernel(
+    const float* __restrict__ out, const int* __restrict__ slot, const float* __restrict__ gate,
+    void* __restrict__ y, int E, int G, int S, int C, int D, int y_dt, long long n_pieces) {
+  rows_by_token<kVec>(out, kF32, slot, gate, y, y_dt, E, G, S, C, D, n_pieces);
+}
+
+// ------------------------------------------------------------- backward
+
+// K9b': the slots' cotangents back to their tokens, in x's dtype
+template <int kVec>
+__global__ void __launch_bounds__(kCopyThreads) dispatch_bwd_kernel(
+    const void* __restrict__ d_in, const int* __restrict__ slot, void* __restrict__ dx, int E,
+    int G, int S, int C, int D, int in_dt, int dx_dt, long long n_pieces) {
+  rows_by_token<kVec>(d_in, in_dt, slot, nullptr, dx, dx_dt, E, G, S, C, D, n_pieces);
+}
+
+// K9c', launch 1: d_out[e,g,c,:] = gate * dy of the slot's token, float32
+template <int kVec>
+__global__ void __launch_bounds__(kCopyThreads) combine_bwd_rows_kernel(
+    const void* __restrict__ dy, const int* __restrict__ token_of_slot,
+    const float* __restrict__ gate, float* __restrict__ d_out, int G, int S, int C, int D,
+    int dy_dt, long long n_pieces) {
+  rows_by_slot<kVec>(dy, dy_dt, token_of_slot, gate, d_out, kF32, G, S, C, D, n_pieces);
+}
+
+constexpr int kGateThreads = 256;  // one warp a token
+constexpr int kGateWarps = kGateThreads / 32;
+
+// K9c', launch 2: d_gate[g,s] = sum_d dy[g,s,d] * out[slot[g,s], d], 0 for a
+// dropped token. Lane l sums d = l, l + 32, ... in order; then a butterfly.
+__global__ void __launch_bounds__(kGateThreads) combine_bwd_gate_kernel(
+    const void* __restrict__ dy, const float* __restrict__ out, const int* __restrict__ slot,
+    float* __restrict__ d_gate, int E, int G, int S, int C, int D, int dy_dt,
+    long long n_tokens) {
+  const int lane = threadIdx.x & 31;
+  for (long long t = (long long)blockIdx.x * kGateWarps + (threadIdx.x >> 5); t < n_tokens;
+       t += (long long)gridDim.x * kGateWarps) {
+    const int sl = slot[t];
+    float acc = 0.f;
+    if (sl >= 0 && sl < E * C) {  // the same branch for the whole warp
+      const int g = (int)(t / S);
+      const float* row = out + (((long long)(sl / C) * G + g) * C + sl % C) * D;
+      for (int d = lane; d < D; d += 32) {
+        float v;
+        load_vec<1>(dy, t * D + d, dy_dt, &v);
+        acc = __fadd_rn(acc, __fmul_rn(v, row[d]));
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, off));
+    }
+    if (lane == 0) d_gate[t] = acc;
+  }
+}
+
+constexpr int kRouteBwdThreads = 256;  // one token a thread
+
+// K9a': d_logits of one token a thread, in the jaxpr's order of operations
+template <int kMaxE>
+__global__ void __launch_bounds__(kRouteBwdThreads) route_bwd_kernel(
+    const float* __restrict__ logits, const float* __restrict__ d_gate,
+    const float* __restrict__ frac_tokens, const float* __restrict__ d_aux, float n_tokens_f,
+    float* __restrict__ d_logits, int E, long long n_tokens) {
+  // the aux loss's cotangent a token: (frac_tokens[e] * (E * d_aux)) / (G*S)
+  const float z = __fmul_rn((float)E, *d_aux);
+  for (long long t = (long long)blockIdx.x * kRouteBwdThreads + threadIdx.x; t < n_tokens;
+       t += (long long)gridDim.x * kRouteBwdThreads) {
+    const float* row = logits + t * E;
+    float ex[kMaxE];
+    float m = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e) {
+      if (e < E) {
+        ex[e] = row[e];
+        m = fmaxf(m, ex[e]);
+      }
+    }
+    // the softmax as K9a computes it
+    float u = 0.f;
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e) {
+      if (e < E) {
+        ex[e] = expf(__fsub_rn(ex[e], m));
+        u = __fadd_rn(u, ex[e]);
+      }
+    }
+    float gate = 0.f;
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e) {
+      if (e < E) {
+        const float p = __fdiv_rn(ex[e], u);
+        if (e == 0 || p > gate) gate = p;
+      }
+    }
+    int count = 0;  // the experts tied at the max
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e) {
+      if (e < E && __fdiv_rn(ex[e], u) == gate) ++count;
+    }
+    const float dg = __fdiv_rn(d_gate[t], (float)count);
+    const float s = __fdiv_rn(1.f, __fmul_rn(u, u));
+    float dp[kMaxE];
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e) {
+      if (e < E) {
+        const float tie = __fdiv_rn(ex[e], u) == gate ? 1.f : 0.f;
+        dp[e] = __fadd_rn(__fdiv_rn(__fmul_rn(frac_tokens[e], z), n_tokens_f),
+                          __fmul_rn(dg, tie));
+        sum = __fadd_rn(sum, __fmul_rn(__fmul_rn(dp[e], s), ex[e]));
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e) {
+      if (e < E) {
+        d_logits[t * E + e] = __fmul_rn(__fadd_rn(__fdiv_rn(dp[e], u), -sum), ex[e]);
+      }
+    }
+  }
+}
+
+template <int kMaxE>
+int launch_route_bwd(const float* logits, const float* d_gate, const float* frac,
+                     const float* d_aux, float n_tokens_f, float* d_logits, int E,
+                     long long n_tokens, cudaStream_t stream) {
+  const long long blocks = (n_tokens + kRouteBwdThreads - 1) / kRouteBwdThreads;
+  route_bwd_kernel<kMaxE><<<(int)(blocks < (1LL << 30) ? blocks : (1LL << 30)),
+                            kRouteBwdThreads, 0, stream>>>(logits, d_gate, frac, d_aux,
+                                                            n_tokens_f, d_logits, E, n_tokens);
+  return (int)cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -378,6 +573,60 @@ int moe_combine(const float* out, const int* slot, const float* gate, void* y, i
         out, slot, gate, y, E, G, S, C, D, y_dtype, elems);
   }
   return (int)cudaGetLastError();
+}
+
+int moe_combine_bwd(const void* dy, const float* out, const int* slot, const float* gate,
+                    const int* token_of_slot, float* d_out, float* d_gate, int E, int G, int S,
+                    int C, int D, int dy_dtype, void* stream) {
+  if (E <= 0 || G <= 0 || S <= 0 || C <= 0 || D <= 0 || bad_dtype(dy_dtype)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long elems = (long long)E * G * C * D;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D % 8 == 0 && aligned16(dy) && aligned16(d_out)) {
+    combine_bwd_rows_kernel<8><<<copy_blocks(elems / 8), kCopyThreads, 0, st>>>(
+        dy, token_of_slot, gate, d_out, G, S, C, D, dy_dtype, elems / 8);
+  } else {
+    combine_bwd_rows_kernel<1><<<copy_blocks(elems), kCopyThreads, 0, st>>>(
+        dy, token_of_slot, gate, d_out, G, S, C, D, dy_dtype, elems);
+  }
+  const int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const long long n_tokens = (long long)G * S;
+  const long long blocks = (n_tokens + kGateWarps - 1) / kGateWarps;
+  combine_bwd_gate_kernel<<<(int)(blocks < (1LL << 30) ? blocks : (1LL << 30)), kGateThreads, 0,
+                            st>>>(dy, out, slot, d_gate, E, G, S, C, D, dy_dtype, n_tokens);
+  return (int)cudaGetLastError();
+}
+
+int moe_dispatch_bwd(const void* d_in, const int* slot, void* dx, int E, int G, int S, int C,
+                     int D, int in_dtype, int dx_dtype, void* stream) {
+  if (E <= 0 || G <= 0 || S <= 0 || C <= 0 || D <= 0 || bad_dtype(in_dtype) ||
+      bad_dtype(dx_dtype)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long elems = (long long)G * S * D;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D % 8 == 0 && aligned16(d_in) && aligned16(dx)) {
+    dispatch_bwd_kernel<8><<<copy_blocks(elems / 8), kCopyThreads, 0, st>>>(
+        d_in, slot, dx, E, G, S, C, D, in_dtype, dx_dtype, elems / 8);
+  } else {
+    dispatch_bwd_kernel<1><<<copy_blocks(elems), kCopyThreads, 0, st>>>(
+        d_in, slot, dx, E, G, S, C, D, in_dtype, dx_dtype, elems);
+  }
+  return (int)cudaGetLastError();
+}
+
+int moe_route_bwd(const float* logits, const float* d_gate, const float* frac_tokens,
+                  const float* d_aux, float* d_logits, int G, int S, int E, float n_tokens_f,
+                  void* stream) {
+  if (G <= 0 || S <= 0 || E <= 0 || E > kMaxExperts) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)G * S;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (E <= 8) return launch_route_bwd<8>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
+  if (E <= 16) return launch_route_bwd<16>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
+  if (E <= 32) return launch_route_bwd<32>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
+  return launch_route_bwd<64>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
 }
 
 }  // extern "C"

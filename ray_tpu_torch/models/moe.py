@@ -28,10 +28,19 @@ reference's pytree across bit for bit.
 - K9c (``moe_combine``): each token's expert row times its gate, in x's
   dtype.
 
-The forward runs without autograd in this slice (``torch.no_grad``):
-training, with the backward kernels, is a later slice. Expert parallelism
-over a mesh (``mesh``, ``moe_partition_specs``) belongs to the multi-card
-work (ROADMAP queue 1, item 3).
+Training: when gradients are on and x or a parameter requires one,
+``moe_ffn`` runs through autograd Functions whose backwards follow the
+reference's jax.grad jaxpr: K9a', K9b' and K9c' (``moe_kernels``) for the
+routing, dispatch and combine, and the experts' transposes as float32
+library products, each cotangent rounded once to its operand's dtype
+(``_ExpertProduct``). ``loss.backward()`` then leaves jax.grad's
+counterpart in the parameters' ``.grad`` (``moe_grads_to_numpy``), and
+``parallel.make_optimizer()``'s AdamW steps the layer. Parameters are built
+with ``requires_grad=False``; training turns it on with
+``requires_grad_(True)``. Otherwise the forward runs without autograd, with
+the same launches as before. Expert parallelism over a mesh (``mesh``,
+``moe_partition_specs``) belongs to the multi-card work (ROADMAP queue 1,
+item 3).
 """
 
 from __future__ import annotations
@@ -71,6 +80,24 @@ _KEYS = ("router", "w1", "w2")
 # differ by 2**-8 relative and the second product carries that on (~7e-4
 # at full width on the CPU).
 MOE_GOLDEN_TOL = {"f32": (2e-5, 1e-6), "bf16": (5e-3, 1e-6)}
+# the port's one training step of the layer (card or CPU) against the JAX
+# package's golden (tests/data/moe_grad_golden.npz; moe_grad_golden_errors):
+# loss and aux atol; per-leaf gradient L2 norms rtol; sampled gradients
+# (router, w1, w2, x), atol as a share of their leaf's rms; sampled
+# parameters after one AdamW step atol, and the least share of a leaf's
+# within 1e-6 (an entry whose gradient is near 0 can take the other sign,
+# which moves it by 2 lr). Measured on the CPU: f32 loss 0, aux 0, norms
+# 2.5e-8, gradients 4.8e-6 of the rms, params 6.3e-8, all within 1e-6;
+# bf16 loss 7.5e-9, aux 0, norms 8.5e-7, gradients 5.3e-3 of the rms (a
+# product's cotangent rounded to bf16 on the other side), params 1.0e-6,
+# 99.98 % within 1e-6.
+MOE_GRAD_GOLDEN_TOL = {
+    "f32": {"loss": 1e-6, "aux": 1e-6, "grad_norm": 1e-5, "grad": 1e-4, "param": 1e-5,
+            "param_share": 0.999},
+    "bf16": {"loss": 1e-5, "aux": 1e-6, "grad_norm": 1e-4, "grad": 0.05, "param": 7e-4,
+             "param_share": 0.98},
+}
+MOE_GRAD_LEAVES = ("router", "w1", "w2", "x")
 # a group is held against the golden only if every token's two largest
 # router probabilities differ by at least this: the card's router product
 # (cuBLAS) and the reference's differ in their last bits, and a near-tie
@@ -185,6 +212,17 @@ def moe_to_numpy(model: MoE) -> Dict:
             for k in _KEYS}
 
 
+def moe_grads_to_numpy(model: MoE) -> Dict:
+    """The parameters' gradients (``.grad``, from a backward through
+    moe_ffn) as the reference's pytree, the counterpart of jax.grad's."""
+    grads = {k: getattr(model, k).grad for k in _KEYS}
+    missing = [k for k, g in grads.items() if g is None]
+    if missing:
+        raise ValueError(f"moe_grads_to_numpy: no gradient for {missing}; run a backward "
+                         "through moe_ffn with requires_grad on first")
+    return {k: g.detach().to("cpu", torch.float32).numpy().copy() for k, g in grads.items()}
+
+
 # ------------------------------------------------------------------ forward
 
 
@@ -201,7 +239,31 @@ def _expert_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(E, G, C, -1)
 
 
-@torch.no_grad()
+class _ExpertProduct(torch.autograd.Function):
+    """_expert_matmul, with the reference's transposes as its backward: the
+    cotangent g [E, G, C, N] is float32, and da = g @ w^T and dw = a^T @ g
+    are float32 products of the dtype-rounded values (TF32 off), each
+    rounded once to its operand's dtype (for w the dtype-cast weight; the
+    cast's own backward widens it to the float32 master's gradient)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return _expert_matmul(a, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        E, G, C, K = a.shape
+        g = g.reshape(E, G * C, -1).float()
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = torch.bmm(g, w.float().transpose(1, 2)).to(a.dtype).reshape(a.shape)
+        if ctx.needs_input_grad[1]:
+            dw = torch.bmm(a.reshape(E, G * C, K).float().transpose(1, 2), g).to(w.dtype)
+        return da, dw
+
+
 def moe_ffn(params: MoE, x: torch.Tensor, cfg: Optional[MoEConfig] = None,
             mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-1 (Switch) MoE FFN. x [G, S, D] -> (y [G, S, D] in x's dtype,
@@ -209,6 +271,8 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: Optional[MoEConfig] = None,
 
     aux_loss is the Switch load-balancing loss
     (E * sum_e[frac_tokens_e * mean_prob_e]); add it to the task loss.
+    Differentiable in x and the parameters when gradients are on and one of
+    them requires a gradient; otherwise computed without autograd.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -220,19 +284,38 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: Optional[MoEConfig] = None,
     if x.device != params.device:
         raise ValueError(f"moe_ffn: x on {x.device}, params on {params.device}")
     x = x.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or params.router.requires_grad
+                                    or params.w1.requires_grad or params.w2.requires_grad):
+        return _moe_ffn_autograd(params, x, cfg)
+    with torch.no_grad():
+        return _moe_ffn_forward(params, x, cfg)
+
+
+def _moe_ffn_forward(params: MoE, x: torch.Tensor, cfg: MoEConfig):
     G, S, _ = x.shape
-    E, C = cfg.n_experts, _capacity(cfg, S)
+    C = _capacity(cfg, S)
     logits = torch.matmul(x.float(), params.router)  # [G, S, E]
     _, gate, slot, token_of_slot, stats = moe_kernels.moe_route(logits, C)
     expert_in = moe_kernels.moe_dispatch(x, token_of_slot, cfg.dtype)  # [E, G, C, D]
     h = F.gelu(_expert_matmul(expert_in, params.w1.to(cfg.dtype)), approximate="tanh")
     out = _expert_matmul(h.to(cfg.dtype), params.w2.to(cfg.dtype))
     y = moe_kernels.moe_combine(out, slot, gate, x.dtype)
+    return y, moe_kernels.aux_loss(stats, G * S)[1]
 
-    n_tokens = G * S
-    frac_tokens = stats[:, 0].sum(0) / n_tokens  # [E]
-    mean_prob = stats[:, 1].sum(0) / n_tokens  # [E]
-    aux = E * torch.sum(frac_tokens * mean_prob)
+
+def _moe_ffn_autograd(params: MoE, x: torch.Tensor, cfg: MoEConfig):
+    """moe_ffn with a graph: the same kernels through their autograd
+    Functions. x is read twice, by the router (x.float()) and by K9b, so
+    autograd adds dx's two parts in x's dtype, each rounded first, as the
+    reference's jaxpr does."""
+    G, S, _ = x.shape
+    C = _capacity(cfg, S)
+    logits = torch.matmul(x.float(), params.router)  # [G, S, E]
+    gate, aux, slot, token_of_slot = moe_kernels._Route.apply(logits, C)
+    expert_in = moe_kernels._Dispatch.apply(x, token_of_slot, slot, cfg.dtype)
+    h = F.gelu(_ExpertProduct.apply(expert_in, params.w1.to(cfg.dtype)), approximate="tanh")
+    out = _ExpertProduct.apply(h.to(cfg.dtype), params.w2.to(cfg.dtype))
+    y = moe_kernels._Combine.apply(out, gate, slot, token_of_slot, x.dtype)
     return y, aux
 
 
@@ -251,3 +334,58 @@ def reference_moe_ffn(params: MoE, x: torch.Tensor, cfg: Optional[MoEConfig] = N
     G, S, _, D = out.shape
     sel = out.gather(2, expert[..., None, None].expand(G, S, 1, D))[:, :, 0, :]
     return (sel * gate[..., None]).to(x.dtype)
+
+
+# ------------------------------------------------------- the training golden
+
+
+def moe_grad_golden_errors(golden, dt_name: str, device=None) -> Dict[str, float]:
+    """The port's one training step of the layer against the JAX package's
+    golden (tests/data/moe_grad_golden.npz, loaded as a mapping): at the
+    golden's weights and tokens (float32 x, requiring a gradient) in the
+    expert dtype `dt_name` ("f32" or "bf16"), the reference test's loss
+    (y ** 2).mean() + 0.01 * aux, its backward and one AdamW step (lr 3e-4,
+    weight decay 0.01). Returns the largest error of each kind that
+    MOE_GRAD_GOLDEN_TOL bounds (param_share: the smallest share, over the
+    parameters, of sampled entries within 1e-6)."""
+    from ray_tpu_torch.parallel.tpu_train import make_optimizer
+
+    cfg = MoEConfig(dtype={"f32": torch.float32, "bf16": torch.bfloat16}[dt_name])
+    tree = numpy_moe_params(cfg, int(golden["weight_seed"]))
+    x = numpy_moe_inputs(tree, tuple(int(n) for n in golden["shape"]), int(golden["x_seed"]),
+                         float(golden["skew"]))
+    model = moe_params_from_numpy(tree, cfg, device=device).requires_grad_(True)
+    xt = torch.from_numpy(x).to(model.device).requires_grad_(True)
+    tx = make_optimizer(float(golden["lr"]), float(golden["weight_decay"]))
+    state = tx.init(model)
+    y, aux = moe_ffn(model, xt)
+    loss = (y.float() ** 2).mean() + 0.01 * aux
+    loss.backward()
+    grads = dict(moe_grads_to_numpy(model), x=xt.grad.float().cpu().numpy())
+    tx.update(model, state)
+    params1 = moe_to_numpy(model)
+    err = {"loss": abs(float(loss.detach()) - float(golden[f"loss_{dt_name}"])),
+           "aux": abs(float(aux.detach()) - float(golden[f"aux_{dt_name}"])), "grad_norm": 0.0,
+           "grad": 0.0, "param": 0.0, "param_share": 1.0}
+    for i, name in enumerate(MOE_GRAD_LEAVES):
+        g = grads[name]
+        want_norm = float(golden[f"grad_norm_{dt_name}"][i])
+        err["grad_norm"] = max(err["grad_norm"],
+                               abs(np.linalg.norm(g.astype(np.float64)) / want_norm - 1))
+        pos = golden[f"pos_{name}"]
+        rms = want_norm / np.sqrt(g.size)
+        err["grad"] = max(err["grad"], float(
+            np.abs(g.reshape(-1)[pos] - golden[f"grad_{dt_name}_{name}"]).max()) / rms)
+        if name in params1:
+            d = np.abs(params1[name].reshape(-1)[pos] - golden[f"param1_{dt_name}_{name}"])
+            err["param"] = max(err["param"], float(d.max()))
+            err["param_share"] = min(err["param_share"], float((d <= 1e-6).mean()))
+    return {k: float(e) for k, e in err.items()}
+
+
+def moe_grad_golden_violations(err: Dict[str, float], dt_name: str) -> Dict[str, float]:
+    """The entries of moe_grad_golden_errors' result outside
+    MOE_GRAD_GOLDEN_TOL."""
+    tol = MOE_GRAD_GOLDEN_TOL[dt_name]
+    return {k: e for k, e in err.items()
+            if (e < tol[k] if k == "param_share" else not e <= tol[k])}

@@ -94,14 +94,17 @@ class AdamW:
     torch.optim.AdamW does the same arithmetic in another order (decay
     first, sqrt(nu) / sqrt(bc2), bias corrections in float64); this one
     follows optax to the rounding. The update is in place, on the
-    parameters' own device, from their ``.grad``."""
+    parameters' own device, from their ``.grad``. Like optax.adamw, which
+    takes any pytree, it takes any module with ``named_parameters()`` and
+    a ``device`` (the Transformer, the MoE layer)."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
     def __init__(self, lr: float = 3e-4, weight_decay: float = 0.01):
         self.lr, self.weight_decay = float(lr), float(weight_decay)
 
-    def init(self, params: Transformer) -> AdamWState:
+    def init(self, params: torch.nn.Module) -> AdamWState:
+        """Zero moments for every parameter of `params`, by name."""
         zeros = {n: torch.zeros_like(p, dtype=torch.float32)
                  for n, p in params.named_parameters()}
         return AdamWState(0, zeros, {n: torch.zeros_like(z) for n, z in zeros.items()})
@@ -113,7 +116,9 @@ class AdamW:
         return torch.full((), float(bc), dtype=torch.float32, device=dev)
 
     @torch.no_grad()
-    def update(self, params: Transformer, state: AdamWState) -> AdamWState:
+    def update(self, params: torch.nn.Module, state: AdamWState) -> AdamWState:
+        """One step of every parameter of `params` from its ``.grad``, in
+        place; `state` is updated in place and returned."""
         state.count += 1
         dev = params.device
         bc1 = self._bias_correction(self.b1, state.count, dev)

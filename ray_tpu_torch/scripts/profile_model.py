@@ -4,19 +4,23 @@ layer spends its time on the card.
     python -m ray_tpu_torch.scripts.profile_model [--batch 8] [--seq 2048] [--steps 5]
     python -m ray_tpu_torch.scripts.profile_model --train [--batch 8] [--seq 2048] [--steps 3]
     python -m ray_tpu_torch.scripts.profile_model --moe [--batch 8] [--seq 2048] [--steps 20]
+    python -m ray_tpu_torch.scripts.profile_model --moe --train [--steps 10]
 
 Default: make_forward_step at the default TransformerConfig (bf16, weights
 from a numpy seed). --train: make_train_step at the same config on one
 seeded [batch, seq + 1] batch (make_train_state, seed 0), as chip_smoke.py
 phase 9b runs it. --moe: moe_ffn at MoEConfig() (d_model 256, 8 experts,
 bf16) on x [batch, seq, 256] bf16 skewed toward expert 0, as chip_smoke.py
-phase 7b runs it. Prints one JSON line: the card's name and power limit,
-the step's device ms (CUDA events, median) and host ms, and, from
-torch.profiler over `steps` steps, the device busy share of the window
-and the device ms a step by kernel, the port's kernels (K8, K8', K9a-c,
-K10a, K10a', K10b, K10b') named as such; with --moe and --train also by
-kind (the port's kernels, the cuBLAS products, GELU, casts and copies).
-Needs a CUDA device.
+phase 7b runs it. --moe --train: the expert layer's train step on the same
+weights and tokens (x requiring a gradient), the loss of
+tests/test_parallel.py::test_moe_grads_flow, its backward and AdamW (lr
+3e-4, weight decay 0.01), as chip_smoke.py phase 10b runs it. Prints one
+JSON line: the card's name and power limit, the step's device ms (CUDA
+events, median) and host ms, and, from torch.profiler over `steps` steps,
+the device busy share of the window and the device ms a step by kernel,
+the port's kernels (K8, K8', K9a-c, K9a'-c', K10a, K10a', K10b, K10b')
+named as such; with --moe and --train also by kind (the port's kernels,
+the cuBLAS products, GELU, casts and copies). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import torch
 # the port's kernels by their CUDA symbol
 # (backward kernels first: their names contain the forward's)
 _OURS = {"attention_bwd_dq_kernel": "K8' launch 1", "attention_bwd_dkv_kernel": "K8' launch 2",
+         "route_bwd_kernel": "K9a'", "dispatch_bwd_kernel": "K9b'",
+         "combine_bwd_rows_kernel": "K9c' launch 1", "combine_bwd_gate_kernel": "K9c' launch 2",
          "rmsnorm_bwd_kernel": "K10a' launch 1", "rmsnorm_dscale_kernel": "K10a' launch 2",
          "rope_split_bwd_kernel": "K10b'",
          "attention_kernel": "K8", "rmsnorm_kernel": "K10a", "rope_split_kernel": "K10b",
@@ -70,6 +76,19 @@ def _card() -> str:
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def device_ms_by_kernel(prof) -> dict:
+    """The device ms of a finished torch.profiler window by kernel label."""
+    by_kernel = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "cuda_time_total", 0)
+        if getattr(evt, "device_type", None) is not None and \
+                str(evt.device_type).endswith("CUDA") and dev_us > 0:
+            by_kernel[_label(evt.key)] = by_kernel.get(_label(evt.key), 0.0) + dev_us / 1e3
+    return by_kernel
+
+
 def _profile(step, steps: int) -> dict:
     """Device ms of step() (CUDA events, median), host ms a step, and the
     device ms a step by kernel over `steps` steps under torch.profiler."""
@@ -97,14 +116,7 @@ def _profile(step, steps: int) -> dict:
             step()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "cuda_time_total", 0)
-        if getattr(evt, "device_type", None) is not None and \
-                str(evt.device_type).endswith("CUDA") and dev_us > 0:
-            by_kernel[_label(evt.key)] = by_kernel.get(_label(evt.key), 0.0) + dev_us / 1e3
+    by_kernel = device_ms_by_kernel(prof)
     busy_ms = sum(by_kernel.values())
     return {"card": _card(), "step_ms_median": float(np.median(times)),
             "host_ms_per_step": host_ms, "profiled_window_ms": window_ms,
@@ -188,6 +200,44 @@ def profile_moe(batch: int = 8, seq: int = 2048, steps: int = 20) -> dict:
             "device_ms_per_call_by_kernel": dict(top)}
 
 
+def profile_moe_train(batch: int = 8, seq: int = 2048, steps: int = 10) -> dict:
+    from ray_tpu_torch.models import moe as PM
+    from ray_tpu_torch.parallel import make_optimizer
+
+    cfg = PM.MoEConfig()
+    tree = PM.numpy_moe_params(cfg, 0)
+    layer = PM.moe_params_from_numpy(tree, cfg).requires_grad_(True)
+    x = torch.from_numpy(PM.numpy_moe_inputs(tree, (batch, seq, cfg.d_model), 70)) \
+        .to(layer.device, torch.bfloat16).requires_grad_(True)
+    tx = make_optimizer(3e-4, 0.01)
+    state = tx.init(layer)
+
+    def step():
+        layer.zero_grad(set_to_none=True)
+        x.grad = None
+        y, aux = PM.moe_ffn(layer, x)
+        ((y.float() ** 2).mean() + 0.01 * aux).backward()
+        tx.update(layer, state)
+
+    r = _profile(step, steps)
+    by_kernel = r.pop("by_kernel")
+    by_kind = {}
+    for label, ms in by_kernel.items():
+        by_kind[_kind(label)] = by_kind.get(_kind(label), 0.0) + ms
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]
+    return {"card": r["card"], "shape": [batch, seq, cfg.d_model],
+            "step_ms_median": r["step_ms_median"],
+            "tokens_per_s": batch * seq / (r["step_ms_median"] / 1e3),
+            "host_ms_per_step": r["host_ms_per_step"],
+            "tokens_per_s_host": batch * seq / (r["host_ms_per_step"] / 1e3),
+            "profiled_window_ms": r["profiled_window_ms"],
+            "device_busy_ms": r["device_busy_ms"],
+            "device_busy_share": r["device_busy_share"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "device_ms_per_step_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+            "device_ms_per_step_by_kernel": dict(top)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--moe", action="store_true", help="profile the expert layer")
@@ -199,7 +249,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_model: needs a CUDA device", file=sys.stderr)
         return 2
-    if args.moe:
+    if args.moe and args.train:
+        out = profile_moe_train(args.batch, args.seq, args.steps or 10)
+    elif args.moe:
         out = profile_moe(args.batch, args.seq, args.steps or 20)
     elif args.train:
         out = profile_train(args.batch, args.seq, args.steps or 3)

@@ -184,11 +184,17 @@ def test_softmax_plain_divides_as_the_reference():
 def test_plain_versions_do_not_count_launches():
     K.reset_launch_counts()
     logits, x = _logits_and_x(16)
-    _, gate, slot, tos, _ = K.moe_route(torch.from_numpy(logits), 4)
+    lt = torch.from_numpy(logits)
+    _, gate, slot, tos, stats = K.moe_route(lt, 4)
     out = K.moe_dispatch(torch.from_numpy(x), tos, torch.float32)
-    K.moe_combine(out, slot, gate, torch.float32)
+    y = K.moe_combine(out, slot, gate, torch.float32)
+    d_out, d_gate = K.moe_combine_bwd(y, out, slot, gate, tos)
+    K.moe_dispatch_bwd(d_out, slot, torch.float32)
+    K.moe_route_bwd(lt, d_gate, K.aux_loss(stats, lt.shape[0] * lt.shape[1])[0],
+                    torch.tensor(1.0))
     assert K.launch_counts() == {name: 0 for name in K.KERNELS}
-    assert set(K.KERNELS) == {"moe_route", "moe_dispatch", "moe_combine"}
+    assert set(K.KERNELS) == {"moe_route", "moe_dispatch", "moe_combine", "moe_route_bwd",
+                              "moe_dispatch_bwd", "moe_combine_bwd"}
 
 
 def test_wrappers_raise_on_bad_inputs():

@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero (no phase's exception is
 caught):
 
 0. the card's name and power limit; build the CUDA kernels from
-   ray_tpu_torch/sched/csrc and ray_tpu_torch/models/csrc (three sources),
+   ray_tpu_torch/sched/csrc and ray_tpu_torch/models/csrc (four sources),
    one nvcc each, started together (build seconds printed).
 1. every kernel against its plain PyTorch version on the card, with exact
    equality: K1 on the golden problem of the kernel tests, on seeded random
@@ -37,8 +37,11 @@ caught):
 6. the flagship transformer's forward (ray_tpu_torch.models, the default
    TransformerConfig in bf16, weights from a numpy seed): (a) K8 (both
    forms), K10a and K10b against their plain versions at the forward's
-   shapes, in bf16 and f32, with times, bounds and the library yardsticks
-   (scaled_dot_product_attention, rms_norm); (b) make_forward_step on
+   shapes, in bf16 and f32 (K8 with rounded probabilities in bf16 is the
+   tensor-core kernel of attention_sm90.cu, its m and l checked too and a
+   second launch bit-equal; in f32 the CUDA-core one), with times, bounds
+   and the library yardsticks (scaled_dot_product_attention, rms_norm), the
+   f32 CUDA-core K8's time beside the bf16 one; (b) make_forward_step on
    [8, 2048] tokens, finite logits, timed; (c) the model held by an actor
    of ray_tpu_torch.init(), answering 8 requests; (d) the checks of what
    (b) and (c) gave: two sequences against the plain forward on the CPU,
@@ -73,8 +76,10 @@ caught):
 
 9. training (ray_tpu_torch.parallel.tpu_train, the default
    TransformerConfig in bf16): (a) K8', K10a' and K10b' against their plain
-   versions at the train step's shapes in bf16 and f32, each launched
-   twice with the same bits, with times, bounds and the library
+   versions at the train step's shapes in bf16 and f32 (K8' in bf16 on the
+   tensor cores, in f32 on the CUDA cores, whose time is recorded beside
+   it), each launched twice with the same bits, with times, bounds and the
+   library
    yardsticks (the backward of scaled_dot_product_attention and of
    rms_norm); (b) make_train_state (seed 0) and make_train_step, 10 steps
    on one seeded [8, 2049] batch, timed, the loss finite and falling; (c)
@@ -101,11 +106,12 @@ caught):
    the card against the plain step on the CPU.
 
 Launch counters are set to 0 just before phase 2 and read after phase 5,
-the model kernels' just before 6b and after 6c, the expert kernels' just
+the model kernels' just before 6b and after 6c (every K8 launch there must
+have gone to the tensor-core kernel), the expert kernels' just
 before 7b and after 7c, K7's just before 8b and after it, the model
 kernels' again just before 9b and after 9c, where each of the training
 path's six must have launched its predicted count a step times the 14
-steps, and the expert kernels' again just before 10b and after 10c, where
+steps, every K8 and K8' launch a tensor-core one, and the expert kernels' again just before 10b and after 10c, where
 each of the six (K9a-c, K9a'-c') must have launched once a step over the
 14 steps: every kernel of each path must have launched in its run. K8's block form runs on no ported
 path yet (the ring across cards is still to port); its launches in (d)'s
@@ -136,6 +142,9 @@ PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
 CU_SOURCE = "ray_tpu_torch/sched/csrc/sched_kernels.cu"
 MODEL_CU_SOURCE = "ray_tpu_torch/models/csrc/model_kernels.cu"
+# K8 and K8' as the forward and the train step run them (bf16, rounded
+# probabilities): the tensor-core kernels
+SM90_CU_SOURCE = "ray_tpu_torch/models/csrc/attention_sm90.cu"
 MOE_CU_SOURCE = "ray_tpu_torch/models/csrc/moe_kernels.cu"
 GOLDEN_PATH = os.path.join(HERE, "tests", "data", "transformer_golden.npz")
 MOE_GOLDEN_PATH = os.path.join(HERE, "tests", "data", "moe_golden.npz")
@@ -933,15 +942,26 @@ def phase6a_model_kernels(torch, MK, dev, S=2048):
             raise AssertionError(f"{name} {what}: kernel != plain (max abs err {d}, "
                                  f"tolerance rtol {rtol} atol {atol})")
 
+    # K8 with its m and l (a rehearsal on the CPU takes the plain version)
+    launch = MK._attention_launch if dev.type == "cuda" else \
+        (lambda q, k, v, causal, _round, stats: MK._attention_rounded_plain(q, k, v, causal))
     for dt in (torch.bfloat16, torch.float32):
         for s_len in (S, S - 1):
             q, k, v = (rnd((B, s_len, H, Dh), dt) for _ in range(3))
             check("attention", MK.attention(q, k, v), MK._attention_plain(q, k, v),
                   f"{names[dt]} S={s_len}")
-            # the forward's form: probabilities rounded to the dtype
-            check("attention", MK.attention(q, k, v, round_probs=True),
-                  MK._attention_plain(q, k, v, round_probs=True),
-                  f"{names[dt]} S={s_len} rounded probabilities")
+            # the forward's form: probabilities rounded to the dtype (bf16:
+            # the tensor-core kernel), with the rows' m and l, and a second
+            # launch giving the same bits
+            got = launch(q, k, v, True, True, stats=True)
+            want = MK._attention_rounded_plain(q, k, v, True)
+            for part, a, b in zip(("out", "m", "l"), got, want):
+                check("attention", a, b, f"{names[dt]} S={s_len} rounded probabilities, "
+                      f"{part}", sum_state=part != "out")
+            again = launch(q, k, v, True, True, stats=True)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"attention {names[dt]} S={s_len}: two launches gave "
+                                     "different bits")
         # a fully visible block sets the state, then the diagonal block, then
         # one wholly above the diagonal (must leave the state as it is)
         q, k, v = (rnd((B, S, H, Dh), dt) for _ in range(3))
@@ -969,14 +989,16 @@ def phase6a_model_kernels(torch, MK, dev, S=2048):
 
     bf = torch.bfloat16
     # K8, whole form, as the forward calls it: causal, [8, 2048, 8, 64] bf16,
-    # probabilities rounded (two passes); the one-pass float32-probability
-    # form beside it
+    # probabilities rounded (the tensor-core kernel); beside it the CUDA-core
+    # kernel in bf16 with float32 probabilities and in float32
     q, k, v = (rnd((B, S, H, Dh), bf) for _ in range(3))
+    q32, k32, v32 = (t.float() for t in (q, k, v))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = S * (S + 1) // 2  # causal (query, key) pairs a head
     rec["attention"].update(
         ms=time_ms(torch, lambda: MK.attention(q, k, v, round_probs=True)),
         ms_unrounded=time_ms(torch, lambda: MK.attention(q, k, v)),
+        ms_f32_cuda_core=time_ms(torch, lambda: MK.attention(q32, k32, v32, round_probs=True)),
         plain_ms=time_ms(torch, lambda: MK._attention_plain(q, k, v, round_probs=True),
                          reps=3, warm=1),
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1012,6 +1034,8 @@ def phase6a_model_kernels(torch, MK, dev, S=2048):
         log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}), "
             f"max abs err {r['max_abs_err']:.3g}")
+    log(f"  attention f32 (CUDA cores): {rec['attention']['ms_f32_cuda_core']:.4f} ms; bf16 "
+        f"unrounded (CUDA cores): {rec['attention']['ms_unrounded']:.4f} ms")
     return rec
 
 
@@ -1686,12 +1710,16 @@ def phase9a_train_kernels(torch, MK, dev, S=2048):
     bf = torch.bfloat16
     q, k, v, do = (rnd((B, S, H, Dh), bf) for _ in range(4))
     _, m, l = MK._attention_launch(q, k, v, True, True, stats=True)
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    _, m32, l32 = MK._attention_launch(q32, k32, v32, True, True, stats=True)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2).contiguous()
     pairs = S * (S + 1) // 2
     rec["attention_bwd"].update(
         ms=time_ms(torch, lambda: MK.attention_bwd(q, k, v, do, m, l)),
+        ms_f32_cuda_core=time_ms(torch, lambda: MK.attention_bwd(q32, k32, v32, do32, m32,
+                                                                 l32)),
         plain_ms=time_ms(torch, lambda: MK._attention_bwd_plain(q, k, v, do, m, l, True),
                          reps=3, warm=1),
         library_ms=time_ms(torch, lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot,
@@ -1719,6 +1747,7 @@ def phase9a_train_kernels(torch, MK, dev, S=2048):
         log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}), "
             f"max abs err {r['max_abs_err']:.3g}, two launches bit-equal")
+    log(f"  attention_bwd f32 (CUDA cores): {rec['attention_bwd']['ms_f32_cuda_core']:.4f} ms")
     return rec
 
 
@@ -2168,7 +2197,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    libraries = [_build.LIBRARY, MK.LIBRARY, EK.LIBRARY]
+    libraries = [_build.LIBRARY, MK.LIBRARY, MK.LIBRARY_SM90, EK.LIBRARY]
     cuda_build.build_all(libraries)  # one nvcc each, together
     log(f"phase 0 build: {time.perf_counter() - t0:.2f} s (" + "; ".join(
         f"nvcc {lib.build_seconds:.2f} s -> {lib.library_path().name}"
@@ -2232,6 +2261,11 @@ def main() -> int:
     missing = [k for k in FORWARD_KERNELS if model_launches[k] == 0]
     if missing:
         raise AssertionError(f"model kernels never launched on the forward's path: {missing}")
+    model_tc = MK.tc_launch_counts()
+    if model_tc["attention"] != model_launches["attention"]:
+        raise AssertionError(f"forward's path: {model_launches['attention']} K8 launches, "
+                             f"{model_tc['attention']} of them on the tensor cores")
+    log(f"phase 6b-6c tensor-core launches {model_tc}")
     t0 = time.perf_counter()
     check_res = phase6d_checks(torch, PT, MK, ctx, requests, answers)
     log(f"phase 6d: {time.perf_counter() - t0:.1f} s")
@@ -2294,6 +2328,11 @@ def main() -> int:
     got = {k: train_launches[k] for k in want}
     if got != want:
         raise AssertionError(f"training path launches {got}, predicted {want}")
+    train_tc = MK.tc_launch_counts()
+    if any(train_tc[k] != train_launches[k] for k in MK.TC_KERNELS):
+        raise AssertionError(f"training path: K8/K8' launches {got}, on the tensor cores "
+                             f"{train_tc}")
+    log(f"phase 9b-9c tensor-core launches {train_tc}")
     t0 = time.perf_counter()
     train_checks = phase9d_train_checks(torch, PT, TT, dev)
     log(f"phase 9d: {time.perf_counter() - t0:.1f} s")
@@ -2346,7 +2385,8 @@ def main() -> int:
     off_path = []
     for name, r in model_rec.items():
         entry = {
-            "name": name, "route": "cuda", "source": MODEL_CU_SOURCE,
+            "name": name, "route": "cuda",
+            "source": SM90_CU_SOURCE if name == "attention" else MODEL_CU_SOURCE,
             "replaces": MODEL_REPLACES[name], "launches": model_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -2375,7 +2415,8 @@ def main() -> int:
         })
     for name, r in train_rec.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": MODEL_CU_SOURCE,
+            "name": name, "route": "cuda",
+            "source": SM90_CU_SOURCE if name == "attention_bwd" else MODEL_CU_SOURCE,
             "replaces": TRAIN_REPLACES[name], "launches": train_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
@@ -2396,6 +2437,10 @@ def main() -> int:
                     "moe_train": moe_train_res, "moe_train_actor": moe_train_actor,
                     "moe_train_checks": moe_train_checks,
                     "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
+                    "attention_ms_f32_cuda_core": model_rec["attention"]["ms_f32_cuda_core"],
+                    "attention_bwd_ms_f32_cuda_core":
+                        train_rec["attention_bwd"]["ms_f32_cuda_core"],
+                    "tc_launches": {"forward": model_tc, "train": train_tc},
                     "card": card}))
     log(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}), flush=True)

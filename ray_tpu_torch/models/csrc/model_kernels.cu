@@ -27,22 +27,18 @@
 //
 // Kernels:
 //   K8  model_attention     replaces ray_tpu/models/transformer.py
-//                           _attention (:113-124). Two numerics, chosen by
-//                           round_probs:
-//                           - 0: as ring_attention.py _ring_attention_local
-//                             on one device computes it (= reference_attention):
-//                             online softmax from o = 0, m = -1e30, l = 0
-//                             over every KV tile, then o / max(l, 1e-30) cast
-//                             to q's dtype; one pass over the key tiles.
-//                           - 1: as _attention itself computes it: p =
-//                             exp(s - m) / l (IEEE division, as
-//                             jax.nn.softmax divides) rounded to q's dtype
-//                             before P·V, P·V summed in f32 and rounded once.
-//                             In bf16 this is two passes over the key tiles
-//                             of a query tile: the first finds each row's m
-//                             and l (online, no P·V), the second recomputes
-//                             s and p and sums P·V. In f32 the rounding is
-//                             the identity and one pass remains.
+//                           _attention (:113-124) in float32, and
+//                           reference_attention in both dtypes: as
+//                           ring_attention.py _ring_attention_local on one
+//                           device computes it, online softmax from o = 0,
+//                           m = -1e30, l = 0 over every KV tile, then o /
+//                           max(l, 1e-30) cast to q's dtype; one pass over
+//                           the key tiles. In float32 rounding the
+//                           probabilities is the identity, so this is also
+//                           _attention there. bf16 with the probabilities
+//                           rounded before P·V (the forward's and the train
+//                           step's path) is the tensor-core kernel of
+//                           attention_sm90.cu, which kernels.py routes to.
 //                           The whole form writes each row's m and l ([B, H,
 //                           Sq] f32) when given buffers: the backward
 //                           recomputes p from them.
@@ -62,9 +58,11 @@
 //       over the 16 threads of a row; P goes through shared memory to the
 //       PV product. Causal tiles above the diagonal are never loaded, and
 //       the heaviest query tiles are scheduled first. This is the CUDA-core
-//       form; wgmma, TMA and warp specialisation are the later step to the
-//       tensor-core bound.
-//   K8' model_attention_bwd replaces the gradient of _attention that
+//       form, for float32 (whose products the reference takes in full
+//       float32: TF32 would lose the float32 golden's 1e-3) and the
+//       unrounded bf16 form; the rounded bf16 form is attention_sm90.cu's.
+//   K8' model_attention_bwd replaces, in float32 (bf16: attention_sm90.cu),
+//                           the gradient of _attention that
 //                           jax.value_and_grad(loss_fn) forms
 //                           (ray_tpu/parallel/tpu_train.py:78), with the
 //                           roundings of its jaxpr: e = exp(s - m), p = e / l,
@@ -187,7 +185,6 @@ struct AttnArgs {
   int B, Sq, Sk, H, Dh;
   long long q_off, k_off;
   int causal;
-  int round_probs;    // whole form: p = exp(s - m) / l rounded before P·V
   float scale;
   int dtype;
 };
@@ -261,8 +258,6 @@ __global__ void __launch_bounds__(kAttnThreads, 2) attention_kernel(const AttnAr
   const int h = bh % a.H;
   const int nd4 = Dh / 4;
   const int nj = Dh / 16;
-  // bf16 with rounded probabilities: a first pass for m and l, then P·V
-  const bool two_pass = kWhole && a.round_probs && a.dtype == kBF16;
 
   stage_rows(Qs, a.q, b, q0, a.Sq, a.H, h, Dh, ldq, a.dtype, tid);
 
@@ -297,102 +292,88 @@ __global__ void __launch_bounds__(kAttnThreads, 2) attention_kernel(const AttnAr
     kt_end = lim < 0 ? 0 : (int)min((long long)n_kt, lim / kBK + 1);
   }
 
-  for (int pass = two_pass ? 0 : 1; pass < 2; ++pass) {
-    const bool stats_only = two_pass && pass == 0;  // block-uniform
-    for (int kt = 0; kt < kt_end; ++kt) {
-      const int k0 = kt * kBK;
-      __syncthreads();  // the last tile's readers are done; Q is stored
-      for (int idx = tid; idx < kBK * nd4; idx += kAttnThreads) {
-        const int r = idx / nd4;
-        const int d = (idx % nd4) * 4;
-        float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-        float4 vv = kv;
-        if (k0 + r < a.Sk) {
-          const long long off = ((long long)(b * a.Sk + k0 + r) * a.H + h) * Dh + d;
-          kv = load4(a.k, off, a.dtype);
-          if (!stats_only) vv = load4(a.v, off, a.dtype);
-        }
-        *reinterpret_cast<float4*>(Ks + r * ldq + d) = kv;
-        *reinterpret_cast<float4*>(Vs + r * Dh + d) = vv;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();  // the last tile's readers are done; Q is stored
+    for (int idx = tid; idx < kBK * nd4; idx += kAttnThreads) {
+      const int r = idx / nd4;
+      const int d = (idx % nd4) * 4;
+      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 vv = kv;
+      if (k0 + r < a.Sk) {
+        const long long off = ((long long)(b * a.Sk + k0 + r) * a.H + h) * Dh + d;
+        kv = load4(a.k, off, a.dtype);
+        vv = load4(a.v, off, a.dtype);
       }
-      __syncthreads();
+      *reinterpret_cast<float4*>(Ks + r * ldq + d) = kv;
+      *reinterpret_cast<float4*>(Vs + r * Dh + d) = vv;
+    }
+    __syncthreads();
 
-      float s[4][4];
+    float s[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      dot_tile(s, Qs, Ks, ty, tx, ldq, Dh);
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    dot_tile(s, Qs, Ks, ty, tx, ldq, Dh);
 
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const long long q_pos = a.q_off + q0 + ty + 16 * i;
-        unsigned live = 0;  // bit j: key in range and not masked
+    for (int i = 0; i < 4; ++i) {
+      const long long q_pos = a.q_off + q0 + ty + 16 * i;
+      unsigned live = 0;  // bit j: key in range and not masked
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = k0 + tx + 16 * j;
-          if (col < a.Sk && !(a.causal && q_pos < a.k_off + col)) live |= 1u << j;
-        }
-        if (two_pass && !stats_only) {
-          // p = exp(s - m) / l with the final m and l, rounded to bf16
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float e = softmax_num(s[i][j], a.scale, m[i], (live >> j) & 1u);
-            Ps[(ty + 16 * i) * kLdp + tx + 16 * j] = round_to(__fdiv_rn(e, l[i]), kBF16);
-          }
-          continue;
-        }
-        float rmax = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = k0 + tx + 16 * j;
-          if (col >= a.Sk) continue;  // past the ragged edge: not a key
-          const float x = (live >> j) & 1u ? __fmul_rn(s[i][j], a.scale) : kNegInf;
-          rmax = fmaxf(rmax, x);
-        }
-#pragma unroll
-        for (int off = 1; off < 16; off <<= 1) rmax = fmaxf(rmax, __shfl_xor_sync(kFull, rmax, off));
-        const float m_new = fmaxf(m[i], rmax);
-        const float corr = expf(m[i] - m_new);
-        float rsum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // masked keys weigh 0 (the reference's pmask), even when the whole
-          // row is masked and exp(-1e30 - (-1e30)) would be 1
-          const float p = softmax_num(s[i][j], a.scale, m_new, (live >> j) & 1u);
-          s[i][j] = p;
-          rsum += p;
-        }
-#pragma unroll
-        for (int off = 1; off < 16; off <<= 1) rsum += __shfl_xor_sync(kFull, rsum, off);
-        l[i] = l[i] * corr + rsum;
-        m[i] = m_new;
-        if (stats_only) continue;
-#pragma unroll
-        for (int jj = 0; jj < kMaxNj; ++jj) o[i][jj] *= corr;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * kLdp + tx + 16 * j] = s[i][j];
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        if (col < a.Sk && !(a.causal && q_pos < a.k_off + col)) live |= 1u << j;
       }
-      if (stats_only) continue;
-      __syncthreads();
+      float rmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        if (col >= a.Sk) continue;  // past the ragged edge: not a key
+        const float x = (live >> j) & 1u ? __fmul_rn(s[i][j], a.scale) : kNegInf;
+        rmax = fmaxf(rmax, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) rmax = fmaxf(rmax, __shfl_xor_sync(kFull, rmax, off));
+      const float m_new = fmaxf(m[i], rmax);
+      const float corr = expf(m[i] - m_new);
+      float rsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // masked keys weigh 0 (the reference's pmask), even when the whole
+        // row is masked and exp(-1e30 - (-1e30)) would be 1
+        const float p = softmax_num(s[i][j], a.scale, m_new, (live >> j) & 1u);
+        s[i][j] = p;
+        rsum += p;
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) rsum += __shfl_xor_sync(kFull, rsum, off);
+      l[i] = l[i] * corr + rsum;
+      m[i] = m_new;
+#pragma unroll
+      for (int jj = 0; jj < kMaxNj; ++jj) o[i][jj] *= corr;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * kLdp + tx + 16 * j] = s[i][j];
+    }
+    __syncthreads();
 
-      const int k_len = min(kBK, a.Sk - k0);
-      for (int kk = 0; kk < k_len; kk += 4) {
-        float4 p4[4];
+    const int k_len = min(kBK, a.Sk - k0);
+    for (int kk = 0; kk < k_len; kk += 4) {
+      float4 p4[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) p4[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * kLdp + kk);
+      for (int i = 0; i < 4; ++i) p4[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * kLdp + kk);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float* vrow = Vs + (kk + u) * Dh + tx;
-          float vv[kMaxNj];
+      for (int u = 0; u < 4; ++u) {
+        const float* vrow = Vs + (kk + u) * Dh + tx;
+        float vv[kMaxNj];
 #pragma unroll
-          for (int jj = 0; jj < kMaxNj; ++jj) vv[jj] = jj < nj ? vrow[16 * jj] : 0.f;
+        for (int jj = 0; jj < kMaxNj; ++jj) vv[jj] = jj < nj ? vrow[16 * jj] : 0.f;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = u == 0 ? p4[i].x : u == 1 ? p4[i].y : u == 2 ? p4[i].z : p4[i].w;
+        for (int i = 0; i < 4; ++i) {
+          const float p = u == 0 ? p4[i].x : u == 1 ? p4[i].y : u == 2 ? p4[i].z : p4[i].w;
 #pragma unroll
-            for (int jj = 0; jj < kMaxNj; ++jj) o[i][jj] += p * vv[jj];
-          }
+          for (int jj = 0; jj < kMaxNj; ++jj) o[i][jj] += p * vv[jj];
         }
       }
     }
@@ -404,11 +385,10 @@ __global__ void __launch_bounds__(kAttnThreads, 2) attention_kernel(const AttnAr
     if (row >= a.Sq) continue;
     const long long ob = ((long long)(b * a.Sq + row) * a.H + h) * Dh;
     if (kWhole) {
-      // two passes: o already holds round(p)·V; else normalise now
-      const float den = two_pass ? 1.f : fmaxf(l[i], 1e-30f);
+      const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int jj = 0; jj < kMaxNj; ++jj) {
-        if (jj < nj) store1(a.out, ob + tx + 16 * jj, two_pass ? o[i][jj] : o[i][jj] / den, a.dtype);
+        if (jj < nj) store1(a.out, ob + tx + 16 * jj, o[i][jj] / den, a.dtype);
       }
       if (a.m_out != nullptr && tx == 0) {
         a.m_out[(long long)bh * a.Sq + row] = m[i];
@@ -951,7 +931,7 @@ const char* model_error_string(int code) { return cudaGetErrorString((cudaError_
 
 int model_attention(const void* q, const void* k, const void* v, void* out, float* m_out,
                     float* l_out, int B, int Sq, int Sk, int H, int Dh, int causal,
-                    int round_probs, float scale, int dtype, void* stream) {
+                    float scale, int dtype, void* stream) {
   AttnArgs a{};
   a.q = q;
   a.k = k;
@@ -967,7 +947,6 @@ int model_attention(const void* q, const void* k, const void* v, void* out, floa
   a.q_off = 0;
   a.k_off = 0;
   a.causal = causal;
-  a.round_probs = round_probs;
   a.scale = scale;
   a.dtype = dtype;
   return launch_attention<true>(a, (cudaStream_t)stream);

@@ -1,6 +1,7 @@
 """The flagship transformer's device programs: hand-written CUDA kernels
-(csrc/model_kernels.cu, built on first CUDA use) each beside its plain
-PyTorch version.
+(csrc/model_kernels.cu and, for K8 and K8' in bf16 with rounded
+probabilities, the tensor-core csrc/attention_sm90.cu; each built on first
+CUDA use) each beside its plain PyTorch version.
 
   K8  attention     causal (or full) attention over the whole sequence.
                     round_probs=False: online-softmax form, = the reference's
@@ -15,6 +16,13 @@ PyTorch version.
   K8'  attention_bwd   the gradient of _attention (round_probs=True)
   K10a' rmsnorm_bwd    the gradient of _rmsnorm
   K10b' rope_split_bwd the gradient of _rope and the split
+
+Which kernel serves K8 and K8' on the card is ``_attention_route``'s
+choice: bf16 with the probabilities rounded (the forward's and the train
+step's path) goes to the wgmma kernels of attention_sm90.cu; float32, and
+bf16 with ``round_probs=False``, to the CUDA-core kernels of
+model_kernels.cu. ``attention`` and ``attention_bwd`` count the launches of
+the tensor-core kernels in ``launches_tc`` beside ``launches``.
 
 ``attention(..., round_probs=True)``, ``rmsnorm`` and ``rope_split`` are
 ``torch.autograd.Function``s whose backward is the matching backward
@@ -49,12 +57,13 @@ from ray_tpu_torch.util import cuda_build
 from ray_tpu_torch.util.device import current_stream, device_of
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "model_kernels.cu"
+_SRC_SM90 = Path(__file__).resolve().parent / "csrc" / "attention_sm90.cu"
 #: no --fmad=false here (see the source's note): held to a tolerance
 NVCC_FLAGS = cuda_build.BASE_FLAGS
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "model_attention": ([_P] * 6 + [_I] * 7 + [_F, _I, _P], _I),
+    "model_attention": ([_P] * 6 + [_I] * 6 + [_F, _I, _P], _I),
     "model_attention_bwd": ([_P] * 10 + [_I] * 6 + [_F, _I, _P], _I),
     "model_block_update": (
         [_P] * 9 + [_I] * 5 + [_LL, _LL, _I, _F, _I, _P], _I),
@@ -66,6 +75,16 @@ _SIGNATURES = {
 }
 
 LIBRARY = cuda_build.CudaLibrary("model", _SRC, NVCC_FLAGS, _SIGNATURES)
+
+_SIGNATURES_SM90 = {
+    "attention_sm90_forward": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),
+    "attention_sm90_backward": ([_P] * 10 + [_I] * 6 + [_F, _P], _I),
+    "attention_sm90_error_string": ([_I], ctypes.c_char_p),
+}
+
+#: K8 and K8' on the tensor cores (bf16, rounded probabilities)
+LIBRARY_SM90 = cuda_build.CudaLibrary("attention_sm90", _SRC_SM90, NVCC_FLAGS,
+                                      _SIGNATURES_SM90)
 
 NEG_INF = -1e30  # ring_attention._NEG_INF: the mask value, never -inf
 RMS_EPS = 1e-6
@@ -85,9 +104,9 @@ def _check_layout(what: str, *tensors) -> None:
             raise ValueError(f"{what}: tensors must be contiguous and 16-byte aligned")
 
 
-def _check(lib, rc: int, kernel: str) -> None:
+def _check(lib, rc: int, kernel: str, error_string: str = "model_error_string") -> None:
     if rc != 0:
-        msg = lib.model_error_string(rc).decode(errors="replace")
+        msg = getattr(lib, error_string)(rc).decode(errors="replace")
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: {msg} ({rc})")
 
 
@@ -206,6 +225,16 @@ def _attention_plain(q, k, v, causal=True, round_probs=False):
     return (o / l.transpose(1, 2)[..., None]).to(q.dtype)
 
 
+def _attention_route(q, round_probs) -> str:
+    """Which kernel serves K8 (and, with round_probs=True, K8') for q on
+    the card: "wgmma" (attention_sm90.cu, the tensor cores) for bf16 with
+    the probabilities rounded, whose products are exactly bf16 operands
+    summed in float32; "cuda_core" (model_kernels.cu) for float32, whose
+    products the reference takes in full float32, and for bf16 with
+    round_probs=False, whose P·V is a float32 product."""
+    return "wgmma" if q.dtype == torch.bfloat16 and round_probs else "cuda_core"
+
+
 def _attention_launch(q, k, v, causal, round_probs, stats):
     """K8's whole form on the card: the output, and with `stats` the rows'
     m and l ([B, H, Sq] float32) for the backward."""
@@ -213,20 +242,24 @@ def _attention_launch(q, k, v, causal, round_probs, stats):
     dt = _check_attention_shapes("attention", q, k, v)
     _check_layout("attention", q, k, v)
     B, Sq, H, Dh = q.shape
-    lib = LIBRARY.load()
+    tc = _attention_route(q, round_probs) == "wgmma"
+    lib = LIBRARY_SM90.load() if tc else LIBRARY.load()
     out = torch.empty_like(q)
     m = l = None
     if stats:
         m = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
         l = torch.empty_like(m)
-    with torch.cuda.device(dev):
-        rc = lib.model_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             m.data_ptr() if stats else None, l.data_ptr() if stats else None,
-            B, Sq, k.shape[1], H, Dh, int(bool(causal)), int(bool(round_probs)),
-            1.0 / math.sqrt(Dh), dt, current_stream(dev))
-    _check(lib, rc, "attention")
+            B, Sq, k.shape[1], H, Dh, int(bool(causal)), 1.0 / math.sqrt(Dh))
+    with torch.cuda.device(dev):
+        if tc:
+            rc = lib.attention_sm90_forward(*args, current_stream(dev))
+        else:
+            rc = lib.model_attention(*args, dt, current_stream(dev))
+    _check(lib, rc, "attention", "attention_sm90_error_string" if tc else "model_error_string")
     attention.launches += 1
+    attention.launches_tc += tc
     return out, m, l
 
 
@@ -270,6 +303,7 @@ def attention(q, k, v, causal=True, round_probs=False):
 
 
 attention.launches = 0
+attention.launches_tc = 0
 
 
 def _attention_bwd_plain(q, k, v, dout, m, l, causal):
@@ -299,6 +333,16 @@ def _attention_bwd_plain(q, k, v, dout, m, l, causal):
     return dq, dk, dv
 
 
+def _split_bf16(x):
+    """Plain version of the tensor-core K8''s split of the float32 dS
+    before its products with K and Q: hi = bf16(x), lo = bf16(x - hi), so
+    that hi + lo is x within 2**-16 of |x| and hi·K + lo·K, both bf16
+    products summed in float32, is x·K within float32 rounding."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
 def attention_bwd(q, k, v, dout, m, l, causal=True):
     """K8'. The gradient of attention(q, k, v, causal, round_probs=True)
     for the cotangent dout (q's shape and dtype), from the forward's m and
@@ -316,21 +360,26 @@ def attention_bwd(q, k, v, dout, m, l, causal=True):
     if Dh not in (16, 32, 64, 128):
         raise ValueError(f"attention_bwd: head width {Dh} (16, 32, 64 or 128 needed)")
     _check_layout("attention_bwd", q, k, v, dout, m, l)
-    lib = LIBRARY.load()
+    tc = _attention_route(q, True) == "wgmma"
+    lib = LIBRARY_SM90.load() if tc else LIBRARY.load()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dsum = torch.empty_like(m)
-    with torch.cuda.device(dev):
-        rc = lib.model_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), m.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), m.data_ptr(),
             l.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, Sq, k.shape[1], H, Dh, int(bool(causal)), 1.0 / math.sqrt(Dh), dt,
-            current_stream(dev))
-    _check(lib, rc, "attention_bwd")
+            B, Sq, k.shape[1], H, Dh, int(bool(causal)), 1.0 / math.sqrt(Dh))
+    with torch.cuda.device(dev):
+        if tc:
+            rc = lib.attention_sm90_backward(*args, current_stream(dev))
+        else:
+            rc = lib.model_attention_bwd(*args, dt, current_stream(dev))
+    _check(lib, rc, "attention_bwd", "attention_sm90_error_string" if tc else "model_error_string")
     attention_bwd.launches += 1
+    attention_bwd.launches_tc += tc
     return dq, dk, dv
 
 
 attention_bwd.launches = 0
+attention_bwd.launches_tc = 0
 
 
 # ------------------------------------------------------------------ K10a
@@ -587,10 +636,21 @@ KERNELS = {
 }
 
 
+#: the kernels that count their tensor-core launches in `launches_tc`
+TC_KERNELS = ("attention", "attention_bwd")
+
+
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def tc_launch_counts() -> dict:
+    """The launches of K8 and K8' that went to the tensor-core kernels."""
+    return {name: KERNELS[name].launches_tc for name in TC_KERNELS}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for name in TC_KERNELS:
+        KERNELS[name].launches_tc = 0

@@ -5,6 +5,7 @@ layer spends its time on the card.
     python -m ray_tpu_torch.scripts.profile_model --train [--batch 8] [--seq 2048] [--steps 3]
     python -m ray_tpu_torch.scripts.profile_model --moe [--batch 8] [--seq 2048] [--steps 20]
     python -m ray_tpu_torch.scripts.profile_model --moe --train [--steps 10]
+    python -m ray_tpu_torch.scripts.profile_model --attention [--batch 8] [--seq 2048] [--steps 5]
 
 Default: make_forward_step at the default TransformerConfig (bf16, weights
 from a numpy seed). --train: make_train_step at the same config on one
@@ -18,9 +19,15 @@ tests/test_parallel.py::test_moe_grads_flow, its backward and AdamW (lr
 JSON line: the card's name and power limit, the step's device ms (CUDA
 events, median) and host ms, and, from torch.profiler over `steps` steps,
 the device busy share of the window and the device ms a step by kernel,
-the port's kernels (K8, K8', K9a-c, K9a'-c', K10a, K10a', K10b, K10b')
-named as such; with --moe and --train also by kind (the port's kernels,
-the cuBLAS products, GELU, casts and copies). Needs a CUDA device.
+the port's kernels (K8, K8', K9a-c, K9a'-c', K10a, K10a', K10b, K10b';
+K8 and K8' on the tensor cores marked "wgmma") named as such; with --moe and --train also by kind (the port's kernels,
+the cuBLAS products, GELU, casts and copies). --attention: the tensor-core
+K8 and K8' (attention_sm90.cu) at [batch, seq, 8, 64] causal bf16, built
+with -DATTN_SM90_PROFILE: each kernel's clock64() cycles by phase (waiting
+for TMA tiles, the first products, the elementwise softmax or dS work, the
+second products, the block barrier), summed over its blocks as thread 0
+sees them, and each phase's share of the kernel's cycles. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ import torch
 
 # the port's kernels by their CUDA symbol
 # (backward kernels first: their names contain the forward's)
-_OURS = {"attention_bwd_dq_kernel": "K8' launch 1", "attention_bwd_dkv_kernel": "K8' launch 2",
+_OURS = {"attention_sm90_bwd_dq_kernel": "K8' launch 1 (wgmma)",
+         "attention_sm90_bwd_dkv_kernel": "K8' launch 2 (wgmma)",
+         "attention_sm90_fwd_kernel": "K8 (wgmma)",
+         "attention_bwd_dq_kernel": "K8' launch 1", "attention_bwd_dkv_kernel": "K8' launch 2",
          "route_bwd_kernel": "K9a'", "dispatch_bwd_kernel": "K9b'",
          "combine_bwd_rows_kernel": "K9c' launch 1", "combine_bwd_gate_kernel": "K9c' launch 2",
          "rmsnorm_bwd_kernel": "K10a' launch 1", "rmsnorm_dscale_kernel": "K10a' launch 2",
@@ -238,10 +248,66 @@ def profile_moe_train(batch: int = 8, seq: int = 2048, steps: int = 10) -> dict:
             "device_ms_per_step_by_kernel": dict(top)}
 
 
+_PHASES = ("wait_tiles", "products_1", "elementwise", "products_2", "barrier", "whole")
+_PROFILED = ("K8 forward", "K8' launch 1 (dQ)", "K8' launch 2 (dK, dV)")
+
+
+def profile_attention(batch: int = 8, seq: int = 2048, steps: int = 5) -> dict:
+    """K8's and K8''s cycles by phase, from a build of attention_sm90.cu with
+    -DATTN_SM90_PROFILE whose entry points are called here directly (the
+    wrappers and their counters keep the default build)."""
+    import ctypes
+    import math
+
+    from ray_tpu_torch.models import kernels as K
+    from ray_tpu_torch.util import cuda_build
+
+    sigs = dict(K._SIGNATURES_SM90)
+    sigs["attention_sm90_profile"] = ([ctypes.c_void_p, ctypes.c_int], ctypes.c_int)
+    dll = cuda_build.CudaLibrary("attention_sm90_profile", K._SRC_SM90,
+                                 K.NVCC_FLAGS + ("-DATTN_SM90_PROFILE",), sigs).load()
+    g = torch.Generator().manual_seed(6)
+    H, Dh = 8, 64
+    q, k, v, do = (torch.randn((batch, seq, H, Dh), generator=g).to("cuda", torch.bfloat16)
+                   for _ in range(4))
+    out, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
+    m, l, dsum = (torch.empty((batch, H, seq), dtype=torch.float32, device="cuda")
+                  for _ in range(3))
+    shape = (batch, seq, seq, H, Dh, 1, 1.0 / math.sqrt(Dh),
+             torch.cuda.current_stream().cuda_stream)
+
+    def step():  # the arguments attention / attention_bwd pass, causal
+        rc = dll.attention_sm90_forward(*(t.data_ptr() for t in (q, k, v, out, m, l)), *shape)
+        K._check(dll, rc, "attention", "attention_sm90_error_string")
+        rc = dll.attention_sm90_backward(
+            *(t.data_ptr() for t in (q, k, v, do, m, l, dsum, dq, dk, dv)), *shape)
+        K._check(dll, rc, "attention_bwd", "attention_sm90_error_string")
+
+    step()
+    torch.cuda.synchronize()
+    sums = (ctypes.c_ulonglong * (3 * len(_PHASES)))()
+    if dll.attention_sm90_profile(ctypes.addressof(sums), 1):  # warm-up's counts dropped
+        raise RuntimeError("attention_sm90_profile failed")
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    if dll.attention_sm90_profile(ctypes.addressof(sums), 1):
+        raise RuntimeError("attention_sm90_profile failed")
+    res = {"card": _card(), "shape": [batch, seq, H, Dh], "steps": steps}
+    for i, kernel in enumerate(_PROFILED):
+        cyc = {ph: sums[i * len(_PHASES) + j] / steps for j, ph in enumerate(_PHASES)}
+        whole = cyc["whole"] or 1
+        res[kernel] = {"cycles_per_call": cyc,
+                       "share_of_whole": {ph: cyc[ph] / whole for ph in _PHASES[:-1]}}
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--moe", action="store_true", help="profile the expert layer")
     ap.add_argument("--train", action="store_true", help="profile the train step")
+    ap.add_argument("--attention", action="store_true",
+                    help="K8 and K8' on the tensor cores, cycles by phase")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=None)
@@ -249,7 +315,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_model: needs a CUDA device", file=sys.stderr)
         return 2
-    if args.moe and args.train:
+    if args.attention:
+        out = profile_attention(args.batch, args.seq, args.steps or 5)
+    elif args.moe and args.train:
         out = profile_moe_train(args.batch, args.seq, args.steps or 10)
     elif args.moe:
         out = profile_moe(args.batch, args.seq, args.steps or 20)

@@ -220,8 +220,10 @@ def _assert_kernel_close(got, want, what):
 @pytest.mark.parametrize("Dh", [16, 32, 64, 128])
 def test_cuda_backward_kernels_equal_plain_and_are_deterministic(Dh):
     """On the card: K8 (round_probs=True, with its m and l), K8', K10a' and
-    K10b' against their plain versions at small shapes (ragged S = 100,
-    causal and not), in bf16 and f32; a second launch gives the same bits."""
+    K10b' against their plain versions at small shapes (ragged S = 100 and
+    2047, causal and not), in bf16 (K8 and K8' on the tensor cores, every
+    launch counted there) and f32 (the CUDA cores, none counted there); a
+    second launch of K8 and of K8' gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
     dev = torch.device("cuda")
@@ -231,19 +233,27 @@ def test_cuda_backward_kernels_equal_plain_and_are_deterministic(Dh):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dev, td)
 
     for td in (torch.float32, torch.bfloat16):
-        q, k, v, do = (rnd((2, 100, 3, Dh), td) for _ in range(4))
-        for causal in (True, False):
-            out, m, l = K._attention_launch(q, k, v, causal, True, stats=True)
-            p_out, p_m, p_l = K._attention_rounded_plain(q, k, v, causal)
-            _assert_kernel_close(out, p_out, "attention")
-            _assert_kernel_close(m, p_m, "m")
-            _assert_kernel_close(l, p_l, "l")
-            got = K.attention_bwd(q, k, v, do, m, l, causal)
-            want = K._attention_bwd_plain(q, k, v, do, m, l, causal)
-            again = K.attention_bwd(q, k, v, do, m, l, causal)
-            for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
-                _assert_kernel_close(g, w, f"attention_bwd {name} causal={causal}")
-                assert torch.equal(g, a), name
+        tc_each = 1 if td == torch.bfloat16 else 0
+        for B, S, H in ((2, 100, 3), (1, 2047, 2)):
+            q, k, v, do = (rnd((B, S, H, Dh), td) for _ in range(4))
+            for causal in (True, False):
+                tc0 = K.tc_launch_counts()
+                out, m, l = K._attention_launch(q, k, v, causal, True, stats=True)
+                again = K._attention_launch(q, k, v, causal, True, stats=True)
+                p_out, p_m, p_l = K._attention_rounded_plain(q, k, v, causal)
+                for name, g, w, a in zip(("attention", "m", "l"), (out, m, l), (p_out, p_m, p_l),
+                                         again):
+                    _assert_kernel_close(g, w, f"{name} S={S} causal={causal}")
+                    assert torch.equal(g, a), name
+                got = K.attention_bwd(q, k, v, do, m, l, causal)
+                want = K._attention_bwd_plain(q, k, v, do, m, l, causal)
+                again = K.attention_bwd(q, k, v, do, m, l, causal)
+                for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+                    _assert_kernel_close(g, w, f"attention_bwd {name} S={S} causal={causal}")
+                    assert torch.equal(g, a), name
+                tc1 = K.tc_launch_counts()
+                assert tc1["attention"] - tc0["attention"] == 2 * tc_each
+                assert tc1["attention_bwd"] - tc0["attention_bwd"] == 2 * tc_each
         if Dh != 64:
             continue
         x, dy = rnd((130, 512), td, 3.0), rnd((130, 512), td)

@@ -240,6 +240,53 @@ def random_problem(seed, N=2048, C=48):
     return avail, total, alive, demands, counts
 
 
+def narrow_problem(seed, N=3000, C=24, n_res=5):
+    """random_problem's kind over R = 5 columns (K1's generic column path)."""
+    rng = np.random.default_rng(seed)
+    total = np.zeros((N, n_res), np.float32)
+    total[:, 0] = rng.integers(1, 65, N)
+    total[:, 2] = rng.integers(4, 257, N)
+    total[:, 4] = np.where(rng.random(N) < 0.2, rng.integers(1, 9, N), 0)
+    alive = rng.random(N) > 0.05
+    avail = np.floor(total * rng.uniform(0.0, 1.0, total.shape)).astype(np.float32)
+    avail *= alive[:, None]
+    demands = np.zeros((C, n_res), np.float32)
+    demands[:, 0] = rng.integers(1, 5, C)
+    demands[:, 2] = np.where(rng.random(C) < 0.5, rng.integers(1, 9, C), 0)
+    demands[:, 4] = np.where(rng.random(C) < 0.2, 1, 0)
+    counts = rng.integers(0, 3000, C).astype(np.int32)
+    return avail, total, alive, demands, counts
+
+
+def saturation_problem(N=1000):
+    """Counts near 2**23 - 1 over nodes of 2**21 CPUs, so that a bucket's
+    prefix passes 2**23 inside the cluster (tests/test_torch_sched_shard.py's
+    problem over more nodes)."""
+    total = np.zeros((N, R), np.float32)
+    total[:, 0] = 2.0 ** 21
+    total[:, 3] = 64.0
+    alive = np.ones(N, bool)
+    alive[5::97] = False
+    demands = np.zeros((4, R), np.float32)
+    demands[:, 0] = [1.0, 1.0, 2.0, 1.0]
+    counts = np.array([2**23 - 1, 2**23 - 7, 3_000_000, 2**23 - 1], np.int32)
+    return (total * alive[:, None]).astype(np.float32), total, alive, demands, counts
+
+
+def k1_edge_problems():
+    """K1's layout edges: N not a multiple of the cluster, N past what the
+    blocks' shared memory holds (the rows in global memory), R = 5 (the
+    generic column path), counts near 2**23, and a view with a negative
+    entry in a round that places nothing."""
+    return [
+        ("n10007", random_problem(11, N=10_007, C=64)),
+        ("n40000_global_rows", random_problem(12, N=40_000, C=32)),
+        ("r5", narrow_problem(13)),
+        ("counts_near_2_23", saturation_problem()),
+        ("negative", negative_problem()),
+    ]
+
+
 def rounds_problem(seed, N=96, C=9):
     """The problems of the rounds kernels' golden tests
     (tests/test_sched_rounds.py _random_problem)."""
@@ -307,7 +354,7 @@ def bound(bytes_moved, ops, peak_ops_per_s=PEAK_F32_OPS_PER_S):
 # ------------------------------------------------------------------- phases
 
 
-def phase1_kernels(torch, KT, kernel_np, dev):
+def phase1_kernels(torch, KT, KS, kernel_np, dev):
     """Each kernel against its plain version on the card, exact equality."""
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     rec = {name: {"max_abs_err": 0.0} for name in KT.KERNELS}
@@ -330,21 +377,29 @@ def phase1_kernels(torch, KT, kernel_np, dev):
                                             alive_s, demands5, first)))
     problems.append(("stream_full_backlog", (total5.copy(), total5, alive5,
                                              demands5, counts5)))
-    for name, (avail, total, alive, demands, counts) in problems:
+    for name, (avail, total, alive, demands, counts) in problems + k1_edge_problems():
         args = (T(avail), T(total), T(alive), T(demands), T(counts))
         a_k, v_k = KT.schedule_classes(*args)
+        plan = KT.k1_launch_plan(*total.shape, dev)
+        again = KT.schedule_classes(*args)
+        if not (torch.equal(a_k, again[0]) and torch.equal(v_k, again[1])):
+            raise AssertionError(f"K1 {name}: two launches gave different bits")
         passes = []
         a_p, v_p = KT._schedule_classes_plain(*args, passes_out=passes)
         err("schedule_classes", a_k, a_p)
         err("schedule_classes", v_k, v_p)
-        a_n, v_n = kernel_np.schedule_classes(avail, total, alive, demands, counts)
+        a_n, v_n = kernel_np.schedule_classes(avail.copy(), total, alive, demands, counts)
         if not np.array_equal(a_n, a_k.cpu().numpy()):
             raise AssertionError(f"K1 {name}: kernel != kernel_np")
-        if not np.allclose(v_n, v_k.cpu().numpy(), atol=1e-3):
-            raise AssertionError(f"K1 {name}: avail differs from kernel_np")
-        log(f"K1 {name}: N={len(total)} C={len(demands)} placed={int(a_k.sum())} "
-            f"passes={sum(passes)} == plain == kernel_np")
-    # time K1 at the stream's first-round shape (the main path's shape)
+        if not np.array_equal(v_n, v_k.cpu().numpy()):
+            raise AssertionError(f"K1 {name}: avail != kernel_np's")
+        log(f"K1 {name}: N={len(total)} R={total.shape[1]} C={len(demands)} "
+            f"placed={int(a_k.sum())} passes={sum(passes)}, cluster of {plan.cluster} "
+            f"blocks, {plan.nodes_per_block} nodes a block, rows in "
+            f"{'shared' if plan.rows_in_smem else 'global'} memory; == plain == kernel_np, "
+            f"two launches bit-equal")
+    # time K1 at the stream's first-round shape (the main path's shape), in
+    # turns with K7 at p = 8 on the same state (K1, K7, K7, K1)
     avail, total, alive, demands, counts = problems[-2][1]
     d_pad, k_pad = KT.pad_problem(demands, counts, KT.bucket_size(len(demands)))
     args = (T(avail), T(total), T(alive), T(d_pad), T(k_pad))
@@ -356,11 +411,24 @@ def phase1_kernels(torch, KT, kernel_np, dev):
     # column for fit and threshold cap, ~10 for bucket, cap and fill
     ops = sum(p * N * (3 * R + 11 * int(q) + 10) for p, q in zip(passes, npos))
     bytes_k1 = 3 * N * R * 4 + N + C * R * 4 + C * 4 + C * N * 4
+    thr, max_passes = KT.DEFAULT_SPREAD_THRESHOLD, KT.MAX_PASSES
+    k1_run = lambda: KT.schedule_classes(*args)  # noqa: E731
+    k7_run = lambda: KS._launch(*args, thr, max_passes, PATH_SHARDS)  # noqa: E731
+    k1_ms = [time_ms(torch, k1_run)]
+    k7_ms = [time_ms(torch, k7_run), time_ms(torch, k7_run)]
+    k1_ms.append(time_ms(torch, k1_run))
+    plan = KT.k1_launch_plan(N, R, dev)
     rec["schedule_classes"].update(
-        ms=time_ms(torch, lambda: KT.schedule_classes(*args)),
+        ms=float(np.mean(k1_ms)),
         plain_ms=time_ms(torch, lambda: KT._schedule_classes_plain(*args), reps=3, warm=1),
-        library_ms=None, bound=bound(bytes_k1, ops),
+        library_ms=None, bound=bound(bytes_k1, ops), ms_in_turns=k1_ms,
+        k7_ms_in_turns=k7_ms, cluster=plan.cluster, passes=sum(passes),
     )
+    log(f"K1 at the stream's first round [{N}, {C}]: cluster of {plan.cluster} blocks, "
+        f"{plan.nodes_per_block} nodes a block, rows in "
+        f"{'shared' if plan.rows_in_smem else 'global'} memory, {sum(passes)} passes; "
+        f"in turns K1 {k1_ms[0]:.4f}, K7 (p = {PATH_SHARDS}) {k7_ms[0]:.4f}, "
+        f"{k7_ms[1]:.4f}, K1 {k1_ms[1]:.4f} ms")
 
     # K2 at the row buckets' edges, N = 10k
     rng = np.random.default_rng(7)
@@ -1882,9 +1950,9 @@ def phase10a_moe_bwd_kernels(torch, PM, EK, dev):
     """K9a', K9b' and K9c' against their plain versions on the card at the
     main path's shapes (logits [8, 2048, 8], C 320, rows of 256) in f32 and
     bf16, each launched twice (the bits must agree): the gathers bit-equal,
-    d_logits and d_gate within BWD_TOL of their largest entry; then timed
-    as the train step calls them (bf16 tokens and experts) beside the
-    bound and the gather alone (index_select)."""
+    d_logits and d_gate within BWD_TOL of their largest entry, K9c' in its
+    one-launch form; then timed as the train step calls them (bf16 tokens
+    and experts) beside the bound and the gather alone (index_select)."""
     cfg, tree, _, x32 = _moe_layer(torch, PM, dev)
     G, S, D = MOE_SHAPE
     E, C = cfg.n_experts, PM._capacity(cfg, S)
@@ -1925,6 +1993,8 @@ def phase10a_moe_bwd_kernels(torch, PM, EK, dev):
                   EK._dispatch_bwd_plain(d_in, slot, b_dt), EK.moe_dispatch_bwd(d_in, slot, b_dt),
                   f"{a_name} -> {b_name}")
         dy = torch.randn((G, S, D), generator=gen, device=dev).to(a_dt)
+        if not EK.combine_bwd_one_launch(dy, out):
+            raise AssertionError("moe_combine_bwd: not one launch at the main path's shapes")
         got, want, again = (f(dy, out, slot, gate, tos) for f in (
             EK.moe_combine_bwd, EK._combine_bwd_plain, EK.moe_combine_bwd))
         equal("moe_combine_bwd", got[0], want[0], again[0], f"dy {a_name}: d_out")
@@ -1955,6 +2025,8 @@ def phase10a_moe_bwd_kernels(torch, PM, EK, dev):
         library_ms=time_ms(torch, lambda: torch.index_select(d_in_flat, 0, src), reps=21),
         # slot read, the kept slots' rows read, dx written
         bound=bound(G * S * 4 + kept * D * 2 + G * S * D * 2, 0))
+    if not EK.combine_bwd_one_launch(dy, out):
+        raise AssertionError("moe_combine_bwd: not one launch at the main path's shapes")
     dy_flat = dy.reshape(G * S, D)
     rows = (torch.arange(G, device=dev)[None, :, None] * S + tos.clamp_min(0)).reshape(-1)
     rec["moe_combine_bwd"].update(
@@ -2206,7 +2278,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     t0 = time.perf_counter()
-    rec = phase1_kernels(torch, KT, kernel_np, dev)
+    rec = phase1_kernels(torch, KT, KS, kernel_np, dev)
     log(f"phase 1: {time.perf_counter() - t0:.1f} s")
 
     # the main path: counters from 0, read after phase 4

@@ -81,12 +81,20 @@
 //                     c], zeros in an empty slot (K9b's gather with a gate);
 //                     d_gate[g,s] = sum_d dy[g,s,d] * out[slot[g,s], d] for a
 //                     kept token, 0 for a dropped one (the combine weights'
-//                     cotangent summed over (e, c)). Two launches: the rows
-//                     (bound by bytes: the kept rows of dy read, d_out
-//                     written, as K9b) and the row dot products, one warp a
-//                     token, each lane summing its strided elements in order,
-//                     then a butterfly over the warp (a fixed order; every
-//                     lane ends with the same sum).
+//                     cotangent summed over (e, c)). Bound by bytes: the kept
+//                     rows of dy and of out read once, d_out written once.
+//                     Design: one launch, one warp a slot of [E, G, C]. Each
+//                     kept token holds exactly one slot, so the slot's warp
+//                     reads the token's dy row once (16-byte loads), writes
+//                     gate * dy, reads the slot's row of out and writes
+//                     d_gate of the token once, with no atomics: lane l
+//                     sums the 8-element pieces l, l + 32, ... in order, then
+//                     a butterfly over the warp (a fixed order; every lane
+//                     ends with the same sum). The same launch writes 0 to
+//                     a dropped token's d_gate. Where D is not a multiple of
+//                     8 or a row is not 16-byte aligned, two launches: the
+//                     rows (as K9b) and the dot products, one warp a token,
+//                     each lane summing its strided elements in order.
 //   K9b' moe_dispatch_bwd  the transpose of :89 and :99 (the dispatch
 //                     einsum, the casts): each kept token holds one slot, so
 //                     dx[g,s,:] = d_expert_in[slot[g,s],:] in x's dtype, zeros
@@ -407,8 +415,51 @@ __global__ void __launch_bounds__(kCopyThreads) combine_bwd_rows_kernel(
   rows_by_slot<kVec>(dy, dy_dt, token_of_slot, gate, d_out, kF32, G, S, C, D, n_pieces);
 }
 
-constexpr int kGateThreads = 256;  // one warp a token
+constexpr int kGateThreads = 256;  // one warp a token (a slot in the fused form)
 constexpr int kGateWarps = kGateThreads / 32;
+
+// K9c' in one launch (D a multiple of 8, every row 16-byte aligned): one
+// warp a slot of [E, G, C], then one thread a token for the dropped ones.
+__global__ void __launch_bounds__(kGateThreads) combine_bwd_fused_kernel(
+    const void* __restrict__ dy, const float* __restrict__ out, const int* __restrict__ slot,
+    const float* __restrict__ gate, const int* __restrict__ token_of_slot,
+    float* __restrict__ d_out, float* __restrict__ d_gate, int E, int G, int S, int C, int D,
+    int dy_dt, long long n_slots, long long n_tokens) {
+  const int lane = threadIdx.x & 31;
+  const int pieces = D / 8;
+  const long long warps = (long long)gridDim.x * kGateWarps;
+  for (long long row = (long long)blockIdx.x * kGateWarps + (threadIdx.x >> 5); row < n_slots;
+       row += warps) {  // row = (e, g, c)
+    const int tok = token_of_slot[row];
+    if (tok >= 0 && tok < S) {  // the same branch for the whole warp
+      const long long gs = (long long)((row / C) % G) * S + tok;
+      const float gt = gate[gs];
+      float acc = 0.f;
+      for (int k = lane; k < pieces; k += 32) {
+        float v[8], o[8];
+        load_vec<8>(dy, gs * D + 8 * k, dy_dt, v);
+        load_vec<8>(out, row * D + 8 * k, kF32, o);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc = __fadd_rn(acc, __fmul_rn(v[i], o[i]));
+          v[i] = __fmul_rn(gt, v[i]);
+        }
+        store_vec<8>(d_out, row * D + 8 * k, kF32, v);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, off));
+      if (lane == 0) d_gate[gs] = acc;
+    } else {
+      const float zero[8] = {};
+      for (int k = lane; k < pieces; k += 32) store_vec<8>(d_out, row * D + 8 * k, kF32, zero);
+    }
+  }
+  for (long long t = (long long)blockIdx.x * kGateThreads + threadIdx.x; t < n_tokens;
+       t += (long long)gridDim.x * kGateThreads) {
+    const int sl = slot[t];
+    if (sl < 0 || sl >= E * C) d_gate[t] = 0.f;
+  }
+}
 
 // K9c', launch 2: d_gate[g,s] = sum_d dy[g,s,d] * out[slot[g,s], d], 0 for a
 // dropped token. Lane l sums d = l, l + 32, ... in order; then a butterfly.
@@ -582,17 +633,21 @@ int moe_combine_bwd(const void* dy, const float* out, const int* slot, const flo
     return (int)cudaErrorInvalidValue;
   }
   const long long elems = (long long)E * G * C * D;
+  const long long n_tokens = (long long)G * S;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D % 8 == 0 && aligned16(dy) && aligned16(d_out)) {
-    combine_bwd_rows_kernel<8><<<copy_blocks(elems / 8), kCopyThreads, 0, st>>>(
-        dy, token_of_slot, gate, d_out, G, S, C, D, dy_dtype, elems / 8);
-  } else {
-    combine_bwd_rows_kernel<1><<<copy_blocks(elems), kCopyThreads, 0, st>>>(
-        dy, token_of_slot, gate, d_out, G, S, C, D, dy_dtype, elems);
+  if (D % 8 == 0 && aligned16(dy) && aligned16(out) && aligned16(d_out)) {
+    const long long n_slots = (long long)E * G * C;
+    const long long slot_blocks = (n_slots + kGateWarps - 1) / kGateWarps;
+    combine_bwd_fused_kernel<<<(int)(slot_blocks < (1LL << 30) ? slot_blocks : (1LL << 30)),
+                               kGateThreads, 0, st>>>(dy, out, slot, gate, token_of_slot, d_out,
+                                                      d_gate, E, G, S, C, D, dy_dtype, n_slots,
+                                                      n_tokens);
+    return (int)cudaGetLastError();
   }
+  combine_bwd_rows_kernel<1><<<copy_blocks(elems), kCopyThreads, 0, st>>>(
+      dy, token_of_slot, gate, d_out, G, S, C, D, dy_dtype, elems);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  const long long n_tokens = (long long)G * S;
   const long long blocks = (n_tokens + kGateWarps - 1) / kGateWarps;
   combine_bwd_gate_kernel<<<(int)(blocks < (1LL << 30) ? blocks : (1LL << 30)), kGateThreads, 0,
                             st>>>(dy, out, slot, d_gate, E, G, S, C, D, dy_dtype, n_tokens);

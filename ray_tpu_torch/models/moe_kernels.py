@@ -19,7 +19,7 @@ jax.grad jaxpr forms it (``tests/test_parallel.py:179``):
   K9b' moe_dispatch_bwd  dispatch's transpose: a gather by ``slot``
   K9c' moe_combine_bwd   combine's transpose: a gather by ``token_of_slot``
                          times the gate, and the gate's cotangent, a row
-                         dot product
+                         dot product, in one launch
 
 ``_Route``, ``_Dispatch`` and ``_Combine`` are autograd Functions whose
 forwards are K9a-c and whose backwards are K9a'-c'; the layer uses them
@@ -413,14 +413,23 @@ def _combine_bwd_plain(dy: torch.Tensor, out: torch.Tensor, slot: torch.Tensor,
     return d_out, d_gate
 
 
+def combine_bwd_one_launch(dy: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether K9c' runs as one launch on these inputs, as moe_combine_bwd
+    in csrc/moe_kernels.cu decides: D a multiple of 8 and dy and out
+    16-byte aligned (d_out is allocated, so aligned)."""
+    return dy.shape[-1] % 8 == 0 and dy.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+
+
 def moe_combine_bwd(dy: torch.Tensor, out: torch.Tensor, slot: torch.Tensor,
                     gate: torch.Tensor, token_of_slot: torch.Tensor):
     """K9c'. dy [G, S, D] (float32 or bfloat16, the cotangent of y), out
     [E, G, C, D] float32 (the experts' outputs), slot and gate [G, S] and
     token_of_slot [E, G, C] (from moe_route) -> d_out [E, G, C, D] float32
     (gate * dy of the slot's token; zeros in an empty slot) and d_gate
-    [G, S] float32 (sum_d dy * out[slot]; 0 for a dropped token). Two
-    launches: the rows, then one warp a token for d_gate."""
+    [G, S] float32 (sum_d dy * out[slot]; 0 for a dropped token). One
+    launch, one warp a slot, where D is a multiple of 8 and dy, out and
+    d_out are 16-byte aligned; else two: the rows, then one warp a token
+    for d_gate."""
     dev = device_of(dy, out, slot, gate, token_of_slot)
     dy_code = _dtype_code(dy.dtype, "moe_combine_bwd")
     if out.dim() != 4 or out.dtype != torch.float32 or dy.dim() != 3 \

@@ -15,7 +15,8 @@
 //   K1 sched_schedule_classes  replaces ray_tpu/sched/kernel_jax.py
 //                              schedule_classes (+ _one_class, _class_fit,
 //                              critical_util, _threshold_cap, _score_bucket,
-//                              _fill_by_bucket, _sat_cumsum)
+//                              _fill_by_bucket, _sat_cumsum); one
+//                              thread-block cluster of 16 (or 8) blocks
 //   K2 sched_scatter_rows      replaces kernel_jax.py _scatter_rows
 //   K3 sched_delta_clip        replaces kernel_jax.py JaxScheduler.apply_delta
 //   K4 sched_compact_nonzero   replaces the sparse download of
@@ -28,8 +29,8 @@
 //      (chunk = 16)
 //   K7 sched_schedule_classes_sharded
 //                              replaces ray_tpu/sched/kernel_shard.py:54-196
-//                              (K1 with the node axis split over the blocks
-//                              of one thread-block cluster)
+//                              (the round with the node axis split over the
+//                              blocks of one thread-block cluster of p)
 // Every entry point launches on the stream it is given, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after its launches.
 
@@ -40,36 +41,50 @@
 namespace cg = cooperative_groups;
 
 // Built with -DSCHED_K1_PROFILE (ray_tpu_torch/scripts/profile_sched.py
-// only), K1's thread 0 sums the cycles of each pass phase into
-// g_k1_profile: [phase 1, phase 2, phase 3, tail, passes], and thread 0 of
-// K7's block 0 into g_k7_profile: [phase 1, exchange 1 (barrier, feasible
-// counts), phase 2, exchange 2 (barrier, bucket totals, offsets), phase 3,
-// tail, passes]. The production build compiles the stamps away.
+// only), thread 0 of every block of K1 sums the cycles of each phase of a
+// pass into g_k1_profile[rank]: [exchange 1 (barrier, feasible counts),
+// sweep (caps, bucket totals), exchange 2 (barrier, offsets, take modes),
+// fill and the next pass's phase 1, tail, passes]; and thread 0 of every
+// block of K7 into g_k7_profile[rank]: [phase 1, exchange 1 (barrier,
+// feasible counts), phase 2, exchange 2 (barrier, bucket totals, offsets),
+// phase 3, tail, passes]. The production build compiles the stamps away.
 #ifdef SCHED_K1_PROFILE
-__device__ unsigned long long g_k1_profile[5];
-__device__ unsigned long long g_k7_profile[7];
+constexpr int kK1Phases = 5;
+constexpr int kK7Phases = 6;
+__device__ unsigned long long g_k1_profile[16][kK1Phases + 1];
+__device__ unsigned long long g_k7_profile[8][kK7Phases + 1];
 #define K1_STAMP(t) const long long t = clock64()
-#define K1_PROFILE_PASS(t0, t1, t2, t3)                              \
+#define K1_PROFILE_DECL long long k1_prof[kK1Phases + 1] = {}, k1_last = 0
+#define K1_PROFILE_START() k1_last = clock64()
+#define K1_MARK(phase)                                               \
   if (threadIdx.x == 0) {                                           \
-    g_k1_profile[0] += t1 - t0;                                     \
-    g_k1_profile[1] += t2 - t1;                                     \
-    g_k1_profile[2] += t3 - t2;                                     \
-    g_k1_profile[3] += clock64() - t3;                              \
-    g_k1_profile[4] += 1;                                           \
+    const long long now = clock64();                                \
+    k1_prof[phase] += now - k1_last;                                \
+    k1_last = now;                                                  \
+  }
+#define K1_PROFILE_PASS() \
+  if (threadIdx.x == 0) ++k1_prof[kK1Phases];
+#define K1_PROFILE_FLUSH(rank)                                       \
+  if (threadIdx.x == 0) {                                           \
+    for (int i = 0; i <= kK1Phases; ++i) g_k1_profile[rank][i] += k1_prof[i]; \
   }
 #define K7_PROFILE_PASS(rank, t0, t1, t2, t3, t4, t5)                \
-  if (threadIdx.x == 0 && rank == 0) {                              \
-    g_k7_profile[0] += t1 - t0;                                     \
-    g_k7_profile[1] += t2 - t1;                                     \
-    g_k7_profile[2] += t3 - t2;                                     \
-    g_k7_profile[3] += t4 - t3;                                     \
-    g_k7_profile[4] += t5 - t4;                                     \
-    g_k7_profile[5] += clock64() - t5;                              \
-    g_k7_profile[6] += 1;                                           \
+  if (threadIdx.x == 0) {                                           \
+    g_k7_profile[rank][0] += t1 - t0;                               \
+    g_k7_profile[rank][1] += t2 - t1;                               \
+    g_k7_profile[rank][2] += t3 - t2;                               \
+    g_k7_profile[rank][3] += t4 - t3;                               \
+    g_k7_profile[rank][4] += t5 - t4;                               \
+    g_k7_profile[rank][5] += clock64() - t5;                        \
+    g_k7_profile[rank][6] += 1;                                     \
   }
 #else
 #define K1_STAMP(t)
-#define K1_PROFILE_PASS(t0, t1, t2, t3)
+#define K1_PROFILE_DECL
+#define K1_PROFILE_START()
+#define K1_MARK(phase)
+#define K1_PROFILE_PASS()
+#define K1_PROFILE_FLUSH(rank)
 #define K7_PROFILE_PASS(rank, t0, t1, t2, t3, t4, t5)
 #endif
 
@@ -79,7 +94,6 @@ constexpr int kBuckets = 64;          // SCORE_BUCKETS
 constexpr float kEps = 1e-4f;         // EPS
 constexpr float kInfFit = 1073741824.0f;  // INF_FIT = 2**30
 constexpr int kMaxR = 64;             // resource columns a class row may have
-constexpr int kK1Threads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Block-wide exclusive prefix sum of one int64 per thread. Every thread of
@@ -112,6 +126,12 @@ __device__ long long block_exclusive_scan(long long v, long long* warp_sums) {
   return out;
 }
 
+__device__ __forceinline__ long long warp_sum(long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  return v;  // lane 0's is the warp's sum
+}
+
 // Exact 64-bit sum kept as two 32-bit words in shared memory, added with
 // native 32-bit atomics and an explicit carry: a 64-bit shared atomicAdd is a
 // compare-and-swap loop on this card, and under contention it costs
@@ -138,9 +158,50 @@ __device__ __forceinline__ int block_sum_int(int v, int* slot) {
 }
 
 // ---------------------------------------------------------------------------
-// The per-node steps of one pass, shared by K1 and K7 (each block runs them
-// over its own view: the whole [N, R] for K1, one shard's rows for K7).
+// The per-node arithmetic of one pass, op for op as kernel_np, shared by K1
+// and K7.
 // ---------------------------------------------------------------------------
+
+// critical_util's term of one column: used / max(total, eps), 0 where total
+// is 0
+__device__ __forceinline__ float used_frac(float av, float tt) {
+  return tt > 0.f ? __fdiv_rn(__fsub_rn(tt, av), fmaxf(tt, kEps)) : 0.f;
+}
+
+// _class_fit's term of one demanded column
+__device__ __forceinline__ float fit_ratio(float av, float d) {
+  return floorf(__fdiv_rn(__fadd_rn(av, kEps), d));
+}
+
+// _threshold_cap's term of one demanded column
+__device__ __forceinline__ float cap_ratio(float av, float tt, float thr, float d) {
+  const float head = __fsub_rn(__fmul_rn(thr, tt), __fsub_rn(tt, av));
+  return floorf(__fdiv_rn(__fadd_rn(head, kEps), d));
+}
+
+__device__ __forceinline__ int clip_fit(float fit) {
+  return (int)fminf(fmaxf(fit, 0.f), kInfFit);
+}
+
+// clip(k, 0, float32(INF_FIT - 1)) + 1; float32(2**30 - 1) == 2**30
+__device__ __forceinline__ int clip_cap(float k) {
+  return (int)__fadd_rn(fminf(fmaxf(k, 0.f), kInfFit), 1.0f);
+}
+
+// _score_bucket: 0 under the threshold, 1 + floor(over * 62) at or above it
+__device__ __forceinline__ uint8_t score_bucket(float util, float thr, float over_denom) {
+  float over = __fdiv_rn(__fsub_rn(util, thr), over_denom);
+  over = fminf(fmaxf(over, 0.f), 1.f);
+  float b = util >= thr ? __fadd_rn(1.0f, floorf(__fmul_rn(over, (float)(kBuckets - 2)))) : 0.f;
+  b = fminf(fmaxf(b, 0.f), (float)(kBuckets - 1));
+  return (uint8_t)b;
+}
+
+// The fill's debit of one column: max(avail - take*d, 0)
+__device__ __forceinline__ float debit(float a, float take, float d) {
+  const float v = __fsub_rn(a, __fmul_rn(take, d));
+  return v < 0.f ? 0.f : v;
+}
 
 // Phase 1 for node n: fit (0 on a dead node), the threshold cap (-1 when the
 // node is at or above the threshold: its cap is the equal share) and the
@@ -155,13 +216,10 @@ __device__ __forceinline__ void node_terms(const float* __restrict__ avail,
   float fit = kInfFit, kcap = kInfFit, util = __int_as_float(0xff800000);  // -inf
   auto column = [&](int r, float av, float tt) {
     const float d = s_d[r];
-    const float used = __fsub_rn(tt, av);
-    const float frac = tt > 0.f ? __fdiv_rn(used, fmaxf(tt, kEps)) : 0.f;
-    util = fmaxf(util, frac);
+    util = fmaxf(util, used_frac(av, tt));
     if (d > 0.f) {
-      fit = fminf(fit, floorf(__fdiv_rn(__fadd_rn(av, kEps), d)));
-      const float head = __fsub_rn(__fmul_rn(thr, tt), used);
-      kcap = fminf(kcap, floorf(__fdiv_rn(__fadd_rn(head, kEps), d)));
+      fit = fminf(fit, fit_ratio(av, d));
+      kcap = fminf(kcap, cap_ratio(av, tt, thr, d));
     }
   };
   if constexpr (RU == 16) {
@@ -180,27 +238,20 @@ __device__ __forceinline__ void node_terms(const float* __restrict__ avail,
     const float* t = total + (size_t)n * R;
     for (int r = 0; r < R; ++r) column(r, a[r], t[r]);
   }
-  fit = fminf(fmaxf(fit, 0.f), kInfFit);
-  fit_out = alive[n] ? (int)fit : 0;
-  // clip(k, 0, float32(INF_FIT - 1)) + 1; float32(2**30 - 1) == 2**30
-  kcap = __fadd_rn(fminf(fmaxf(kcap, 0.f), kInfFit), 1.0f);
-  float over = __fdiv_rn(__fsub_rn(util, thr), over_denom);
-  over = fminf(fmaxf(over, 0.f), 1.f);
-  float b = util >= thr ? __fadd_rn(1.0f, floorf(__fmul_rn(over, (float)(kBuckets - 2)))) : 0.f;
-  b = fminf(fmaxf(b, 0.f), (float)(kBuckets - 1));
-  cap_out = util < thr ? (int)kcap : -1;
-  bkt_out = (uint8_t)b;
+  fit_out = alive[n] ? clip_fit(fit) : 0;
+  cap_out = util < thr ? clip_cap(kcap) : -1;
+  bkt_out = score_bucket(util, thr, over_denom);
 }
 
 // Phase 2: the final per-node cap, min(threshold cap or equal share, fit,
-// remaining), and the per-bucket totals of the caps. Each thread sums runs
-// of one bucket and flushes on a change; the last run is summed over the
-// warp when every lane with something to add agrees on it.
+// remaining), and the per-bucket totals of the caps (tot[b] = {lo, hi}).
+// Each thread sums runs of one bucket and flushes on a change; the last run
+// is summed over the warp when every lane with something to add agrees on it.
 __device__ __forceinline__ void bucket_totals(int* __restrict__ cap_s,
                                               const int* __restrict__ fit_s,
                                               const uint8_t* __restrict__ bkt_s, int N,
                                               long long share, int remaining,
-                                              unsigned* tot_lo, unsigned* tot_hi) {
+                                              unsigned (*tot)[2]) {
   const int tid = threadIdx.x;
   int run_b = -1;
   long long run = 0;
@@ -213,7 +264,7 @@ __device__ __forceinline__ void bucket_totals(int* __restrict__ cap_s,
     if (cap > 0) {
       const int b = bkt_s[n];
       if (b != run_b) {
-        if (run > 0) shared_add_u64(&tot_lo[run_b], &tot_hi[run_b], run);
+        if (run > 0) shared_add_u64(&tot[run_b][0], &tot[run_b][1], run);
         run_b = b;
         run = 0;
       }
@@ -224,12 +275,10 @@ __device__ __forceinline__ void bucket_totals(int* __restrict__ cap_s,
   const unsigned busy = __ballot_sync(kFull, run > 0);
   const int b0 = busy ? __shfl_sync(kFull, run_b, __ffs(busy) - 1) : -1;
   if (__all_sync(kFull, run == 0 || run_b == b0)) {
-    long long w = run;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) w += __shfl_down_sync(kFull, w, o);
-    if (lane == 0 && w > 0) shared_add_u64(&tot_lo[b0], &tot_hi[b0], w);
+    const long long w = warp_sum(run);
+    if (lane == 0 && w > 0) shared_add_u64(&tot[b0][0], &tot[b0][1], w);
   } else if (run > 0) {
-    shared_add_u64(&tot_lo[run_b], &tot_hi[run_b], run);
+    shared_add_u64(&tot[run_b][0], &tot[run_b][1], run);
   }
 }
 
@@ -244,12 +293,11 @@ __device__ __forceinline__ void fill_by_bucket(float* __restrict__ avail,
                                                int* __restrict__ assigned_row,
                                                const int* __restrict__ cap_s,
                                                const uint8_t* __restrict__ bkt_s, int lo,
-                                               int hi, const unsigned* tot_lo,
-                                               const unsigned* tot_hi, const long long* off,
+                                               int hi, unsigned (*tot)[2], const long long* off,
                                                int remaining, long long* s_warp,
                                                const float* s_d, int R) {
   for (int b = 0; b < kBuckets; ++b) {
-    if (shared_u64(&tot_lo[b], &tot_hi[b]) == 0ull) continue;
+    if (shared_u64(&tot[b][0], &tot[b][1]) == 0ull) continue;
     const long long ob = off[b];
     if (ob >= remaining) break;
     long long local = 0;
@@ -265,24 +313,20 @@ __device__ __forceinline__ void fill_by_bucket(float* __restrict__ avail,
       if (take > 0) {
         assigned_row[n] += (int)take;
         const float tf = (float)take;
-        auto debit = [&](float a, int r) {
-          const float v = __fsub_rn(a, __fmul_rn(tf, s_d[r]));
-          return v < 0.f ? 0.f : v;
-        };
         if constexpr (RU == 16) {
           float4* a4 = reinterpret_cast<float4*>(avail + (size_t)n * 16);
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             float4 v = a4[q];
-            v.x = debit(v.x, 4 * q + 0);
-            v.y = debit(v.y, 4 * q + 1);
-            v.z = debit(v.z, 4 * q + 2);
-            v.w = debit(v.w, 4 * q + 3);
+            v.x = debit(v.x, tf, s_d[4 * q + 0]);
+            v.y = debit(v.y, tf, s_d[4 * q + 1]);
+            v.z = debit(v.z, tf, s_d[4 * q + 2]);
+            v.w = debit(v.w, tf, s_d[4 * q + 3]);
             a4[q] = v;
           }
         } else {
           float* a = avail + (size_t)n * R;
-          for (int r = 0; r < R; ++r) a[r] = debit(a[r], r);
+          for (int r = 0; r < R; ++r) a[r] = debit(a[r], tf, s_d[r]);
         }
       }
     }
@@ -297,11 +341,11 @@ __device__ __forceinline__ void clamp_at_zero(float* __restrict__ a, size_t n) {
     if (a[i] < 0.f) a[i] = 0.f;
 }
 
-// bytes of per-node scratch (fit, cap: int32; bucket: uint8), 16-aligned
-__host__ __device__ size_t k1_scratch_bytes(int N) { return ((size_t)N * 9 + 15) & ~(size_t)15; }
-constexpr size_t kK1MaxDynSmem = 200 * 1024;
+// bytes of K7's per-node scratch (fit, cap: int32; bucket: uint8), 16-aligned
+__host__ __device__ size_t k7_scratch_bytes(int N) { return ((size_t)N * 9 + 15) & ~(size_t)15; }
+constexpr size_t kK7MaxDynSmem = 200 * 1024;
 
-// The per-node scratch of one block: in shared memory (SMEM) or at `words`
+// K7's per-node scratch of one block: in shared memory (SMEM) or at `words`
 // in global memory.
 template <bool SMEM>
 __device__ __forceinline__ void node_scratch(unsigned char* s_dyn, int* words, int N,
@@ -313,175 +357,752 @@ __device__ __forceinline__ void node_scratch(unsigned char* s_dyn, int* words, i
 }
 
 // ---------------------------------------------------------------------------
-// K1: one scheduling round, classes in order, <= max_passes passes each.
-//
-// Bound on this card: the work is a chain of dependent steps (class c sees
-// the availability class c-1 left; pass p sees pass p-1's), so it is bound by
-// latency, not by bytes: the whole round must move only ~2*N*R*4 bytes plus
-// the [C, N] result. Design: one persistent block of 1024 threads keeps the
-// whole round on one SM, so the chain never leaves the chip and never
-// returns to the host; the [N, R] view (640 KB at 10k x 16) stays in L2.
-// The TPU program's score-ordered fill (one-hot [B, N] saturating scans) is
-// a stable counting sort here: per-bucket totals in shared memory, an
-// exclusive scan over the 64 buckets, then an exact int64 block scan in node
-// order, only over buckets whose offset is below `remaining` (no other
-// bucket can take anything). Exact int64 prefixes equal the reference's
-// saturating float32 ones wherever the result depends on them, because
-// counts stay below 2**23 (pad_problem asserts it).
-//
-// Per-node scratch (9 bytes: fit int32, cap int32, bucket uint8) lives in
-// shared memory when it fits (SMEM, N up to ~24k), else in global memory.
-// Costs the design avoids, each measured on an earlier version (PERF.md):
-//  - 64-bit shared atomics on one bucket total from every node: totals are
-//    summed per thread, flushed once per warp where the warp agrees, and
-//    added as two native 32-bit words (shared_add_u64);
-//  - one 32-byte L2 request per column of a node row (lanes read rows 64 B
-//    apart): with R == 16 (RU = 16) a row is four float4 loads;
-//  - reading back from global memory the scratch the pass just wrote.
+// K7's exchanges between the blocks of its cluster, each called by one whole
+// warp after a cluster barrier, reading the peers' shared memory (DSMEM):
+//  - the feasible count (JAX's psum, kernel_shard.py:105): lane q reads
+//    block q's count, and the warp sums them;
+//  - the per-bucket totals (JAX's all_gather, :75, and the recomposition,
+//    :76-91): lane l reads buckets 2l and 2l + 1 (exact int64 as {lo, hi}
+//    words, one 16-byte load) from every block and forms the shard prefix
+//    (the totals of the ranks before this one) and the global bucket
+//    totals, whose exclusive scan over the lanes gives the bucket offsets;
+//    the offset for bucket b is global offset + shard prefix, and the
+//    placed total (JAX's psum, :117) is min(remaining, the sum of the
+//    global totals), which every block forms from the same exchange.
+// Every block reaches the same n_feasible and total, so all take the same
+// branches and arrive at every cluster barrier. The exchanged values are
+// double-buffered by the parity of the pass: a block rewrites pass k's
+// buffers (for pass k + 2) only after pass k + 1's first barrier, which
+// every peer reaches after reading them.
 // ---------------------------------------------------------------------------
-template <int RU, bool SMEM>
-__global__ void __launch_bounds__(kK1Threads)
-schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ total,
-                        const uint8_t* __restrict__ alive,
-                        const float* __restrict__ demands,
-                        const int* __restrict__ counts, int* __restrict__ assigned,
-                        int* __restrict__ scratch, int N, int R, int C, float thr,
-                        float over_denom, int max_passes) {
-  __shared__ float s_d[kMaxR];
-  __shared__ unsigned s_tot_lo[kBuckets], s_tot_hi[kBuckets];
-  __shared__ long long s_off[kBuckets];
-  __shared__ long long s_warp[32];
-  __shared__ long long s_total;
-  __shared__ int s_nfeas;
-  extern __shared__ __align__(16) unsigned char s_dyn[];
+__device__ __forceinline__ int cluster_sum(cg::cluster_group& cluster, int* slot, int P) {
+  const int lane = threadIdx.x & 31;
+  const int v = lane < P ? *cluster.map_shared_rank(slot, lane) : 0;
+  return __reduce_add_sync(kFull, v);
+}
 
-  int *fit_s, *cap_s;
-  uint8_t* bkt_s;
-  node_scratch<SMEM>(s_dyn, scratch, N, fit_s, cap_s, bkt_s);
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int per = (N + nt - 1) / nt;
-  const int lo = min(tid * per, N);
-  const int hi = min(lo + per, N);
-  bool clamped = false;
-
-  for (int c = 0; c < C; ++c) {
-    __syncthreads();
-    if (tid < R) s_d[tid] = demands[(size_t)c * R + tid];
-    __syncthreads();
-    int remaining = counts[c];
-    for (int p = 0; p < max_passes && remaining > 0; ++p) {
-      if (tid == 0) s_nfeas = 0;
-      if (tid < kBuckets) s_tot_lo[tid] = s_tot_hi[tid] = 0u;
-      __syncthreads();
-      K1_STAMP(t0);
-      // phase 1: per-node fit, score bucket, threshold cap
-      int my_feas = 0;
-      for (int n = tid; n < N; n += nt) {
-        int fit_i, cap_t;
-        uint8_t b;
-        node_terms<RU>(avail, total, alive, s_d, n, R, thr, over_denom, fit_i, cap_t, b);
-        fit_s[n] = fit_i;
-        cap_s[n] = cap_t;
-        bkt_s[n] = b;
-        my_feas += fit_i > 0;
-      }
-      const int n_feasible = block_sum_int(my_feas, &s_nfeas);
-      K1_STAMP(t1);
-      if (n_feasible == 0) break;  // uniform: stalled
-      const long long share = ((long long)remaining + n_feasible - 1) / n_feasible;
-      // phase 2: final per-node cap and per-bucket totals
-      bucket_totals(cap_s, fit_s, bkt_s, N, share, remaining, s_tot_lo, s_tot_hi);
-      __syncthreads();
-      if (tid == 0) {
-        long long acc = 0;
-        for (int b = 0; b < kBuckets; ++b) {
-          s_off[b] = acc;
-          acc += (long long)shared_u64(&s_tot_lo[b], &s_tot_hi[b]);
-        }
-        s_total = acc;
-      }
-      __syncthreads();
-      const int got = (int)min((long long)remaining, s_total);
-      K1_STAMP(t2);
-      if (got == 0) break;  // uniform: stalled
-      // phase 3: prefix fill in (bucket, node index) order
-      fill_by_bucket<RU>(avail, assigned + (size_t)c * N, cap_s, bkt_s, lo, hi, s_tot_lo,
-                         s_tot_hi, s_off, remaining, s_warp, s_d, R);
-      K1_STAMP(t3);
-      remaining -= got;
-      if (!clamped) {
-        __syncthreads();
-        clamp_at_zero(avail, (size_t)N * R);
-        clamped = true;
-      }
-      __syncthreads();
-      K1_PROFILE_PASS(t0, t1, t2, t3)
+template <int MAXP>
+__device__ __forceinline__ void cluster_bucket_offsets(cg::cluster_group& cluster,
+                                                       unsigned (*tot)[2], int P, int rank,
+                                                       long long* off, long long* total) {
+  const int lane = threadIdx.x & 31;
+  long long all0 = 0, all1 = 0, before0 = 0, before1 = 0;
+#pragma unroll
+  for (int q = 0; q < MAXP; ++q) {
+    if (q < P) {
+      const uint4 v = *cluster.map_shared_rank(reinterpret_cast<uint4*>(&tot[2 * lane][0]), q);
+      const long long v0 = (long long)(((unsigned long long)v.y << 32) | v.x);
+      const long long v1 = (long long)(((unsigned long long)v.w << 32) | v.z);
+      all0 += v0;
+      all1 += v1;
+      before0 += q < rank ? v0 : 0;
+      before1 += q < rank ? v1 : 0;
     }
+  }
+  const long long pair = all0 + all1;
+  long long incl = pair;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  off[2 * lane] = incl - pair + before0;
+  off[2 * lane + 1] = incl - pair + all0 + before1;
+  if (lane == 31) *total = incl;
+}
+
+// ---------------------------------------------------------------------------
+// K1's exchanges push instead: a block writes what its peers need into their
+// shared memory with st.async, which adds the bytes it wrote to the
+// receiver's mbarrier (complete_tx); the receiver arms the mbarrier for the
+// bytes it expects from every block (expect_tx) and waits on it, then reads
+// its own shared memory only. One one-way trip a peer, no read after the
+// barrier: on the card, K1's two exchanges done K7's way (a cluster barrier,
+// then reads of the peers) took ~73 % of a pass (profile_sched.py k1,
+// PERF.md).
+// A wait that never completes (a block that skipped an exchange, or a wrong
+// byte count) traps after ~2^28 polls instead of hanging the card.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the address of `p`'s counterpart in the shared memory of block `rank`
+__device__ __forceinline__ uint32_t peer_u32(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)),
+               "r"((unsigned)rank));
+  return a;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// the mbarrier's one arrival, expecting `bytes` from st.async
+__device__ __forceinline__ void mbar_arm(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
   }
 }
 
-template <int RU>
-cudaError_t launch_k1(cudaStream_t st, float* avail, const float* total, const uint8_t* alive,
-                      const float* demands, const int* counts, int* assigned, int* scratch,
-                      int N, int R, int C, float thr, float over_denom, int max_passes) {
-  const size_t smem = k1_scratch_bytes(N);
-  if (smem <= kK1MaxDynSmem) {
-    cudaError_t err = cudaFuncSetAttribute(schedule_classes_kernel<RU, true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return err;
-    schedule_classes_kernel<RU, true><<<1, kK1Threads, smem, st>>>(
-        avail, total, alive, demands, counts, assigned, scratch, N, R, C, thr, over_denom,
-        max_passes);
-  } else {
-    schedule_classes_kernel<RU, false><<<1, kK1Threads, 0, st>>>(
-        avail, total, alive, demands, counts, assigned, scratch, N, R, C, thr, over_denom,
-        max_passes);
+__device__ __forceinline__ void st_async(uint32_t dst, unsigned v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(dst),
+      "r"(v), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t dst, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(dst),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// K1: one scheduling round, classes in order, <= max_passes passes each, on
+// one thread-block cluster of P = 16 blocks (8 where the card has no room
+// for 16).
+//
+// Bound on this card: the round is a chain of dependent passes (class c
+// sees the availability class c-1 left; pass p sees pass p-1's): 257 at the
+// stream's first round (10k nodes x 256 classes), each needing two
+// cluster-wide reductions (the feasible count, then the bucket totals and
+// their offsets), so it is bound by the latency of a pass, not by bytes:
+// the round must move only ~2*N*R*4 bytes plus the [C, N] result. A pass on
+// one SM (the first form of this kernel, 1024 threads) cost ~38 us, most of
+// it phase 1 re-reading every node's row from L2 and recomputing its
+// utilization over all 16 columns with IEEE divisions. Here a pass costs
+// ~5 us (PERF.md): the sweeps of the block the fill reaches, and the waits of
+// the two exchanges.
+//
+// Design:
+//  - Block r owns nodes [r*Nb, (r+1)*Nb), Nb = ceil(N / P): N is padded up
+//    to a multiple of P with dead, empty nodes, which hold no state and are
+//    never feasible. A block's rows of avail and total (by column, so that
+//    neighbouring lanes read neighbouring words) and its per-node state live
+//    in shared memory for the whole round (~89 KB at 10k nodes and R = 16);
+//    avail is written back once, at the end. Where they do not fit
+//    (k1_plan: above ~23k nodes at R = 16) the rows stay in global memory and
+//    the per-node state in global scratch (ROWS = false).
+//  - Each node's utilization and score bucket are cached. They depend on
+//    its row alone, so they are recomputed only where the fill debited the
+//    row, and over every row once, after the round's one clamp at zero. A
+//    debit only lowers the demanded columns (all entries >= 0 after the
+//    clamp), and IEEE division is monotone, so the new utilization is
+//    max(old, the demanded columns' new terms): equal bit for bit to a
+//    recomputation over every column. A class with a negative demand
+//    recomputes over every column.
+//  - Phase 1's fit and threshold cap take only the class's demanded columns
+//    (a bit mask from one ballot a warp), and the threshold cap only on a
+//    node under the threshold (over it, the cap is the equal share).
+//  - One ownership of nodes for every phase: warp w owns a contiguous chunk
+//    of 32-node segments, lane l node l of each. The fill of pass p and phase
+//    1 of pass p + 1 run in one sweep, since the next pass's demand is known
+//    when the fill starts (the same class while remaining > 0, else the next
+//    class with a positive count, whose demand row is loaded a pass ahead).
+//  - The fill needs no scan over buckets: in (bucket, node) order the
+//    block's nodes of bucket b take places [off[b], off[b] + its total), so
+//    every bucket takes all of its caps or none, except at most one bucket
+//    whose range holds `remaining`, and only in one block. That block alone
+//    scans that bucket's caps: the warps before it from their bucket totals
+//    (kept from phase 2), then the lanes.
+//  - The two exchanges of a pass are pushed (st.async, above): warp q sends
+//    the block's feasible count and then its 64 bucket totals to block q
+//    (exact int64, each warp's sums kept in a row of its own, so no
+//    atomics); each block then forms n_feasible, and 64 threads the offsets
+//    and the placed total as K7 does (global prefix over buckets + the
+//    totals of the ranks before it), from its own shared memory.
+// A pass is then one sweep over ~40 nodes a warp, one sweep over the caps
+// and two exchanges. Every block takes the same branches: the class order,
+// n_feasible and the placed total are the same in every block.
+// Exact int64 prefixes equal the reference's saturating float32 ones
+// wherever the result depends on them, because counts stay below 2**23
+// (pad_problem asserts it).
+// ---------------------------------------------------------------------------
+constexpr int kK1Threads = 512;
+constexpr int kK1Warps = kK1Threads / 32;
+constexpr int kK1MaxCluster = 16;
+static_assert(kK1Warps >= kK1MaxCluster, "warp q sends the bucket totals to block q");
+constexpr int kK1CountWindow = 1024;          // class counts held in shared memory at a time
+constexpr size_t kK1SmemBudget = 200 * 1024;  // dynamic shared memory of one block
+constexpr uint8_t kTakeNone = 0, kTakeAll = 1, kTakePart = 2;
+
+// The stride of one column of a block's rows in shared memory: odd, so that
+// the column-major copy of the rows is free of bank conflicts.
+__host__ __device__ inline int k1_col_stride(int Nb) { return Nb | 1; }
+
+// Bytes of one block's share of the round (Nb nodes): with the rows, avail
+// and total by column, then the per-node state: utilization (float32), fit,
+// cap (int32), bucket, alive (uint8); 16-aligned.
+__host__ __device__ inline size_t k1_block_bytes(int Nb, int R, bool rows) {
+  const size_t b = (rows ? (size_t)8 * R * k1_col_stride(Nb) : 0) + (size_t)14 * Nb;
+  return (b + 15) & ~(size_t)15;
+}
+
+struct K1Plan {
+  int Nb;                     // nodes a block
+  bool rows;                  // rows and state in shared memory
+  size_t smem;                // dynamic shared memory a block
+  long long scratch_words;    // int32 words of global scratch (rows == false)
+};
+
+K1Plan k1_plan(int N, int R, int P) {
+  K1Plan pl;
+  pl.Nb = (N + P - 1) / P;
+  const size_t rows = k1_block_bytes(pl.Nb, R, true);
+  pl.rows = rows <= kK1SmemBudget;
+  pl.smem = pl.rows ? rows : 0;
+  pl.scratch_words = pl.rows ? 0 : (long long)P * (long long)(k1_block_bytes(pl.Nb, R, false) / 4);
+  return pl;
+}
+
+// One block's nodes: the rows (ROWS: column-major [R][S] in shared memory;
+// else the block's rows of the global [N, R]) and the per-node state.
+template <bool ROWS>
+struct K1Nodes {
+  float* av;
+  const float* tt;
+  int S, R;
+  float* util;
+  int* fit;
+  int* cap;
+  uint8_t* bkt;
+  uint8_t* alive;
+  __device__ __forceinline__ float& a(int j, int r) const {
+    return av[ROWS ? (size_t)r * S + j : (size_t)j * R + r];
   }
+  __device__ __forceinline__ float t(int j, int r) const {
+    return tt[ROWS ? (size_t)r * S + j : (size_t)j * R + r];
+  }
+  __device__ __forceinline__ float util_of_row(int j) const {
+    float u = __int_as_float(0xff800000);  // -inf
+    for (int r = 0; r < R; ++r) u = fmaxf(u, used_frac(a(j, r), t(j, r)));
+    return u;
+  }
+};
+
+// One class as a sweep reads it: its demand row (shared memory), the bit
+// mask of its demanded columns (d > 0) and whether any column is negative.
+struct K1Class {
+  const float* d;
+  unsigned long long pos;
+  bool neg;
+};
+
+__device__ __forceinline__ K1Class k1_class(const float* d, int R) {
+  const int lane = threadIdx.x & 31;
+  const float d0 = lane < R ? d[lane] : 0.f;
+  const float d1 = lane + 32 < R ? d[lane + 32] : 0.f;
+  K1Class k;
+  k.d = d;
+  k.pos = (unsigned long long)__ballot_sync(kFull, d0 > 0.f) |
+          ((unsigned long long)__ballot_sync(kFull, d1 > 0.f) << 32);
+  k.neg = __any_sync(kFull, d0 < 0.f || d1 < 0.f);
+  return k;
+}
+
+// The first class after c with a positive count, and that count ({C, 0}:
+// none), searched 32 at a time in the window of counts in shared memory,
+// which moves forward as needed. Every thread of the block calls it.
+__device__ int2 k1_next_class(int c, const int* __restrict__ counts, int C, int* s_cnt,
+                              int& w0) {
+  const int lane = threadIdx.x & 31;
+  for (int i = c + 1; i < C;) {
+    if (i >= w0 + kK1CountWindow) {
+      __syncthreads();
+      w0 = i;
+      for (int k = threadIdx.x; k < kK1CountWindow && w0 + k < C; k += blockDim.x)
+        s_cnt[k] = counts[w0 + k];
+      __syncthreads();
+    }
+    const int end = min(C, w0 + kK1CountWindow);
+    const int v = i + lane < end ? s_cnt[i + lane - w0] : 0;
+    const unsigned m = __ballot_sync(kFull, v > 0);
+    if (m) {
+      const int l = __ffs(m) - 1;
+      return make_int2(i + l, __shfl_sync(kFull, v, l));
+    }
+    i = min(i + 32, end);
+  }
+  return make_int2(C, 0);
+}
+
+// What one sweep does, besides the next pass's phase 1 (when `next`).
+struct K1Fill {
+  bool on;                  // this pass's fill
+  bool clamp;               // the round's first placing pass: clamp every row
+  K1Class cls;              // the filled class
+  int remaining;
+  const uint8_t* mode;      // per bucket: kTakeNone, kTakeAll or kTakePart
+  int partial;              // the bucket partly taken in this block, or -1
+  long long base;           // places before the warp's first node of it
+  int* assigned;            // assigned + c*N + first
+};
+
+// One sweep over the warp's nodes [j0, j1): the fill (take, debit, the
+// cached utilization and bucket), or with `refresh` every node's
+// utilization and bucket; then phase 1 of the next pass's class. Returns
+// this lane's count of feasible nodes.
+template <bool ROWS>
+__device__ int k1_sweep(const K1Nodes<ROWS>& v, int j0, int j1, const K1Fill& f, bool refresh,
+                        bool next, const K1Class& nc, float thr, float over_denom) {
+  const int lane = threadIdx.x & 31;
+  int feas = 0;
+  long long carry = f.base;
+#pragma unroll 2
+  for (int s = j0; s < j1; s += 32) {
+    const int j = s + lane;
+    const bool in = j < j1;
+    float util = in ? v.util[j] : 0.f;
+    const float util0 = util;
+    if (f.on) {
+      int cp = 0, b = 0;
+      if (in) {
+        cp = v.cap[j];
+        b = v.bkt[j];
+      }
+      int take = cp > 0 && f.mode[b] == kTakeAll ? cp : 0;
+      if (f.partial >= 0) {  // the same in every lane: one bucket straddles `remaining`
+        const int x = cp > 0 && b == f.partial ? cp : 0;
+        int incl = x;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += y;
+        }
+        if (x > 0) {
+          const long long t = (long long)f.remaining - (carry + incl - x);
+          take = (int)(t < 0 ? 0 : (t > x ? x : t));
+        }
+        carry += __shfl_sync(kFull, incl, 31);
+      }
+      if (take > 0) atomicAdd(f.assigned + j, take);
+      const float tf = (float)take;
+      if (f.clamp) {
+        if (in) {
+          util = __int_as_float(0xff800000);
+          for (int r = 0; r < v.R; ++r) {
+            float x = v.a(j, r);
+            if (take > 0) x = debit(x, tf, f.cls.d[r]);
+            x = x < 0.f ? 0.f : x;
+            v.a(j, r) = x;
+            util = fmaxf(util, used_frac(x, v.t(j, r)));
+          }
+        }
+      } else if (take > 0) {
+        if (f.cls.neg) {
+          for (int r = 0; r < v.R; ++r) v.a(j, r) = debit(v.a(j, r), tf, f.cls.d[r]);
+          util = v.util_of_row(j);
+        } else {
+          for (unsigned long long m = f.cls.pos; m; m &= m - 1) {
+            const int r = __ffsll((long long)m) - 1;
+            const float x = debit(v.a(j, r), tf, f.cls.d[r]);
+            v.a(j, r) = x;
+            util = fmaxf(util, used_frac(x, v.t(j, r)));
+          }
+        }
+      }
+    }
+    if (refresh && in) util = v.util_of_row(j);
+    if (in && (refresh || (f.on && f.clamp) || util != util0)) {
+      v.util[j] = util;
+      v.bkt[j] = score_bucket(util, thr, over_denom);
+    }
+    if (next && in) {
+      int fit_i = 0, cap_t = -1;
+      if (v.alive[j]) {
+        float fit = kInfFit, kc = kInfFit;
+        const bool under = util < thr;
+        for (unsigned long long m = nc.pos; m; m &= m - 1) {
+          const int r = __ffsll((long long)m) - 1;
+          const float x = v.a(j, r), d = nc.d[r];
+          fit = fminf(fit, fit_ratio(x, d));
+          if (under) kc = fminf(kc, cap_ratio(x, v.t(j, r), thr, d));
+        }
+        fit_i = clip_fit(fit);
+        cap_t = under ? clip_cap(kc) : -1;
+      }
+      v.fit[j] = fit_i;
+      v.cap[j] = cap_t;
+      feas += fit_i > 0;
+    }
+  }
+  return feas;
+}
+
+// Phase 2 over the warp's nodes: the final caps, min(threshold cap or equal
+// share, fit, remaining), and their sums by bucket into the warp's own row
+// (lane l holds buckets 2l and 2l + 1 in registers; one 16-byte store each).
+template <bool ROWS>
+__device__ void k1_caps(const K1Nodes<ROWS>& v, int j0, int j1, long long share, int remaining,
+                        unsigned long long* row) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long t0 = 0, t1 = 0;
+#pragma unroll 2
+  for (int s = j0; s < j1; s += 32) {
+    const int j = s + lane;
+    int cp = 0, b = 0;
+    if (j < j1) {
+      const int ct = v.cap[j];
+      long long x = ct >= 0 ? (long long)ct : share;
+      x = min(x, (long long)v.fit[j]);
+      x = min(x, (long long)remaining);
+      cp = (int)x;
+      v.cap[j] = cp;
+      b = v.bkt[j];
+    }
+    for (unsigned todo = __ballot_sync(kFull, cp > 0); todo;) {
+      const int lb = __shfl_sync(kFull, b, __ffs(todo) - 1);
+      const bool mine = cp > 0 && b == lb;
+      // < 32 caps below 2**23 each: exact in 32 bits
+      const unsigned sum = __reduce_add_sync(kFull, mine ? (unsigned)cp : 0u);
+      if (lane == lb >> 1) (lb & 1 ? t1 : t0) += sum;
+      todo &= ~__ballot_sync(kFull, mine);
+    }
+  }
+  row[2 * lane] = t0;
+  row[2 * lane + 1] = t1;
+}
+
+template <bool ROWS>
+__global__ void __launch_bounds__(kK1Threads, 1)
+schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ total,
+                        const uint8_t* __restrict__ alive, const float* __restrict__ demands,
+                        const int* __restrict__ counts, int* __restrict__ assigned,
+                        int* __restrict__ scratch, int N, int R, int C, int Nb, float thr,
+                        float over_denom, int max_passes) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int first = rank * Nb;
+  const int nl = max(0, min(Nb, N - first));
+  __shared__ float s_d[2][kMaxR];                  // two classes' demand rows
+  __shared__ int s_wfeas[kK1Warps];                // each warp's feasible count
+  __shared__ __align__(16) unsigned long long s_wtot[kK1Warps][kBuckets];  // each warp's totals
+  __shared__ __align__(16) unsigned long long s_btot[kBuckets];            // the block's
+  __shared__ int s_nfeas;                                                  // the cluster's
+  __shared__ int s_feas_in[2][kK1MaxCluster];      // every block's count, by pass parity
+  __shared__ __align__(16) unsigned long long s_tot_in[kK1MaxCluster][kBuckets];  // its totals
+  __shared__ __align__(8) uint64_t s_bar_feas[2];  // their mbarriers
+  __shared__ __align__(8) uint64_t s_bar_tot;
+  __shared__ long long s_off[kBuckets];
+  __shared__ long long s_total;
+  __shared__ long long s_scan;
+  __shared__ uint8_t s_take[kBuckets];
+  __shared__ int s_partial;
+  __shared__ int s_cnt[kK1CountWindow];
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  K1_PROFILE_DECL;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  K1Nodes<ROWS> v;
+  v.R = R;
+  v.S = k1_col_stride(Nb);
+  unsigned char* sc;
+  if (ROWS) {
+    v.av = reinterpret_cast<float*>(s_dyn);
+    v.tt = v.av + (size_t)R * v.S;
+    sc = s_dyn + (size_t)8 * R * v.S;
+  } else {
+    v.av = avail + (size_t)first * R;
+    v.tt = total + (size_t)first * R;
+    sc = reinterpret_cast<unsigned char*>(scratch) + (size_t)rank * k1_block_bytes(Nb, R, false);
+  }
+  v.util = reinterpret_cast<float*>(sc);
+  v.fit = reinterpret_cast<int*>(sc + (size_t)4 * Nb);
+  v.cap = reinterpret_cast<int*>(sc + (size_t)8 * Nb);
+  v.bkt = sc + (size_t)12 * Nb;
+  v.alive = sc + (size_t)13 * Nb;
+
+  // bytes each exchange brings from the P blocks
+  const uint32_t feas_bytes = 4u * P, tot_bytes = 8u * kBuckets * P;
+  if (tid == 0) {
+    mbar_init(&s_bar_feas[0]);
+    mbar_init(&s_bar_feas[1]);
+    mbar_init(&s_bar_tot);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arm(&s_bar_feas[0], feas_bytes);
+    mbar_arm(&s_bar_feas[1], feas_bytes);
+    mbar_arm(&s_bar_tot, tot_bytes);
+  }
+  for (int k = tid; k < kK1CountWindow && k < C; k += kK1Threads) s_cnt[k] = counts[k];
+  if (ROWS) {
+    float* tt = v.av + (size_t)R * v.S;
+    for (int e = tid; e < nl * R; e += kK1Threads) {
+      const int j = e / R, r = e - j * R;
+      v.av[(size_t)r * v.S + j] = avail[(size_t)first * R + e];
+      tt[(size_t)r * v.S + j] = total[(size_t)first * R + e];
+    }
+  }
+  for (int j = tid; j < nl; j += kK1Threads) v.alive[j] = alive[first + j];
+  int w0 = 0;
+  cluster.sync();  // every block resident, its mbarriers initialised and armed
+
+  // warp w's nodes: [j0, j1), a whole number of 32-node segments
+  const int cw = 32 * ((Nb + 32 * kK1Warps - 1) / (32 * kK1Warps));
+  const int j0 = min(warp * cw, nl), j1 = min(j0 + cw, nl);
+  const int2 c0 = k1_next_class(-1, counts, C, s_cnt, w0);
+  if (c0.x < C && max_passes > 0) {
+    int c = c0.x, remaining = c0.y, p = 0, slot = 0;
+    int2 nxt = k1_next_class(c, counts, C, s_cnt, w0);
+    if (tid < R) {
+      s_d[0][tid] = demands[(size_t)c * R + tid];
+      if (nxt.x < C) s_d[1][tid] = demands[(size_t)nxt.x * R + tid];
+    }
+    bool nxt_ready = true;  // s_d[slot ^ 1] holds the demand of class nxt.x
+    float pf = 0.f;         // that demand, loaded a pass ahead (threads < R)
+    __syncthreads();
+    K1Class cur = k1_class(s_d[0], R);
+    K1Fill f = {};
+    f.on = false;
+    f.partial = -1;
+    // the round's first phase 1, and every node's utilization and bucket
+    int feas = k1_sweep(v, j0, j1, f, true, true, cur, thr, over_denom);
+    feas = (int)__reduce_add_sync(kFull, (unsigned)feas);
+    if (lane == 0) s_wfeas[warp] = feas;
+    unsigned pass = 0, tot_uses = 0;
+    bool clamped = false;
+    K1_PROFILE_START();
+    for (;;) {
+      const int buf = pass & 1;
+      __syncthreads();  // every warp's feasible count is in place
+      if (warp < P && lane == 0) {  // warp q sends the block's count to block q
+        int n = 0;
+        for (int w = 0; w < kK1Warps; ++w) n += s_wfeas[w];
+        st_async(peer_u32(&s_feas_in[buf][rank], warp), (unsigned)n,
+                 peer_u32(&s_bar_feas[buf], warp));
+      }
+      if (warp == 0) {  // one warp waits (an acquire at cluster scope is not free)
+        mbar_wait(&s_bar_feas[buf], (pass >> 1) & 1u);
+        const int n = (int)__reduce_add_sync(kFull, lane < P ? s_feas_in[buf][lane] : 0);
+        if (lane == 0) {
+          s_nfeas = n;
+          // for pass + 2: every block sends that pass's count only after
+          // this block's count of pass + 1, which follows a block barrier
+          mbar_arm(&s_bar_feas[buf], feas_bytes);
+        }
+      }
+      if (!nxt_ready && tid < R) pf = demands[(size_t)nxt.x * R + tid];
+      __syncthreads();
+      const int n_feasible = s_nfeas;
+      K1_MARK(0);
+      int got = 0;
+      if (n_feasible > 0) {
+        const long long share = ((long long)remaining + n_feasible - 1) / n_feasible;
+        k1_caps(v, j0, j1, share, remaining, s_wtot[warp]);
+        K1_MARK(1);
+        __syncthreads();  // every warp's bucket totals are in place
+        if (tid < kBuckets) {
+          unsigned long long t = 0;
+#pragma unroll
+          for (int w = 0; w < kK1Warps; ++w) t += s_wtot[w][tid];
+          s_btot[tid] = t;
+        }
+        __syncthreads();
+        if (warp < P) {  // warp q sends the block's totals to block q, two buckets a lane
+          st_async(peer_u32(&s_tot_in[rank][2 * lane], warp),
+                   *reinterpret_cast<const uint4*>(&s_btot[2 * lane]),
+                   peer_u32(&s_bar_tot, warp));
+        }
+        if (tid < kBuckets) {  // thread b: bucket b, over every block and the blocks before this one
+          mbar_wait(&s_bar_tot, tot_uses & 1u);
+          long long all = 0, before = 0;
+#pragma unroll 4
+          for (int q = 0; q < P; ++q) {
+            const long long x = (long long)s_tot_in[q][tid];
+            all += x;
+            before += q < rank ? x : 0;
+          }
+          // the exclusive scan over the buckets gives the offsets of this
+          // block's first node in each
+          long long incl = all;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const long long y = __shfl_up_sync(kFull, incl, o);
+            if (lane >= o) incl += y;
+          }
+          if (tid == 31) s_scan = incl;
+          if (tid == 0) s_partial = -1;
+          asm volatile("bar.sync 1, %0;\n" ::"n"(kBuckets) : "memory");  // the two warps
+          if (warp == 1) incl += s_scan;
+          const long long o = incl - all + before;
+          const long long bt = (long long)s_tot_in[rank][tid];
+          s_off[tid] = o;
+          uint8_t mode = kTakeNone;
+          if (bt > 0 && o < remaining) mode = o + bt <= remaining ? kTakeAll : kTakePart;
+          s_take[tid] = mode;
+          if (mode == kTakePart) s_partial = tid;  // one bucket at most
+          if (tid == kBuckets - 1) s_total = incl;
+          // for the next totals, which every block sends only after this
+          // block's next count, which follows a block barrier
+          if (tid == 0) mbar_arm(&s_bar_tot, tot_bytes);
+        }
+        ++tot_uses;
+      }
+      if (!nxt_ready && tid < R) s_d[slot ^ 1][tid] = pf;
+      nxt_ready = true;
+      __syncthreads();
+      if (n_feasible > 0) got = (int)min((long long)remaining, s_total);
+      K1_MARK(2);
+      // the next pass: the same class while it has tasks and passes left,
+      // else the next class with tasks (a stalled class ends)
+      const bool fill = got > 0;
+      const int rem_after = remaining - got;
+      const bool same = fill && rem_after > 0 && p + 1 < max_passes;
+      const bool next = same || nxt.x < C;
+      const K1Class nc = same ? cur : k1_class(s_d[slot ^ 1], R);
+      f.on = fill;
+      if (fill) {
+        f.clamp = !clamped;
+        f.cls = cur;
+        f.remaining = remaining;
+        f.mode = s_take;
+        f.partial = s_partial;
+        f.assigned = assigned + (size_t)c * N + first;
+        f.base = 0;
+        if (f.partial >= 0) {  // places before the warp's first node of that bucket
+          const long long x = lane < warp ? (long long)s_wtot[lane][f.partial] : 0;
+          f.base = s_off[f.partial] + __shfl_sync(kFull, warp_sum(x), 0);
+        }
+      }
+      if (fill || next) {
+        feas = k1_sweep(v, j0, j1, f, false, next, nc, thr, over_denom);
+        feas = (int)__reduce_add_sync(kFull, (unsigned)feas);
+        if (lane == 0) s_wfeas[warp] = feas;
+      }
+      clamped = clamped || fill;
+      K1_MARK(3);
+      K1_PROFILE_PASS();
+      if (!next) break;
+      if (same) {
+        remaining = rem_after;
+        ++p;
+      } else {
+        c = nxt.x;
+        remaining = nxt.y;
+        p = 0;
+        slot ^= 1;
+        cur = nc;
+        nxt = k1_next_class(c, counts, C, s_cnt, w0);
+        nxt_ready = nxt.x >= C;
+      }
+      ++pass;
+      K1_MARK(4);
+    }
+  }
+  __syncthreads();
+  if (ROWS) {
+    for (int e = tid; e < nl * R; e += kK1Threads) {
+      const int j = e / R, r = e - j * R;
+      avail[(size_t)first * R + e] = v.av[(size_t)r * v.S + j];
+    }
+  }
+  K1_PROFILE_FLUSH(rank);
+  cluster.sync();  // no block exits while a peer's st.async to it may be in flight
+}
+
+template <bool ROWS>
+cudaError_t k1_config(int P, size_t smem, cudaStream_t st, cudaLaunchConfig_t& cfg,
+                      cudaLaunchAttribute& attr) {
+  auto kernel = schedule_classes_kernel<ROWS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)P;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = {};
+  cfg.gridDim = dim3((unsigned)P, 1, 1);
+  cfg.blockDim = dim3(kK1Threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Whether one cluster of P blocks of K1 with this plan fits on the card.
+template <bool ROWS>
+cudaError_t k1_fits(int P, const K1Plan& pl, bool& fits) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = k1_config<ROWS>(P, pl.smem, nullptr, cfg, attr);
+  if (err != cudaSuccess) return err;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)schedule_classes_kernel<ROWS>,
+                                       &cfg);
+  if (err != cudaSuccess) {  // this size is refused: the caller tries the next
+    (void)cudaGetLastError();
+    clusters = 0;
+  }
+  fits = clusters >= 1;
+  return cudaSuccess;
+}
+
+template <bool ROWS>
+cudaError_t launch_k1(cudaStream_t st, int P, const K1Plan& pl, float* avail,
+                      const float* total, const uint8_t* alive, const float* demands,
+                      const int* counts, int* assigned, int* scratch, int N, int R, int C,
+                      float thr, float over_denom, int max_passes) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = k1_config<ROWS>(P, pl.smem, st, cfg, attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, schedule_classes_kernel<ROWS>, avail, total, alive, demands,
+                           counts, assigned, scratch, N, R, C, pl.Nb, thr, over_denom,
+                           max_passes);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// K7: K1 with the node axis split over P shards (P in 1, 2, 4, 8), replacing
-// ray_tpu/sched/kernel_shard.py:54-196 (_fill_by_bucket_sharded,
+// K7: the round with the node axis split over P shards (P in 1, 2, 4, 8),
+// replacing ray_tpu/sched/kernel_shard.py:54-196 (_fill_by_bucket_sharded,
 // _one_class_sharded, _sharded_body under shard_map). One launch of one
 // thread-block cluster of P blocks runs the whole round: block r plays
 // device r of the JAX mesh and owns nodes [r*N/P, (r+1)*N/P), on which it
-// runs K1's per-node steps. The values that cross shards go through
-// distributed shared memory (DSMEM) under cluster barriers:
-//  - the feasible count (JAX's psum, :105): lane q of each block's first
-//    warp reads block q's count, and the warp sums them;
-//  - the per-bucket totals (JAX's all_gather, :75, and the recomposition,
-//    :76-91): the first warp reads the peers' 64 totals (exact int64, as
-//    two 32-bit words), two buckets a lane, and forms the shard prefix
-//    (the totals of the ranks before this one) and the global bucket
-//    totals, whose exclusive scan over the lanes gives the bucket
-//    offsets; the offset for bucket b is global offset + shard prefix,
-//    and the within-shard prefix is K1's block scan;
-//  - the placed total (JAX's psum, :117) is min(remaining, sum of the
-//    global totals), which every block forms from the same exchanged
-//    totals: no third exchange.
-// Every block reaches the same n_feasible, got and remaining, so all take
-// the same branches and arrive at every cluster barrier. The exchanged
-// count and totals are double-buffered by the parity of the pass (counted
-// over every class): a block zeroes pass k+2's buffer only after the next
-// pass's first barrier, which every peer reaches after reading pass k's. A
-// last barrier keeps every block resident until its peers are done.
-// Decisions and availability equal K1's and kernel_np's exactly (exact
-// int64 prefixes, counts < 2**23).
+// runs the per-node steps above (node_terms, bucket_totals, fill_by_bucket).
+// The values that cross shards go through distributed shared memory under
+// cluster barriers (cluster_sum, cluster_bucket_offsets). A last barrier
+// keeps every block resident until its peers are done. Decisions and
+// availability equal K1's and kernel_np's exactly (exact int64 prefixes,
+// counts < 2**23).
 //
 // Bound on this card: the same latency-bound chain as K1; the bytes bound is
 // ~2*N*R*4 plus the [C, N] result, and each pass adds two cluster barriers.
 // Design: a simple, correct kernel first; each block keeps its per-node
 // scratch in shared memory and reads its rows of the view from L2 every
-// pass. Keeping each block's rows of avail and total resident in shared
-// memory (1 250 rows at P = 8 and 10k nodes, ~160 KB) is later work.
+// pass (K1 keeps them resident).
 // ---------------------------------------------------------------------------
 constexpr int kMaxShards = 8;
+constexpr int kK7Threads = 1024;
 
 template <int RU, bool SMEM>
-__global__ void __launch_bounds__(kK1Threads)
+__global__ void __launch_bounds__(kK7Threads)
 schedule_classes_sharded_kernel(float* __restrict__ avail, const float* __restrict__ total,
                                 const uint8_t* __restrict__ alive,
                                 const float* __restrict__ demands,
@@ -494,7 +1115,7 @@ schedule_classes_sharded_kernel(float* __restrict__ avail, const float* __restri
   const int Nl = N / P;
   const size_t first = (size_t)rank * Nl;
   __shared__ float s_d[kMaxR];
-  __shared__ unsigned s_tot_lo[2][kBuckets], s_tot_hi[2][kBuckets];
+  __shared__ __align__(16) unsigned s_tot[2][kBuckets][2];
   __shared__ int s_nfeas[2];
   __shared__ int s_nfeas_all;
   __shared__ long long s_off[kBuckets];
@@ -504,7 +1125,7 @@ schedule_classes_sharded_kernel(float* __restrict__ avail, const float* __restri
 
   int *fit_s, *cap_s;
   uint8_t* bkt_s;
-  node_scratch<SMEM>(s_dyn, scratch + rank * (k1_scratch_bytes(Nl) / 4), Nl, fit_s, cap_s,
+  node_scratch<SMEM>(s_dyn, scratch + rank * (k7_scratch_bytes(Nl) / 4), Nl, fit_s, cap_s,
                      bkt_s);
   float* av = avail + first * R;
   const float* tt = total + first * R;
@@ -525,7 +1146,7 @@ schedule_classes_sharded_kernel(float* __restrict__ avail, const float* __restri
     for (int p = 0; p < max_passes && remaining > 0; ++p) {
       const int buf = pass++ & 1;
       if (tid == 0) s_nfeas[buf] = 0;
-      if (tid < kBuckets) s_tot_lo[buf][tid] = s_tot_hi[buf][tid] = 0u;
+      if (tid < kBuckets) s_tot[buf][tid][0] = s_tot[buf][tid][1] = 0u;
       __syncthreads();
       K1_STAMP(t0);
       int my_feas = 0;
@@ -541,9 +1162,8 @@ schedule_classes_sharded_kernel(float* __restrict__ avail, const float* __restri
       block_sum_int(my_feas, &s_nfeas[buf]);
       K1_STAMP(t1);
       cluster.sync();  // every shard's feasible count is in place
-      if (tid < 32) {  // lane q reads block q's count
-        const int v = tid < P ? *cluster.map_shared_rank(&s_nfeas[buf], tid) : 0;
-        const int sum = __reduce_add_sync(kFull, v);
+      if (tid < 32) {
+        const int sum = cluster_sum(cluster, &s_nfeas[buf], P);
         if (tid == 0) s_nfeas_all = sum;
       }
       __syncthreads();
@@ -551,44 +1171,16 @@ schedule_classes_sharded_kernel(float* __restrict__ avail, const float* __restri
       K1_STAMP(t2);
       if (n_feasible == 0) break;  // uniform over the cluster: stalled
       const long long share = ((long long)remaining + n_feasible - 1) / n_feasible;
-      bucket_totals(cap_s, fit_s, bkt_s, Nl, share, remaining, s_tot_lo[buf], s_tot_hi[buf]);
+      bucket_totals(cap_s, fit_s, bkt_s, Nl, share, remaining, s_tot[buf]);
       K1_STAMP(t3);
       cluster.sync();  // every shard's bucket totals are in place
-      if (tid < 32) {
-        // lane l owns buckets 2l and 2l + 1: their totals over every block
-        // and over the blocks before this one, read from the peers' shared
-        // memory; then an exclusive scan over the lanes gives the offsets
-        long long all0 = 0, all1 = 0, before0 = 0, before1 = 0;
-#pragma unroll
-        for (int q = 0; q < kMaxShards; ++q) {
-          if (q < P) {
-            const unsigned* lo = cluster.map_shared_rank(&s_tot_lo[buf][2 * tid], q);
-            const unsigned* hi = cluster.map_shared_rank(&s_tot_hi[buf][2 * tid], q);
-            const long long v0 = (long long)shared_u64(lo, hi);
-            const long long v1 = (long long)shared_u64(lo + 1, hi + 1);
-            all0 += v0;
-            all1 += v1;
-            before0 += q < rank ? v0 : 0;
-            before1 += q < rank ? v1 : 0;
-          }
-        }
-        const long long pair = all0 + all1;
-        long long incl = pair;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const long long y = __shfl_up_sync(kFull, incl, o);
-          if (tid >= o) incl += y;
-        }
-        s_off[2 * tid] = incl - pair + before0;
-        s_off[2 * tid + 1] = incl - pair + all0 + before1;
-        if (tid == 31) s_total = incl;
-      }
+      if (tid < 32) cluster_bucket_offsets<kMaxShards>(cluster, s_tot[buf], P, rank, s_off, &s_total);
       __syncthreads();
       const int got = (int)min((long long)remaining, s_total);
       K1_STAMP(t4);
       if (got == 0) break;  // uniform over the cluster: stalled
       fill_by_bucket<RU>(av, assigned + (size_t)c * N + first, cap_s, bkt_s, lo, hi,
-                         s_tot_lo[buf], s_tot_hi[buf], s_off, remaining, s_warp, s_d, R);
+                         s_tot[buf], s_off, remaining, s_warp, s_d, R);
       K1_STAMP(t5);
       remaining -= got;
       if (!clamped) {
@@ -611,7 +1203,7 @@ cudaError_t launch_k7(cudaStream_t st, int P, float* avail, const float* total,
   void (*kernel)(float*, const float*, const uint8_t*, const float*, const int*, int*, int*,
                  int, int, int, float, float, int) =
       schedule_classes_sharded_kernel<RU, SMEM>;
-  const size_t smem = SMEM ? k1_scratch_bytes(N / P) : 0;
+  const size_t smem = SMEM ? k7_scratch_bytes(N / P) : 0;
   cudaError_t err;
   if (SMEM) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -624,7 +1216,7 @@ cudaError_t launch_k7(cudaStream_t st, int P, float* avail, const float* total,
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)P, 1, 1);
-  cfg.blockDim = dim3(kK1Threads, 1, 1);
+  cfg.blockDim = dim3(kK7Threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = &attr;
@@ -638,6 +1230,7 @@ cudaError_t launch_k7(cudaStream_t st, int P, float* avail, const float* total,
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
+
 
 // ---------------------------------------------------------------------------
 // K5/K6: the two-phase [C, N] rounds core (kernel_np.schedule_classes_rounds
@@ -1042,10 +1635,12 @@ void launch_write(int val_bytes, dim3 grid, cudaStream_t st, const int* x, long 
 extern "C" {
 
 #ifdef SCHED_K1_PROFILE
+// [16][6] (K1) and [8][7] (K7) cycle sums by block, as g_k1_profile and
+// g_k7_profile hold them
 int sched_k1_profile(unsigned long long* out, int reset) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_k1_profile, sizeof(g_k1_profile));
   if (err == cudaSuccess && reset) {
-    const unsigned long long zero[5] = {0, 0, 0, 0, 0};
+    static const unsigned long long zero[sizeof(g_k1_profile) / 8] = {};
     err = cudaMemcpyToSymbol(g_k1_profile, zero, sizeof(zero));
   }
   return (int)err;
@@ -1054,7 +1649,7 @@ int sched_k1_profile(unsigned long long* out, int reset) {
 int sched_k7_profile(unsigned long long* out, int reset) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_k7_profile, sizeof(g_k7_profile));
   if (err == cudaSuccess && reset) {
-    const unsigned long long zero[7] = {0, 0, 0, 0, 0, 0, 0};
+    static const unsigned long long zero[sizeof(g_k7_profile) / 8] = {};
     err = cudaMemcpyToSymbol(g_k7_profile, zero, sizeof(zero));
   }
   return (int)err;
@@ -1063,24 +1658,46 @@ int sched_k7_profile(unsigned long long* out, int reset) {
 
 const char* sched_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-int sched_schedule_classes(float* avail, const float* total, const uint8_t* alive,
-                           const float* demands, const int* counts, int* assigned,
-                           int* scratch, int N, int R, int C, float thr, float over_denom,
-                           int max_passes, void* stream) {
-  if (R > kMaxR || R < 1) return (int)cudaErrorInvalidValue;
-  if (C == 0 || N == 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool rows16 = R == 16 && (((uintptr_t)avail | (uintptr_t)total) & 15) == 0;
-  if (rows16)
-    return (int)launch_k1<16>(st, avail, total, alive, demands, counts, assigned, scratch, N,
-                              R, C, thr, over_denom, max_passes);
-  return (int)launch_k1<0>(st, avail, total, alive, demands, counts, assigned, scratch, N, R,
-                           C, thr, over_denom, max_passes);
+// K1's cluster size for N nodes of R columns: 16 where one cluster of 16
+// blocks fits on the card, else 8 (written to *cluster).
+int sched_k1_cluster_size(int N, int R, int* cluster) {
+  if (N < 1 || R < 1 || R > kMaxR) return (int)cudaErrorInvalidValue;
+  const int sizes[2] = {kK1MaxCluster, kK1MaxCluster / 2};
+  for (const int P : sizes) {
+    const K1Plan pl = k1_plan(N, R, P);
+    bool fits = false;
+    const cudaError_t err = pl.rows ? k1_fits<true>(P, pl, fits) : k1_fits<false>(P, pl, fits);
+    if (err != cudaSuccess) return (int)err;
+    if (fits) {
+      *cluster = P;
+      return 0;
+    }
+  }
+  return (int)cudaErrorLaunchOutOfResources;
 }
 
-// int32 words of global scratch the K1 wrapper allocates (used only when the
-// per-node scratch does not fit in shared memory)
-long long sched_k1_scratch_words(int N) { return (long long)(k1_scratch_bytes(N) / 4); }
+// int32 words of global scratch K1 needs over a cluster of P blocks (0 when
+// the rows and the per-node state fit in shared memory)
+long long sched_k1_scratch_words(int N, int R, int P) { return k1_plan(N, R, P).scratch_words; }
+
+// K1 over one cluster of P blocks (16 or 8, sched_k1_cluster_size);
+// `scratch` holds scratch_words int32 words.
+int sched_schedule_classes(float* avail, const float* total, const uint8_t* alive,
+                           const float* demands, const int* counts, int* assigned,
+                           int* scratch, long long scratch_words, int N, int R, int C, int P,
+                           float thr, float over_denom, int max_passes, void* stream) {
+  if (R > kMaxR || R < 1 || (P != kK1MaxCluster && P != kK1MaxCluster / 2))
+    return (int)cudaErrorInvalidValue;
+  if (C == 0 || N == 0) return (int)cudaGetLastError();
+  const K1Plan pl = k1_plan(N, R, P);
+  if (scratch_words < pl.scratch_words) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (pl.rows)
+    return (int)launch_k1<true>(st, P, pl, avail, total, alive, demands, counts, assigned,
+                                scratch, N, R, C, thr, over_denom, max_passes);
+  return (int)launch_k1<false>(st, P, pl, avail, total, alive, demands, counts, assigned,
+                               scratch, N, R, C, thr, over_denom, max_passes);
+}
 
 // K7 over a cluster of P blocks (P in 1, 2, 4, 8; N divisible by P).
 int sched_schedule_classes_sharded(float* avail, const float* total, const uint8_t* alive,
@@ -1093,7 +1710,7 @@ int sched_schedule_classes_sharded(float* avail, const float* total, const uint8
   if (C == 0 || N == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   const bool rows16 = R == 16 && (((uintptr_t)avail | (uintptr_t)total) & 15) == 0;
-  const bool smem = k1_scratch_bytes(N / P) <= kK1MaxDynSmem;
+  const bool smem = k7_scratch_bytes(N / P) <= kK7MaxDynSmem;
   if (rows16 && smem)
     return (int)launch_k7<16, true>(st, P, avail, total, alive, demands, counts, assigned,
                                     scratch, N, R, C, thr, over_denom, max_passes);
@@ -1107,9 +1724,10 @@ int sched_schedule_classes_sharded(float* avail, const float* total, const uint8
                                   scratch, N, R, C, thr, over_denom, max_passes);
 }
 
-// int32 words of global scratch the K7 wrapper allocates: K1's per shard
+// int32 words of global scratch the K7 wrapper allocates: one shard's per
+// block
 long long sched_k7_scratch_words(int N, int P) {
-  return (long long)P * (long long)(k1_scratch_bytes(N / P) / 4);
+  return (long long)P * (long long)(k7_scratch_bytes(N / P) / 4);
 }
 
 int sched_scatter_rows(float* avail, const int* idx, const float* rows, int pad, int N, int R,

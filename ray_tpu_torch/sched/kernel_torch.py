@@ -5,7 +5,8 @@ scheduling round are hand-written CUDA kernels (csrc/sched_kernels.cu, built
 by _build.py on first CUDA use); each has a public wrapper here and, beside
 it, a plain PyTorch version of the same function:
 
-  K1 schedule_classes  the batched hybrid placement round
+  K1 schedule_classes  the batched hybrid placement round, on one
+                       thread-block cluster (k1_plan)
   K2 scatter_rows_     dirty-row refresh of the device availability
   K3 delta_clip        clip(avail + delta, 0, total)
   K4 compact_nonzero   COO compaction of the [C, N] assignment for download
@@ -33,7 +34,8 @@ deltas, and schedule_async / fetch pipeline rounds without a host sync.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -202,6 +204,60 @@ def _schedule_classes_plain(avail, total, alive, demands, counts,
     return assigned, avail
 
 
+# K1's launch shape (csrc/sched_kernels.cu k1_plan, which this mirrors): one
+# thread-block cluster of the first of K1_CLUSTER_SIZES the card has room
+# for; block r owns nodes [r*Nb, (r+1)*Nb), N padded up to a multiple of the
+# cluster with dead, empty nodes; a block holds its nodes' rows and state in
+# shared memory while they fit in K1_SMEM_BUDGET, else in global memory.
+K1_CLUSTER_SIZES = (16, 8)
+K1_SMEM_BUDGET = 200 * 1024
+
+
+class K1Plan(NamedTuple):
+    cluster: int           # blocks in the cluster
+    nodes_per_block: int   # Nb = ceil(N / cluster)
+    rows_in_smem: bool     # rows and per-node state in shared memory
+    smem_bytes: int        # dynamic shared memory a block
+    scratch_words: int     # int32 words of global scratch (rows in global memory)
+
+
+def k1_block_bytes(nodes: int, n_res: int, rows: bool) -> int:
+    """Bytes of one block's share of K1's state (`nodes` nodes): with the
+    rows, avail and total by column (an odd stride), then the per-node
+    utilization, fit and cap (4 bytes each), bucket and alive (1 each);
+    16-aligned."""
+    b = (8 * n_res * (nodes | 1) if rows else 0) + 14 * nodes
+    return (b + 15) & ~15
+
+
+def k1_plan(n_nodes: int, n_res: int, cluster: int) -> K1Plan:
+    """K1's layout for n_nodes nodes of n_res columns over `cluster` blocks."""
+    nb = -(-n_nodes // cluster)
+    rows = k1_block_bytes(nb, n_res, True)
+    if rows <= K1_SMEM_BUDGET:
+        return K1Plan(cluster, nb, True, rows, 0)
+    return K1Plan(cluster, nb, False, 0, cluster * k1_block_bytes(nb, n_res, False) // 4)
+
+
+_K1_CLUSTER = {}  # (device index, N, R) -> the cluster size the card takes
+
+
+def k1_launch_plan(n_nodes: int, n_res: int, device) -> K1Plan:
+    """The layout K1 launches with on `device` (a CUDA device) for n_nodes
+    nodes of n_res columns: the first of K1_CLUSTER_SIZES the card has room
+    for, asked of the card once per shape."""
+    dev = torch.device(device)
+    key = (dev.index, n_nodes, n_res)
+    if key not in _K1_CLUSTER:
+        lib = _build.load()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = lib.sched_k1_cluster_size(n_nodes, n_res, ctypes.addressof(out))
+        _check(lib, rc, "schedule_classes (cluster size)")
+        _K1_CLUSTER[key] = out.value
+    return k1_plan(n_nodes, n_res, _K1_CLUSTER[key])
+
+
 def schedule_classes(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tensor,
                      demands: torch.Tensor, counts: torch.Tensor,
                      spread_threshold: float = DEFAULT_SPREAD_THRESHOLD,
@@ -226,19 +282,22 @@ def schedule_classes(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tens
             f"alive {tuple(alive.shape)} demands {tuple(demands.shape)} "
             f"counts {tuple(counts.shape)}"
         )
-    lib = _build.load()
     new_avail = avail.to(torch.float32).contiguous().clone()
+    assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
+    if N == 0 or C == 0:
+        return assigned, new_avail
+    lib = _build.load()
     total = total.to(torch.float32).contiguous()
     alive_u8 = alive.to(torch.bool).contiguous()
     demands = demands.to(torch.float32).contiguous()
     counts = counts.to(torch.int32).contiguous()
-    assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.sched_k1_scratch_words(N), dtype=torch.int32, device=dev)
+    plan = k1_launch_plan(N, R, dev)
+    scratch = torch.empty(max(plan.scratch_words, 1), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.sched_schedule_classes(
             new_avail.data_ptr(), total.data_ptr(), alive_u8.data_ptr(),
             demands.data_ptr(), counts.data_ptr(), assigned.data_ptr(),
-            scratch.data_ptr(), N, R, C,
+            scratch.data_ptr(), plan.scratch_words, N, R, C, plan.cluster,
             float(np.float32(spread_threshold)),
             float(np.float32(max(1e-6, 1.0 - spread_threshold))),
             int(max_passes), _stream(dev),

@@ -4,17 +4,21 @@
     python -m ray_tpu_torch.scripts.profile_sched k7
     python -m ray_tpu_torch.scripts.profile_sched stream
 
-``k1``: builds the kernels with ``-DSCHED_K1_PROFILE`` (K1's thread 0 sums
-clock64 cycles per pass phase) and runs K1 at the stream problem's two
-shapes (first round: ~100k tasks, 8 000 of 10 000 nodes alive; full
-backlog: 1M tasks, all nodes): cycles per pass for phase 1 (fit, score
-bucket, threshold cap), phase 2 (caps, bucket totals), phase 3 (the fill)
-and the tail (clamp sweep, barrier).
+``k1``: builds the kernels with ``-DSCHED_K1_PROFILE`` (thread 0 of every
+block sums clock64 cycles per pass phase) and runs K1 at the stream
+problem's two shapes (first round: ~100k tasks, 8 000 of 10 000 nodes
+alive; full backlog: 1M tasks, all nodes): for every block of the cluster,
+cycles per pass in exchange 1 (the bounded cluster barrier and the
+feasible counts), the sweep (caps, bucket totals), exchange 2 (the
+barrier, the peers' bucket totals, offsets and take modes), the fill with
+the next pass's phase 1, and the tail; and the slowest block, the one with
+the most cycles outside the exchanges (the others wait for it there).
 
 ``k7``: the same build and problems through K7 (kernel_shard) for 1, 2, 4
-and 8 blocks a cluster: block 0's cycles per pass for phase 1, exchange 1
-(the cluster barrier and the feasible counts), phase 2, exchange 2 (the
-barrier, the peers' bucket totals and the offsets), phase 3 and the tail.
+and 8 blocks a cluster: every block's cycles per pass for phase 1,
+exchange 1 (the cluster barrier and the feasible counts), phase 2,
+exchange 2 (the barrier, the peers' bucket totals and the offsets), phase
+3 and the tail, and the slowest block.
 
 ``stream``: runs chip_smoke.py's 1M-task stream (phase 2) under
 torch.profiler and reports the device's busy and idle share of the
@@ -39,10 +43,12 @@ def _need_cuda():
         sys.exit(2)
 
 
-def _profile_phases(kernel: str, fields, calls) -> dict:
-    """Run each of `calls` (label -> fn(args)) at the stream problem's two
-    shapes in the -DSCHED_K1_PROFILE build, reading `kernel`'s cycle sums
-    (`fields` phase names, then the pass count) around one timed call."""
+def _profile_phases(kernel: str, fields, exchanges, calls) -> dict:
+    """Run each of `calls` (label -> (fn(args), blocks(args))) at the stream
+    problem's two shapes in the -DSCHED_K1_PROFILE build, reading
+    `kernel`'s cycle sums by block (`fields` phase names, then the pass
+    count; `exchanges` the fields that wait for the peers) around one
+    timed call."""
     import ctypes
 
     import chip_smoke
@@ -52,6 +58,8 @@ def _profile_phases(kernel: str, fields, calls) -> dict:
     read = getattr(lib, f"sched_{kernel}_profile")
     read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     read.restype = ctypes.c_int
+    rows = 16 if kernel == "k1" else 8  # blocks the profile array holds
+    width = len(fields) + 1
     dev = torch.device("cuda", 0)
     total, alive_all, demands, counts = chip_smoke.build_stream_problem(
         np.random.default_rng(5))
@@ -65,8 +73,8 @@ def _profile_phases(kernel: str, fields, calls) -> dict:
         d, kk = KT.pad_problem(demands, k, KT.bucket_size(len(demands)))
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
                 for x in (total * alive[:, None], total, alive, d, kk)]
-        for call, fn in calls.items():
-            buf = (ctypes.c_ulonglong * (len(fields) + 1))()
+        for call, (fn, blocks) in calls.items():
+            buf = (ctypes.c_ulonglong * (rows * width))()
             fn(args)  # warm
             torch.cuda.synchronize()
             read(buf, 1)
@@ -77,11 +85,23 @@ def _profile_phases(kernel: str, fields, calls) -> dict:
             torch.cuda.synchronize()
             if read(buf, 1) != 0:
                 raise RuntimeError(f"reading the {kernel} profile failed")
-            passes = max(int(buf[len(fields)]), 1)
+            nblocks = blocks(args)
+            by_block = []
+            for r in range(nblocks):
+                row = buf[r * width:(r + 1) * width]
+                passes = max(int(row[-1]), 1)
+                by_block.append({name: row[i] / passes for i, name in enumerate(fields)})
+            work = [sum(v for f, v in b.items() if f not in exchanges) for b in by_block]
+            slowest = int(np.argmax(work))
             out[f"{label}{call}"] = {
                 "ms": s.elapsed_time(e),
-                "passes": int(buf[len(fields)]),
-                "cycles_per_pass": {name: buf[i] / passes for i, name in enumerate(fields)},
+                "passes": int(buf[width - 1]),
+                "blocks": nblocks,
+                "slowest_block": slowest,
+                "cycles_per_pass_slowest_block": by_block[slowest],
+                "cycles_per_pass_mean": {f: float(np.mean([b[f] for b in by_block]))
+                                         for f in fields},
+                "cycles_per_pass_by_block": by_block,
             }
     return out
 
@@ -89,8 +109,11 @@ def _profile_phases(kernel: str, fields, calls) -> dict:
 def profile_k1() -> dict:
     from ray_tpu_torch.sched import kernel_torch as KT
 
-    return _profile_phases("k1", ("phase1", "phase2", "phase3", "tail"),
-                           {"": lambda a: KT.schedule_classes(*a)})
+    return _profile_phases(
+        "k1", ("exchange1", "sweep", "exchange2", "fill_next", "tail"),
+        ("exchange1", "exchange2"),
+        {"": (lambda a: KT.schedule_classes(*a),
+              lambda a: KT.k1_launch_plan(*a[0].shape, a[0].device).cluster)})
 
 
 def profile_k7() -> dict:
@@ -98,7 +121,9 @@ def profile_k7() -> dict:
 
     return _profile_phases(
         "k7", ("phase1", "exchange1", "phase2", "exchange2", "phase3", "tail"),
-        {f"_p{p}": (lambda a, p=p: KS.schedule_classes_sharded(*a, shards=p))
+        ("exchange1", "exchange2"),
+        {f"_p{p}": ((lambda a, p=p: KS.schedule_classes_sharded(*a, shards=p)),
+                    (lambda a, p=p: p))
          for p in KS.SHARDS})
 
 

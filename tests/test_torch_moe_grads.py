@@ -608,3 +608,65 @@ def test_cuda_moe_backward_kernels_equal_plain_on_card():
                 again = K.moe_combine_bwd(dy, out, slot, gate, tos)
                 assert torch.equal(d_out, again[0]) and torch.equal(dg, again[1])
     torch.cuda.synchronize()
+
+
+def _offset_view(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary (not 16-byte aligned)."""
+    flat = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+    start = next(i for i in range(1, 16) if (flat.data_ptr() + i * t.element_size()) % 16)
+    view = flat[start:start + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_combine_bwd_one_launch_form_by_width_and_alignment():
+    """K9c' takes its one-launch form for D a multiple of 8 with dy and out
+    16-byte aligned (as the source decides), else its two-launch form; an
+    offset view is not aligned and holds the same values."""
+    for D, want in ((256, True), (8, True), (20, False), (36, False)):
+        dy, out = torch.zeros((2, 4, D)), torch.zeros((3, 2, 2, D))
+        assert K.combine_bwd_one_launch(dy, out) is want
+    dy = torch.arange(2 * 4 * 256, dtype=torch.float32).reshape(2, 4, 256)
+    out = torch.zeros((3, 2, 2, 256))
+    moved = _offset_view(dy)
+    assert moved.is_contiguous() and torch.equal(moved, dy)
+    assert not K.combine_bwd_one_launch(moved, out)
+    assert not K.combine_bwd_one_launch(dy, _offset_view(out))
+
+
+@pytest.mark.cuda
+def test_cuda_combine_bwd_one_launch_and_fallback_equal_plain():
+    """On the card: K9c' in one launch (D = 256) and in its two-launch form
+    (D = 20, and D = 256 with dy or out offset from a 16-byte boundary), in
+    f32 and bf16 dy: d_out bit-equal to the plain version, d_gate within
+    BWD_TOL of its largest entry and 0 for a dropped token, two launches the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    Gn, S, E = 4, 512, 8
+    logits = torch.from_numpy((rng.standard_normal((Gn, S, E)) * 2).astype(np.float32)).to(dev)
+    logits[:, :, 0] += 1.5  # skewed: the capacity drops some
+    C = int(S * 1.25 / E)
+    _, gate, slot, tos, _ = K.moe_route(logits, C)
+    assert bool((slot < 0).any())
+    forms = set()
+    for Dw, offset in ((256, None), (20, None), (256, "dy"), (256, "out")):
+        out = torch.from_numpy(rng.standard_normal((E, Gn, C, Dw)).astype(np.float32)).to(dev)
+        for td in (torch.float32, torch.bfloat16):
+            dy = torch.from_numpy(rng.standard_normal((Gn, S, Dw)).astype(np.float32)).to(dev, td)
+            o = _offset_view(out) if offset == "out" else out
+            y = _offset_view(dy) if offset == "dy" else dy
+            forms.add(K.combine_bwd_one_launch(y, o))
+            d_out, dg = K.moe_combine_bwd(y, o, slot, gate, tos)
+            want_out, want_gate = K._combine_bwd_plain(y, o, slot, gate, tos)
+            assert torch.equal(d_out, want_out), (Dw, offset, td)
+            scale = float(want_gate.abs().max())
+            assert float((dg - want_gate).abs().max()) <= K.BWD_TOL * scale, (Dw, offset, td)
+            assert bool((dg[slot < 0] == 0).all())
+            again = K.moe_combine_bwd(y, o, slot, gate, tos)
+            assert torch.equal(d_out, again[0]) and torch.equal(dg, again[1])
+    assert forms == {True, False}
+    torch.cuda.synchronize()

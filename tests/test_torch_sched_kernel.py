@@ -327,3 +327,132 @@ def test_cuda_kernels_equal_plain_on_card():
     for x, y in zip(KT.compact_nonzero(a_k, 1024), KT._compact_nonzero_plain(
             a_k, 1024, torch.int32, torch.int32, torch.int32)):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------------------- K1's cluster layout
+
+
+def test_k1_plan_pads_nodes_to_the_cluster_and_picks_the_row_form():
+    """K1's host-side layout (k1_plan, the mirror of the source's): N padded
+    up to a multiple of the cluster size with dead nodes, the rows and the
+    per-node state in shared memory while a block's share fits, else the
+    rows in global memory with a global scratch of the per-node state."""
+    p = KT.k1_plan(10_000, R, 16)
+    assert p == KT.K1Plan(16, 625, True, 88_752, 0)  # 8*16*625 + 14*625, 16-aligned
+    assert p.smem_bytes == KT.k1_block_bytes(625, R, True)
+    p = KT.k1_plan(10_007, R, 16)  # not a multiple of 16: 15 full blocks, one of 617
+    assert p.nodes_per_block == 626 and 15 * 626 < 10_007 <= 16 * 626
+    assert p.rows_in_smem and p.smem_bytes == (8 * R * 627 + 14 * 626 + 15) // 16 * 16
+    p = KT.k1_plan(40_000, R, 16)  # past the shared-memory form
+    assert p == KT.K1Plan(16, 2500, False, 0, 16 * 35_008 // 4)
+    assert KT.k1_plan(40_000, R, 8).scratch_words == 8 * 70_000 // 4
+    assert KT.k1_plan(3000, 5, 16) == KT.K1Plan(16, 188, True, 10_192, 0)  # stride 189
+    assert KT.k1_plan(1, R, 16) == KT.K1Plan(16, 1, True, 144, 0)
+    # the form's edge near 24k nodes at R = 16 and a 16-block cluster
+    edge = max(n for n in range(20_000, 30_000, 16) if KT.k1_plan(n, R, 16).rows_in_smem)
+    assert 23_000 < edge < 25_000
+    assert not KT.k1_plan(edge + 16, R, 16).rows_in_smem
+    for n, c in ((10_000, 8), (64, 16), (17, 16), (24_001, 8)):
+        p = KT.k1_plan(n, R, c)
+        assert p.cluster == c and p.nodes_per_block * c >= n > (p.nodes_per_block - 1) * c
+        assert p.smem_bytes <= KT.K1_SMEM_BUDGET and p.smem_bytes % 16 == 0
+        assert (p.scratch_words == 0) == p.rows_in_smem
+    assert KT.K1_CLUSTER_SIZES == (16, 8)
+
+
+def narrow_problem(seed, N=3000, C=24, n_res=5):
+    """random_problem's kind over R = 5 columns (K1's generic column path)."""
+    rng = np.random.default_rng(seed)
+    total = np.zeros((N, n_res), np.float32)
+    total[:, 0] = rng.integers(1, 65, N)
+    total[:, 2] = rng.integers(4, 257, N)
+    total[:, 4] = np.where(rng.random(N) < 0.2, rng.integers(1, 9, N), 0)
+    alive = rng.random(N) > 0.05
+    avail = np.floor(total * rng.uniform(0.0, 1.0, total.shape)).astype(np.float32)
+    avail *= alive[:, None]
+    demands = np.zeros((C, n_res), np.float32)
+    demands[:, 0] = rng.integers(1, 5, C)
+    demands[:, 2] = np.where(rng.random(C) < 0.5, rng.integers(1, 9, C), 0)
+    demands[:, 4] = np.where(rng.random(C) < 0.2, 1, 0)
+    counts = rng.integers(0, 3000, C).astype(np.int32)
+    return avail, total, alive, demands, counts
+
+
+def saturation_problem(N=1000):
+    """Counts near 2**23 - 1 over nodes of 2**21 CPUs: a bucket's prefix
+    passes 2**23 inside the cluster."""
+    total = np.zeros((N, R), np.float32)
+    total[:, 0] = 2.0 ** 21
+    total[:, 3] = 64.0
+    alive = np.ones(N, bool)
+    alive[5::97] = False
+    demands = np.zeros((4, R), np.float32)
+    demands[:, 0] = [1.0, 1.0, 2.0, 1.0]
+    counts = np.array([2**23 - 1, 2**23 - 7, 3_000_000, 2**23 - 1], np.int32)
+    return (total * alive[:, None]).astype(np.float32), total, alive, demands, counts
+
+
+def negative_problem():
+    """test_negative_availability_round_that_places_nothing's inputs."""
+    N = 8
+    total = np.zeros((N, R), np.float32)
+    total[:, 0] = 4.0
+    total[:, 3] = 16.0
+    avail = total.copy()
+    avail[:, 0] = 0.0
+    avail[2, 3] = -3.0
+    demands = np.zeros((2, R), np.float32)
+    demands[0, 0] = 1.0
+    demands[1, 0] = 2.0
+    demands[1, 3] = 1.0
+    return avail, total, np.ones(N, bool), demands, np.array([5, 3], np.int32)
+
+
+@pytest.mark.parametrize("name", ["r5", "saturation"])
+def test_k1_edge_problems_plain_equals_numpy(name):
+    """The plain K1 on the edge problems the card also runs: R = 5 and
+    counts near 2**23 (prefixes past 2**23), bit-identical to kernel_np."""
+    avail, total, alive, demands, counts = (
+        narrow_problem(13, N=600) if name == "r5" else saturation_problem(200))
+    np_a, np_v = kernel_np.schedule_classes(avail.copy(), total, alive, demands, counts)
+    th_a, th_v = KT.schedule_classes(T(avail), T(total), T(alive), T(demands), T(counts))
+    np.testing.assert_array_equal(th_a.numpy(), np_a)
+    np.testing.assert_array_equal(th_v.numpy(), np_v)
+    assert np_a.sum() > 0
+    if name == "saturation":
+        assert (np_a.sum(axis=1) > 2**23 - 2**21).any()
+
+
+@pytest.mark.cuda
+def test_cuda_k1_cluster_edges_equal_plain_and_numpy():
+    """On the card: K1 (one thread-block cluster) against its plain version
+    and kernel_np, exactly, with N not a multiple of the cluster, the rows in
+    global memory (N = 40 000), R = 5, counts near 2**23 and a round that
+    places nothing over a negative entry; a second launch gives the same
+    bits, and the source's layout agrees with k1_plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    from ray_tpu_torch.sched import _build
+
+    dev = torch.device("cuda")
+    lib = _build.load()
+    problems = [random_problem(21, N=10_007, C=48), random_problem(22, N=40_000, C=24),
+                narrow_problem(13), saturation_problem(), negative_problem()]
+    forms = set()
+    for avail, total, alive, demands, counts in problems:
+        args = [T(x).to(dev) for x in (avail, total, alive, demands, counts)]
+        a_k, v_k = KT.schedule_classes(*args)
+        N, n_res = total.shape
+        plan = KT.k1_launch_plan(N, n_res, dev)
+        forms.add(plan.rows_in_smem)
+        assert plan.cluster in KT.K1_CLUSTER_SIZES and plan == KT.k1_plan(N, n_res, plan.cluster)
+        assert lib.sched_k1_scratch_words(N, n_res, plan.cluster) == plan.scratch_words
+        again = KT.schedule_classes(*args)
+        assert torch.equal(a_k, again[0]) and torch.equal(v_k, again[1])
+        a_p, v_p = KT._schedule_classes_plain(*args)
+        assert torch.equal(a_k, a_p) and torch.equal(v_k, v_p), N
+        np_a, np_v = kernel_np.schedule_classes(avail.copy(), total, alive, demands, counts)
+        np.testing.assert_array_equal(a_k.cpu().numpy(), np_a)
+        np.testing.assert_array_equal(v_k.cpu().numpy(), np_v)
+    assert forms == {True, False}
+    torch.cuda.synchronize()

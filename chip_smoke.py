@@ -14,9 +14,13 @@ caught):
    problems (dead nodes, masked custom resources, over-subscribed classes)
    and on the 10k-node x 256-class stream problem; K2, K3 and K4 at the
    bucket edges; K5 (rounds) and K6 (chunked) on the rounds kernels' golden
-   problems, the random problems and the stream problem. K1, K5 and K6 are
-   also held against the NumPy reference (kernel_np). Median device times
-   of each kernel and its plain version.
+   problems, the random problems, the stream problem and K1's layout edges
+   (N = 10 007, N = 40 000 with the node state in global memory, R = 5, a
+   negative entry), each of them one launch of one thread-block cluster a
+   call (torch.profiler counts the kernels a call enqueues; more than one
+   fails), its cluster size logged. K1, K5 and K6 are also held against the
+   NumPy reference (kernel_np). Median device times of each kernel and its
+   plain version.
 2. the 1M-task stream over 10k nodes (20% of the fleet held back, an
    autoscale flip, completions releasing resources) through
    TorchScheduler.schedule_async / fetch / apply_delta / update_rows, with
@@ -498,7 +502,7 @@ def phase1_kernels(torch, KT, KS, kernel_np, dev):
     log(f"K4 compact_nonzero: [{C_}, {N_}] nnz={nnz}, caps "
         f"{KT.TorchScheduler._NONZERO_BUCKETS} + edges, 4 dtype sets == plain")
 
-    phase1_rounds(torch, KT, kernel_np, dev, rec, err, problems)
+    phase1_rounds(torch, KT, kernel_np, dev, rec, err, problems + k1_edge_problems())
     for name, r in rec.items():
         log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms by {r['bound'][1]})")
@@ -508,8 +512,10 @@ def phase1_kernels(torch, KT, KS, kernel_np, dev):
 def phase1_rounds(torch, KT, kernel_np, dev, rec, err, k1_problems):
     """K5 and K6 against their plain versions (assignments and availability
     exact) and against kernel_np (assignments exact, availability within
-    1e-3), then timed at the stream's first-round shape as TorchScheduler
-    calls them: padded to 256 classes, the demanded columns active."""
+    1e-3), two launches bit-equal, then at the stream's first-round shape as
+    TorchScheduler calls them (padded to 256 classes, the demanded columns
+    active): the kernels one call enqueues (one, or this fails), the cluster
+    size, the device time."""
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     algos = (
         ("schedule_classes_rounds", KT.schedule_classes_rounds,
@@ -519,19 +525,30 @@ def phase1_rounds(torch, KT, kernel_np, dev, rec, err, k1_problems):
          {"chunk": 16}),
     )
     problems = [(f"rounds_golden{s}", rounds_problem(s)) for s in range(4)]
-    problems += [(n, p) for n, p in k1_problems if n.startswith(("random", "stream"))]
+    # K1's problems but its counts near 2**23, past the rounds reference's
+    # exact range (its saturated prefix places more than a count there):
+    # the cluster layout's edges (N = 10 007, the node state in global
+    # memory at N = 40 000, R = 5, a negative entry) among them
+    problems += [(n, p) for n, p in k1_problems if n != "counts_near_2_23"]
     for name, (avail, total, alive, demands, counts) in problems:
         args = (T(avail), T(total), T(alive), T(demands), T(counts))
+        # every column active, and the demanded ones as TorchScheduler passes
+        # them (up to 4: the kernel's register path)
+        demanded = tuple(int(i) for i in np.flatnonzero((demands > 0).any(axis=0)))
         for kname, kern, plain, ref, _, _ in algos:
-            a_k, v_k = kern(*args)
-            a_p, v_p = plain(*args)
-            err(kname, a_k, a_p)
-            err(kname, v_k, v_p)
             a_n, v_n = ref(avail, total, alive, demands, counts)
-            if not np.array_equal(a_n, a_k.cpu().numpy()):
-                raise AssertionError(f"{kname} {name}: kernel != kernel_np")
-            if not np.allclose(v_n, v_k.cpu().numpy(), atol=1e-3):
-                raise AssertionError(f"{kname} {name}: avail differs from kernel_np")
+            for active in (None, demanded):
+                a_k, v_k = kern(*args, active_idx=active)
+                again = kern(*args, active_idx=active)
+                if not (torch.equal(a_k, again[0]) and torch.equal(v_k, again[1])):
+                    raise AssertionError(f"{kname} {name}: two launches gave different bits")
+                a_p, v_p = plain(*args, active_idx=active)
+                err(kname, a_k, a_p)
+                err(kname, v_k, v_p)
+                if not np.array_equal(a_n, a_k.cpu().numpy()):
+                    raise AssertionError(f"{kname} {name}: kernel != kernel_np")
+                if not np.allclose(v_n, v_k.cpu().numpy(), atol=1e-3):
+                    raise AssertionError(f"{kname} {name}: avail differs from kernel_np")
         log(f"K5/K6 {name}: N={len(total)} C={len(demands)} placed "
             f"{int(a_k.sum())} (chunked) == plain == kernel_np")
     avail, total, alive, demands, counts = next(
@@ -545,16 +562,65 @@ def phase1_rounds(torch, KT, kernel_np, dev, rec, err, k1_problems):
     bytes_rounds = 3 * N * R * 4 + N + C * R * 4 + C * 4 + C * N * 4
     for kname, kern, plain, _, rounds, kw in algos:
         kw = {**kw, "rounds": rounds, "active_idx": active}
-        # per round and (class, node) cell: fit and threshold cap in phase
-        # A (9 per active column), fit in phase B (4 per column), the
-        # class-priority trim in both phases (9 per column), ~8 per cell
-        # per phase for the cap, prefix fill and clip
-        ops = rounds * C * N * (9 * A + 4 * A + 2 * 9 * A + 2 * 8)
+        chunk = kw.get("chunk", C)
+        # per round and (class, node) cell of a class with tasks left at
+        # the round's start (a finished class needs no work): fit and
+        # threshold cap in phase A (9 per active column), fit in phase B
+        # (4 per column), the class-priority trim in both phases (9 per
+        # column), ~8 per cell per phase for the cap, prefix fill and clip
+        live = rounds_live_classes(kernel_np, avail, total, alive, d_pad, k_pad, rounds,
+                                   chunk)
+        ops = live * N * (9 * A + 4 * A + 2 * 9 * A + 2 * 8)
+        plan = KT.rounds_launch_plan(N, R, A, C, chunk, dev)
+        launched = kernels_enqueued(torch, lambda: kern(*args, **kw))
+        if len(launched) != 1:
+            raise AssertionError(f"{kname}: one call enqueued {len(launched)} kernels "
+                                 f"({sorted(set(launched))}), not one")
         rec[kname].update(
             ms=time_ms(torch, lambda: kern(*args, **kw)),
             plain_ms=time_ms(torch, lambda: plain(*args, **kw), reps=3, warm=1),
-            library_ms=None, bound=bound(bytes_rounds, ops),
+            library_ms=None, bound=bound(bytes_rounds, ops), kernels_a_call=len(launched),
+            cluster=plan.cluster, rows_in_smem=plan.rows_in_smem, live_class_rounds=live,
         )
+        log(f"{kname} at the stream's first round [{N}, {C}], A = {A}: one kernel a call "
+            f"({launched[0][:60]}...), a cluster of {plan.cluster} blocks, "
+            f"{plan.nodes_per_block} nodes a block, node state in "
+            f"{'shared' if plan.rows_in_smem else 'global'} memory; "
+            f"{rec[kname]['ms']:.4f} ms; {live} class-rounds with tasks left")
+
+
+def rounds_live_classes(kernel_np, avail, total, alive, demands, counts, rounds, chunk):
+    """The classes with tasks left at the start of each round, summed over
+    the rounds (and K6's chunks), from kernel_np run a round at a time."""
+    live = 0
+    avail = avail.copy()
+    for s in range(0, len(counts), chunk):
+        d, k = demands[s:s + chunk], counts[s:s + chunk]
+        for r in range(rounds):
+            placed = (kernel_np.schedule_classes_rounds(avail, total, alive, d, k,
+                                                        rounds=r)[0].sum(axis=1)
+                      if r else 0)
+            live += int((k - placed > 0).sum())
+        avail = kernel_np.schedule_classes_rounds(avail, total, alive, d, k, rounds=rounds)[1]
+    return live
+
+
+def kernels_enqueued(torch, fn):
+    """The names of the kernels one call of fn enqueues on the card (copies
+    and fills by the runtime left out), under torch.profiler, after a warm
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return [n for n in names if not n.startswith(("Memcpy", "Memset"))]
 
 
 def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000, algo="scan"):

@@ -38,7 +38,9 @@ _SIGNATURES = {
     "sched_compact_nonzero": (
         [_P, _LL, _I, _LL, _P, _I, _P, _I, _P, _I, _P, _P, _P], _I),
     "sched_schedule_rounds": (
-        [_P, _P, _P, _P, _P, _ULL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+        [_P, _P, _P, _P, _P, _ULL, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+    "sched_rounds_cluster_size": ([_I, _I, _I, _I, _I, _P], _I),
+    "sched_rounds_scratch_words": ([_I, _I, _I, _I, _I], _LL),
     "sched_error_string": ([_I], ctypes.c_char_p),
 }
 

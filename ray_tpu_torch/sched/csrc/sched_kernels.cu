@@ -24,9 +24,10 @@
 //                              (jnp.nonzero(size=cap, fill_value=0) + gather
 //                              + narrowing)
 //   K5 sched_schedule_rounds   replaces kernel_jax.py schedule_classes_rounds
-//      (chunk = C)             (+ _rounds_core, _sat_cumsum)
+//      (chunk = C)             (+ _rounds_core, _sat_cumsum); one
+//                              thread-block cluster of 16 (or 8) blocks
 //   K6 sched_schedule_rounds   replaces kernel_jax.py schedule_classes_chunked
-//      (chunk = 16)
+//      (chunk = 16)            (the same kernel, chunk by chunk)
 //   K7 sched_schedule_classes_sharded
 //                              replaces ray_tpu/sched/kernel_shard.py:54-196
 //                              (the round with the node axis split over the
@@ -47,12 +48,18 @@ namespace cg = cooperative_groups;
 // fill and the next pass's phase 1, tail, passes]; and thread 0 of every
 // block of K7 into g_k7_profile[rank]: [phase 1, exchange 1 (barrier,
 // feasible counts), phase 2, exchange 2 (barrier, bucket totals, offsets),
-// phase 3, tail, passes]. The production build compiles the stamps away.
+// phase 3, tail, passes]; and thread 0 of every block of K5/K6 into
+// g_rounds_profile[rank]: [caps, count exchange (phase B), totals (phase
+// B's share caps, the segments' and the block's totals), totals exchange,
+// want and the trim, debit, placed exchange, tiles run, tiles skipped].
+// The production build compiles the stamps away.
 #ifdef SCHED_K1_PROFILE
 constexpr int kK1Phases = 5;
 constexpr int kK7Phases = 6;
 __device__ unsigned long long g_k1_profile[16][kK1Phases + 1];
 __device__ unsigned long long g_k7_profile[8][kK7Phases + 1];
+constexpr int kRPhases = 7;
+__device__ unsigned long long g_rounds_profile[16][kRPhases + 2];
 #define K1_STAMP(t) const long long t = clock64()
 #define K1_PROFILE_DECL long long k1_prof[kK1Phases + 1] = {}, k1_last = 0
 #define K1_PROFILE_START() k1_last = clock64()
@@ -78,6 +85,20 @@ __device__ unsigned long long g_k7_profile[8][kK7Phases + 1];
     g_k7_profile[rank][5] += clock64() - t5;                        \
     g_k7_profile[rank][6] += 1;                                     \
   }
+#define R_PROFILE_DECL long long r_prof[kRPhases + 2] = {}, r_last = 0
+#define R_PROFILE_START() r_last = clock64()
+#define R_MARK(phase)                                                \
+  if (threadIdx.x == 0) {                                           \
+    const long long now = clock64();                                \
+    r_prof[phase] += now - r_last;                                  \
+    r_last = now;                                                   \
+  }
+#define R_COUNT(i) \
+  if (threadIdx.x == 0) ++r_prof[kRPhases + (i)];
+#define R_PROFILE_FLUSH(rank)                                        \
+  if (threadIdx.x == 0) {                                           \
+    for (int i = 0; i < kRPhases + 2; ++i) g_rounds_profile[rank][i] += r_prof[i]; \
+  }
 #else
 #define K1_STAMP(t)
 #define K1_PROFILE_DECL
@@ -86,6 +107,11 @@ __device__ unsigned long long g_k7_profile[8][kK7Phases + 1];
 #define K1_PROFILE_PASS()
 #define K1_PROFILE_FLUSH(rank)
 #define K7_PROFILE_PASS(rank, t0, t1, t2, t3, t4, t5)
+#define R_PROFILE_DECL
+#define R_PROFILE_START()
+#define R_MARK(phase)
+#define R_COUNT(i)
+#define R_PROFILE_FLUSH(rank)
 #endif
 
 namespace {
@@ -1233,272 +1259,848 @@ cudaError_t launch_k7(cudaStream_t st, int P, float* avail, const float* total,
 
 
 // ---------------------------------------------------------------------------
-// K5/K6: the two-phase [C, N] rounds core (kernel_np.schedule_classes_rounds
-// semantics, op for op). Per global round, phase A (fill nodes under the
-// spread threshold up to it) then phase B (equal-share the rest over the
-// feasible nodes); each phase is three launches on one stream, no host sync:
-//   1. rounds_caps_kernel   one thread per node, a tile of classes per block:
-//                           the [C, N] cap matrix (A: min(fit, threshold
-//                           cap) x under-threshold mask; B: fit, and the
-//                           per-class count of feasible nodes);
-//   2. rounds_prefix_kernel one block per class: the saturating prefix fill
-//                           along N in node order -> want [C, N] (in place);
-//   3. rounds_trim_kernel   one thread per node, classes in index order: the
-//                           class-priority trim against the usage of earlier
-//                           classes -> take; assigned += take; the debit of
-//                           the node's row; per-class placed counts.
-// The prefix kernel of the next phase settles `remaining -= placed` first.
-// K6 runs the same launches chunk after chunk on [16, N] slices, the
-// availability carried from one chunk to the next on the device.
+// K5/K6: the two-phase [C, N] rounds core (kernel_np.schedule_classes_rounds,
+// op for op), replacing ray_tpu/sched/kernel_jax.py:226 _rounds_core, :318
+// schedule_classes_rounds (K5: every class at once) and :370
+// schedule_classes_chunked (K6: chunks of 16 classes, the availability
+// carried from chunk to chunk). Each global round is phase A (fill the nodes
+// under the spread threshold up to it), then phase B (an equal share of the
+// rest over the feasible nodes). In a phase every class claims a prefix of
+// the nodes, in node order, up to its remaining count (want); then each
+// node trims the claims, classes in index order, against what the earlier
+// classes' claims use (take).
 //
-// Bound on this card: bytes. Every phase writes and reads the [C, N] f32
-// cap/want matrix twice (10 MB at 256 x 10k) and the trim reads it once
-// more, against a few hundred operations per cell; the round itself must
-// move only the [N, R] views and the [C, N] int32 result once. Design: the
-// per-node kernels keep the node's active columns in registers and read
-// the [C, N] scratch coalesced across a warp (row-major, one node per
-// lane); the per-class prefix is an exact int64 block scan, tile by tile.
-// Fusing the three launches (and the phases) is the next step (PERF.md).
+// Bound on this card: the latency of a chain of dependent steps, not bytes
+// or operations. The work is a few IEEE divisions per (class, node,
+// demanded column) and phase (~0.01-0.02 ms of issue at the stream's first
+// round), but each phase is a chain: the prefix along N needs every node's
+// cap, the trim needs the prefix, the next phase needs the debit; and a
+// launch a step costs ~10 us of launch and drain (profile_sched.py k5, k6;
+// PERF.md), 24 of them a call for K5 and 192 for K6.
+//
+// Design: one launch a call, of one thread-block cluster of P = 16 blocks
+// (8 where the card has no room for 16) of 768 threads, which runs the
+// call's whole loop: chunks, rounds, phases and tiles of 16 classes.
+//  - Block r owns nodes [r*Nb, (r+1)*Nb), Nb = ceil(N / P): N is padded up
+//    to a multiple of P with dead nodes that hold no state. A block keeps its
+//    nodes' state for the whole call (rounds_plan): the active columns'
+//    avail and total, the trim's usage prefixes and debits (double), flags,
+//    and each node's largest utilization term over the inactive columns.
+//    Those columns change only by the clamp at zero, which is idempotent
+//    after the call's first phase, so the term is taken once from the view
+//    as given (for the first phase A) and once after the first phase's clamp
+//    (for every later one). The rows are written back once, at the end.
+//    Above the shared-memory budget the same arrays live in global scratch
+//    (SMEM = false).
+//  - A tile's caps (then wants, then takes) and its per-segment totals and
+//    bases live beside them and never reach device memory. The steps of a
+//    tile in a phase, all but the trim over (class, 32-node segment) units,
+//    a warp a unit, so that every warp has work:
+//      1. caps: phase A min(fit, threshold cap) on a node under the
+//         threshold, else 0; phase B fit, and the block's count of feasible
+//         nodes of each class;
+//      2. phase B: one exchange of the counts, with the tile's placed counts
+//         of phase A in the same message; then remaining, share = ceil(rem /
+//         max(n_feas, 1)) and capc = min(fit, share, min(rem, SAT));
+//      3. each segment's total of capc (one warp reduction), the block's
+//         totals, saturating at SAT (exact: a saturating sum of nonnegative
+//         terms is associative);
+//      4. one exchange of the 16 block totals; each segment's base is the
+//         saturating sum of the lower blocks' and segments' totals;
+//      5. want = clip(rem - ((float)incl - capc), 0, capc), incl = min(base +
+//         the warp's inclusive prefix, SAT), literally as kernel_np writes
+//         it, skipped for a segment that can want nothing of a class (no cap
+//         there, or a base in [rem, SAT - rem]); then the trim, a thread a
+//         node, over the classes its segment wants, the usage prefixes
+//         carried from tile to tile of the phase; assigned += take by the
+//         cell's owner thread (a reduction, so that no thread waits for the
+//         old value; no two threads share a cell); the tile's placed counts.
+//    At a phase's end every node's active columns are debited and clamped,
+//    max(avail - usage, 0), and the phase B placed counts are exchanged (up
+//    to 256 classes a message) so that `remaining` is settled before the
+//    next round's phase A; the last phase of a chunk needs none.
+//  - The exchanges push (K1's form): st.async into the peers' shared memory,
+//    completing on their mbarriers, a double-buffered pair of buffers and
+//    mbarriers for each kind of message, each mbarrier armed a use ahead;
+//    bounded waits that trap.
+//  - An exact skip: a class whose remaining is 0 has capc = 0, so want =
+//    take = usage = 0, and in phase B its share is 0: it changes nothing. A
+//    tile whose classes all have remaining 0 is skipped, and so is the
+//    placed exchange of a phase that ran no tile. Every block holds the same
+//    remaining after the exchanges, so every block takes the same branches
+//    and meets every exchange. Padded classes (count 0) are such classes.
+//    The first phase's clamp runs all the same.
+//  - `assigned` is written whole in each chunk's first phase (take, or 0 in
+//    a skipped tile), so a call enqueues this one kernel and no fill.
+//  - Up to 4 active columns (the main path has 3), the caps and the trim
+//    hold a node's columns in registers, the caps' numerators taken once a
+//    tile; the trim's columns then bound take independently and the least
+//    bound wins (min is exact in any order). More columns take rolled
+//    loops. Both divide by __fdiv_rn.
 //
 // Numerics (decisions bit-identical to kernel_np on integer-granular
-// problems): IEEE division, no contraction (--fmad=false plus explicit
-// __fmul_rn / __fadd_rn where numpy rounds a product before a sum), float
-// -> int conversions truncate. The saturating prefixes mirror the
-// reference literally: along N an exact int64 inclusive prefix clipped at
-// SAT, cast to float32, minus the element (when saturated that is NOT the
-// exclusive prefix); along C each column's usage want*d is rounded to
-// float32 and accumulated in double (kernel_np._sat_cumsum_f), clipped at
-// SAT, cast to float32, minus the element. The debit sums take*d in double
-// and rounds once (exact for integer-granular demands, like the
-// reference's float32 product).
+// problems, counts < 2**23): IEEE division, no contraction (--fmad=false
+// plus explicit __fmul_rn / __fadd_rn where numpy rounds a product before a
+// sum), float -> int conversions truncate. The saturating prefixes mirror
+// the reference literally: along N the prefix clipped at SAT, cast to
+// float32, minus the element (when saturated that is NOT the exclusive
+// prefix); along C each column's usage want*d is rounded to float32 and
+// accumulated in double (kernel_np._sat_cumsum_f), clipped at SAT, cast to
+// float32, minus the element. The debit sums take*d in double and rounds
+// once (exact for integer-granular demands, like the reference's float32
+// product).
 // ---------------------------------------------------------------------------
-constexpr int kNodeThreads = 128;     // per-node kernels of K5/K6
-constexpr int kCapClassTile = 16;     // classes per block of the cap kernel
-constexpr int kPrefixThreads = 1024;
-constexpr float kSat = 8388608.0f;    // SAT = 2**23
-constexpr float kMinDemand = 1e-9f;   // np.float32(1e-9)
+constexpr int kRThreads = 768;
+constexpr int kRTile = 16;                     // classes a tile
+constexpr int kRMaxCluster = 16;
+constexpr int kRMaxGroup = 256;                // classes a placed exchange carries
+constexpr int kRCntWords = 2 * kRTile;         // feasible counts, then phase A's placed
+constexpr int kRTotWords = kRTile;             // block totals
+constexpr size_t kRSmemBudget = 216 * 1024;    // dynamic shared memory of one block
+constexpr float kSat = 8388608.0f;             // SAT = 2**23
+constexpr int kSatI = 1 << 23;
+constexpr float kMinDemand = 1e-9f;            // np.float32(1e-9)
+constexpr int kRRegCols = 4;                   // active columns the register form holds
 
-// The active columns (bits of `mask`, lowest first) as AMAX register slots.
+// The stride of a block's per-node arrays: its node count rounded up to
+// whole 32-node segments (a warp's nodes in every node-local step).
+__host__ __device__ inline int rounds_stride(int Nb) { return (Nb + 31) & ~31; }
+
+// Classes a placed exchange carries: the chunk's, rounded up to 16, at most
+// kRMaxGroup.
+__host__ __device__ inline int rounds_group(int C, int chunk) {
+  const int cc = chunk < C ? chunk : C;
+  const int g = (cc + 15) & ~15;
+  return g < kRMaxGroup ? g : kRMaxGroup;
+}
+
+// Bytes of one block's node state at stride S over A active columns: the
+// usage prefix and debit (f64), avail and total (f32) by column, the
+// inactive columns' term (f32), the tile's caps (f32), the per-segment
+// totals and offsets of each class of the tile (i32, 16 x S / 32 each),
+// flags and under (u8), the segments' masks of wanted classes (u32 a
+// segment, S bytes held); 16-aligned.
+__host__ __device__ inline size_t rounds_node_bytes(int S, int A) {
+  return ((size_t)(24 * A + 4 + 4 * kRTile + 4 + 3) * S + 15) & ~(size_t)15;
+}
+
+// Bytes of the exchange buffers: [2][P][words] for each kind of message.
+__host__ __device__ inline size_t rounds_exchange_bytes(int P, int G) {
+  return (size_t)2 * P * (kRCntWords + kRTotWords + G) * 4;
+}
+
+struct RoundsPlan {
+  int Nb;                     // nodes a block
+  int S;                      // stride of the per-node arrays
+  int G;                      // classes a placed exchange
+  bool rows;                  // node state in shared memory
+  size_t smem;                // dynamic shared memory a block
+  long long scratch_words;    // int32 words of global scratch
+};
+
+// The global scratch: every block's copy of remaining [P][C] (f32) and its
+// placed partials [P][C] (i32); then, without `rows`, every block's node
+// state.
+RoundsPlan rounds_plan(int N, int A, int C, int chunk, int P) {
+  RoundsPlan pl;
+  pl.Nb = (N + P - 1) / P;
+  pl.S = rounds_stride(pl.Nb);
+  pl.G = rounds_group(C, chunk);
+  const size_t ex = rounds_exchange_bytes(P, pl.G), nb = rounds_node_bytes(pl.S, A);
+  pl.rows = ex + nb <= kRSmemBudget;
+  pl.smem = ex + (pl.rows ? nb : 0);
+  pl.scratch_words = 2LL * P * C + (pl.rows ? 0 : (long long)P * (long long)(nb / 4));
+  return pl;
+}
+
+// One block's node state (rounds_node_bytes), by column at stride S, from
+// one base (shared memory, or the block's global scratch).
+struct RNodes {
+  unsigned char* base;
+  int S, A;
+  // the trim's usage prefix over the phase's classes, [A][S]
+  __device__ __forceinline__ double& acc(int a, int j) const {
+    return reinterpret_cast<double*>(base)[(size_t)a * S + j];
+  }
+  // the phase's debit, [A][S]
+  __device__ __forceinline__ double& use(int a, int j) const {
+    return reinterpret_cast<double*>(base)[(size_t)(A + a) * S + j];
+  }
+  __device__ __forceinline__ float* f32(int row) const {
+    return reinterpret_cast<float*>(base + (size_t)16 * A * S) + (size_t)row * S;
+  }
+  // avail and total of the active columns, [A][S] each
+  __device__ __forceinline__ float& av(int a, int j) const { return f32(a)[j]; }
+  __device__ __forceinline__ float& tt(int a, int j) const { return f32(A + a)[j]; }
+  // the largest utilization term over the inactive columns, [S]
+  __device__ __forceinline__ float& uin(int j) const { return f32(2 * A)[j]; }
+  // the tile's caps, [16][S]
+  __device__ __forceinline__ float& cw(int c, int j) const { return f32(2 * A + 1 + c)[j]; }
+  // each 32-node segment's total of class c's caps, and the places before
+  // the segment (the lower blocks' and segments'), [16][S / 32] each
+  __device__ __forceinline__ int& seg_total(int c, int s) const {
+    return reinterpret_cast<int*>(f32(2 * A + 1 + kRTile))[c * (S >> 5) + s];
+  }
+  __device__ __forceinline__ int& seg_base(int c, int s) const {
+    return reinterpret_cast<int*>(f32(2 * A + 1 + kRTile))[(kRTile + c) * (S >> 5) + s];
+  }
+  // alive; alive and under the threshold (phase A); [S]
+  __device__ __forceinline__ uint8_t& flags(int j) const {
+    return reinterpret_cast<uint8_t*>(f32(2 * A + 2 + kRTile))[j];
+  }
+  __device__ __forceinline__ uint8_t& under(int j) const {
+    return reinterpret_cast<uint8_t*>(f32(2 * A + 2 + kRTile))[S + j];
+  }
+  // the classes of the tile a segment wants any of, [S / 32] (u32), and
+  // whether a segment has a node on this phase, [S / 32] (u8): S bytes held
+  __device__ __forceinline__ unsigned& seg_want(int s) const {
+    return reinterpret_cast<unsigned*>(
+        reinterpret_cast<uint8_t*>(f32(2 * A + 2 + kRTile)) + 2 * S)[s];
+  }
+  __device__ __forceinline__ uint8_t& seg_on(int s) const {
+    return reinterpret_cast<uint8_t*>(f32(2 * A + 2 + kRTile))[2 * S + S / 2 + s];
+  }
+};
+
+// critical_util's terms over the columns no class demands (slot < 0) of
+// node n, after the clamp at zero when `clamped`
+__device__ __forceinline__ float inactive_util(const float* __restrict__ avail,
+                                               const float* __restrict__ total, size_t n, int R,
+                                               const int* slot, bool clamped) {
+  float u = __int_as_float(0xff800000);  // -inf
+  for (int r = 0; r < R; ++r) {
+    if (slot[r] >= 0) continue;
+    float x = avail[n * R + r];
+    if (clamped) x = fmaxf(x, 0.f);
+    u = fmaxf(u, used_frac(x, total[n * R + r]));
+  }
+  return u;
+}
+
+// Push `words` (a multiple of 4) words of `msg` (shared, 16-aligned) into
+// slot `rank` of buffer `buf` ([P][words]) of every block of the cluster,
+// completing on that block's `bar`, one 16-byte piece a thread.
+__device__ __forceinline__ void rounds_push(const unsigned* msg, unsigned* buf, uint64_t* bar,
+                                            int words, int P, int rank) {
+  const int per = words >> 2;
+  for (int i = threadIdx.x; i < P * per; i += kRThreads) {
+    const int q = i / per, k = i - q * per;
+    st_async(peer_u32(buf + (size_t)rank * words + 4 * k, q),
+             *reinterpret_cast<const uint4*>(msg + 4 * k), peer_u32(bar, q));
+  }
+}
+
+// Wait for use `u` of a double-buffered exchange (buffer u & 1), then (one
+// thread) arm its mbarrier for use u + 2: every block sends that use only
+// after this block's use u + 1, which follows a block barrier.
+__device__ __forceinline__ const unsigned* rounds_receive(uint64_t (&bar)[2], const unsigned* buf,
+                                                          int slot_words, int P, unsigned u,
+                                                          uint32_t bytes, bool arm) {
+  const int b = u & 1;
+  mbar_wait(&bar[b], (u >> 1) & 1u);
+  if (arm) mbar_arm(&bar[b], bytes);
+  return buf + (size_t)b * P * slot_words;
+}
+
+// A class's caps over the warp's 32-node segment into the segment's total
+// (exact: 32 caps below 2**23 each), saturated at SAT.
+__device__ __forceinline__ void rounds_seg_total(const RNodes& v, int c, int seg, float capc) {
+  const unsigned s = __reduce_add_sync(kFull, (unsigned)capc);
+  if ((threadIdx.x & 31) == 0) v.seg_total(c, seg) = (int)min(s, (unsigned)kSatI);
+}
+
+// One cap for node j, class c: phase A min(clip(fit), clip(threshold cap)
+// + 1), phase B clip(fit); 0 where the node is off (dead, or over the
+// threshold in phase A). AMAX > 0: the columns unrolled to AMAX, the
+// node's numerators (avail + eps, headroom + eps) in xe, he; else rolled.
 template <int AMAX>
-__device__ __forceinline__ void active_columns(unsigned long long mask, int (&col)[AMAX]) {
+__device__ __forceinline__ float rounds_cap(const RNodes& v, int j, bool on, int c, bool phase_b,
+                                            int A, float thr, const float (*td)[kMaxR],
+                                            const float* xe, const float* he) {
+  float fit = kInfFit, k = kInfFit;
+  if (AMAX > 0 && on) {
 #pragma unroll
-  for (int j = 0; j < AMAX; ++j) {
-    col[j] = mask ? __ffsll((long long)mask) - 1 : 0;
-    mask &= mask - 1;
+    for (int a = 0; a < AMAX; ++a) {
+      const float d = td[c][a];
+      if (a < A && d > 0.f) {
+        const float dm = fmaxf(d, kMinDemand);
+        fit = fminf(fit, floorf(__fdiv_rn(xe[a], dm)));
+        if (!phase_b) k = fminf(k, floorf(__fdiv_rn(he[a], dm)));
+      }
+    }
+  } else if (on) {
+    for (int a = 0; a < A; ++a) {
+      const float d = td[c][a];
+      if (d <= 0.f) continue;
+      const float dm = fmaxf(d, kMinDemand), x = v.av(a, j);
+      fit = fminf(fit, floorf(__fdiv_rn(__fadd_rn(x, kEps), dm)));
+      if (!phase_b) {
+        const float t = v.tt(a, j);
+        const float head = __fsub_rn(__fmul_rn(thr, t), __fsub_rn(t, x));
+        k = fminf(k, floorf(__fdiv_rn(__fadd_rn(head, kEps), dm)));
+      }
+    }
+  }
+  fit = on ? fminf(fmaxf(fit, 0.f), kInfFit) : 0.f;
+  // clip(k, 0, float32(INF_FIT) - 1) + 1; float32(2**30 - 1) == 2**30
+  return phase_b ? fit : fminf(fit, __fadd_rn(fminf(fmaxf(k, 0.f), kInfFit), 1.f));
+}
+
+// Step 1 of a tile, caps, a warp a 32-node segment, the tile's classes with
+// tasks left (`live`) in turn: phase A capc = min(cap, min(rem, SAT)) and
+// the segment's total; phase B fit, and the block's count of feasible
+// nodes of each class (s_cnt). A segment with no node on (alive, and under
+// the threshold in phase A) has every cap 0: it is marked off (seg_on) and
+// its caps are not written.
+template <int AMAX>
+__device__ __forceinline__ void rounds_caps(const RNodes& v, int nl, unsigned live, bool phase_b,
+                                            int A, float thr, const float (*td)[kMaxR],
+                                            const float* s_rem, int* s_cnt) {
+  const int lane = threadIdx.x & 31;
+  const int nseg = (nl + 31) >> 5;
+  for (int seg = threadIdx.x >> 5; seg < nseg; seg += kRThreads / 32) {
+    const int j = seg * 32 + lane;
+    const bool in = j < nl;
+    const bool on = in && (phase_b ? (v.flags(j) & 1) : v.under(j));
+    const bool any = __any_sync(kFull, on);
+    if (lane == 0) v.seg_on(seg) = any;
+    if (!any) {
+      if (!phase_b && ((live >> lane) & 1u)) v.seg_total(lane, seg) = 0;
+      continue;
+    }
+    constexpr int AR = AMAX > 0 ? AMAX : 1;
+    float xe[AR], he[AR];  // the node's numerators, taken once for every class
+#pragma unroll
+    for (int a = 0; a < AR; ++a) {
+      const float x = AMAX > 0 && on && a < A ? v.av(a, j) : 0.f;
+      const float t = AMAX > 0 && on && a < A ? v.tt(a, j) : 0.f;
+      xe[a] = __fadd_rn(x, kEps);
+      he[a] = __fadd_rn(__fsub_rn(__fmul_rn(thr, t), __fsub_rn(t, x)), kEps);
+    }
+    for (unsigned m = live; m; m &= m - 1) {
+      const int c = __ffs(m) - 1;
+      const float fit = rounds_cap<AMAX>(v, j, on, c, phase_b, A, thr, td, xe, he);
+      if (!phase_b) {
+        const float capc = fminf(fit, fminf(s_rem[c], kSat));
+        if (in) v.cw(c, j) = capc;
+        rounds_seg_total(v, c, seg, capc);
+      } else {
+        if (in) v.cw(c, j) = fit;
+        const unsigned feas = __ballot_sync(kFull, fit > 0.f);
+        if (lane == 0 && feas) atomicAdd(&s_cnt[c], __popc(feas));
+      }
+    }
   }
 }
 
-template <int AMAX, bool PHASE_A>
-__global__ void __launch_bounds__(kNodeThreads)
-rounds_caps_kernel(const float* __restrict__ avail, const float* __restrict__ total,
-                   const uint8_t* __restrict__ alive, const float* __restrict__ demands,
-                   unsigned long long mask, int A, int N, int R, int C, float thr,
-                   float* __restrict__ cap, int* __restrict__ n_feas) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = n < N;
-  int col[AMAX];
-  active_columns<AMAX>(mask, col);
-  float av[AMAX] = {}, head[AMAX] = {};
-  float alive_f = 0.f, under_f = 0.f;
-  if (in) {
-    const float* a = avail + (size_t)n * R;
-    const float* t = total + (size_t)n * R;
-    alive_f = alive[n] ? 1.f : 0.f;
-#pragma unroll
-    for (int j = 0; j < AMAX; ++j) {
-      if (j < A) {
-        av[j] = a[col[j]];
-        if (PHASE_A) {
-          const float tj = t[col[j]];
-          head[j] = __fsub_rn(__fmul_rn(thr, tj), __fsub_rn(tj, av[j]));
-        }
+// Phase B, after the count exchange: capc = min(fit, share, min(rem, SAT))
+// and each segment's total (0 in a segment marked off), a warp a segment.
+__device__ __forceinline__ void rounds_share_caps(const RNodes& v, int nl, unsigned live,
+                                                  const float* s_rem, const float* s_share) {
+  const int lane = threadIdx.x & 31;
+  const int nseg = (nl + 31) >> 5;
+  for (int seg = threadIdx.x >> 5; seg < nseg; seg += kRThreads / 32) {
+    if (!v.seg_on(seg)) {
+      if ((live >> lane) & 1u) v.seg_total(lane, seg) = 0;
+      continue;
+    }
+    const int j = seg * 32 + lane;
+    for (unsigned m = live; m; m &= m - 1) {
+      const int c = __ffs(m) - 1;
+      float capc = 0.f;
+      if (j < nl) {
+        capc = fminf(fminf(v.cw(c, j), s_share[c]), fminf(s_rem[c], kSat));
+        v.cw(c, j) = capc;
       }
-    }
-    if (PHASE_A) {
-      // critical_util over every column, as kernel_np.critical_util
-      float util = __int_as_float(0xff800000);  // -inf
-      for (int r = 0; r < R; ++r) {
-        const float tt = t[r];
-        const float frac = tt > 0.f ? __fdiv_rn(__fsub_rn(tt, a[r]), fmaxf(tt, kEps)) : 0.f;
-        util = fmaxf(util, frac);
-      }
-      under_f = (util < thr ? 1.f : 0.f) * alive_f;
-    }
-  }
-  const int c1 = min((int)(blockIdx.y + 1) * kCapClassTile, C);
-  for (int c = blockIdx.y * kCapClassTile; c < c1; ++c) {
-    const float* d = demands + (size_t)c * R;
-    float fit = kInfFit, k = kInfFit;
-#pragma unroll
-    for (int j = 0; j < AMAX; ++j) {
-      if (j < A) {
-        const float dj = __ldg(d + col[j]);
-        if (dj > 0.f) {
-          const float dm = fmaxf(dj, kMinDemand);
-          fit = fminf(fit, floorf(__fdiv_rn(__fadd_rn(av[j], kEps), dm)));
-          if (PHASE_A) k = fminf(k, floorf(__fdiv_rn(__fadd_rn(head[j], kEps), dm)));
-        }
-      }
-    }
-    fit = __fmul_rn(fminf(fmaxf(fit, 0.f), kInfFit), alive_f);
-    float out = fit;
-    if (PHASE_A) {
-      // clip(k, 0, float32(INF_FIT) - 1) + 1; float32(2**30 - 1) == 2**30
-      k = __fadd_rn(fminf(fmaxf(k, 0.f), kInfFit), 1.f);
-      out = __fmul_rn(fminf(fit, k), under_f);
-    }
-    if (in) cap[(size_t)c * N + n] = out;
-    if (!PHASE_A) {
-      const unsigned feas = __ballot_sync(kFull, in && out > 0.f);
-      if ((threadIdx.x & 31) == 0 && feas) atomicAdd(&n_feas[c], __popc(feas));
+      rounds_seg_total(v, c, seg, capc);
     }
   }
 }
 
-// One block per class. Settles the previous phase's placements into
-// `remaining` (or loads the counts on the first phase), then turns the cap
-// row into the want row in place.
-template <bool PHASE_B>
-__global__ void __launch_bounds__(kPrefixThreads)
-rounds_prefix_kernel(float* __restrict__ cap, const int* __restrict__ counts,
-                     float* __restrict__ remaining, int* __restrict__ placed,
-                     int* __restrict__ n_feas, int N, int first) {
-  __shared__ long long s_warp[32];
-  __shared__ long long s_tile;
-  __shared__ float s_rem, s_share;
-  const int c = blockIdx.x;
-  if (threadIdx.x == 0) {
-    const float rem = first ? (float)counts[c] : __fsub_rn(remaining[c], (float)placed[c]);
-    remaining[c] = rem;
-    placed[c] = 0;
-    s_rem = rem;
-    if (PHASE_B) {
-      s_share = ceilf(__fdiv_rn(rem, fmaxf((float)n_feas[c], 1.f)));
-    } else {
-      n_feas[c] = 0;  // phase B's cap kernel counts into it
+// Step 5a, want, a warp a segment: incl = min(the segment's base + the
+// warp's inclusive prefix of capc, SAT) and want = clip(rem - ((float)incl
+// - capc), 0, capc), written over capc, for the classes the segment can
+// want anything of: a cap there (the segment's total) and a base outside
+// [rem, SAT - rem] (inside it every node's (float)incl - capc is at least
+// rem). The segment's mask of the classes it wants (seg_want).
+__device__ __forceinline__ void rounds_want(const RNodes& v, int nl, unsigned live,
+                                            const float* s_rem) {
+  const int lane = threadIdx.x & 31;
+  const int nseg = (nl + 31) >> 5;
+  for (int seg = threadIdx.x >> 5; seg < nseg; seg += kRThreads / 32) {
+    bool need = false;
+    if ((live >> lane) & 1u) {  // lane c judges class c
+      const int base = v.seg_base(lane, seg), rem = (int)s_rem[lane];
+      need = v.seg_total(lane, seg) > 0 && !(base >= rem && base <= kSatI - rem);
+    }
+    unsigned wanted = 0;
+    const int j = seg * 32 + lane;
+    for (unsigned m = __ballot_sync(kFull, need); m; m &= m - 1) {
+      const int c = __ffs(m) - 1;
+      const float capc = j < nl ? v.cw(c, j) : 0.f;
+      int incl = (int)capc;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      incl = min(v.seg_base(c, seg) + incl, kSatI);
+      const float w =
+          fminf(fmaxf(__fsub_rn(s_rem[c], __fsub_rn((float)incl, capc)), 0.f), capc);
+      if (j < nl) v.cw(c, j) = w;
+      if (__any_sync(kFull, w > 0.f)) wanted |= 1u << c;
+    }
+    if (lane == 0) v.seg_want(seg) = wanted;
+  }
+}
+
+// One class's column of the trim: the usage prefix acc (double) takes u =
+// want * d, and where d > 0 the column's headroom for the class is
+// clip(floor((avail - prev + eps) / d), 0, SAT), prev = (float)min(acc,
+// SAT) - u; take is want trimmed to the least of them. The register form:
+// every column's headroom on its own (the columns' chains independent),
+// then their minimum: `use` false leaves acc as it is and gives SAT. The
+// rolled form: the running t; a column is skipped where t*d <= the
+// numerator exactly (its quotient is then at least t, an integer below
+// 2**24).
+__device__ __forceinline__ float trim_headroom(bool use, float w, float d, float av,
+                                               double& acc) {
+  const float u = __fmul_rn(w, d);
+  const double a2 = acc + (double)u;
+  acc = use ? a2 : acc;
+  const float pr = __fsub_rn((float)fmin(a2, (double)kSat), u);
+  const float hp = __fadd_rn(__fsub_rn(av, pr), kEps);
+  const float q = fminf(fmaxf(floorf(__fdiv_rn(hp, fmaxf(d, kMinDemand))), 0.f), kSat);
+  return use && d > 0.f ? q : kSat;
+}
+
+__device__ __forceinline__ void trim_column(float w, float d, float av, double& acc, float& t) {
+  const float u = __fmul_rn(w, d);
+  acc += (double)u;
+  if (d > 0.f && t > 0.f) {
+    const float pr = __fsub_rn((float)fmin(acc, (double)kSat), u);
+    const float hp = __fadd_rn(__fsub_rn(av, pr), kEps);
+    const float dm = fmaxf(d, kMinDemand);
+    if (!(__fmaf_rn(t, dm, -hp) <= 0.f))
+      t = fminf(t, fminf(fmaxf(floorf(__fdiv_rn(hp, dm)), 0.f), kSat));
+  }
+}
+
+// Step 5b, the trim, a thread a node, the classes its segment wants in
+// index order: take = want trimmed to every demanded column's headroom
+// (trim_column), the usage prefixes carried from tile to tile of the phase
+// (in registers up to 4 columns); take written over want, for the
+// placed pass; assigned += take (`fresh`: every cell written; else a
+// reduction where take > 0, so that no thread waits for a cell's old
+// value).
+template <int AMAX>
+__device__ __forceinline__ void rounds_trim_warp(const RNodes& v, int j, bool in, unsigned want,
+                                                 int ct, int A, bool fresh,
+                                                 const float (*td)[kMaxR],
+                                                 int* __restrict__ cells, int N) {
+  constexpr bool REG = AMAX > 0;
+  constexpr int AR = REG ? AMAX : 1;
+  float avr[AR];
+  double accr[AR], user[AR];
+  if (REG) {
+#pragma unroll
+    for (int a = 0; a < AR; ++a) {
+      const bool ok = a < A && in;
+      avr[a] = ok ? v.av(a, j) : 0.f;
+      accr[a] = ok ? v.acc(a, j) : 0.0;
+      user[a] = ok ? v.use(a, j) : 0.0;
     }
   }
+  for (int c = 0; c < ct; ++c) {
+    int* cell = cells + (size_t)c * N + j;
+    if (!((want >> c) & 1u)) {
+      if (fresh && in) *cell = 0;
+      continue;
+    }
+    const float w = in ? v.cw(c, j) : 0.f;
+    float t = w;
+    if (REG) {
+      float room[AR];
+#pragma unroll
+      for (int a = 0; a < AR; ++a) {
+        const float d = td[c][a];
+        room[a] = kSat;
+        if (a < A && d != 0.f)  // the same in the warp: one class
+          room[a] = trim_headroom(w > 0.f, w, d, avr[a], accr[a]);
+      }
+#pragma unroll
+      for (int a = 0; a < AR; ++a) t = fminf(t, room[a]);
+    } else if (w > 0.f) {
+      for (int a = 0; a < A; ++a) {
+        const float d = td[c][a];
+        if (d == 0.f) continue;  // adds nothing to the usage prefix
+        double acc = v.acc(a, j);
+        trim_column(w, d, v.av(a, j), acc, t);
+        v.acc(a, j) = acc;
+      }
+    }
+    t = fminf(fmaxf(t, 0.f), w);
+    const int take = (int)t;
+    if (REG) {
+#pragma unroll
+      for (int a = 0; a < AR; ++a)
+        user[a] += take > 0 && a < A ? (double)t * (double)td[c][a] : 0.0;
+    } else if (take > 0) {
+      for (int a = 0; a < A; ++a) v.use(a, j) += (double)t * (double)td[c][a];
+    }
+    if (in) {
+      v.cw(c, j) = t;
+      if (fresh)
+        *cell = take;
+      else if (take > 0)
+        atomicAdd(cell, take);
+    }
+  }
+  if (REG) {
+#pragma unroll
+    for (int a = 0; a < AR; ++a) {
+      if (a < A && in) {
+        v.acc(a, j) = accr[a];
+        v.use(a, j) = user[a];
+      }
+    }
+  }
+}
+
+// Step 5c: each class's places in this block (s_placed), a warp a segment,
+// from the takes the trim left in the caps' place.
+__device__ __forceinline__ void rounds_placed(const RNodes& v, int nl, int* s_placed) {
+  const int lane = threadIdx.x & 31;
+  const int nseg = (nl + 31) >> 5;
+  for (int seg = threadIdx.x >> 5; seg < nseg; seg += kRThreads / 32) {
+    const int j = seg * 32 + lane;
+    for (unsigned m = v.seg_want(seg); m; m &= m - 1) {
+      const int c = __ffs(m) - 1;
+      const unsigned got = __reduce_add_sync(kFull, j < nl ? (unsigned)v.cw(c, j) : 0u);
+      if (lane == 0 && got) atomicAdd(&s_placed[c], (int)got);
+    }
+  }
+}
+
+
+template <int AMAX, bool SMEM>
+__global__ void __launch_bounds__(kRThreads, 1)
+schedule_rounds_kernel(float* __restrict__ avail, const float* __restrict__ total,
+                       const uint8_t* __restrict__ alive, const float* __restrict__ demands,
+                       const int* __restrict__ counts, unsigned long long mask, int A,
+                       int* __restrict__ assigned, int* __restrict__ scratch, int N, int R, int C,
+                       int chunk, int Nb, int G, float thr, int rounds) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int first = rank * Nb;
+  const int nl = max(0, min(Nb, N - first));
+  const int nseg = (nl + 31) >> 5;
+  const int tid = threadIdx.x;
+  __shared__ int s_col[kMaxR];                 // the active columns, lowest first
+  __shared__ int s_slot[kMaxR];                // column r's place among them, or -1
+  __shared__ float s_td[kRTile][kMaxR];        // the tile's demands on the active columns
+  __shared__ float s_rem[kRTile];              // the tile's remaining
+  __shared__ float s_share[kRTile];            // phase B's equal shares
+  __shared__ int s_cnt[kRTile];                // this block's feasible nodes (phase B)
+  __shared__ int s_placed[kRTile];             // this block's placed, this tile and phase
+  __shared__ int s_sum[kRCntWords];            // the cluster's sums of a count message
+  __shared__ __align__(16) unsigned s_msg[kRCntWords];  // what this block sends
+  __shared__ __align__(16) unsigned s_stage[kRMaxGroup];  // its placed partials, a group
+  __shared__ __align__(8) uint64_t s_bar_cnt[2], s_bar_tot[2], s_bar_plc[2];
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  R_PROFILE_DECL;
+
+  // the exchange buffers, [2][P][words] each
+  unsigned* cnt_in = reinterpret_cast<unsigned*>(s_dyn);
+  unsigned* tot_in = cnt_in + 2 * P * kRCntWords;
+  unsigned* plc_in = tot_in + 2 * P * kRTotWords;
+  float* rem_g = reinterpret_cast<float*>(scratch) + (size_t)rank * C;
+  int* placed_g = scratch + (size_t)P * C + (size_t)rank * C;
+  RNodes v;
+  v.S = rounds_stride(Nb);
+  v.A = A;
+  v.base = SMEM ? s_dyn + rounds_exchange_bytes(P, G)
+                : reinterpret_cast<unsigned char*>(scratch + 2 * (size_t)P * C) +
+                      (size_t)rank * rounds_node_bytes(v.S, A);
+  const uint32_t cnt_bytes = 4u * kRCntWords * P, tot_bytes = 4u * kRTotWords * P,
+                 plc_bytes = 4u * G * P;
+
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&s_bar_cnt[b]);
+      mbar_init(&s_bar_tot[b]);
+      mbar_init(&s_bar_plc[b]);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int b = 0; b < 2; ++b) {
+      mbar_arm(&s_bar_cnt[b], cnt_bytes);
+      mbar_arm(&s_bar_tot[b], tot_bytes);
+      mbar_arm(&s_bar_plc[b], plc_bytes);
+    }
+  }
+  if (tid < kMaxR) {
+    const bool on = tid < R && ((mask >> tid) & 1ull);
+    const int a = __popcll(mask & ((1ull << tid) - 1ull));
+    s_slot[tid] = on ? a : -1;
+    if (on) s_col[a] = tid;
+  }
+  for (int c = tid; c < C; c += kRThreads) rem_g[c] = (float)counts[c];
   __syncthreads();
-  const float rem = s_rem;
-  const float satcap = fminf(rem, kSat);
-  float* row = cap + (size_t)c * N;
-  long long carry = 0;
-  for (int start = 0; start < N; start += blockDim.x) {
-    const int n = start + threadIdx.x;
-    float capc = 0.f;
-    if (n < N) {
-      float cp = row[n];
-      if (PHASE_B) cp = fminf(cp, s_share);
-      capc = fminf(cp, satcap);
+  for (int e = tid; e < nl * R; e += kRThreads) {
+    const int j = e / R, r = e - j * R, a = s_slot[r];
+    if (a >= 0) {
+      v.av(a, j) = avail[(size_t)first * R + e];
+      v.tt(a, j) = total[(size_t)first * R + e];
     }
-    const long long v = (long long)capc;
-    const long long ex = block_exclusive_scan(v, s_warp);
-    if (n < N) {
-      const long long incl = min(carry + ex + v, (long long)kSat);
-      const float prev = __fsub_rn((float)incl, capc);
-      row[n] = fminf(fmaxf(__fsub_rn(rem, prev), 0.f), capc);
-    }
-    if (threadIdx.x == blockDim.x - 1) s_tile = ex + v;
-    __syncthreads();
-    carry += s_tile;
-    __syncthreads();
   }
-}
+  for (int j = tid; j < nl; j += kRThreads) {
+    v.flags(j) = alive[first + j] ? 1 : 0;
+    v.uin(j) = inactive_util(avail, total, (size_t)first + j, R, s_slot, false);
+    for (int a = 0; a < A; ++a) {
+      v.acc(a, j) = 0.0;
+      v.use(a, j) = 0.0;
+    }
+  }
+  cluster.sync();  // every block resident, its mbarriers initialised and armed
 
-template <int AMAX>
-__global__ void __launch_bounds__(kNodeThreads)
-rounds_trim_kernel(float* __restrict__ avail, const float* __restrict__ want,
-                   const float* __restrict__ demands, unsigned long long mask, int A, int N,
-                   int R, int C, int* __restrict__ assigned, int* __restrict__ placed) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = n < N;
-  int col[AMAX];
-  active_columns<AMAX>(mask, col);
-  float av[AMAX];
-  double acc[AMAX], use[AMAX];
-#pragma unroll
-  for (int j = 0; j < AMAX; ++j) {
-    av[j] = (in && j < A) ? avail[(size_t)n * R + col[j]] : 0.f;
-    acc[j] = 0.0;
-    use[j] = 0.0;
-  }
-  for (int c = 0; c < C; ++c) {
-    const float w = in ? want[(size_t)c * N + n] : 0.f;
-    int take_i = 0;
-    // want == 0 adds nothing to the usage prefixes and takes nothing
-    if (w > 0.f) {
-      const float* d = demands + (size_t)c * R;
-      float t = w;
-#pragma unroll
-      for (int j = 0; j < AMAX; ++j) {
-        if (j < A) {
-          const float dj = __ldg(d + col[j]);
-          if (dj > 0.f) {
-            const float u = __fmul_rn(w, dj);
-            acc[j] += (double)u;
-            const float prev = __fsub_rn((float)fmin(acc[j], (double)kSat), u);
-            const float head = __fsub_rn(av[j], prev);
-            const float fr =
-                floorf(__fdiv_rn(__fadd_rn(head, kEps), fmaxf(dj, kMinDemand)));
-            t = fminf(t, fminf(fmaxf(fr, 0.f), kSat));
+  unsigned use_cnt = 0, use_tot = 0, use_plc = 0;  // uses of each exchange
+  bool first_phase = true;
+  R_PROFILE_START();
+  for (int cs = 0; cs < C; cs += chunk) {
+    const int Cc = min(chunk, C - cs);
+    for (int rd = 0; rd < rounds; ++rd) {
+      for (int ph = 0; ph < 2; ++ph) {
+        const bool phase_b = ph == 1;
+        const bool fresh = rd == 0 && !phase_b;  // the chunk's first phase writes `assigned`
+        if (!phase_b) {
+          // critical_util < thr on a live node: the fill of phase A
+          for (int j = tid; j < nl; j += kRThreads) {
+            float u = v.uin(j);
+            for (int a = 0; a < A; ++a) u = fmaxf(u, used_frac(v.av(a, j), v.tt(a, j)));
+            v.under(j) = (v.flags(j) & 1) && u < thr;
           }
         }
-      }
-      t = fminf(fmaxf(t, 0.f), w);
-      take_i = (int)t;
-      if (take_i > 0) {
-        assigned[(size_t)c * N + n] += take_i;
-#pragma unroll
-        for (int j = 0; j < AMAX; ++j)
-          if (j < A) use[j] += (double)t * (double)__ldg(d + col[j]);
+        bool ran = false;
+        for (int t0 = 0; t0 < Cc; t0 += kRTile) {
+          const int ct = min(kRTile, Cc - t0);
+          const int c0 = cs + t0;  // the tile's first class
+          __syncthreads();         // the previous tile is done with s_*
+          if (tid < kRTile) {
+            s_rem[tid] = tid < ct ? rem_g[c0 + tid] : 0.f;
+            s_cnt[tid] = 0;
+            s_placed[tid] = 0;
+          } else if (tid >= 32) {  // other warps than the one loading s_rem
+            for (int i = tid - 32; i < ct * A; i += kRThreads - 32) {
+              const int c = i / A, a = i - c * A;
+              s_td[c][a] = demands[(size_t)(c0 + c) * R + s_col[a]];
+            }
+          }
+          __syncthreads();  // s_* are read from here on
+          unsigned live = 0;  // the tile's classes with tasks left
+          for (int c = 0; c < ct; ++c) live |= (s_rem[c] > 0.f ? 1u : 0u) << c;
+          if (live) {
+            // 1. caps
+            rounds_caps<AMAX>(v, nl, live, phase_b, A, thr, s_td, s_rem, s_cnt);
+            __syncthreads();
+            R_MARK(0);
+            if (phase_b) {
+              // 2. the feasible counts, with phase A's placed partials
+              if (tid < kRCntWords) {
+                const int c = tid - kRTile;
+                s_msg[tid] = tid < kRTile ? (unsigned)s_cnt[tid]
+                                          : (c < ct ? (unsigned)placed_g[c0 + c] : 0u);
+              }
+              __syncthreads();
+              rounds_push(s_msg, cnt_in + (size_t)(use_cnt & 1) * P * kRCntWords,
+                          &s_bar_cnt[use_cnt & 1], kRCntWords, P, rank);
+              if (tid < kRCntWords) {
+                const unsigned* in =
+                    rounds_receive(s_bar_cnt, cnt_in, kRCntWords, P, use_cnt, cnt_bytes, tid == 0);
+                int sum = 0;
+                for (int q = 0; q < P; ++q) sum += (int)in[q * kRCntWords + tid];
+                s_sum[tid] = sum;
+              }
+              ++use_cnt;
+              __syncthreads();
+              if (tid < ct) {
+                const float rem = __fsub_rn(s_rem[tid], (float)s_sum[kRTile + tid]);
+                s_rem[tid] = rem;
+                rem_g[c0 + tid] = rem;
+                s_share[tid] = ceilf(__fdiv_rn(rem, fmaxf((float)s_sum[tid], 1.f)));
+              }
+              __syncthreads();
+              live = 0;
+              for (int c = 0; c < ct; ++c) live |= (s_rem[c] > 0.f ? 1u : 0u) << c;
+              R_MARK(1);
+              if (live) {
+                rounds_share_caps(v, nl, live, s_rem, s_share);
+                __syncthreads();
+              }
+            }
+          }
+          if (!live) {  // the same in every block: nothing to place in this tile
+            if (fresh) {
+              for (int i = tid; i < ct * nl; i += kRThreads) {
+                const int c = i / nl;
+                assigned[(size_t)(c0 + c) * N + first + (i - c * nl)] = 0;
+              }
+            }
+            if (tid < ct) placed_g[c0 + tid] = 0;
+            R_COUNT(1);
+            continue;
+          }
+          // 3. the block's totals (saturating: exact, the terms are nonnegative)
+          if (tid < kRTile) {
+            int tot = 0;
+            if ((live >> tid) & 1u)
+              for (int s = 0; s < nseg; ++s) tot = min(tot + v.seg_total(tid, s), kSatI);
+            s_msg[tid] = (unsigned)tot;
+          }
+          __syncthreads();
+          R_MARK(2);
+          // 4. the totals exchange; each segment's base
+          rounds_push(s_msg, tot_in + (size_t)(use_tot & 1) * P * kRTotWords,
+                      &s_bar_tot[use_tot & 1], kRTotWords, P, rank);
+          if (tid < kRTile) {
+            const unsigned* in =
+                rounds_receive(s_bar_tot, tot_in, kRTotWords, P, use_tot, tot_bytes, tid == 0);
+            if ((live >> tid) & 1u) {
+              int base = 0;
+              for (int q = 0; q < rank; ++q) base = min(base + (int)in[q * kRTotWords + tid], kSatI);
+              for (int s = 0; s < nseg; ++s) {
+                v.seg_base(tid, s) = base;
+                base = min(base + v.seg_total(tid, s), kSatI);
+              }
+            }
+          }
+          ++use_tot;
+          __syncthreads();
+          R_MARK(3);
+          // 5. want; the trim; the placed partials
+          rounds_want(v, nl, live, s_rem);
+          __syncthreads();
+          for (int b0 = tid & ~31; b0 < nl; b0 += kRThreads) {
+            const int j = b0 + (tid & 31);
+            const unsigned want = v.seg_want(b0 >> 5);
+            if (!want && !fresh) continue;
+            int* cells = assigned + (size_t)c0 * N + first;
+            rounds_trim_warp<AMAX>(v, j, j < nl, want, ct, A, fresh, s_td, cells, N);
+          }
+          __syncthreads();
+          rounds_placed(v, nl, s_placed);
+          __syncthreads();
+          if (tid < ct) placed_g[c0 + tid] = s_placed[tid];
+          ran = true;
+          R_MARK(4);
+          R_COUNT(0);
+        }
+        // the phase's debit and clamp: max(avail - usage, 0); after the
+        // call's first phase no entry is negative, so a phase that placed
+        // nothing changes nothing
+        if (ran || first_phase) {
+          for (int j = tid; j < nl; j += kRThreads) {
+            for (int a = 0; a < A; ++a) {
+              v.av(a, j) = fmaxf(__fsub_rn(v.av(a, j), (float)v.use(a, j)), 0.f);
+              v.use(a, j) = 0.0;
+              v.acc(a, j) = 0.0;
+            }
+            if (first_phase) v.uin(j) = inactive_util(avail, total, (size_t)first + j, R, s_slot, true);
+          }
+        }
+        first_phase = false;
+        R_MARK(5);
+        // the placed partials of phase B settle `remaining` for the next round
+        if (phase_b && ran && rd + 1 < rounds) {
+          for (int g0 = 0; g0 < Cc; g0 += G) {
+            __syncthreads();
+            if (tid < G) s_stage[tid] = g0 + tid < Cc ? (unsigned)placed_g[cs + g0 + tid] : 0u;
+            __syncthreads();
+            rounds_push(s_stage, plc_in + (size_t)(use_plc & 1) * P * G, &s_bar_plc[use_plc & 1],
+                        G, P, rank);
+            if (tid < G) {
+              const unsigned* in =
+                  rounds_receive(s_bar_plc, plc_in, G, P, use_plc, plc_bytes, tid == 0);
+              int sum = 0;
+              for (int q = 0; q < P; ++q) sum += (int)in[q * G + tid];
+              if (g0 + tid < Cc) {
+                float* rem = rem_g + cs + g0 + tid;
+                *rem = __fsub_rn(*rem, (float)sum);
+              }
+            }
+            ++use_plc;
+          }
+          R_MARK(6);
+        }
+        __syncthreads();
       }
     }
-    const int got = __reduce_add_sync(kFull, take_i);
-    if ((threadIdx.x & 31) == 0 && got) atomicAdd(&placed[c], got);
   }
-  if (in) {
-    // avail = max(avail - usage, 0) over every column (inactive ones have
-    // zero usage but are clamped all the same, as the reference does)
-    float* a = avail + (size_t)n * R;
-#pragma unroll
-    for (int j = 0; j < AMAX; ++j)
-      if (j < A) a[col[j]] = __fsub_rn(av[j], (float)use[j]);
-    for (int r = 0; r < R; ++r) a[r] = fmaxf(a[r], 0.f);
+  // the rows, written back once: the active columns from the block's state,
+  // the others clamped at zero as every phase's debit does
+  for (int e = tid; e < nl * R; e += kRThreads) {
+    const int j = e / R, r = e - j * R, a = s_slot[r];
+    float* x = avail + (size_t)first * R + e;
+    *x = a >= 0 ? v.av(a, j) : fmaxf(*x, 0.f);
   }
+  R_PROFILE_FLUSH(rank);
+  cluster.sync();  // no block exits while a peer's st.async to it may be in flight
 }
 
-template <int AMAX>
-cudaError_t launch_rounds(cudaStream_t st, float* avail, const float* total,
-                          const uint8_t* alive, const float* demands, const int* counts,
-                          unsigned long long mask, int A, int* assigned, float* cap,
-                          float* remaining, int* placed, int* n_feas, int N, int R, int C,
-                          int chunk, float thr, int rounds) {
-  const unsigned node_blocks = (unsigned)((N + kNodeThreads - 1) / kNodeThreads);
-  for (int s = 0; s < C; s += chunk) {
-    const int Cc = min(chunk, C - s);
-    const float* d = demands + (size_t)s * R;
-    int* asg = assigned + (size_t)s * N;
-    float* rem = remaining + s;
-    int* plc = placed + s;
-    int* nf = n_feas + s;
-    const dim3 cap_grid(node_blocks, (unsigned)((Cc + kCapClassTile - 1) / kCapClassTile));
-    for (int r = 0; r < rounds; ++r) {
-      rounds_caps_kernel<AMAX, true><<<cap_grid, kNodeThreads, 0, st>>>(
-          avail, total, alive, d, mask, A, N, R, Cc, thr, cap, nf);
-      rounds_prefix_kernel<false><<<Cc, kPrefixThreads, 0, st>>>(cap, counts + s, rem, plc, nf,
-                                                                 N, r == 0);
-      rounds_trim_kernel<AMAX><<<node_blocks, kNodeThreads, 0, st>>>(avail, cap, d, mask, A, N,
-                                                                     R, Cc, asg, plc);
-      rounds_caps_kernel<AMAX, false><<<cap_grid, kNodeThreads, 0, st>>>(
-          avail, total, alive, d, mask, A, N, R, Cc, thr, cap, nf);
-      rounds_prefix_kernel<true><<<Cc, kPrefixThreads, 0, st>>>(cap, counts + s, rem, plc, nf,
-                                                                N, 0);
-      rounds_trim_kernel<AMAX><<<node_blocks, kNodeThreads, 0, st>>>(avail, cap, d, mask, A, N,
-                                                                     R, Cc, asg, plc);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    }
+template <int AMAX, bool SMEM>
+cudaError_t rounds_config(int P, size_t smem, cudaStream_t st, cudaLaunchConfig_t& cfg,
+                          cudaLaunchAttribute& attr) {
+  auto kernel = schedule_rounds_kernel<AMAX, SMEM>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)P;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = {};
+  cfg.gridDim = dim3((unsigned)P, 1, 1);
+  cfg.blockDim = dim3(kRThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Whether one cluster of P blocks of K5/K6 with this plan fits on the card.
+template <int AMAX, bool SMEM>
+cudaError_t rounds_fits(int P, const RoundsPlan& pl, bool& fits) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = rounds_config<AMAX, SMEM>(P, pl.smem, nullptr, cfg, attr);
+  if (err != cudaSuccess) return err;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters,
+                                       (const void*)schedule_rounds_kernel<AMAX, SMEM>, &cfg);
+  if (err != cudaSuccess) {  // this size is refused: the caller tries the next
+    (void)cudaGetLastError();
+    clusters = 0;
   }
+  fits = clusters >= 1;
+  return cudaSuccess;
+}
+
+template <int AMAX, bool SMEM>
+cudaError_t launch_rounds(cudaStream_t st, int P, const RoundsPlan& pl, float* avail,
+                          const float* total, const uint8_t* alive, const float* demands,
+                          const int* counts, unsigned long long mask, int A, int* assigned,
+                          int* scratch, int N, int R, int C, int chunk, float thr, int rounds) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = rounds_config<AMAX, SMEM>(P, pl.smem, st, cfg, attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, schedule_rounds_kernel<AMAX, SMEM>, avail, total, alive, demands,
+                           counts, mask, A, assigned, scratch, N, R, C, chunk, pl.Nb, pl.G, thr,
+                           rounds);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1646,6 +2248,16 @@ int sched_k1_profile(unsigned long long* out, int reset) {
   return (int)err;
 }
 
+// [16][9] K5/K6 cycle sums by block, as g_rounds_profile holds them
+int sched_rounds_profile(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_rounds_profile, sizeof(g_rounds_profile));
+  if (err == cudaSuccess && reset) {
+    static const unsigned long long zero[sizeof(g_rounds_profile) / 8] = {};
+    err = cudaMemcpyToSymbol(g_rounds_profile, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+
 int sched_k7_profile(unsigned long long* out, int reset) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_k7_profile, sizeof(g_k7_profile));
   if (err == cudaSuccess && reset) {
@@ -1751,28 +2363,56 @@ int sched_delta_clip(float* out, const float* avail, const float* delta, const f
   return (int)cudaGetLastError();
 }
 
-// K5 (chunk >= C) and K6 (chunk = 16). Scratch, allocated by the caller:
-// cap [min(chunk, C), N] float32; remaining [C] float32, placed and n_feas
-// [C] int32. `mask` has bit r set for each active resource column r (the
-// columns any class demands); `assigned` must be zeroed.
+// K5/K6's cluster size for N nodes of R columns, A of them active, C
+// classes in chunks of `chunk`: 16 where one cluster of 16 blocks fits on
+// the card, else 8 (written to *cluster).
+int sched_rounds_cluster_size(int N, int R, int A, int C, int chunk, int* cluster) {
+  if (N < 1 || R < 1 || R > kMaxR || A < 0 || A > R || C < 1 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const int sizes[2] = {kRMaxCluster, kRMaxCluster / 2};
+  for (const int P : sizes) {
+    const RoundsPlan pl = rounds_plan(N, A, C, chunk, P);
+    bool fits = false;
+    const cudaError_t err = A <= kRRegCols
+                                ? (pl.rows ? rounds_fits<kRRegCols, true>(P, pl, fits)
+                                           : rounds_fits<kRRegCols, false>(P, pl, fits))
+                                : (pl.rows ? rounds_fits<0, true>(P, pl, fits)
+                                           : rounds_fits<0, false>(P, pl, fits));
+    if (err != cudaSuccess) return (int)err;
+    if (fits) {
+      *cluster = P;
+      return 0;
+    }
+  }
+  return (int)cudaErrorLaunchOutOfResources;
+}
+
+// int32 words of global scratch K5/K6 need over a cluster of P blocks
+long long sched_rounds_scratch_words(int N, int A, int C, int chunk, int P) {
+  return rounds_plan(N, A, C, chunk, P).scratch_words;
+}
+
+// K5 (chunk >= C) and K6 (chunk = 16) over one cluster of P blocks (16 or 8,
+// sched_rounds_cluster_size); `scratch` holds scratch_words int32 words.
+// `mask` has bit r set for each active resource column r (the columns any
+// class demands). Every cell of `assigned` [C, N] is written.
 int sched_schedule_rounds(float* avail, const float* total, const uint8_t* alive,
                           const float* demands, const int* counts, unsigned long long mask,
-                          int* assigned, float* cap, float* remaining, int* placed,
-                          int* n_feas, int N, int R, int C, int chunk, float thr, int rounds,
-                          void* stream) {
-  if (R > kMaxR || R < 1 || chunk < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
+                          int* assigned, int* scratch, long long scratch_words, int N, int R,
+                          int C, int chunk, int P, float thr, int rounds, void* stream) {
+  if (R > kMaxR || R < 1 || chunk < 1 || rounds < 0 || (P != kRMaxCluster && P != kRMaxCluster / 2))
+    return (int)cudaErrorInvalidValue;
   if (R < 64 && (mask >> R) != 0ull) return (int)cudaErrorInvalidValue;
   if (C == 0 || N == 0 || rounds == 0) return (int)cudaGetLastError();
-  cudaStream_t st = (cudaStream_t)stream;
   const int A = __builtin_popcountll(mask);
-  if (A <= 4)
-    return (int)launch_rounds<4>(st, avail, total, alive, demands, counts, mask, A, assigned,
-                                 cap, remaining, placed, n_feas, N, R, C, chunk, thr, rounds);
-  if (A <= 16)
-    return (int)launch_rounds<16>(st, avail, total, alive, demands, counts, mask, A, assigned,
-                                  cap, remaining, placed, n_feas, N, R, C, chunk, thr, rounds);
-  return (int)launch_rounds<kMaxR>(st, avail, total, alive, demands, counts, mask, A, assigned,
-                                   cap, remaining, placed, n_feas, N, R, C, chunk, thr, rounds);
+  const RoundsPlan pl = rounds_plan(N, A, C, chunk, P);
+  if (scratch_words < pl.scratch_words) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  auto launch = A <= kRRegCols ? (pl.rows ? launch_rounds<kRRegCols, true>
+                                           : launch_rounds<kRRegCols, false>)
+                                : (pl.rows ? launch_rounds<0, true> : launch_rounds<0, false>);
+  return (int)launch(st, P, pl, avail, total, alive, demands, counts, mask, A, assigned, scratch,
+                     N, R, C, chunk, thr, rounds);
 }
 
 // tile_counts: n_tiles int32, tile_offsets: n_tiles + 1 int64, where

@@ -11,9 +11,11 @@ it, a plain PyTorch version of the same function:
   K3 delta_clip        clip(avail + delta, 0, total)
   K4 compact_nonzero   COO compaction of the [C, N] assignment for download
   K5 schedule_classes_rounds   the fully parallel two-phase [C, N] round
-                               (scheduler_kernel_algo="rounds")
+                               (scheduler_kernel_algo="rounds"), on one
+                               thread-block cluster (rounds_plan)
   K6 schedule_classes_chunked  K5's core over chunks of 16 classes
-                               (scheduler_kernel_algo="chunked")
+                               (scheduler_kernel_algo="chunked"), the same
+                               kernel
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback from one to the other.
@@ -569,14 +571,94 @@ def _schedule_classes_rounds_plain(avail, total, alive, demands, counts,
                               rounds, _active_columns(demands, active_idx))
 
 
+# K5/K6's launch shape (csrc/sched_kernels.cu rounds_plan, which this
+# mirrors): one thread-block cluster of the first of ROUNDS_CLUSTER_SIZES the
+# card has room for; block r owns nodes [r*Nb, (r+1)*Nb), N padded up to a
+# multiple of the cluster with dead nodes; a block holds its nodes' state and
+# a tile's caps and segment totals in shared memory beside its exchange buffers
+# while they fit in ROUNDS_SMEM_BUDGET, else in global memory.
+ROUNDS_CLUSTER_SIZES = (16, 8)
+ROUNDS_TILE = 16          # classes a tile
+ROUNDS_MAX_GROUP = 256    # classes a placed exchange carries
+ROUNDS_SMEM_BUDGET = 216 * 1024
+
+
+class RoundsPlan(NamedTuple):
+    cluster: int           # blocks in the cluster
+    nodes_per_block: int   # Nb = ceil(N / cluster)
+    stride: int            # of the per-node arrays: Nb in whole 32-node segments
+    group: int             # classes a placed exchange carries
+    rows_in_smem: bool     # node state in shared memory
+    smem_bytes: int        # dynamic shared memory a block
+    scratch_words: int     # int32 words of global scratch
+
+
+def rounds_node_bytes(stride: int, n_active: int) -> int:
+    """Bytes of one block's node state: the trim's usage prefix and the
+    debit (8 bytes each) and avail and total (4 each) per active column,
+    the inactive columns' utilization term (4), the tile's caps (4 a class
+    of the tile), each 32-node segment's total and base of each class of
+    the tile (4 each a segment, so 4 a node), a node's flags and whether it
+    is under the threshold (1 each), each segment's mask of the classes it
+    wants (a byte held a node); 16-aligned."""
+    b = (24 * n_active + 4 + 4 * ROUNDS_TILE + 4 + 3) * stride
+    return (b + 15) & ~15
+
+
+def rounds_exchange_bytes(cluster: int, group: int) -> int:
+    """Bytes of a block's exchange buffers, two of each kind, a slot for
+    every block: counts with placed partials (32 words), totals (16), placed
+    partials (`group`)."""
+    return 2 * cluster * (2 * ROUNDS_TILE + ROUNDS_TILE + group) * 4
+
+
+def rounds_plan(n_nodes: int, n_active: int, n_classes: int, chunk: int,
+                cluster: int) -> RoundsPlan:
+    """K5/K6's layout for n_nodes nodes with n_active active columns and
+    n_classes classes in chunks of `chunk`, over `cluster` blocks. The
+    global scratch holds every block's copy of the classes' remaining
+    counts and its placed partials ([cluster, C] each), then, when the node
+    state does not fit in shared memory, every block's node state."""
+    nb = -(-n_nodes // cluster)
+    stride = (nb + 31) & ~31
+    group = min(((min(chunk, n_classes) + 15) & ~15), ROUNDS_MAX_GROUP)
+    ex = rounds_exchange_bytes(cluster, group)
+    node = rounds_node_bytes(stride, n_active)
+    rows = ex + node <= ROUNDS_SMEM_BUDGET
+    words = 2 * cluster * n_classes + (0 if rows else cluster * node // 4)
+    return RoundsPlan(cluster, nb, stride, group, rows, ex + (node if rows else 0), words)
+
+
+_ROUNDS_CLUSTER = {}  # (device index, N, R, A, C, chunk) -> the cluster size the card takes
+
+
+def rounds_launch_plan(n_nodes: int, n_res: int, n_active: int, n_classes: int, chunk: int,
+                       device) -> RoundsPlan:
+    """The layout K5/K6 launch with on `device` (a CUDA device): the first of
+    ROUNDS_CLUSTER_SIZES the card has room for, asked of the card once per
+    shape."""
+    dev = torch.device(device)
+    key = (dev.index, n_nodes, n_res, n_active, n_classes, chunk)
+    if key not in _ROUNDS_CLUSTER:
+        lib = _build.load()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = lib.sched_rounds_cluster_size(n_nodes, n_res, n_active, n_classes, chunk,
+                                               ctypes.addressof(out))
+        _check(lib, rc, "schedule_classes_rounds (cluster size)")
+        _ROUNDS_CLUSTER[key] = out.value
+    return rounds_plan(n_nodes, n_active, n_classes, chunk, _ROUNDS_CLUSTER[key])
+
+
 def _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk,
                    rounds, active_idx, kernel):
-    """The CUDA launch of K5 (chunk >= C) and K6: one C call that enqueues
-    six launches per round and chunk on the current stream."""
+    """The CUDA launch of K5 (chunk >= C) and K6: one kernel, one thread-block
+    cluster, on the current stream. Returns (assigned, avail, launched)."""
     dev = avail.device
     N, R = avail.shape
     C = demands.shape[0]
-    if total.shape != (N, R) or alive.shape != (N,) or demands.shape != (C, R)             or counts.shape != (C,):
+    if total.shape != (N, R) or alive.shape != (N,) or demands.shape != (C, R) \
+            or counts.shape != (C,):
         raise ValueError(
             f"shape mismatch: avail {tuple(avail.shape)} total {tuple(total.shape)} "
             f"alive {tuple(alive.shape)} demands {tuple(demands.shape)} "
@@ -584,27 +666,28 @@ def _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk
         )
     if chunk < 1 or rounds < 0:
         raise ValueError(f"{kernel}: chunk={chunk} rounds={rounds}")
-    mask = sum(1 << r for r in _active_columns(demands, active_idx))
-    lib = _build.load()
+    active = _active_columns(demands, active_idx)
     new_avail = avail.to(torch.float32).contiguous().clone()
+    if N == 0 or C == 0 or rounds == 0:
+        return torch.zeros((C, N), dtype=torch.int32, device=dev), new_avail, False
+    lib = _build.load()
     total = total.to(torch.float32).contiguous()
     alive_u8 = alive.to(torch.bool).contiguous()
     demands = demands.to(torch.float32).contiguous()
     counts = counts.to(torch.int32).contiguous()
-    assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
-    cap = torch.empty((min(chunk, max(C, 1)), N), dtype=torch.float32, device=dev)
-    remaining = torch.empty(C, dtype=torch.float32, device=dev)
-    placed = torch.empty(C, dtype=torch.int32, device=dev)
-    n_feas = torch.empty(C, dtype=torch.int32, device=dev)
+    plan = rounds_launch_plan(N, R, len(active), C, chunk, dev)
+    # every cell is written by the kernel
+    assigned = torch.empty((C, N), dtype=torch.int32, device=dev)
+    scratch = torch.empty(plan.scratch_words, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.sched_schedule_rounds(
             new_avail.data_ptr(), total.data_ptr(), alive_u8.data_ptr(),
-            demands.data_ptr(), counts.data_ptr(), mask, assigned.data_ptr(),
-            cap.data_ptr(), remaining.data_ptr(), placed.data_ptr(), n_feas.data_ptr(),
-            N, R, C, chunk, float(np.float32(spread_threshold)), int(rounds), _stream(dev),
+            demands.data_ptr(), counts.data_ptr(), sum(1 << r for r in active),
+            assigned.data_ptr(), scratch.data_ptr(), plan.scratch_words, N, R, C, chunk,
+            plan.cluster, float(np.float32(spread_threshold)), int(rounds), _stream(dev),
         )
     _check(lib, rc, kernel)
-    return assigned, new_avail
+    return assigned, new_avail, True
 
 
 def schedule_classes_rounds(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tensor,
@@ -614,16 +697,17 @@ def schedule_classes_rounds(avail: torch.Tensor, total: torch.Tensor, alive: tor
     """K5. The fully parallel two-phase [C, N] placement, the semantics of
     kernel_np.schedule_classes_rounds (decisions bit-identical on integer-
     granular problems). active_idx: the resource columns any class demands
-    (None: all). Same arguments and result as schedule_classes."""
+    (None: all). Same arguments and result as schedule_classes. One call
+    is one launch (none when rounds == 0 or the problem is empty)."""
     dev = _device_of(avail, total, alive, demands, counts)
     if dev.type == "cpu":
         return _schedule_classes_rounds_plain(avail, total, alive, demands, counts,
                                               spread_threshold, rounds, active_idx)
-    out = _launch_rounds(avail, total, alive, demands, counts, spread_threshold,
-                         max(demands.shape[0], 1), rounds, active_idx,
-                         "schedule_classes_rounds")
-    schedule_classes_rounds.launches += 1
-    return out
+    assigned, new_avail, launched = _launch_rounds(
+        avail, total, alive, demands, counts, spread_threshold, max(demands.shape[0], 1),
+        rounds, active_idx, "schedule_classes_rounds")
+    schedule_classes_rounds.launches += launched
+    return assigned, new_avail
 
 
 schedule_classes_rounds.launches = 0
@@ -635,15 +719,16 @@ def schedule_classes_chunked(avail: torch.Tensor, total: torch.Tensor, alive: to
                              chunk: int = 16, rounds: int = 2, active_idx=None):
     """K6. K5's core over `chunk` classes at a time, the availability carried
     from chunk to chunk (kernel_np.schedule_classes_chunked). One call is one
-    count of `launches`, whatever the number of chunks."""
+    launch, whatever the number of chunks."""
     dev = _device_of(avail, total, alive, demands, counts)
     if dev.type == "cpu":
         return _schedule_classes_chunked_plain(avail, total, alive, demands, counts,
                                                spread_threshold, chunk, rounds, active_idx)
-    out = _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk,
-                         rounds, active_idx, "schedule_classes_chunked")
-    schedule_classes_chunked.launches += 1
-    return out
+    assigned, new_avail, launched = _launch_rounds(
+        avail, total, alive, demands, counts, spread_threshold, chunk, rounds, active_idx,
+        "schedule_classes_chunked")
+    schedule_classes_chunked.launches += launched
+    return assigned, new_avail
 
 
 schedule_classes_chunked.launches = 0

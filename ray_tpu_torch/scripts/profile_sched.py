@@ -2,7 +2,10 @@
 
     python -m ray_tpu_torch.scripts.profile_sched k1      # from the repo root
     python -m ray_tpu_torch.scripts.profile_sched k7
+    python -m ray_tpu_torch.scripts.profile_sched k5
+    python -m ray_tpu_torch.scripts.profile_sched k6
     python -m ray_tpu_torch.scripts.profile_sched stream
+    python -m ray_tpu_torch.scripts.profile_sched rounds_ab DIR [DIR ...]
 
 ``k1``: builds the kernels with ``-DSCHED_K1_PROFILE`` (thread 0 of every
 block sums clock64 cycles per pass phase) and runs K1 at the stream
@@ -20,11 +23,27 @@ exchange 1 (the cluster barrier and the feasible counts), phase 2,
 exchange 2 (the barrier, the peers' bucket totals and the offsets), phase
 3 and the tail, and the slowest block.
 
+``k5``, ``k6``: the same build; K5 (4 rounds) or K6 (chunks of 16, 2
+rounds) at the stream's first round as TorchScheduler calls them (padded to
+256 classes, the demanded columns active): under torch.profiler, one call's
+kernels summed by name (launches, device ms) and the gaps between its
+launches; and every block's cycles by phase (caps; the feasible-count
+exchange; totals: phase B's equal-share caps and the segments' and block's
+totals; the totals exchange; want, the prefix taken a warp a segment, and
+the trim; the debit at a phase's end; the placed-count exchange), with the
+tiles each block ran and skipped.
+
 ``stream``: runs chip_smoke.py's 1M-task stream (phase 2) under
 torch.profiler and reports the device's busy and idle share of the
 stream's wall time and device time by kernel name.
 
-Both print one JSON line; the problems come from chip_smoke.py (seeded).
+``rounds_ab``: K5 and K6 at the stream's first round from each of the
+given checkouts of this repo, in turns (the trees in order, then in reverse),
+each run a process of its own that builds that tree's kernels: whether each
+equals its plain version, and the CUDA-event medians of three sets of 11
+calls (chip_smoke.time_ms). For comparing versions of the kernel on one card.
+
+Each prints one JSON line; the problems come from chip_smoke.py (seeded).
 """
 
 from __future__ import annotations
@@ -127,6 +146,133 @@ def profile_k7() -> dict:
          for p in KS.SHARDS})
 
 
+#: the phases of K5/K6 that the profile build stamps, in its order
+ROUNDS_PHASES = ("caps", "count_exchange", "totals", "totals_exchange", "want_trim",
+                 "debit", "placed_exchange")
+
+
+def profile_rounds(which: str) -> dict:
+    """K5 or K6 at the stream's first round: one call's launches and device
+    time by kernel name under torch.profiler, the gaps between them, and
+    every block's cycles by phase."""
+    import ctypes
+
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.sched import _build, kernel_torch as KT
+
+    lib = _build.load(extra_flags=("-DSCHED_K1_PROFILE",))
+    dev = torch.device("cuda", 0)
+    total, alive, demands, counts = chip_smoke.build_stream_problem(np.random.default_rng(5))
+    alive = alive.copy()
+    alive[int(len(alive) * 0.8):] = False
+    first = np.floor(counts / 10).astype(np.int32)
+    d, k = KT.pad_problem(demands, first, KT.bucket_size(len(demands)))
+    active = tuple(int(i) for i in np.flatnonzero((d > 0).any(axis=0)))
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (total * alive[:, None], total, alive, d, k)]
+    if which == "k5":
+        run = lambda: KT.schedule_classes_rounds(*args, rounds=4, active_idx=active)  # noqa: E731
+    else:
+        run = lambda: KT.schedule_classes_chunked(  # noqa: E731
+            *args, chunk=16, rounds=2, active_idx=active)
+    reader = lib.sched_rounds_profile
+    reader.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    reader.restype = ctypes.c_int
+    width = len(ROUNDS_PHASES) + 2  # the phases, tiles run, tiles skipped
+    buf = (ctypes.c_ulonglong * (16 * width))()
+    run()  # warm
+    torch.cuda.synchronize()
+    if reader(buf, 1) != 0:  # reset
+        raise RuntimeError("resetting the K5/K6 profile failed")
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s.record()
+        run()
+        e.record()
+        torch.cuda.synchronize()
+    spans = sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = [x for x in spans if "Memset" not in x[2] and "Memcpy" not in x[2]]
+    by_name = {}
+    for a, b, name in kernels:
+        n, ms = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, ms + (b - a) / 1e3)
+    gaps = [max(0.0, kernels[i + 1][0] - kernels[i][1]) / 1e3 for i in range(len(kernels) - 1)]
+    out = {
+        "shape": {"N": int(len(total)), "C": int(len(d)), "active": list(active)},
+        "event_ms": s.elapsed_time(e),
+        "launches": len(kernels),
+        "device_ms": sum(ms for _, ms in by_name.values()),
+        "gap_ms": sum(gaps),
+        "span_ms": (kernels[-1][1] - kernels[0][0]) / 1e3 if kernels else 0.0,
+        "by_kernel": {name: {"launches": n, "ms": ms} for name, (n, ms) in by_name.items()},
+        "note": "the -DSCHED_K1_PROFILE build (stamps cost some cycles where present)",
+    }
+    if reader(buf, 1) != 0:
+        raise RuntimeError("reading the K5/K6 profile failed")
+    blocks = []
+    for r in range(16):
+        row = buf[r * width:(r + 1) * width]
+        tiles = int(row[-2])
+        if tiles == 0 and int(row[-1]) == 0:
+            continue
+        blocks.append({"rank": r, "tiles_run": tiles, "tiles_skipped": int(row[-1]),
+                       "cycles": {f: int(row[i]) for i, f in enumerate(ROUNDS_PHASES)}})
+    out["cycles_by_block"] = blocks
+    if blocks:
+        out["cycles_mean"] = {f: float(np.mean([b["cycles"][f] for b in blocks]))
+                              for f in ROUNDS_PHASES}
+        busy = [sum(v for f, v in b["cycles"].items() if "exchange" not in f)
+                for b in blocks]
+        out["slowest_block"] = blocks[int(np.argmax(busy))]["rank"]
+    return out
+
+
+# Run in a tree's root by rounds_ab, with only what every version of the
+# port has: chip_smoke.stream_first_round and time_ms, kernel_torch's K5/K6
+# and their plain versions.
+_ROUNDS_AB = """
+import json, sys
+sys.path.insert(0, ".")
+import numpy as np, torch
+import chip_smoke as CS
+from ray_tpu_torch.sched import kernel_torch as KT
+dev = torch.device("cuda", 0)
+avail, total, alive, demands, counts = CS.stream_first_round()
+d, k = KT.pad_problem(demands, counts, KT.bucket_size(len(demands)))
+active = tuple(int(i) for i in np.flatnonzero((d > 0).any(axis=0)))
+args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (avail, total, alive, d, k)]
+out = {}
+for name, fn, plain, kw in (
+        ("k5", KT.schedule_classes_rounds, KT._schedule_classes_rounds_plain, {"rounds": 4}),
+        ("k6", KT.schedule_classes_chunked, KT._schedule_classes_chunked_plain,
+         {"chunk": 16, "rounds": 2})):
+    kw = dict(kw, active_idx=active)
+    a, v = fn(*args, **kw)
+    a_p, v_p = plain(*args, **kw)
+    out[name + "_exact"] = bool(torch.equal(a, a_p) and torch.equal(v, v_p))
+    out[name + "_ms"] = [CS.time_ms(torch, lambda: fn(*args, **kw), reps=11) for _ in range(3)]
+print(json.dumps(out))
+"""
+
+
+def rounds_ab(trees) -> dict:
+    """K5/K6 from each tree in turns, forward then backward."""
+    import os
+    import subprocess
+
+    runs = []
+    for tree in list(trees) + list(reversed(trees)):
+        res = subprocess.run([sys.executable, "-c", _ROUNDS_AB], cwd=os.path.abspath(tree),
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"rounds_ab {tree}: {res.stderr[-2000:]}")
+        runs.append({"tree": tree, **json.loads(res.stdout.strip().splitlines()[-1])})
+    return {"runs": runs}
+
+
 def profile_stream() -> dict:
     import chip_smoke
     from torch.profiler import ProfilerActivity, profile
@@ -179,8 +325,12 @@ def main(argv) -> int:
         res = profile_k1()
     elif what == "k7":
         res = profile_k7()
+    elif what in ("k5", "k6"):
+        res = profile_rounds(what)
     elif what == "stream":
         res = profile_stream()
+    elif what == "rounds_ab" and len(argv) > 2:
+        res = rounds_ab(argv[2:])
     else:
         print(__doc__, file=sys.stderr)
         return 2

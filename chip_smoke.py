@@ -16,9 +16,10 @@ caught):
    bucket edges; K5 (rounds) and K6 (chunked) on the rounds kernels' golden
    problems, the random problems, the stream problem and K1's layout edges
    (N = 10 007, N = 40 000 with the node state in global memory, R = 5, a
-   negative entry), each of them one launch of one thread-block cluster a
-   call (torch.profiler counts the kernels a call enqueues; more than one
-   fails), its cluster size logged. K1, K5 and K6 are also held against the
+   negative entry); torch.profiler counts the kernels a call enqueues: K6
+   one launch of one thread-block cluster (its cluster size logged), K5
+   its zero fill and three kernels a phase (caps, prefix, trim), 25 at 4
+   rounds; any other count fails. K1, K5 and K6 are also held against the
    NumPy reference (kernel_np). Median device times of each kernel and its
    plain version.
 2. the 1M-task stream over 10k nodes (20% of the fleet held back, an
@@ -68,11 +69,13 @@ caught):
    CPU, each served answer equal to the direct call.
 
 8. the sharded scheduler (ray_tpu_torch/sched/kernel_shard.py): (a) K7,
-   one thread-block cluster of p blocks, against its plain version, K1 and
-   kernel_np for p = 1, 2, 4 and 8, exactly (assignments and
-   availability), on the random problems of phase 1, a view with a negative
-   entry and the 10k-node x 256-class stream's first round; its device ms
-   per p there, beside K1's; (b) make_sharded_scheduler(8) on the card over
+   K1's kernel on one thread-block cluster of p blocks, against its plain
+   version, K1 and kernel_np for p = 1, 2, 4 and 8, exactly (assignments
+   and availability), on the random problems of phase 1, a view with a
+   negative entry, a count that ends in a block other than 0 and the
+   10k-node x 256-class stream's first round; its device ms per p there,
+   in turns with K1's, each p with its cluster size, threads a block and
+   row form; (b) make_sharded_scheduler(8) on the card over
    bench.py's sharded_kernel_bench problem, dryrun_multichip's scheduler
    problem and the stream problem's rounds with carried availability until
    a round places nothing, every round equal to K1's; decisions a second
@@ -82,8 +85,9 @@ caught):
    TransformerConfig in bf16): (a) K8', K10a' and K10b' against their plain
    versions at the train step's shapes in bf16 and f32 (K8' in bf16 on the
    tensor cores, in f32 on the CUDA cores, whose time is recorded beside
-   it), each launched twice with the same bits, with times, bounds and the
-   library
+   it), each launched twice with the same bits (K10a' one kernel a call,
+   counted by torch.profiler after phase 1, in both dtypes), with times,
+   bounds and the library
    yardsticks (the backward of scaled_dot_product_attention and of
    rms_norm); (b) make_train_state (seed 0) and make_train_step, 10 steps
    on one seeded [8, 2049] batch, timed, the loss finite and falling; (c)
@@ -514,8 +518,8 @@ def phase1_rounds(torch, KT, kernel_np, dev, rec, err, k1_problems):
     exact) and against kernel_np (assignments exact, availability within
     1e-3), two launches bit-equal, then at the stream's first-round shape as
     TorchScheduler calls them (padded to 256 classes, the demanded columns
-    active): the kernels one call enqueues (one, or this fails), the cluster
-    size, the device time."""
+    active): the kernels one call enqueues (K6 one, K5 its zero fill and six
+    a round, or this fails), K6's cluster size, the device time."""
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     algos = (
         ("schedule_classes_rounds", KT.schedule_classes_rounds,
@@ -571,17 +575,32 @@ def phase1_rounds(torch, KT, kernel_np, dev, rec, err, k1_problems):
         live = rounds_live_classes(kernel_np, avail, total, alive, d_pad, k_pad, rounds,
                                    chunk)
         ops = live * N * (9 * A + 4 * A + 2 * 9 * A + 2 * 8)
-        plan = KT.rounds_launch_plan(N, R, A, C, chunk, dev)
         launched = kernels_enqueued(torch, lambda: kern(*args, **kw))
-        if len(launched) != 1:
-            raise AssertionError(f"{kname}: one call enqueued {len(launched)} kernels "
-                                 f"({sorted(set(launched))}), not one")
         rec[kname].update(
             ms=time_ms(torch, lambda: kern(*args, **kw)),
             plain_ms=time_ms(torch, lambda: plain(*args, **kw), reps=3, warm=1),
             library_ms=None, bound=bound(bytes_rounds, ops), kernels_a_call=len(launched),
-            cluster=plan.cluster, rows_in_smem=plan.rows_in_smem, live_class_rounds=live,
+            live_class_rounds=live,
         )
+        if kname == "schedule_classes_rounds":
+            # K5: the zero fill of the result, then caps, prefix and trim in
+            # each of a round's two phases
+            phases = [n for n in launched if any(
+                k in n for k in ("rounds_caps", "rounds_prefix", "rounds_trim"))]
+            if len(phases) != 6 * rounds or len(launched) != 6 * rounds + 1:
+                raise AssertionError(f"{kname}: one call enqueued {len(launched)} kernels "
+                                     f"({sorted(set(launched))}), not the zero fill and "
+                                     f"{6 * rounds}")
+            log(f"{kname} at the stream's first round [{N}, {C}], A = {A}: "
+                f"{len(launched)} kernels a call (the zero fill, then caps, prefix, trim "
+                f"twice a round); {rec[kname]['ms']:.4f} ms; {live} class-rounds with "
+                f"tasks left")
+            continue
+        if len(launched) != 1:
+            raise AssertionError(f"{kname}: one call enqueued {len(launched)} kernels "
+                                 f"({sorted(set(launched))}), not one")
+        plan = KT.rounds_launch_plan(N, R, A, C, chunk, dev)
+        rec[kname].update(cluster=plan.cluster, rows_in_smem=plan.rows_in_smem)
         log(f"{kname} at the stream's first round [{N}, {C}], A = {A}: one kernel a call "
             f"({launched[0][:60]}...), a cluster of {plan.cluster} blocks, "
             f"{plan.nodes_per_block} nodes a block, node state in "
@@ -621,6 +640,27 @@ def kernels_enqueued(torch, fn):
     if not names:
         raise RuntimeError("torch.profiler recorded no device activity")
     return [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+
+
+def phase1_rmsnorm_bwd_kernels(torch, MK, dev, rows=16384, D=512):
+    """K10a' at the train step's shapes (phase 9a's, rows 16 384 x 512) in
+    bf16 and f32: the kernels one call enqueues, by torch.profiler (one, or
+    this fails). Run after phase 1: in this process torch.profiler records
+    no device activity after phase 5 (PERF.md)."""
+    g = torch.Generator().manual_seed(9)
+    res = {}
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        x = (torch.randn((rows, D), generator=g) * 3.0).to(dev, dt)
+        dy = torch.randn((rows, D), generator=g).to(dev, dt)
+        sc = torch.randn((D,), generator=g).to(dev)
+        launched = kernels_enqueued(torch, lambda: MK.rmsnorm_bwd(x, sc, dy))
+        if len(launched) != 1:
+            raise AssertionError(f"rmsnorm_bwd {name}: one call enqueued {len(launched)} "
+                                 f"kernels ({sorted(set(launched))}), not one")
+        res[f"kernels_a_call_{name}"] = len(launched)
+    log(f"rmsnorm_bwd [{rows}, {D}]: one kernel a call in bf16 and f32 "
+        f"({launched[0][:60]}...)")
+    return res
 
 
 def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000, algo="scan"):
@@ -1672,13 +1712,35 @@ def stream_first_round():
     return total * alive[:, None], total, alive, demands, first
 
 
+def straddle_problem(N=8192):
+    """tests/test_torch_sched_shard.py's straddle_problem: bucket 0 holds
+    every node under the threshold (a cap of 3 each) and the first class's
+    count ends inside it at a node past block 0 for p >= 2."""
+    total = np.zeros((N, R), np.float32)
+    total[:, 0] = 4.0
+    total[:, 3] = 64.0
+    alive = np.ones(N, bool)
+    alive[3::101] = False
+    avail = total.copy()
+    avail[::7, 3] = 16.0
+    avail *= alive[:, None]
+    demands = np.zeros((2, R), np.float32)
+    demands[0, 0] = 1.0
+    demands[1, 0] = 1.0
+    demands[1, 3] = 2.0
+    return avail, total, alive, demands, np.array([3 * 5000 + 1, 6000], np.int32)
+
+
 def phase8a_sharded_kernel(torch, KT, KS, kernel_np, dev, k1_bound):
-    """K7 against its plain version, K1 and kernel_np on the card for every
-    shard count, exactly (assignments and availability); then timed per
-    shard count at the stream's first round beside K1, in turns."""
+    """K7 (K1's kernel on a cluster of p blocks) against its plain version,
+    K1 and kernel_np on the card for every shard count, exactly
+    (assignments and availability); then timed per shard count at the
+    stream's first round in turns with K1 (K1, p = 1..8, p = 8..1, K1),
+    each beside its cluster size, threads a block and row form."""
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     problems = [(f"random{s}", random_problem(s)) for s in (1, 2, 3)]
-    problems += [("negative", negative_problem()), ("stream_first_round", stream_first_round())]
+    problems += [("negative", negative_problem()), ("straddle", straddle_problem()),
+                 ("stream_first_round", stream_first_round())]
     err = 0.0
     for name, (avail, total, alive, demands, counts) in problems:
         args = [T(x) for x in (avail, total, alive, demands, counts)]
@@ -1707,12 +1769,25 @@ def phase8a_sharded_kernel(torch, KT, KS, kernel_np, dev, k1_bound):
     args = [T(x) for x in (avail, total, alive, d_pad, k_pad)]
     thr, passes = KT.DEFAULT_SPREAD_THRESHOLD, KT.MAX_PASSES
     k1_ms = [time_ms(torch, lambda: KT.schedule_classes(*args))]
-    ms = {p: time_ms(torch, lambda: KS._launch(*args, thr, passes, p)) for p in KS.SHARDS}
+    turns = {p: [] for p in KS.SHARDS}
+    for order in (KS.SHARDS, KS.SHARDS[::-1]):
+        for p in order:
+            turns[p].append(time_ms(torch, lambda: KS._launch(*args, thr, passes, p)))
     k1_ms.append(time_ms(torch, lambda: KT.schedule_classes(*args)))
+    ms = {p: float(np.mean(v)) for p, v in turns.items()}
     plain_ms = time_ms(torch, lambda: KS._schedule_classes_sharded_plain(
         *args, shards=PATH_SHARDS), reps=3, warm=1)
+    N = len(total)
+    for p in KS.SHARDS:
+        plan = KT.k1_plan(N, R, p)
+        log(f"  K7 p = {p}: a cluster of {plan.cluster} blocks of "
+            f"{KS.k7_threads(N, R, p)} threads, "
+            f"{plan.nodes_per_block} nodes a block, rows in "
+            f"{'shared' if plan.rows_in_smem else 'global'} memory; {ms[p]:.4f} ms "
+            f"({turns[p][0]:.4f} / {turns[p][1]:.4f} in turns)")
     rec = {"max_abs_err": err, "ms": ms[PATH_SHARDS], "plain_ms": plain_ms,
-           "library_ms": None, "bound": k1_bound, "ms_by_shards": ms, "k1_ms": k1_ms}
+           "library_ms": None, "bound": k1_bound, "ms_by_shards": ms,
+           "ms_in_turns": {str(p): v for p, v in turns.items()}, "k1_ms": k1_ms}
     log(f"  schedule_classes_sharded: {json.dumps({str(p): v for p, v in ms.items()})} ms "
         f"by shard count (K1 {k1_ms[0]:.4f} / {k1_ms[1]:.4f} ms before / after; plain "
         f"{plain_ms:.4f} ms at p = {PATH_SHARDS}; bound {k1_bound[0]:.4f} ms by "
@@ -2345,6 +2420,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rec = phase1_kernels(torch, KT, KS, kernel_np, dev)
+    norm_bwd_kernels = phase1_rmsnorm_bwd_kernels(torch, MK, dev)
     log(f"phase 1: {time.perf_counter() - t0:.1f} s")
 
     # the main path: counters from 0, read after phase 4
@@ -2451,6 +2527,7 @@ def main() -> int:
     # counters from 0, then the golden, outside the counting window
     t0 = time.perf_counter()
     train_rec = phase9a_train_kernels(torch, MK, dev)
+    train_rec["rmsnorm_bwd"].update(norm_bwd_kernels)
     log(f"phase 9a: {time.perf_counter() - t0:.1f} s")
     MK.reset_launch_counts()
     t0 = time.perf_counter()

@@ -99,12 +99,14 @@
 //                           + 1e-6 and r = rsqrt(j); dscale = the column sum
 //                           of round(round(x * r) * dy), taken in f32 and
 //                           rounded once to the dtype. Bound by bytes (x and
-//                           dy read, dx written). Design: launch 1 gives a
-//                           warp to each row, as K10a does, 64 rows a block,
-//                           and adds each row's dscale terms into the warp's
-//                           f32 row in shared memory; the block sums its 8
-//                           warp rows in order into one partial row. Launch 2
-//                           sums the partial rows column by column, in order.
+//                           dy read, dx written). Design: one cooperative
+//                           launch of as many blocks as the card holds; a
+//                           warp a row at a time, the row held in registers
+//                           (D <= 1024) across its sums and dx, the lane's
+//                           dscale sums in registers over its warp's rows;
+//                           each block's partial row, a grid-wide barrier,
+//                           then the partial rows summed column by column
+//                           in a fixed order (rmsnorm_bwd_kernel below).
 //   K10b model_rope_split   replaces transformer.py _rope (:98-110) on q
 //                           and k with the qkv split of _layer (:132-138):
 //                           qkv [B, S, 3D] -> q, k (rotated), v as
@@ -121,6 +123,7 @@
 //                           the jaxpr rounds them; dv passes through. Bound
 //                           by bytes. Design: K10b's, one block per (b, s).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -729,7 +732,6 @@ int launch_attention_bwd(const AttnBwdArgs& a, cudaStream_t stream) {
 // ------------------------------------------------------------------ K10a
 
 constexpr int kNormThreads = 256;  // 8 rows at a time a block, one warp each
-constexpr int kNormBwdRows = 64;   // K10a' rows a block (8 a warp)
 
 // sum of x_f32^2 over a row, by one warp (every lane gets the same bits)
 __device__ __forceinline__ float row_sumsq(const void* x, long long base, int D, int lane, int dt) {
@@ -763,84 +765,315 @@ __global__ void __launch_bounds__(kNormThreads) rmsnorm_kernel(
 
 // ------------------------------------------------------------------ K10a'
 
-__global__ void __launch_bounds__(kNormThreads) rmsnorm_bwd_kernel(
-    const void* x, const float* scale, const void* dy, void* dx, float* partial, int rows,
-    int D, int dt) {
+constexpr int kNormBwdWarps = 8;  // a block; a warp takes one row at a time
+constexpr int kNormBwdThreads = 32 * kNormBwdWarps;
+constexpr int kNormBwdRegD = 1024;  // widest row held in registers
+
+// K10a' holds four consecutive elements of a row as they are stored: two
+// words of bf16 pairs (bf16) or four float32 words; element u as float32.
+template <int DT>
+constexpr int kQuadWords = DT == kBF16 ? 2 : 4;
+
+template <int DT>
+__device__ __forceinline__ float quad_elem(const uint32_t (&w)[kQuadWords<DT>], int u) {
+  if constexpr (DT == kBF16)
+    return __uint_as_float(u & 1 ? (w[u >> 1] & 0xffff0000u) : (w[u >> 1] << 16));
+  else
+    return __uint_as_float(w[u]);
+}
+
+// Elements [i, i + 4) of p (i a multiple of 4), or zeros where !in.
+template <int DT>
+__device__ __forceinline__ void quad_load(const void* p, long long i, bool in,
+                                          uint32_t (&w)[kQuadWords<DT>]) {
+  if constexpr (DT == kBF16) {
+    const uint2 v = in ? *reinterpret_cast<const uint2*>(
+                             reinterpret_cast<const __nv_bfloat16*>(p) + i)
+                       : make_uint2(0u, 0u);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    const uint4 v = in ? *reinterpret_cast<const uint4*>(reinterpret_cast<const float*>(p) + i)
+                       : make_uint4(0u, 0u, 0u, 0u);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  }
+}
+
+// a and b rounded to the dtype (to nearest even), as a cast there and back;
+// in bf16 one conversion of the pair, returned packed in *packed
+template <int DT>
+__device__ __forceinline__ void round_pair(float& a, float& b, uint32_t* packed = nullptr) {
+  if constexpr (DT == kBF16) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(&h);
+    a = __uint_as_float(u << 16);
+    b = __uint_as_float(u & 0xffff0000u);
+    if (packed) *packed = u;
+  }
+}
+
+// round(scale) of four columns, held as the row's elements are
+template <int DT>
+__device__ __forceinline__ void norm_bwd_scale(const float* scale, int c, bool in,
+                                               uint32_t (&w)[kQuadWords<DT>]) {
+  const float4 v =
+      in ? *reinterpret_cast<const float4*>(scale + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float s[4] = {v.x, v.y, v.z, v.w};
+  if constexpr (DT == kBF16) {
+    round_pair<DT>(s[0], s[1], &w[0]);
+    round_pair<DT>(s[2], s[3], &w[1]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) w[u] = __float_as_uint(s[u]);
+  }
+}
+
+// One row's sums over four columns, the lane's share in column order:
+// x_f32^2 (K10a's) and x * dn with dn = round(dy * round(scale)) (sr),
+// which is returned as it is held (dnw).
+template <int DT>
+__device__ __forceinline__ void norm_bwd_sums(const uint32_t (&xw)[kQuadWords<DT>],
+                                              const uint32_t (&gw)[kQuadWords<DT>],
+                                              const uint32_t (&sr)[kQuadWords<DT>],
+                                              uint32_t (&dnw)[kQuadWords<DT>], float& ss,
+                                              float& ba) {
+  float x[4], dn[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    x[u] = quad_elem<DT>(xw, u);
+    dn[u] = __fmul_rn(quad_elem<DT>(gw, u), quad_elem<DT>(sr, u));
+  }
+  ss += x[0] * x[0] + x[1] * x[1] + x[2] * x[2] + x[3] * x[3];
+  if constexpr (DT == kBF16) {
+    round_pair<DT>(dn[0], dn[1], &dnw[0]);
+    round_pair<DT>(dn[2], dn[3], &dnw[1]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) dnw[u] = __float_as_uint(dn[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) ba += x[u] * dn[u];
+}
+
+// Four columns of dx, round(round(dn * r) + round(coef * (2 x))), stored to
+// dx at i, and their dscale terms round(round(x * r) * dy) added to acc.
+template <int DT>
+__device__ __forceinline__ void norm_bwd_cols(const uint32_t (&xw)[kQuadWords<DT>],
+                                              const uint32_t (&gw)[kQuadWords<DT>],
+                                              const uint32_t (&dnw)[kQuadWords<DT>], float r,
+                                              float coef, float (&acc)[4], void* dx,
+                                              long long i, bool in) {
+  float t1[4], t2[4], n[4], x[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    x[u] = quad_elem<DT>(xw, u);
+    t1[u] = __fmul_rn(quad_elem<DT>(dnw, u), r);
+    t2[u] = __fmul_rn(coef, __fmul_rn(2.f, x[u]));
+    n[u] = x[u] * r;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; u += 2) {
+    round_pair<DT>(t1[u], t1[u + 1]);
+    round_pair<DT>(t2[u], t2[u + 1]);
+    round_pair<DT>(n[u], n[u + 1]);
+  }
+  float o[4], term[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    o[u] = __fadd_rn(t1[u], t2[u]);
+    term[u] = __fmul_rn(n[u], quad_elem<DT>(gw, u));
+  }
+#pragma unroll
+  for (int u = 0; u < 4; u += 2) round_pair<DT>(term[u], term[u + 1]);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) acc[u] += term[u];
+  if (in) {
+    if constexpr (DT == kBF16) {
+      const __nv_bfloat162 a = __floats2bfloat162_rn(o[0], o[1]);
+      const __nv_bfloat162 b = __floats2bfloat162_rn(o[2], o[3]);
+      uint2 u;
+      u.x = *reinterpret_cast<const uint32_t*>(&a);
+      u.y = *reinterpret_cast<const uint32_t*>(&b);
+      *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(dx) + i) = u;
+    } else {
+      *reinterpret_cast<float4*>(reinterpret_cast<float*>(dx) + i) =
+          make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+// The row's r = rsqrt(mean(x^2) + 1e-6) (K10a's) and dx's coefficient
+// (sum(x * dn) * (-0.5 * r / j)) / D, from the lane's shares of the sums.
+__device__ __forceinline__ void norm_bwd_row_terms(float ss, float ba, int D, float& r,
+                                                   float& coef) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    ss += __shfl_xor_sync(kFull, ss, off);
+    ba += __shfl_xor_sync(kFull, ba, off);
+  }
+  const float j = ss / (float)D + 1e-6f;
+  r = rsqrtf(j);
+  coef = __fdiv_rn(__fmul_rn(ba, __fmul_rn(-0.5f, __fdiv_rn(r, j))), (float)D);
+}
+
+// One launch: dx row by row, dscale's partial row of each block, a grid-wide
+// barrier (cooperative launch: every block is resident), then dscale
+// column by column over the blocks' partial rows. DT is the dtype, known at
+// compile time, so that a bf16 row is held as it is stored (bf16 pairs) and
+// every rounding is one conversion of a pair.
+//  - Rows are dealt to the grid's warps in a fixed order (warp w of the grid
+//    takes rows w, w + W, w + 2W, ...); lane l owns columns 4l + 128k.
+//  - NK > 0 (D <= 128 NK <= 1024): the lane holds its columns of x and dy in
+//    registers across the row's three steps (the sums, the row's r and
+//    coefficient, dx), so x and dy are read once, and loads the next row's
+//    while it works on this one; round(scale) of its columns and its dscale
+//    sums stay in registers too, the sums over the warp's rows in row order,
+//    since a lane's columns are the same on every row.
+//  - NK == 0 (1024 < D <= 4096), a form chosen by the row's width: too wide
+//    for registers, the lane reads its columns twice (the sums, then dx) and
+//    adds its dscale terms into its warp's row of shared memory, which no
+//    other warp touches.
+//  - The block sums its warps' rows in warp order into its partial row.
+//    After the barrier block q takes columns [32q, 32q + 32) (and q + the
+//    grid, ...): warp w sums the partial rows w, w + 8, ... of the lane's
+//    column in order, the block adds its warps' sums in warp order, and the
+//    column is rounded once to the dtype. No atomics: two launches give the
+//    same bits.
+template <int NK, int DT>
+__global__ void __launch_bounds__(kNormBwdThreads) rmsnorm_bwd_kernel(
+    const void* x, const float* scale, const void* dy, void* dx, float* partial,
+    float* dscale, int rows, int D) {
+  constexpr int QW = kQuadWords<DT>;
   extern __shared__ float4 smem4[];
-  float* const acc = reinterpret_cast<float*>(smem4);  // [8 warps][D]
+  float* const wrows = reinterpret_cast<float*>(smem4);  // [warps][D]
+  __shared__ float s_col[kNormBwdWarps][32];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float* const mine = acc + warp * D;
-  for (int c = lane * 4; c < D; c += 128) {
-    *reinterpret_cast<float4*>(mine + c) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  const int r0 = blockIdx.x * kNormBwdRows;
-  for (int rr = warp; rr < kNormBwdRows; rr += kNormThreads / 32) {
-    const int row = r0 + rr;
-    if (row >= rows) break;
-    const long long base = (long long)row * D;
-    const float j = row_sumsq(x, base, D, lane, dt) / (float)D + 1e-6f;
-    const float r = rsqrtf(j);  // K10a's r
-    const float mm = __fmul_rn(-0.5f, __fdiv_rn(r, j));
-    float ba = 0.f;  // sum of x * dn over the row
-    for (int c = lane * 4; c < D; c += 128) {
-      const float4 v = load4(x, base + c, dt);
-      const float4 g = load4(dy, base + c, dt);
-      const float4 sc = *reinterpret_cast<const float4*>(scale + c);
-      const float xs[4] = {v.x, v.y, v.z, v.w};
-      const float gs[4] = {g.x, g.y, g.z, g.w};
-      const float ss[4] = {sc.x, sc.y, sc.z, sc.w};
-      float terms[4];
+  const int W = gridDim.x * kNormBwdWarps;
+  const int gw = blockIdx.x * kNormBwdWarps + warp;
+  float* const mine = wrows + (size_t)warp * D;
+  if constexpr (NK > 0) {
+    uint32_t sr[NK][QW], xs[NK][QW], gs[NK][QW];
+    float acc[NK][4] = {};
+    const long long b0 = (long long)gw * D;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float dn = round_to(__fmul_rn(gs[u], round_to(ss[u], dt)), dt);
-        ba += xs[u] * dn;
-        // dscale's term: round(n * dy) with n = round(x * r), K10a's n
-        terms[u] = round_to(__fmul_rn(round_to(xs[u] * r, dt), gs[u]), dt);
+    for (int k = 0; k < NK; ++k) {
+      const int c = lane * 4 + 128 * k;
+      norm_bwd_scale<DT>(scale, c, c < D, sr[k]);
+      quad_load<DT>(x, b0 + c, gw < rows && c < D, xs[k]);
+      quad_load<DT>(dy, b0 + c, gw < rows && c < D, gs[k]);
+    }
+    for (int row = gw; row < rows; row += W) {
+      uint32_t xn[NK][QW], gn[NK][QW], dn[NK][QW];
+      const long long base = (long long)row * D, nbase = base + (long long)W * D;
+      const bool more = row + W < rows;
+#pragma unroll
+      for (int k = 0; k < NK; ++k) {  // the next row's, in flight during this one
+        const int c = lane * 4 + 128 * k;
+        quad_load<DT>(x, nbase + c, more && c < D, xn[k]);
+        quad_load<DT>(dy, nbase + c, more && c < D, gn[k]);
       }
-      float4 t = *reinterpret_cast<const float4*>(mine + c);
-      t.x += terms[0];
-      t.y += terms[1];
-      t.z += terms[2];
-      t.w += terms[3];
-      *reinterpret_cast<float4*>(mine + c) = t;
+      float ss = 0.f, ba = 0.f, r, coef;
+#pragma unroll
+      for (int k = 0; k < NK; ++k) norm_bwd_sums<DT>(xs[k], gs[k], sr[k], dn[k], ss, ba);
+      norm_bwd_row_terms(ss, ba, D, r, coef);
+#pragma unroll
+      for (int k = 0; k < NK; ++k) {
+        const int c = lane * 4 + 128 * k;
+        norm_bwd_cols<DT>(xs[k], gs[k], dn[k], r, coef, acc[k], dx, base + c, c < D);
+      }
+#pragma unroll
+      for (int k = 0; k < NK; ++k) {
+#pragma unroll
+        for (int q = 0; q < QW; ++q) {
+          xs[k][q] = xn[k][q];
+          gs[k][q] = gn[k][q];
+        }
+      }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) ba += __shfl_xor_sync(kFull, ba, off);
-    const float coef = __fdiv_rn(__fmul_rn(ba, mm), (float)D);
-    for (int c = lane * 4; c < D; c += 128) {
-      const float4 v = load4(x, base + c, dt);
-      const float4 g = load4(dy, base + c, dt);
-      const float4 sc = *reinterpret_cast<const float4*>(scale + c);
-      const float xs[4] = {v.x, v.y, v.z, v.w};
-      const float gs[4] = {g.x, g.y, g.z, g.w};
-      const float ss[4] = {sc.x, sc.y, sc.z, sc.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float dn = round_to(__fmul_rn(gs[u], round_to(ss[u], dt)), dt);
-        const float t1 = round_to(__fmul_rn(dn, r), dt);
-        const float t2 = round_to(__fmul_rn(coef, __fmul_rn(2.f, xs[u])), dt);
-        store1(dx, base + c + u, __fadd_rn(t1, t2), dt);
+    for (int k = 0; k < NK; ++k) {
+      const int c = lane * 4 + 128 * k;
+      if (c < D)
+        *reinterpret_cast<float4*>(mine + c) =
+            make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+    }
+  } else {
+    for (int c = lane * 4; c < D; c += 128)
+      *reinterpret_cast<float4*>(mine + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int row = gw; row < rows; row += W) {
+      const long long base = (long long)row * D;
+      float ss = 0.f, ba = 0.f, r, coef;
+      for (int c = lane * 4; c < D; c += 128) {
+        uint32_t xs[QW], gs[QW], sr[QW], dn[QW];
+        quad_load<DT>(x, base + c, true, xs);
+        quad_load<DT>(dy, base + c, true, gs);
+        norm_bwd_scale<DT>(scale, c, true, sr);
+        norm_bwd_sums<DT>(xs, gs, sr, dn, ss, ba);
+      }
+      norm_bwd_row_terms(ss, ba, D, r, coef);
+      for (int c = lane * 4; c < D; c += 128) {
+        uint32_t xs[QW], gs[QW], sr[QW], dn[QW];
+        float ss2 = 0.f, ba2 = 0.f;  // dn again, the sums unused
+        quad_load<DT>(x, base + c, true, xs);
+        quad_load<DT>(dy, base + c, true, gs);
+        norm_bwd_scale<DT>(scale, c, true, sr);
+        norm_bwd_sums<DT>(xs, gs, sr, dn, ss2, ba2);
+        const float4 t = *reinterpret_cast<const float4*>(mine + c);
+        float a4[4] = {t.x, t.y, t.z, t.w};
+        norm_bwd_cols<DT>(xs, gs, dn, r, coef, a4, dx, base + c, true);
+        *reinterpret_cast<float4*>(mine + c) = make_float4(a4[0], a4[1], a4[2], a4[3]);
       }
     }
   }
   __syncthreads();
   // the block's partial row: its warps' rows summed in warp order
-  for (int c = threadIdx.x; c < D; c += kNormThreads) {
+  for (int c = threadIdx.x; c < D; c += kNormBwdThreads) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kNormThreads / 32; ++w) s += acc[w * D + c];
+    for (int w = 0; w < kNormBwdWarps; ++w) s += wrows[(size_t)w * D + c];
     partial[(long long)blockIdx.x * D + c] = s;
+  }
+  cooperative_groups::this_grid().sync();
+  for (int q = blockIdx.x; q * 32 < D; q += gridDim.x) {
+    const int c = q * 32 + lane;
+    float s = 0.f;
+    if (c < D) {
+#pragma unroll 8
+      for (int b = warp; b < (int)gridDim.x; b += kNormBwdWarps)
+        s += partial[(long long)b * D + c];
+    }
+    s_col[warp][lane] = s;
+    __syncthreads();
+    if (warp == 0 && c < D) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < kNormBwdWarps; ++w) t += s_col[w][lane];
+      dscale[c] = round_to(t, DT);
+    }
+    __syncthreads();
   }
 }
 
-__global__ void rmsnorm_dscale_kernel(const float* partial, float* dscale, int chunks, int D,
-                                      int dt) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= D) return;
-  float s = 0.f;
-  for (int k = 0; k < chunks; ++k) s += partial[(long long)k * D + c];
-  dscale[c] = round_to(s, dt);
+using NormBwdKernel = void (*)(const void*, const float*, const void*, void*, float*, float*,
+                               int, int);
+
+template <int DT>
+NormBwdKernel norm_bwd_kernel_of(int D) {
+  if (D <= 128) return rmsnorm_bwd_kernel<1, DT>;
+  if (D <= 256) return rmsnorm_bwd_kernel<2, DT>;
+  if (D <= 512) return rmsnorm_bwd_kernel<4, DT>;
+  if (D <= kNormBwdRegD) return rmsnorm_bwd_kernel<8, DT>;
+  return rmsnorm_bwd_kernel<0, DT>;
+}
+
+// The form of K10a' for rows of D columns in the dtype: the narrowest
+// register form that holds the row, else the looped one
+NormBwdKernel norm_bwd_kernel_for(int D, int dt) {
+  return dt == kBF16 ? norm_bwd_kernel_of<kBF16>(D) : norm_bwd_kernel_of<kF32>(D);
 }
 
 // ------------------------------------------------------------------ K10b
@@ -1005,22 +1238,49 @@ int model_rmsnorm(const void* x, const float* scale, void* out, int rows, int D,
   return (int)cudaGetLastError();
 }
 
-// partial: [ceil(rows / 64), D] f32 scratch
+// The grid of K10a' for rows x D in the dtype: as many blocks as the card
+// holds at once (a cooperative launch), and no more than the rows need (8 a
+// block); written to *blocks.
+int model_rmsnorm_bwd_blocks(int rows, int D, int dtype, int* blocks) {
+  if (rows <= 0 || D <= 0 || D % 4 != 0 || D > 4096 || (dtype != kF32 && dtype != kBF16))
+    return (int)cudaErrorInvalidValue;
+  const NormBwdKernel kernel = norm_bwd_kernel_for(D, dtype);
+  const int smem = kNormBwdWarps * D * (int)sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kNormBwdThreads,
+                                                        smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  const long long need = ((long long)rows + kNormBwdWarps - 1) / kNormBwdWarps;
+  *blocks = (int)(need < (long long)per_sm * sms ? need : (long long)per_sm * sms);
+  return 0;
+}
+
+// K10a' in one cooperative launch of `blocks` blocks (model_rmsnorm_bwd_blocks);
+// partial: [blocks, D] f32 scratch.
 int model_rmsnorm_bwd(const void* x, const float* scale, const void* dy, void* dx,
-                      float* partial, float* dscale, int rows, int D, int dtype,
+                      float* partial, float* dscale, int rows, int D, int blocks, int dtype,
                       void* stream) {
-  if (rows <= 0 || D <= 0 || D % 4 != 0 || D > 4096) return (int)cudaErrorInvalidValue;
-  const int chunks = (rows + kNormBwdRows - 1) / kNormBwdRows;
-  const int smem = (kNormThreads / 32) * D * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(rmsnorm_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rows <= 0 || D <= 0 || D % 4 != 0 || D > 4096 || blocks < 1 ||
+      (dtype != kF32 && dtype != kBF16))
+    return (int)cudaErrorInvalidValue;
+  const NormBwdKernel kernel = norm_bwd_kernel_for(D, dtype);
+  const int smem = kNormBwdWarps * D * (int)sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  rmsnorm_bwd_kernel<<<chunks, kNormThreads, smem, s>>>(x, scale, dy, dx, partial, rows, D,
-                                                         dtype);
-  err = cudaGetLastError();
+  void* args[] = {(void*)&x,       (void*)&scale,  (void*)&dy, (void*)&dx,
+                  (void*)&partial, (void*)&dscale, (void*)&rows, (void*)&D};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kNormBwdThreads),
+                                    args, (size_t)smem, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  rmsnorm_dscale_kernel<<<(D + 255) / 256, 256, 0, s>>>(partial, dscale, chunks, D, dtype);
   return (int)cudaGetLastError();
 }
 

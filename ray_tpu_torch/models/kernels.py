@@ -68,7 +68,8 @@ _SIGNATURES = {
     "model_block_update": (
         [_P] * 9 + [_I] * 5 + [_LL, _LL, _I, _F, _I, _P], _I),
     "model_rmsnorm": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "model_rmsnorm_bwd": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    "model_rmsnorm_bwd": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "model_rmsnorm_bwd_blocks": ([_I, _I, _I, _P], _I),
     "model_rope_split": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
     "model_rope_split_bwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
     "model_error_string": ([_I], ctypes.c_char_p),
@@ -460,9 +461,30 @@ def _rmsnorm_bwd_plain(x, scale, dy):
     return dx, dscale
 
 
+_NORM_BWD_BLOCKS = {}  # (device index, rows, D, dtype) -> the grid of K10a', asked once
+
+
+def rmsnorm_bwd_blocks(rows: int, D: int, dtype: torch.dtype, device) -> int:
+    """The blocks of K10a' (one cooperative launch) for rows x D in `dtype`
+    on `device` (a CUDA device): as many as the card holds at once, no more
+    than the rows need (8 a block)."""
+    dev = torch.device(device)
+    key = (dev.index, rows, D, dtype)
+    if key not in _NORM_BWD_BLOCKS:
+        lib = LIBRARY.load()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = lib.model_rmsnorm_bwd_blocks(rows, D, _DTYPE_CODES[dtype],
+                                              ctypes.addressof(out))
+        _check(lib, rc, "rmsnorm_bwd (grid)")
+        _NORM_BWD_BLOCKS[key] = out.value
+    return _NORM_BWD_BLOCKS[key]
+
+
 def rmsnorm_bwd(x, scale, dy):
     """K10a'. The gradient of rmsnorm(x, scale) for the cotangent dy (x's
-    shape and dtype): dx in x's dtype, dscale [D] float32."""
+    shape and dtype): dx in x's dtype, dscale [D] float32. One kernel a
+    call on the card."""
     dev = device_of(x, scale, dy)
     if dev.type == "cpu":
         return _rmsnorm_bwd_plain(x, scale, dy)
@@ -473,14 +495,15 @@ def rmsnorm_bwd(x, scale, dy):
                          f"{tuple(x.shape)} {x.dtype} (dy as x, D <= 4096, needed)")
     _check_layout("rmsnorm_bwd", x, scale, dy)
     rows = x.numel() // D
+    blocks = rmsnorm_bwd_blocks(rows, D, x.dtype, dev)
     lib = LIBRARY.load()
     dx = torch.empty_like(x)
-    partial = torch.empty(((rows + 63) // 64, D), dtype=torch.float32, device=dev)
+    partial = torch.empty((blocks, D), dtype=torch.float32, device=dev)
     dscale = torch.empty((D,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.model_rmsnorm_bwd(x.data_ptr(), scale.data_ptr(), dy.data_ptr(),
                                    dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
-                                   rows, D, dt, current_stream(dev))
+                                   rows, D, blocks, dt, current_stream(dev))
     _check(lib, rc, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1
     return dx, dscale

@@ -30,8 +30,7 @@ _SIGNATURES = {
     "sched_k1_cluster_size": ([_I, _I, _P], _I),
     "sched_k1_scratch_words": ([_I, _I, _I], _LL),
     "sched_schedule_classes_sharded": (
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P], _I),
-    "sched_k7_scratch_words": ([_I, _I], _LL),
+        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _F, _I, _P], _I),
     "sched_scatter_rows": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "sched_delta_clip": ([_P, _P, _P, _P, _LL, _P], _I),
     "sched_nonzero_tiles": ([_LL], _I),
@@ -41,6 +40,8 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _ULL, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _I, _P], _I),
     "sched_rounds_cluster_size": ([_I, _I, _I, _I, _I, _P], _I),
     "sched_rounds_scratch_words": ([_I, _I, _I, _I, _I], _LL),
+    "sched_schedule_rounds_phases": (
+        [_P, _P, _P, _P, _P, _ULL, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P], _I),
     "sched_error_string": ([_I], ctypes.c_char_p),
 }
 

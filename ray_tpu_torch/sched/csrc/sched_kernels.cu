@@ -23,15 +23,19 @@
 //                              kernel_jax.py JaxScheduler.schedule_async
 //                              (jnp.nonzero(size=cap, fill_value=0) + gather
 //                              + narrowing)
-//   K5 sched_schedule_rounds   replaces kernel_jax.py schedule_classes_rounds
-//      (chunk = C)             (+ _rounds_core, _sat_cumsum); one
-//                              thread-block cluster of 16 (or 8) blocks
+//   K5 sched_schedule_rounds_phases
+//                              replaces kernel_jax.py schedule_classes_rounds
+//                              (+ _rounds_core, _sat_cumsum); three kernels
+//                              a phase (caps, prefix, trim), 24 a call at 4
+//                              rounds
 //   K6 sched_schedule_rounds   replaces kernel_jax.py schedule_classes_chunked
-//      (chunk = 16)            (the same kernel, chunk by chunk)
+//                              (the rounds core chunk by chunk); one
+//                              thread-block cluster of 16 (or 8) blocks
 //   K7 sched_schedule_classes_sharded
 //                              replaces ray_tpu/sched/kernel_shard.py:54-196
-//                              (the round with the node axis split over the
-//                              blocks of one thread-block cluster of p)
+//                              (the round with the node axis split over p
+//                              shards): K1's kernel on a cluster of p blocks,
+//                              block r owning shard r
 // Every entry point launches on the stream it is given, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after its launches.
 
@@ -42,25 +46,20 @@
 namespace cg = cooperative_groups;
 
 // Built with -DSCHED_K1_PROFILE (ray_tpu_torch/scripts/profile_sched.py
-// only), thread 0 of every block of K1 sums the cycles of each phase of a
-// pass into g_k1_profile[rank]: [exchange 1 (barrier, feasible counts),
-// sweep (caps, bucket totals), exchange 2 (barrier, offsets, take modes),
-// fill and the next pass's phase 1, tail, passes]; and thread 0 of every
-// block of K7 into g_k7_profile[rank]: [phase 1, exchange 1 (barrier,
-// feasible counts), phase 2, exchange 2 (barrier, bucket totals, offsets),
-// phase 3, tail, passes]; and thread 0 of every block of K5/K6 into
+// only), thread 0 of every block of K1 (and of K7, which runs K1's kernel)
+// sums the cycles of each phase of a pass into g_k1_profile[rank]:
+// [exchange 1 (barrier, feasible counts), sweep (caps, bucket totals),
+// exchange 2 (barrier, offsets, take modes), fill and the next pass's phase
+// 1, tail, passes]; and thread 0 of every block of K6 into
 // g_rounds_profile[rank]: [caps, count exchange (phase B), totals (phase
 // B's share caps, the segments' and the block's totals), totals exchange,
 // want and the trim, debit, placed exchange, tiles run, tiles skipped].
 // The production build compiles the stamps away.
 #ifdef SCHED_K1_PROFILE
 constexpr int kK1Phases = 5;
-constexpr int kK7Phases = 6;
 __device__ unsigned long long g_k1_profile[16][kK1Phases + 1];
-__device__ unsigned long long g_k7_profile[8][kK7Phases + 1];
 constexpr int kRPhases = 7;
 __device__ unsigned long long g_rounds_profile[16][kRPhases + 2];
-#define K1_STAMP(t) const long long t = clock64()
 #define K1_PROFILE_DECL long long k1_prof[kK1Phases + 1] = {}, k1_last = 0
 #define K1_PROFILE_START() k1_last = clock64()
 #define K1_MARK(phase)                                               \
@@ -74,16 +73,6 @@ __device__ unsigned long long g_rounds_profile[16][kRPhases + 2];
 #define K1_PROFILE_FLUSH(rank)                                       \
   if (threadIdx.x == 0) {                                           \
     for (int i = 0; i <= kK1Phases; ++i) g_k1_profile[rank][i] += k1_prof[i]; \
-  }
-#define K7_PROFILE_PASS(rank, t0, t1, t2, t3, t4, t5)                \
-  if (threadIdx.x == 0) {                                           \
-    g_k7_profile[rank][0] += t1 - t0;                               \
-    g_k7_profile[rank][1] += t2 - t1;                               \
-    g_k7_profile[rank][2] += t3 - t2;                               \
-    g_k7_profile[rank][3] += t4 - t3;                               \
-    g_k7_profile[rank][4] += t5 - t4;                               \
-    g_k7_profile[rank][5] += clock64() - t5;                        \
-    g_k7_profile[rank][6] += 1;                                     \
   }
 #define R_PROFILE_DECL long long r_prof[kRPhases + 2] = {}, r_last = 0
 #define R_PROFILE_START() r_last = clock64()
@@ -100,13 +89,11 @@ __device__ unsigned long long g_rounds_profile[16][kRPhases + 2];
     for (int i = 0; i < kRPhases + 2; ++i) g_rounds_profile[rank][i] += r_prof[i]; \
   }
 #else
-#define K1_STAMP(t)
 #define K1_PROFILE_DECL
 #define K1_PROFILE_START()
 #define K1_MARK(phase)
 #define K1_PROFILE_PASS()
 #define K1_PROFILE_FLUSH(rank)
-#define K7_PROFILE_PASS(rank, t0, t1, t2, t3, t4, t5)
 #define R_PROFILE_DECL
 #define R_PROFILE_START()
 #define R_MARK(phase)
@@ -158,23 +145,6 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   return v;  // lane 0's is the warp's sum
 }
 
-// Exact 64-bit sum kept as two 32-bit words in shared memory, added with
-// native 32-bit atomics and an explicit carry: a 64-bit shared atomicAdd is a
-// compare-and-swap loop on this card, and under contention it costs
-// quadratically in the number of warps (measured: PERF.md).
-__device__ __forceinline__ void shared_add_u64(unsigned* lo, unsigned* hi,
-                                               unsigned long long v) {
-  const unsigned vlo = (unsigned)v;
-  const unsigned old = atomicAdd(lo, vlo);
-  const unsigned up = (unsigned)(v >> 32) + (old + vlo < old ? 1u : 0u);
-  if (up) atomicAdd(hi, up);
-}
-
-__device__ __forceinline__ unsigned long long shared_u64(const unsigned* lo,
-                                                         const unsigned* hi) {
-  return ((unsigned long long)*hi << 32) | *lo;
-}
-
 __device__ __forceinline__ int block_sum_int(int v, int* slot) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
@@ -184,8 +154,8 @@ __device__ __forceinline__ int block_sum_int(int v, int* slot) {
 }
 
 // ---------------------------------------------------------------------------
-// The per-node arithmetic of one pass, op for op as kernel_np, shared by K1
-// and K7.
+// The per-node arithmetic of one pass, op for op as kernel_np (K1, and so
+// K7).
 // ---------------------------------------------------------------------------
 
 // critical_util's term of one column: used / max(total, eps), 0 where total
@@ -229,223 +199,16 @@ __device__ __forceinline__ float debit(float a, float take, float d) {
   return v < 0.f ? 0.f : v;
 }
 
-// Phase 1 for node n: fit (0 on a dead node), the threshold cap (-1 when the
-// node is at or above the threshold: its cap is the equal share) and the
-// score bucket.
-template <int RU>
-__device__ __forceinline__ void node_terms(const float* __restrict__ avail,
-                                           const float* __restrict__ total,
-                                           const uint8_t* __restrict__ alive,
-                                           const float* s_d, int n, int R, float thr,
-                                           float over_denom, int& fit_out, int& cap_out,
-                                           uint8_t& bkt_out) {
-  float fit = kInfFit, kcap = kInfFit, util = __int_as_float(0xff800000);  // -inf
-  auto column = [&](int r, float av, float tt) {
-    const float d = s_d[r];
-    util = fmaxf(util, used_frac(av, tt));
-    if (d > 0.f) {
-      fit = fminf(fit, fit_ratio(av, d));
-      kcap = fminf(kcap, cap_ratio(av, tt, thr, d));
-    }
-  };
-  if constexpr (RU == 16) {
-    const float4* a4 = reinterpret_cast<const float4*>(avail + (size_t)n * 16);
-    const float4* t4 = reinterpret_cast<const float4*>(total + (size_t)n * 16);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 av = a4[q], tv = t4[q];
-      column(4 * q + 0, av.x, tv.x);
-      column(4 * q + 1, av.y, tv.y);
-      column(4 * q + 2, av.z, tv.z);
-      column(4 * q + 3, av.w, tv.w);
-    }
-  } else {
-    const float* a = avail + (size_t)n * R;
-    const float* t = total + (size_t)n * R;
-    for (int r = 0; r < R; ++r) column(r, a[r], t[r]);
-  }
-  fit_out = alive[n] ? clip_fit(fit) : 0;
-  cap_out = util < thr ? clip_cap(kcap) : -1;
-  bkt_out = score_bucket(util, thr, over_denom);
-}
-
-// Phase 2: the final per-node cap, min(threshold cap or equal share, fit,
-// remaining), and the per-bucket totals of the caps (tot[b] = {lo, hi}).
-// Each thread sums runs of one bucket and flushes on a change; the last run
-// is summed over the warp when every lane with something to add agrees on it.
-__device__ __forceinline__ void bucket_totals(int* __restrict__ cap_s,
-                                              const int* __restrict__ fit_s,
-                                              const uint8_t* __restrict__ bkt_s, int N,
-                                              long long share, int remaining,
-                                              unsigned (*tot)[2]) {
-  const int tid = threadIdx.x;
-  int run_b = -1;
-  long long run = 0;
-  for (int n = tid; n < N; n += blockDim.x) {
-    const int ct = cap_s[n];
-    long long cap = ct >= 0 ? (long long)ct : share;
-    cap = min(cap, (long long)fit_s[n]);
-    cap = min(cap, (long long)remaining);
-    cap_s[n] = (int)cap;
-    if (cap > 0) {
-      const int b = bkt_s[n];
-      if (b != run_b) {
-        if (run > 0) shared_add_u64(&tot[run_b][0], &tot[run_b][1], run);
-        run_b = b;
-        run = 0;
-      }
-      run += cap;
-    }
-  }
-  const int lane = tid & 31;
-  const unsigned busy = __ballot_sync(kFull, run > 0);
-  const int b0 = busy ? __shfl_sync(kFull, run_b, __ffs(busy) - 1) : -1;
-  if (__all_sync(kFull, run == 0 || run_b == b0)) {
-    const long long w = warp_sum(run);
-    if (lane == 0 && w > 0) shared_add_u64(&tot[b0][0], &tot[b0][1], w);
-  } else if (run > 0) {
-    shared_add_u64(&tot[run_b][0], &tot[run_b][1], run);
-  }
-}
-
-// Phase 3: the prefix fill in (bucket, node index) order over this block's
-// nodes, each thread owning the contiguous range [lo, hi) so that a block
-// scan gives node order. off[b] is the count placed before this block's
-// first node of bucket b; only buckets with local caps (tot) and an offset
-// below `remaining` can take anything, and off[] never decreases. Adds take
-// to assigned_row and debits the node's row: max(avail - take*d, 0).
-template <int RU>
-__device__ __forceinline__ void fill_by_bucket(float* __restrict__ avail,
-                                               int* __restrict__ assigned_row,
-                                               const int* __restrict__ cap_s,
-                                               const uint8_t* __restrict__ bkt_s, int lo,
-                                               int hi, unsigned (*tot)[2], const long long* off,
-                                               int remaining, long long* s_warp,
-                                               const float* s_d, int R) {
-  for (int b = 0; b < kBuckets; ++b) {
-    if (shared_u64(&tot[b][0], &tot[b][1]) == 0ull) continue;
-    const long long ob = off[b];
-    if (ob >= remaining) break;
-    long long local = 0;
-    for (int n = lo; n < hi; ++n)
-      if (bkt_s[n] == b) local += cap_s[n];
-    long long prev = ob + block_exclusive_scan(local, s_warp);
-    for (int n = lo; n < hi; ++n) {
-      if (bkt_s[n] != b) continue;
-      const long long cap = cap_s[n];
-      long long take = (long long)remaining - prev;
-      take = take < 0 ? 0 : (take > cap ? cap : take);
-      prev += cap;
-      if (take > 0) {
-        assigned_row[n] += (int)take;
-        const float tf = (float)take;
-        if constexpr (RU == 16) {
-          float4* a4 = reinterpret_cast<float4*>(avail + (size_t)n * 16);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            float4 v = a4[q];
-            v.x = debit(v.x, tf, s_d[4 * q + 0]);
-            v.y = debit(v.y, tf, s_d[4 * q + 1]);
-            v.z = debit(v.z, tf, s_d[4 * q + 2]);
-            v.w = debit(v.w, tf, s_d[4 * q + 3]);
-            a4[q] = v;
-          }
-        } else {
-          float* a = avail + (size_t)n * R;
-          for (int r = 0; r < R; ++r) a[r] = debit(a[r], tf, s_d[r]);
-        }
-      }
-    }
-  }
-}
-
-// numpy clamps every node's availability at 0 on the first pass that places
-// anything (avail = max(avail - take*d, 0) over all nodes); after that no
-// entry can go negative again, so each kernel runs this sweep once
-__device__ __forceinline__ void clamp_at_zero(float* __restrict__ a, size_t n) {
-  for (size_t i = threadIdx.x; i < n; i += blockDim.x)
-    if (a[i] < 0.f) a[i] = 0.f;
-}
-
-// bytes of K7's per-node scratch (fit, cap: int32; bucket: uint8), 16-aligned
-__host__ __device__ size_t k7_scratch_bytes(int N) { return ((size_t)N * 9 + 15) & ~(size_t)15; }
-constexpr size_t kK7MaxDynSmem = 200 * 1024;
-
-// K7's per-node scratch of one block: in shared memory (SMEM) or at `words`
-// in global memory.
-template <bool SMEM>
-__device__ __forceinline__ void node_scratch(unsigned char* s_dyn, int* words, int N,
-                                             int*& fit_s, int*& cap_s, uint8_t*& bkt_s) {
-  int* base = SMEM ? reinterpret_cast<int*>(s_dyn) : words;
-  fit_s = base;
-  cap_s = base + N;
-  bkt_s = reinterpret_cast<uint8_t*>(base + 2 * (size_t)N);
-}
-
 // ---------------------------------------------------------------------------
-// K7's exchanges between the blocks of its cluster, each called by one whole
-// warp after a cluster barrier, reading the peers' shared memory (DSMEM):
-//  - the feasible count (JAX's psum, kernel_shard.py:105): lane q reads
-//    block q's count, and the warp sums them;
-//  - the per-bucket totals (JAX's all_gather, :75, and the recomposition,
-//    :76-91): lane l reads buckets 2l and 2l + 1 (exact int64 as {lo, hi}
-//    words, one 16-byte load) from every block and forms the shard prefix
-//    (the totals of the ranks before this one) and the global bucket
-//    totals, whose exclusive scan over the lanes gives the bucket offsets;
-//    the offset for bucket b is global offset + shard prefix, and the
-//    placed total (JAX's psum, :117) is min(remaining, the sum of the
-//    global totals), which every block forms from the same exchange.
-// Every block reaches the same n_feasible and total, so all take the same
-// branches and arrive at every cluster barrier. The exchanged values are
-// double-buffered by the parity of the pass: a block rewrites pass k's
-// buffers (for pass k + 2) only after pass k + 1's first barrier, which
-// every peer reaches after reading them.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ int cluster_sum(cg::cluster_group& cluster, int* slot, int P) {
-  const int lane = threadIdx.x & 31;
-  const int v = lane < P ? *cluster.map_shared_rank(slot, lane) : 0;
-  return __reduce_add_sync(kFull, v);
-}
-
-template <int MAXP>
-__device__ __forceinline__ void cluster_bucket_offsets(cg::cluster_group& cluster,
-                                                       unsigned (*tot)[2], int P, int rank,
-                                                       long long* off, long long* total) {
-  const int lane = threadIdx.x & 31;
-  long long all0 = 0, all1 = 0, before0 = 0, before1 = 0;
-#pragma unroll
-  for (int q = 0; q < MAXP; ++q) {
-    if (q < P) {
-      const uint4 v = *cluster.map_shared_rank(reinterpret_cast<uint4*>(&tot[2 * lane][0]), q);
-      const long long v0 = (long long)(((unsigned long long)v.y << 32) | v.x);
-      const long long v1 = (long long)(((unsigned long long)v.w << 32) | v.z);
-      all0 += v0;
-      all1 += v1;
-      before0 += q < rank ? v0 : 0;
-      before1 += q < rank ? v1 : 0;
-    }
-  }
-  const long long pair = all0 + all1;
-  long long incl = pair;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const long long y = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += y;
-  }
-  off[2 * lane] = incl - pair + before0;
-  off[2 * lane + 1] = incl - pair + all0 + before1;
-  if (lane == 31) *total = incl;
-}
-
-// ---------------------------------------------------------------------------
-// K1's exchanges push instead: a block writes what its peers need into their
+// K1's exchanges are pushed: a block writes what its peers need into their
 // shared memory with st.async, which adds the bytes it wrote to the
 // receiver's mbarrier (complete_tx); the receiver arms the mbarrier for the
 // bytes it expects from every block (expect_tx) and waits on it, then reads
 // its own shared memory only. One one-way trip a peer, no read after the
-// barrier: on the card, K1's two exchanges done K7's way (a cluster barrier,
-// then reads of the peers) took ~73 % of a pass (profile_sched.py k1,
-// PERF.md).
+// barrier: on the card, K1's two exchanges done by pulling (a cluster
+// barrier, then reads of the peers, as K7's first kernel did) took ~73 % of
+// a pass (profile_sched.py k1, PERF.md). With one block (K7 at p = 1) every
+// st.async goes to the block itself and completes its own mbarrier.
 // A wait that never completes (a block that skipped an exchange, or a wrong
 // byte count) traps after ~2^28 polls instead of hanging the card.
 // ---------------------------------------------------------------------------
@@ -506,7 +269,7 @@ __device__ __forceinline__ void st_async(uint32_t dst, uint4 v, uint32_t bar) {
 // ---------------------------------------------------------------------------
 // K1: one scheduling round, classes in order, <= max_passes passes each, on
 // one thread-block cluster of P = 16 blocks (8 where the card has no room
-// for 16).
+// for 16). The kernel reads P from the cluster: K7 runs it on p blocks.
 //
 // Bound on this card: the round is a chain of dependent passes (class c
 // sees the availability class c-1 left; pass p sees pass p-1's): 257 at the
@@ -555,8 +318,9 @@ __device__ __forceinline__ void st_async(uint32_t dst, uint4 v, uint32_t bar) {
 //    the block's feasible count and then its 64 bucket totals to block q
 //    (exact int64, each warp's sums kept in a row of its own, so no
 //    atomics); each block then forms n_feasible, and 64 threads the offsets
-//    and the placed total as K7 does (global prefix over buckets + the
-//    totals of the ranks before it), from its own shared memory.
+//    and the placed total as JAX's sharded round does (global prefix over
+//    buckets + the totals of the ranks before it), from its own shared
+//    memory.
 // A pass is then one sweep over ~40 nodes a warp, one sweep over the caps
 // and two exchanges. Every block takes the same branches: the class order,
 // n_feasible and the placed total are the same in every block.
@@ -565,9 +329,7 @@ __device__ __forceinline__ void st_async(uint32_t dst, uint4 v, uint32_t bar) {
 // (pad_problem asserts it).
 // ---------------------------------------------------------------------------
 constexpr int kK1Threads = 512;
-constexpr int kK1Warps = kK1Threads / 32;
 constexpr int kK1MaxCluster = 16;
-static_assert(kK1Warps >= kK1MaxCluster, "warp q sends the bucket totals to block q");
 constexpr int kK1CountWindow = 1024;          // class counts held in shared memory at a time
 constexpr size_t kK1SmemBudget = 200 * 1024;  // dynamic shared memory of one block
 constexpr uint8_t kTakeNone = 0, kTakeAll = 1, kTakePart = 2;
@@ -686,18 +448,20 @@ struct K1Fill {
 
 // One sweep over the warp's nodes [j0, j1): the fill (take, debit, the
 // cached utilization and bucket), or with `refresh` every node's
-// utilization and bucket; then phase 1 of the next pass's class. Returns
-// this lane's count of feasible nodes.
+// utilization and bucket; then phase 1 of the next pass's class. Two
+// 32-node segments a step: their fills in node order, then the next pass's
+// phase 1 of a lane's two nodes interleaved, so that their divisions are
+// independent (on the card 2-8 % faster than a segment a step, K1 and K7
+// alike; PERF.md). Returns this lane's count of feasible nodes.
 template <bool ROWS>
 __device__ int k1_sweep(const K1Nodes<ROWS>& v, int j0, int j1, const K1Fill& f, bool refresh,
                         bool next, const K1Class& nc, float thr, float over_denom) {
   const int lane = threadIdx.x & 31;
   int feas = 0;
   long long carry = f.base;
-#pragma unroll 2
-  for (int s = j0; s < j1; s += 32) {
-    const int j = s + lane;
-    const bool in = j < j1;
+  // the fill of node j (take, debit, the cached utilization and bucket), or
+  // with `refresh` its utilization and bucket; returns its utilization
+  auto fill_node = [&](int j, bool in) -> float {
     float util = in ? v.util[j] : 0.f;
     const float util0 = util;
     if (f.on) {
@@ -753,23 +517,46 @@ __device__ int k1_sweep(const K1Nodes<ROWS>& v, int j0, int j1, const K1Fill& f,
       v.util[j] = util;
       v.bkt[j] = score_bucket(util, thr, over_denom);
     }
-    if (next && in) {
-      int fit_i = 0, cap_t = -1;
-      if (v.alive[j]) {
-        float fit = kInfFit, kc = kInfFit;
-        const bool under = util < thr;
-        for (unsigned long long m = nc.pos; m; m &= m - 1) {
-          const int r = __ffsll((long long)m) - 1;
-          const float x = v.a(j, r), d = nc.d[r];
-          fit = fminf(fit, fit_ratio(x, d));
-          if (under) kc = fminf(kc, cap_ratio(x, v.t(j, r), thr, d));
+    return util;
+  };
+  // two segments a step: the fills in node order, then the next pass's
+  // phase 1 of both nodes of a lane interleaved, their divisions independent
+  for (int s = j0; s < j1; s += 64) {
+    const int ja = s + lane, jb = s + 32 + lane;
+    const bool ina = ja < j1, inb = jb < j1;
+    const float ua = fill_node(ja, ina);
+    const bool second = s + 32 < j1;  // the same in every lane
+    const float ub = second ? fill_node(jb, inb) : 0.f;
+    if (next) {
+      const bool la = ina && v.alive[ja], lb = inb && v.alive[jb];
+      const bool unda = ua < thr, undb = ub < thr;
+      float fa = kInfFit, ka = kInfFit, fb = kInfFit, kb = kInfFit;
+      for (unsigned long long m = nc.pos; m; m &= m - 1) {
+        const int r = __ffsll((long long)m) - 1;
+        const float d = nc.d[r];
+        if (la) {
+          const float x = v.a(ja, r);
+          fa = fminf(fa, fit_ratio(x, d));
+          if (unda) ka = fminf(ka, cap_ratio(x, v.t(ja, r), thr, d));
         }
-        fit_i = clip_fit(fit);
-        cap_t = under ? clip_cap(kc) : -1;
+        if (lb) {
+          const float x = v.a(jb, r);
+          fb = fminf(fb, fit_ratio(x, d));
+          if (undb) kb = fminf(kb, cap_ratio(x, v.t(jb, r), thr, d));
+        }
       }
-      v.fit[j] = fit_i;
-      v.cap[j] = cap_t;
-      feas += fit_i > 0;
+      if (ina) {
+        const int fit_i = la ? clip_fit(fa) : 0;
+        v.fit[ja] = fit_i;
+        v.cap[ja] = la && unda ? clip_cap(ka) : -1;
+        feas += fit_i > 0;
+      }
+      if (inb) {
+        const int fit_i = lb ? clip_fit(fb) : 0;
+        v.fit[jb] = fit_i;
+        v.cap[jb] = lb && undb ? clip_cap(kb) : -1;
+        feas += fit_i > 0;
+      }
     }
   }
   return feas;
@@ -809,21 +596,23 @@ __device__ void k1_caps(const K1Nodes<ROWS>& v, int j0, int j1, long long share,
   row[2 * lane + 1] = t1;
 }
 
-template <bool ROWS>
-__global__ void __launch_bounds__(kK1Threads, 1)
+template <bool ROWS, int THREADS>
+__global__ void __launch_bounds__(THREADS, 1)
 schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ total,
                         const uint8_t* __restrict__ alive, const float* __restrict__ demands,
                         const int* __restrict__ counts, int* __restrict__ assigned,
                         int* __restrict__ scratch, int N, int R, int C, int Nb, float thr,
                         float over_denom, int max_passes) {
+  constexpr int kWarps = THREADS / 32;
+  static_assert(kWarps >= kK1MaxCluster, "warp q sends the bucket totals to block q");
   cg::cluster_group cluster = cg::this_cluster();
   const int P = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int first = rank * Nb;
   const int nl = max(0, min(Nb, N - first));
   __shared__ float s_d[2][kMaxR];                  // two classes' demand rows
-  __shared__ int s_wfeas[kK1Warps];                // each warp's feasible count
-  __shared__ __align__(16) unsigned long long s_wtot[kK1Warps][kBuckets];  // each warp's totals
+  __shared__ int s_wfeas[kWarps];                // each warp's feasible count
+  __shared__ __align__(16) unsigned long long s_wtot[kWarps][kBuckets];  // each warp's totals
   __shared__ __align__(16) unsigned long long s_btot[kBuckets];            // the block's
   __shared__ int s_nfeas;                                                  // the cluster's
   __shared__ int s_feas_in[2][kK1MaxCluster];      // every block's count, by pass parity
@@ -872,21 +661,21 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
     mbar_arm(&s_bar_feas[1], feas_bytes);
     mbar_arm(&s_bar_tot, tot_bytes);
   }
-  for (int k = tid; k < kK1CountWindow && k < C; k += kK1Threads) s_cnt[k] = counts[k];
+  for (int k = tid; k < kK1CountWindow && k < C; k += THREADS) s_cnt[k] = counts[k];
   if (ROWS) {
     float* tt = v.av + (size_t)R * v.S;
-    for (int e = tid; e < nl * R; e += kK1Threads) {
+    for (int e = tid; e < nl * R; e += THREADS) {
       const int j = e / R, r = e - j * R;
       v.av[(size_t)r * v.S + j] = avail[(size_t)first * R + e];
       tt[(size_t)r * v.S + j] = total[(size_t)first * R + e];
     }
   }
-  for (int j = tid; j < nl; j += kK1Threads) v.alive[j] = alive[first + j];
+  for (int j = tid; j < nl; j += THREADS) v.alive[j] = alive[first + j];
   int w0 = 0;
   cluster.sync();  // every block resident, its mbarriers initialised and armed
 
   // warp w's nodes: [j0, j1), a whole number of 32-node segments
-  const int cw = 32 * ((Nb + 32 * kK1Warps - 1) / (32 * kK1Warps));
+  const int cw = 32 * ((Nb + 32 * kWarps - 1) / (32 * kWarps));
   const int j0 = min(warp * cw, nl), j1 = min(j0 + cw, nl);
   const int2 c0 = k1_next_class(-1, counts, C, s_cnt, w0);
   if (c0.x < C && max_passes > 0) {
@@ -915,7 +704,7 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
       __syncthreads();  // every warp's feasible count is in place
       if (warp < P && lane == 0) {  // warp q sends the block's count to block q
         int n = 0;
-        for (int w = 0; w < kK1Warps; ++w) n += s_wfeas[w];
+        for (int w = 0; w < kWarps; ++w) n += s_wfeas[w];
         st_async(peer_u32(&s_feas_in[buf][rank], warp), (unsigned)n,
                  peer_u32(&s_bar_feas[buf], warp));
       }
@@ -942,7 +731,7 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
         if (tid < kBuckets) {
           unsigned long long t = 0;
 #pragma unroll
-          for (int w = 0; w < kK1Warps; ++w) t += s_wtot[w][tid];
+          for (int w = 0; w < kWarps; ++w) t += s_wtot[w][tid];
           s_btot[tid] = t;
         }
         __syncthreads();
@@ -1039,7 +828,7 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
   }
   __syncthreads();
   if (ROWS) {
-    for (int e = tid; e < nl * R; e += kK1Threads) {
+    for (int e = tid; e < nl * R; e += THREADS) {
       const int j = e / R, r = e - j * R;
       avail[(size_t)first * R + e] = v.av[(size_t)r * v.S + j];
     }
@@ -1048,10 +837,10 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
   cluster.sync();  // no block exits while a peer's st.async to it may be in flight
 }
 
-template <bool ROWS>
+template <bool ROWS, int THREADS>
 cudaError_t k1_config(int P, size_t smem, cudaStream_t st, cudaLaunchConfig_t& cfg,
                       cudaLaunchAttribute& attr) {
-  auto kernel = schedule_classes_kernel<ROWS>;
+  auto kernel = schedule_classes_kernel<ROWS, THREADS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
@@ -1063,7 +852,7 @@ cudaError_t k1_config(int P, size_t smem, cudaStream_t st, cudaLaunchConfig_t& c
   attr.val.clusterDim.z = 1;
   cfg = {};
   cfg.gridDim = dim3((unsigned)P, 1, 1);
-  cfg.blockDim = dim3(kK1Threads, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = &attr;
@@ -1072,15 +861,15 @@ cudaError_t k1_config(int P, size_t smem, cudaStream_t st, cudaLaunchConfig_t& c
 }
 
 // Whether one cluster of P blocks of K1 with this plan fits on the card.
-template <bool ROWS>
+template <bool ROWS, int THREADS>
 cudaError_t k1_fits(int P, const K1Plan& pl, bool& fits) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = k1_config<ROWS>(P, pl.smem, nullptr, cfg, attr);
+  cudaError_t err = k1_config<ROWS, THREADS>(P, pl.smem, nullptr, cfg, attr);
   if (err != cudaSuccess) return err;
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)schedule_classes_kernel<ROWS>,
-                                       &cfg);
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, (const void*)schedule_classes_kernel<ROWS, THREADS>, &cfg);
   if (err != cudaSuccess) {  // this size is refused: the caller tries the next
     (void)cudaGetLastError();
     clusters = 0;
@@ -1089,186 +878,62 @@ cudaError_t k1_fits(int P, const K1Plan& pl, bool& fits) {
   return cudaSuccess;
 }
 
-template <bool ROWS>
+template <bool ROWS, int THREADS>
 cudaError_t launch_k1(cudaStream_t st, int P, const K1Plan& pl, float* avail,
                       const float* total, const uint8_t* alive, const float* demands,
                       const int* counts, int* assigned, int* scratch, int N, int R, int C,
                       float thr, float over_denom, int max_passes) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = k1_config<ROWS>(P, pl.smem, st, cfg, attr);
+  cudaError_t err = k1_config<ROWS, THREADS>(P, pl.smem, st, cfg, attr);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, schedule_classes_kernel<ROWS>, avail, total, alive, demands,
-                           counts, assigned, scratch, N, R, C, pl.Nb, thr, over_denom,
+  err = cudaLaunchKernelEx(&cfg, schedule_classes_kernel<ROWS, THREADS>, avail, total, alive,
+                           demands, counts, assigned, scratch, N, R, C, pl.Nb, thr, over_denom,
                            max_passes);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// K7: the round with the node axis split over P shards (P in 1, 2, 4, 8),
+// K7: the round with the node axis split over p shards (p in 1, 2, 4, 8),
 // replacing ray_tpu/sched/kernel_shard.py:54-196 (_fill_by_bucket_sharded,
-// _one_class_sharded, _sharded_body under shard_map). One launch of one
-// thread-block cluster of P blocks runs the whole round: block r plays
-// device r of the JAX mesh and owns nodes [r*N/P, (r+1)*N/P), on which it
-// runs the per-node steps above (node_terms, bucket_totals, fill_by_bucket).
-// The values that cross shards go through distributed shared memory under
-// cluster barriers (cluster_sum, cluster_bucket_offsets). A last barrier
-// keeps every block resident until its peers are done. Decisions and
-// availability equal K1's and kernel_np's exactly (exact int64 prefixes,
-// counts < 2**23).
+// _one_class_sharded, _sharded_body under shard_map). It is K1's kernel on
+// one cluster of p blocks: with N divisible by p, K1's layout (block r owns
+// nodes [r*N/p, (r+1)*N/p)) is the shard layout, and K1's two pushed
+// exchanges carry the JAX program's collectives: the feasible count (psum,
+// :105), every shard's 64 bucket totals (all_gather, :75), which each block
+// recomposes into its shard's global prefix (:75-91), and the placed total
+// (psum, :117). Decisions and availability equal K1's and kernel_np's
+// exactly.
 //
-// Bound on this card: the same latency-bound chain as K1; the bytes bound is
-// ~2*N*R*4 plus the [C, N] result, and each pass adds two cluster barriers.
-// Design: a simple, correct kernel first; each block keeps its per-node
-// scratch in shared memory and reads its rows of the view from L2 every
-// pass (K1 keeps them resident).
+// Bound on this card: K1's chain of passes. A block of p < 16 sweeps
+// 16 / p times K1's nodes a pass, so the sweeps, not the exchanges, grow
+// with fewer blocks. The rows stay in shared memory while a block's share
+// fits (k1_plan: p = 8 at 10k nodes and R = 16, 177.6 KB a block), else in
+// global memory (p <= 4 at 10k nodes). A block has K1's 512 threads with
+// the rows in shared memory and 1 024 with them in global memory, where
+// twice the warps hide twice the latency of the rows' loads: on an NVIDIA
+// H100 80GB HBM3 at 700 W, at the stream's first round, 1 024 threads took
+// p = 1, 2, 4 from 12.26, 6.51, 3.55 to 8.08, 4.78, 3.20 ms, and 512 kept
+// p = 8 at 1.61 where 1 024 took 1.91 (PERF.md).
+//
+// No fallback: where the card has no room for one cluster of p blocks the
+// entry point returns cudaErrorLaunchOutOfResources and launches nothing.
 // ---------------------------------------------------------------------------
-constexpr int kMaxShards = 8;
-constexpr int kK7Threads = 1024;
-
-template <int RU, bool SMEM>
-__global__ void __launch_bounds__(kK7Threads)
-schedule_classes_sharded_kernel(float* __restrict__ avail, const float* __restrict__ total,
-                                const uint8_t* __restrict__ alive,
-                                const float* __restrict__ demands,
-                                const int* __restrict__ counts, int* __restrict__ assigned,
-                                int* __restrict__ scratch, int N, int R, int C, float thr,
-                                float over_denom, int max_passes) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int P = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int Nl = N / P;
-  const size_t first = (size_t)rank * Nl;
-  __shared__ float s_d[kMaxR];
-  __shared__ __align__(16) unsigned s_tot[2][kBuckets][2];
-  __shared__ int s_nfeas[2];
-  __shared__ int s_nfeas_all;
-  __shared__ long long s_off[kBuckets];
-  __shared__ long long s_warp[32];
-  __shared__ long long s_total;
-  extern __shared__ __align__(16) unsigned char s_dyn[];
-
-  int *fit_s, *cap_s;
-  uint8_t* bkt_s;
-  node_scratch<SMEM>(s_dyn, scratch + rank * (k7_scratch_bytes(Nl) / 4), Nl, fit_s, cap_s,
-                     bkt_s);
-  float* av = avail + first * R;
-  const float* tt = total + first * R;
-  const uint8_t* al = alive + first;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int per = (Nl + nt - 1) / nt;
-  const int lo = min(tid * per, Nl);
-  const int hi = min(lo + per, Nl);
-  bool clamped = false;
-  unsigned pass = 0;  // passes begun over every class: the exchange buffer's parity
-
-  for (int c = 0; c < C; ++c) {
-    __syncthreads();
-    if (tid < R) s_d[tid] = demands[(size_t)c * R + tid];
-    __syncthreads();
-    int remaining = counts[c];
-    for (int p = 0; p < max_passes && remaining > 0; ++p) {
-      const int buf = pass++ & 1;
-      if (tid == 0) s_nfeas[buf] = 0;
-      if (tid < kBuckets) s_tot[buf][tid][0] = s_tot[buf][tid][1] = 0u;
-      __syncthreads();
-      K1_STAMP(t0);
-      int my_feas = 0;
-      for (int n = tid; n < Nl; n += nt) {
-        int fit_i, cap_t;
-        uint8_t b;
-        node_terms<RU>(av, tt, al, s_d, n, R, thr, over_denom, fit_i, cap_t, b);
-        fit_s[n] = fit_i;
-        cap_s[n] = cap_t;
-        bkt_s[n] = b;
-        my_feas += fit_i > 0;
-      }
-      block_sum_int(my_feas, &s_nfeas[buf]);
-      K1_STAMP(t1);
-      cluster.sync();  // every shard's feasible count is in place
-      if (tid < 32) {
-        const int sum = cluster_sum(cluster, &s_nfeas[buf], P);
-        if (tid == 0) s_nfeas_all = sum;
-      }
-      __syncthreads();
-      const int n_feasible = s_nfeas_all;
-      K1_STAMP(t2);
-      if (n_feasible == 0) break;  // uniform over the cluster: stalled
-      const long long share = ((long long)remaining + n_feasible - 1) / n_feasible;
-      bucket_totals(cap_s, fit_s, bkt_s, Nl, share, remaining, s_tot[buf]);
-      K1_STAMP(t3);
-      cluster.sync();  // every shard's bucket totals are in place
-      if (tid < 32) cluster_bucket_offsets<kMaxShards>(cluster, s_tot[buf], P, rank, s_off, &s_total);
-      __syncthreads();
-      const int got = (int)min((long long)remaining, s_total);
-      K1_STAMP(t4);
-      if (got == 0) break;  // uniform over the cluster: stalled
-      fill_by_bucket<RU>(av, assigned + (size_t)c * N + first, cap_s, bkt_s, lo, hi,
-                         s_tot[buf], s_off, remaining, s_warp, s_d, R);
-      K1_STAMP(t5);
-      remaining -= got;
-      if (!clamped) {
-        __syncthreads();
-        clamp_at_zero(av, (size_t)Nl * R);
-        clamped = true;
-      }
-      __syncthreads();
-      K7_PROFILE_PASS(rank, t0, t1, t2, t3, t4, t5)
-    }
-  }
-  cluster.sync();  // no block exits while a peer may still read its shared memory
-}
-
-template <int RU, bool SMEM>
-cudaError_t launch_k7(cudaStream_t st, int P, float* avail, const float* total,
-                      const uint8_t* alive, const float* demands, const int* counts,
-                      int* assigned, int* scratch, int N, int R, int C, float thr,
-                      float over_denom, int max_passes) {
-  void (*kernel)(float*, const float*, const uint8_t*, const float*, const int*, int*, int*,
-                 int, int, int, float, float, int) =
-      schedule_classes_sharded_kernel<RU, SMEM>;
-  const size_t smem = SMEM ? k7_scratch_bytes(N / P) : 0;
-  cudaError_t err;
-  if (SMEM) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = (unsigned)P;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)P, 1, 1);
-  cfg.blockDim = dim3(kK7Threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorLaunchOutOfResources;
-  err = cudaLaunchKernelEx(&cfg, kernel, avail, total, alive, demands, counts, assigned,
-                           scratch, N, R, C, thr, over_denom, max_passes);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
+constexpr int kK7ThreadsRows = 512;     // the rows in shared memory
+constexpr int kK7ThreadsGlobal = 1024;  // the rows in global memory
 
 // ---------------------------------------------------------------------------
-// K5/K6: the two-phase [C, N] rounds core (kernel_np.schedule_classes_rounds,
-// op for op), replacing ray_tpu/sched/kernel_jax.py:226 _rounds_core, :318
-// schedule_classes_rounds (K5: every class at once) and :370
-// schedule_classes_chunked (K6: chunks of 16 classes, the availability
-// carried from chunk to chunk). Each global round is phase A (fill the nodes
-// under the spread threshold up to it), then phase B (an equal share of the
-// rest over the feasible nodes). In a phase every class claims a prefix of
-// the nodes, in node order, up to its remaining count (want); then each
-// node trims the claims, classes in index order, against what the earlier
-// classes' claims use (take).
+// K6: the two-phase [C, N] rounds core (kernel_np.schedule_classes_rounds,
+// op for op), replacing ray_tpu/sched/kernel_jax.py:226 _rounds_core and
+// :370 schedule_classes_chunked (chunks of 16 classes, the availability
+// carried from chunk to chunk); K5 runs the same core as three kernels a
+// phase (below), which measured faster for every class at once. Each global
+// round is phase A (fill the nodes under the spread threshold up to it),
+// then phase B (an equal share of the rest over the feasible nodes). In a
+// phase every class claims a prefix of the nodes, in node order, up to its
+// remaining count (want); then each node trims the claims, classes in index
+// order, against what the earlier classes' claims use (take).
 //
 // Bound on this card: the latency of a chain of dependent steps, not bytes
 // or operations. The work is a few IEEE divisions per (class, node,
@@ -1276,7 +941,7 @@ cudaError_t launch_k7(cudaStream_t st, int P, float* avail, const float* total,
 // round), but each phase is a chain: the prefix along N needs every node's
 // cap, the trim needs the prefix, the next phase needs the debit; and a
 // launch a step costs ~10 us of launch and drain (profile_sched.py k5, k6;
-// PERF.md), 24 of them a call for K5 and 192 for K6.
+// PERF.md), 192 of them a call for K6 as three kernels a phase.
 //
 // Design: one launch a call, of one thread-block cluster of P = 16 blocks
 // (8 where the card has no room for 16) of 768 threads, which runs the
@@ -2070,7 +1735,7 @@ cudaError_t rounds_config(int P, size_t smem, cudaStream_t st, cudaLaunchConfig_
   return cudaSuccess;
 }
 
-// Whether one cluster of P blocks of K5/K6 with this plan fits on the card.
+// Whether one cluster of P blocks of K6 with this plan fits on the card.
 template <int AMAX, bool SMEM>
 cudaError_t rounds_fits(int P, const RoundsPlan& pl, bool& fits) {
   cudaLaunchConfig_t cfg;
@@ -2101,6 +1766,270 @@ cudaError_t launch_rounds(cudaStream_t st, int P, const RoundsPlan& pl, float* a
                            counts, mask, A, assigned, scratch, N, R, C, chunk, pl.Nb, pl.G, thr,
                            rounds);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+
+
+// ---------------------------------------------------------------------------
+// K5: the two-phase [C, N] rounds core for every class at once
+// (kernel_np.schedule_classes_rounds semantics, op for op), replacing
+// ray_tpu/sched/kernel_jax.py:318 schedule_classes_rounds (+ :226
+// _rounds_core, _sat_cumsum). Per global round, phase A (fill nodes under
+// the spread threshold up to it) then phase B (equal-share the rest over the
+// feasible nodes); each phase is three launches on one stream, no host sync:
+//   1. rounds_caps_kernel   one thread per node, a tile of classes per block:
+//                           the [C, N] cap matrix (A: min(fit, threshold
+//                           cap) x under-threshold mask; B: fit, and the
+//                           per-class count of feasible nodes);
+//   2. rounds_prefix_kernel one block per class: the saturating prefix fill
+//                           along N in node order -> want [C, N] (in place);
+//   3. rounds_trim_kernel   one thread per node, classes in index order: the
+//                           class-priority trim against the usage of earlier
+//                           classes -> take; assigned += take; the debit of
+//                           the node's row; per-class placed counts.
+// The prefix kernel of the next phase settles `remaining -= placed` first.
+//
+// Bound on this card: bytes. Every phase writes and reads the [C, N] f32
+// cap/want matrix twice (10 MB at 256 x 10k) and the trim reads it once
+// more, against a few hundred operations per cell; the round itself must
+// move only the [N, R] views and the [C, N] int32 result once. Design: the
+// per-node kernels keep the node's active columns in registers and read
+// the [C, N] scratch coalesced across a warp (row-major, one node per
+// lane); the per-class prefix is an exact int64 block scan, tile by tile.
+// With every class at once, 132 SMs share each launch's work; on one cluster
+// (the kernel above) the same call measured 1.6x slower (PERF.md), so K5
+// keeps these 24 launches a call at 4 rounds.
+//
+// Numerics (decisions bit-identical to kernel_np on integer-granular
+// problems): IEEE division, no contraction (--fmad=false plus explicit
+// __fmul_rn / __fadd_rn where numpy rounds a product before a sum), float
+// -> int conversions truncate. The saturating prefixes mirror the
+// reference literally: along N an exact int64 inclusive prefix clipped at
+// SAT, cast to float32, minus the element (when saturated that is NOT the
+// exclusive prefix); along C each column's usage want*d is rounded to
+// float32 and accumulated in double (kernel_np._sat_cumsum_f), clipped at
+// SAT, cast to float32, minus the element. The debit sums take*d in double
+// and rounds once (exact for integer-granular demands, like the
+// reference's float32 product).
+// ---------------------------------------------------------------------------
+constexpr int kNodeThreads = 128;     // per-node kernels of K5
+constexpr int kCapClassTile = 16;     // classes per block of the cap kernel
+constexpr int kPrefixThreads = 1024;
+
+// The active columns (bits of `mask`, lowest first) as AMAX register slots.
+template <int AMAX>
+__device__ __forceinline__ void active_columns(unsigned long long mask, int (&col)[AMAX]) {
+#pragma unroll
+  for (int j = 0; j < AMAX; ++j) {
+    col[j] = mask ? __ffsll((long long)mask) - 1 : 0;
+    mask &= mask - 1;
+  }
+}
+
+template <int AMAX, bool PHASE_A>
+__global__ void __launch_bounds__(kNodeThreads)
+rounds_caps_kernel(const float* __restrict__ avail, const float* __restrict__ total,
+                   const uint8_t* __restrict__ alive, const float* __restrict__ demands,
+                   unsigned long long mask, int A, int N, int R, int C, float thr,
+                   float* __restrict__ cap, int* __restrict__ n_feas) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = n < N;
+  int col[AMAX];
+  active_columns<AMAX>(mask, col);
+  float av[AMAX] = {}, head[AMAX] = {};
+  float alive_f = 0.f, under_f = 0.f;
+  if (in) {
+    const float* a = avail + (size_t)n * R;
+    const float* t = total + (size_t)n * R;
+    alive_f = alive[n] ? 1.f : 0.f;
+#pragma unroll
+    for (int j = 0; j < AMAX; ++j) {
+      if (j < A) {
+        av[j] = a[col[j]];
+        if (PHASE_A) {
+          const float tj = t[col[j]];
+          head[j] = __fsub_rn(__fmul_rn(thr, tj), __fsub_rn(tj, av[j]));
+        }
+      }
+    }
+    if (PHASE_A) {
+      // critical_util over every column, as kernel_np.critical_util
+      float util = __int_as_float(0xff800000);  // -inf
+      for (int r = 0; r < R; ++r) {
+        const float tt = t[r];
+        const float frac = tt > 0.f ? __fdiv_rn(__fsub_rn(tt, a[r]), fmaxf(tt, kEps)) : 0.f;
+        util = fmaxf(util, frac);
+      }
+      under_f = (util < thr ? 1.f : 0.f) * alive_f;
+    }
+  }
+  const int c1 = min((int)(blockIdx.y + 1) * kCapClassTile, C);
+  for (int c = blockIdx.y * kCapClassTile; c < c1; ++c) {
+    const float* d = demands + (size_t)c * R;
+    float fit = kInfFit, k = kInfFit;
+#pragma unroll
+    for (int j = 0; j < AMAX; ++j) {
+      if (j < A) {
+        const float dj = __ldg(d + col[j]);
+        if (dj > 0.f) {
+          const float dm = fmaxf(dj, kMinDemand);
+          fit = fminf(fit, floorf(__fdiv_rn(__fadd_rn(av[j], kEps), dm)));
+          if (PHASE_A) k = fminf(k, floorf(__fdiv_rn(__fadd_rn(head[j], kEps), dm)));
+        }
+      }
+    }
+    fit = __fmul_rn(fminf(fmaxf(fit, 0.f), kInfFit), alive_f);
+    float out = fit;
+    if (PHASE_A) {
+      // clip(k, 0, float32(INF_FIT) - 1) + 1; float32(2**30 - 1) == 2**30
+      k = __fadd_rn(fminf(fmaxf(k, 0.f), kInfFit), 1.f);
+      out = __fmul_rn(fminf(fit, k), under_f);
+    }
+    if (in) cap[(size_t)c * N + n] = out;
+    if (!PHASE_A) {
+      const unsigned feas = __ballot_sync(kFull, in && out > 0.f);
+      if ((threadIdx.x & 31) == 0 && feas) atomicAdd(&n_feas[c], __popc(feas));
+    }
+  }
+}
+
+// One block per class. Settles the previous phase's placements into
+// `remaining` (or loads the counts on the first phase), then turns the cap
+// row into the want row in place.
+template <bool PHASE_B>
+__global__ void __launch_bounds__(kPrefixThreads)
+rounds_prefix_kernel(float* __restrict__ cap, const int* __restrict__ counts,
+                     float* __restrict__ remaining, int* __restrict__ placed,
+                     int* __restrict__ n_feas, int N, int first) {
+  __shared__ long long s_warp[32];
+  __shared__ long long s_tile;
+  __shared__ float s_rem, s_share;
+  const int c = blockIdx.x;
+  if (threadIdx.x == 0) {
+    const float rem = first ? (float)counts[c] : __fsub_rn(remaining[c], (float)placed[c]);
+    remaining[c] = rem;
+    placed[c] = 0;
+    s_rem = rem;
+    if (PHASE_B) {
+      s_share = ceilf(__fdiv_rn(rem, fmaxf((float)n_feas[c], 1.f)));
+    } else {
+      n_feas[c] = 0;  // phase B's cap kernel counts into it
+    }
+  }
+  __syncthreads();
+  const float rem = s_rem;
+  const float satcap = fminf(rem, kSat);
+  float* row = cap + (size_t)c * N;
+  long long carry = 0;
+  for (int start = 0; start < N; start += blockDim.x) {
+    const int n = start + threadIdx.x;
+    float capc = 0.f;
+    if (n < N) {
+      float cp = row[n];
+      if (PHASE_B) cp = fminf(cp, s_share);
+      capc = fminf(cp, satcap);
+    }
+    const long long v = (long long)capc;
+    const long long ex = block_exclusive_scan(v, s_warp);
+    if (n < N) {
+      const long long incl = min(carry + ex + v, (long long)kSat);
+      const float prev = __fsub_rn((float)incl, capc);
+      row[n] = fminf(fmaxf(__fsub_rn(rem, prev), 0.f), capc);
+    }
+    if (threadIdx.x == blockDim.x - 1) s_tile = ex + v;
+    __syncthreads();
+    carry += s_tile;
+    __syncthreads();
+  }
+}
+
+template <int AMAX>
+__global__ void __launch_bounds__(kNodeThreads)
+rounds_trim_kernel(float* __restrict__ avail, const float* __restrict__ want,
+                   const float* __restrict__ demands, unsigned long long mask, int A, int N,
+                   int R, int C, int* __restrict__ assigned, int* __restrict__ placed) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = n < N;
+  int col[AMAX];
+  active_columns<AMAX>(mask, col);
+  float av[AMAX];
+  double acc[AMAX], use[AMAX];
+#pragma unroll
+  for (int j = 0; j < AMAX; ++j) {
+    av[j] = (in && j < A) ? avail[(size_t)n * R + col[j]] : 0.f;
+    acc[j] = 0.0;
+    use[j] = 0.0;
+  }
+  for (int c = 0; c < C; ++c) {
+    const float w = in ? want[(size_t)c * N + n] : 0.f;
+    int take_i = 0;
+    // want == 0 adds nothing to the usage prefixes and takes nothing
+    if (w > 0.f) {
+      const float* d = demands + (size_t)c * R;
+      float t = w;
+#pragma unroll
+      for (int j = 0; j < AMAX; ++j) {
+        if (j < A) {
+          const float dj = __ldg(d + col[j]);
+          if (dj > 0.f) {
+            const float u = __fmul_rn(w, dj);
+            acc[j] += (double)u;
+            const float prev = __fsub_rn((float)fmin(acc[j], (double)kSat), u);
+            const float head = __fsub_rn(av[j], prev);
+            const float fr =
+                floorf(__fdiv_rn(__fadd_rn(head, kEps), fmaxf(dj, kMinDemand)));
+            t = fminf(t, fminf(fmaxf(fr, 0.f), kSat));
+          }
+        }
+      }
+      t = fminf(fmaxf(t, 0.f), w);
+      take_i = (int)t;
+      if (take_i > 0) {
+        assigned[(size_t)c * N + n] += take_i;
+#pragma unroll
+        for (int j = 0; j < AMAX; ++j)
+          if (j < A) use[j] += (double)t * (double)__ldg(d + col[j]);
+      }
+    }
+    const int got = __reduce_add_sync(kFull, take_i);
+    if ((threadIdx.x & 31) == 0 && got) atomicAdd(&placed[c], got);
+  }
+  if (in) {
+    // avail = max(avail - usage, 0) over every column (inactive ones have
+    // zero usage but are clamped all the same, as the reference does)
+    float* a = avail + (size_t)n * R;
+#pragma unroll
+    for (int j = 0; j < AMAX; ++j)
+      if (j < A) a[col[j]] = __fsub_rn(av[j], (float)use[j]);
+    for (int r = 0; r < R; ++r) a[r] = fmaxf(a[r], 0.f);
+  }
+}
+
+template <int AMAX>
+cudaError_t launch_rounds_phases(cudaStream_t st, float* avail, const float* total,
+                                 const uint8_t* alive, const float* demands, const int* counts,
+                                 unsigned long long mask, int A, int* assigned, float* cap,
+                                 float* remaining, int* placed, int* n_feas, int N, int R,
+                                 int C, float thr, int rounds) {
+  const unsigned node_blocks = (unsigned)((N + kNodeThreads - 1) / kNodeThreads);
+  const dim3 cap_grid(node_blocks, (unsigned)((C + kCapClassTile - 1) / kCapClassTile));
+  for (int r = 0; r < rounds; ++r) {
+    rounds_caps_kernel<AMAX, true><<<cap_grid, kNodeThreads, 0, st>>>(
+        avail, total, alive, demands, mask, A, N, R, C, thr, cap, n_feas);
+    rounds_prefix_kernel<false><<<C, kPrefixThreads, 0, st>>>(cap, counts, remaining, placed,
+                                                              n_feas, N, r == 0);
+    rounds_trim_kernel<AMAX><<<node_blocks, kNodeThreads, 0, st>>>(
+        avail, cap, demands, mask, A, N, R, C, assigned, placed);
+    rounds_caps_kernel<AMAX, false><<<cap_grid, kNodeThreads, 0, st>>>(
+        avail, total, alive, demands, mask, A, N, R, C, thr, cap, n_feas);
+    rounds_prefix_kernel<true><<<C, kPrefixThreads, 0, st>>>(cap, counts, remaining, placed,
+                                                             n_feas, N, 0);
+    rounds_trim_kernel<AMAX><<<node_blocks, kNodeThreads, 0, st>>>(
+        avail, cap, demands, mask, A, N, R, C, assigned, placed);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 
@@ -2237,8 +2166,7 @@ void launch_write(int val_bytes, dim3 grid, cudaStream_t st, const int* x, long 
 extern "C" {
 
 #ifdef SCHED_K1_PROFILE
-// [16][6] (K1) and [8][7] (K7) cycle sums by block, as g_k1_profile and
-// g_k7_profile hold them
+// [16][6] cycle sums by block of K1 (and K7), as g_k1_profile holds them
 int sched_k1_profile(unsigned long long* out, int reset) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_k1_profile, sizeof(g_k1_profile));
   if (err == cudaSuccess && reset) {
@@ -2248,7 +2176,7 @@ int sched_k1_profile(unsigned long long* out, int reset) {
   return (int)err;
 }
 
-// [16][9] K5/K6 cycle sums by block, as g_rounds_profile holds them
+// [16][9] K6 cycle sums by block, as g_rounds_profile holds them
 int sched_rounds_profile(unsigned long long* out, int reset) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_rounds_profile, sizeof(g_rounds_profile));
   if (err == cudaSuccess && reset) {
@@ -2258,14 +2186,6 @@ int sched_rounds_profile(unsigned long long* out, int reset) {
   return (int)err;
 }
 
-int sched_k7_profile(unsigned long long* out, int reset) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, g_k7_profile, sizeof(g_k7_profile));
-  if (err == cudaSuccess && reset) {
-    static const unsigned long long zero[sizeof(g_k7_profile) / 8] = {};
-    err = cudaMemcpyToSymbol(g_k7_profile, zero, sizeof(zero));
-  }
-  return (int)err;
-}
 #endif
 
 const char* sched_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -2278,7 +2198,8 @@ int sched_k1_cluster_size(int N, int R, int* cluster) {
   for (const int P : sizes) {
     const K1Plan pl = k1_plan(N, R, P);
     bool fits = false;
-    const cudaError_t err = pl.rows ? k1_fits<true>(P, pl, fits) : k1_fits<false>(P, pl, fits);
+    const cudaError_t err = pl.rows ? k1_fits<true, kK1Threads>(P, pl, fits)
+                                    : k1_fits<false, kK1Threads>(P, pl, fits);
     if (err != cudaSuccess) return (int)err;
     if (fits) {
       *cluster = P;
@@ -2305,41 +2226,43 @@ int sched_schedule_classes(float* avail, const float* total, const uint8_t* aliv
   if (scratch_words < pl.scratch_words) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (pl.rows)
-    return (int)launch_k1<true>(st, P, pl, avail, total, alive, demands, counts, assigned,
-                                scratch, N, R, C, thr, over_denom, max_passes);
-  return (int)launch_k1<false>(st, P, pl, avail, total, alive, demands, counts, assigned,
-                               scratch, N, R, C, thr, over_denom, max_passes);
+    return (int)launch_k1<true, kK1Threads>(st, P, pl, avail, total, alive, demands, counts,
+                                            assigned, scratch, N, R, C, thr, over_denom,
+                                            max_passes);
+  return (int)launch_k1<false, kK1Threads>(st, P, pl, avail, total, alive, demands, counts,
+                                           assigned, scratch, N, R, C, thr, over_denom,
+                                           max_passes);
 }
 
-// K7 over a cluster of P blocks (P in 1, 2, 4, 8; N divisible by P).
+// K7: K1's kernel over one cluster of P blocks (P in 1, 2, 4, 8, 16; N
+// divisible by P) of kK7ThreadsRows or kK7ThreadsGlobal threads, by the row
+// form; `scratch` holds sched_k1_scratch_words(N, R, P) int32 words.
+// cudaErrorLaunchOutOfResources where one cluster of P blocks does not fit
+// on the card.
 int sched_schedule_classes_sharded(float* avail, const float* total, const uint8_t* alive,
                                    const float* demands, const int* counts, int* assigned,
-                                   int* scratch, int N, int R, int C, int P, float thr,
-                                   float over_denom, int max_passes, void* stream) {
+                                   int* scratch, long long scratch_words, int N, int R, int C,
+                                   int P, float thr, float over_denom, int max_passes,
+                                   void* stream) {
   if (R > kMaxR || R < 1) return (int)cudaErrorInvalidValue;
-  if (P < 1 || P > kMaxShards || (P & (P - 1)) != 0 || N % P != 0)
+  if (P < 1 || P > kK1MaxCluster || (P & (P - 1)) != 0 || N % P != 0)
     return (int)cudaErrorInvalidValue;
   if (C == 0 || N == 0) return (int)cudaGetLastError();
+  const K1Plan pl = k1_plan(N, R, P);
+  if (scratch_words < pl.scratch_words) return (int)cudaErrorInvalidValue;
+  bool fits = false;
+  const cudaError_t err = pl.rows ? k1_fits<true, kK7ThreadsRows>(P, pl, fits)
+                                  : k1_fits<false, kK7ThreadsGlobal>(P, pl, fits);
+  if (err != cudaSuccess) return (int)err;
+  if (!fits) return (int)cudaErrorLaunchOutOfResources;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool rows16 = R == 16 && (((uintptr_t)avail | (uintptr_t)total) & 15) == 0;
-  const bool smem = k7_scratch_bytes(N / P) <= kK7MaxDynSmem;
-  if (rows16 && smem)
-    return (int)launch_k7<16, true>(st, P, avail, total, alive, demands, counts, assigned,
-                                    scratch, N, R, C, thr, over_denom, max_passes);
-  if (rows16)
-    return (int)launch_k7<16, false>(st, P, avail, total, alive, demands, counts, assigned,
-                                     scratch, N, R, C, thr, over_denom, max_passes);
-  if (smem)
-    return (int)launch_k7<0, true>(st, P, avail, total, alive, demands, counts, assigned,
-                                   scratch, N, R, C, thr, over_denom, max_passes);
-  return (int)launch_k7<0, false>(st, P, avail, total, alive, demands, counts, assigned,
-                                  scratch, N, R, C, thr, over_denom, max_passes);
-}
-
-// int32 words of global scratch the K7 wrapper allocates: one shard's per
-// block
-long long sched_k7_scratch_words(int N, int P) {
-  return (long long)P * (long long)(k7_scratch_bytes(N / P) / 4);
+  if (pl.rows)
+    return (int)launch_k1<true, kK7ThreadsRows>(st, P, pl, avail, total, alive, demands,
+                                                counts, assigned, scratch, N, R, C, thr,
+                                                over_denom, max_passes);
+  return (int)launch_k1<false, kK7ThreadsGlobal>(st, P, pl, avail, total, alive, demands,
+                                                 counts, assigned, scratch, N, R, C, thr,
+                                                 over_denom, max_passes);
 }
 
 int sched_scatter_rows(float* avail, const int* idx, const float* rows, int pad, int N, int R,
@@ -2363,8 +2286,8 @@ int sched_delta_clip(float* out, const float* avail, const float* delta, const f
   return (int)cudaGetLastError();
 }
 
-// K5/K6's cluster size for N nodes of R columns, A of them active, C
-// classes in chunks of `chunk`: 16 where one cluster of 16 blocks fits on
+// K6's cluster size for N nodes of R columns, A of them active, C classes
+// in chunks of `chunk`: 16 where one cluster of 16 blocks fits on
 // the card, else 8 (written to *cluster).
 int sched_rounds_cluster_size(int N, int R, int A, int C, int chunk, int* cluster) {
   if (N < 1 || R < 1 || R > kMaxR || A < 0 || A > R || C < 1 || chunk < 1)
@@ -2387,12 +2310,12 @@ int sched_rounds_cluster_size(int N, int R, int A, int C, int chunk, int* cluste
   return (int)cudaErrorLaunchOutOfResources;
 }
 
-// int32 words of global scratch K5/K6 need over a cluster of P blocks
+// int32 words of global scratch K6 needs over a cluster of P blocks
 long long sched_rounds_scratch_words(int N, int A, int C, int chunk, int P) {
   return rounds_plan(N, A, C, chunk, P).scratch_words;
 }
 
-// K5 (chunk >= C) and K6 (chunk = 16) over one cluster of P blocks (16 or 8,
+// K6 (chunk = 16; any chunk >= 1) over one cluster of P blocks (16 or 8,
 // sched_rounds_cluster_size); `scratch` holds scratch_words int32 words.
 // `mask` has bit r set for each active resource column r (the columns any
 // class demands). Every cell of `assigned` [C, N] is written.
@@ -2413,6 +2336,27 @@ int sched_schedule_rounds(float* avail, const float* total, const uint8_t* alive
                                 : (pl.rows ? launch_rounds<0, true> : launch_rounds<0, false>);
   return (int)launch(st, P, pl, avail, total, alive, demands, counts, mask, A, assigned, scratch,
                      N, R, C, chunk, thr, rounds);
+}
+
+// K5: three kernels a phase (launch_rounds_phases), every class at once.
+// Scratch, allocated by the caller: cap [C, N] float32; remaining [C]
+// float32, placed and n_feas [C] int32. `mask` has bit r set for each
+// active resource column r (the columns any class demands); `assigned`
+// must be zeroed.
+int sched_schedule_rounds_phases(float* avail, const float* total, const uint8_t* alive,
+                                 const float* demands, const int* counts,
+                                 unsigned long long mask, int* assigned, float* cap,
+                                 float* remaining, int* placed, int* n_feas, int N, int R,
+                                 int C, float thr, int rounds, void* stream) {
+  if (R > kMaxR || R < 1 || rounds < 0) return (int)cudaErrorInvalidValue;
+  if (R < 64 && (mask >> R) != 0ull) return (int)cudaErrorInvalidValue;
+  if (C == 0 || N == 0 || rounds == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int A = __builtin_popcountll(mask);
+  auto launch = A <= 4 ? launch_rounds_phases<4>
+                       : (A <= 16 ? launch_rounds_phases<16> : launch_rounds_phases<kMaxR>);
+  return (int)launch(st, avail, total, alive, demands, counts, mask, A, assigned, cap,
+                     remaining, placed, n_feas, N, R, C, thr, rounds);
 }
 
 // tile_counts: n_tiles int32, tile_offsets: n_tiles + 1 int64, where

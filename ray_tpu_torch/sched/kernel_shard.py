@@ -14,11 +14,12 @@ few quantities that cross blocks ride collectives:
 
 Three forms of the same decomposition:
 
-  - K7, ``schedule_classes_sharded`` on CUDA tensors: one hand-written
-    kernel (csrc/sched_kernels.cu), one thread-block cluster of p blocks
-    (p in 1, 2, 4, 8), block r owning shard r; the collectives go through
-    distributed shared memory. On CPU tensors the wrapper runs the plain
-    version.
+  - K7, ``schedule_classes_sharded`` on CUDA tensors: K1's hand-written
+    kernel (csrc/sched_kernels.cu) on one thread-block cluster of p blocks
+    (p in 1, 2, 4, 8), block r owning shard r, in K1's layout
+    (kernel_torch.k1_plan with p blocks); the collectives are K1's
+    exchanges, pushed into the peers' shared memory. On CPU tensors the
+    wrapper runs the plain version.
   - the plain version, ``_schedule_classes_sharded_plain``: the shard axis
     written out in one process ([p, N/p, R]), the collectives a sum and a
     view over it.
@@ -52,6 +53,7 @@ from ray_tpu_torch.sched.kernel_torch import (
     _check,
     _pass_consts,
     _pass_terms,
+    k1_plan,
     resolve_device,
 )
 from ray_tpu_torch.util.device import current_stream as _stream
@@ -59,6 +61,16 @@ from ray_tpu_torch.util.device import device_of as _device_of
 
 #: shard counts K7 takes: the portable thread-block cluster sizes
 SHARDS = (1, 2, 4, 8)
+#: threads a block of K7's cluster with the rows in shared memory and in
+#: global memory (csrc/sched_kernels.cu kK7ThreadsRows, kK7ThreadsGlobal)
+K7_THREADS_ROWS = 512
+K7_THREADS_GLOBAL = 1024
+
+
+def k7_threads(n_nodes: int, n_res: int, shards: int) -> int:
+    """Threads a block of K7 for this shape: by k1_plan's row form."""
+    return K7_THREADS_ROWS if k1_plan(n_nodes, n_res, shards).rows_in_smem \
+        else K7_THREADS_GLOBAL
 
 
 def _check_problem(avail, total, alive, demands, counts, n_shards) -> None:
@@ -175,8 +187,10 @@ def _schedule_classes_sharded_plain(avail, total, alive, demands, counts,
 
 
 def _launch(avail, total, alive, demands, counts, spread_threshold, max_passes, shards):
-    """The CUDA launch of K7 on checked arguments: one cluster of `shards`
-    blocks on the current stream."""
+    """The CUDA launch of K7 on checked arguments: K1's kernel on one
+    cluster of `shards` blocks on the current stream, in k1_plan's layout.
+    Raises RuntimeError, naming the shard count, where the card has no room
+    for that cluster; it never takes another size."""
     dev = avail.device
     N, R = avail.shape
     C = demands.shape[0]
@@ -187,18 +201,18 @@ def _launch(avail, total, alive, demands, counts, spread_threshold, max_passes, 
     demands = demands.to(torch.float32).contiguous()
     counts = counts.to(torch.int32).contiguous()
     assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.sched_k7_scratch_words(N, shards), dtype=torch.int32,
-                          device=dev)
+    plan = k1_plan(N, R, shards)
+    scratch = torch.empty(max(plan.scratch_words, 1), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.sched_schedule_classes_sharded(
             new_avail.data_ptr(), total.data_ptr(), alive.data_ptr(),
             demands.data_ptr(), counts.data_ptr(), assigned.data_ptr(),
-            scratch.data_ptr(), N, R, C, shards,
+            scratch.data_ptr(), plan.scratch_words, N, R, C, shards,
             float(np.float32(spread_threshold)),
             float(np.float32(max(1e-6, 1.0 - spread_threshold))),
             int(max_passes), _stream(dev),
         )
-    _check(lib, rc, "schedule_classes_sharded")
+    _check(lib, rc, f"schedule_classes_sharded (a cluster of {shards} blocks)")
     return assigned, new_avail
 
 

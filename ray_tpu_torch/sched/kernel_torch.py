@@ -11,11 +11,11 @@ it, a plain PyTorch version of the same function:
   K3 delta_clip        clip(avail + delta, 0, total)
   K4 compact_nonzero   COO compaction of the [C, N] assignment for download
   K5 schedule_classes_rounds   the fully parallel two-phase [C, N] round
-                               (scheduler_kernel_algo="rounds"), on one
-                               thread-block cluster (rounds_plan)
+                               (scheduler_kernel_algo="rounds"), three
+                               kernels a phase (caps, prefix, trim)
   K6 schedule_classes_chunked  K5's core over chunks of 16 classes
-                               (scheduler_kernel_algo="chunked"), the same
-                               kernel
+                               (scheduler_kernel_algo="chunked"), on one
+                               thread-block cluster (rounds_plan)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback from one to the other.
@@ -571,7 +571,7 @@ def _schedule_classes_rounds_plain(avail, total, alive, demands, counts,
                               rounds, _active_columns(demands, active_idx))
 
 
-# K5/K6's launch shape (csrc/sched_kernels.cu rounds_plan, which this
+# K6's launch shape (csrc/sched_kernels.cu rounds_plan, which this
 # mirrors): one thread-block cluster of the first of ROUNDS_CLUSTER_SIZES the
 # card has room for; block r owns nodes [r*Nb, (r+1)*Nb), N padded up to a
 # multiple of the cluster with dead nodes; a block holds its nodes' state and
@@ -614,7 +614,7 @@ def rounds_exchange_bytes(cluster: int, group: int) -> int:
 
 def rounds_plan(n_nodes: int, n_active: int, n_classes: int, chunk: int,
                 cluster: int) -> RoundsPlan:
-    """K5/K6's layout for n_nodes nodes with n_active active columns and
+    """K6's layout for n_nodes nodes with n_active active columns and
     n_classes classes in chunks of `chunk`, over `cluster` blocks. The
     global scratch holds every block's copy of the classes' remaining
     counts and its placed partials ([cluster, C] each), then, when the node
@@ -634,7 +634,7 @@ _ROUNDS_CLUSTER = {}  # (device index, N, R, A, C, chunk) -> the cluster size th
 
 def rounds_launch_plan(n_nodes: int, n_res: int, n_active: int, n_classes: int, chunk: int,
                        device) -> RoundsPlan:
-    """The layout K5/K6 launch with on `device` (a CUDA device): the first of
+    """The layout K6 launches with on `device` (a CUDA device): the first of
     ROUNDS_CLUSTER_SIZES the card has room for, asked of the card once per
     shape."""
     dev = torch.device(device)
@@ -650,11 +650,9 @@ def rounds_launch_plan(n_nodes: int, n_res: int, n_active: int, n_classes: int, 
     return rounds_plan(n_nodes, n_active, n_classes, chunk, _ROUNDS_CLUSTER[key])
 
 
-def _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk,
-                   rounds, active_idx, kernel):
-    """The CUDA launch of K5 (chunk >= C) and K6: one kernel, one thread-block
-    cluster, on the current stream. Returns (assigned, avail, launched)."""
-    dev = avail.device
+def _rounds_args(avail, total, alive, demands, counts, chunk, rounds, kernel):
+    """K5's and K6's arguments checked: raises ValueError on a shape
+    mismatch or a bad chunk (K6) or round count."""
     N, R = avail.shape
     C = demands.shape[0]
     if total.shape != (N, R) or alive.shape != (N,) or demands.shape != (C, R) \
@@ -666,6 +664,17 @@ def _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk
         )
     if chunk < 1 or rounds < 0:
         raise ValueError(f"{kernel}: chunk={chunk} rounds={rounds}")
+
+
+def _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk,
+                   rounds, active_idx):
+    """The CUDA launch of K6: one kernel, one thread-block cluster, on the
+    current stream. Returns (assigned, avail, launched)."""
+    dev = avail.device
+    N, R = avail.shape
+    C = demands.shape[0]
+    kernel = "schedule_classes_chunked"
+    _rounds_args(avail, total, alive, demands, counts, chunk, rounds, kernel)
     active = _active_columns(demands, active_idx)
     new_avail = avail.to(torch.float32).contiguous().clone()
     if N == 0 or C == 0 or rounds == 0:
@@ -690,6 +699,42 @@ def _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk
     return assigned, new_avail, True
 
 
+def _launch_rounds_phases(avail, total, alive, demands, counts, spread_threshold, rounds,
+                          active_idx):
+    """The CUDA launch of K5: three kernels a phase, six a round, on the
+    current stream, after the zero fill of `assigned`. Returns (assigned,
+    avail, launched)."""
+    dev = avail.device
+    N, R = avail.shape
+    C = demands.shape[0]
+    _rounds_args(avail, total, alive, demands, counts, max(C, 1), rounds,
+                 "schedule_classes_rounds")
+    active = _active_columns(demands, active_idx)
+    new_avail = avail.to(torch.float32).contiguous().clone()
+    assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
+    if N == 0 or C == 0 or rounds == 0:
+        return assigned, new_avail, False
+    lib = _build.load()
+    total = total.to(torch.float32).contiguous()
+    alive_u8 = alive.to(torch.bool).contiguous()
+    demands = demands.to(torch.float32).contiguous()
+    counts = counts.to(torch.int32).contiguous()
+    cap = torch.empty((C, N), dtype=torch.float32, device=dev)
+    remaining = torch.empty(C, dtype=torch.float32, device=dev)
+    placed = torch.empty(C, dtype=torch.int32, device=dev)
+    n_feas = torch.empty(C, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.sched_schedule_rounds_phases(
+            new_avail.data_ptr(), total.data_ptr(), alive_u8.data_ptr(),
+            demands.data_ptr(), counts.data_ptr(), sum(1 << r for r in active),
+            assigned.data_ptr(), cap.data_ptr(), remaining.data_ptr(), placed.data_ptr(),
+            n_feas.data_ptr(), N, R, C, float(np.float32(spread_threshold)), int(rounds),
+            _stream(dev),
+        )
+    _check(lib, rc, "schedule_classes_rounds")
+    return assigned, new_avail, True
+
+
 def schedule_classes_rounds(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tensor,
                             demands: torch.Tensor, counts: torch.Tensor,
                             spread_threshold: float = DEFAULT_SPREAD_THRESHOLD,
@@ -698,14 +743,14 @@ def schedule_classes_rounds(avail: torch.Tensor, total: torch.Tensor, alive: tor
     kernel_np.schedule_classes_rounds (decisions bit-identical on integer-
     granular problems). active_idx: the resource columns any class demands
     (None: all). Same arguments and result as schedule_classes. One call
-    is one launch (none when rounds == 0 or the problem is empty)."""
+    enqueues the zero fill of the result and six kernels a round (none
+    when rounds == 0 or the problem is empty) and counts one launch."""
     dev = _device_of(avail, total, alive, demands, counts)
     if dev.type == "cpu":
         return _schedule_classes_rounds_plain(avail, total, alive, demands, counts,
                                               spread_threshold, rounds, active_idx)
-    assigned, new_avail, launched = _launch_rounds(
-        avail, total, alive, demands, counts, spread_threshold, max(demands.shape[0], 1),
-        rounds, active_idx, "schedule_classes_rounds")
+    assigned, new_avail, launched = _launch_rounds_phases(
+        avail, total, alive, demands, counts, spread_threshold, rounds, active_idx)
     schedule_classes_rounds.launches += launched
     return assigned, new_avail
 
@@ -719,14 +764,13 @@ def schedule_classes_chunked(avail: torch.Tensor, total: torch.Tensor, alive: to
                              chunk: int = 16, rounds: int = 2, active_idx=None):
     """K6. K5's core over `chunk` classes at a time, the availability carried
     from chunk to chunk (kernel_np.schedule_classes_chunked). One call is one
-    launch, whatever the number of chunks."""
+    launch of one thread-block cluster, whatever the number of chunks."""
     dev = _device_of(avail, total, alive, demands, counts)
     if dev.type == "cpu":
         return _schedule_classes_chunked_plain(avail, total, alive, demands, counts,
                                                spread_threshold, chunk, rounds, active_idx)
     assigned, new_avail, launched = _launch_rounds(
-        avail, total, alive, demands, counts, spread_threshold, chunk, rounds, active_idx,
-        "schedule_classes_chunked")
+        avail, total, alive, demands, counts, spread_threshold, chunk, rounds, active_idx)
     schedule_classes_chunked.launches += launched
     return assigned, new_avail
 

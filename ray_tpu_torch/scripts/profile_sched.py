@@ -5,7 +5,7 @@
     python -m ray_tpu_torch.scripts.profile_sched k5
     python -m ray_tpu_torch.scripts.profile_sched k6
     python -m ray_tpu_torch.scripts.profile_sched stream
-    python -m ray_tpu_torch.scripts.profile_sched rounds_ab DIR [DIR ...]
+    python -m ray_tpu_torch.scripts.profile_sched ab DIR [DIR ...]
 
 ``k1``: builds the kernels with ``-DSCHED_K1_PROFILE`` (thread 0 of every
 block sums clock64 cycles per pass phase) and runs K1 at the stream
@@ -17,31 +17,32 @@ barrier, the peers' bucket totals, offsets and take modes), the fill with
 the next pass's phase 1, and the tail; and the slowest block, the one with
 the most cycles outside the exchanges (the others wait for it there).
 
-``k7``: the same build and problems through K7 (kernel_shard) for 1, 2, 4
-and 8 blocks a cluster: every block's cycles per pass for phase 1,
-exchange 1 (the cluster barrier and the feasible counts), phase 2,
-exchange 2 (the barrier, the peers' bucket totals and the offsets), phase
-3 and the tail, and the slowest block.
+``k7``: the same build and problems through K7 (kernel_shard), which runs
+K1's kernel on a cluster of 1, 2, 4 and 8 blocks: K1's phases for every
+block of each cluster, and the slowest block.
 
 ``k5``, ``k6``: the same build; K5 (4 rounds) or K6 (chunks of 16, 2
 rounds) at the stream's first round as TorchScheduler calls them (padded to
 256 classes, the demanded columns active): under torch.profiler, one call's
 kernels summed by name (launches, device ms) and the gaps between its
-launches; and every block's cycles by phase (caps; the feasible-count
-exchange; totals: phase B's equal-share caps and the segments' and block's
-totals; the totals exchange; want, the prefix taken a warp a segment, and
-the trim; the debit at a phase's end; the placed-count exchange), with the
-tiles each block ran and skipped.
+launches; and, for K6's cluster kernel, every block's cycles by phase
+(caps; the feasible-count exchange; totals: phase B's equal-share caps and
+the segments' and block's totals; the totals exchange; want, the prefix
+taken a warp a segment, and the trim; the debit at a phase's end; the
+placed-count exchange), with the tiles each block ran and skipped (K5's
+three kernels a phase stamp nothing).
 
 ``stream``: runs chip_smoke.py's 1M-task stream (phase 2) under
 torch.profiler and reports the device's busy and idle share of the
 stream's wall time and device time by kernel name.
 
-``rounds_ab``: K5 and K6 at the stream's first round from each of the
-given checkouts of this repo, in turns (the trees in order, then in reverse),
-each run a process of its own that builds that tree's kernels: whether each
-equals its plain version, and the CUDA-event medians of three sets of 11
-calls (chip_smoke.time_ms). For comparing versions of the kernel on one card.
+``ab``: K5, K6 and K7 (p = 1, 2, 4, 8, without the wrapper's checks) at
+the stream's first round, and K10a' at the train step's [16 384, 512] in
+bf16 and f32, from each of the given checkouts of this repo, in turns (the
+trees in order, then in reverse), each run a process of its own that builds
+that tree's kernels: whether each equals its plain version (K7: K1), and
+the CUDA-event medians of three sets of calls (chip_smoke.time_ms). For
+comparing versions of the kernels on one card.
 
 Each prints one JSON line; the problems come from chip_smoke.py (seeded).
 """
@@ -62,22 +63,27 @@ def _need_cuda():
         sys.exit(2)
 
 
-def _profile_phases(kernel: str, fields, exchanges, calls) -> dict:
-    """Run each of `calls` (label -> (fn(args), blocks(args))) at the stream
-    problem's two shapes in the -DSCHED_K1_PROFILE build, reading
-    `kernel`'s cycle sums by block (`fields` phase names, then the pass
-    count; `exchanges` the fields that wait for the peers) around one
-    timed call."""
+#: the phases of a pass of K1's kernel (K1, and K7 on p blocks)
+K1_PHASES = ("exchange1", "sweep", "exchange2", "fill_next", "tail")
+
+
+def _profile_phases(calls) -> dict:
+    """Run each of `calls` (label -> (fn(args), blocks(args))), each a launch
+    of K1's kernel, at the stream problem's two shapes in the
+    -DSCHED_K1_PROFILE build, reading its cycle sums by block (K1_PHASES,
+    then the pass count; the exchanges wait for the peers) around one timed
+    call."""
     import ctypes
 
     import chip_smoke
     from ray_tpu_torch.sched import _build, kernel_torch as KT
 
     lib = _build.load(extra_flags=("-DSCHED_K1_PROFILE",))
-    read = getattr(lib, f"sched_{kernel}_profile")
+    read = lib.sched_k1_profile
     read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     read.restype = ctypes.c_int
-    rows = 16 if kernel == "k1" else 8  # blocks the profile array holds
+    rows = 16  # blocks the profile array holds
+    fields, exchanges = K1_PHASES, ("exchange1", "exchange2")
     width = len(fields) + 1
     dev = torch.device("cuda", 0)
     total, alive_all, demands, counts = chip_smoke.build_stream_problem(
@@ -103,7 +109,7 @@ def _profile_phases(kernel: str, fields, exchanges, calls) -> dict:
             e.record()
             torch.cuda.synchronize()
             if read(buf, 1) != 0:
-                raise RuntimeError(f"reading the {kernel} profile failed")
+                raise RuntimeError("reading the K1 profile failed")
             nblocks = blocks(args)
             by_block = []
             for r in range(nblocks):
@@ -129,8 +135,6 @@ def profile_k1() -> dict:
     from ray_tpu_torch.sched import kernel_torch as KT
 
     return _profile_phases(
-        "k1", ("exchange1", "sweep", "exchange2", "fill_next", "tail"),
-        ("exchange1", "exchange2"),
         {"": (lambda a: KT.schedule_classes(*a),
               lambda a: KT.k1_launch_plan(*a[0].shape, a[0].device).cluster)})
 
@@ -139,14 +143,12 @@ def profile_k7() -> dict:
     from ray_tpu_torch.sched import kernel_shard as KS
 
     return _profile_phases(
-        "k7", ("phase1", "exchange1", "phase2", "exchange2", "phase3", "tail"),
-        ("exchange1", "exchange2"),
         {f"_p{p}": ((lambda a, p=p: KS.schedule_classes_sharded(*a, shards=p)),
                     (lambda a, p=p: p))
          for p in KS.SHARDS})
 
 
-#: the phases of K5/K6 that the profile build stamps, in its order
+#: the phases of K6 that the profile build stamps, in its order
 ROUNDS_PHASES = ("caps", "count_exchange", "totals", "totals_exchange", "want_trim",
                  "debit", "placed_exchange")
 
@@ -185,7 +187,7 @@ def profile_rounds(which: str) -> dict:
     run()  # warm
     torch.cuda.synchronize()
     if reader(buf, 1) != 0:  # reset
-        raise RuntimeError("resetting the K5/K6 profile failed")
+        raise RuntimeError("resetting the K6 profile failed")
     s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         s.record()
@@ -211,7 +213,7 @@ def profile_rounds(which: str) -> dict:
         "note": "the -DSCHED_K1_PROFILE build (stamps cost some cycles where present)",
     }
     if reader(buf, 1) != 0:
-        raise RuntimeError("reading the K5/K6 profile failed")
+        raise RuntimeError("reading the K6 profile failed")
     blocks = []
     for r in range(16):
         row = buf[r * width:(r + 1) * width]
@@ -230,15 +232,17 @@ def profile_rounds(which: str) -> dict:
     return out
 
 
-# Run in a tree's root by rounds_ab, with only what every version of the
-# port has: chip_smoke.stream_first_round and time_ms, kernel_torch's K5/K6
-# and their plain versions.
-_ROUNDS_AB = """
+# Run in a tree's root by `ab`, with only what every version of the port
+# has: chip_smoke.stream_first_round and time_ms, kernel_torch's K5/K6 and
+# their plain versions, kernel_shard._launch (K7 without the wrapper's
+# checks) and the model kernels' rmsnorm_bwd (K10a') and its plain version.
+_AB = """
 import json, sys
 sys.path.insert(0, ".")
 import numpy as np, torch
 import chip_smoke as CS
-from ray_tpu_torch.sched import kernel_torch as KT
+from ray_tpu_torch.sched import kernel_shard as KS, kernel_torch as KT
+from ray_tpu_torch.models import kernels as MK
 dev = torch.device("cuda", 0)
 avail, total, alive, demands, counts = CS.stream_first_round()
 d, k = KT.pad_problem(demands, counts, KT.bucket_size(len(demands)))
@@ -254,21 +258,39 @@ for name, fn, plain, kw in (
     a_p, v_p = plain(*args, **kw)
     out[name + "_exact"] = bool(torch.equal(a, a_p) and torch.equal(v, v_p))
     out[name + "_ms"] = [CS.time_ms(torch, lambda: fn(*args, **kw), reps=11) for _ in range(3)]
+k1_a, k1_v = KT.schedule_classes(*args)
+thr, passes = KT.DEFAULT_SPREAD_THRESHOLD, KT.MAX_PASSES
+for p in KS.SHARDS:
+    a, v = KS._launch(*args, thr, passes, p)
+    out[f"k7_p{p}_exact"] = bool(torch.equal(a, k1_a) and torch.equal(v, k1_v))
+    out[f"k7_p{p}_ms"] = [CS.time_ms(torch, lambda: KS._launch(*args, thr, passes, p))
+                          for _ in range(3)]
+g = torch.Generator().manual_seed(9)
+for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    x = (torch.randn((16384, 512), generator=g) * 3.0).to(dev, dt)
+    dy = torch.randn((16384, 512), generator=g).to(dev, dt)
+    sc = torch.randn((512,), generator=g).to(dev)
+    dx, ds = MK.rmsnorm_bwd(x, sc, dy)
+    pdx, pds = MK._rmsnorm_bwd_plain(x, sc, dy)
+    out[f"k10a_bwd_{name}_max_abs_err"] = [float((dx.double() - pdx.double()).abs().max()),
+                                           float((ds.double() - pds.double()).abs().max())]
+    out[f"k10a_bwd_{name}_ms"] = [CS.time_ms(torch, lambda: MK.rmsnorm_bwd(x, sc, dy), reps=21)
+                                  for _ in range(3)]
 print(json.dumps(out))
 """
 
 
-def rounds_ab(trees) -> dict:
-    """K5/K6 from each tree in turns, forward then backward."""
+def ab(trees) -> dict:
+    """K5, K6, K7 and K10a' from each tree in turns, forward then backward."""
     import os
     import subprocess
 
     runs = []
     for tree in list(trees) + list(reversed(trees)):
-        res = subprocess.run([sys.executable, "-c", _ROUNDS_AB], cwd=os.path.abspath(tree),
+        res = subprocess.run([sys.executable, "-c", _AB], cwd=os.path.abspath(tree),
                              capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
-            raise RuntimeError(f"rounds_ab {tree}: {res.stderr[-2000:]}")
+            raise RuntimeError(f"ab {tree}: {res.stderr[-2000:]}")
         runs.append({"tree": tree, **json.loads(res.stdout.strip().splitlines()[-1])})
     return {"runs": runs}
 
@@ -329,8 +351,8 @@ def main(argv) -> int:
         res = profile_rounds(what)
     elif what == "stream":
         res = profile_stream()
-    elif what == "rounds_ab" and len(argv) > 2:
-        res = rounds_ab(argv[2:])
+    elif what == "ab" and len(argv) > 2:
+        res = ab(argv[2:])
     else:
         print(__doc__, file=sys.stderr)
         return 2

@@ -267,3 +267,30 @@ def test_cuda_backward_kernels_equal_plain_and_are_deterministic(Dh):
         _assert_kernel_close(got, K._rope_split_bwd_plain(dq, dk, dv, 10000.0), "rope_split_bwd")
         assert torch.equal(got, K.rope_split_bwd(dq, dk, dv, 10000.0))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 512, 1024, 4096])
+@pytest.mark.parametrize("td", [torch.float32, torch.bfloat16])
+def test_cuda_rmsnorm_bwd_one_launch_equals_plain_and_is_deterministic(td, D):
+    """On the card: K10a' (one cooperative launch; chip_smoke.py phase 9a
+    counts its kernels) at rows {1, 63, 64, 65, 131, 16 384, 16 385} (a
+    warp's row, a block's 8 and their ragged edges, the train step's rows
+    and one more) against its plain version within the bound above, in the
+    register form (D <= 1 024) and the looped one (D = 4 096); a second
+    launch gives the same bits. dscale is compared in the dtype it was
+    rounded to: in bf16 a float32 sum taken in another order may round to
+    the neighbouring bf16 value."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(D)
+    for rows in (1, 63, 64, 65, 131, 16_384, 16_385):
+        x = torch.from_numpy(rng.standard_normal((rows, D)).astype(np.float32) * 3).to(dev, td)
+        dy = torch.from_numpy(rng.standard_normal((rows, D)).astype(np.float32)).to(dev, td)
+        s = torch.from_numpy(rng.standard_normal(D).astype(np.float32)).to(dev)
+        got = K.rmsnorm_bwd(x, s, dy)
+        again = K.rmsnorm_bwd(x, s, dy)
+        for name, g, w, a in zip(("dx", "dscale"), got, K._rmsnorm_bwd_plain(x, s, dy), again):
+            assert torch.equal(g, a), f"{name} rows={rows} D={D}"
+            _assert_kernel_close(g.to(td), w.to(td), f"rmsnorm_bwd {name} rows={rows} D={D}")

@@ -599,12 +599,14 @@ def _wide_problem(seed, N, C, n_res, n_active):
 
 @pytest.mark.cuda
 def test_cuda_k5_k6_cluster_edges_equal_plain_and_numpy():
-    """On the card, K5 and K6 at the cluster layout's edges: node state in
-    shared and in global memory, A = 1, 4 and 17 active columns, counts near
-    2**23, negative entries, padded classes, C and N not multiples of 16,
-    rounds 1: assignments and availability exactly the plain versions' and
-    kernel_np's, two launches bit-equal, one launch a call, and the C entry
-    point's scratch words those of rounds_plan."""
+    """On the card, K5 and K6 at K6's cluster layout's edges: node state in
+    shared and in global memory, A = 1, 4, 8 and 17 active columns (K5's
+    three kernels in their 4-, 16- and 64-column register forms), counts
+    near 2**23, negative entries, padded classes, C and N not multiples of
+    16, rounds 1: assignments and availability exactly the plain versions'
+    and kernel_np's, two launches bit-equal, one counted launch a call
+    (chip_smoke.py phase 1 counts K5's kernels: its zero fill and six a
+    round), and the C entry point's scratch words those of rounds_plan."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
     dev = torch.device("cuda")
@@ -613,6 +615,7 @@ def test_cuda_k5_k6_cluster_edges_equal_plain_and_numpy():
     problems += [
         ("a1", *_wide_problem(1, 3001, 40, 16, 1)),
         ("a4", *_wide_problem(2, 10_007, 64, 16, 4)),
+        ("a8", *_wide_problem(5, 2000, 40, 16, 8)),
         ("a17_global", *_wide_problem(3, 10_000, 24, 20, 17)),
         ("n40000_global", *_wide_problem(4, 40_000, 32, 16, 3)),
     ]
@@ -641,7 +644,9 @@ def test_cuda_k5_k6_cluster_edges_equal_plain_and_numpy():
             assert torch.equal(a_k, a_p) and torch.equal(v_k, v_p), what
             np.testing.assert_array_equal(a_k.cpu().numpy(), a_n, err_msg=what)
             np.testing.assert_array_equal(v_k.cpu().numpy(), v_n, err_msg=what)
-            chunk = kw.get("chunk", len(counts))
+            if kern is KT.schedule_classes_rounds:
+                continue
+            chunk = kw["chunk"]
             plan = KT.rounds_launch_plan(N, n_res, len(active), len(counts), chunk, dev)
             forms.add(plan.rows_in_smem)
             for p in KT.ROUNDS_CLUSTER_SIZES:

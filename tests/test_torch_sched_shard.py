@@ -214,6 +214,76 @@ def test_saturation_near_2_pow_23():
         np.testing.assert_array_equal(th_v, jx_v)
 
 
+def straddle_problem(N=8192):
+    """One bucket holds every node under the threshold (a threshold cap of
+    3 each: 2 CPUs to the threshold, plus one) and every seventh node sits
+    above it (the equal share); the first class's count ends inside bucket
+    0 at its 5 001st node, which lies past block 0 for p >= 2; the second
+    class spills over the higher buckets."""
+    total = np.zeros((N, R), np.float32)
+    total[:, 0] = 4.0
+    total[:, 3] = 64.0
+    alive = np.ones(N, bool)
+    alive[3::101] = False
+    avail = total.copy()
+    avail[::7, 3] = 16.0  # 75 % used: at or above the threshold
+    avail *= alive[:, None]
+    demands = np.zeros((2, R), np.float32)
+    demands[0, 0] = 1.0
+    demands[1, 0] = 1.0
+    demands[1, 3] = 2.0
+    counts = np.array([3 * 5000 + 1, 6000], np.int32)
+    return avail, total, alive, demands, counts
+
+
+def _straddle_node(avail, total, alive, counts):
+    """The node in which the first pass of class 0 ends, in the fill's
+    (bucket, node) order: bucket 0's nodes in node order, a cap of 3 each."""
+    under = np.flatnonzero(alive & (avail[:, 3] > 32.0))
+    return int(under[(int(counts[0]) - 1) // 3])
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+def test_straddle_in_a_later_block_equals_kernel_np(p):
+    """The bucket that straddles the count lies in a block other than 0
+    (for p >= 2): the plain K7 equals kernel_np there (the card holds the
+    kernel to the same problem in the `cuda` test below)."""
+    avail, total, alive, demands, counts = straddle_problem()
+    n = _straddle_node(avail, total, alive, counts)
+    if p > 1:
+        assert n // (len(total) // p) > 0
+    th_a, th_v = _port(p, avail, total, alive, demands, counts)
+    np_a, np_v = _np_refs(avail, total, alive, demands, counts)
+    np.testing.assert_array_equal(th_a, np_a)
+    np.testing.assert_array_equal(th_v, np_v)
+    assert th_a[0, n] == 1 and th_a[0, :n].sum() == 3 * 5000 and th_a[1].sum() == 6000
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+def test_k7_layout_is_k1_plan_at_p_blocks(p):
+    """K7 launches K1's kernel on p blocks in k1_plan's layout: with N
+    divisible by p a block's nodes are one shard, and the row form is the
+    one k1_plan picks, which the C entry point computes the same way (held
+    to it on the card): the rows in shared memory at the stream's 10 000
+    nodes for p = 8 and in global memory below, in global memory at 40 000
+    nodes for every p."""
+    for n in (10_000, 40_000, 8192, 128):
+        plan = KT.k1_plan(n, R, p)
+        assert plan.cluster == p and plan.nodes_per_block * p == n
+        assert plan.rows_in_smem == (KT.k1_block_bytes(n // p, R, True) <= KT.K1_SMEM_BUDGET)
+        assert (plan.scratch_words == 0) == plan.rows_in_smem
+        if not plan.rows_in_smem:
+            assert plan.scratch_words == p * KT.k1_block_bytes(n // p, R, False) // 4
+    assert KT.k1_plan(10_000, R, p).rows_in_smem == (p == 8)
+    assert not KT.k1_plan(40_000, R, p).rows_in_smem
+    assert KT.k1_plan(8192, R, p).rows_in_smem == (p == 8)
+    src = KT._build.LIBRARY.src.read_text()
+    assert f"constexpr int kK7ThreadsRows = {KS.K7_THREADS_ROWS};" in src
+    assert f"constexpr int kK7ThreadsGlobal = {KS.K7_THREADS_GLOBAL};" in src
+    assert KS.k7_threads(10_000, R, p) == (512 if p == 8 else 1024)
+    assert f"constexpr size_t kK1SmemBudget = {KT.K1_SMEM_BUDGET // 1024} * 1024;" in src
+
+
 def _args(N=16, C=3):
     avail, total, alive, demands, counts = dryrun_problem(1)
     return [T(x) for x in (avail[:N], total[:N], alive[:N], demands[:C], counts[:C])]
@@ -348,3 +418,62 @@ def test_k7_equals_plain_k1_and_numpy_on_card():
             assert torch.equal(a_k, k1_a) and torch.equal(v_k, k1_v), p
             np.testing.assert_array_equal(a_k.cpu().numpy(), np_a)
             np.testing.assert_array_equal(v_k.cpu().numpy(), np_v)
+
+
+def _big_problem(seed=4, N=40_000, C=32):
+    """40 000 nodes: K7's rows in global memory at every shard count."""
+    total, alive, demands, counts = _problem(np.random.default_rng(seed), N, C, dense=True)
+    return (total * alive[:, None]).astype(np.float32), total, alive, demands, counts * 60
+
+
+@pytest.mark.cuda
+def test_cuda_k7_global_rows_and_a_later_straddle_equal_plain_k1_and_numpy():
+    """On the card: K7 (K1's kernel on p blocks) for every shard count on a
+    40 000-node problem (the rows in global memory at every p) and on
+    straddle_problem (the bucket that straddles the count in a block other
+    than 0), equal to its plain version, K1 and kernel_np, two launches
+    bit-equal; the C entry point's scratch words those of k1_plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    lib = KT._build.load()
+    for avail, total, alive, demands, counts in (_big_problem(), straddle_problem()):
+        N = len(total)
+        args = [T(x).to(dev) for x in (avail, total, alive, demands, counts)]
+        k1_a, k1_v = KT.schedule_classes(*args)
+        np_a, np_v = kernel_np.schedule_classes(avail.copy(), total, alive, demands, counts)
+        for p in KS.SHARDS:
+            assert lib.sched_k1_scratch_words(N, R, p) == KT.k1_plan(N, R, p).scratch_words
+            a_k, v_k = KS.schedule_classes_sharded(*args, shards=p)
+            a_2, v_2 = KS.schedule_classes_sharded(*args, shards=p)
+            a_p, v_p = KS._schedule_classes_sharded_plain(*args, shards=p)
+            assert torch.equal(a_k, a_2) and torch.equal(v_k, v_2), (N, p)
+            assert torch.equal(a_k, a_p) and torch.equal(v_k, v_p), (N, p)
+            assert torch.equal(a_k, k1_a) and torch.equal(v_k, k1_v), (N, p)
+            np.testing.assert_array_equal(a_k.cpu().numpy(), np_a)
+            np.testing.assert_array_equal(v_k.cpu().numpy(), np_v)
+        assert np_a.sum() > 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_k7_one_block_exchanges_with_itself():
+    """On the card, K7 at p = 1: every st.async of both exchanges goes to
+    the block itself and must complete its own mbarrier's byte count, pass
+    after pass (a wait that never completes traps, and the launch fails).
+    Many passes a class, rows in shared and in global memory, equal to K1
+    and kernel_np."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    total, alive, demands, counts = _problem(np.random.default_rng(21), 1024, 64)
+    small = ((total * alive[:, None]).astype(np.float32), total, alive, demands, counts * 30)
+    for avail, total, alive, demands, counts in (small, straddle_problem(), _big_problem(5)):
+        assert KT.k1_plan(len(total), R, 1).rows_in_smem == (len(total) == 1024)
+        args = [T(x).to(dev) for x in (avail, total, alive, demands, counts)]
+        a_k, v_k = KS.schedule_classes_sharded(*args, shards=1)
+        torch.cuda.synchronize()
+        k1_a, k1_v = KT.schedule_classes(*args)
+        assert torch.equal(a_k, k1_a) and torch.equal(v_k, k1_v)
+        np_a, _ = kernel_np.schedule_classes(avail.copy(), total, alive, demands, counts)
+        np.testing.assert_array_equal(a_k.cpu().numpy(), np_a)

@@ -16,12 +16,19 @@ caught):
    bucket edges; K5 (rounds) and K6 (chunked) on the rounds kernels' golden
    problems, the random problems, the stream problem and K1's layout edges
    (N = 10 007, N = 40 000 with the node state in global memory, R = 5, a
-   negative entry); torch.profiler counts the kernels a call enqueues: K6
+   negative entry); K4 (one cooperative launch) also at its edges: out[0, 0]
+   zero and not, a matrix of zeros, nonzeros only in the last block's
+   range, and [256, 40 000] (its looped form), two launches bit-equal;
+   torch.profiler counts the kernels a call enqueues: K6
    one launch of one thread-block cluster (its cluster size logged), K5
    its zero fill and three kernels a phase (caps, prefix, trim), 25 at 4
    rounds; any other count fails. K1, K5 and K6 are also held against the
    NumPy reference (kernel_np). Median device times of each kernel and its
-   plain version.
+   plain version. Right after phase 1, torch.profiler counts one kernel a
+   call of K4 at the stream's first round, of K10a' at the train step's
+   shapes in bf16 and f32, and of K10b at the forward's (the profiler
+   loses device records once a process has gone a minute without a
+   session; PERF.md).
 2. the 1M-task stream over 10k nodes (20% of the fleet held back, an
    autoscale flip, completions releasing resources) through
    TorchScheduler.schedule_async / fetch / apply_delta / update_rows, with
@@ -44,7 +51,8 @@ caught):
    forms), K10a and K10b against their plain versions at the forward's
    shapes, in bf16 and f32 (K8 with rounded probabilities in bf16 is the
    tensor-core kernel of attention_sm90.cu, its m and l checked too and a
-   second launch bit-equal; in f32 the CUDA-core one), with times, bounds
+   second launch bit-equal; in f32 the CUDA-core one; K10b in its rows
+   form, a second launch bit-equal), with times, bounds
    and the library yardsticks (scaled_dot_product_attention, rms_norm), the
    f32 CUDA-core K8's time beside the bf16 one; (b) make_forward_step on
    [8, 2048] tokens, finite logits, timed; (c) the model held by an actor
@@ -86,7 +94,7 @@ caught):
    versions at the train step's shapes in bf16 and f32 (K8' in bf16 on the
    tensor cores, in f32 on the CUDA cores, whose time is recorded beside
    it), each launched twice with the same bits (K10a' one kernel a call,
-   counted by torch.profiler after phase 1, in both dtypes), with times,
+   counted right after phase 1, in both dtypes), with times,
    bounds and the library
    yardsticks (the backward of scaled_dot_product_attention and of
    rms_norm); (b) make_train_state (seed 0) and make_train_step, 10 steps
@@ -105,8 +113,11 @@ caught):
    yardstick; (b) the layer from the main path's weights, 10 AdamW steps
    (lr 3e-4, weight decay 0.01) of the loss of
    tests/test_parallel.py::test_moe_grads_flow on x [8, 2048, 256] bf16,
-   timed by CUDA events and the host clock, the device's busy share under
-   torch.profiler, the loss falling; (c) an actor of ray_tpu_torch.init()
+   timed by CUDA events and the host clock, the loss falling, and the
+   device's busy share under torch.profiler over steps 8-10 as taken by
+   this script with --moe-busy-share in a process of its own that repeats
+   the steps (every expert kernel of the three recorded, or it fails); (c)
+   an actor of ray_tpu_torch.init()
    owning a layer from the same weights takes 4 steps: its losses and
    parameter checksum equal the direct run's bit for bit; (d) one step in
    both expert dtypes against the JAX package's golden
@@ -492,19 +503,52 @@ def phase1_kernels(torch, KT, KS, kernel_np, dev):
             for a, b in zip(KT.compact_nonzero(src, cap, *dts),
                             KT._compact_nonzero_plain(src, cap, *dts)):
                 err("compact_nonzero", a, b)
+    # the edges: out[0, 0] (the padding's value) zero and not, a matrix of
+    # zeros, nonzeros only in the last block's range, and [256, 40 000]
+    # (more chunks than resident blocks: the looped form)
+    rng4 = np.random.default_rng(4)
+    big = np.where(rng4.random((256, 40_000)) < 0.01, rng4.integers(1, 256, (256, 40_000)),
+                   0).astype(np.int32)
+    big[0, 0] = 9
+    corner = out.clone()
+    corner[0, 0] = 0 if int(out[0, 0]) else 3
+    tail = torch.zeros_like(out)
+    tail.view(-1)[-50:] = out.view(-1)[-50:] + 1
+    edges = {"corner": (corner, nnz), "zeros": (torch.zeros_like(out), 1024),
+             "last_block_only": (tail, 64), "n40000_looped": (T(big), 262_144)}
+    for name, (m, cap) in edges.items():
+        m = m.clamp(max=255)
+        for dts in ((torch.int16, torch.int16, torch.uint8),
+                    (torch.int32, torch.int32, torch.int32)):
+            for a, b in zip(KT.compact_nonzero(m, cap, *dts),
+                            KT._compact_nonzero_plain(m, cap, *dts)):
+                err("compact_nonzero", a, b)
+    blocks, per, looped = KT.k4_launch_plan(big.size, dev)
+    if not looped:
+        raise AssertionError("compact_nonzero [256, 40000]: not the looped form")
     # timed with the cap and dtypes the stream's first round uses
     cap = next(b for b in KT.TorchScheduler._NONZERO_BUCKETS if b >= int(first.sum()))
     vt = torch.uint8 if int(first.max()) < 256 else torch.int32
     dts = (torch.int16, torch.int16, vt)
     C_, N_ = out.shape
+    plan = KT.k4_launch_plan(C_ * N_, dev)
+    if plan[2]:
+        raise AssertionError(f"compact_nonzero [{C_}, {N_}]: the looped form ({plan})")
+    got = KT.compact_nonzero(out, cap, *dts)
+    if not all(torch.equal(a, b) for a, b in zip(got, KT.compact_nonzero(out, cap, *dts))):
+        raise AssertionError("compact_nonzero: two launches gave different bits")
     rec["compact_nonzero"].update(
         ms=time_ms(torch, lambda: KT.compact_nonzero(out, cap, *dts), reps=21),
         plain_ms=time_ms(torch, lambda: KT._compact_nonzero_plain(out, cap, *dts), reps=21),
         library_ms=time_ms(torch, lambda: torch.nonzero(out), reps=21),
         bound=bound(C_ * N_ * 4 + cap * (4 + (1 if vt == torch.uint8 else 4)), C_ * N_),
     )
+    rec["compact_nonzero"].update(blocks=plan[0])
     log(f"K4 compact_nonzero: [{C_}, {N_}] nnz={nnz}, caps "
-        f"{KT.TorchScheduler._NONZERO_BUCKETS} + edges, 4 dtype sets == plain")
+        f"{KT.TorchScheduler._NONZERO_BUCKETS} + edges, 4 dtype sets == plain; one "
+        f"cooperative launch of {plan[0]} blocks (a chunk each, in registers), two "
+        f"launches bit-equal; [256, 40000] looped: {blocks} blocks of {per} chunks; "
+        f"edges {sorted(edges)} == plain")
 
     phase1_rounds(torch, KT, kernel_np, dev, rec, err, problems + k1_edge_problems())
     for name, r in rec.items():
@@ -642,24 +686,38 @@ def kernels_enqueued(torch, fn):
     return [n for n in names if not n.startswith(("Memcpy", "Memset"))]
 
 
-def phase1_rmsnorm_bwd_kernels(torch, MK, dev, rows=16384, D=512):
-    """K10a' at the train step's shapes (phase 9a's, rows 16 384 x 512) in
-    bf16 and f32: the kernels one call enqueues, by torch.profiler (one, or
-    this fails). Run after phase 1: in this process torch.profiler records
-    no device activity after phase 5 (PERF.md)."""
+def phase1_kernels_a_call(torch, KT, MK, dev, rows=16384, D=512):
+    """The kernels one call enqueues, by torch.profiler (one, or this
+    fails): K4 at the stream's first round as TorchScheduler calls it, K10a'
+    at the train step's shapes (phase 9a's, rows 16 384 x 512) in bf16 and
+    f32, and K10b at the forward's [8, 2048, 1536] bf16. Run right after
+    phase 1: torch.profiler loses device records once a process has gone a
+    minute without a session, as it does across phases 2-5 (PERF.md)."""
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    avail, total, alive, demands, counts = stream_first_round()
+    d, k = KT.pad_problem(demands, counts, KT.bucket_size(len(demands)))
+    out = KT.schedule_classes(T(avail), T(total), T(alive), T(d), T(k))[0][: len(demands)]
+    cap = next(b for b in KT.TorchScheduler._NONZERO_BUCKETS if b >= int(counts.sum()))
+    vt = torch.uint8 if int(counts.max()) < 256 else torch.int32
     g = torch.Generator().manual_seed(9)
-    res = {}
+    calls = {"compact_nonzero": lambda: KT.compact_nonzero(out, cap, torch.int16,
+                                                           torch.int16, vt)}
     for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         x = (torch.randn((rows, D), generator=g) * 3.0).to(dev, dt)
         dy = torch.randn((rows, D), generator=g).to(dev, dt)
         sc = torch.randn((D,), generator=g).to(dev)
-        launched = kernels_enqueued(torch, lambda: MK.rmsnorm_bwd(x, sc, dy))
+        calls[f"rmsnorm_bwd {name}"] = lambda x=x, sc=sc, dy=dy: MK.rmsnorm_bwd(x, sc, dy)
+    qkv = torch.randn((8, 2048, 3 * D), generator=g).to(dev, torch.bfloat16)
+    calls["rope_split"] = lambda: MK.rope_split(qkv, 8, 1e4)
+    res = {}
+    for what, fn in calls.items():
+        launched = kernels_enqueued(torch, fn)
         if len(launched) != 1:
-            raise AssertionError(f"rmsnorm_bwd {name}: one call enqueued {len(launched)} "
-                                 f"kernels ({sorted(set(launched))}), not one")
-        res[f"kernels_a_call_{name}"] = len(launched)
-    log(f"rmsnorm_bwd [{rows}, {D}]: one kernel a call in bf16 and f32 "
-        f"({launched[0][:60]}...)")
+            raise AssertionError(f"{what}: one call enqueued {len(launched)} kernels "
+                                 f"({sorted(set(launched))}), not one")
+        name, _, dt = what.partition(" ")
+        res.setdefault(name, {})["kernels_a_call" + (f"_{dt}" if dt else "")] = 1
+        log(f"{what}: one kernel a call ({launched[0][:60]}...)")
     return res
 
 
@@ -1157,9 +1215,14 @@ def phase6a_model_kernels(torch, MK, dev, S=2048):
         x, scale = rnd((B * S, D), dt, 3.0), rnd((D,), torch.float32)
         check("rmsnorm", MK.rmsnorm(x, scale), MK._rmsnorm_plain(x, scale), names[dt])
         qkv = rnd((B, S, 3 * D), dt)
-        for part, a, b in zip("qkv", MK.rope_split(qkv, H, 1e4),
-                              MK._rope_split_plain(qkv, H, 1e4)):
+        if dev.type == "cuda" and MK.rope_split_form(qkv, H) != "rows":
+            raise AssertionError(f"rope_split {names[dt]}: not the rows form at the "
+                                 "forward's shapes")
+        got = MK.rope_split(qkv, H, 1e4)
+        for part, a, b in zip("qkv", got, MK._rope_split_plain(qkv, H, 1e4)):
             check("rope_split", a, b, f"{names[dt]} {part}")
+        if not all(torch.equal(a, b) for a, b in zip(got, MK.rope_split(qkv, H, 1e4))):
+            raise AssertionError(f"rope_split {names[dt]}: two launches gave different bits")
 
     bf = torch.bfloat16
     # K8, whole form, as the forward calls it: causal, [8, 2048, 8, 64] bf16,
@@ -2076,9 +2139,12 @@ def phase9d_train_checks(torch, PT, TT, dev):
 # tests/test_parallel.py:179 test_moe_grads_flow
 MOE_BWD_REPLACES = "ray_tpu/models/moe.py:57-116"
 MOE_GRAD_GOLDEN_PATH = os.path.join(HERE, "tests", "data", "moe_grad_golden.npz")
-MOE_TRAIN_STEPS = 10  # direct: step 1 warms up, 2-7 are timed, 8-10 profiled
+MOE_TRAIN_STEPS = 10  # direct: step 1 warms up, 2-7 timed; 8-10 profiled apart
 MOE_EVENT_STEPS = 7
 MOE_ACTOR_STEPS = 4
+# the expert kernels one train step launches once each (K9c' in its one-launch form)
+MOE_STEP_KERNELS = ("route_kernel", "dispatch_kernel", "combine_kernel", "route_bwd_kernel",
+                    "dispatch_bwd_kernel", "combine_bwd_fused_kernel")
 MOE_LR, MOE_WD = 3e-4, 0.01
 
 
@@ -2187,9 +2253,13 @@ def phase10a_moe_bwd_kernels(torch, PM, EK, dev):
     return rec
 
 
-def _busy_share(torch, fn, steps):
+def _busy_share(torch, fn, steps, each_step):
     """The device's busy share of a window of `steps` calls of fn() under
-    torch.profiler: kernel time over the window's host time."""
+    torch.profiler: kernel time over the window's host time. Raises unless
+    the profiler recorded every kernel named in `each_step` (CUDA symbols)
+    once a call: a window that lost device records would read low, or 0."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch.scripts.profile_model import device_ms_by_kernel
@@ -2201,6 +2271,12 @@ def _busy_share(torch, fn, steps):
             fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    seen = {k: sum(1 for n in names if re.search(rf"\b{k}\b", n)) for k in each_step}
+    if any(n != steps for n in seen.values()):
+        raise RuntimeError(f"torch.profiler recorded {seen} of the port's kernels in "
+                           f"{steps} calls (of {len(names)} device events), not {steps} each")
     return sum(device_ms_by_kernel(prof).values()) / window_ms
 
 
@@ -2217,30 +2293,39 @@ def _moe_train_step(torch, PM, model, x, tx, state):
     return loss.detach()
 
 
-def phase10b_moe_train(torch, PM, TT, dev, steps=MOE_TRAIN_STEPS):
-    """The expert layer's training path, called directly: the layer from
-    the main path's weights with requires_grad on, make_optimizer(3e-4,
-    0.01), `steps` steps on x [8, 2048, 256] bf16 (skew 1.0): step 1 warms
-    up, 2-7 are timed by CUDA events and by the host clock, 8-10 run under
-    torch.profiler for the device's busy share. The loss must be finite and
-    fall. The losses and a parameter checksum after MOE_ACTOR_STEPS steps
-    are kept for 10c."""
+def _moe_train_setup(torch, PM, TT, dev):
+    """Phase 10b's layer (the main path's weights, requires_grad on), its
+    tokens x [8, 2048, 256] bf16 requiring a gradient, AdamW and its state."""
     cfg, tree, _, x32 = _moe_layer(torch, PM, dev)
     model = PM.moe_params_from_numpy(tree, cfg, device=dev).requires_grad_(True)
     x = x32.to(torch.bfloat16).requires_grad_(True)
     tx = TT.make_optimizer(MOE_LR, MOE_WD)
-    state = tx.init(model)
+    return cfg, tree, x32, model, x, tx, tx.init(model)
+
+
+def phase10b_moe_train(torch, PM, TT, dev, steps=MOE_TRAIN_STEPS):
+    """The expert layer's training path, called directly: the layer from
+    the main path's weights with requires_grad on, make_optimizer(3e-4,
+    0.01), `steps` steps on x [8, 2048, 256] bf16 (skew 1.0): step 1 warms
+    up, 2-7 are timed by CUDA events and by the host clock. The device's
+    busy share over steps 8-10 comes from a process of its own that takes
+    the same steps (moe_busy_share_child): in this process torch.profiler
+    has gone minutes without a session and loses device records (PERF.md).
+    The loss must be finite and fall. The losses and a parameter checksum
+    after MOE_ACTOR_STEPS steps are kept for 10c."""
+    cfg, tree, x32, model, x, tx, state = _moe_train_setup(torch, PM, TT, dev)
     cuda = dev.type == "cuda"
     losses, ms, wall = [], [], []
-    checksum, busy = None, float("nan")
-    for i in range(MOE_EVENT_STEPS):  # step 1 warms up, then the timed ones
-        if cuda:
+    checksum = None
+    for i in range(steps):  # step 1 warms up, then the timed ones
+        timed = cuda and i < MOE_EVENT_STEPS
+        if timed:
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             sync(torch, dev)
             t0 = time.perf_counter()
             s.record()
         loss = _moe_train_step(torch, PM, model, x, tx, state)
-        if cuda:
+        if timed:
             e.record()
             e.synchronize()
             wall.append((time.perf_counter() - t0) * 1e3)
@@ -2248,16 +2333,9 @@ def phase10b_moe_train(torch, PM, TT, dev, steps=MOE_TRAIN_STEPS):
         losses.append(float(loss))
         if i + 1 == MOE_ACTOR_STEPS:
             checksum = PM.moe_weights_checksum(PM.moe_to_numpy(model))
-    profiled = []
-    n = steps - MOE_EVENT_STEPS
-    if cuda:
-        busy = _busy_share(torch, lambda: profiled.append(
-            _moe_train_step(torch, PM, model, x, tx, state)), n)
-    else:
-        profiled = [_moe_train_step(torch, PM, model, x, tx, state) for _ in range(n)]
-    losses += [float(loss) for loss in profiled]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"expert training: losses {losses} not finite or not falling")
+    busy = moe_busy_share_child() if cuda else float("nan")
     G, S, _ = MOE_SHAPE
     step_ms = float(np.median(ms[1:])) if cuda else float("nan")
     wall_ms = float(np.median(wall[1:])) if cuda else float("nan")
@@ -2271,6 +2349,35 @@ def phase10b_moe_train(torch, PM, TT, dev, steps=MOE_TRAIN_STEPS):
     log(f"phase 10b expert training: {json.dumps(res)}")
     return res, {"cfg": cfg, "tree": tree, "x32": x32, "x": x, "losses": losses,
                  "checksum": checksum, "dev": dev}
+
+
+BUSY_SHARE_ARG = "--moe-busy-share"
+
+
+def moe_busy_share_child() -> float:
+    """Phase 10b's busy share, taken by this script run with BUSY_SHARE_ARG
+    in a process of its own (moe_busy_share_main)."""
+    res = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"), BUSY_SHARE_ARG],
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"the busy-share process failed ({res.returncode}): "
+                           f"{res.stderr[-2000:]}")
+    return float(json.loads(res.stdout.strip().splitlines()[-1])["device_busy_share"])
+
+
+def moe_busy_share_main(torch, PM, TT) -> int:
+    """Steps 1-7 of phase 10b, then the device's busy share over steps 8-10
+    under torch.profiler, every expert kernel recorded once a step (or this
+    raises); prints it as the last line."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    _, _, _, model, x, tx, state = _moe_train_setup(torch, PM, TT, dev)
+    for _ in range(MOE_EVENT_STEPS):
+        _moe_train_step(torch, PM, model, x, tx, state)
+    busy = _busy_share(torch, lambda: _moe_train_step(torch, PM, model, x, tx, state),
+                       MOE_TRAIN_STEPS - MOE_EVENT_STEPS, MOE_STEP_KERNELS)
+    print(json.dumps({"device_busy_share": busy}), flush=True)
+    return 0
 
 
 def phase10c_moe_train_actor(torch, PM, TT, ctx, steps=MOE_ACTOR_STEPS):
@@ -2397,6 +2504,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if sys.argv[1:] == [BUSY_SHARE_ARG]:
+        from ray_tpu_torch.models import moe as PM
+        from ray_tpu_torch.parallel import tpu_train as TT
+
+        return moe_busy_share_main(torch, PM, TT)
     from ray_tpu_torch.core.config import Config
     from ray_tpu_torch.sched import _build, kernel_np, policy as policy_mod
     from ray_tpu_torch.sched import kernel_shard as KS, kernel_torch as KT
@@ -2420,7 +2532,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rec = phase1_kernels(torch, KT, KS, kernel_np, dev)
-    norm_bwd_kernels = phase1_rmsnorm_bwd_kernels(torch, MK, dev)
+    a_call = phase1_kernels_a_call(torch, KT, MK, dev)
+    rec["compact_nonzero"].update(a_call["compact_nonzero"])
     log(f"phase 1: {time.perf_counter() - t0:.1f} s")
 
     # the main path: counters from 0, read after phase 4
@@ -2461,6 +2574,7 @@ def main() -> int:
     # then the checks of what it gave, outside the counting window
     t0 = time.perf_counter()
     model_rec = phase6a_model_kernels(torch, MK, dev)
+    model_rec["rope_split"].update(a_call["rope_split"])
     log(f"phase 6a: {time.perf_counter() - t0:.1f} s")
     MK.reset_launch_counts()
     t0 = time.perf_counter()
@@ -2527,7 +2641,7 @@ def main() -> int:
     # counters from 0, then the golden, outside the counting window
     t0 = time.perf_counter()
     train_rec = phase9a_train_kernels(torch, MK, dev)
-    train_rec["rmsnorm_bwd"].update(norm_bwd_kernels)
+    train_rec["rmsnorm_bwd"].update(a_call["rmsnorm_bwd"])
     log(f"phase 9a: {time.perf_counter() - t0:.1f} s")
     MK.reset_launch_counts()
     t0 = time.perf_counter()

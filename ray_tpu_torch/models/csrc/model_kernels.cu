@@ -111,11 +111,20 @@
 //                           and k with the qkv split of _layer (:132-138):
 //                           qkv [B, S, 3D] -> q, k (rotated), v as
 //                           [B, S, H, Dh]. Bound by bytes (qkv read once,
-//                           q, k, v written once). Design: one block per
+//                           q, k, v written once). Two forms, picked by
+//                           model_rope_split from the shape and pointers.
+//                           Rows form (a half-head of whole 16-byte vectors,
+//                           pointers 16-byte aligned: the forward's shapes):
+//                           a block takes 8 (b, s) rows, computes each row's
+//                           cos and sin once into shared memory (frequency
+//                           and angle in f32 as the reference does, rounded
+//                           to x's dtype), then rotates 16-byte vectors of
+//                           x1 with their x2 partners for q and k and copies
+//                           v in 16-byte vectors. Scalar form (any other
+//                           even Dh, or a misaligned view): one block per
 //                           (b, s) row, one thread per (head, i < Dh/2)
-//                           pair, which computes its frequency and angle in
-//                           f32 as the reference does, rounds cos and sin to
-//                           x's dtype, and rotates the pair of q and of k.
+//                           pair computing its own cos and sin. The same
+//                           roundings in both, so the same bits.
 //   K10b' model_rope_split_bwd replaces the gradient of _rope and the split:
 //                           dq, dk, dv [B, S, H, Dh] -> dqkv [B, S, 3D] with
 //                           dx1 = round(round(dy2 sin) + round(dy1 cos)),
@@ -1122,6 +1131,129 @@ __global__ void __launch_bounds__(kRopeThreads) rope_split_kernel(
   }
 }
 
+// K10b's rows form, where a half-head is a whole number of 16-byte vectors
+// and every pointer is 16-byte aligned (model_rope_split picks it): a block
+// takes kRopeRows (b, s) rows. The rows' cos and sin, one per (row, i <
+// half), are computed once into shared memory with rope_cs_sn's f32
+// operations (8 times fewer than the scalar form, which computes them a
+// head), then each thread rotates a 16-byte vector of x1 with its partner
+// of x2 (8 bf16 or 4 f32 a load and a store) for q and k, and v is a
+// straight 16-byte copy. The same roundings as the scalar form, so the
+// same bits.
+constexpr int kRopeRows = 8;
+constexpr int kRopeMaxHalf = 256;  // the tables: 2 * 8 * 256 floats, 16 KB
+
+template <int DT>
+struct RopeVec {
+  static constexpr int n = DT == kBF16 ? 8 : 4;  // elements a 16-byte vector
+};
+
+template <int DT>
+__device__ __forceinline__ void load16(const void* p, long long i, float (&f)[RopeVec<DT>::n]) {
+  if constexpr (DT == kBF16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(reinterpret_cast<const __nv_bfloat16*>(p) + i);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 t = __bfloat1622float2(h[j]);
+      f[2 * j] = t.x;
+      f[2 * j + 1] = t.y;
+    }
+  } else {
+    const float4 u = *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(p) + i);
+    f[0] = u.x;
+    f[1] = u.y;
+    f[2] = u.z;
+    f[3] = u.w;
+  }
+}
+
+template <int DT>
+__device__ __forceinline__ void store16(void* p, long long i, const float (&f)[RopeVec<DT>::n]) {
+  if constexpr (DT == kBF16) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+    *reinterpret_cast<uint4*>(reinterpret_cast<__nv_bfloat16*>(p) + i) = u;
+  } else {
+    *reinterpret_cast<float4*>(reinterpret_cast<float*>(p) + i) =
+        make_float4(f[0], f[1], f[2], f[3]);
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kRopeThreads) rope_split_rows_kernel(
+    const void* qkv, void* q, void* k, void* v, int rows, int S, int H, int Dh,
+    float neg_log_theta) {
+  constexpr int VE = RopeVec<DT>::n;
+  extern __shared__ float s_rope[];  // cos [kRopeRows][half], then sin
+  const int half = Dh / 2;
+  const int D = H * Dh;
+  const int row0 = blockIdx.x * kRopeRows;
+  const int n_rows = min(kRopeRows, rows - row0);
+  float* s_cs = s_rope;
+  float* s_sn = s_rope + kRopeRows * half;
+  for (int t = threadIdx.x; t < n_rows * half; t += kRopeThreads) {
+    const int r = t / half;
+    rope_cs_sn((float)((row0 + r) % S), t - r * half, half, neg_log_theta, DT, s_cs[t],
+               s_sn[t]);
+  }
+  __syncthreads();
+  const int hv = half / VE;     // vectors a half-head
+  const int per_sec = H * hv;   // rotation items of q (or k) a row
+  for (int t = threadIdx.x; t < n_rows * 2 * per_sec; t += kRopeThreads) {
+    const int r = t / (2 * per_sec);
+    int u = t - r * 2 * per_sec;
+    const int sec = u >= per_sec;  // 0: q, 1: k
+    u -= sec * per_sec;
+    const int h = u / hv;
+    const int i0 = (u - h * hv) * VE;  // the vector's first pair
+    const long long row = row0 + r;
+    const int c1 = h * Dh + i0;
+    const long long in = row * 3 * D + sec * D + c1;
+    float x1[VE], x2[VE], y1[VE], y2[VE];
+    load16<DT>(qkv, in, x1);
+    load16<DT>(qkv, in + half, x2);
+    const float* cs = s_cs + r * half + i0;
+    const float* sn = s_sn + r * half + i0;
+#pragma unroll
+    for (int e = 0; e < VE; ++e) {
+      // x1 * cos - x2 * sin, x1 * sin + x2 * cos, as the scalar form
+      y1[e] = __fsub_rn(round_to(__fmul_rn(x1[e], cs[e]), DT),
+                        round_to(__fmul_rn(x2[e], sn[e]), DT));
+      y2[e] = __fadd_rn(round_to(__fmul_rn(x1[e], sn[e]), DT),
+                        round_to(__fmul_rn(x2[e], cs[e]), DT));
+    }
+    void* dst = sec ? k : q;
+    store16<DT>(dst, row * D + c1, y1);
+    store16<DT>(dst, row * D + c1 + half, y2);
+  }
+  const int vrow = D / VE;  // v's vectors a row
+  for (int t = threadIdx.x; t < n_rows * vrow; t += kRopeThreads) {
+    const int r = t / vrow;
+    const long long row = row0 + r;
+    const long long c = (long long)(t - r * vrow) * VE;
+    const uint4* src = reinterpret_cast<const uint4*>(
+        static_cast<const char*>(qkv) + (row * 3 * D + 2 * D + c) * (DT == kBF16 ? 2 : 4));
+    uint4* dst = reinterpret_cast<uint4*>(static_cast<char*>(v) +
+                                          (row * D + c) * (DT == kBF16 ? 2 : 4));
+    *dst = *src;
+  }
+}
+
+// 1 where K10b takes its rows form: a half-head of whole 16-byte vectors, no
+// wider than kRopeMaxHalf, and every pointer 16-byte aligned; else 0 (the
+// scalar form).
+int rope_rows_form(const void* qkv, const void* q, const void* k, const void* v, int Dh,
+                   int dtype) {
+  const int half = Dh / 2;
+  const int esize = dtype == kBF16 ? 2 : 4;
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  return (half * esize) % 16 == 0 && half <= kRopeMaxHalf && aligned(qkv) && aligned(q) &&
+         aligned(k) && aligned(v);
+}
+
 // ------------------------------------------------------------------ K10b'
 
 __global__ void __launch_bounds__(kRopeThreads) rope_split_bwd_kernel(
@@ -1284,11 +1416,32 @@ int model_rmsnorm_bwd(const void* x, const float* scale, const void* dy, void* d
   return (int)cudaGetLastError();
 }
 
+// Which form of K10b model_rope_split launches for these pointers and head
+// width: 1 the rows form, 0 the scalar form.
+int model_rope_split_form(const void* qkv, const void* q, const void* k, const void* v,
+                          int Dh, int dtype) {
+  return rope_rows_form(qkv, q, k, v, Dh, dtype);
+}
+
 int model_rope_split(const void* qkv, void* q, void* k, void* v, int B, int S, int H, int Dh,
                      float neg_log_theta, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Dh <= 0 || Dh % 2 != 0) return (int)cudaErrorInvalidValue;
-  rope_split_kernel<<<B * S, kRopeThreads, 0, (cudaStream_t)stream>>>(
-      qkv, q, k, v, S, H, Dh, neg_log_theta, dtype);
+  if (B <= 0 || S <= 0 || H <= 0 || Dh <= 0 || Dh % 2 != 0 || (dtype != kF32 && dtype != kBF16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!rope_rows_form(qkv, q, k, v, Dh, dtype)) {
+    rope_split_kernel<<<B * S, kRopeThreads, 0, st>>>(qkv, q, k, v, S, H, Dh, neg_log_theta,
+                                                      dtype);
+    return (int)cudaGetLastError();
+  }
+  const int rows = B * S;
+  const int blocks = (rows + kRopeRows - 1) / kRopeRows;
+  const size_t smem = 2 * kRopeRows * (Dh / 2) * sizeof(float);
+  if (dtype == kBF16)
+    rope_split_rows_kernel<kBF16><<<blocks, kRopeThreads, smem, st>>>(qkv, q, k, v, rows, S, H,
+                                                                     Dh, neg_log_theta);
+  else
+    rope_split_rows_kernel<kF32><<<blocks, kRopeThreads, smem, st>>>(qkv, q, k, v, rows, S, H,
+                                                                    Dh, neg_log_theta);
   return (int)cudaGetLastError();
 }
 

@@ -71,6 +71,7 @@ _SIGNATURES = {
     "model_rmsnorm_bwd": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "model_rmsnorm_bwd_blocks": ([_I, _I, _I, _P], _I),
     "model_rope_split": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+    "model_rope_split_form": ([_P, _P, _P, _P, _I, _I], _I),
     "model_rope_split_bwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
     "model_error_string": ([_I], ctypes.c_char_p),
 }
@@ -519,9 +520,10 @@ def _rope_cos_sin(S, Dh, theta, dtype, device):
     """cos and sin [1, S, 1, Dh / 2] rounded to dtype, as the reference's
     _rope computes them."""
     half = Dh // 2
-    freqs = torch.exp(
-        -math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=device) / half
-    )
+    i = -math.log(theta) * torch.arange(0, half, dtype=torch.float32, device=device)
+    # divided by a tensor: on CUDA a division by a Python number multiplies by
+    # its reciprocal, which is not the IEEE quotient where half is no power of 2
+    freqs = torch.exp(i / torch.full_like(i, half))
     pos = torch.arange(S, dtype=torch.float32, device=device)
     angles = pos[:, None] * freqs[None, :]
     return (torch.cos(angles)[None, :, None, :].to(dtype),
@@ -559,12 +561,15 @@ def _rope_split_launch(qkv, n_heads, theta):
     dev = qkv.device
     dt = _dtype_code(qkv, "rope_split")
     _check_rope("rope_split", qkv, n_heads)
-    _check_layout("rope_split", qkv)
+    if not qkv.is_contiguous():
+        raise ValueError("rope_split: qkv must be contiguous")
     B, S, D3 = qkv.shape
     Dh = D3 // 3 // n_heads
     lib = LIBRARY.load()
     q, k, v = (torch.empty((B, S, n_heads, Dh), dtype=qkv.dtype, device=dev)
                for _ in range(3))
+    # the C entry picks the form: 16-byte rows where the head width and
+    # every pointer allow (rope_split_form), else one scalar pair a thread
     with torch.cuda.device(dev):
         rc = lib.model_rope_split(qkv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   B, S, n_heads, Dh, -math.log(theta), dt,
@@ -589,6 +594,18 @@ class _RopeSplit(torch.autograd.Function):
     def backward(ctx, dq, dk, dv):
         grads = [torch.zeros_like(g) if g is None else g.contiguous() for g in (dq, dk, dv)]
         return rope_split_bwd(*grads, ctx.theta), None, None
+
+
+def rope_split_form(qkv, n_heads: int) -> str:
+    """The form of K10b that rope_split launches for this CUDA qkv: "rows"
+    (16-byte vectors, a row's cos and sin computed once) where a half-head
+    is a whole number of 16-byte vectors and qkv is 16-byte aligned (the
+    outputs always are), else "scalar"."""
+    _check_rope("rope_split", qkv, n_heads)
+    Dh = qkv.shape[2] // 3 // n_heads
+    rows = LIBRARY.load().model_rope_split_form(  # the outputs: fresh, so aligned
+        qkv.data_ptr(), None, None, None, Dh, _dtype_code(qkv, "rope_split"))
+    return "rows" if rows else "scalar"
 
 
 def rope_split(qkv, n_heads: int, theta: float):

@@ -33,9 +33,9 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _F, _I, _P], _I),
     "sched_scatter_rows": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "sched_delta_clip": ([_P, _P, _P, _P, _LL, _P], _I),
-    "sched_nonzero_tiles": ([_LL], _I),
+    "sched_k4_plan": ([_LL, _P], _I),
     "sched_compact_nonzero": (
-        [_P, _LL, _I, _LL, _P, _I, _P, _I, _P, _I, _P, _P, _P], _I),
+        [_P, _LL, _I, _LL, _P, _I, _P, _I, _P, _I, _P, _I, _P], _I),
     "sched_schedule_rounds": (
         [_P, _P, _P, _P, _P, _ULL, _P, _P, _LL, _I, _I, _I, _I, _I, _F, _I, _P], _I),
     "sched_rounds_cluster_size": ([_I, _I, _I, _I, _I, _P], _I),

@@ -22,7 +22,7 @@
 //   K4 sched_compact_nonzero   replaces the sparse download of
 //                              kernel_jax.py JaxScheduler.schedule_async
 //                              (jnp.nonzero(size=cap, fill_value=0) + gather
-//                              + narrowing)
+//                              + narrowing); one cooperative launch
 //   K5 sched_schedule_rounds_phases
 //                              replaces kernel_jax.py schedule_classes_rounds
 //                              (+ _rounds_core, _sat_cumsum); three kernels
@@ -143,14 +143,6 @@ __device__ __forceinline__ long long warp_sum(long long v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
   return v;  // lane 0's is the warp's sum
-}
-
-__device__ __forceinline__ int block_sum_int(int v, int* slot) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  if ((threadIdx.x & 31) == 0 && v) atomicAdd(slot, v);
-  __syncthreads();
-  return *slot;
 }
 
 // ---------------------------------------------------------------------------
@@ -2067,98 +2059,234 @@ __global__ void delta_clip_kernel(float* __restrict__ out, const float* __restri
 // ---------------------------------------------------------------------------
 // K4: COO compaction of the [C, N] assignment in row-major order, equal slot
 // for slot to jnp.nonzero(out, size=cap, fill_value=0) plus the value gather:
-// slots past the last nonzero hold cell (0, 0) and the value out[0, 0].
-// Bound: bytes (read C*N*4, write cap * (index + value widths)). Three
-// launches: per-tile nonzero counts, one-block scan of the tile counts, then
-// an ordered write (block scan inside each tile). No atomics, so the order
-// is deterministic and fetch's assign-not-add reconstruction stays exact.
+// slots past the last nonzero hold cell (0, 0) and the value out[0, 0];
+// past cap the list is cut. Bound: bytes (read C*N*4, write cap * (index +
+// value widths)).
+//
+// One cooperative launch (cudaLaunchCooperativeKernel: every block resident
+// at once) of at most as many blocks as the card holds. The matrix is read
+// as int4 vectors in chunks of kK4Chunk vectors: warp w of a block owns the
+// chunk's vectors [w*32*kK4Vecs, (w+1)*32*kK4Vecs), lane l of it vectors
+// w*32*kK4Vecs + k*32 + l (k < kK4Vecs), so every load of a warp reads 512
+// contiguous bytes. Element order within a chunk is warp-major, then k, then
+// lane; a chunk's nonzeros are numbered by a shuffle scan a k and a scan of
+// the warps' counts in shared memory.
+//   - register form (a block a chunk, where the chunks fit the resident
+//     blocks; the stream's [256, 10 000] takes 625): the chunk is read once
+//     into registers and numbered, the block's count stored; after one grid
+//     barrier each block adds the counts before it and writes its slots
+//     from registers;
+//   - looped form (more chunks than resident blocks, e.g. [256, 40 000]):
+//     each block counts its run of chunks before the barrier, then reads the
+//     run again (from L2) chunk by chunk, numbering and writing.
+// Before the barrier the grid also fills every slot with the padding, cell
+// (0, 0) and out[0, 0], while the loads are in flight; the nonzeros
+// overwrite slots [0, min(nnz, cap)) after it, so the barrier orders the two
+// writes of a slot. The block counts go to a scratch array of the caller's
+// stream (one int a block, written before the barrier, read after it). No
+// atomics, so the output is deterministic and fetch's assign-not-add
+// reconstruction stays exact.
 // ---------------------------------------------------------------------------
-constexpr int kK4Threads = 1024;
-constexpr int kK4PerThread = 4;
-constexpr int kK4Tile = kK4Threads * kK4PerThread;
+constexpr int kK4Threads = 256;
+constexpr int kK4Warps = kK4Threads / 32;
+constexpr int kK4Vecs = 4;                       // int4 a lane a chunk
+constexpr int kK4Chunk = kK4Threads * kK4Vecs;   // vectors a chunk (4 096 ints)
+constexpr int kK4MinBlocksPerSM = 5;             // registers <= 51: 660 blocks on 132 SMs
+constexpr int kK4MaxDevices = 64;
 
-__global__ void __launch_bounds__(kK4Threads)
-nonzero_count_kernel(const int* __restrict__ x, long long M, int* __restrict__ tile_counts) {
-  __shared__ int s_cnt;
-  if (threadIdx.x == 0) s_cnt = 0;
-  __syncthreads();
-  const long long base = (long long)blockIdx.x * kK4Tile + (long long)threadIdx.x * kK4PerThread;
-  int cnt = 0;
-#pragma unroll
-  for (int k = 0; k < kK4PerThread; ++k)
-    if (base + k < M && x[base + k] != 0) ++cnt;
-  const int tot = block_sum_int(cnt, &s_cnt);
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = tot;
+struct K4Plan {
+  int blocks;            // the grid
+  int chunks_per_block;  // 1 in the register form
+  int looped;
+};
+
+// The launch for M elements, given the blocks each form can hold resident.
+K4Plan k4_plan(long long M, int resident_reg, int resident_loop) {
+  const long long vecs = (M + 3) / 4;
+  const long long chunks = (vecs + kK4Chunk - 1) / kK4Chunk;
+  if (chunks <= resident_reg) return {(int)chunks, 1, 0};
+  const long long per = (chunks + resident_loop - 1) / resident_loop;
+  return {(int)((chunks + per - 1) / per), (int)per, 1};
 }
 
-// tile_offsets[i] = exclusive prefix of tile_counts; tile_offsets[n] = total
-__global__ void __launch_bounds__(kK4Threads)
-tile_scan_kernel(const int* __restrict__ tile_counts, long long* __restrict__ tile_offsets,
-                 int n_tiles) {
-  __shared__ long long s_warp[32];
-  __shared__ long long s_chunk;
-  long long carry = 0;
-  for (int start = 0; start < n_tiles; start += blockDim.x) {
-    const int i = start + threadIdx.x;
-    const long long v = i < n_tiles ? tile_counts[i] : 0;
-    const long long ex = block_exclusive_scan(v, s_warp);
-    if (i < n_tiles) tile_offsets[i] = carry + ex;
-    // last thread's inclusive value is the chunk total
-    if (threadIdx.x == blockDim.x - 1) s_chunk = ex + v;
-    __syncthreads();
-    carry += s_chunk;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) tile_offsets[n_tiles] = carry;
+__device__ __forceinline__ int nonzeros(const int4& v) {
+  return (v.x != 0) + (v.y != 0) + (v.z != 0) + (v.w != 0);
 }
 
-template <typename IC, typename IN, typename V>
-__global__ void __launch_bounds__(kK4Threads)
-nonzero_write_kernel(const int* __restrict__ x, long long M, int N, long long cap,
-                     const long long* __restrict__ tile_offsets, int n_tiles,
-                     IC* __restrict__ ci, IN* __restrict__ ni, V* __restrict__ vals) {
-  __shared__ long long s_warp[32];
-  const long long base = (long long)blockIdx.x * kK4Tile + (long long)threadIdx.x * kK4PerThread;
-  int v[kK4PerThread];
-  int cnt = 0;
+// The lane's vectors of the chunk starting at vector c0; zeros past M.
+__device__ __forceinline__ void k4_load(int4 (&v)[kK4Vecs], const int* __restrict__ x,
+                                        long long M, long long c0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int k = 0; k < kK4PerThread; ++k) {
-    v[k] = base + k < M ? x[base + k] : 0;
-    cnt += v[k] != 0;
-  }
-  long long pos = tile_offsets[blockIdx.x] + block_exclusive_scan(cnt, s_warp);
-#pragma unroll
-  for (int k = 0; k < kK4PerThread; ++k) {
-    if (v[k] == 0) continue;
-    if (pos < cap) {
-      const long long e = base + k;
-      ci[pos] = (IC)(e / N);
-      ni[pos] = (IN)(e % N);
-      vals[pos] = (V)v[k];
+  for (int k = 0; k < kK4Vecs; ++k) {
+    const long long i = c0 + (warp * kK4Vecs + k) * 32 + lane;
+    if (4 * i + 3 < M) {
+      v[k] = reinterpret_cast<const int4*>(x)[i];
+    } else {
+      const long long e = 4 * i;
+      v[k] = make_int4(e < M ? x[e] : 0, e + 1 < M ? x[e + 1] : 0, e + 2 < M ? x[e + 2] : 0,
+                       e + 3 < M ? x[e + 3] : 0);
     }
-    ++pos;
-  }
-  // padding slots: cell (0, 0) and its value
-  const long long nnz = tile_offsets[n_tiles];
-  const V v00 = (V)x[0];
-  for (long long p = nnz + blockIdx.x * (long long)blockDim.x + threadIdx.x; p < cap;
-       p += (long long)gridDim.x * blockDim.x) {
-    ci[p] = (IC)0;
-    ni[p] = (IN)0;
-    vals[p] = v00;
   }
 }
 
-template <typename IC, typename IN>
-void launch_write(int val_bytes, dim3 grid, cudaStream_t st, const int* x, long long M, int N,
-                  long long cap, const long long* offs, int n_tiles, void* ci, void* ni,
-                  void* vals) {
-  if (val_bytes == 1)
-    nonzero_write_kernel<IC, IN, uint8_t><<<grid, kK4Threads, 0, st>>>(
-        x, M, N, cap, offs, n_tiles, (IC*)ci, (IN*)ni, (uint8_t*)vals);
-  else
-    nonzero_write_kernel<IC, IN, int32_t><<<grid, kK4Threads, 0, st>>>(
-        x, M, N, cap, offs, n_tiles, (IC*)ci, (IN*)ni, (int32_t*)vals);
+// The chunk's nonzeros before each of the lane's vectors, in element order
+// (off), and the chunk's count (returned). Every thread calls it.
+__device__ __forceinline__ int k4_number(const int4 (&v)[kK4Vecs], int (&off)[kK4Vecs],
+                                         int* s_warp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int run = 0;
+#pragma unroll
+  for (int k = 0; k < kK4Vecs; ++k) {
+    const int c = nonzeros(v[k]);
+    int s = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, s, o);
+      if (lane >= o) s += y;
+    }
+    off[k] = run + s - c;
+    run += __shfl_sync(kFull, s, 31);
+  }
+  if (lane == 0) s_warp[warp] = run;
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kK4Warps; ++w) {
+    const int t = s_warp[w];
+    before += w < warp ? t : 0;
+    total += t;
+  }
+  __syncthreads();  // s_warp is reused by the next call
+#pragma unroll
+  for (int k = 0; k < kK4Vecs; ++k) off[k] += before;
+  return total;
+}
+
+// Slot p of the output: cell (c, n), value val, each in its width.
+__device__ __forceinline__ void k4_store(void* ci, int ci_bytes, void* ni, int ni_bytes,
+                                         void* vals, int val_bytes, long long p, long long c,
+                                         long long n, int val) {
+  if (ci_bytes == 2) static_cast<int16_t*>(ci)[p] = (int16_t)c;
+  else static_cast<int32_t*>(ci)[p] = (int32_t)c;
+  if (ni_bytes == 2) static_cast<int16_t*>(ni)[p] = (int16_t)n;
+  else static_cast<int32_t*>(ni)[p] = (int32_t)n;
+  if (val_bytes == 1) static_cast<uint8_t*>(vals)[p] = (uint8_t)val;
+  else static_cast<int32_t*>(vals)[p] = val;
+}
+
+// Writes the lane's nonzeros of the chunk at vector c0 from slot base + off.
+__device__ __forceinline__ void k4_write(const int4 (&v)[kK4Vecs], const int (&off)[kK4Vecs],
+                                         long long base, long long c0, int N, long long cap,
+                                         void* ci, int ci_bytes, void* ni, int ni_bytes,
+                                         void* vals, int val_bytes) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kK4Vecs; ++k) {
+    long long pos = base + off[k];
+    const long long e = 4 * (c0 + (warp * kK4Vecs + k) * 32 + lane);
+    const int a[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (a[j] == 0) continue;
+      if (pos < cap)
+        k4_store(ci, ci_bytes, ni, ni_bytes, vals, val_bytes, pos, (e + j) / N, (e + j) % N,
+                 a[j]);
+      ++pos;
+    }
+  }
+}
+
+// The block's sum of one int64 a thread. Every thread calls it.
+__device__ __forceinline__ long long k4_block_sum(long long v, long long* s_sum) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) s_sum[threadIdx.x >> 5] = v;
+  __syncthreads();
+  long long t = 0;
+#pragma unroll
+  for (int w = 0; w < kK4Warps; ++w) t += s_sum[w];
+  __syncthreads();
+  return t;
+}
+
+template <bool LOOP>
+__global__ void __launch_bounds__(kK4Threads, kK4MinBlocksPerSM)
+compact_nonzero_kernel(const int* __restrict__ x, long long M, int N, long long cap,
+                       int chunks_per_block, void* ci, int ci_bytes, void* ni, int ni_bytes,
+                       void* vals, int val_bytes, int* __restrict__ counts) {
+  __shared__ int s_warp[kK4Warps];
+  __shared__ long long s_sum[kK4Warps];
+  const long long first = (long long)blockIdx.x * chunks_per_block * kK4Chunk;
+  int4 v[kK4Vecs];
+  int off[kK4Vecs];
+  long long count;
+  if (!LOOP) {
+    k4_load(v, x, M, first);
+    count = k4_number(v, off, s_warp);
+  } else {
+    long long mine = 0;
+    for (int c = 0; c < chunks_per_block; ++c) {
+      k4_load(v, x, M, first + (long long)c * kK4Chunk);
+#pragma unroll
+      for (int k = 0; k < kK4Vecs; ++k) mine += nonzeros(v[k]);
+    }
+    count = k4_block_sum(mine, s_sum);
+  }
+  if (threadIdx.x == 0) counts[blockIdx.x] = (int)count;
+  // every slot padded: cell (0, 0) and its value
+  const int v00 = x[0];
+  for (long long p = blockIdx.x * (long long)kK4Threads + threadIdx.x; p < cap;
+       p += (long long)gridDim.x * kK4Threads)
+    k4_store(ci, ci_bytes, ni, ni_bytes, vals, val_bytes, p, 0, 0, v00);
+  cg::this_grid().sync();
+
+  long long before = 0;  // the slots of the blocks before this one
+  for (int b = threadIdx.x; b < (int)blockIdx.x; b += kK4Threads) before += __ldcg(counts + b);
+  before = k4_block_sum(before, s_sum);
+  if (!LOOP) {
+    k4_write(v, off, before, first, N, cap, ci, ci_bytes, ni, ni_bytes, vals, val_bytes);
+  } else {
+    for (int c = 0; c < chunks_per_block && before < cap; ++c) {
+      const long long c0 = first + (long long)c * kK4Chunk;
+      k4_load(v, x, M, c0);
+      const int n = k4_number(v, off, s_warp);
+      k4_write(v, off, before, c0, N, cap, ci, ci_bytes, ni, ni_bytes, vals, val_bytes);
+      before += n;
+    }
+  }
+}
+
+// Blocks of K4's `looped` form the current device holds at once (cached a
+// device).
+cudaError_t k4_resident(int looped, int* blocks) {
+  static int cache[2][kK4MaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kK4MaxDevices && cache[looped][dev] > 0) {
+    *blocks = cache[looped][dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, looped ? compact_nonzero_kernel<true> : compact_nonzero_kernel<false>,
+        kK4Threads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  *blocks = per_sm * sms;
+  if (dev < kK4MaxDevices) cache[looped][dev] = *blocks;
+  return cudaSuccess;
+}
+
+cudaError_t k4_launch_plan(long long M, K4Plan* plan) {
+  int reg = 0, loop = 0;
+  cudaError_t err = k4_resident(0, &reg);
+  if (err == cudaSuccess) err = k4_resident(1, &loop);
+  if (err != cudaSuccess) return err;
+  *plan = k4_plan(M, reg, loop);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -2359,38 +2487,43 @@ int sched_schedule_rounds_phases(float* avail, const float* total, const uint8_t
                      remaining, placed, n_feas, N, R, C, thr, rounds);
 }
 
-// tile_counts: n_tiles int32, tile_offsets: n_tiles + 1 int64, where
-// n_tiles = sched_nonzero_tiles(M).
-int sched_nonzero_tiles(long long M) { return (int)((M + kK4Tile - 1) / kK4Tile); }
+// K4's launch for M elements on the current device: [blocks, chunks a
+// block, looped form] written to plan[0..2].
+int sched_k4_plan(long long M, int* plan) {
+  if (M <= 0) return (int)cudaErrorInvalidValue;
+  K4Plan pl;
+  const cudaError_t err = k4_launch_plan(M, &pl);
+  if (err != cudaSuccess) return (int)err;
+  plan[0] = pl.blocks;
+  plan[1] = pl.chunks_per_block;
+  plan[2] = pl.looped;
+  return 0;
+}
 
+// K4 in one cooperative launch (k4_plan); x must be 16-byte aligned.
+// counts: n_counts ints (at least the plan's blocks) that no other launch
+// uses meanwhile.
 int sched_compact_nonzero(const int* x, long long M, int N, long long cap, void* ci,
                           int ci_bytes, void* ni, int ni_bytes, void* vals, int val_bytes,
-                          int* tile_counts, long long* tile_offsets, void* stream) {
-  if (M <= 0 || cap <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+                          int* counts, int n_counts, void* stream) {
+  if (M <= 0 || cap <= 0 || N <= 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   if ((ci_bytes != 2 && ci_bytes != 4) || (ni_bytes != 2 && ni_bytes != 4) ||
       (val_bytes != 1 && val_bytes != 4))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int n_tiles = sched_nonzero_tiles(M);
-  nonzero_count_kernel<<<n_tiles, kK4Threads, 0, st>>>(x, M, tile_counts);
-  cudaError_t err = cudaGetLastError();
+  K4Plan pl;
+  cudaError_t err = k4_launch_plan(M, &pl);
   if (err != cudaSuccess) return (int)err;
-  tile_scan_kernel<<<1, kK4Threads, 0, st>>>(tile_counts, tile_offsets, n_tiles);
-  err = cudaGetLastError();
+  if (pl.blocks > n_counts) return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&x,  (void*)&M,        (void*)&N,    (void*)&cap,
+                  (void*)&pl.chunks_per_block,  (void*)&ci,   (void*)&ci_bytes,
+                  (void*)&ni, (void*)&ni_bytes, (void*)&vals, (void*)&val_bytes,
+                  (void*)&counts};
+  const void* kernel = pl.looped ? (const void*)compact_nonzero_kernel<true>
+                                 : (const void*)compact_nonzero_kernel<false>;
+  err = cudaLaunchCooperativeKernel(kernel, dim3(pl.blocks), dim3(kK4Threads), args, 0,
+                                    (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_tiles);
-  if (ci_bytes == 2 && ni_bytes == 2)
-    launch_write<int16_t, int16_t>(val_bytes, grid, st, x, M, N, cap, tile_offsets, n_tiles,
-                                   ci, ni, vals);
-  else if (ci_bytes == 2)
-    launch_write<int16_t, int32_t>(val_bytes, grid, st, x, M, N, cap, tile_offsets, n_tiles,
-                                   ci, ni, vals);
-  else if (ni_bytes == 2)
-    launch_write<int32_t, int16_t>(val_bytes, grid, st, x, M, N, cap, tile_offsets, n_tiles,
-                                   ci, ni, vals);
-  else
-    launch_write<int32_t, int32_t>(val_bytes, grid, st, x, M, N, cap, tile_offsets, n_tiles,
-                                   ci, ni, vals);
   return (int)cudaGetLastError();
 }
 

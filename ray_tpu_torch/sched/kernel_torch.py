@@ -9,7 +9,8 @@ it, a plain PyTorch version of the same function:
                        thread-block cluster (k1_plan)
   K2 scatter_rows_     dirty-row refresh of the device availability
   K3 delta_clip        clip(avail + delta, 0, total)
-  K4 compact_nonzero   COO compaction of the [C, N] assignment for download
+  K4 compact_nonzero   COO compaction of the [C, N] assignment for download,
+                       one cooperative launch (k4_launch_plan)
   K5 schedule_classes_rounds   the fully parallel two-phase [C, N] round
                                (scheduler_kernel_algo="rounds"), three
                                kernels a phase (caps, prefix, trim)
@@ -393,10 +394,23 @@ delta_clip.launches = 0
 
 _IDX_DTYPES = (torch.int16, torch.int32)
 _VAL_DTYPES = (torch.uint8, torch.int32)
+#: K4's block counts: one scratch array a (device, stream), made at the
+#: stream's first call, so that no call allocates and no two streams share
+K4_MAX_BLOCKS = 4096
+_k4_scratch = {}
+
+
+def _k4_counts(dev) -> torch.Tensor:
+    key = (dev.index, _stream(dev))
+    counts = _k4_scratch.get(key)
+    if counts is None:
+        counts = _k4_scratch[key] = torch.empty(K4_MAX_BLOCKS, dtype=torch.int32, device=dev)
+    return counts
 
 
 def _compact_nonzero_plain(out, cap, ci_dtype, ni_dtype, val_dtype):
-    """Plain version of K4: the kernel's count -> scan -> ordered write."""
+    """Plain version of K4: the nonzeros numbered in row-major order by a
+    prefix count, each written to its slot."""
     C, N = out.shape
     flat = out.reshape(-1)
     flag = flat != 0
@@ -430,21 +444,19 @@ def compact_nonzero(out: torch.Tensor, cap: int, ci_dtype=torch.int32,
     dev = _device_of(out)
     if dev.type == "cpu":
         return _compact_nonzero_plain(out, cap, ci_dtype, ni_dtype, val_dtype)
-    C, N = out.shape
+    N = out.shape[1]
     lib = _build.load()
     x = out.to(torch.int32).contiguous()
-    M = x.numel()
+    if x.data_ptr() % 16:  # the kernel reads 16 bytes a load
+        x = x.clone()
     ci = torch.empty(cap, dtype=ci_dtype, device=dev)
     ni = torch.empty(cap, dtype=ni_dtype, device=dev)
     vals = torch.empty(cap, dtype=val_dtype, device=dev)
-    n_tiles = lib.sched_nonzero_tiles(M)
-    tile_counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    tile_offsets = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         rc = lib.sched_compact_nonzero(
-            x.data_ptr(), M, N, cap, ci.data_ptr(), ci.element_size(), ni.data_ptr(),
+            x.data_ptr(), x.numel(), N, cap, ci.data_ptr(), ci.element_size(), ni.data_ptr(),
             ni.element_size(), vals.data_ptr(), vals.element_size(),
-            tile_counts.data_ptr(), tile_offsets.data_ptr(), _stream(dev),
+            _k4_counts(dev).data_ptr(), K4_MAX_BLOCKS, _stream(dev),
         )
     _check(lib, rc, "compact_nonzero")
     compact_nonzero.launches += 1
@@ -452,6 +464,18 @@ def compact_nonzero(out: torch.Tensor, cap: int, ci_dtype=torch.int32,
 
 
 compact_nonzero.launches = 0
+
+
+def k4_launch_plan(M: int, device) -> Tuple[int, int, bool]:
+    """K4's launch for M elements on `device`, as the source plans it:
+    (blocks, chunks of 4 096 elements a block, looped form). One block a
+    chunk, the chunk held in registers, where the chunks fit the blocks the
+    card holds at once; else the looped form, which reads its chunks twice."""
+    lib = _build.load()
+    plan = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        _check(lib, lib.sched_k4_plan(M, plan), "compact_nonzero (plan)")
+    return plan[0], plan[1], bool(plan[2])
 
 
 # ------------------------------------------------------------------- K5 / K6

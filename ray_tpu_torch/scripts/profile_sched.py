@@ -6,6 +6,8 @@
     python -m ray_tpu_torch.scripts.profile_sched k6
     python -m ray_tpu_torch.scripts.profile_sched stream
     python -m ray_tpu_torch.scripts.profile_sched ab DIR [DIR ...]
+    python -m ray_tpu_torch.scripts.profile_sched e2e DIR [DIR ...]
+    python -m ray_tpu_torch.scripts.profile_sched profiler [SCENARIO]
 
 ``k1``: builds the kernels with ``-DSCHED_K1_PROFILE`` (thread 0 of every
 block sums clock64 cycles per pass phase) and runs K1 at the stream
@@ -36,13 +38,26 @@ three kernels a phase stamp nothing).
 torch.profiler and reports the device's busy and idle share of the
 stream's wall time and device time by kernel name.
 
-``ab``: K5, K6 and K7 (p = 1, 2, 4, 8, without the wrapper's checks) at
-the stream's first round, and K10a' at the train step's [16 384, 512] in
-bf16 and f32, from each of the given checkouts of this repo, in turns (the
-trees in order, then in reverse), each run a process of its own that builds
-that tree's kernels: whether each equals its plain version (K7: K1), and
-the CUDA-event medians of three sets of calls (chip_smoke.time_ms). For
-comparing versions of the kernels on one card.
+``ab``: K5, K6 and K7 (p = 1, 2, 4, 8, without the wrapper's checks) and
+K4 (on K1's assignment, with the cap and widths TorchScheduler picks) at
+the stream's first round, K10a' at the train step's [16 384, 512] in bf16
+and f32, and K10b at the forward's [8, 2048, 1536] bf16, from each of the
+given checkouts of this repo, in turns (the trees in order, then in
+reverse), each run a process of its own that builds that tree's kernels:
+whether each equals its plain version (K7: K1; K10a', K10b: the largest
+difference), and the CUDA-event medians of three sets of calls
+(chip_smoke.time_ms), beside that of one empty kernel (the timing's
+floor). For comparing versions of the kernels on one card.
+
+``e2e``: in the same turns, chip_smoke.py's end-to-end paths from each
+tree: the stream's decisions/s under each algorithm (phase 2), the
+forward's ms (6b), the train step's (9b), and the expert layer's (7b) and
+its train step's (10b), each by events and by the host clock.
+
+``profiler``: whether torch.profiler records device activity after what
+preceded its silence in chip_smoke.py (profiler_scenario), each scenario
+in a process of its own: a session's device events beside the launch
+calls CUPTI's runtime callbacks saw in the same window.
 
 Each prints one JSON line; the problems come from chip_smoke.py (seeded).
 """
@@ -233,9 +248,10 @@ def profile_rounds(which: str) -> dict:
 
 
 # Run in a tree's root by `ab`, with only what every version of the port
-# has: chip_smoke.stream_first_round and time_ms, kernel_torch's K5/K6 and
-# their plain versions, kernel_shard._launch (K7 without the wrapper's
-# checks) and the model kernels' rmsnorm_bwd (K10a') and its plain version.
+# has: chip_smoke.stream_first_round and time_ms, kernel_torch's K5/K6, K4
+# (compact_nonzero) and their plain versions, kernel_shard._launch (K7
+# without the wrapper's checks) and the model kernels' rmsnorm_bwd (K10a')
+# and rope_split (K10b) and their plain versions.
 _AB = """
 import json, sys
 sys.path.insert(0, ".")
@@ -276,19 +292,63 @@ for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
                                            float((ds.double() - pds.double()).abs().max())]
     out[f"k10a_bwd_{name}_ms"] = [CS.time_ms(torch, lambda: MK.rmsnorm_bwd(x, sc, dy), reps=21)
                                   for _ in range(3)]
+assign = k1_a[: len(demands)]
+cap = next(b for b in KT.TorchScheduler._NONZERO_BUCKETS if b >= int(counts.sum()))
+dts = (torch.int16, torch.int16, torch.uint8 if int(counts.max()) < 256 else torch.int32)
+out["k4_exact"] = all(torch.equal(a, b) for a, b in zip(
+    KT.compact_nonzero(assign, cap, *dts), KT._compact_nonzero_plain(assign, cap, *dts)))
+out["k4_ms"] = [CS.time_ms(torch, lambda: KT.compact_nonzero(assign, cap, *dts), reps=21)
+                for _ in range(3)]
+# the floor of this timing: one empty kernel between the two events
+out["empty_kernel_ms"] = CS.time_ms(torch, lambda: torch.cuda._sleep(0), reps=21)
+qkv = torch.randn((8, 2048, 1536), generator=g).to(dev, torch.bfloat16)
+out["k10b_max_abs_err"] = max(float((a.double() - b.double()).abs().max()) for a, b in zip(
+    MK.rope_split(qkv, 8, 1e4), MK._rope_split_plain(qkv, 8, 1e4)))
+out["k10b_ms"] = [CS.time_ms(torch, lambda: MK.rope_split(qkv, 8, 1e4), reps=21)
+                  for _ in range(3)]
 print(json.dumps(out))
 """
 
 
-def ab(trees) -> dict:
-    """K5, K6, K7 and K10a' from each tree in turns, forward then backward."""
+# Run in a tree's root by `e2e`: the end-to-end paths through chip_smoke's
+# phase functions, which every version of the port has with these arguments.
+_E2E = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as CS
+from ray_tpu_torch.models import kernels as MK, moe as PM, moe_kernels as EK
+from ray_tpu_torch.models import transformer as PT
+from ray_tpu_torch.parallel import make_forward_step, tpu_train as TT
+from ray_tpu_torch.sched import _build, kernel_torch as KT
+from ray_tpu_torch.util import cuda_build
+cuda_build.build_all([_build.LIBRARY, MK.LIBRARY, MK.LIBRARY_SM90, EK.LIBRARY])
+dev = torch.device("cuda", 0)
+out = {}
+for algo in KT.ALGOS:
+    out[f"stream_{algo}_decisions_per_s"] = CS.phase2_stream(
+        torch, KT, dev, algo=algo)["decisions_per_sec"]
+out["forward_ms"] = CS.phase6b_forward(torch, PT, make_forward_step, dev)[0]["forward_ms"]
+out["train_step_ms"] = CS.phase9b_train(torch, PT, TT, dev)[0]["step_ms_median"]
+res = CS.phase7b_moe(torch, PM, dev)[0]
+out["moe_ms"], out["moe_wall_ms"] = res["ms"], res["wall_ms"]
+res = CS.phase10b_moe_train(torch, PM, TT, dev)[0]
+out["moe_train_step_ms"] = res["step_ms_median"]
+out["moe_train_wall_ms"] = res["wall_ms_median"]
+print(json.dumps(out))
+"""
+
+
+def ab(trees, script=_AB) -> dict:
+    """`script` (_AB: K4-K7, K10a' and K10b; _E2E: the end-to-end paths) in
+    each tree in turns, forward then backward."""
     import os
     import subprocess
 
     runs = []
     for tree in list(trees) + list(reversed(trees)):
-        res = subprocess.run([sys.executable, "-c", _AB], cwd=os.path.abspath(tree),
-                             capture_output=True, text=True, timeout=600)
+        res = subprocess.run([sys.executable, "-c", script], cwd=os.path.abspath(tree),
+                             capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             raise RuntimeError(f"ab {tree}: {res.stderr[-2000:]}")
         runs.append({"tree": tree, **json.loads(res.stdout.strip().splitlines()[-1])})
@@ -340,6 +400,95 @@ def profile_stream() -> dict:
     }
 
 
+#: profiler's scenarios, each run in a fresh process: what came before the
+#: sessions that recorded no device activity in chip_smoke.py (PERF.md)
+PROFILER_SCENARIOS = ("baseline", "thread_exit", "many_sessions", "idle", "idle_padded",
+                      "stream", "stream_thread", "gcs")
+
+
+def _session(fn, pad_s: float = 0.0) -> dict:
+    """One torch.profiler session (CPU and CUDA) around fn() and a
+    synchronise, idle for pad_s seconds before and after them: its device
+    events, the CPU-side launch calls that CUPTI's runtime callbacks saw in
+    the same window, and the first kernel's start less its launch call's
+    start (µs; a few µs where the two clocks agree)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    events = prof.events()
+    kernels = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CUDA]
+    launches = [ev for ev in events if ev.device_type == torch.autograd.DeviceType.CPU
+                and ev.name.startswith(("cudaLaunch", "cuLaunch"))]
+    offset = (kernels[0].time_range.start - launches[0].time_range.start
+              if kernels and launches else None)
+    return {"device_events": len(kernels), "runtime_launches": len(launches),
+            "kernel_minus_launch_us": offset}
+
+
+def profiler_scenario(name: str) -> dict:
+    """Sessions around K3 (delta_clip, one launch) before and after what a
+    scenario does: nothing (baseline); a thread that launched kernels and
+    exited (thread_exit); forty sessions in a row (many_sessions); a minute
+    idle, then sessions as usual (idle) or idle 0.25 s before and after
+    the call inside the session (idle_padded); chip_smoke.py's stream at 1 000 nodes and 100 000 tasks,
+    its rounds' results copied to pinned host memory behind events, in this
+    thread (stream) or in a thread that then exits (stream_thread); the GCS
+    phase of chip_smoke.py at 10 000 nodes and fewer tasks, whose
+    scheduler loop threads run the round on the card and exit at shutdown
+    (gcs)."""
+    import threading
+
+    import chip_smoke
+    from ray_tpu_torch.sched import kernel_torch as KT
+
+    dev = torch.device("cuda", 0)
+    a = torch.rand((10_000, 16), device=dev)
+    step = lambda: KT.delta_clip(a, a, a)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    before = [_session(step)]
+    if name == "thread_exit":
+        t = threading.Thread(target=lambda: (step(), torch.cuda.synchronize()))
+        t.start()
+        t.join()
+    elif name == "many_sessions":
+        before += [_session(step) for _ in range(40)]
+    elif name in ("idle", "idle_padded"):
+        time.sleep(60)
+    elif name in ("stream", "stream_thread"):
+        run = lambda: chip_smoke.phase2_stream(torch, KT, dev, n_nodes=1000,  # noqa: E731
+                                               n_tasks=100_000)
+        if name == "stream":
+            run()
+        else:
+            t = threading.Thread(target=run)
+            t.start()
+            t.join()
+    elif name == "gcs":
+        chip_smoke.phase5_gcs(torch, KT, n_lockstep=1000, n_pipelined=2000, n_wire=500)
+    pad = 0.25 if name == "idle_padded" else 0.0
+    after = [_session(step, pad) for _ in range(3)] + [_session(step)]  # the last unpadded
+    return {"scenario": name, "before": before, "after": after,
+            "silent_sessions": sum(1 for x in before + after if x["device_events"] == 0)}
+
+
+def profiler_hunt() -> dict:
+    """Each of PROFILER_SCENARIOS in a process of its own."""
+    import subprocess
+
+    runs = []
+    for name in PROFILER_SCENARIOS:
+        res = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts.profile_sched",
+                              "profiler", name], capture_output=True, text=True, timeout=900)
+        runs.append(json.loads(res.stdout.strip().splitlines()[-1]) if res.returncode == 0
+                    else {"scenario": name, "error": res.stderr[-2000:]})
+    return {"runs": runs}
+
+
 def main(argv) -> int:
     _need_cuda()
     what = argv[1] if len(argv) > 1 else "k1"
@@ -353,6 +502,10 @@ def main(argv) -> int:
         res = profile_stream()
     elif what == "ab" and len(argv) > 2:
         res = ab(argv[2:])
+    elif what == "e2e" and len(argv) > 2:
+        res = ab(argv[2:], _E2E)
+    elif what == "profiler":
+        res = profiler_scenario(argv[2]) if len(argv) > 2 else profiler_hunt()
     else:
         print(__doc__, file=sys.stderr)
         return 2

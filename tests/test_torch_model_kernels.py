@@ -197,6 +197,38 @@ def test_rope_split_matches_reference(S, dt):
         np.testing.assert_allclose(_np(g), _np(w), err_msg=name, **tol)
 
 
+ROPE_HEAD_WIDTHS = [16, 20, 32, 64, 128]  # 20: a half-head of 10, no 16-byte vector
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("Dh", ROPE_HEAD_WIDTHS)
+def test_rope_split_head_widths_match_reference(Dh, dt):
+    """The plain K10b at every head width the card's test runs, against the
+    split and _rope, S = 65."""
+    rng = np.random.default_rng(40 + Dh)
+    B, S, H = 2, 65, 2
+    qkv = rng.standard_normal((B, S, 3 * H * Dh)).astype(np.float32)
+    qkvj, qkvt = _pair(qkv, dt)
+    qj, kj, vj = jnp.split(qkvj, 3, axis=-1)
+    want = (JT._rope(qj.reshape(B, S, H, Dh), 10000.0),
+            JT._rope(kj.reshape(B, S, H, Dh), 10000.0), vj.reshape(B, S, H, Dh))
+    tol = TOL_F32 if dt == "f32" else dict(rtol=2**-7, atol=2e-2)
+    for name, w, g in zip("qkv", want, K.rope_split(qkvt, H, 10000.0)):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(_np(g), _np(w), err_msg=name, **tol)
+
+
+def test_rope_split_of_an_offset_view_equals_the_contiguous_copy():
+    """A qkv that starts one element into its storage (on the card: not
+    16-byte aligned, the scalar form) gives what its contiguous copy gives."""
+    rng = np.random.default_rng(44)
+    buf = torch.from_numpy(rng.standard_normal(1 + 2 * 9 * 3 * 64).astype(np.float32))
+    qkv = buf[1:].view(2, 9, 3 * 64)
+    assert qkv.storage_offset() == 1
+    for a, b in zip(K.rope_split(qkv, 2, 10000.0), K.rope_split(qkv.clone(), 2, 10000.0)):
+        assert torch.equal(a, b)
+
+
 def test_plain_versions_do_not_count_launches():
     K.reset_launch_counts()
     x = torch.ones((2, 8))
@@ -268,4 +300,38 @@ def test_cuda_model_kernels_equal_plain_on_card(Dh):
         qkv = torch.from_numpy(rng.standard_normal((2, 100, 3 * 512)).astype(np.float32)).to(dev, td)
         for g, w in zip(K.rope_split(qkv, 8, 10000.0), K._rope_split_plain(qkv, 8, 10000.0)):
             torch.testing.assert_close(g.float(), w.float(), **tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", ROPE_HEAD_WIDTHS)
+def test_cuda_rope_split_forms_equal_plain_and_each_other(Dh):
+    """On the card: K10b at S = 2047 in bf16 and f32 against its plain
+    version. The rows form (16-byte vectors) where a half-head is whole
+    vectors and qkv is aligned; the scalar form at Dh = 20 and for a view
+    one element into its storage, which gives the rows form's bits; two
+    launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(50 + Dh)
+    B, S, H = 2, 2047, 4
+    n = B * S * 3 * H * Dh
+    for td in (torch.bfloat16, torch.float32):
+        buf = torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32)).to(dev, td)
+        qkv = buf[:n].view(B, S, 3 * H * Dh)
+        shifted = buf[1:].view(B, S, 3 * H * Dh)
+        shifted.copy_(qkv.clone())  # the same values, one element further on
+        whole = (Dh // 2) * qkv.element_size() % 16 == 0
+        assert K.rope_split_form(qkv, H) == ("rows" if whole else "scalar")
+        assert K.rope_split_form(shifted, H) == "scalar"
+        qkv = shifted.clone()  # aligned again
+        tol = TOL_F32 if td == torch.float32 else TOL_BF16_OUT
+        got = K.rope_split(qkv, H, 10000.0)
+        for g, w in zip(got, K._rope_split_plain(qkv, H, 10000.0)):
+            torch.testing.assert_close(g.float(), w.float(), **tol)
+        again = K.rope_split(qkv, H, 10000.0)
+        other = K.rope_split(shifted, H, 10000.0)
+        for g, a, o in zip(got, again, other):
+            assert torch.equal(g, a) and torch.equal(g, o)
     torch.cuda.synchronize()

@@ -178,6 +178,66 @@ def test_k4_compact_nonzero_equals_jnp_nonzero(cap, dtypes):
                                       np.asarray(w).astype(np.int64))
 
 
+K4_DTYPE_SETS = [
+    (torch.int16, torch.int16, torch.uint8),
+    (torch.int32, torch.int16, torch.int32),
+    (torch.int16, torch.int32, torch.uint8),
+    (torch.int32, torch.int32, torch.int32),
+]
+K4_CASES = ["zeros", "nnz_eq_cap", "nnz_cap_plus_1", "last_block_only", "corner_zero",
+            "corner_nonzero"]
+
+
+def k4_case(name, C, N, seed=3):
+    """An assignment [C, N] and a cap for one of K4's edges: no nonzero;
+    exactly cap nonzeros; cap + 1 (the last one cut); nonzeros only in the
+    last 100 cells (the last block's range); out[0, 0] zero or not (the
+    padding's value). Values below 256, so every value width holds them."""
+    rng = np.random.default_rng(seed)
+    out = np.where(rng.random((C, N)) < 0.05, rng.integers(1, 256, (C, N)), 0).astype(np.int32)
+    nnz = int((out != 0).sum())
+    cap = nnz + 64
+    if name == "zeros":
+        out[:] = 0
+    elif name == "nnz_eq_cap":
+        cap = nnz
+    elif name == "nnz_cap_plus_1":
+        cap = nnz - 1
+    elif name == "last_block_only":
+        flat = out.reshape(-1)
+        flat[:-100] = 0
+        flat[-100::3] = rng.integers(1, 256, len(flat[-100::3]))
+        cap = int((flat != 0).sum()) + 7
+    out[0, 0] = 0 if name == "corner_zero" else (out[0, 0] if name != "corner_nonzero" else 5)
+    return out, cap
+
+
+def k4_numpy(out, cap):
+    """np.nonzero's order, cut at cap, padded with cell (0, 0) and its value."""
+    ci, ni = np.nonzero(out)
+    ci, ni = ci[:cap], ni[:cap]
+    pad = cap - len(ci)
+    ci = np.concatenate([ci, np.zeros(pad, np.int64)])
+    ni = np.concatenate([ni, np.zeros(pad, np.int64)])
+    return ci, ni, out[ci, ni]
+
+
+@pytest.mark.parametrize("dtypes", K4_DTYPE_SETS, ids=lambda d: "-".join(str(t)[6:] for t in d))
+@pytest.mark.parametrize("case", K4_CASES)
+def test_k4_edges_equal_jnp_nonzero_and_numpy(case, dtypes):
+    """The plain K4 at its edges, M = 7 x 301 (not a multiple of 4), slot
+    for slot equal to jnp.nonzero(size=cap, fill_value=0) and np.nonzero's
+    order."""
+    out, cap = k4_case(case, 7, 301)
+    ci, ni = jnp.nonzero(jnp.asarray(out), size=cap, fill_value=0)
+    want = (np.asarray(ci), np.asarray(ni), np.asarray(jnp.asarray(out)[ci, ni]))
+    got = KT.compact_nonzero(T(out), cap, *dtypes)
+    for g, w, n, dt in zip(got, want, k4_numpy(out, cap), dtypes):
+        assert g.dtype == dt and g.shape == (cap,)
+        np.testing.assert_array_equal(g.numpy().astype(np.int64), w.astype(np.int64))
+        np.testing.assert_array_equal(g.numpy().astype(np.int64), n.astype(np.int64))
+
+
 def _jax_and_torch_views(N, seed):
     rng = np.random.default_rng(seed)
     total = np.zeros((N, R), np.float32)
@@ -327,6 +387,58 @@ def test_cuda_kernels_equal_plain_on_card():
     for x, y in zip(KT.compact_nonzero(a_k, 1024), KT._compact_nonzero_plain(
             a_k, 1024, torch.int32, torch.int32, torch.int32)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_one_launch_edges_equal_plain_and_numpy():
+    """On the card: K4, one cooperative launch a call, slot for slot equal
+    to its plain version and to np.nonzero's order at every edge and dtype
+    set, at [37, 1001] (M not a multiple of a chunk or of 4), the stream's
+    [256, 10 000] (the register form) and [256, 40 000] (the looped form,
+    which reads its chunks twice); two calls give the same bits, as do two
+    hundred calls in a row on one stream's block counts, and a call on a
+    second stream, which gets counts of its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    forms = set()
+    for C, N in ((37, 1001), (256, 10_000), (256, 40_000)):
+        blocks, per, looped = KT.k4_launch_plan(C * N, dev)
+        forms.add(looped)
+        assert blocks * per * 4096 >= C * N > (blocks * per - per) * 4096 or blocks == 1
+        for case in K4_CASES:
+            out, cap = k4_case(case, C, N)
+            x = T(out).to(dev)
+            want = k4_numpy(out, cap)
+            for dts in K4_DTYPE_SETS:
+                before = KT.compact_nonzero.launches
+                got = KT.compact_nonzero(x, cap, *dts)
+                assert KT.compact_nonzero.launches == before + 1
+                for g, p, n in zip(got, KT._compact_nonzero_plain(x, cap, *dts), want):
+                    assert torch.equal(g, p), (C, N, case, dts)
+                    g = g.cpu().numpy()  # int16 wraps past 32 767, as numpy's cast does
+                    np.testing.assert_array_equal(g, n.astype(g.dtype))
+                again = KT.compact_nonzero(x, cap, *dts)
+                assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert forms == {False, True}
+    out, cap = k4_case("corner_nonzero", 256, 10_000)
+    x = T(out).to(dev)
+    first = KT.compact_nonzero(x, cap, *K4_DTYPE_SETS[0])
+    for _ in range(200):
+        got = KT.compact_nonzero(x, cap, *K4_DTYPE_SETS[0])
+        assert all(torch.equal(a, b) for a, b in zip(first, got))
+    # a second stream has block counts of its own
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = KT.compact_nonzero(x, cap, *K4_DTYPE_SETS[0])
+    side.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, got))
+    assert (x.device.index, side.cuda_stream) in KT._k4_scratch
+    # a view 4 bytes past an aligned start: copied to an aligned buffer first
+    view = T(np.concatenate([[0], out.reshape(-1)]).astype(np.int32)).to(dev)[1:]
+    got = KT.compact_nonzero(view.view(256, 10_000), cap, *K4_DTYPE_SETS[0])
+    assert all(torch.equal(a, b) for a, b in zip(first, got))
+    torch.cuda.synchronize()
 
 
 # ------------------------------------------------------- K1's cluster layout

@@ -19,16 +19,17 @@ caught):
    negative entry); K4 (one cooperative launch) also at its edges: out[0, 0]
    zero and not, a matrix of zeros, nonzeros only in the last block's
    range, and [256, 40 000] (its looped form), two launches bit-equal;
-   torch.profiler counts the kernels a call enqueues: K6
-   one launch of one thread-block cluster (its cluster size logged), K5
-   its zero fill and three kernels a phase (caps, prefix, trim), 25 at 4
-   rounds; any other count fails. K1, K5 and K6 are also held against the
-   NumPy reference (kernel_np). Median device times of each kernel and its
-   plain version. Right after phase 1, torch.profiler counts one kernel a
-   call of K4 at the stream's first round, of K10a' at the train step's
-   shapes in bf16 and f32, and of K10b at the forward's (the profiler
-   loses device records once a process has gone a minute without a
-   session; PERF.md).
+   torch.profiler counts the kernels a call enqueues (its launch calls,
+   and the kernels' names on the card where the profiler kept every
+   record; kernels_enqueued): K6 one launch of one thread-block cluster
+   (its cluster size logged), K5 its zero fill and three kernels a phase
+   (caps, prefix, trim), 25 at 4 rounds; any other count fails. K1, K5
+   and K6 are also held against the NumPy reference (kernel_np). Median
+   device times of each kernel and its plain version. Before the rest of
+   phase 1, torch.profiler counts one kernel a call of K4 at the stream's
+   first round, of K10a' at the train step's shapes in bf16 and f32, and
+   of K10b at the forward's (the profiler loses device records, whole
+   sessions once a process has gone a minute without one; PERF.md).
 2. the 1M-task stream over 10k nodes (20% of the fleet held back, an
    autoscale flip, completions releasing resources) through
    TorchScheduler.schedule_async / fetch / apply_delta / update_rows, with
@@ -67,7 +68,10 @@ caught):
    golden's numpy seed; tokens skewed toward expert 0 so that the capacity
    drops some): (a) K9a routing, K9b dispatch and K9c combine against their
    plain versions at the main path's shapes (bit-equal; gate within 1e-6),
-   in bf16 and f32, with times, bounds and the gather alone
+   in bf16 and f32, K9a also where its chunks of 256 tokens meet (S 1 to
+   8 192, E 1 to 64, three capacities, ties, a grid past the resident
+   blocks), each launched twice with the same bits, with times (K9a's
+   block count beside it), bounds and the gather alone
    (index_select) as the yardstick; (b) moe_ffn on x [8, 2048, 256] bf16,
    timed, with a dropped share above 0; (c) the layer held by an actor of
    ray_tpu_torch.init(), answering 8 requests of assorted [G, S]; (d) the
@@ -94,7 +98,8 @@ caught):
    versions at the train step's shapes in bf16 and f32 (K8' in bf16 on the
    tensor cores, in f32 on the CUDA cores, whose time is recorded beside
    it), each launched twice with the same bits (K10a' one kernel a call,
-   counted right after phase 1, in both dtypes), with times,
+   counted before the rest of phase 1, in both dtypes; K10b' in its rows form,
+   and bit-equal to its scalar form on offset views), with times,
    bounds and the library
    yardsticks (the backward of scaled_dot_product_attention and of
    rms_norm); (b) make_train_state (seed 0) and make_train_step, 10 steps
@@ -130,7 +135,8 @@ have gone to the tensor-core kernel), the expert kernels' just
 before 7b and after 7c, K7's just before 8b and after it, the model
 kernels' again just before 9b and after 9c, where each of the training
 path's six must have launched its predicted count a step times the 14
-steps, every K8 and K8' launch a tensor-core one, and the expert kernels' again just before 10b and after 10c, where
+steps, every K8 and K8' launch a tensor-core one and every K10b' launch
+in the rows form, and the expert kernels' again just before 10b and after 10c, where
 each of the six (K9a-c, K9a'-c') must have launched once a step over the
 14 steps: every kernel of each path must have launched in its run. K8's block form runs on no ported
 path yet (the ring across cards is still to port); its launches in (d)'s
@@ -149,6 +155,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -619,34 +626,34 @@ def phase1_rounds(torch, KT, kernel_np, dev, rec, err, k1_problems):
         live = rounds_live_classes(kernel_np, avail, total, alive, d_pad, k_pad, rounds,
                                    chunk)
         ops = live * N * (9 * A + 4 * A + 2 * 9 * A + 2 * 8)
-        launched = kernels_enqueued(torch, lambda: kern(*args, **kw))
+        enq = kernels_enqueued(torch, lambda: kern(*args, **kw))
         rec[kname].update(
             ms=time_ms(torch, lambda: kern(*args, **kw)),
             plain_ms=time_ms(torch, lambda: plain(*args, **kw), reps=3, warm=1),
-            library_ms=None, bound=bound(bytes_rounds, ops), kernels_a_call=len(launched),
+            library_ms=None, bound=bound(bytes_rounds, ops), kernels_a_call=enq.launches,
             live_class_rounds=live,
         )
         if kname == "schedule_classes_rounds":
             # K5: the zero fill of the result, then caps, prefix and trim in
             # each of a round's two phases
-            phases = [n for n in launched if any(
+            phases = [n for n in enq.names if any(
                 k in n for k in ("rounds_caps", "rounds_prefix", "rounds_trim"))]
-            if len(phases) != 6 * rounds or len(launched) != 6 * rounds + 1:
-                raise AssertionError(f"{kname}: one call enqueued {len(launched)} kernels "
-                                     f"({sorted(set(launched))}), not the zero fill and "
+            if enq.launches != 6 * rounds + 1 or (enq.complete and len(phases) != 6 * rounds):
+                raise AssertionError(f"{kname}: one call enqueued {enq.launches} kernels "
+                                     f"({sorted(set(enq.names))}), not the zero fill and "
                                      f"{6 * rounds}")
             log(f"{kname} at the stream's first round [{N}, {C}], A = {A}: "
-                f"{len(launched)} kernels a call (the zero fill, then caps, prefix, trim "
-                f"twice a round); {rec[kname]['ms']:.4f} ms; {live} class-rounds with "
-                f"tasks left")
+                f"{enq.launches} kernels a call (the zero fill, then caps, prefix, trim "
+                f"twice a round; {len(phases)} of the {6 * rounds} recorded by name on the "
+                f"card); {rec[kname]['ms']:.4f} ms; {live} class-rounds with tasks left")
             continue
-        if len(launched) != 1:
-            raise AssertionError(f"{kname}: one call enqueued {len(launched)} kernels "
-                                 f"({sorted(set(launched))}), not one")
+        if enq.launches != 1 or len(enq.names) > 1:
+            raise AssertionError(f"{kname}: one call enqueued {enq.launches} kernels "
+                                 f"({sorted(set(enq.names))}), not one")
         plan = KT.rounds_launch_plan(N, R, A, C, chunk, dev)
         rec[kname].update(cluster=plan.cluster, rows_in_smem=plan.rows_in_smem)
         log(f"{kname} at the stream's first round [{N}, {C}], A = {A}: one kernel a call "
-            f"({launched[0][:60]}...), a cluster of {plan.cluster} blocks, "
+            f"({_kernel_name(enq)}), a cluster of {plan.cluster} blocks, "
             f"{plan.nodes_per_block} nodes a block, node state in "
             f"{'shared' if plan.rows_in_smem else 'global'} memory; "
             f"{rec[kname]['ms']:.4f} ms; {live} class-rounds with tasks left")
@@ -668,31 +675,63 @@ def rounds_live_classes(kernel_np, avail, total, alive, demands, counts, rounds,
     return live
 
 
-def kernels_enqueued(torch, fn):
-    """The names of the kernels one call of fn enqueues on the card (copies
-    and fills by the runtime left out), under torch.profiler, after a warm
-    call."""
+#: the CUDA API calls that each enqueue one kernel (cuda*: the runtime's)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKernel")
+
+
+class Enqueued(NamedTuple):
+    launches: int     # launch calls one call made (the runtime's records)
+    names: list       # the kernels the profiler recorded on the card
+    complete: bool    # a recorded kernel for every launch call
+
+
+def kernels_enqueued(torch, fn, sessions=3):
+    """What one call of fn enqueues on the card, under torch.profiler after
+    a warm call: its launch calls (the runtime's records, on the host's
+    clock) and the names of the kernels recorded on the card (copies and
+    fills by the runtime left out). The profiler loses device records,
+    never launch calls (PERF.md: whole sessions once a process has gone a
+    minute without one; 4 of K5's 25 kernels, in each of three sessions),
+    so up to `sessions` sessions are taken until one records a kernel for
+    every launch call; where none does, the names are the longest
+    record's and `complete` is False."""
     from torch.profiler import ProfilerActivity, profile
 
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA]
-    if not names:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    return [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+    best = None
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        calls = sum(1 for ev in events
+                    if ev.device_type == cpu and ev.name.startswith(LAUNCH_CALLS))
+        names = [ev.name for ev in events if ev.device_type == cuda
+                 and not ev.name.startswith(("Memcpy", "Memset"))]
+        if best is None or len(names) > len(best.names):
+            best = Enqueued(calls, names, len(names) == calls)
+        if best.complete:
+            break
+    if best.launches == 0:
+        raise RuntimeError(f"torch.profiler recorded no launch call in {sessions} sessions")
+    return best
+
+
+def _kernel_name(enq) -> str:
+    return f"{enq.names[0][:60]}..." if enq.names else \
+        "its device record lost by the profiler in every session"
 
 
 def phase1_kernels_a_call(torch, KT, MK, dev, rows=16384, D=512):
     """The kernels one call enqueues, by torch.profiler (one, or this
     fails): K4 at the stream's first round as TorchScheduler calls it, K10a'
     at the train step's shapes (phase 9a's, rows 16 384 x 512) in bf16 and
-    f32, and K10b at the forward's [8, 2048, 1536] bf16. Run right after
-    phase 1: torch.profiler loses device records once a process has gone a
-    minute without a session, as it does across phases 2-5 (PERF.md)."""
+    f32, and K10b at the forward's [8, 2048, 1536] bf16. Run first, right
+    after the build: torch.profiler loses device records once a process
+    has gone a minute without a session, as it does across phases 2-5
+    (PERF.md), and once lost them here after phase 1's minute and a half."""
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     avail, total, alive, demands, counts = stream_first_round()
     d, k = KT.pad_problem(demands, counts, KT.bucket_size(len(demands)))
@@ -711,13 +750,13 @@ def phase1_kernels_a_call(torch, KT, MK, dev, rows=16384, D=512):
     calls["rope_split"] = lambda: MK.rope_split(qkv, 8, 1e4)
     res = {}
     for what, fn in calls.items():
-        launched = kernels_enqueued(torch, fn)
-        if len(launched) != 1:
-            raise AssertionError(f"{what}: one call enqueued {len(launched)} kernels "
-                                 f"({sorted(set(launched))}), not one")
+        enq = kernels_enqueued(torch, fn)
+        if enq.launches != 1 or len(enq.names) > 1:
+            raise AssertionError(f"{what}: one call enqueued {enq.launches} kernels "
+                                 f"({sorted(set(enq.names))}), not one")
         name, _, dt = what.partition(" ")
         res.setdefault(name, {})["kernels_a_call" + (f"_{dt}" if dt else "")] = 1
-        log(f"{what}: one kernel a call ({launched[0][:60]}...)")
+        log(f"{what}: one kernel a call ({_kernel_name(enq)})")
     return res
 
 
@@ -1491,6 +1530,57 @@ def _route_err(torch, got, want, what):
     return err
 
 
+def _route_chunk_edges(torch, EK, dev):
+    """K9a against its plain version where its chunks of 256 tokens meet
+    (the look-back's edges): S = 1, 255, 256, 257, 2 049 and 8 192 at E =
+    1, 8, 9 and 64, three groups skewed toward expert 0, ties at the top
+    between experts 1 and E - 1 on every third token; at C = 1, C = S and a
+    C that expert 0 of group 0 overflows in the middle of a chunk; then a
+    grid larger than the card's resident blocks (G 64, S 16 384, E 8: 4 096
+    blocks). Each call launched twice, the bits equal. Returns the largest
+    gate / sum difference."""
+    rng = np.random.default_rng(31)
+    T = EK.ROUTE_TOKENS_A_BLOCK
+    err = 0.0
+
+    def check(lt, C, what):
+        got = EK.moe_route(lt, C)
+        if not all(torch.equal(a, b) for a, b in zip(got, EK.moe_route(lt, C))):
+            raise AssertionError(f"moe_route {what} C={C}: two launches gave different bits")
+        return got, _route_err(torch, got, EK._route_plain(lt, C), f"{what} C={C}")
+
+    for E in (1, 8, 9, 64):
+        for S in (1, T - 1, T, T + 1, 2049, 8192):
+            logits = (rng.standard_normal((3, S, E)) * 2).astype(np.float32)
+            logits[:, :, 0] += 1.0
+            if E > 1:
+                logits[:, ::3, 1] = logits[:, ::3, E - 1] = 30.0
+            lt = torch.from_numpy(logits).to(dev)
+            (expert, *_), e = check(lt, S, f"E={E} S={S}")
+            if E > 1 and not bool((expert[:, ::3] == 1).all()):
+                raise AssertionError(f"moe_route E={E} S={S}: a tie went to another expert")
+            # expert 0 of group 0 overflows at a routed token inside a chunk
+            routed = np.flatnonzero(expert[0].cpu().numpy() == 0)
+            inside = [s for s in routed[1:] if s % T not in (0, T - 1)]
+            later = [s for s in inside if s >= T]
+            for C in [1] + ([int((routed < min(later or inside, key=lambda s: abs(s - S // 2)))
+                                 .sum())] if inside else []):
+                e = max(e, check(lt, C, f"E={E} S={S}")[1])
+            err = max(err, e)
+    G, S, E = 64, 16384, 8
+    lt = torch.from_numpy((rng.standard_normal((G, S, E)) * 2).astype(np.float32)).to(dev)
+    blocks = EK.route_plan(G, S, E).blocks
+    if dev.type == "cuda":
+        resident = torch.cuda.get_device_properties(dev).multi_processor_count * 8
+        if blocks <= resident:
+            raise AssertionError(f"moe_route: {blocks} blocks fit the card's {resident}")
+    err = max(err, check(lt, int(S * 1.25 / E), f"G={G} S={S} E={E}")[1])
+    log(f"  moe_route at its chunk edges (S 1 to 8 192, E 1 to 64, three capacities, ties) "
+        f"and G {G} x S {S} ({blocks} blocks): equal to plain, two launches bit-equal, max "
+        f"gate / sum err {err:.3g}")
+    return err
+
+
 def _moe_layer(torch, PM, dev):
     """The main path's weights (the golden's numpy seed, checksum checked)
     and its skewed tokens [8, 2048, 256] float32 on `dev`."""
@@ -1520,6 +1610,11 @@ def phase7a_moe_kernels(torch, PM, EK, dev):
     got = EK.moe_route(logits, C)
     rec["moe_route"]["max_abs_err"] = _route_err(torch, got, EK._route_plain(logits, C),
                                                  "main path")
+    _route_err(torch, EK.moe_route(logits, C), got, "main path, a second launch")
+    if not all(torch.equal(a, b) for a, b in zip(got, EK.moe_route(logits, C))):
+        raise AssertionError("moe_route main path: two launches gave different bits")
+    rec["moe_route"]["max_abs_err"] = max(rec["moe_route"]["max_abs_err"],
+                                          _route_chunk_edges(torch, EK, dev))
     _, gate, slot, tos, _ = got
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}
     for x_name, x_dt in dt.items():
@@ -1561,7 +1656,8 @@ def phase7a_moe_kernels(torch, PM, EK, dev):
         plain_ms=time_ms(torch, lambda: EK._combine_plain(out, slot, gate, bf), reps=21),
         library_ms=time_ms(torch, lambda: torch.index_select(out_flat, 0, src), reps=21),
         bound=bound(G * S * 8 + kept * D * 4 + G * S * D * 2, kept * D))
-    log(f"  {kept} of {E * G * C} slots full")
+    log(f"  {kept} of {E * G * C} slots full; moe_route in one launch of "
+        f"{EK.route_plan(G, S, E).blocks} blocks")
     for name, r in rec.items():
         log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, gather alone "
             f"{r['library_ms']} ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}), "
@@ -1933,7 +2029,9 @@ ACTOR_STEPS = 4
 def phase9a_train_kernels(torch, MK, dev, S=2048):
     """K8', K10a' and K10b' against their plain versions on the card at
     the train step's shapes (B 8, S 2048, H 8, Dh 64; rows 16 384 x 512),
-    in bf16 and f32, each launched twice (the bits must agree); then timed
+    in bf16 and f32, each launched twice (the bits must agree; K10b' in
+    its rows form, and its scalar form on offset views with the same
+    bits); then timed
     in bf16 beside the plain versions, the bound and the backward of the
     library call where there is one (SDPA, rms_norm)."""
     import torch.nn.functional as F
@@ -1975,9 +2073,23 @@ def phase9a_train_kernels(torch, MK, dev, S=2048):
                                  MK._rmsnorm_bwd_plain(x, sc, dy), MK.rmsnorm_bwd(x, sc, dy)):
             check("rmsnorm_bwd", a, b, c, f"{names[dt]} {part}")
         dq, dk, dv = (rnd((B, S, H, Dh), dt) for _ in range(3))
-        check("rope_split_bwd", MK.rope_split_bwd(dq, dk, dv, 1e4),
-              MK._rope_split_bwd_plain(dq, dk, dv, 1e4), MK.rope_split_bwd(dq, dk, dv, 1e4),
-              names[dt])
+        if MK.rope_split_bwd_form(dq, dk, dv) != "rows":
+            raise AssertionError(f"rope_split_bwd {names[dt]}: not the rows form at the "
+                                 "train step's shapes")
+        got = MK.rope_split_bwd(dq, dk, dv, 1e4)
+        check("rope_split_bwd", got, MK._rope_split_bwd_plain(dq, dk, dv, 1e4),
+              MK.rope_split_bwd(dq, dk, dv, 1e4), names[dt])
+        # the scalar form, on views one element into their storage: its bits
+        shifted = []
+        for t in (dq, dk, dv):
+            view = torch.empty(t.numel() + 1, dtype=dt, device=dev)[1:].view(t.shape)
+            view.copy_(t)
+            shifted.append(view)
+        if MK.rope_split_bwd_form(*shifted) != "scalar":
+            raise AssertionError(f"rope_split_bwd {names[dt]}: an offset view not scalar")
+        if not torch.equal(MK.rope_split_bwd(*shifted, 1e4), got):
+            raise AssertionError(f"rope_split_bwd {names[dt]}: the rows form's bits are not "
+                                 "the scalar form's")
 
     bf = torch.bfloat16
     q, k, v, do = (rnd((B, S, H, Dh), bf) for _ in range(4))
@@ -2253,31 +2365,36 @@ def phase10a_moe_bwd_kernels(torch, PM, EK, dev):
     return rec
 
 
-def _busy_share(torch, fn, steps, each_step):
+def _busy_share(torch, fn, steps, each_step, windows=3):
     """The device's busy share of a window of `steps` calls of fn() under
-    torch.profiler: kernel time over the window's host time. Raises unless
-    the profiler recorded every kernel named in `each_step` (CUDA symbols)
-    once a call: a window that lost device records would read low, or 0."""
+    torch.profiler: kernel time over the window's host time. A window
+    counts only if the profiler recorded every kernel named in `each_step`
+    (CUDA symbols) once a call: one that lost device records would read
+    low, or 0. Up to `windows` windows are taken, the first complete one is
+    the answer, and none complete raises."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch.scripts.profile_model import device_ms_by_kernel
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
+    for _ in range(windows):
         torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    names = [ev.name for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA]
-    seen = {k: sum(1 for n in names if re.search(rf"\b{k}\b", n)) for k in each_step}
-    if any(n != steps for n in seen.values()):
-        raise RuntimeError(f"torch.profiler recorded {seen} of the port's kernels in "
-                           f"{steps} calls (of {len(names)} device events), not {steps} each")
-    return sum(device_ms_by_kernel(prof).values()) / window_ms
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {k: sum(1 for n in names if re.search(rf"\b{k}\b", n)) for k in each_step}
+        if all(n == steps for n in seen.values()):
+            return sum(device_ms_by_kernel(prof).values()) / window_ms
+        log(f"  busy share: torch.profiler recorded {seen} of the port's kernels in {steps} "
+            f"calls (of {len(names)} device events), not {steps} each; another window")
+    raise RuntimeError(f"torch.profiler lost some of the port's kernels in each of {windows} "
+                       f"windows of {steps} calls")
 
 
 def _moe_train_step(torch, PM, model, x, tx, state):
@@ -2367,7 +2484,8 @@ def moe_busy_share_child() -> float:
 
 def moe_busy_share_main(torch, PM, TT) -> int:
     """Steps 1-7 of phase 10b, then the device's busy share over steps 8-10
-    under torch.profiler, every expert kernel recorded once a step (or this
+    under torch.profiler, every expert kernel recorded once a step (where a
+    window lost records, over the next three steps, twice at most, or this
     raises); prints it as the last line."""
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2531,8 +2649,8 @@ def main() -> int:
     torch.cuda.set_device(dev)
 
     t0 = time.perf_counter()
-    rec = phase1_kernels(torch, KT, KS, kernel_np, dev)
     a_call = phase1_kernels_a_call(torch, KT, MK, dev)
+    rec = phase1_kernels(torch, KT, KS, kernel_np, dev)
     rec["compact_nonzero"].update(a_call["compact_nonzero"])
     log(f"phase 1: {time.perf_counter() - t0:.1f} s")
 
@@ -2662,6 +2780,11 @@ def main() -> int:
         raise AssertionError(f"training path: K8/K8' launches {got}, on the tensor cores "
                              f"{train_tc}")
     log(f"phase 9b-9c tensor-core launches {train_tc}")
+    rows = MK.rope_split_bwd.launches_rows
+    if rows != train_launches["rope_split_bwd"]:
+        raise AssertionError(f"training path: {train_launches['rope_split_bwd']} K10b' "
+                             f"launches, {rows} of them in the rows form")
+    log(f"phase 9b-9c K10b' launches in the rows form: {rows}")
     t0 = time.perf_counter()
     train_checks = phase9d_train_checks(torch, PT, TT, dev)
     log(f"phase 9d: {time.perf_counter() - t0:.1f} s")

@@ -130,7 +130,20 @@
 //                           dx1 = round(round(dy2 sin) + round(dy1 cos)),
 //                           dx2 = round(round(dy2 cos) - round(dy1 sin)), as
 //                           the jaxpr rounds them; dv passes through. Bound
-//                           by bytes. Design: K10b's, one block per (b, s).
+//                           by bytes (dq, dk, dv read once, dqkv written
+//                           once). K10b's two forms with the roles swapped,
+//                           picked by model_rope_split_bwd by K10b's rule
+//                           over dq, dk, dv and dqkv. Rows form
+//                           (rope_split_bwd_rows_kernel<DT>; the train
+//                           step's shapes): 8 (b, s) rows a block, each
+//                           row's cos and sin once in shared memory, then
+//                           16-byte vectors of dy1 with their dy2 partners
+//                           from dq and dk rotated into dqkv's q and k
+//                           thirds, dv copied into the v third in 16-byte
+//                           words. Scalar form (other head widths, a
+//                           misaligned view): one block per (b, s) row, one
+//                           thread per pair computing its own cos and sin.
+//                           The same roundings in both, so the same bits.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -1182,6 +1195,19 @@ __device__ __forceinline__ void store16(void* p, long long i, const float (&f)[R
   }
 }
 
+// The rows forms' table: cos and sin of each of the block's n_rows rows
+// (positions (row0 + r) % S) and pairs i < half, with rope_cs_sn's f32
+// operations, into s_cs and s_sn [kRopeRows][half]; ends with a barrier.
+__device__ __forceinline__ void rope_rows_table(float* s_cs, float* s_sn, int row0, int n_rows,
+                                                int S, int half, float neg_log_theta, int dt) {
+  for (int t = threadIdx.x; t < n_rows * half; t += kRopeThreads) {
+    const int r = t / half;
+    rope_cs_sn((float)((row0 + r) % S), t - r * half, half, neg_log_theta, dt, s_cs[t],
+               s_sn[t]);
+  }
+  __syncthreads();
+}
+
 template <int DT>
 __global__ void __launch_bounds__(kRopeThreads) rope_split_rows_kernel(
     const void* qkv, void* q, void* k, void* v, int rows, int S, int H, int Dh,
@@ -1194,12 +1220,7 @@ __global__ void __launch_bounds__(kRopeThreads) rope_split_rows_kernel(
   const int n_rows = min(kRopeRows, rows - row0);
   float* s_cs = s_rope;
   float* s_sn = s_rope + kRopeRows * half;
-  for (int t = threadIdx.x; t < n_rows * half; t += kRopeThreads) {
-    const int r = t / half;
-    rope_cs_sn((float)((row0 + r) % S), t - r * half, half, neg_log_theta, DT, s_cs[t],
-               s_sn[t]);
-  }
-  __syncthreads();
+  rope_rows_table(s_cs, s_sn, row0, n_rows, S, half, neg_log_theta, DT);
   const int hv = half / VE;     // vectors a half-head
   const int per_sec = H * hv;   // rotation items of q (or k) a row
   for (int t = threadIdx.x; t < n_rows * 2 * per_sec; t += kRopeThreads) {
@@ -1285,6 +1306,69 @@ __global__ void __launch_bounds__(kRopeThreads) rope_split_bwd_kernel(
     }
     store1(dqkv, out_base + 2 * D + c1, load1(dv, in_base + c1, dt), dt);
     store1(dqkv, out_base + 2 * D + c2, load1(dv, in_base + c2, dt), dt);
+  }
+}
+
+// K10b''s rows form, picked where K10b's is (rope_rows_form over dq, dk, dv
+// and dqkv): rope_split_rows_kernel with the roles swapped. A block takes
+// kRopeRows (b, s) rows, computes each row's cos and sin once into shared
+// memory, then each thread loads a 16-byte vector of dy1 and its dy2
+// partner from dq or dk and stores dx1 and dx2 to dqkv's q or k third as
+// 16-byte vectors; dv is copied into the v third as 16-byte words. The
+// scalar form's roundings, so the same bits.
+template <int DT>
+__global__ void __launch_bounds__(kRopeThreads) rope_split_bwd_rows_kernel(
+    const void* dq, const void* dk, const void* dv, void* dqkv, int rows, int S, int H, int Dh,
+    float neg_log_theta) {
+  constexpr int VE = RopeVec<DT>::n;
+  constexpr int ESIZE = DT == kBF16 ? 2 : 4;
+  extern __shared__ float s_rope[];  // cos [kRopeRows][half], then sin
+  const int half = Dh / 2;
+  const int D = H * Dh;
+  const int row0 = blockIdx.x * kRopeRows;
+  const int n_rows = min(kRopeRows, rows - row0);
+  float* s_cs = s_rope;
+  float* s_sn = s_rope + kRopeRows * half;
+  rope_rows_table(s_cs, s_sn, row0, n_rows, S, half, neg_log_theta, DT);
+  const int hv = half / VE;     // vectors a half-head
+  const int per_sec = H * hv;   // rotation items of dq (or dk) a row
+  for (int t = threadIdx.x; t < n_rows * 2 * per_sec; t += kRopeThreads) {
+    const int r = t / (2 * per_sec);
+    int u = t - r * 2 * per_sec;
+    const int sec = u >= per_sec;  // 0: dq, 1: dk
+    u -= sec * per_sec;
+    const int h = u / hv;
+    const int i0 = (u - h * hv) * VE;  // the vector's first pair
+    const long long row = row0 + r;
+    const int c1 = h * Dh + i0;
+    const long long in = row * D + c1;
+    float g1[VE], g2[VE], x1[VE], x2[VE];
+    load16<DT>(sec ? dk : dq, in, g1);
+    load16<DT>(sec ? dk : dq, in + half, g2);
+    const float* cs = s_cs + r * half + i0;
+    const float* sn = s_sn + r * half + i0;
+#pragma unroll
+    for (int e = 0; e < VE; ++e) {
+      // dy2 sin + dy1 cos, dy2 cos - dy1 sin, as the scalar form
+      x1[e] = __fadd_rn(round_to(__fmul_rn(g2[e], sn[e]), DT),
+                        round_to(__fmul_rn(g1[e], cs[e]), DT));
+      x2[e] = __fsub_rn(round_to(__fmul_rn(g2[e], cs[e]), DT),
+                        round_to(__fmul_rn(g1[e], sn[e]), DT));
+    }
+    const long long out = row * 3 * D + sec * D + c1;
+    store16<DT>(dqkv, out, x1);
+    store16<DT>(dqkv, out + half, x2);
+  }
+  const int vrow = D / VE;  // dv's vectors a row
+  for (int t = threadIdx.x; t < n_rows * vrow; t += kRopeThreads) {
+    const int r = t / vrow;
+    const long long row = row0 + r;
+    const long long c = (long long)(t - r * vrow) * VE;
+    const uint4* src =
+        reinterpret_cast<const uint4*>(static_cast<const char*>(dv) + (row * D + c) * ESIZE);
+    uint4* dst = reinterpret_cast<uint4*>(static_cast<char*>(dqkv) +
+                                          (row * 3 * D + 2 * D + c) * ESIZE);
+    *dst = *src;
   }
 }
 
@@ -1445,11 +1529,32 @@ int model_rope_split(const void* qkv, void* q, void* k, void* v, int B, int S, i
   return (int)cudaGetLastError();
 }
 
+// Which form of K10b' model_rope_split_bwd launches for these pointers and
+// head width: 1 the rows form, 0 the scalar form (K10b's rule).
+int model_rope_split_bwd_form(const void* dq, const void* dk, const void* dv, const void* dqkv,
+                              int Dh, int dtype) {
+  return rope_rows_form(dqkv, dq, dk, dv, Dh, dtype);
+}
+
 int model_rope_split_bwd(const void* dq, const void* dk, const void* dv, void* dqkv, int B,
                          int S, int H, int Dh, float neg_log_theta, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || Dh <= 0 || Dh % 2 != 0) return (int)cudaErrorInvalidValue;
-  rope_split_bwd_kernel<<<B * S, kRopeThreads, 0, (cudaStream_t)stream>>>(
-      dq, dk, dv, dqkv, S, H, Dh, neg_log_theta, dtype);
+  if (B <= 0 || S <= 0 || H <= 0 || Dh <= 0 || Dh % 2 != 0 || (dtype != kF32 && dtype != kBF16))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!rope_rows_form(dqkv, dq, dk, dv, Dh, dtype)) {
+    rope_split_bwd_kernel<<<B * S, kRopeThreads, 0, st>>>(dq, dk, dv, dqkv, S, H, Dh,
+                                                          neg_log_theta, dtype);
+    return (int)cudaGetLastError();
+  }
+  const int rows = B * S;
+  const int blocks = (rows + kRopeRows - 1) / kRopeRows;
+  const size_t smem = 2 * kRopeRows * (Dh / 2) * sizeof(float);
+  if (dtype == kBF16)
+    rope_split_bwd_rows_kernel<kBF16><<<blocks, kRopeThreads, smem, st>>>(
+        dq, dk, dv, dqkv, rows, S, H, Dh, neg_log_theta);
+  else
+    rope_split_bwd_rows_kernel<kF32><<<blocks, kRopeThreads, smem, st>>>(
+        dq, dk, dv, dqkv, rows, S, H, Dh, neg_log_theta);
   return (int)cudaGetLastError();
 }
 

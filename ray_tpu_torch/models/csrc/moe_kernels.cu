@@ -16,8 +16,10 @@
 // here needs a contraction, and the routing must equal its plain version
 // bit for bit: the softmax is spelled out as the reference computes it
 // (row max, expf of the difference, a sum in expert order, IEEE division),
-// never with the __expf intrinsic or fast math. No kernel uses atomics, and
-// every sum is taken in a fixed order, so two launches give the same bits.
+// never with the __expf intrinsic or fast math. No value is ever summed or
+// stored through an atomic: K9a's ticket and its count of finished blocks
+// are the only atomics, and they order blocks, never a sum. Every sum is
+// taken in a fixed order, so two launches give the same bits.
 //
 // Layouts are the JAX package's: logits [G, S, E] (G token groups, S tokens
 // a group, E experts), x and y [G, S, D], the experts' rows [E, G, C, D]
@@ -37,22 +39,44 @@
 //                     in a slot, or -1 if it is empty) and stats [G,2,E]
 //                     (tokens and summed probability per expert).
 //                     Bound: it reads G*S*E*4 bytes and writes ~G*S*12 +
-//                     E*G*C*4 (microseconds at 3.35 TB/s); the count over S
-//                     is sequential, so it is latency-bound: one block per
-//                     group, G = 8 blocks on 132 SMs at the main path's
-//                     shapes. Design: the order of the count is the
-//                     semantics, and blocks run in no order, so one block
-//                     owns a group and walks it in chunks of 256 tokens, one
-//                     token a thread. Inside a chunk a token's rank among
-//                     the earlier tokens of its expert comes from
-//                     __match_any_sync over its warp plus the counts of the
-//                     earlier warps (shared memory); a running count per
-//                     expert carries from chunk to chunk. Counts are exact
-//                     int32. The probability sums are taken per warp in
-//                     float64 and added in warp order, so they are
-//                     deterministic and round once to float32. A later
-//                     kernel can spread a group over several blocks with a
-//                     decoupled look-back.
+//                     E*G*C*4 (0.8 MB, 0.24 us at 3.35 TB/s at the main
+//                     path's shapes); the count over S is a scan, so it is
+//                     latency-bound. Design: one launch of G * ceil(S / T)
+//                     blocks, T = 256 tokens a block (a chunk), one token a
+//                     thread: 64 blocks at the main path's [8, 2048, 8],
+//                     where a block a group would be 8 blocks walking 8
+//                     chunks in turn. Inside a chunk a token's
+//                     rank among the earlier tokens of its expert comes
+//                     from __match_any_sync over its warp plus the counts
+//                     of the earlier warps (shared memory). Across chunks,
+//                     a decoupled look-back on the integer counts: each
+//                     block publishes its chunk's E counts (the count and
+//                     a ready bit in one 32-bit word, so no fence is
+//                     needed between them), then adds up the published
+//                     counts of every earlier chunk of its group, read in
+//                     parallel, one word a thread. Chosen over recomputing
+//                     the earlier chunks' argmax (which waits on nothing)
+//                     because the last chunk would redo 7 of 8 chunks'
+//                     softmax at the main path's shape, a serial chain of
+//                     ~60 expf and divisions a thread, while every block
+//                     publishes after its own softmax alone, so a wait is
+//                     about one L2 round trip. A block takes its chunk
+//                     from an atomic ticket, not from blockIdx: it then
+//                     waits only on blocks that have started, and every
+//                     started block publishes without waiting, so the
+//                     look-back makes progress at any G * S, grids larger
+//                     than the card holds included. Every wait traps after
+//                     2^26 polls. Counts are exact int32. The probability
+//                     sums are taken per warp in float64 (a fixed
+//                     butterfly), added in warp order into the chunk's
+//                     sum in scratch; the group's last block to finish (a
+//                     count of finished blocks, after __threadfence) adds
+//                     the chunks' sums in chunk order, rounds once to
+//                     float32, writes the token counts, fills the empty
+//                     slots [count, C) of every expert with -1 and leaves
+//                     the scratch as zeros. The scratch (moe_route_plan's
+//                     words) is kept a stream by the wrapper, so no call
+//                     allocates.
 //   K9b moe_dispatch  replaces moe.py :83-89 and :99 (the dispatch one-hot,
 //                     einsum("gsec,gsd->egcd") and .astype(cfg.dtype)): a
 //                     gather, expert_in[e,g,c,:] = x[g, token_of_slot[e,g,c],
@@ -127,114 +151,200 @@ constexpr int kMaxExperts = 64;
 
 // ------------------------------------------------------------------ K9a
 
-constexpr int kRouteThreads = 256;  // tokens a chunk, one a thread
+constexpr int kRouteThreads = 256;  // T: tokens a chunk (a block), one a thread
 constexpr int kRouteWarps = kRouteThreads / 32;
+constexpr unsigned kCountReady = 0x80000000u;  // set in a published count word
+constexpr unsigned kRoutePolls = 1u << 26;     // a wait traps after this many polls
+
+// K9a's scratch, int32 words kept a stream by the caller (zeros when it is
+// made; every launch leaves it zeros again): [0] the ticket, [done, +G) the
+// blocks of each group that have finished, [agg, +n) each chunk's token
+// count per expert, published with kCountReady, and [part, +2n) each
+// chunk's probability sum per expert as a double; n = G * chunks * E.
+struct RouteLayout {
+  long long done, agg, part, words;
+};
+
+__host__ __device__ inline int route_chunks(int S) {
+  return (S + kRouteThreads - 1) / kRouteThreads;
+}
+
+__host__ __device__ inline RouteLayout route_layout(int G, int S, int E) {
+  const long long n = (long long)G * route_chunks(S) * E;
+  RouteLayout L;
+  L.done = 2;
+  L.agg = L.done + G + (G & 1);
+  L.part = L.agg + n + (n & 1);  // 8-byte aligned
+  L.words = L.part + 2 * n;
+  return L;
+}
+
+// A count word of an earlier chunk, once its block has published it. A
+// wait that never ends (a fault) traps after kRoutePolls polls, seconds at
+// least, so the launch fails instead of hanging the card.
+__device__ __forceinline__ int wait_count(const int* word) {
+  for (unsigned polls = 0;; ++polls) {
+    const unsigned w = *reinterpret_cast<const volatile unsigned*>(word);
+    if (w & kCountReady) return (int)(w & ~kCountReady);
+    if (polls == kRoutePolls) __trap();
+  }
+}
 
 template <int kMaxE>
 __global__ void __launch_bounds__(kRouteThreads) route_kernel(
     const float* __restrict__ logits, int G, int S, int E, int C,
     int* __restrict__ expert_out, float* __restrict__ gate_out, int* __restrict__ slot_out,
-    int* __restrict__ token_of_slot, float* __restrict__ stats) {
-  __shared__ int base[kMaxE];                   // tokens of the group routed to e so far
-  __shared__ int wcount[kRouteWarps][kMaxE];    // this chunk: tokens of warp w routed to e
-  __shared__ double wprob[kRouteWarps][kMaxE];  // warp w's sum of probs[e] over all chunks
-  const int g = blockIdx.x;
+    int* __restrict__ token_of_slot, float* __restrict__ stats, int* __restrict__ scratch) {
+  __shared__ int wcount[kRouteWarps][kMaxE];    // tokens of warp w routed to e
+  __shared__ double wprob[kRouteWarps][kMaxE];  // warp w's sum of probs[e]
+  __shared__ int lookback[kRouteThreads];       // earlier chunks' counts, in part
+  __shared__ int base[kMaxE];                   // tokens of earlier chunks routed to e
+  __shared__ unsigned ticket_of_block;
+  __shared__ int last_of_group;
+  const RouteLayout L = route_layout(G, S, E);
+  const int chunks = route_chunks(S);
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch);
+  int* done = scratch + L.done;
+  int* agg = scratch + L.agg;
+  double* part = reinterpret_cast<double*>(scratch + L.part);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const unsigned lanes_before = (1u << lane) - 1u;
 
-  for (int i = tid; i < kMaxE; i += kRouteThreads) base[i] = 0;
-  for (int i = tid; i < kRouteWarps * kMaxE; i += kRouteThreads) {
-    wcount[i / kMaxE][i % kMaxE] = 0;
-    wprob[i / kMaxE][i % kMaxE] = 0.0;
+  // the chunk comes from the ticket, so every block this one waits for
+  // (an earlier chunk of its group) has started
+  if (tid == 0) {
+    const unsigned t = atomicAdd(ticket, 1u);
+    if (t == gridDim.x - 1) atomicExch(ticket, 0u);  // every ticket taken
+    ticket_of_block = t;
   }
+  for (int i = tid; i < kRouteWarps * kMaxE; i += kRouteThreads) wcount[i / kMaxE][i % kMaxE] = 0;
   __syncthreads();
-
-  for (int s0 = 0; s0 < S; s0 += kRouteThreads) {
-    const int s = s0 + tid;
-    const bool live = s < S;
-    const long long gs = (long long)g * S + s;
-    float p[kMaxE];
-    int best = -1;  // -1: no token (past the ragged end)
-    float gate = 0.f;
+  const int g = (int)(ticket_of_block / (unsigned)chunks);
+  const int j = (int)(ticket_of_block - (unsigned)g * (unsigned)chunks);
+  const int s = j * kRouteThreads + tid;
+  const bool live = s < S;
+  const long long gs = (long long)g * S + s;
+  float p[kMaxE];
+  int best = -1;  // -1: no token (past the ragged end)
+  float gate = 0.f;
 #pragma unroll
-    for (int e = 0; e < kMaxE; ++e) p[e] = 0.f;
-    if (live) {
-      const float* row = logits + gs * E;
-      float m = -INFINITY;
-#pragma unroll
-      for (int e = 0; e < kMaxE; ++e) {
-        if (e < E) {
-          p[e] = row[e];
-          m = fmaxf(m, p[e]);
-        }
-      }
-      // softmax as the reference: exp(l - max), summed in e order, divided
-      float sum = 0.f;
-#pragma unroll
-      for (int e = 0; e < kMaxE; ++e) {
-        if (e < E) {
-          p[e] = expf(__fsub_rn(p[e], m));
-          sum = __fadd_rn(sum, p[e]);
-        }
-      }
-      // argmax over the probabilities, the first index on equal values
-#pragma unroll
-      for (int e = 0; e < kMaxE; ++e) {
-        if (e < E) {
-          p[e] = __fdiv_rn(p[e], sum);
-          if (e == 0 || p[e] > gate) {
-            gate = p[e];
-            best = e;
-          }
-        }
-      }
-    }
-
-    // rank among the earlier tokens of this warp routed to the same expert;
-    // the warp's first such token records the warp's count
-    const unsigned peers = __match_any_sync(kFull, best);
-    const int rank = __popc(peers & lanes_before);
-    if (live && rank == 0) wcount[warp][best] = __popc(peers);
+  for (int e = 0; e < kMaxE; ++e) p[e] = 0.f;
+  if (live) {
+    const float* row = logits + gs * E;
+    float m = -INFINITY;
 #pragma unroll
     for (int e = 0; e < kMaxE; ++e) {
       if (e < E) {
-        double v = (double)p[e];
+        p[e] = row[e];
+        m = fmaxf(m, p[e]);
+      }
+    }
+    // softmax as the reference: exp(l - max), summed in e order, divided
+    float sum = 0.f;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-        if (lane == 0) wprob[warp][e] += v;
+    for (int e = 0; e < kMaxE; ++e) {
+      if (e < E) {
+        p[e] = expf(__fsub_rn(p[e], m));
+        sum = __fadd_rn(sum, p[e]);
       }
     }
-    __syncthreads();
-
-    if (live) {
-      int pos = base[best] + rank;
-      for (int w = 0; w < warp; ++w) pos += wcount[w][best];
-      const bool keep = pos < C;
-      expert_out[gs] = best;
-      gate_out[gs] = gate;
-      slot_out[gs] = keep ? best * C + pos : -1;
-      if (keep) token_of_slot[((long long)best * G + g) * C + pos] = s;
-    }
-    __syncthreads();
-    if (tid < E) {
-      int total = 0;
-      for (int w = 0; w < kRouteWarps; ++w) {
-        total += wcount[w][tid];
-        wcount[w][tid] = 0;
+    // argmax over the probabilities, the first index on equal values
+#pragma unroll
+    for (int e = 0; e < kMaxE; ++e) {
+      if (e < E) {
+        p[e] = __fdiv_rn(p[e], sum);
+        if (e == 0 || p[e] > gate) {
+          gate = p[e];
+          best = e;
+        }
       }
-      base[tid] += total;
     }
-    __syncthreads();
   }
 
+  // rank among the earlier tokens of this warp routed to the same expert;
+  // the warp's first such token records the warp's count
+  const unsigned peers = __match_any_sync(kFull, best);
+  const int rank = __popc(peers & lanes_before);
+  if (live && rank == 0) wcount[warp][best] = __popc(peers);
+#pragma unroll
+  for (int e = 0; e < kMaxE; ++e) {
+    if (e < E) {
+      double v = (double)p[e];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+      if (lane == 0) wprob[warp][e] = v;
+    }
+  }
+  __syncthreads();
+
+  // publish this chunk's counts (the count and its flag in one word) and
+  // its probability sums, the warps in order
+  const long long group0 = (long long)g * chunks * E;
   if (tid < E) {
-    double total = 0.0;
-    for (int w = 0; w < kRouteWarps; ++w) total += wprob[w][tid];
-    stats[((long long)g * 2 + 0) * E + tid] = (float)base[tid];
-    stats[((long long)g * 2 + 1) * E + tid] = __double2float_rn(total);
+    int count = 0;
+    double sum = 0.0;
+    for (int w = 0; w < kRouteWarps; ++w) {
+      count += wcount[w][tid];
+      sum += wprob[w][tid];
+    }
+    part[group0 + (long long)j * E + tid] = sum;
+    *reinterpret_cast<volatile unsigned*>(agg + group0 + (long long)j * E + tid) =
+        (unsigned)count | kCountReady;
   }
+  // the tokens of the earlier chunks routed to each expert: thread k0 * E + e
+  // adds the counts of chunks k0, k0 + per_e, ... below j, then thread e
+  // adds those partial counts (exact integers)
+  const int per_e = kRouteThreads / E;
+  if (tid < per_e * E) {
+    const int e = tid % E;
+    int sum = 0;
+    for (int k = tid / E; k < j; k += per_e) sum += wait_count(agg + group0 + (long long)k * E + e);
+    lookback[tid] = sum;
+  }
+  __syncthreads();
+  if (tid < E) {
+    int b = 0;
+    for (int k0 = 0; k0 < per_e; ++k0) b += lookback[k0 * E + tid];
+    base[tid] = b;
+  }
+  __syncthreads();
+
+  if (live) {
+    int pos = base[best] + rank;
+    for (int w = 0; w < warp; ++w) pos += wcount[w][best];
+    const bool keep = pos < C;
+    expert_out[gs] = best;
+    gate_out[gs] = gate;
+    slot_out[gs] = keep ? best * C + pos : -1;
+    if (keep) token_of_slot[((long long)best * G + g) * C + pos] = s;
+  }
+
+  // the group's last block to finish writes its stats, fills its empty
+  // slots and leaves the group's scratch as zeros
+  __threadfence();  // this chunk's sums before its done ticket
+  __syncthreads();
+  if (tid == 0) last_of_group = atomicAdd(done + g, 1) == chunks - 1;
+  __syncthreads();
+  if (!last_of_group) return;
+  __threadfence();
+  if (tid < E) {
+    int count = 0;
+    double total = 0.0;  // in chunk order
+    for (int k = 0; k < chunks; ++k) {
+      const long long at = group0 + (long long)k * E + tid;
+      count += __ldcg(agg + at) & (int)~kCountReady;
+      total += __ldcg(part + at);
+      agg[at] = 0;  // a later call may lay its counts over these sums:
+      part[at] = 0.0;  // zeros, so no word reads as published
+    }
+    stats[((long long)g * 2 + 0) * E + tid] = (float)count;
+    stats[((long long)g * 2 + 1) * E + tid] = __double2float_rn(total);
+    base[tid] = count;
+  }
+  if (tid == 0) done[g] = 0;
+  __syncthreads();
   // the slots past each expert's count stay empty
   for (int e = 0; e < E; ++e) {
     int* dst = token_of_slot + ((long long)e * G + g) * C;
@@ -244,9 +354,10 @@ __global__ void __launch_bounds__(kRouteThreads) route_kernel(
 
 template <int kMaxE>
 int launch_route(const float* logits, int* expert, float* gate, int* slot, int* tos,
-                 float* stats, int G, int S, int E, int C, cudaStream_t stream) {
-  route_kernel<kMaxE><<<G, kRouteThreads, 0, stream>>>(logits, G, S, E, C, expert, gate, slot,
-                                                       tos, stats);
+                 float* stats, int* scratch, int G, int S, int E, int C, cudaStream_t stream) {
+  const long long blocks = (long long)G * route_chunks(S);
+  route_kernel<kMaxE><<<(unsigned)blocks, kRouteThreads, 0, stream>>>(
+      logits, G, S, E, C, expert, gate, slot, tos, stats, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -579,16 +690,31 @@ extern "C" {
 
 const char* moe_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+// K9a's launch for logits [G, S, E]: plan = {tokens a chunk, chunks a
+// group, blocks, int32 words of scratch}.
+int moe_route_plan(int G, int S, int E, long long* plan) {
+  if (G <= 0 || S <= 0 || E <= 0) return (int)cudaErrorInvalidValue;
+  plan[0] = kRouteThreads;
+  plan[1] = route_chunks(S);
+  plan[2] = (long long)G * route_chunks(S);
+  plan[3] = route_layout(G, S, E).words;
+  return 0;
+}
+
+// scratch: scratch_words int32 words, zeros, kept for this stream (moe_route_plan).
 int moe_route(const float* logits, int* expert, float* gate, int* slot, int* token_of_slot,
-              float* stats, int G, int S, int E, int C, void* stream) {
-  if (G <= 0 || G > 65535 || S <= 0 || E <= 0 || E > kMaxExperts || C <= 0) {
+              float* stats, int* scratch, long long scratch_words, int G, int S, int E, int C,
+              void* stream) {
+  if (G <= 0 || G > 65535 || S <= 0 || E <= 0 || E > kMaxExperts || C <= 0 ||
+      (long long)G * route_chunks(S) > 0x7fffffffLL ||
+      scratch_words < route_layout(G, S, E).words) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  if (E <= 8) return launch_route<8>(logits, expert, gate, slot, token_of_slot, stats, G, S, E, C, st);
-  if (E <= 16) return launch_route<16>(logits, expert, gate, slot, token_of_slot, stats, G, S, E, C, st);
-  if (E <= 32) return launch_route<32>(logits, expert, gate, slot, token_of_slot, stats, G, S, E, C, st);
-  return launch_route<64>(logits, expert, gate, slot, token_of_slot, stats, G, S, E, C, st);
+  if (E <= 8) return launch_route<8>(logits, expert, gate, slot, token_of_slot, stats, scratch, G, S, E, C, st);
+  if (E <= 16) return launch_route<16>(logits, expert, gate, slot, token_of_slot, stats, scratch, G, S, E, C, st);
+  if (E <= 32) return launch_route<32>(logits, expert, gate, slot, token_of_slot, stats, scratch, G, S, E, C, st);
+  return launch_route<64>(logits, expert, gate, slot, token_of_slot, stats, scratch, G, S, E, C, st);
 }
 
 int moe_dispatch(const void* x, const int* token_of_slot, void* out, int E, int G, int S, int C,

@@ -17,6 +17,12 @@ CUDA use) each beside its plain PyTorch version.
   K10a' rmsnorm_bwd    the gradient of _rmsnorm
   K10b' rope_split_bwd the gradient of _rope and the split
 
+K10b and K10b' each have two forms, picked by the C entry: 16-byte rows
+where a half-head is whole 16-byte vectors and every pointer is aligned
+(``rope_split_form``, ``rope_split_bwd_form``), else one scalar pair a
+thread; the two give the same bits. ``rope_split_bwd`` counts its rows-form
+launches in ``launches_rows``.
+
 Which kernel serves K8 and K8' on the card is ``_attention_route``'s
 choice: bf16 with the probabilities rounded (the forward's and the train
 step's path) goes to the wgmma kernels of attention_sm90.cu; float32, and
@@ -73,6 +79,7 @@ _SIGNATURES = {
     "model_rope_split": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
     "model_rope_split_form": ([_P, _P, _P, _P, _I, _I], _I),
     "model_rope_split_bwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P], _I),
+    "model_rope_split_bwd_form": ([_P, _P, _P, _P, _I, _I], _I),
     "model_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -638,31 +645,63 @@ def _rope_split_bwd_plain(dq, dk, dv, theta: float):
                       dv.reshape(B, S, H * Dh)], dim=-1)
 
 
-def rope_split_bwd(dq, dk, dv, theta: float):
-    """K10b'. The gradient of rope_split for the cotangents dq, dk, dv
-    [B, S, H, Dh]: dqkv [B, S, 3 H Dh] in their dtype."""
-    dev = device_of(dq, dk, dv)
-    if dev.type == "cpu":
-        return _rope_split_bwd_plain(dq, dk, dv, theta)
+def _check_rope_bwd(dq, dk, dv) -> int:
     dt = _dtype_code(dq, "rope_split_bwd")
     if dq.dim() != 4 or dk.shape != dq.shape or dv.shape != dq.shape or dq.shape[3] % 2 \
             or dq.numel() == 0 or dk.dtype != dq.dtype or dv.dtype != dq.dtype:
         raise ValueError(f"rope_split_bwd: dq {tuple(dq.shape)}, dk {tuple(dk.shape)}, dv "
                          f"{tuple(dv.shape)} (one [B, S, H, Dh] shape and dtype, Dh even)")
-    _check_layout("rope_split_bwd", dq, dk, dv)
+    return dt
+
+
+#: the widest half-head K10b's and K10b''s rows forms take (kRopeMaxHalf)
+ROPE_MAX_HALF = 256
+
+
+def rope_split_bwd_form(dq, dk, dv) -> str:
+    """The form of K10b' that rope_split_bwd launches for these cotangents:
+    "rows" (16-byte vectors, a row's cos and sin computed once) where a
+    half-head is a whole number of 16-byte vectors no wider than
+    ROPE_MAX_HALF and dq, dk, dv are 16-byte aligned (dqkv always is), else
+    "scalar". The host-side mirror of the source's rule
+    (model_rope_split_bwd_form), so it answers for CPU tensors too; the
+    `cuda` test holds the two together."""
+    _check_rope_bwd(dq, dk, dv)
+    half = dq.shape[3] // 2
+    rows = (half * dq.element_size()) % 16 == 0 and half <= ROPE_MAX_HALF \
+        and all(t.data_ptr() % 16 == 0 for t in (dq, dk, dv))
+    return "rows" if rows else "scalar"
+
+
+def rope_split_bwd(dq, dk, dv, theta: float):
+    """K10b'. The gradient of rope_split for the cotangents dq, dk, dv
+    [B, S, H, Dh]: dqkv [B, S, 3 H Dh] in their dtype. ``launches_rows``
+    counts the launches that took the rows form."""
+    dev = device_of(dq, dk, dv)
+    if dev.type == "cpu":
+        return _rope_split_bwd_plain(dq, dk, dv, theta)
+    dt = _check_rope_bwd(dq, dk, dv)
+    for t in (dq, dk, dv):  # a misaligned view takes the scalar form
+        if not t.is_contiguous():
+            raise ValueError("rope_split_bwd: dq, dk, dv must be contiguous")
     B, S, H, Dh = dq.shape
     lib = LIBRARY.load()
     dqkv = torch.empty((B, S, 3 * H * Dh), dtype=dq.dtype, device=dev)
+    ptrs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dqkv.data_ptr())
+    # the C entry picks the form: 16-byte rows where the head width and
+    # every pointer allow (rope_split_bwd_form), else one scalar pair a thread
+    rows = lib.model_rope_split_bwd_form(*ptrs, Dh, dt)
     with torch.cuda.device(dev):
-        rc = lib.model_rope_split_bwd(dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                      dqkv.data_ptr(), B, S, H, Dh, -math.log(theta), dt,
+        rc = lib.model_rope_split_bwd(*ptrs, B, S, H, Dh, -math.log(theta), dt,
                                       current_stream(dev))
     _check(lib, rc, "rope_split_bwd")
     rope_split_bwd.launches += 1
+    rope_split_bwd.launches_rows += bool(rows)
     return dqkv
 
 
 rope_split_bwd.launches = 0
+rope_split_bwd.launches_rows = 0
 
 #: the kernels of this module by name, each with its `launches` counter
 KERNELS = {
@@ -694,3 +733,4 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for name in TC_KERNELS:
         KERNELS[name].launches_tc = 0
+    rope_split_bwd.launches_rows = 0

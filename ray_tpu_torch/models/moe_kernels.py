@@ -4,7 +4,9 @@ PyTorch version.
 
   K9a moe_route     ray_tpu/models/moe.py :70-82 and :112-114: softmax,
                     top-1 expert, gate, position in expert, capacity drop,
-                    and the per-group sums behind the aux loss
+                    and the per-group sums behind the aux loss; one launch
+                    of a block a chunk of 256 tokens (``route_plan``), with
+                    a scratch kept a stream
   K9b moe_dispatch  moe.py :83-89, :99: each kept token's row gathered into
                     its expert's slot, cast to the expert dtype
   K9c moe_combine   moe.py :86, :110: each token's expert row scaled by its
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -55,9 +58,10 @@ _SRC = Path(__file__).resolve().parent / "csrc" / "moe_kernels.cu"
 #: --fmad=false: the routing must equal its plain version bit for bit
 NVCC_FLAGS = cuda_build.BASE_FLAGS + ("--fmad=false",)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "moe_route": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "moe_route_plan": ([_I, _I, _I, _P], _I),
+    "moe_route": ([_P] * 7 + [_LL] + [_I] * 4 + [_P], _I),
     "moe_dispatch": ([_P] * 3 + [_I] * 7 + [_P], _I),
     "moe_combine": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "moe_route_bwd": ([_P] * 5 + [_I] * 3 + [_F, _P], _I),
@@ -141,6 +145,44 @@ def _check_route_args(logits: torch.Tensor, capacity: int) -> None:
                          f"(at most {MAX_GROUPS}), capacity {capacity} (at least 1)")
 
 
+#: tokens a block of K9a (the source's kRouteThreads): one chunk of a group
+ROUTE_TOKENS_A_BLOCK = 256
+
+
+class RoutePlan(NamedTuple):
+    chunks: int         # blocks a group: ceil(S / ROUTE_TOKENS_A_BLOCK)
+    blocks: int         # G * chunks, one launch
+    scratch_words: int  # int32 words of the scratch kept a stream
+
+
+def route_plan(G: int, S: int, E: int) -> RoutePlan:
+    """K9a's launch for logits [G, S, E], the host-side mirror of the
+    source's route_layout (its C entry moe_route_plan; the `cuda` test
+    holds the two together): a block a chunk of 256 tokens; the scratch
+    holds the ticket, each group's count of finished blocks, and each
+    chunk's E token counts (int32) and probability sums (float64)."""
+    chunks = -(-S // ROUTE_TOKENS_A_BLOCK)
+    n = G * chunks * E
+    agg = 2 + G + (G & 1)
+    part = agg + n + (n & 1)
+    return RoutePlan(chunks, G * chunks, part + 2 * n)
+
+
+#: K9a's scratch: one zeroed int32 array a (device, stream), made at the
+#: stream's first call and grown only for a larger shape, so that no call
+#: of a steady shape allocates and no two streams share; each launch leaves
+#: it zeros
+_route_scratch = {}
+
+
+def _route_scratch_for(dev, words: int) -> torch.Tensor:
+    key = (dev.index, current_stream(dev))
+    buf = _route_scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _route_scratch[key] = torch.zeros(words, dtype=torch.int32, device=dev)
+    return buf
+
+
 def moe_route(logits: torch.Tensor, capacity: int):
     """K9a. logits [G, S, E] float32 and the capacity C a (group, expert) ->
     expert [G, S] int32 (top-1, the first index on ties), gate [G, S]
@@ -162,9 +204,11 @@ def moe_route(logits: torch.Tensor, capacity: int):
     token_of_slot = torch.empty((E, G, capacity), dtype=torch.int32, device=dev)
     stats = torch.empty((G, 2, E), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        scratch = _route_scratch_for(dev, route_plan(G, S, E).scratch_words)
         rc = lib.moe_route(logits.data_ptr(), expert.data_ptr(), gate.data_ptr(),
                            slot.data_ptr(), token_of_slot.data_ptr(), stats.data_ptr(),
-                           G, S, E, capacity, current_stream(dev))
+                           scratch.data_ptr(), scratch.numel(), G, S, E, capacity,
+                           current_stream(dev))
     _check(lib, rc, "moe_route")
     moe_route.launches += 1
     return expert, gate, slot, token_of_slot, stats

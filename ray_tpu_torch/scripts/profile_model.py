@@ -49,10 +49,11 @@ _OURS = {"attention_sm90_bwd_dq_kernel": "K8' launch 1 (wgmma)",
          "attention_bwd_dq_kernel": "K8' launch 1", "attention_bwd_dkv_kernel": "K8' launch 2",
          "route_bwd_kernel": "K9a'", "dispatch_bwd_kernel": "K9b'",
          "combine_bwd_rows_kernel": "K9c' launch 1", "combine_bwd_gate_kernel": "K9c' launch 2",
-         "rmsnorm_bwd_kernel": "K10a'", "rope_split_bwd_kernel": "K10b'",
+         "rmsnorm_bwd_kernel": "K10a'", "rope_split_bwd_rows_kernel": "K10b' (rows)",
+         "rope_split_bwd_kernel": "K10b' (scalar)",
          "rope_split_rows_kernel": "K10b (rows)", "rope_split_kernel": "K10b (scalar)",
          "attention_kernel": "K8", "rmsnorm_kernel": "K10a",
-         "route_kernel": "K9a", "dispatch_kernel": "K9b", "combine_kernel": "K9c"}
+         "route_kernel": "K9a (a block a chunk)", "dispatch_kernel": "K9b", "combine_kernel": "K9c"}
 
 
 def _label(name: str) -> str:

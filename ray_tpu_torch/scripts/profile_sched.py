@@ -41,11 +41,14 @@ stream's wall time and device time by kernel name.
 ``ab``: K5, K6 and K7 (p = 1, 2, 4, 8, without the wrapper's checks) and
 K4 (on K1's assignment, with the cap and widths TorchScheduler picks) at
 the stream's first round, K10a' at the train step's [16 384, 512] in bf16
-and f32, and K10b at the forward's [8, 2048, 1536] bf16, from each of the
-given checkouts of this repo, in turns (the trees in order, then in
-reverse), each run a process of its own that builds that tree's kernels:
-whether each equals its plain version (K7: K1; K10a', K10b: the largest
-difference), and the CUDA-event medians of three sets of calls
+and f32, K10b at the forward's [8, 2048, 1536] bf16, K10b' at the train
+step's [8, 2048, 8, 64] in bf16 and f32, and K9a at the expert layer's
+logits [8, 2048, 8] with C 320, from each of the given checkouts of this
+repo, in turns (the trees in order, then in reverse), each run a process
+of its own that builds that tree's kernels: whether each equals its plain
+version (K7: K1; K9a: its integers, and the largest difference of its gate
+and sums; K10a', K10b, K10b': the largest difference), and the CUDA-event
+medians of three sets of calls
 (chip_smoke.time_ms), beside that of one empty kernel (the timing's
 floor). For comparing versions of the kernels on one card.
 
@@ -250,15 +253,16 @@ def profile_rounds(which: str) -> dict:
 # Run in a tree's root by `ab`, with only what every version of the port
 # has: chip_smoke.stream_first_round and time_ms, kernel_torch's K5/K6, K4
 # (compact_nonzero) and their plain versions, kernel_shard._launch (K7
-# without the wrapper's checks) and the model kernels' rmsnorm_bwd (K10a')
-# and rope_split (K10b) and their plain versions.
+# without the wrapper's checks), the model kernels' rmsnorm_bwd (K10a'),
+# rope_split (K10b) and rope_split_bwd (K10b') and their plain versions,
+# and the expert layer's moe_route (K9a) on chip_smoke's main-path logits.
 _AB = """
 import json, sys
 sys.path.insert(0, ".")
 import numpy as np, torch
 import chip_smoke as CS
 from ray_tpu_torch.sched import kernel_shard as KS, kernel_torch as KT
-from ray_tpu_torch.models import kernels as MK
+from ray_tpu_torch.models import kernels as MK, moe as PM, moe_kernels as EK
 dev = torch.device("cuda", 0)
 avail, total, alive, demands, counts = CS.stream_first_round()
 d, k = KT.pad_problem(demands, counts, KT.bucket_size(len(demands)))
@@ -306,6 +310,22 @@ out["k10b_max_abs_err"] = max(float((a.double() - b.double()).abs().max()) for a
     MK.rope_split(qkv, 8, 1e4), MK._rope_split_plain(qkv, 8, 1e4)))
 out["k10b_ms"] = [CS.time_ms(torch, lambda: MK.rope_split(qkv, 8, 1e4), reps=21)
                   for _ in range(3)]
+for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    dq, dk, dv = (torch.randn((8, 2048, 8, 64), generator=g).to(dev, dt) for _ in range(3))
+    out[f"k10b_bwd_{name}_max_abs_err"] = float(
+        (MK.rope_split_bwd(dq, dk, dv, 1e4).double()
+         - MK._rope_split_bwd_plain(dq, dk, dv, 1e4).double()).abs().max())
+    out[f"k10b_bwd_{name}_ms"] = [CS.time_ms(torch, lambda: MK.rope_split_bwd(dq, dk, dv, 1e4),
+                                             reps=21) for _ in range(3)]
+cfg, tree, _, x32 = CS._moe_layer(torch, PM, dev)
+logits = torch.matmul(x32, torch.from_numpy(tree["router"]).to(dev))
+C = PM._capacity(cfg, logits.shape[1])
+got, want = EK.moe_route(logits, C), EK._route_plain(logits, C)
+out["k9a_exact"] = all(torch.equal(got[i], want[i]) for i in (0, 2, 3)) and bool(
+    torch.equal(got[4][:, 0], want[4][:, 0]))
+out["k9a_max_abs_err"] = max(float((a.double() - b.double()).abs().max()) for a, b in (
+    (got[1], want[1]), (got[4][:, 1], want[4][:, 1])))
+out["k9a_ms"] = [CS.time_ms(torch, lambda: EK.moe_route(logits, C), reps=21) for _ in range(3)]
 print(json.dumps(out))
 """
 
@@ -340,7 +360,7 @@ print(json.dumps(out))
 
 
 def ab(trees, script=_AB) -> dict:
-    """`script` (_AB: K4-K7, K10a' and K10b; _E2E: the end-to-end paths) in
+    """`script` (_AB: K4-K7, K9a, K10a', K10b and K10b'; _E2E: the end-to-end paths) in
     each tree in turns, forward then backward."""
     import os
     import subprocess

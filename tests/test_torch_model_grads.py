@@ -31,6 +31,7 @@ import torch
 
 from ray_tpu.models import transformer as JT
 from ray_tpu_torch.models import kernels as K
+from test_torch_model_kernels import ROPE_HEAD_WIDTHS
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 TOL_F32 = dict(rtol=1e-5, atol=1e-5)
@@ -148,12 +149,24 @@ def _jax_rope_split(H, Dh):
     return f
 
 
+# (S, Dh): every head width the card's test runs (K10b''s rows form where a
+# half-head is whole 16-byte vectors, the scalar form at Dh = 20) at S = 31
+# and 300, but Dh = 128 at S = 31 only. There the reference's frequency
+# table is not the port's: XLA:CPU's exp misses the correctly rounded value
+# in 10 of the 64 frequencies (torch's in 1), by up to 2.98e-8, which moves
+# an f32 gradient by ~1.2e-7 a position: past the 1e-5 tolerance from
+# position ~80 (measured 3.7e-5 at S = 300). The card's test holds K10b' to
+# the plain version at Dh = 128, S = 2047.
+ROPE_GRAD_CASES = [(S, Dh) for S in (300, 31) for Dh in ROPE_HEAD_WIDTHS
+                   if (S, Dh) != (300, 128)]
+
+
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("S", [300, 31])
-def test_rope_split_grads_match_jax(S, dt):
+@pytest.mark.parametrize("S,Dh", ROPE_GRAD_CASES)
+def test_rope_split_grads_match_jax(S, Dh, dt):
     """Positions up to S - 1: angles reach ~300 rad in the fastest pair."""
-    rng = np.random.default_rng(22 + S)
-    B, H, Dh = 2, 2, 32
+    rng = np.random.default_rng(22 + S + Dh)
+    B, H = 2, 2
     qkv = rng.standard_normal((B, S, 3 * H * Dh)).astype(np.float32)
     cot = [rng.standard_normal((B, S, H, Dh)).astype(np.float32) for _ in range(3)]
     qkvj, qkvt = _pair(qkv, dt)
@@ -171,6 +184,33 @@ def test_rope_split_grads_match_jax(S, dt):
     K.rope_split(leaf, H, 10000.0)[0].backward(pairs[0][1])
     zeros = torch.zeros_like(pairs[0][1])
     assert torch.equal(leaf.grad, K.rope_split_bwd(pairs[0][1], zeros, zeros, 10000.0))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_rope_split_bwd_form_follows_head_width_and_alignment(dt):
+    """K10b''s form as the source picks it (rope_split_bwd_form is its
+    host-side mirror; the `cuda` test holds the two together): rows where a
+    half-head is whole 16-byte vectors no wider than 256 and dq, dk, dv are
+    16-byte aligned; scalar at Dh = 20, past 256 a half, for bf16 at
+    Dh = 8 (an 8-byte half) and for any view one element into its
+    storage."""
+    def grads(Dh, offset=0):
+        n = 2 * 3 * 2 * Dh
+        bufs = [torch.zeros(n + 16, dtype=dt) for _ in range(3)]
+        return [b[offset:offset + n].view(2, 3, 2, Dh) for b in bufs]
+
+    assert all(t.data_ptr() % 16 == 0 for t in grads(64))
+    for Dh in (16, 32, 64, 128, 512):
+        assert K.rope_split_bwd_form(*grads(Dh)) == "rows", Dh
+        assert K.rope_split_bwd_form(*grads(Dh, offset=1)) == "scalar", Dh
+        g = grads(Dh)
+        g[2] = grads(Dh, offset=1)[2]  # one misaligned cotangent is enough
+        assert K.rope_split_bwd_form(*g) == "scalar", Dh
+    for Dh in (20, 2 * (K.ROPE_MAX_HALF + 8)):
+        assert K.rope_split_bwd_form(*grads(Dh)) == "scalar", Dh
+    assert K.rope_split_bwd_form(*grads(8)) == ("scalar" if dt == torch.bfloat16 else "rows")
+    with pytest.raises(ValueError, match="Dh even"):
+        K.rope_split_bwd_form(*grads(7))
 
 
 def test_repaired_attention_rounds_probabilities_as_the_reference():
@@ -266,6 +306,49 @@ def test_cuda_backward_kernels_equal_plain_and_are_deterministic(Dh):
         got = K.rope_split_bwd(dq, dk, dv, 10000.0)
         _assert_kernel_close(got, K._rope_split_bwd_plain(dq, dk, dv, 10000.0), "rope_split_bwd")
         assert torch.equal(got, K.rope_split_bwd(dq, dk, dv, 10000.0))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", ROPE_HEAD_WIDTHS)
+def test_cuda_rope_split_bwd_forms_equal_plain_and_each_other(Dh):
+    """On the card: K10b' at S = 2047 in bf16 and f32 against its plain
+    version. The rows form (16-byte vectors; counted in launches_rows)
+    where a half-head is whole vectors and dq, dk, dv are aligned; the
+    scalar form at Dh = 20 and for views one element into their storage,
+    which gives the rows form's bits; rope_split_bwd_form agrees with the
+    source's model_rope_split_bwd_form; two launches give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(60 + Dh)
+    B, S, H = 2, 2047, 4
+    n = B * S * H * Dh
+    lib = K.LIBRARY.load()
+    for td in (torch.bfloat16, torch.float32):
+        bufs = [torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32)).to(dev, td)
+                for _ in range(3)]
+        grads = [b[:n].view(B, S, H, Dh) for b in bufs]
+        shifted = [b[1:].view(B, S, H, Dh) for b in bufs]
+        for sh, g in zip(shifted, grads):
+            sh.copy_(g.clone())  # the same values, one element further on
+        whole = (Dh // 2) * grads[0].element_size() % 16 == 0
+        assert K.rope_split_bwd_form(*grads) == ("rows" if whole else "scalar")
+        assert K.rope_split_bwd_form(*shifted) == "scalar"
+        for ts in (grads, shifted):
+            src = lib.model_rope_split_bwd_form(*(t.data_ptr() for t in ts), None, Dh,
+                                                K._DTYPE_CODES[td])
+            assert (K.rope_split_bwd_form(*ts) == "rows") == bool(src)
+        grads = [sh.clone() for sh in shifted]  # aligned again
+        rows0 = K.rope_split_bwd.launches_rows
+        got = K.rope_split_bwd(*grads, 10000.0)
+        assert K.rope_split_bwd.launches_rows == rows0 + whole
+        _assert_kernel_close(got, K._rope_split_bwd_plain(*grads, 10000.0),
+                             f"rope_split_bwd Dh={Dh} {td}")
+        again = K.rope_split_bwd(*grads, 10000.0)
+        other = K.rope_split_bwd(*shifted, 10000.0)
+        assert K.rope_split_bwd.launches_rows == rows0 + 2 * whole
+        assert torch.equal(got, again) and torch.equal(got, other)
     torch.cuda.synchronize()
 
 

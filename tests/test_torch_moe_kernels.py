@@ -17,6 +17,8 @@ for bit. The CUDA kernels are held against these plain versions on the
 card by the `cuda`-marked test here and by chip_smoke.py.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -100,7 +102,7 @@ CAPACITY_FACTORS = [1.25, 4.0, 0.25, 0.0625]
 
 
 @pytest.mark.parametrize("cf", CAPACITY_FACTORS)
-@pytest.mark.parametrize("S", [64, 61])
+@pytest.mark.parametrize("S", [64, 61, 257, 600])  # 257, 600: 2 and 3 of K9a's chunks
 def test_route_matches_reference(S, cf):
     logits, _ = _logits_and_x(S)
     C = PM._capacity(PM.MoEConfig(d_model=D, n_experts=4, capacity_factor=cf), S)
@@ -111,7 +113,7 @@ def test_route_matches_reference(S, cf):
         assert kept == G * S  # no drops
     else:
         assert kept < G * S  # the skewed router overflows expert 0
-    if cf == 0.0625:
+    if cf == 0.0625 and S <= 64:
         assert C == 1
 
 
@@ -125,7 +127,8 @@ def test_route_tie_takes_the_first_index():
     assert (got[0][:, ::3] == 1).all()
 
 
-@pytest.mark.parametrize("E,S", [(1, 64), (4, 1), (1, 1)])
+@pytest.mark.parametrize("E,S", [(1, 64), (4, 1), (1, 1), (9, 257), (9, 600), (9, 2049),
+                                 (4, 2049)])
 def test_route_edge_shapes(E, S):
     logits, _ = _logits_and_x(S, E=E)
     for C in (1, 3):
@@ -133,6 +136,55 @@ def test_route_edge_shapes(E, S):
         _assert_route_equal(K.moe_route(torch.from_numpy(logits), C), want)
     if E == 1:
         assert (K.moe_route(torch.from_numpy(logits), 1)[1] == 1.0).all()
+
+
+def _mid_chunk_capacity(expert, S):
+    """A capacity that expert 0 of group 0 overflows at a token inside one
+    of K9a's chunks of 256 (neither its first nor its last token), the one
+    nearest the middle of the group, past the first chunk where one such
+    token is: (C, the first dropped token)."""
+    T = K.ROUTE_TOKENS_A_BLOCK
+    routed = np.flatnonzero(expert[0] == 0)
+    inside = [s for s in routed[1:] if s % T not in (0, T - 1)]
+    if not inside:
+        raise AssertionError("no mid-chunk token of expert 0")
+    later = [s for s in inside if s >= T]
+    s = min(later or inside, key=lambda s: abs(s - S // 2))
+    return int((routed < s).sum()), int(s)
+
+
+def test_route_overflows_mid_chunk():
+    """E = 9 over 3 of K9a's chunks, with a capacity that expert 0 overflows
+    in the middle of a chunk: positions, drops and the empty slots as the
+    reference's scan gives them."""
+    logits, _ = _logits_and_x(600, E=9, skew=2.0)
+    C, first_dropped = _mid_chunk_capacity(jax_route(logits, 600)["expert"], 600)
+    want = jax_route(logits, C)
+    got = K.moe_route(torch.from_numpy(logits), C)
+    _assert_route_equal(got, want)
+    assert want["slot"][0, first_dropped] == -1
+    assert want["token_of_slot"][0, 0, C - 1] == max(
+        s for s in range(first_dropped) if want["expert"][0, s] == 0)
+
+
+@pytest.mark.parametrize("G,S,E", [(8, 2048, 8), (1, 1, 1), (3, 255, 9), (3, 256, 9),
+                                   (3, 257, 9), (64, 16384, 64), (65535, 1, 64)])
+def test_route_plan_mirrors_the_source(G, S, E):
+    """K9a's launch: a block a chunk of 256 tokens, G * ceil(S / 256) blocks
+    in one launch, and the scratch's int32 words (the ticket and a pad, a
+    finished-block count a group, E counts and E float64 sums a chunk, each
+    section 8-byte aligned), as the source's route_layout computes them (the
+    `cuda` test asks the built source). 64 blocks at the main path's
+    [8, 2048, 8]."""
+    plan = K.route_plan(G, S, E)
+    chunks = -(-S // 256)
+    assert plan.chunks == chunks and plan.blocks == G * chunks
+    n = G * chunks * E
+    agg = 2 + G + G % 2
+    assert plan.scratch_words == agg + n + n % 2 + 2 * n
+    assert (agg + n + n % 2) % 2 == 0  # the float64 sums 8-byte aligned
+    if (G, S, E) == (8, 2048, 8):
+        assert plan == K.RoutePlan(8, 64, 1546)
 
 
 @pytest.mark.parametrize("out_dt", list(DTYPES))
@@ -297,4 +349,61 @@ def test_cuda_moe_kernels_equal_plain_on_card():
                                        K._dispatch_plain(x, bad_tos, out_td)), (E, S, Dw)
                     assert torch.equal(K.moe_combine(out, bad_slot, gate, out_td),
                                        K._combine_plain(out, bad_slot, gate, out_td))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_route_chunk_edges_equal_plain_and_are_deterministic():
+    """On the card: K9a (a block a chunk of 256 tokens, the chunks' counts
+    by a look-back) against its plain version where the chunks meet: S = 1,
+    255, 256, 257, 2 049 and 8 192 at E = 1, 8, 9 and 64, at C = 1, a
+    capacity that expert 0 overflows in the middle of a chunk, and S; ties
+    at the top; and a grid larger than the card's resident blocks (G 64,
+    S 16 384: 4 096 blocks). Routing integers and token counts bit-equal,
+    gate and sums within 1e-6; a second launch gives the same bits; the
+    plan is the source's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(31)
+    names = ("expert", "gate", "slot", "token_of_slot", "stats")
+
+    def check(lt, C, what):
+        got = K.moe_route(lt, C)
+        again = K.moe_route(lt, C)
+        want = K._route_plain(lt, C)
+        for name, g, a, w in zip(names, got, again, want):
+            assert torch.equal(g, a), f"{what} C={C}: {name} differs between two launches"
+            if name == "gate":
+                torch.testing.assert_close(g, w, **GATE_TOL)
+            elif name == "stats":
+                assert torch.equal(g[:, 0], w[:, 0]), f"{what} C={C}: token counts"
+                torch.testing.assert_close(g[:, 1], w[:, 1], rtol=1e-6, atol=0)
+            else:
+                assert torch.equal(g, w), f"{what} C={C}: {name}"
+        return want
+
+    for E in (1, 8, 9, 64):
+        for S in (1, 255, 256, 257, 2049, 8192):
+            plan = (ctypes.c_longlong * 4)()
+            assert K.LIBRARY.load().moe_route_plan(3, S, E, plan) == 0
+            assert tuple(plan) == (K.ROUTE_TOKENS_A_BLOCK, *K.route_plan(3, S, E))
+            logits = (rng.standard_normal((3, S, E)) * 2).astype(np.float32)
+            logits[:, :, 0] += 1.0  # skew: expert 0 overflows
+            if E > 1:
+                logits[:, ::3, 1] = logits[:, ::3, E - 1] = 30.0  # a tie at the top
+            lt = torch.from_numpy(logits).to(dev)
+            want = check(lt, S, f"E={E} S={S}")
+            if E > 1:
+                assert (want[0][:, ::3] == 1).all()
+            check(lt, 1, f"E={E} S={S}")
+            if S > 2:
+                C, _ = _mid_chunk_capacity(want[0].cpu().numpy(), S)
+                check(lt, C, f"E={E} S={S} mid-chunk overflow")
+    G, S, E = 64, 16384, 8
+    plan = K.route_plan(G, S, E)
+    props = torch.cuda.get_device_properties(dev)
+    assert plan.blocks > props.multi_processor_count * 8  # beyond the resident blocks
+    logits = torch.from_numpy((rng.standard_normal((G, S, E)) * 2).astype(np.float32)).to(dev)
+    check(logits, int(S * 1.25 / E), f"G={G} S={S} E={E}, {plan.blocks} blocks")
     torch.cuda.synchronize()

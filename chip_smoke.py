@@ -12,8 +12,13 @@ caught):
 1. every kernel against its plain PyTorch version on the card, with exact
    equality: K1 on the golden problem of the kernel tests, on seeded random
    problems (dead nodes, masked custom resources, over-subscribed classes)
-   and on the 10k-node x 256-class stream problem; K2, K3 and K4 at the
-   bucket edges; K5 (rounds) and K6 (chunked) on the rounds kernels' golden
+   and on the 10k-node x 256-class stream problem; K2 and K3, the rows
+   and delta modes of refresh_view_kernel, K2 at the bucket edges with the
+   first and last node among its rows, K3 over negative entries, each
+   timed alone (a round's view build, the round then writing the view in
+   place) and followed by a clone (the view build before rounds worked in
+   place), in turns; K4 at the bucket edges; K5 (rounds) and K6 (chunked)
+   on the rounds kernels' golden
    problems, the random problems, the stream problem and K1's layout edges
    (N = 10 007, N = 40 000 with the node state in global memory, R = 5, a
    negative entry); K4 (one cooperative launch) also at its edges: out[0, 0]
@@ -29,7 +34,11 @@ caught):
    phase 1, torch.profiler counts one kernel a call of K4 at the stream's
    first round, of K10a' at the train step's shapes in bf16 and f32, and
    of K10b at the forward's (the profiler loses device records, whole
-   sessions once a process has gone a minute without one; PERF.md).
+   sessions once a process has gone a minute without one; PERF.md); and
+   a pipelined scan round's launch and copy calls alone and after
+   apply_delta or update_rows: the refresh adds its uploads and one
+   launch, and the round writes the view in place (no device-to-device
+   copy), or this fails.
 2. the 1M-task stream over 10k nodes (20% of the fleet held back, an
    autoscale flip, completions releasing resources) through
    TorchScheduler.schedule_async / fetch / apply_delta / update_rows, with
@@ -456,46 +465,74 @@ def phase1_kernels(torch, KT, KS, kernel_np, dev):
         f"in turns K1 {k1_ms[0]:.4f}, K7 (p = {PATH_SHARDS}) {k7_ms[0]:.4f}, "
         f"{k7_ms[1]:.4f}, K1 {k1_ms[1]:.4f} ms")
 
-    # K2 at the row buckets' edges, N = 10k
+    # K2 and K3 are refresh_view_kernel's rows and delta modes. K2 at the
+    # row buckets' edges, N = 10k, the first and last node among the rows
     rng = np.random.default_rng(7)
     N = len(total5)
     base = T(total5)
     for n_dirty, pad in ((1, 16), (16, 16), (17, 64), (64, 64), (200, 256),
                          (1000, 1024), (4096, 4096)):
         idx = np.full(pad, N, np.int32)
-        idx[:n_dirty] = rng.choice(N, n_dirty, replace=False)
+        ends = [0, N - 1][:n_dirty]
+        idx[:n_dirty] = rng.permutation(np.concatenate([ends, rng.choice(
+            np.arange(1, N - 1), n_dirty - len(ends), replace=False)]))
         rows = rng.integers(0, 100, (pad, R)).astype(np.float32)
         ak = KT.scatter_rows_(base.clone(), T(idx), T(rows))
         ap = KT._scatter_rows_plain_(base.clone(), T(idx), T(rows))
         err("scatter_rows", ak, ap)
-    # time at the autoscale flip's shape: 1000 rows -> pad 1024
+    # K3 on [10k, 16]: deltas of both signs, clipping at 0 and at total,
+    # negative entries where the delta is 0 (clipped to 0 all the same)
+    av = T(np.floor(total5 * rng.uniform(-0.2, 1, total5.shape)).astype(np.float32))
+    delta_np = rng.integers(-300, 300, total5.shape).astype(np.float32)
+    delta_np[rng.random(total5.shape) < 0.3] = 0.0
+    delta = T(delta_np)
+    tt = T(total5)
+    err("delta_clip", KT.delta_clip(av, delta, tt), KT._delta_clip_plain(av, delta, tt))
+    log("K2/K3 refresh_view_kernel: rows mode at pads 16..4096 with pad index N and the "
+        "first and last node among the rows; delta mode [10000, 16] with negative "
+        "entries: == plain")
+
+    # time at the main path's shapes: K2 at the autoscale flip (1000 rows ->
+    # pad 1024), K3 on [10k, 16]; each alone (a round's view build now: the
+    # round writes the refreshed view in place) and followed by the clone
+    # of the view that each round's wrapper made before, in turns (with
+    # clone, alone, alone, with clone)
     idx = np.full(1024, N, np.int32)
     idx[:1000] = np.arange(8000, 9000)
     rows = total5[8000:9000]
     ti, tr = T(idx), T(np.concatenate([rows, np.zeros((24, R), np.float32)]))
     work = base.clone()
+
+    def turns(alone):
+        with_clone = lambda: alone().clone()  # noqa: E731
+        a, b = [time_ms(torch, with_clone, reps=21)], [time_ms(torch, alone, reps=21)]
+        b.append(time_ms(torch, alone, reps=21))
+        a.append(time_ms(torch, with_clone, reps=21))
+        return {"with_clone_ms": a, "alone_ms": b}
+
+    k2_turns = turns(lambda: KT.scatter_rows_(work, ti, tr))
+    k3_turns = turns(lambda: KT.delta_clip(av, delta, tt))
     # the library yardstick: index_copy_ of 1 024 distinct in-range rows (it
     # cannot drop the padding index, so every index of the same shapes is real)
     ti_lib, tr_lib = T(np.arange(8000, 9024)).long(), T(total5[8000:9024])
     rec["scatter_rows"].update(
-        ms=time_ms(torch, lambda: KT.scatter_rows_(work, ti, tr), reps=21),
+        ms=float(np.mean(k2_turns["alone_ms"])),
         plain_ms=time_ms(torch, lambda: KT._scatter_rows_plain_(work, ti, tr), reps=21),
         library_ms=time_ms(torch, lambda: work.index_copy_(0, ti_lib, tr_lib), reps=21),
-        bound=bound(1024 * 4 + 1024 * R * 4 + 1000 * R * 4, 0),
+        # in place: idx read, and each of the 1 000 live rows read and
+        # written (the 24 padding rows are neither read nor written)
+        bound=bound(1024 * 4 + 2 * 1000 * R * 4, 0),
+        view_build=k2_turns,
     )
-    log("K2 scatter_rows: pads 16..4096 with pad index N == plain")
-
-    # K3 on [10k, 16]: deltas of both signs, clipping at 0 and at total
-    av = T(np.floor(total5 * rng.uniform(0, 1, total5.shape)).astype(np.float32))
-    delta = T(rng.integers(-300, 300, total5.shape).astype(np.float32))
-    tt = T(total5)
-    err("delta_clip", KT.delta_clip(av, delta, tt), KT._delta_clip_plain(av, delta, tt))
     rec["delta_clip"].update(
-        ms=time_ms(torch, lambda: KT.delta_clip(av, delta, tt), reps=21),
+        ms=float(np.mean(k3_turns["alone_ms"])),
         plain_ms=time_ms(torch, lambda: KT._delta_clip_plain(av, delta, tt), reps=21),
         library_ms=None, bound=bound(4 * total5.size * 4, 2 * total5.size),
+        view_build=k3_turns,
     )
-    log("K3 delta_clip: [10000, 16] == plain")
+    for name, t in (("K2", k2_turns), ("K3", k3_turns)):
+        log(f"view build {name} alone / with the clone, in turns: " + ", ".join(
+            f"{k} {' '.join(f'{x:.4f}' for x in v)}" for k, v in t.items()))
 
     # K4 on the stream's first-round assignment, every cap bucket and dtype
     out = KT.schedule_classes(*args)[0][: len(demands)].contiguous()
@@ -677,12 +714,17 @@ def rounds_live_classes(kernel_np, avail, total, alive, demands, counts, rounds,
 
 #: the CUDA API calls that each enqueue one kernel (cuda*: the runtime's)
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cuLaunchKernel")
+#: the calls that each enqueue one copy (host to device, device to device,
+#: device to host)
+COPY_CALLS = ("cudaMemcpy",)
 
 
 class Enqueued(NamedTuple):
     launches: int     # launch calls one call made (the runtime's records)
     names: list       # the kernels the profiler recorded on the card
     complete: bool    # a recorded kernel for every launch call
+    copies: int = 0   # copy calls one call made
+    dtod: int = 0     # device-to-device copies the profiler recorded on the card
 
 
 def kernels_enqueued(torch, fn, sessions=3):
@@ -708,10 +750,13 @@ def kernels_enqueued(torch, fn, sessions=3):
         events = prof.events()
         calls = sum(1 for ev in events
                     if ev.device_type == cpu and ev.name.startswith(LAUNCH_CALLS))
+        copies = sum(1 for ev in events
+                     if ev.device_type == cpu and ev.name.startswith(COPY_CALLS))
+        dtod = sum(1 for ev in events if ev.device_type == cuda and "DtoD" in ev.name)
         names = [ev.name for ev in events if ev.device_type == cuda
                  and not ev.name.startswith(("Memcpy", "Memset"))]
         if best is None or len(names) > len(best.names):
-            best = Enqueued(calls, names, len(names) == calls)
+            best = Enqueued(calls, names, len(names) == calls, copies, dtod)
         if best.complete:
             break
     if best.launches == 0:
@@ -757,6 +802,42 @@ def phase1_kernels_a_call(torch, KT, MK, dev, rows=16384, D=512):
         name, _, dt = what.partition(" ")
         res.setdefault(name, {})["kernels_a_call" + (f"_{dt}" if dt else "")] = 1
         log(f"{what}: one kernel a call ({_kernel_name(enq)})")
+    res["view_build"] = round_refresh_enqueued(torch, KT, dev)
+    return res
+
+
+def round_refresh_enqueued(torch, KT, dev):
+    """What a pipelined scan round enqueues (schedule_async and fetch at the
+    stream's first round), alone and after a refresh: apply_delta ([10 000,
+    16]) or update_rows (1 000 rows, the autoscale flip). The round writes
+    the view in place: no device-to-device copy is recorded and the view
+    is the same tensor after it; a refresh adds its uploads (one copy a
+    delta, two for rows) and one launch. Anything else fails."""
+    avail, total, alive, demands, counts = stream_first_round()
+    sched = KT.TorchScheduler(total, alive, device=dev)
+    sched.set_available(avail)
+    delta = np.zeros_like(total)
+    idx = np.arange(8000, 9000)
+    rnd = lambda: sched.fetch(sched.schedule_async(demands, counts))  # noqa: E731
+    view = sched.avail
+    rnd()
+    if sched.avail is not view:
+        raise AssertionError("a pipelined round replaced the view instead of writing it")
+    res = {}
+    for what, refresh, uploads in (
+            ("round", lambda: None, 0),
+            ("apply_delta + round", lambda: sched.apply_delta(delta), 1),
+            ("update_rows + round", lambda: sched.update_rows(idx, total[idx]), 2)):
+        enq = kernels_enqueued(torch, lambda: (refresh(), rnd()))
+        res[what] = {"launches": enq.launches, "copies": enq.copies, "dtod": enq.dtod}
+        base = res["round"]
+        if enq.dtod or (enq.launches, enq.copies) != (
+                base["launches"] + (uploads > 0), base["copies"] + uploads):
+            raise AssertionError(f"{what}: {enq.launches} launches, {enq.copies} copies "
+                                 f"({enq.dtod} device to device); the round alone {base}, "
+                                 f"the refresh's uploads {uploads} and one launch")
+        log(f"{what}: {enq.launches} kernel launches, {enq.copies} copies a call, "
+            f"{enq.dtod} device to device")
     return res
 
 
@@ -2825,6 +2906,7 @@ def main() -> int:
         "schedule_classes_rounds": "ray_tpu/sched/kernel_jax.py:317",
         "schedule_classes_chunked": "ray_tpu/sched/kernel_jax.py:367",
     }
+    modes = {"scatter_rows": "rows", "delta_clip": "delta"}
     kernels = []
     for name, r in rec.items():
         kernels.append({
@@ -2834,6 +2916,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
+        if "view_build" in r:  # K2 and K3: refresh_view_kernel's modes
+            kernels[-1].update(kernel=f"refresh_view_kernel ({modes[name]} mode)",
+                               view_build_ms_in_turns=r["view_build"])
     off_path = []
     for name, r in model_rec.items():
         entry = {
@@ -2893,6 +2978,7 @@ def main() -> int:
                     "attention_bwd_ms_f32_cuda_core":
                         train_rec["attention_bwd"]["ms_f32_cuda_core"],
                     "tc_launches": {"forward": model_tc, "train": train_tc},
+                    "round_refresh_enqueued": a_call["view_build"],
                     "card": card}))
     log(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -31,8 +31,7 @@ _SIGNATURES = {
     "sched_k1_scratch_words": ([_I, _I, _I], _LL),
     "sched_schedule_classes_sharded": (
         [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _F, _I, _P], _I),
-    "sched_scatter_rows": ([_P, _P, _P, _I, _I, _I, _P], _I),
-    "sched_delta_clip": ([_P, _P, _P, _P, _LL, _P], _I),
+    "sched_refresh_view": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "sched_k4_plan": ([_LL, _P], _I),
     "sched_compact_nonzero": (
         [_P, _LL, _I, _LL, _P, _I, _P, _I, _P, _I, _P, _I, _P], _I),

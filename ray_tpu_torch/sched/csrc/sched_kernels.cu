@@ -17,8 +17,12 @@
 //                              critical_util, _threshold_cap, _score_bucket,
 //                              _fill_by_bucket, _sat_cumsum); one
 //                              thread-block cluster of 16 (or 8) blocks
-//   K2 sched_scatter_rows      replaces kernel_jax.py _scatter_rows
-//   K3 sched_delta_clip        replaces kernel_jax.py JaxScheduler.apply_delta
+//   K2, K3 sched_refresh_view  replaces kernel_jax.py _scatter_rows (rows
+//                              mode, K2) and JaxScheduler.apply_delta (delta
+//                              mode, K3): refresh_view_kernel<MODE>, the one
+//                              pass over the view that a refresh adds to a
+//                              round (TorchScheduler's rounds write their
+//                              view in place, without a copy)
 //   K4 sched_compact_nonzero   replaces the sparse download of
 //                              kernel_jax.py JaxScheduler.schedule_async
 //                              (jnp.nonzero(size=cap, fill_value=0) + gather
@@ -2026,30 +2030,39 @@ cudaError_t launch_rounds_phases(cudaStream_t st, float* avail, const float* tot
 }
 
 // ---------------------------------------------------------------------------
-// K2: avail[idx[i], :] = rows[i, :]; indices outside [0, N) (the padding
-// value N) are dropped. Bound: bytes (pad*(4 + 8R)); one thread per element,
-// neighbouring threads on neighbouring columns of one row.
+// K2 and K3: refresh_view_kernel<MODE> refreshes the scheduler's view of the
+// cluster, [N, R] float32:
+//   kRefreshRows   K2, in place: out[idx[i], :] = rows[i, :] for every
+//                  idx[i] in [0, N); other indices (the padding value N) are
+//                  dropped, as mode="drop" does; in-range indices are
+//                  distinct. One thread per element of rows, neighbouring
+//                  threads on neighbouring columns of one row. Bound: bytes
+//                  (idx, and each live row read and written).
+//   kRefreshDelta  K3: out = clip(avail + delta, 0, total) on every entry,
+//                  avail + delta rounded once, then compared with 0 and with
+//                  total in that order; a grid-stride elementwise pass.
+//                  Bound: bytes (16 per element).
 // ---------------------------------------------------------------------------
-__global__ void scatter_rows_kernel(float* __restrict__ avail, const int* __restrict__ idx,
-                                    const float* __restrict__ rows, int pad, int N, int R) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= (long long)pad * R) return;
-  const int row = (int)(i / R), col = (int)(i % R);
-  const int n = idx[row];
-  if (n < 0 || n >= N) return;
-  avail[(size_t)n * R + col] = rows[i];
-}
+enum RefreshMode : int { kRefreshRows = 1, kRefreshDelta = 2 };
 
-// ---------------------------------------------------------------------------
-// K3: out = clip(avail + delta, 0, total). Bound: bytes (16 per element);
-// a grid-stride elementwise pass.
-// ---------------------------------------------------------------------------
-__global__ void delta_clip_kernel(float* __restrict__ out, const float* __restrict__ avail,
-                                  const float* __restrict__ delta,
-                                  const float* __restrict__ total, long long n) {
+template <int MODE>
+__global__ void refresh_view_kernel(float* __restrict__ out, const float* __restrict__ avail,
+                                    const float* __restrict__ src,
+                                    const float* __restrict__ total,
+                                    const int* __restrict__ idx, int pad, int N, int R) {
+  if (MODE == kRefreshRows) {
+    const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i >= (long long)pad * R) return;
+    const int row = (int)(i / R), col = (int)(i % R);
+    const int n = idx[row];
+    if (n < 0 || n >= N) return;
+    out[(size_t)n * R + col] = src[i];
+    return;
+  }
+  const long long n = (long long)N * R;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
-    float v = __fadd_rn(avail[i], delta[i]);
+    float v = __fadd_rn(avail[i], src[i]);
     v = v < 0.f ? 0.f : v;
     const float t = total[i];
     out[i] = v > t ? t : v;
@@ -2393,24 +2406,31 @@ int sched_schedule_classes_sharded(float* avail, const float* total, const uint8
                                                  over_denom, max_passes);
 }
 
-int sched_scatter_rows(float* avail, const int* idx, const float* rows, int pad, int N, int R,
-                       void* stream) {
-  const long long n = (long long)pad * R;
-  if (n == 0) return (int)cudaGetLastError();
+// K2 and K3: rows mode (kRefreshRows) writes rows `src` [pad, R] into `out`
+// [N, R] in place at idx [pad] (avail unused); delta mode (kRefreshDelta)
+// writes clip(avail + delta, 0, total) into out, a tensor of its own, from
+// avail, delta `src` and total, each [N, R].
+int sched_refresh_view(float* out, const float* avail, const float* src, const float* total,
+                       const int* idx, int pad, int N, int R, int mode, void* stream) {
+  if (N < 0 || R < 1 || pad < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  scatter_rows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(avail, idx, rows, pad, N, R);
-  return (int)cudaGetLastError();
-}
-
-int sched_delta_clip(float* out, const float* avail, const float* delta, const float* total,
-                     long long n, void* stream) {
-  if (n == 0) return (int)cudaGetLastError();
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  delta_clip_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(out, avail, delta,
-                                                                            total, n);
+  if (mode == kRefreshRows) {
+    const long long n = (long long)pad * R;
+    if (n == 0 || N == 0) return (int)cudaGetLastError();
+    const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+    refresh_view_kernel<kRefreshRows><<<blocks, threads, 0, st>>>(out, avail, src, total, idx,
+                                                                  pad, N, R);
+  } else if (mode == kRefreshDelta) {
+    const long long n = (long long)N * R;
+    if (n == 0) return (int)cudaGetLastError();
+    long long blocks = (n + threads - 1) / threads;
+    if (blocks > 132 * 16) blocks = 132 * 16;
+    refresh_view_kernel<kRefreshDelta><<<(unsigned)blocks, threads, 0, st>>>(
+        out, avail, src, total, idx, pad, N, R);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

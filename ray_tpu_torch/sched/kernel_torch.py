@@ -9,6 +9,8 @@ it, a plain PyTorch version of the same function:
                        thread-block cluster (k1_plan)
   K2 scatter_rows_     dirty-row refresh of the device availability
   K3 delta_clip        clip(avail + delta, 0, total)
+                       (K2 and K3 are the rows and delta modes of one
+                       kernel, refresh_view_kernel)
   K4 compact_nonzero   COO compaction of the [C, N] assignment for download,
                        one cooperative launch (k4_launch_plan)
   K5 schedule_classes_rounds   the fully parallel two-phase [C, N] round
@@ -32,7 +34,9 @@ integer prefix sums in the score-ordered fill.
 
 TorchScheduler is the twin of kernel_jax.JaxScheduler: the cluster view
 stays resident on the device across rounds, the host pushes dirty rows or
-deltas, and schedule_async / fetch pipeline rounds without a host sync.
+deltas, and schedule_async / fetch pipeline rounds without a host sync. Its
+rounds write the view in place (the wrappers' private `_in_place`), so no
+round copies the view and a refresh is the one pass over it a round adds.
 """
 
 from __future__ import annotations
@@ -261,15 +265,24 @@ def k1_launch_plan(n_nodes: int, n_res: int, device) -> K1Plan:
     return k1_plan(n_nodes, n_res, _K1_CLUSTER[key])
 
 
+def _round_view(avail: torch.Tensor, in_place: bool) -> torch.Tensor:
+    """The [N, R] float32 view a round's kernel writes: a copy of avail, or
+    avail itself where the caller lets the round work in place."""
+    view = avail.to(torch.float32).contiguous()
+    return view if in_place else view.clone()
+
+
 def schedule_classes(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tensor,
                      demands: torch.Tensor, counts: torch.Tensor,
                      spread_threshold: float = DEFAULT_SPREAD_THRESHOLD,
-                     max_passes: int = MAX_PASSES):
+                     max_passes: int = MAX_PASSES, _in_place: bool = False):
     """K1. Batched hybrid placement, the semantics of kernel_np.schedule_classes.
 
     avail/total [N, R] float32, alive [N] bool, demands [C, R] float32,
     counts [C] int32. Returns (assigned [C, N] int32, new avail [N, R]
-    float32); the input `avail` is not modified.
+    float32); the input `avail` is not modified, unless `_in_place`
+    (TorchScheduler's rounds, which replace their view by the result) lets
+    the kernel write the new avail into it.
     """
     dev = _device_of(avail, total, alive, demands, counts)
     if dev.type == "cpu":
@@ -285,7 +298,7 @@ def schedule_classes(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tens
             f"alive {tuple(alive.shape)} demands {tuple(demands.shape)} "
             f"counts {tuple(counts.shape)}"
         )
-    new_avail = avail.to(torch.float32).contiguous().clone()
+    new_avail = _round_view(avail, _in_place)
     assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
     if N == 0 or C == 0:
         return assigned, new_avail
@@ -313,7 +326,29 @@ def schedule_classes(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tens
 schedule_classes.launches = 0
 
 
-# ------------------------------------------------------------------------- K2
+# ------------------------------------------------------------------- K2 / K3
+#
+# One kernel, refresh_view_kernel<MODE>, refreshes the view: rows mode (K2)
+# writes dirty rows into it in place, delta mode (K3) writes clip(avail +
+# delta, 0, total) into a new tensor.
+
+_REFRESH_MODES = {"rows": 1, "delta": 2}  # the source's RefreshMode
+
+
+def _refresh_launch(mode, out, avail, src, total=None, idx=None):
+    """One launch of refresh_view_kernel in `mode` on the current stream,
+    counted as K2's (rows) or K3's (delta) launch."""
+    dev = out.device
+    N, R = out.shape
+    pad = 0 if idx is None else idx.shape[0]
+    lib = _build.load()
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        rc = lib.sched_refresh_view(ptr(out), ptr(avail), ptr(src), ptr(total), ptr(idx),
+                                    pad, N, R, _REFRESH_MODES[mode], _stream(dev))
+    _check(lib, rc, f"refresh_view ({mode})")
+    (scatter_rows_ if mode == "rows" else delta_clip).launches += 1
+    return out
 
 
 def _scatter_rows_plain_(avail, idx, rows):
@@ -328,11 +363,12 @@ def _scatter_rows_plain_(avail, idx, rows):
 def scatter_rows_(avail: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
     """K2. In place: avail[idx[i]] = rows[i] for every idx[i] in [0, N);
     other indices (the padding value N) are dropped, as `mode="drop"` does
-    in the reference. Indices in range must be distinct. Returns avail."""
+    in the reference. Indices in range must be distinct. Returns avail.
+    On a card, refresh_view_kernel in rows mode."""
     dev = _device_of(avail, idx, rows)
     if dev.type == "cpu":
         return _scatter_rows_plain_(avail, idx, rows)
-    N, R = avail.shape
+    R = avail.shape[1]
     pad = idx.shape[0]
     if rows.shape != (pad, R) or avail.dtype != torch.float32 \
             or not avail.is_contiguous():
@@ -341,21 +377,11 @@ def scatter_rows_(avail: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
             f"(contiguous float32 needed), idx {tuple(idx.shape)}, "
             f"rows {tuple(rows.shape)}"
         )
-    lib = _build.load()
-    idx = idx.to(torch.int32).contiguous()
-    rows = rows.to(torch.float32).contiguous()
-    with torch.cuda.device(dev):
-        rc = lib.sched_scatter_rows(avail.data_ptr(), idx.data_ptr(), rows.data_ptr(),
-                                    pad, N, R, _stream(dev))
-    _check(lib, rc, "scatter_rows")
-    scatter_rows_.launches += 1
-    return avail
+    return _refresh_launch("rows", avail, None, rows.to(torch.float32).contiguous(),
+                           idx=idx.to(torch.int32).contiguous())
 
 
 scatter_rows_.launches = 0
-
-
-# ------------------------------------------------------------------------- K3
 
 
 def _delta_clip_plain(avail, delta, total):
@@ -365,7 +391,8 @@ def _delta_clip_plain(avail, delta, total):
 
 
 def delta_clip(avail: torch.Tensor, delta: torch.Tensor, total: torch.Tensor):
-    """K3. Returns clip(avail + delta, 0, total) as a new [N, R] float32."""
+    """K3. Returns clip(avail + delta, 0, total) as a new [N, R] float32.
+    On a card, refresh_view_kernel in delta mode."""
     dev = _device_of(avail, delta, total)
     if dev.type == "cpu":
         return _delta_clip_plain(avail, delta, total)
@@ -374,17 +401,10 @@ def delta_clip(avail: torch.Tensor, delta: torch.Tensor, total: torch.Tensor):
             f"delta_clip: shapes {tuple(avail.shape)} {tuple(delta.shape)} "
             f"{tuple(total.shape)} differ"
         )
-    lib = _build.load()
     avail = avail.to(torch.float32).contiguous()
-    delta = delta.to(torch.float32).contiguous()
-    total = total.to(torch.float32).contiguous()
-    out = torch.empty_like(avail)
-    with torch.cuda.device(dev):
-        rc = lib.sched_delta_clip(out.data_ptr(), avail.data_ptr(), delta.data_ptr(),
-                                  total.data_ptr(), avail.numel(), _stream(dev))
-    _check(lib, rc, "delta_clip")
-    delta_clip.launches += 1
-    return out
+    return _refresh_launch("delta", torch.empty_like(avail), avail,
+                           delta.to(torch.float32).contiguous(),
+                           total.to(torch.float32).contiguous())
 
 
 delta_clip.launches = 0
@@ -691,7 +711,7 @@ def _rounds_args(avail, total, alive, demands, counts, chunk, rounds, kernel):
 
 
 def _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk,
-                   rounds, active_idx):
+                   rounds, active_idx, in_place=False):
     """The CUDA launch of K6: one kernel, one thread-block cluster, on the
     current stream. Returns (assigned, avail, launched)."""
     dev = avail.device
@@ -700,7 +720,7 @@ def _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk
     kernel = "schedule_classes_chunked"
     _rounds_args(avail, total, alive, demands, counts, chunk, rounds, kernel)
     active = _active_columns(demands, active_idx)
-    new_avail = avail.to(torch.float32).contiguous().clone()
+    new_avail = _round_view(avail, in_place)
     if N == 0 or C == 0 or rounds == 0:
         return torch.zeros((C, N), dtype=torch.int32, device=dev), new_avail, False
     lib = _build.load()
@@ -724,7 +744,7 @@ def _launch_rounds(avail, total, alive, demands, counts, spread_threshold, chunk
 
 
 def _launch_rounds_phases(avail, total, alive, demands, counts, spread_threshold, rounds,
-                          active_idx):
+                          active_idx, in_place=False):
     """The CUDA launch of K5: three kernels a phase, six a round, on the
     current stream, after the zero fill of `assigned`. Returns (assigned,
     avail, launched)."""
@@ -734,7 +754,7 @@ def _launch_rounds_phases(avail, total, alive, demands, counts, spread_threshold
     _rounds_args(avail, total, alive, demands, counts, max(C, 1), rounds,
                  "schedule_classes_rounds")
     active = _active_columns(demands, active_idx)
-    new_avail = avail.to(torch.float32).contiguous().clone()
+    new_avail = _round_view(avail, in_place)
     assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
     if N == 0 or C == 0 or rounds == 0:
         return assigned, new_avail, False
@@ -762,11 +782,12 @@ def _launch_rounds_phases(avail, total, alive, demands, counts, spread_threshold
 def schedule_classes_rounds(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tensor,
                             demands: torch.Tensor, counts: torch.Tensor,
                             spread_threshold: float = DEFAULT_SPREAD_THRESHOLD,
-                            rounds: int = 4, active_idx=None):
+                            rounds: int = 4, active_idx=None, _in_place: bool = False):
     """K5. The fully parallel two-phase [C, N] placement, the semantics of
     kernel_np.schedule_classes_rounds (decisions bit-identical on integer-
     granular problems). active_idx: the resource columns any class demands
-    (None: all). Same arguments and result as schedule_classes. One call
+    (None: all). Same arguments (`_in_place` too) and result as
+    schedule_classes. One call
     enqueues the zero fill of the result and six kernels a round (none
     when rounds == 0 or the problem is empty) and counts one launch."""
     dev = _device_of(avail, total, alive, demands, counts)
@@ -774,7 +795,7 @@ def schedule_classes_rounds(avail: torch.Tensor, total: torch.Tensor, alive: tor
         return _schedule_classes_rounds_plain(avail, total, alive, demands, counts,
                                               spread_threshold, rounds, active_idx)
     assigned, new_avail, launched = _launch_rounds_phases(
-        avail, total, alive, demands, counts, spread_threshold, rounds, active_idx)
+        avail, total, alive, demands, counts, spread_threshold, rounds, active_idx, _in_place)
     schedule_classes_rounds.launches += launched
     return assigned, new_avail
 
@@ -785,16 +806,19 @@ schedule_classes_rounds.launches = 0
 def schedule_classes_chunked(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tensor,
                              demands: torch.Tensor, counts: torch.Tensor,
                              spread_threshold: float = DEFAULT_SPREAD_THRESHOLD,
-                             chunk: int = 16, rounds: int = 2, active_idx=None):
+                             chunk: int = 16, rounds: int = 2, active_idx=None,
+                             _in_place: bool = False):
     """K6. K5's core over `chunk` classes at a time, the availability carried
     from chunk to chunk (kernel_np.schedule_classes_chunked). One call is one
-    launch of one thread-block cluster, whatever the number of chunks."""
+    launch of one thread-block cluster, whatever the number of chunks.
+    `_in_place` as in schedule_classes."""
     dev = _device_of(avail, total, alive, demands, counts)
     if dev.type == "cpu":
         return _schedule_classes_chunked_plain(avail, total, alive, demands, counts,
                                                spread_threshold, chunk, rounds, active_idx)
     assigned, new_avail, launched = _launch_rounds(
-        avail, total, alive, demands, counts, spread_threshold, chunk, rounds, active_idx)
+        avail, total, alive, demands, counts, spread_threshold, chunk, rounds, active_idx,
+        _in_place)
     schedule_classes_chunked.launches += launched
     return assigned, new_avail
 
@@ -830,7 +854,8 @@ def reset_launch_counts() -> None:
 class TorchScheduler:
     """Device-resident cluster view (twin of kernel_jax.JaxScheduler): the
     host pushes incremental availability updates (dirty rows, deltas) and
-    the full view is re-uploaded only on topology change."""
+    the full view is re-uploaded only on topology change. The view is its
+    own (every upload is a copy), so its rounds write it in place."""
 
     # row-index buckets: the scatter is padded to a few static shapes
     _ROW_BUCKETS = (16, 64, 256, 1024, 4096)
@@ -850,12 +875,25 @@ class TorchScheduler:
         # which update_rows then scatters into
         return torch.from_numpy(np.array(a, order="C")).to(self.device)
 
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A refresh's operand on the device, copied now: on a card through
+        page-locked memory from PyTorch's caching host allocator (which
+        reuses a block only after its copy has completed), on the current
+        stream, without blocking the host. NumPy fills the page-locked
+        buffer: PyTorch's CPU copy_ into it took milliseconds a call inside
+        the stream's host loop on the card's machine (PERF.md)."""
+        if self.device.type == "cpu":
+            return self._put(a)
+        host = torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, pin_memory=True)
+        np.copyto(host.numpy(), a)
+        return host.to(self.device, non_blocking=True)
+
     def set_available(self, avail: np.ndarray):
         self.avail = self._put(np.asarray(avail, np.float32))
 
     def apply_delta(self, delta: np.ndarray):
         """avail += delta (negative = allocation), clipped to [0, total]."""
-        d = self._put(np.asarray(delta, np.float32))
+        d = self._upload(np.asarray(delta, np.float32))
         self.avail = delta_clip(self.avail, d, self.total)
 
     def update_rows(self, idx, rows: np.ndarray):
@@ -874,7 +912,7 @@ class TorchScheduler:
         ii[:n] = np.asarray(idx, dtype=np.int32)
         vv = np.zeros((pad, self.total.shape[1]), dtype=np.float32)
         vv[:n] = rows
-        scatter_rows_(self.avail, self._put(ii), self._put(vv))
+        scatter_rows_(self.avail, self._upload(ii), self._upload(vv))
 
     def _round(self, demands, counts, spread_threshold, algo):
         if algo not in ALGOS:
@@ -883,8 +921,9 @@ class TorchScheduler:
         d, k = pad_problem(np.asarray(demands, np.float32), np.asarray(counts), pad)
         args = (self.avail, self.total, self.alive, self._put(d), self._put(k),
                 spread_threshold)
+        kw = {"_in_place": True}  # the round writes the view it replaces
         if algo == "scan":
-            assigned, self.avail = schedule_classes(*args)
+            assigned, self.avail = schedule_classes(*args, **kw)
         else:
             # padded classes demand INF_FIT of resource 0, so they are inert
             # in the matrix passes, but resource 0 must stay in the active
@@ -892,10 +931,10 @@ class TorchScheduler:
             active = tuple(int(i) for i in np.flatnonzero((d > 0).any(axis=0)))
             if algo == "rounds":
                 assigned, self.avail = schedule_classes_rounds(
-                    *args, rounds=4, active_idx=active)
+                    *args, rounds=4, active_idx=active, **kw)
             else:
                 assigned, self.avail = schedule_classes_chunked(
-                    *args, chunk=16, rounds=2, active_idx=active)
+                    *args, chunk=16, rounds=2, active_idx=active, **kw)
         return assigned[: demands.shape[0]]
 
     def _download(self, t: torch.Tensor) -> torch.Tensor:

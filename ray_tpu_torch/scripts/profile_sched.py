@@ -43,7 +43,11 @@ K4 (on K1's assignment, with the cap and widths TorchScheduler picks) at
 the stream's first round, K10a' at the train step's [16 384, 512] in bf16
 and f32, K10b at the forward's [8, 2048, 1536] bf16, K10b' at the train
 step's [8, 2048, 8, 64] in bf16 and f32, and K9a at the expert layer's
-logits [8, 2048, 8] with C 320, from each of the given checkouts of this
+logits [8, 2048, 8] with C 320, a round's view build as the tree's
+TorchScheduler makes it (K3 on [10 000, 16], K2 at 1 000 rows of pad
+1 024, each followed by the clone of the view where the tree's rounds
+copy it) and a pipelined scan round's launch and copy calls alone and
+after apply_delta or update_rows, from each of the given checkouts of this
 repo, in turns (the trees in order, then in reverse), each run a process
 of its own that builds that tree's kernels: whether each equals its plain
 version (K7: K1; K9a: its integers, and the largest difference of its gate
@@ -54,6 +58,8 @@ floor). For comparing versions of the kernels on one card.
 
 ``e2e``: in the same turns, chip_smoke.py's end-to-end paths from each
 tree: the stream's decisions/s under each algorithm (phase 2), the
+pipelined GCS's (phase 5b, 100 000 tasks over 10 000 nodes; 5a's
+lockstep cut to 1 000 tasks), the
 forward's ms (6b), the train step's (9b), and the expert layer's (7b) and
 its train step's (10b), each by events and by the host clock.
 
@@ -251,7 +257,8 @@ def profile_rounds(which: str) -> dict:
 
 
 # Run in a tree's root by `ab`, with only what every version of the port
-# has: chip_smoke.stream_first_round and time_ms, kernel_torch's K5/K6, K4
+# has: chip_smoke.stream_first_round, time_ms and LAUNCH_CALLS,
+# TorchScheduler, kernel_torch's K2/K3, K5/K6, K4
 # (compact_nonzero) and their plain versions, kernel_shard._launch (K7
 # without the wrapper's checks), the model kernels' rmsnorm_bwd (K10a'),
 # rope_split (K10b) and rope_split_bwd (K10b') and their plain versions,
@@ -269,6 +276,45 @@ d, k = KT.pad_problem(demands, counts, KT.bucket_size(len(demands)))
 active = tuple(int(i) for i in np.flatnonzero((d > 0).any(axis=0)))
 args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (avail, total, alive, d, k)]
 out = {}
+# a pipelined scan round's launch and copy calls (torch.profiler's runtime
+# records), alone and after apply_delta or update_rows; first, since the
+# profiler loses records once a process has gone a minute without a session
+from torch.profiler import ProfilerActivity, profile
+def enqueued(fn):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CPU]
+    return {"launches": sum(n.startswith(CS.LAUNCH_CALLS) for n in names),
+            "copies": sum(n.startswith("cudaMemcpy") for n in names)}
+sched = KT.TorchScheduler(total, alive, device=dev)
+sched.set_available(avail)
+dirty = np.arange(8000, 9000)
+rnd = lambda: sched.fetch(sched.schedule_async(demands, counts))
+out["enqueued_round"] = enqueued(rnd)
+out["enqueued_delta_round"] = enqueued(lambda: (sched.apply_delta(np.zeros_like(total)), rnd()))
+out["enqueued_rows_round"] = enqueued(lambda: (sched.update_rows(dirty, total[dirty]), rnd()))
+# a round's view build at the main path's shapes, as this tree's
+# TorchScheduler makes it: the refresh, then a clone of the view where the
+# tree's round wrappers copy it (no private _in_place)
+import inspect
+copies_view = "_in_place" not in inspect.signature(KT.schedule_classes).parameters
+rng = np.random.default_rng(3)
+av, tt = args[0], args[1]
+delta = torch.from_numpy(rng.integers(-300, 300, total.shape).astype(np.float32)).to(dev)
+ti = np.full(1024, len(total), np.int32)
+ti[:1000] = dirty
+tr = np.concatenate([total[dirty], np.zeros((24, total.shape[1]), np.float32)])
+ti, tr = torch.from_numpy(ti).to(dev), torch.from_numpy(tr).to(dev)
+work = av.clone()
+view = (lambda v: v.clone()) if copies_view else (lambda v: v)
+out["round_copies_view"] = copies_view
+for name, fn in (("k3", lambda: KT.delta_clip(av, delta, tt)),
+                 ("k2", lambda: KT.scatter_rows_(work, ti, tr))):
+    out[f"{name}_ms"] = [CS.time_ms(torch, fn, reps=21) for _ in range(3)]
+    out[f"view_{name}_ms"] = [CS.time_ms(torch, lambda: view(fn()), reps=21) for _ in range(3)]
 for name, fn, plain, kw in (
         ("k5", KT.schedule_classes_rounds, KT._schedule_classes_rounds_plain, {"rounds": 4}),
         ("k6", KT.schedule_classes_chunked, KT._schedule_classes_chunked_plain,
@@ -348,6 +394,9 @@ out = {}
 for algo in KT.ALGOS:
     out[f"stream_{algo}_decisions_per_s"] = CS.phase2_stream(
         torch, KT, dev, algo=algo)["decisions_per_sec"]
+gcs = CS.phase5_gcs(torch, KT, n_lockstep=1000, n_wire=500)
+for algo in KT.ALGOS:
+    out[f"gcs_{algo}_decisions_per_s"] = gcs[algo]["decisions_per_sec"]
 out["forward_ms"] = CS.phase6b_forward(torch, PT, make_forward_step, dev)[0]["forward_ms"]
 out["train_step_ms"] = CS.phase9b_train(torch, PT, TT, dev)[0]["step_ms_median"]
 res = CS.phase7b_moe(torch, PM, dev)[0]
@@ -360,8 +409,9 @@ print(json.dumps(out))
 
 
 def ab(trees, script=_AB) -> dict:
-    """`script` (_AB: K4-K7, K9a, K10a', K10b and K10b'; _E2E: the end-to-end paths) in
-    each tree in turns, forward then backward."""
+    """`script` (_AB: K4-K7, K9a, K10a', K10b and K10b', the view builds, a
+    round's calls; _E2E: the end-to-end paths) in each tree in turns,
+    forward then backward."""
     import os
     import subprocess
 

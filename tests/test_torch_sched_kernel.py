@@ -309,6 +309,164 @@ def test_torch_scheduler_update_rows_and_delta_equal_jax():
     np.testing.assert_array_equal(ts.avail.numpy(), np.asarray(js.avail))
 
 
+# ------------------------------------------- K2 / K3: the view's refresh
+
+
+REFRESH_PADS = (16, 64, 256, 1024, 4096)
+
+
+@pytest.mark.parametrize("pad", REFRESH_PADS)
+def test_refresh_rows_mode_equals_jax_scatter(pad):
+    """K2's plain version (refresh_view_kernel's rows mode) at every row
+    bucket, the padding index N dropped and the first and last node among
+    the rows: bit-equal to kernel_jax._scatter_rows, in place."""
+    rng = np.random.default_rng(pad)
+    N = 5000
+    avail = rng.integers(-3, 100, (N, R)).astype(np.float32)
+    n = pad - pad // 4
+    idx = np.full(pad, N, np.int32)
+    idx[:n] = rng.permutation(np.concatenate([  # distinct, the first and last node among them
+        [0, N - 1], rng.choice(np.arange(1, N - 1), n - 2, replace=False)]))
+    rows = rng.integers(0, 50, (pad, R)).astype(np.float32)
+    want = np.asarray(kernel_jax._scatter_rows(jnp.asarray(avail), jnp.asarray(idx),
+                                               jnp.asarray(rows)))
+    t_avail = T(avail.copy())
+    assert KT.scatter_rows_(t_avail, T(idx), T(rows)) is t_avail
+    np.testing.assert_array_equal(t_avail.numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(128, R), (1000, 1), (777, 5)])
+def test_refresh_delta_mode_clips_every_entry_as_jnp_clip(shape):
+    """K3's plain version (refresh_view_kernel's delta mode): jnp.clip(avail
+    + delta, 0, total) bit for bit, negative entries clipped to 0 where the
+    delta is 0 (a view from set_available may hold them); a new tensor,
+    avail untouched."""
+    rng = np.random.default_rng(shape[0])
+    total = rng.integers(0, 64, shape).astype(np.float32)
+    avail = np.floor(total * rng.uniform(-0.5, 1.2, shape)).astype(np.float32)
+    delta = rng.integers(-40, 40, shape).astype(np.float32)
+    delta[rng.random(shape) < 0.3] = 0.0
+    assert ((avail < 0) & (delta == 0)).any()
+    want = np.asarray(jnp.clip(jnp.asarray(avail) + jnp.asarray(delta), 0.0,
+                               jnp.asarray(total)))
+    t_avail = T(avail.copy())
+    np.testing.assert_array_equal(KT.delta_clip(t_avail, T(delta), T(total)).numpy(), want)
+    np.testing.assert_array_equal(t_avail.numpy(), avail)
+    assert (want >= 0).all() and (want <= total).all()
+
+
+def test_round_view_is_avail_itself_only_in_place():
+    """The view a round writes: avail itself where the caller lets the round
+    work in place (TorchScheduler), else a copy; a view that is not
+    contiguous float32 is always a new tensor."""
+    a = T(np.arange(12, dtype=np.float32).reshape(4, 3))
+    assert KT._round_view(a, True) is a
+    copy = KT._round_view(a, False)
+    assert copy.data_ptr() != a.data_ptr() and torch.equal(copy, a)
+    for other in (a.t(), a.to(torch.float64)):
+        view = KT._round_view(other, True)
+        assert view.dtype == torch.float32 and view.is_contiguous()
+        assert view.data_ptr() != a.data_ptr() and torch.equal(view, other.to(torch.float32))
+
+
+def _apply(ops, sched, N, rng_seed):
+    """Run one refresh sequence (REFRESH_SEQUENCES) on `sched`, a
+    JaxScheduler or a TorchScheduler: the same seeded updates on both.
+    Returns the views read in the middle (the "read" step)."""
+    rng = np.random.default_rng(rng_seed)
+    total = _host(sched.total)
+    reads = []
+    for op in ops:
+        if op == "rows":
+            idx = sorted(rng.choice(N, 20, replace=False))
+            sched.update_rows(idx, rng.integers(0, 30, (20, R)).astype(np.float32))
+        elif op == "rows_all":  # n >= N: the full upload
+            sched.update_rows(list(range(N)) + [0], rng.integers(0, 30, (N + 1, R)).astype(
+                np.float32))
+        elif op == "delta":
+            delta = rng.integers(-20, 20, (N, R)).astype(np.float32)
+            delta[rng.random((N, R)) < 0.5] = 0.0
+            sched.apply_delta(delta)
+        elif op == "set":
+            sched.set_available(np.floor(total * rng.uniform(0, 1, total.shape)).astype(
+                np.float32))
+        elif op == "read":
+            reads.append(_host(sched.avail))
+    return reads
+
+
+def _host(x):
+    return x.cpu().numpy().copy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+REFRESH_SEQUENCES = {
+    "rows": ("rows",),
+    "delta": ("delta",),
+    "rows_delta": ("rows", "delta"),
+    "delta_delta": ("delta", "delta"),
+    "delta_set": ("delta", "set"),
+    "delta_read": ("delta", "read"),
+    "rows_all": ("delta", "rows_all"),
+}
+
+
+def _refresh_sequence_views(N, seed):
+    """A JaxScheduler and a TorchScheduler (CPU) on one seeded view with
+    negative entries (over-released resources), as set_available leaves
+    them."""
+    rng, js, ts = _jax_and_torch_views(N, seed)
+    avail = np.floor(np.asarray(js.total) * rng.uniform(0, 1, (N, R))).astype(np.float32)
+    avail[rng.random((N, R)) < 0.05] = -2.0
+    js.set_available(avail)
+    ts.set_available(avail)
+    return rng, js, ts
+
+
+@pytest.mark.parametrize("algo", KT.ALGOS)
+@pytest.mark.parametrize("call", ["schedule", "schedule_async"])
+@pytest.mark.parametrize("seq", sorted(REFRESH_SEQUENCES))
+def test_torch_scheduler_refresh_sequences_equal_jax(seq, call, algo):
+    """Each refresh sequence, then a round (schedule, or schedule_async and
+    fetch) and a second round: TorchScheduler on the CPU gives
+    JaxScheduler's decisions and avail (the refreshes and a read of avail
+    bit for bit, a round's avail within 1e-3 as elsewhere)."""
+    N = 96
+    rng, js, ts = _refresh_sequence_views(N, 11)
+    ops = REFRESH_SEQUENCES[seq]
+    reads_j = _apply(ops, js, N, 5)
+    reads_t = _apply(ops, ts, N, 5)
+    for a, b in zip(reads_t, reads_j):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(_host(ts.avail), np.asarray(js.avail))
+    for _ in range(2):
+        demands, counts = _class_problem(rng, 9, 40)
+        if call == "schedule":
+            got = ts.schedule(demands, counts, algo=algo)
+            want = js.schedule(demands, counts, algo=algo)
+        else:
+            got = ts.fetch(ts.schedule_async(demands, counts, algo=algo))
+            want = js.fetch(js.schedule_async(demands, counts, algo=algo))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_allclose(ts.avail.numpy(), np.asarray(js.avail), atol=1e-3)
+    assert got.sum() > 0
+
+
+def test_torch_scheduler_refresh_is_uploaded_at_call_time():
+    """update_rows and apply_delta copy their operands when called: the
+    caller's arrays may be reused at once."""
+    N = 64
+    rng, js, ts = _refresh_sequence_views(N, 12)
+    delta = rng.integers(-5, 5, (N, R)).astype(np.float32)
+    idx = np.arange(0, N, 7)
+    rows = rng.integers(0, 9, (len(idx), R)).astype(np.float32)
+    for s in (js, ts):
+        s.update_rows(idx, rows)
+        s.apply_delta(delta)
+    rows[:] = -99.0
+    delta[:] = 1e6
+    np.testing.assert_array_equal(ts.avail.numpy(), np.asarray(js.avail))
+
+
 def test_torch_scheduler_unported_algos_raise():
     """Every scheduler_kernel_algo has its kernel now (scan K1, rounds K5,
     chunked K6); a name with no kernel raises instead of quietly running
@@ -567,4 +725,84 @@ def test_cuda_k1_cluster_edges_equal_plain_and_numpy():
         np.testing.assert_array_equal(a_k.cpu().numpy(), np_a)
         np.testing.assert_array_equal(v_k.cpu().numpy(), np_v)
     assert forms == {True, False}
+    torch.cuda.synchronize()
+
+
+# ------------------------------------------- K2 / K3 on the card
+
+
+@pytest.mark.cuda
+def test_cuda_refresh_view_every_mode_equals_plain():
+    """On the card: refresh_view_kernel bit-equal (torch.equal) to its plain
+    version in both modes, rows (scatter_rows_, in place) at every row
+    bucket with the first and last node among the rows and indices -1 and
+    N + 5 dropped, delta (delta_clip, a new tensor) over negative entries,
+    at N not a multiple of a block and past the delta grid's cap (a grid
+    stride), R = 1, 5 and 16; each mode counts its launches as K2's or
+    K3's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    for N, n_res in ((10_000, R), (10_007, R), (40_003, R), (777, 5), (1000, 1), (3, R)):
+        rng = np.random.default_rng(N + n_res)
+        total = rng.integers(0, 64, (N, n_res)).astype(np.float32)
+        avail = np.floor(total * rng.uniform(-0.5, 1.2, (N, n_res))).astype(np.float32)
+        a = T(avail).to(dev)
+        KT.reset_launch_counts()
+        delta = rng.integers(-40, 40, (N, n_res)).astype(np.float32)
+        delta[rng.random((N, n_res)) < 0.3] = 0.0
+        d, t = T(delta).to(dev), T(total).to(dev)
+        assert torch.equal(KT.delta_clip(a, d, t), KT._delta_clip_plain(a, d, t)), (N, n_res)
+        for pad in REFRESH_PADS:
+            n_in = min(pad - 2, N)
+            idx = np.full(pad, N, np.int32)
+            idx[:n_in] = rng.permutation(np.concatenate([
+                [0, N - 1][:n_in], rng.choice(np.arange(1, N - 1), max(n_in - 2, 0),
+                                              replace=False)]))
+            idx[n_in:n_in + 2] = (-1, N + 5)
+            rows = T(rng.integers(0, 50, (pad, n_res)).astype(np.float32)).to(dev)
+            ti = T(idx).to(dev)
+            b = a.clone()
+            assert KT.scatter_rows_(b, ti, rows) is b
+            assert torch.equal(b, KT._scatter_rows_plain_(a.clone(), ti, rows)), (N, pad)
+        assert torch.equal(a, T(avail).to(dev))  # delta_clip left avail alone
+        counts = KT.launch_counts()
+        assert (counts["scatter_rows"], counts["delta_clip"]) == (len(REFRESH_PADS), 1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", KT.ALGOS)
+def test_cuda_refresh_sequences_equal_cpu(algo):
+    """On the card: each refresh sequence and two rounds (schedule, or
+    schedule_async and fetch) give the CPU TorchScheduler's decisions and
+    avail bit for bit; each refresh is one launch of its mode, and a round
+    writes the view in place (no copy of it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    N = 4000
+    for seq in sorted(REFRESH_SEQUENCES):
+        ops = REFRESH_SEQUENCES[seq]
+        for call in ("schedule", "schedule_async"):
+            rng, _, cpu = _refresh_sequence_views(N, 11)
+            card = KT.load_cluster_view(cpu.total.numpy(), cpu.alive.numpy(),
+                                        cpu.avail.numpy(), device="cuda")
+            KT.reset_launch_counts()
+            for a, b in zip(_apply(ops, card, N, 5), _apply(ops, cpu, N, 5)):
+                np.testing.assert_array_equal(a, b)
+            launched = KT.launch_counts()
+            assert launched["scatter_rows"] == ops.count("rows"), (seq, launched)
+            assert launched["delta_clip"] == ops.count("delta"), (seq, launched)
+            for _ in range(2):
+                demands, counts = _class_problem(rng, 9, 400)
+                view = card.avail
+                if call == "schedule":
+                    got = card.schedule(demands, counts, algo=algo)
+                    want = cpu.schedule(demands, counts, algo=algo)
+                else:
+                    got = card.fetch(card.schedule_async(demands, counts, algo=algo))
+                    want = cpu.fetch(cpu.schedule_async(demands, counts, algo=algo))
+                np.testing.assert_array_equal(got, want)
+                assert card.avail is view, (seq, call)
+            assert torch.equal(card.avail.cpu(), cpu.avail), (seq, call)
     torch.cuda.synchronize()

@@ -61,17 +61,20 @@ caught):
    forms), K10a and K10b against their plain versions at the forward's
    shapes, in bf16 and f32 (K8 with rounded probabilities in bf16 is the
    tensor-core kernel of attention_sm90.cu, its m and l checked too and a
-   second launch bit-equal; in f32 the CUDA-core one; K10b in its rows
+   second launch bit-equal; in f32 the CUDA-core one; K8's block form in
+   bf16 the tensor-core kernel too, its float32 P·V as two bf16 parts of P,
+   in f32 the CUDA-core one, a visible, a diagonal and a fully masked block
+   each launched twice with the same bits; K10b in its rows
    form, a second launch bit-equal), with times, bounds
    and the library yardsticks (scaled_dot_product_attention, rms_norm), the
-   f32 CUDA-core K8's time beside the bf16 one; (b) make_forward_step on
+   f32 CUDA-core K8's times (both forms) beside the bf16 ones; (b) make_forward_step on
    [8, 2048] tokens, finite logits, timed; (c) the model held by an actor
    of ray_tpu_torch.init(), answering 8 requests; (d) the checks of what
    (b) and (c) gave: two sequences against the plain forward on the CPU,
    the loss at [8, 2049], both dtypes against the JAX package's golden
    (tests/data/transformer_golden.npz), each served answer equal to the
    direct call, and the ring's schedule of K8 block steps on one card
-   against the whole-sequence kernel.
+   against the whole-sequence kernel, every bf16 step a tensor-core launch.
 7. the expert layer (ray_tpu_torch.models.moe, MoEConfig(): d_model 256,
    d_ff 512, 8 experts, capacity factor 1.25, bf16; weights from the MoE
    golden's numpy seed; tokens skewed toward expert 0 so that the capacity
@@ -148,8 +151,10 @@ steps, every K8 and K8' launch a tensor-core one and every K10b' launch
 in the rows form, and the expert kernels' again just before 10b and after 10c, where
 each of the six (K9a-c, K9a'-c') must have launched once a step over the
 14 steps: every kernel of each path must have launched in its run. K8's block form runs on no ported
-path yet (the ring across cards is still to port); its launches in (d)'s
-check are printed on a line of their own, not among the kernels. The
+path yet (the ring across cards is still to port); its entry in the
+kernels line gives its launches on the main path (0) under "launches" and
+those of (d)'s check apart, as "ring_check_launches" and
+"ring_check_launches_tc". The
 JSON line before the card's name and power limit lists the kernels; the
 last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
@@ -1259,6 +1264,9 @@ KERNEL_TOL = {"f32": (1e-5, 1e-5), "bf16": (2.0 ** -7, 1e-3)}
 # the model kernels that the forward runs; K8's block form belongs to the
 # ring across cards, not written yet, and is checked here on its own
 FORWARD_KERNELS = ("attention", "rmsnorm", "rope_split")
+# the model kernels of the line built from attention_sm90.cu (their bf16
+# forms, as timed here; float32 stays on model_kernels.cu)
+SM90_MODEL_KERNELS = ("attention", "block_update")
 MODEL_REPLACES = {
     "block_update": "ray_tpu/parallel/ring_attention.py:41",
     "attention": "ray_tpu/models/transformer.py:113",
@@ -1320,14 +1328,24 @@ def phase6a_model_kernels(torch, MK, dev, S=2048):
         state = (torch.zeros((B, S, H, Dh), device=dev),
                  torch.full((B, H, S), MK.NEG_INF, device=dev),
                  torch.zeros((B, H, S), device=dev))
+        # (bf16: the tensor-core kernel, its P·V as two bf16 parts of P; f32:
+        # the CUDA cores), a second launch giving the same bits
         for q_off, k_off, what in ((S, 0, "visible"), (S, S, "diagonal"),
                                    (S, 2 * S, "fully masked")):
+            tc = MK.block_update.launches_tc
             got = MK.block_update(q, k, v, *state, q_off, k_off, True, 1.0 / np.sqrt(Dh))
+            if dev.type == "cuda" and MK.block_update.launches_tc - tc != (dt == torch.bfloat16):
+                raise AssertionError(f"block_update {names[dt]}: not the "
+                                     f"{MK._block_update_route(q)} route")
             want = MK._block_update_plain(q, k, v, *state, q_off, k_off, True,
                                           1.0 / np.sqrt(Dh))
             for part, a, b in zip("oml", got, want):
                 check("block_update", a, b, f"{names[dt]} {what} block, {part}",
                       sum_state=True)
+            again = MK.block_update(q, k, v, *state, q_off, k_off, True, 1.0 / np.sqrt(Dh))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"block_update {names[dt]} {what}: two launches gave "
+                                     "different bits")
             if what == "fully masked" and not all(torch.equal(a, b)
                                                   for a, b in zip(got, state)):
                 raise AssertionError("block_update: a fully masked block changed the state")
@@ -1362,18 +1380,34 @@ def phase6a_model_kernels(torch, MK, dev, S=2048):
             qt, kt, vt, is_causal=True)),
         bound=bound(4 * B * S * H * Dh * 2, 4 * B * H * Dh * pairs, PEAK_BF16_OPS_PER_S))
     # K8, block form, as the ring schedule of (d) calls it: a visible
-    # [8, 512, 8, 64] block (4 shards of 2048) against a running state
+    # [8, 512, 8, 64] block (4 shards of 2048) against a running state, in
+    # bf16 (the tensor-core kernel) and f32 (the CUDA cores)
     Sb = S // 4
     qb, kb, vb = (rnd((B, Sb, H, Dh), bf) for _ in range(3))
     st = (rnd((B, Sb, H, Dh), torch.float32), rnd((B, H, Sb), torch.float32),
           rnd((B, H, Sb), torch.float32).abs() + 1)
     args = (qb, kb, vb, *st, Sb, 0, True, 1.0 / np.sqrt(Dh))
+    args32 = (qb.float(), kb.float(), vb.float(), *args[3:])
+    # the calls timed below, held first against the plain version (the same
+    # for both dtypes, since it takes q, k, v in float32)
+    want = MK._block_update_plain(*args)
+    for dt_name, a in (("bf16", args), ("f32", args32)):
+        for part, x, y in zip("oml", MK.block_update(*a), want):
+            check("block_update", x, y, f"{dt_name} timed block [{B}, {Sb}, {H}, {Dh}], "
+                  f"{part}", sum_state=True)
     rec["block_update"].update(
         ms=time_ms(torch, lambda: MK.block_update(*args)),
+        ms_f32_cuda_core=time_ms(torch, lambda: MK.block_update(*args32)),
         plain_ms=time_ms(torch, lambda: MK._block_update_plain(*args), reps=3, warm=1),
         library_ms=None,
+        # q, k, v read, the state (o, m, l) read and written once; Q·K^T
+        # in bf16 and the float32 P·V counted as the two bf16 products (hi·V
+        # and lo·V) that carry it on the tensor cores, 3 x 2·B·H·Sb²·Dh at
+        # the bf16 peak: the least the card takes for a float32-accurate
+        # product, since at the CUDA cores' float32 peak P·V alone would
+        # take 0.032 ms, which the split beats (PERF.md §6)
         bound=bound(3 * B * Sb * H * Dh * 2 + 2 * (B * Sb * H * Dh + 2 * B * H * Sb) * 4,
-                    4 * B * H * Dh * Sb * Sb, PEAK_BF16_OPS_PER_S))
+                    3 * 2 * B * H * Dh * Sb * Sb, PEAK_BF16_OPS_PER_S))
     x, scale = rnd((B * S, D), bf), rnd((D,), torch.float32)
     scale_bf = scale.to(bf)
     rec["rmsnorm"].update(
@@ -1393,6 +1427,7 @@ def phase6a_model_kernels(torch, MK, dev, S=2048):
             f"max abs err {r['max_abs_err']:.3g}")
     log(f"  attention f32 (CUDA cores): {rec['attention']['ms_f32_cuda_core']:.4f} ms; bf16 "
         f"unrounded (CUDA cores): {rec['attention']['ms_unrounded']:.4f} ms")
+    log(f"  block_update f32 (CUDA cores): {rec['block_update']['ms_f32_cuda_core']:.4f} ms")
     return rec
 
 
@@ -1554,9 +1589,10 @@ def phase6d_checks(torch, PT, MK, ctx, requests, answers):
     x = torch.nn.functional.embedding(tok[:, :-1], model.embed).to(cfg.dtype)
     qkv = torch.matmul(MK.rmsnorm(x, blk.ln1), blk.wqkv.to(cfg.dtype))
     q, k, v = MK.rope_split(qkv, cfg.n_heads, cfg.rope_theta)
-    before = MK.block_update.launches
+    before, before_tc = MK.block_update.launches, MK.block_update.launches_tc
     ring = ring_schedule(torch, MK, q, k, v, n_shards=4)
     ring_launches = MK.block_update.launches - before
+    ring_tc = MK.block_update.launches_tc - before_tc
     whole = MK.attention(q, k, v, causal=True)
     rtol, atol = KERNEL_TOL["bf16" if cfg.dtype == torch.bfloat16 else "f32"]
     ring_err = float((ring.double() - whole.double()).abs().max())
@@ -1564,9 +1600,14 @@ def phase6d_checks(torch, PT, MK, ctx, requests, answers):
         raise AssertionError(f"ring schedule != whole attention (max abs err {ring_err})")
     if dev.type == "cuda" and ring_launches != 16:
         raise AssertionError(f"ring schedule: {ring_launches} block_update launches, not 16")
+    # bf16 steps go to the tensor-core kernel, every one of them
+    if dev.type == "cuda" and ring_tc != (ring_launches if q.dtype == torch.bfloat16 else 0):
+        raise AssertionError(f"ring schedule: {ring_tc} of {ring_launches} {q.dtype} "
+                             "block_update launches on the tensor cores")
     res = {"cpu_logits_err": cpu_err, "cpu_argmax_agree": cpu_agree, "loss": loss,
            "golden": golden_res, "served_equal_direct": len(answers),
-           "ring_vs_whole_err": ring_err, "ring_block_update_launches": ring_launches}
+           "ring_vs_whole_err": ring_err, "ring_block_update_launches": ring_launches,
+           "ring_block_update_launches_tc": ring_tc}
     log(f"phase 6d checks: {json.dumps(res)}")
     return res
 
@@ -2351,8 +2392,10 @@ def phase10a_moe_bwd_kernels(torch, PM, EK, dev):
     main path's shapes (logits [8, 2048, 8], C 320, rows of 256) in f32 and
     bf16, each launched twice (the bits must agree): the gathers bit-equal,
     d_logits and d_gate within BWD_TOL of their largest entry, K9c' in its
-    one-launch form; then timed as the train step calls them (bf16 tokens
-    and experts) beside the bound and the gather alone (index_select)."""
+    one-launch form, K9a' also at 3, 9, 16, 33 and 64 experts with ties
+    (every layout of its lanes);
+    then timed as the train step calls them (bf16 tokens and experts) beside
+    the bound and the gather alone (index_select)."""
     cfg, tree, _, x32 = _moe_layer(torch, PM, dev)
     G, S, D = MOE_SHAPE
     E, C = cfg.n_experts, PM._capacity(cfg, S)
@@ -2384,6 +2427,16 @@ def phase10a_moe_bwd_kernels(torch, PM, EK, dev):
     close("moe_route_bwd", EK.moe_route_bwd(logits, d_gate, frac, d_aux),
           EK._route_bwd_plain(logits, d_gate, frac, d_aux),
           EK.moe_route_bwd(logits, d_gate, frac, d_aux), "main path")
+    # K9a''s other layouts (lanes past E idle, 16 and 32 lanes a token, one
+    # warp a token with two experts a lane), with two experts tied at the max
+    # on every 7th token
+    for E2 in (3, 9, 16, 33, 64):
+        lt = torch.randn((G, S, E2), generator=gen, device=dev) * 2
+        lt[:, ::7, 0] = lt[:, ::7, E2 - 1] = 6.0
+        fr = torch.rand((E2,), generator=gen, device=dev)
+        close("moe_route_bwd", EK.moe_route_bwd(lt, d_gate, fr, d_aux),
+              EK._route_bwd_plain(lt, d_gate, fr, d_aux),
+              EK.moe_route_bwd(lt, d_gate, fr, d_aux), f"E={E2}")
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}
     out = torch.randn((E, G, C, D), generator=gen, device=dev)
     for a_name, a_dt in dt.items():
@@ -2919,21 +2972,21 @@ def main() -> int:
         if "view_build" in r:  # K2 and K3: refresh_view_kernel's modes
             kernels[-1].update(kernel=f"refresh_view_kernel ({modes[name]} mode)",
                                view_build_ms_in_turns=r["view_build"])
-    off_path = []
     for name, r in model_rec.items():
         entry = {
             "name": name, "route": "cuda",
-            "source": SM90_CU_SOURCE if name == "attention" else MODEL_CU_SOURCE,
+            "source": SM90_CU_SOURCE if name in SM90_MODEL_KERNELS else MODEL_CU_SOURCE,
             "replaces": MODEL_REPLACES[name], "launches": model_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         }
-        if name in FORWARD_KERNELS:
-            kernels.append(entry)
-        else:  # no ported path runs it yet: its launches are the ring check's
-            entry["check_launches"] = check_res["ring_block_update_launches"]
-            off_path.append(entry)
+        if name not in FORWARD_KERNELS:  # no ported path runs it yet: its
+            # launches stay the forward window's (0); the ring check's apart
+            entry.update(ring_check_launches=check_res["ring_block_update_launches"],
+                         ring_check_launches_tc=check_res["ring_block_update_launches_tc"],
+                         ms_f32_cuda_core=r["ms_f32_cuda_core"])
+        kernels.append(entry)
     for name, r in moe_rec.items():
         kernels.append({
             "name": name, "route": "cuda", "source": MOE_CU_SOURCE,
@@ -2980,7 +3033,6 @@ def main() -> int:
                     "tc_launches": {"forward": model_tc, "train": train_tc},
                     "round_refresh_enqueued": a_call["view_build"],
                     "card": card}))
-    log(json.dumps({"kernels_off_main_path": off_path}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

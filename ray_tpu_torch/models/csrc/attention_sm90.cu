@@ -23,6 +23,17 @@
 //       m)); p = exp(s - m) / l (IEEE division) rounded to bf16; out = P·V
 //       summed in f32 and rounded once. Writes m and l ([B, H, Sq] f32) for
 //       the backward when given buffers.
+//   K8  attention_sm90_block_update  K8's block form in bf16: replaces
+//       ray_tpu/parallel/ring_attention.py _block_update (:41-69), one
+//       online-softmax step of the float32 state (o, m, l) against one KV
+//       block whose first key sits at k_off (the first query at q_off):
+//       logits = einsum(q, k) summed in f32, times the scale, -1e30 where
+//       q_off + i < k_off + j (causal); m_new = max(m, row max); p = exp(s -
+//       m_new), 0 where masked (the reference's pmask), never rounded;
+//       corr = exp(m - m_new); l = l corr + sum(p); o = o corr + P·V, the
+//       float32 P·V summed apart and added last. State in: o [B, Sq, H, Dh],
+//       m and l [B, H, Sq] (f32, m >= -1e30); state out: new buffers.
+//       Float32 blocks stay on model_kernels.cu's CUDA cores.
 //   K8' attention_sm90_backward  replaces the gradient of _attention that
 //       jax.value_and_grad(loss_fn) forms (ray_tpu/parallel/tpu_train.py:78),
 //       with the roundings of its jaxpr: dP = dO·V^T rounded to bf16; Dt =
@@ -68,12 +79,24 @@
 // registers. dQ and dK need the float32 dS: it is split into hi = bf16(dS)
 // and lo = bf16(dS - hi), and hi·K + lo·K is summed in the f32 accumulator
 // (hi + lo is dS within 2^-16), not FlashAttention's one rounding of dS.
+// The block form's P·V takes the float32 P the same way: hi·V + lo·V in
+// one f32 accumulator (V is bf16, so exact as an operand), kept apart from
+// o·corr until the end, as the reference adds pv last. Its bound at the ring
+// step's [8, 512, 8, 64] is bytes (the f32 state read and written once);
+// a float32 P·V at the CUDA cores' 67 TFLOP/s alone would take 0.032 ms,
+// 3.6x the bytes' 0.0089 ms, so the split is what lets the step reach it.
 // Causal key tiles above the diagonal are never loaded; the heaviest query
 // tiles go first. K8 makes two passes over its key tiles (the first finds m
 // and l online, the second forms P and P·V); K8' launch 1 (query-major)
 // sweeps its key tiles twice (Dt, then dS and dQ) and writes Dt; launch 2
 // (key-major) keeps K and V and streams Q, dO and the rows' m, l, Dt past
-// them, with dK and dV in registers.
+// them, with dK and dV in registers. The block form is K8's design with
+// its state carried: pass 0 over the visible key tiles (K only) takes each
+// row's max from m_in on, so pass 1 (K and V) forms every p against the
+// final m_new as the reference does, one exp a pair and no division; m_in,
+// l_in and o_in are read with plain loads (a TMA box of [B, H, Sq] floats
+// at bh Sq + q0 faults at odd Sq), o_in at the end beside the accumulator.
+// A query tile that sees no key of the block copies its state through.
 
 #include <cstdint>
 #include <cstdio>
@@ -691,6 +714,222 @@ __global__ void __launch_bounds__(kThreads, kDh <= 64 ? 4 : 1) attention_sm90_fw
   PROFILE_ADD(0, kWhole, t_start);
 }
 
+// ------------------------------------------------------------------ K8, block form
+
+// Whether key col may be seen by query row (indices into this call's
+// blocks): in range and col - row <= diag, diag being q_off - k_off clamped
+// to [-Sq, Sk] (Sk when not causal: every key). Interior tiles (kEdge
+// false) have no masked key.
+template <bool kEdge>
+__device__ __forceinline__ bool block_visible(int row, int col, int Sk, int diag) {
+  return !kEdge || (col < Sk && col - row <= diag);
+}
+
+// Pass 0 over one key tile: each row's running max, from m_in on. A masked
+// key counts as -1e30 (the reference's where); one past the ragged edge is
+// no key.
+template <bool kEdge>
+__device__ __forceinline__ void block_tile_max(const float (&s)[32], float scale, int row0,
+                                               int k0, int c0, int Sk, int diag,
+                                               float (&m_run)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    float rmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = k0 + 8 * (j >> 1) + c0 + (j & 1);
+      const float x = __fmul_rn(s[4 * (j >> 1) + 2 * i + (j & 1)], scale);
+      const float xm = block_visible<kEdge>(row, col, Sk, diag) ? x : kNegInf;
+      rmax = fmaxf(rmax, kEdge && col >= Sk ? -INFINITY : xm);
+    }
+    m_run[i] = fmaxf(m_run[i], quad_max(rmax));
+  }
+}
+
+// Pass 1 over one key tile: s becomes p = exp(s scale - m_new), 0 where
+// masked, and this thread's share of each row's sum of p grows.
+template <bool kEdge>
+__device__ __forceinline__ void block_tile_probs(float (&s)[32], float scale, int row0, int k0,
+                                                 int c0, int Sk, int diag,
+                                                 const float (&m_new)[2], float (&l_part)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    float rsum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int idx = 4 * (j >> 1) + 2 * i + (j & 1);
+      const int col = k0 + 8 * (j >> 1) + c0 + (j & 1);
+      const float p =
+          softmax_num(s[idx], scale, m_new[i], block_visible<kEdge>(row, col, Sk, diag));
+      s[idx] = p;
+      rsum = __fadd_rn(rsum, p);
+    }
+    l_part[i] = __fadd_rn(l_part[i], rsum);
+  }
+}
+
+// One block step of (o, m, l): a block a 64-query tile of one (b, h), the
+// heaviest tiles first. Shared memory and barriers as K8's forward.
+template <int kDh>
+__global__ void __launch_bounds__(kThreads, kDh <= 64 ? 4 : 1) attention_sm90_block_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ o_in,
+    const float* __restrict__ m_in, const float* __restrict__ l_in, float* __restrict__ o_out,
+    float* __restrict__ m_out, float* __restrict__ l_out, int Sq, int Sk, int H, int diag,
+    float scale) {
+  using T = Tile<kDh>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const smem = align_1024(smem_raw);
+  uint8_t* const sQ = smem;
+  uint64_t* const bar = reinterpret_cast<uint64_t*>(smem + 5 * T::kBytes);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n_qt = (Sq + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kRows;  // heaviest tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int n_kt = (Sk + kRows - 1) / kRows;
+  const int q_last = min(q0 + kRows - 1, Sq - 1);
+  // key tiles with a key some row of this tile may see: a tile wholly above
+  // the diagonal leaves the state as it is (m >= -1e30), so it is skipped
+  const long long lim = (long long)q_last + diag;  // the last key the last row sees
+  const int kt_end = lim < 0 ? 0 : (int)min((long long)n_kt, lim / kRows + 1);
+  const int total = 2 * kt_end;  // pass 0: K only (the max); pass 1: K and V
+
+  const int r0 = 16 * warp + (lane >> 2);  // this thread's rows: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);           // and columns c0, c0 + 1 of each 8
+  // the state's element of accumulator entry 4 cg + 2 i + e of this thread
+  auto o_at = [&](int i) { return ((long long)(b * Sq + q0 + r0 + 8 * i) * H + h) * kDh + c0; };
+  float m_row[2], l_row[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    m_row[i] = row < Sq ? m_in[(long long)bh * Sq + row] : 0.f;
+    l_row[i] = row < Sq ? l_in[(long long)bh * Sq + row] : 0.f;
+  }
+
+  if (kt_end == 0) {  // no key for any row of the tile: the state, bit for bit
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + r0 + 8 * i;
+      if (row >= Sq) continue;
+      const long long at = o_at(i);
+#pragma unroll
+      for (int cg = 0; cg < kDh / 8; ++cg) {
+        *reinterpret_cast<float2*>(o_out + at + 8 * cg) =
+            *reinterpret_cast<const float2*>(o_in + at + 8 * cg);
+      }
+      if ((lane & 3) == 0) {
+        m_out[(long long)bh * Sq + row] = m_row[i];
+        l_out[(long long)bh * Sq + row] = l_row[i];
+      }
+    }
+    return;
+  }
+
+  // tile g of the sequence into stage g % 2
+  auto issue = [&](int g) {
+    const int stage = g & 1;
+    const bool with_v = g >= kt_end;
+    const int k0 = (with_v ? g - kt_end : g) * kRows;
+    uint64_t* const full = bar + 1 + stage;
+    mbar_expect_tx(full, (with_v ? 2 : 1) * T::kBytes);
+    load_tile<kDh>(smem + (1 + 2 * stage) * T::kBytes, &tm_k, full, h, k0, b);
+    if (with_v) load_tile<kDh>(smem + (2 + 2 * stage) * T::kBytes, &tm_v, full, h, k0, b);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + i, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, T::kBytes);
+    load_tile<kDh>(sQ, &tm_q, bar, h, q0, b);
+    issue(0);
+  }
+  __syncwarp();
+
+  float m_new[2] = {m_row[0], m_row[1]};
+  float l_part[2] = {0.f, 0.f};  // this thread's share of sum(p)
+  float pv[kDh / 2];             // P·V, apart from o·corr until the end
+#pragma unroll
+  for (int j = 0; j < kDh / 2; ++j) pv[j] = 0.f;
+
+  mbar_wait(bar, 0);
+  for (int g = 0; g < total; ++g) {
+    if (tid == 0 && g + 1 < total) issue(g + 1);
+    __syncwarp();
+    const int stage = g & 1;
+    mbar_wait(bar + 1 + stage, (g >> 1) & 1);
+    const bool pv_pass = g >= kt_end;
+    const int k0 = (pv_pass ? g - kt_end : g) * kRows;
+
+    float s[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = 0.f;
+    wgmma_fence();
+    issue_qk<kDh>(s, smem_u32(sQ), smem_u32(smem + (1 + 2 * stage) * T::kBytes));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<32>(s);
+
+    // a tile with a key past Sk or one hidden from its first row checks each logit
+    const bool edge = k0 + kRows > Sk || k0 + kRows - 1 - q0 > diag;
+    if (!pv_pass) {
+      if (edge) {
+        block_tile_max<true>(s, scale, q0 + r0, k0, c0, Sk, diag, m_new);
+      } else {
+        block_tile_max<false>(s, scale, q0 + r0, k0, c0, Sk, diag, m_new);
+      }
+    } else {
+      if (edge) {
+        block_tile_probs<true>(s, scale, q0 + r0, k0, c0, Sk, diag, m_new, l_part);
+      } else {
+        block_tile_probs<false>(s, scale, q0 + r0, k0, c0, Sk, diag, m_new, l_part);
+      }
+      uint32_t hi[4][4], lo[4][4];
+      split_fragments(s, hi, lo);
+      const uint32_t sv = smem_u32(smem + (2 + 2 * stage) * T::kBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) issue_rs<kDh>(pv, hi[kk], sv, kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) issue_rs<kDh>(pv, lo[kk], sv, kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<kDh / 2>(pv);
+    }
+    __syncthreads();  // every read of this stage is done: it may be refilled
+  }
+
+  // corr = exp(m - m_new); l = l corr + sum(p); o = o corr + pv
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l_sum = quad_sum(l_part[i]);  // every lane: the shuffles
+    const int row = q0 + r0 + 8 * i;
+    if (row >= Sq) continue;
+    const float corr = expf(__fsub_rn(m_row[i], m_new[i]));
+    const long long at = o_at(i);
+#pragma unroll
+    for (int cg = 0; cg < kDh / 8; ++cg) {
+      float2 o = *reinterpret_cast<const float2*>(o_in + at + 8 * cg);
+      o.x = __fadd_rn(__fmul_rn(o.x, corr), pv[4 * cg + 2 * i]);
+      o.y = __fadd_rn(__fmul_rn(o.y, corr), pv[4 * cg + 2 * i + 1]);
+      *reinterpret_cast<float2*>(o_out + at + 8 * cg) = o;
+    }
+    if ((lane & 3) == 0) {
+      m_out[(long long)bh * Sq + row] = m_new[i];
+      l_out[(long long)bh * Sq + row] = __fadd_rn(__fmul_rn(l_row[i], corr), l_sum);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ K8' launch 1
 
 // Shared memory: Q, dO, then stage s's K and V; barriers [0] Q and dO,
@@ -1082,6 +1321,35 @@ int launch_forward(const void* q, const void* k, const void* v, void* out, float
   return (int)cudaGetLastError();
 }
 
+struct BlockState {
+  const float* o_in;
+  const float* m_in;
+  const float* l_in;
+  float* o_out;
+  float* m_out;
+  float* l_out;
+};
+
+template <int kDh>
+int launch_block(const void* q, const void* k, const void* v, const BlockState& st,
+                 const Shape& p, int diag, cudaStream_t stream) {
+  constexpr int w = Tile<kDh>::kW;
+  CUtensorMap tq, tk, tv;
+  int rc = encode_rows(&tq, q, p.B, p.Sq, p.H, kDh, w);
+  if (rc == 0) rc = encode_rows(&tk, k, p.B, p.Sk, p.H, kDh, w);
+  if (rc == 0) rc = encode_rows(&tv, v, p.B, p.Sk, p.H, kDh, w);
+  if (rc != 0) return rc;
+  constexpr int smem = fwd_smem_bytes<kDh>();
+  cudaError_t err = cudaFuncSetAttribute(attention_sm90_block_kernel<kDh>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.Sq + kRows - 1) / kRows, p.B * p.H);
+  attention_sm90_block_kernel<kDh><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, st.o_in, st.m_in, st.l_in, st.o_out, st.m_out, st.l_out, p.Sq, p.Sk, p.H,
+      diag, p.scale);
+  return (int)cudaGetLastError();
+}
+
 template <int kDh>
 int launch_backward(const void* q, const void* k, const void* v, const void* dout,
                     const float* m, const float* l, float* dsum, void* dq, void* dk, void* dv,
@@ -1148,6 +1416,36 @@ int attention_sm90_forward(const void* q, const void* k, const void* v, void* ou
     case 6: return launch_forward<96>(q, k, v, out, m_out, l_out, p, s);
     case 7: return launch_forward<112>(q, k, v, out, m_out, l_out, p, s);
     default: return launch_forward<128>(q, k, v, out, m_out, l_out, p, s);
+  }
+}
+
+// K8's block form in bf16: q [B, Sq, H, Dh], k and v [B, Sk, H, Dh], the
+// float32 state o_in (q's shape), m_in and l_in ([B, H, Sq], m_in >= -1e30)
+// -> o_out, m_out, l_out (buffers of their own; the state in is only read).
+// The first query sits at position q_off, the first key at k_off. Dh: a
+// multiple of 16 up to 128.
+int attention_sm90_block_update(const void* q, const void* k, const void* v, const float* o_in,
+                                const float* m_in, const float* l_in, float* o_out,
+                                float* m_out, float* l_out, int B, int Sq, int Sk, int H, int Dh,
+                                long long q_off, long long k_off, int causal, float scale,
+                                void* stream) {
+  const Shape p{B, Sq, Sk, H, Dh, causal, scale};
+  if (int rc = check_shape(p)) return rc;
+  // key j is visible to query i where j - i <= q_off - k_off; past [-Sq, Sk]
+  // the answer no longer changes, so the difference fits an int
+  const long long d = causal ? q_off - k_off : (long long)Sk;
+  const int diag = (int)(d < -(long long)Sq ? -(long long)Sq : d > Sk ? (long long)Sk : d);
+  const BlockState st{o_in, m_in, l_in, o_out, m_out, l_out};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (Dh / 16) {
+    case 1: return launch_block<16>(q, k, v, st, p, diag, s);
+    case 2: return launch_block<32>(q, k, v, st, p, diag, s);
+    case 3: return launch_block<48>(q, k, v, st, p, diag, s);
+    case 4: return launch_block<64>(q, k, v, st, p, diag, s);
+    case 5: return launch_block<80>(q, k, v, st, p, diag, s);
+    case 6: return launch_block<96>(q, k, v, st, p, diag, s);
+    case 7: return launch_block<112>(q, k, v, st, p, diag, s);
+    default: return launch_block<128>(q, k, v, st, p, diag, s);
   }
 }
 

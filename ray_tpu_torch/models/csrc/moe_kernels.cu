@@ -124,19 +124,31 @@
 //                     dx[g,s,:] = d_expert_in[slot[g,s],:] in x's dtype, zeros
 //                     for a dropped token: K9c's gather without the gate.
 //                     Bound by bytes (the kept rows read, dx written once).
-//   K9a' moe_route_bwd  the gradient through :70-72 and :112-114, one thread
-//                     a token: the softmax recomputed as K9a computes it (so
-//                     e = exp(l - max), u and the probabilities equal the
-//                     forward's bit for bit); the gate's cotangent split over
-//                     the experts tied at the max, d_gate / count (jnp.max's
-//                     rule; argmax takes the first, the gradient does not);
-//                     the aux loss's term (frac_tokens[e] * (E * d_aux)) /
+//   K9a' moe_route_bwd  the gradient through :70-72 and :112-114: the
+//                     softmax recomputed as K9a computes it (so e = exp(l -
+//                     max), u and the probabilities equal the forward's bit
+//                     for bit); the gate's cotangent split over the experts
+//                     tied at the max, d_gate / count (jnp.max's rule;
+//                     argmax takes the first, the gradient does not); the
+//                     aux loss's term (frac_tokens[e] * (E * d_aux)) /
 //                     (G*S), a true division, added to it; then the
 //                     softmax's backward in the jaxpr's form, d_logits =
 //                     (dp / u + -(sum_e dp * (1 / (u*u)) * e)) * e, the sum
 //                     in expert order. It moves ~1 MB at the main path's
 //                     shapes (under a microsecond at 3.35 TB/s): latency-
-//                     bound.
+//                     bound, a chain of an expf and ~3 divisions an expert
+//                     when one thread takes a token. Design: one lane a
+//                     (token, expert), a group of the next power of two >=
+//                     E lanes a token (4 tokens a warp at E = 8; one warp a
+//                     token, two experts a lane, past 32 experts), so each
+//                     lane takes one expf and one p = e / u, and a warp's
+//                     loads and stores are consecutive floats: 512 blocks
+//                     of 256 at the main path's [8, 2048, 8]. The row max
+//                     and the gate are butterflies of fmaxf (exact in any
+//                     order); u and sum_e (dp (1 / u^2)) e are added in
+//                     expert order from the lanes' values by shuffles, as
+//                     the jaxpr adds them, never by a tree; the tie count
+//                     is a ballot's popcount.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -598,80 +610,142 @@ __global__ void __launch_bounds__(kGateThreads) combine_bwd_gate_kernel(
   }
 }
 
-constexpr int kRouteBwdThreads = 256;  // one token a thread
+constexpr int kRouteBwdThreads = 256;
+constexpr int kRouteBwdWarps = kRouteBwdThreads / 32;
 
-// K9a': d_logits of one token a thread, in the jaxpr's order of operations
-template <int kMaxE>
+// K9a''s layout for E experts: lanes a token, the next power of two >= E
+// up to 32 (lanes E and past idle), and experts a lane, 1 or, past 32
+// experts, 2 (experts l and l + 32 on lane l).
+__host__ __device__ constexpr int route_bwd_lanes(int E) {
+  int lanes = 1;
+  while (lanes < E && lanes < 32) lanes <<= 1;
+  return lanes;
+}
+
+__host__ __device__ constexpr int route_bwd_per_lane(int E) { return E > 32 ? 2 : 1; }
+
+// Expert e's value among a token's lanes (its group, kLanes wide), every
+// lane of the warp taking part; for kPer 2, v[1] holds experts 32 and up.
+template <int kLanes, int kPer>
+__device__ __forceinline__ float expert_value(const float (&v)[kPer], int e) {
+  if constexpr (kPer == 2) {
+    if (e >= 32) return __shfl_sync(kFull, v[1], e - 32);
+  }
+  return __shfl_sync(kFull, v[0], e, kLanes);
+}
+
+// A sum over experts 0..E-1 in expert order, as the jaxpr adds them (every
+// lane of the group gets the same bits; never a tree, which rounds apart).
+// E is the same for every lane, so every lane takes part in each shuffle.
+template <int kLanes, int kPer>
+__device__ __forceinline__ float expert_order_sum(const float (&v)[kPer], int E) {
+  float sum = expert_value<kLanes, kPer>(v, 0);
+#pragma unroll
+  for (int e = 1; e < kLanes * kPer; ++e) {
+    if (e < E) sum = __fadd_rn(sum, expert_value<kLanes, kPer>(v, e));
+  }
+  return sum;
+}
+
+// K9a': d_logits with one lane a (token, expert) (kPer 2: two experts a
+// lane), kLanes lanes a token, 32 / kLanes tokens a warp, in the jaxpr's
+// order of operations. A warp's loads and stores of logits and d_logits
+// are one stretch of consecutive floats.
+template <int kLanes, int kPer>
 __global__ void __launch_bounds__(kRouteBwdThreads) route_bwd_kernel(
     const float* __restrict__ logits, const float* __restrict__ d_gate,
     const float* __restrict__ frac_tokens, const float* __restrict__ d_aux, float n_tokens_f,
     float* __restrict__ d_logits, int E, long long n_tokens) {
-  // the aux loss's cotangent a token: (frac_tokens[e] * (E * d_aux)) / (G*S)
+  constexpr int kTokensWarp = 32 / kLanes;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j = lane % kLanes;  // this lane's expert (and j + 32 for kPer 2)
+  const unsigned group = kLanes == 32 ? kFull : ((1u << kLanes) - 1u) << (lane - j);
   const float z = __fmul_rn((float)E, *d_aux);
-  for (long long t = (long long)blockIdx.x * kRouteBwdThreads + threadIdx.x; t < n_tokens;
-       t += (long long)gridDim.x * kRouteBwdThreads) {
-    const float* row = logits + t * E;
-    float ex[kMaxE];
-    float m = -INFINITY;
+  bool has[kPer];
+  float frac[kPer];
 #pragma unroll
-    for (int e = 0; e < kMaxE; ++e) {
-      if (e < E) {
-        ex[e] = row[e];
-        m = fmaxf(m, ex[e]);
-      }
-    }
-    // the softmax as K9a computes it
-    float u = 0.f;
+  for (int k = 0; k < kPer; ++k) {
+    has[k] = j + 32 * k < E;
+    frac[k] = has[k] ? frac_tokens[j + 32 * k] : 0.f;
+  }
+  const long long stride = (long long)gridDim.x * kRouteBwdWarps * kTokensWarp;
+  for (long long t0 = ((long long)blockIdx.x * kRouteBwdWarps + warp) * kTokensWarp;
+       t0 < n_tokens; t0 += stride) {  // uniform over the warp: every lane shuffles
+    const long long t = t0 + lane / kLanes;
+    const bool live = t < n_tokens;
+    // every load first, so that all are in flight before the first division
+    float x[kPer];
 #pragma unroll
-    for (int e = 0; e < kMaxE; ++e) {
-      if (e < E) {
-        ex[e] = expf(__fsub_rn(ex[e], m));
-        u = __fadd_rn(u, ex[e]);
-      }
-    }
-    float gate = 0.f;
+    for (int k = 0; k < kPer; ++k) x[k] = live && has[k] ? logits[t * E + j + 32 * k] : -INFINITY;
+    const float d_gate_t = live ? d_gate[t] : 0.f;
+    // the aux loss's term of this lane's experts: (frac_tokens[e] * (E * d_aux)) / (G*S)
+    float aux[kPer];
 #pragma unroll
-    for (int e = 0; e < kMaxE; ++e) {
-      if (e < E) {
-        const float p = __fdiv_rn(ex[e], u);
-        if (e == 0 || p > gate) gate = p;
-      }
-    }
-    int count = 0;  // the experts tied at the max
+    for (int k = 0; k < kPer; ++k) aux[k] = __fdiv_rn(__fmul_rn(frac[k], z), n_tokens_f);
+    // the softmax as K9a computes it: the row max (exact in any order),
+    // e = exp(l - max), u their sum in expert order, p = e / u (IEEE)
+    float m = x[0];
 #pragma unroll
-    for (int e = 0; e < kMaxE; ++e) {
-      if (e < E && __fdiv_rn(ex[e], u) == gate) ++count;
+    for (int k = 1; k < kPer; ++k) m = fmaxf(m, x[k]);
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+    float ex[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) ex[k] = has[k] ? expf(__fsub_rn(x[k], m)) : 0.f;
+    const float u = expert_order_sum<kLanes, kPer>(ex, E);
+    float p[kPer];
+    float gate = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      p[k] = __fdiv_rn(ex[k], u);
+      if (has[k]) gate = fmaxf(gate, p[k]);
     }
-    const float dg = __fdiv_rn(d_gate[t], (float)count);
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+      gate = fmaxf(gate, __shfl_xor_sync(kFull, gate, off));
+    }
+    // the experts tied at the max share the gate's cotangent (jnp.max's rule)
+    bool tie[kPer];
+    int count = 0;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      tie[k] = has[k] && p[k] == gate;
+      count += __popc(__ballot_sync(kFull, tie[k]) & group);
+    }
+    const float dg = __fdiv_rn(d_gate_t, (float)count);
     const float s = __fdiv_rn(1.f, __fmul_rn(u, u));
-    float dp[kMaxE];
-    float sum = 0.f;
+    float dp[kPer], w[kPer];
 #pragma unroll
-    for (int e = 0; e < kMaxE; ++e) {
-      if (e < E) {
-        const float tie = __fdiv_rn(ex[e], u) == gate ? 1.f : 0.f;
-        dp[e] = __fadd_rn(__fdiv_rn(__fmul_rn(frac_tokens[e], z), n_tokens_f),
-                          __fmul_rn(dg, tie));
-        sum = __fadd_rn(sum, __fmul_rn(__fmul_rn(dp[e], s), ex[e]));
-      }
+    for (int k = 0; k < kPer; ++k) {
+      dp[k] = __fadd_rn(aux[k], __fmul_rn(dg, tie[k] ? 1.f : 0.f));
+      w[k] = __fmul_rn(__fmul_rn(dp[k], s), ex[k]);
     }
+    const float sum = expert_order_sum<kLanes, kPer>(w, E);
 #pragma unroll
-    for (int e = 0; e < kMaxE; ++e) {
-      if (e < E) {
-        d_logits[t * E + e] = __fmul_rn(__fadd_rn(__fdiv_rn(dp[e], u), -sum), ex[e]);
+    for (int k = 0; k < kPer; ++k) {
+      if (live && has[k]) {
+        d_logits[t * E + j + 32 * k] = __fmul_rn(__fadd_rn(__fdiv_rn(dp[k], u), -sum), ex[k]);
       }
     }
   }
 }
 
-template <int kMaxE>
+// K9a''s blocks: 8 warps of 32 / lanes-a-token tokens a block, at most 2^30
+// (a grid-stride loop past them).
+long long route_bwd_blocks(long long n_tokens, int E) {
+  const long long tokens = (long long)kRouteBwdWarps * (32 / route_bwd_lanes(E));
+  const long long blocks = (n_tokens + tokens - 1) / tokens;
+  return blocks < (1LL << 30) ? blocks : (1LL << 30);
+}
+
+template <int kLanes, int kPer>
 int launch_route_bwd(const float* logits, const float* d_gate, const float* frac,
                      const float* d_aux, float n_tokens_f, float* d_logits, int E,
                      long long n_tokens, cudaStream_t stream) {
-  const long long blocks = (n_tokens + kRouteBwdThreads - 1) / kRouteBwdThreads;
-  route_bwd_kernel<kMaxE><<<(int)(blocks < (1LL << 30) ? blocks : (1LL << 30)),
-                            kRouteBwdThreads, 0, stream>>>(logits, d_gate, frac, d_aux,
-                                                            n_tokens_f, d_logits, E, n_tokens);
+  route_bwd_kernel<kLanes, kPer><<<(int)route_bwd_blocks(n_tokens, E), kRouteBwdThreads, 0,
+                                   stream>>>(logits, d_gate, frac, d_aux, n_tokens_f, d_logits, E,
+                                             n_tokens);
   return (int)cudaGetLastError();
 }
 
@@ -804,10 +878,15 @@ int moe_route_bwd(const float* logits, const float* d_gate, const float* frac_to
   if (G <= 0 || S <= 0 || E <= 0 || E > kMaxExperts) return (int)cudaErrorInvalidValue;
   const long long n = (long long)G * S;
   cudaStream_t st = (cudaStream_t)stream;
-  if (E <= 8) return launch_route_bwd<8>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
-  if (E <= 16) return launch_route_bwd<16>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
-  if (E <= 32) return launch_route_bwd<32>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
-  return launch_route_bwd<64>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
+  switch (route_bwd_lanes(E) * route_bwd_per_lane(E)) {
+    case 1: return launch_route_bwd<1, 1>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
+    case 2: return launch_route_bwd<2, 1>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
+    case 4: return launch_route_bwd<4, 1>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
+    case 8: return launch_route_bwd<8, 1>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
+    case 16: return launch_route_bwd<16, 1>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
+    case 32: return launch_route_bwd<32, 1>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
+    default: return launch_route_bwd<32, 2>(logits, d_gate, frac_tokens, d_aux, n_tokens_f, d_logits, E, n, st);
+  }
 }
 
 }  // extern "C"

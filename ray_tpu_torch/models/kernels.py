@@ -1,7 +1,8 @@
 """The flagship transformer's device programs: hand-written CUDA kernels
 (csrc/model_kernels.cu and, for K8 and K8' in bf16 with rounded
-probabilities, the tensor-core csrc/attention_sm90.cu; each built on first
-CUDA use) each beside its plain PyTorch version.
+probabilities and K8's block form in bf16, the tensor-core
+csrc/attention_sm90.cu; each built on first CUDA use) each beside its plain
+PyTorch version.
 
   K8  attention     causal (or full) attention over the whole sequence.
                     round_probs=False: online-softmax form, = the reference's
@@ -27,8 +28,11 @@ Which kernel serves K8 and K8' on the card is ``_attention_route``'s
 choice: bf16 with the probabilities rounded (the forward's and the train
 step's path) goes to the wgmma kernels of attention_sm90.cu; float32, and
 bf16 with ``round_probs=False``, to the CUDA-core kernels of
-model_kernels.cu. ``attention`` and ``attention_bwd`` count the launches of
-the tensor-core kernels in ``launches_tc`` beside ``launches``.
+model_kernels.cu. K8's block form goes to attention_sm90.cu in bf16, its
+float32 P·V taken as two bf16 parts of P, and to model_kernels.cu in
+float32 (``_block_update_route``). ``block_update``, ``attention`` and
+``attention_bwd`` count the launches of the tensor-core kernels in
+``launches_tc`` beside ``launches``.
 
 ``attention(..., round_probs=True)``, ``rmsnorm`` and ``rope_split`` are
 ``torch.autograd.Function``s whose backward is the matching backward
@@ -88,10 +92,12 @@ LIBRARY = cuda_build.CudaLibrary("model", _SRC, NVCC_FLAGS, _SIGNATURES)
 _SIGNATURES_SM90 = {
     "attention_sm90_forward": ([_P] * 6 + [_I] * 6 + [_F, _P], _I),
     "attention_sm90_backward": ([_P] * 10 + [_I] * 6 + [_F, _P], _I),
+    "attention_sm90_block_update": ([_P] * 9 + [_I] * 5 + [_LL, _LL, _I, _F, _P], _I),
     "attention_sm90_error_string": ([_I], ctypes.c_char_p),
 }
 
-#: K8 and K8' on the tensor cores (bf16, rounded probabilities)
+#: K8 and K8' on the tensor cores (bf16, rounded probabilities), and K8's
+#: block form in bf16
 LIBRARY_SM90 = cuda_build.CudaLibrary("attention_sm90", _SRC_SM90, NVCC_FLAGS,
                                       _SIGNATURES_SM90)
 
@@ -167,7 +173,9 @@ def block_update(q, k, v, o, m, l, q_off, k_off, causal, scale):
     first query at q_off. q [B,Sq,H,Dh], k and v [B,Sk,H,Dh] (bf16 or f32);
     o [B,Sq,H,Dh], m and l [B,H,Sq], float32, with m >= -1e30 (as every
     state that starts from -1e30 is). Returns the new (o, m, l); the inputs
-    are not modified. A fully masked block leaves the state as it is."""
+    are not modified. A fully masked block leaves the state as it is. On
+    the card bf16 goes to the tensor cores (``_block_update_route``), each
+    such launch also counted in ``launches_tc``."""
     dev = device_of(q, k, v, o, m, l)
     q_off, k_off = int(q_off), int(k_off)
     if dev.type == "cpu":
@@ -180,20 +188,35 @@ def block_update(q, k, v, o, m, l, q_off, k_off, causal, scale):
                          f"{tuple(m.shape)} {m.dtype}, l {tuple(l.shape)} {l.dtype} "
                          f"(float32 [B,Sq,H,Dh] and [B,H,Sq] needed)")
     _check_layout("block_update", q, k, v, o, m, l)
-    lib = LIBRARY.load()
+    tc = _block_update_route(q) == "wgmma"
+    lib = LIBRARY_SM90.load() if tc else LIBRARY.load()
     o_out, m_out, l_out = torch.empty_like(o), torch.empty_like(m), torch.empty_like(l)
-    with torch.cuda.device(dev):
-        rc = lib.model_block_update(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
             l.data_ptr(), o_out.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
-            B, Sq, k.shape[1], H, Dh, q_off, k_off, int(bool(causal)), float(scale), dt,
-            current_stream(dev))
-    _check(lib, rc, "block_update")
+            B, Sq, k.shape[1], H, Dh, q_off, k_off, int(bool(causal)), float(scale))
+    with torch.cuda.device(dev):
+        if tc:
+            rc = lib.attention_sm90_block_update(*args, current_stream(dev))
+        else:
+            rc = lib.model_block_update(*args, dt, current_stream(dev))
+    _check(lib, rc, "block_update",
+           "attention_sm90_error_string" if tc else "model_error_string")
     block_update.launches += 1
+    block_update.launches_tc += tc
     return o_out, m_out, l_out
 
 
 block_update.launches = 0
+block_update.launches_tc = 0
+
+
+def _block_update_route(q) -> str:
+    """Which kernel serves K8's block form for q on the card: "wgmma"
+    (attention_sm90.cu, the tensor cores) for bf16, whose float32 P·V it
+    takes as two bf16 parts of P (_split_bf16), their products with V
+    summed in float32; "cuda_core" (model_kernels.cu) for float32, whose products
+    the reference takes in full float32."""
+    return "wgmma" if q.dtype == torch.bfloat16 else "cuda_core"
 
 
 def _causal_mask(Sq, Sk, device):
@@ -716,7 +739,7 @@ KERNELS = {
 
 
 #: the kernels that count their tensor-core launches in `launches_tc`
-TC_KERNELS = ("attention", "attention_bwd")
+TC_KERNELS = ("block_update", "attention", "attention_bwd")
 
 
 def launch_counts() -> dict:
@@ -724,7 +747,8 @@ def launch_counts() -> dict:
 
 
 def tc_launch_counts() -> dict:
-    """The launches of K8 and K8' that went to the tensor-core kernels."""
+    """The launches of K8 (both forms) and K8' that went to the tensor-core
+    kernels."""
     return {name: KERNELS[name].launches_tc for name in TC_KERNELS}
 
 

@@ -17,7 +17,8 @@ jax.grad jaxpr forms it (``tests/test_parallel.py:179``):
 
   K9a' moe_route_bwd     d_logits from the gate's and the aux loss's
                          cotangents: jnp.max's tie split, the aux term's
-                         true division by G*S, the softmax's backward
+                         true division by G*S, the softmax's backward; one
+                         lane a (token, expert)
   K9b' moe_dispatch_bwd  dispatch's transpose: a gather by ``slot``
   K9c' moe_combine_bwd   combine's transpose: a gather by ``token_of_slot``
                          times the gate, and the gate's cotangent, a row
@@ -372,7 +373,9 @@ def moe_route_bwd(logits: torch.Tensor, d_gate: torch.Tensor, frac_tokens: torch
     softmax: logits [G, S, E] float32 (the forward's), d_gate [G, S]
     float32, frac_tokens [E] float32 (the aux loss's token shares, no
     gradient) and d_aux (one float32 element, on the device) -> d_logits
-    [G, S, E] float32."""
+    [G, S, E] float32. One launch on the card: a group of the next power
+    of two >= E lanes a token (lanes past E idle), one lane an expert; past
+    32 experts one warp a token, two experts a lane."""
     dev = device_of(logits, d_gate, frac_tokens, d_aux)
     _check_route_args(logits, 1)
     G, S, E = logits.shape

@@ -1,4 +1,4 @@
-"""Build report of the tensor-core K8 and K8'
+"""Build report of the tensor-core K8 (both forms) and K8'
 (ray_tpu_torch/models/csrc/attention_sm90.cu) on the card.
 
     python -m ray_tpu_torch.scripts.check_attention_sm90
@@ -35,7 +35,7 @@ def build_report(K, cuda_build) -> dict:
     report = {"nvcc_s": time.perf_counter() - t0, "kernels": {}}
 
     def short(mangled):
-        m = re.search(r"attention_sm90_(fwd|bwd_dq|bwd_dkv)_kernelILi(\d+)", mangled)
+        m = re.search(r"attention_sm90_(fwd|block|bwd_dq|bwd_dkv)_kernelILi(\d+)", mangled)
         return f"{m.group(1)}<{m.group(2)}>" if m else None
 
     name = None

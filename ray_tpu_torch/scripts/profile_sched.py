@@ -42,8 +42,9 @@ stream's wall time and device time by kernel name.
 K4 (on K1's assignment, with the cap and widths TorchScheduler picks) at
 the stream's first round, K10a' at the train step's [16 384, 512] in bf16
 and f32, K10b at the forward's [8, 2048, 1536] bf16, K10b' at the train
-step's [8, 2048, 8, 64] in bf16 and f32, and K9a at the expert layer's
-logits [8, 2048, 8] with C 320, a round's view build as the tree's
+step's [8, 2048, 8, 64] in bf16 and f32, K9a and K9a' at the expert
+layer's logits [8, 2048, 8] with C 320, K8's block form on a visible
+[8, 512, 8, 64] block in bf16 and f32, a round's view build as the tree's
 TorchScheduler makes it (K3 on [10 000, 16], K2 at 1 000 rows of pad
 1 024, each followed by the clone of the view where the tree's rounds
 copy it) and a pipelined scan round's launch and copy calls alone and
@@ -51,7 +52,8 @@ after apply_delta or update_rows, from each of the given checkouts of this
 repo, in turns (the trees in order, then in reverse), each run a process
 of its own that builds that tree's kernels: whether each equals its plain
 version (K7: K1; K9a: its integers, and the largest difference of its gate
-and sums; K10a', K10b, K10b': the largest difference), and the CUDA-event
+and sums; K10a', K10b, K10b', K9a', K8's block form: the largest
+difference), and the CUDA-event
 medians of three sets of calls
 (chip_smoke.time_ms), beside that of one empty kernel (the timing's
 floor). For comparing versions of the kernels on one card.
@@ -262,7 +264,9 @@ def profile_rounds(which: str) -> dict:
 # (compact_nonzero) and their plain versions, kernel_shard._launch (K7
 # without the wrapper's checks), the model kernels' rmsnorm_bwd (K10a'),
 # rope_split (K10b) and rope_split_bwd (K10b') and their plain versions,
-# and the expert layer's moe_route (K9a) on chip_smoke's main-path logits.
+# block_update (K8's block form) and its plain version, and the expert
+# layer's moe_route (K9a) and moe_route_bwd (K9a') on chip_smoke's
+# main-path logits.
 _AB = """
 import json, sys
 sys.path.insert(0, ".")
@@ -372,6 +376,28 @@ out["k9a_exact"] = all(torch.equal(got[i], want[i]) for i in (0, 2, 3)) and bool
 out["k9a_max_abs_err"] = max(float((a.double() - b.double()).abs().max()) for a, b in (
     (got[1], want[1]), (got[4][:, 1], want[4][:, 1])))
 out["k9a_ms"] = [CS.time_ms(torch, lambda: EK.moe_route(logits, C), reps=21) for _ in range(3)]
+# K9a' on the same logits, as phase 10a times it
+frac = EK.aux_loss(got[4], logits.shape[0] * logits.shape[1])[0]
+d_gate = torch.randn(logits.shape[:2], generator=g).to(dev)
+d_aux = torch.full((), 0.01, device=dev)
+bwd = (logits, d_gate, frac, d_aux)
+out["k9a_bwd_max_abs_err"] = float((EK.moe_route_bwd(*bwd).double()
+                                    - EK._route_bwd_plain(*bwd).double()).abs().max())
+out["k9a_bwd_ms"] = [CS.time_ms(torch, lambda: EK.moe_route_bwd(*bwd), reps=21)
+                     for _ in range(3)]
+# K8's block form as phase 6a times it: a visible [8, 512, 8, 64] block
+# against a running state, bf16 and f32
+st = (torch.randn((8, 512, 8, 64), generator=g).to(dev),
+      torch.randn((8, 8, 512), generator=g).to(dev),
+      (torch.randn((8, 8, 512), generator=g).abs() + 1).to(dev))
+qkv_b = [torch.randn((8, 512, 8, 64), generator=g).to(dev, torch.bfloat16) for _ in range(3)]
+for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    blk = (*(t.to(dt) for t in qkv_b), *st, 512, 0, True, 0.125)
+    out[f"k8_block_{name}_max_abs_err"] = max(
+        float((a.double() - b.double()).abs().max())
+        for a, b in zip(MK.block_update(*blk), MK._block_update_plain(*blk)))
+    out[f"k8_block_{name}_ms"] = [CS.time_ms(torch, lambda: MK.block_update(*blk))
+                                  for _ in range(3)]
 print(json.dumps(out))
 """
 
@@ -409,8 +435,9 @@ print(json.dumps(out))
 
 
 def ab(trees, script=_AB) -> dict:
-    """`script` (_AB: K4-K7, K9a, K10a', K10b and K10b', the view builds, a
-    round's calls; _E2E: the end-to-end paths) in each tree in turns,
+    """`script` (_AB: K4-K7, K8's block form, K9a, K9a', K10a', K10b and
+    K10b', the view builds, a round's calls; _E2E: the end-to-end paths) in
+    each tree in turns,
     forward then backward."""
     import os
     import subprocess

@@ -1,11 +1,16 @@
-"""The tensor-core K8 and K8' (ray_tpu_torch/models/csrc/attention_sm90.cu):
-the plain version of dS's split into two bf16 parts, the route between the
-tensor-core and the CUDA-core kernels, and the C signatures of the port's
-libraries against their sources (no nvcc here: the sources are parsed).
-The `cuda` test holds the tensor-core K8 against its plain version, on the
-card, at the head widths that only K8's wrapper takes (48, 80, 96, 112)."""
+"""The tensor-core K8 (both forms) and K8'
+(ray_tpu_torch/models/csrc/attention_sm90.cu): the plain version of the
+split of a float32 operand into two bf16 parts (K8''s dS, the block form's
+P), the block form's split P·V against the JAX package's _block_update,
+the route between the tensor-core and the CUDA-core kernels, and the C
+signatures of the port's libraries against their sources (no nvcc here:
+the sources are parsed). The `cuda` tests hold the tensor-core K8 against
+its plain version, on the card, at the head widths that only K8's wrapper
+takes (48, 80, 96, 112), and the block form at every head width."""
 
 import ctypes
+import importlib
+import math
 import re
 from fractions import Fraction
 
@@ -61,6 +66,90 @@ def test_split_products_match_the_float32_product(Dh):
     err_split = float((split.double() - ref).abs().max())
     err_single = float((single.double() - ref).abs().max())
     assert err_single > 100 * err_split, (err_single, err_split)
+
+
+# (q_off, k_off, causal, Sq, Sk) of the block under test, after a first,
+# fully visible block has set the state: a visible block (every key before
+# every query, as the ring's steps below the diagonal), the causal block on
+# the diagonal, ragged blocks on and off it, and one not causal
+SPLIT_BLOCK_CASES = {
+    "visible": (128, 0, True, 128, 128),
+    "diagonal": (128, 128, True, 128, 128),
+    "ragged_diagonal": (130, 128, True, 63, 65),
+    "ragged_below": (200, 7, True, 65, 63),
+    "not_causal": (0, 900, False, 65, 63),
+}
+#: KERNEL_TOL's float32 pair (chip_smoke.py): rtol, and atol as a share of
+#: the state's largest entry (an unnormalised sum over the block's keys)
+BLOCK_TOL = 1e-5
+
+
+def _state_close(got, want, rtol=BLOCK_TOL):
+    """Whether got is within rtol of want and rtol of want's largest entry."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    atol = max(BLOCK_TOL, rtol * float(np.abs(want).max()))
+    return bool((np.abs(got - want) <= atol + rtol * np.abs(want)).all())
+
+
+def _block_update_split(q, k, v, o, m, l, q_off, k_off, causal, scale, parts):
+    """K8's block form as the tensor-core kernel takes it: the plain
+    version's steps, with P·V the sum of part·V over parts(p), each part a
+    bf16 tensor multiplied by the bf16 V and summed in float32 (exact
+    products), added to o·corr at the end."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    pmask = 1.0
+    if causal:
+        mask = ((q_off + torch.arange(q.shape[1]))[:, None]
+                >= (k_off + torch.arange(k.shape[1]))[None, :])
+        logits = torch.where(mask, logits, K.NEG_INF)
+        pmask = mask.float()
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    p = torch.exp(logits - m_new[..., None]) * pmask
+    corr = torch.exp(m - m_new)
+    pv = sum(torch.einsum("bhqk,bkhd->bqhd", part.float(), v.float()) for part in parts(p))
+    return o * corr.transpose(1, 2)[..., None] + pv, m_new, l * corr + p.sum(dim=-1)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_BLOCK_CASES))
+def test_block_update_split_pv_matches_the_reference(case):
+    """The tensor-core block form's arithmetic, emulated in plain PyTorch
+    (p split into hi = bf16(p) and lo = bf16(p - hi) by _split_bf16, each
+    multiplied by the bf16 V, summed in float32), against ray_tpu's
+    _block_update, whose P·V is one float32 product: o, m and l within
+    KERNEL_TOL's float32 pair (1e-5, atol 1e-5 of the state's largest
+    entry). Two parts hold it; P rounded once to bf16 does not."""
+    JR = importlib.import_module("ray_tpu.parallel.ring_attention")
+    import jax.numpy as jnp
+
+    q_off, k_off, causal, Sq, Sk = SPLIT_BLOCK_CASES[case]
+    rng = np.random.default_rng(Sq + Sk)
+    B, H, Dh, Sk0 = 2, 2, 64, 96
+    q, k0, v0 = (rng.standard_normal((B, s, H, Dh)).astype(np.float32) for s in (Sq, Sk0, Sk0))
+    k, v = (rng.standard_normal((B, Sk, H, Dh)).astype(np.float32) for _ in range(2))
+    # the inputs in bf16, as the tensor-core kernel takes them
+    qt, k0t, v0t, kt, vt = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k0, v0, k, v))
+    qj, k0j, v0j, kj, vj = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                            for t in (qt, k0t, v0t, kt, vt))
+    scale = 1.0 / math.sqrt(Dh)
+    state = (np.zeros((B, Sq, H, Dh), np.float32), np.full((B, H, Sq), K.NEG_INF, np.float32),
+             np.zeros((B, H, Sq), np.float32))
+    state = [np.array(x) for x in JR._block_update(
+        qj, k0j, v0j, *map(jnp.asarray, state), q_off, q_off - Sk0 - 500, causal, scale)]
+    want = [np.asarray(x) for x in JR._block_update(qj, kj, vj, *map(jnp.asarray, state),
+                                                     q_off, k_off, causal, scale)]
+    args = (qt, kt, vt, *map(torch.from_numpy, state), q_off, k_off, causal, scale)
+    got = _block_update_split(*args, K._split_bf16)
+    for name, g, w in zip("oml", got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
+        assert _state_close(g.numpy(), w), (name, float(np.abs(g.numpy() - w).max()))
+    # P·V with P rounded once to bf16: o is off by far more than the tolerance
+    once = _block_update_split(*args, lambda p: (p.to(torch.bfloat16),))[0].numpy()
+    assert not _state_close(once, want[0])
+    assert float(np.abs(once - want[0]).max()) > 20 * float(np.abs(got[0].numpy() - want[0]).max())
+    # and with the parts summed whole, the emulation is the plain version's
+    plain = K._block_update_plain(*args)
+    whole = _block_update_split(*args, lambda p: (p,))
+    assert all(torch.equal(a, b) for a, b in zip(plain, whole))
 
 
 # ------------------------------------------------------------------ the division
@@ -137,24 +226,31 @@ def test_markstein_division_gives_the_ieee_quotient(seed):
 
 @pytest.mark.parametrize("Dh", HEAD_WIDTHS)
 def test_attention_route_sends_rounded_bf16_to_the_tensor_cores(Dh):
+    """K8's whole form: bf16 with rounded probabilities to wgmma; its block
+    form: every bf16 block to wgmma (P·V as two bf16 parts), float32 to
+    the CUDA cores."""
     for dt in (torch.bfloat16, torch.float32):
         q = torch.empty((1, 4, 2, Dh), dtype=dt)
         K._check_attention_shapes("attention", q, q, q)
         for round_probs in (True, False):
             want = "wgmma" if dt == torch.bfloat16 and round_probs else "cuda_core"
             assert K._attention_route(q, round_probs) == want, (dt, round_probs)
+        want = "wgmma" if dt == torch.bfloat16 else "cuda_core"
+        assert K._block_update_route(q) == want, dt
 
 
 def test_tensor_core_counters_reset_and_stay_zero_on_the_cpu():
-    K.attention.launches_tc = K.attention_bwd.launches_tc = 5
+    zero = {"block_update": 0, "attention": 0, "attention_bwd": 0}
+    K.attention.launches_tc = K.attention_bwd.launches_tc = K.block_update.launches_tc = 5
     K.reset_launch_counts()
-    assert K.tc_launch_counts() == {"attention": 0, "attention_bwd": 0}
+    assert K.tc_launch_counts() == zero
     q = torch.ones((1, 8, 1, 16), dtype=torch.bfloat16)
     out, m, l = K._attention_rounded_plain(q, q, q, True)
     K.attention(q, q, q, round_probs=True)
     K.attention_bwd(q, q, q, q, m, l)
-    assert K.tc_launch_counts() == {"attention": 0, "attention_bwd": 0}
-    assert K.launch_counts()["attention"] == 0
+    K.block_update(q, q, q, out.float(), m, l, 8, 0, True, 0.25)
+    assert K.tc_launch_counts() == zero
+    assert K.launch_counts()["attention"] == K.launch_counts()["block_update"] == 0
 
 
 # ------------------------------------------------------------------ C signatures
@@ -245,4 +341,46 @@ def test_cuda_tensor_core_attention_forward_only_head_widths(Dh):
             for name, g, w, a in zip(("out", "m", "l"), got, want, again):
                 _assert_close(g, w, f"Dh={Dh} S={S} causal={causal} {name}")
                 assert torch.equal(g, a), name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", HEAD_WIDTHS)
+def test_cuda_tensor_core_block_update_equals_plain(Dh):
+    """On the card: K8's block form in bf16 (the tensor-core kernel; every
+    launch counted in launches_tc) against its plain version at Sq and Sk
+    of 511, 512 and 513: a visible block on the empty state, then the
+    causal block on the diagonal, then a fully masked one (the state comes
+    back bit for bit), then one not causal; o, m, l within KERNEL_TOL's
+    float32 pair (1e-5, atol 1e-5 of the state's largest entry), and a
+    second launch gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(200 + Dh)
+    B, H = 2, 2
+    scale = Dh ** -0.5
+    for Sq, Sk in ((512, 512), (511, 513), (513, 511)):
+        q = torch.from_numpy(rng.standard_normal((B, Sq, H, Dh)).astype(np.float32)) \
+            .to(dev, torch.bfloat16)
+        k, v = (torch.from_numpy(rng.standard_normal((B, Sk, H, Dh)).astype(np.float32))
+                .to(dev, torch.bfloat16) for _ in range(2))
+        state = (torch.zeros((B, Sq, H, Dh), device=dev),
+                 torch.full((B, H, Sq), K.NEG_INF, device=dev), torch.zeros((B, H, Sq), device=dev))
+        for q_off, k_off, causal, what in ((Sk, 0, True, "visible"), (0, 0, True, "diagonal"),
+                                           (5, 5 + Sq, True, "fully masked"),
+                                           (0, 3 * Sq, False, "not causal")):
+            before = K.tc_launch_counts()["block_update"]
+            got = K.block_update(q, k, v, *state, q_off, k_off, causal, scale)
+            again = K.block_update(q, k, v, *state, q_off, k_off, causal, scale)
+            assert K.tc_launch_counts()["block_update"] == before + 2
+            want = K._block_update_plain(q, k, v, *state, q_off, k_off, causal, scale)
+            for name, g, w, a in zip("oml", got, want, again):
+                label = f"Dh={Dh} Sq={Sq} Sk={Sk} {what} {name}"
+                assert _state_close(g.cpu().numpy(), w.cpu().numpy()), \
+                    (label, float((g - w).abs().max()))
+                assert torch.equal(g, a), label
+            if what == "fully masked":
+                assert all(torch.equal(g, s) for g, s in zip(got, state))
+            state = want
     torch.cuda.synchronize()

@@ -36,6 +36,7 @@ versions on the card.
 """
 
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -122,6 +123,31 @@ def test_route_bwd_matches_jax_vjp(E, S):
     assert err <= 1e-6, err
     if E == 1:  # softmax of one logit: no gradient reaches it
         assert (got == 0).all()
+
+
+@pytest.mark.parametrize("E", [1, 3, 8, 9, 32, 33, 64])
+def test_route_bwd_layout_in_the_source(E):
+    """K9a''s layout, one lane a (token, expert), as the source builds it: a
+    group of the next power of two >= E lanes a token (lanes past E idle),
+    32 / lanes tokens a warp; past 32 experts one warp a token, two experts
+    a lane; 8 warps a block. moe_route_bwd's switch instantiates the kernel
+    for every E this test takes, every expert has a lane and fewer than
+    half the lanes idle. 512 blocks of 256 at the main path's [8, 2048, 8]."""
+    src = K.LIBRARY.src.read_text()
+    assert int(re.search(r"constexpr int kRouteBwdThreads = (\d+);", src).group(1)) == 256
+    assert re.search(r"while \(lanes < E && lanes < 32\) lanes <<= 1;", src)
+    assert re.search(r"route_bwd_per_lane\(int E\) \{ return E > 32 \? 2 : 1; \}", src)
+    body = src[src.index("int moe_route_bwd(const float* logits"):]
+    layouts = {int(c): (int(a), int(b)) for c, a, b in re.findall(
+        r"case (\d+): return launch_route_bwd<(\d+), (\d+)>", body)}
+    default = tuple(map(int, re.search(r"default: return launch_route_bwd<(\d+), (\d+)>",
+                                       body).groups()))
+    lanes = 1 << max(0, min(E, 32) - 1).bit_length()
+    per = 2 if E > 32 else 1
+    assert layouts.get(lanes * per, default) == (lanes, per)
+    assert lanes * per >= E > lanes * per // 2
+    if E == 8:
+        assert -(-8 * 2048 // (256 // 32 * (32 // lanes))) == 512
 
 
 def test_route_bwd_splits_the_gate_over_exact_ties():
@@ -607,6 +633,35 @@ def test_cuda_moe_backward_kernels_equal_plain_on_card():
                 assert bool((dg[slot < 0] == 0).all())
                 again = K.moe_combine_bwd(dy, out, slot, gate, tos)
                 assert torch.equal(d_out, again[0]) and torch.equal(dg, again[1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_route_bwd_lanes_equal_plain_and_are_deterministic():
+    """On the card: K9a' (one lane a (token, expert)) against its plain
+    version within BWD_TOL of the largest entry at E = 3, 8, 9, 33 and 64,
+    over G * S not a multiple of the tokens a block, with exact ties (two
+    experts, and every expert, equal on some tokens), a second launch the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29)
+    for E in (3, 8, 9, 33, 64):
+        # G·S of 3003 and 7 are a multiple of no layout's tokens a block
+        for Gn, S in ((3, 1001), (8, 2048), (1, 7)):
+            logits = (rng.standard_normal((Gn, S, E)) * 2).astype(np.float32)
+            logits[:, ::7, 0] = logits[:, ::7, E - 1] = 6.0  # two experts tied at the max
+            logits[:, 3::11] = 0.5                           # every expert tied
+            lt = torch.from_numpy(logits).to(dev)
+            frac = torch.from_numpy(rng.random(E).astype(np.float32)).to(dev)
+            d_gate = torch.from_numpy(rng.standard_normal((Gn, S)).astype(np.float32)).to(dev)
+            d_aux = torch.tensor(0.37, device=dev)
+            got = K.moe_route_bwd(lt, d_gate, frac, d_aux)
+            want = K._route_bwd_plain(lt, d_gate, frac, d_aux)
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= K.BWD_TOL * scale, (E, Gn, S)
+            assert torch.equal(got, K.moe_route_bwd(lt, d_gate, frac, d_aux)), (E, Gn, S)
     torch.cuda.synchronize()
 
 

@@ -141,6 +141,24 @@ caught):
    (tests/data/moe_grad_golden.npz), and two groups free of near-ties on
    the card against the plain step on the CPU.
 
+11. the paths across ranks: 4 processes spawned once on the one card, one
+   gloo group over CUDA tensors (NCCL takes no two ranks on one card), the
+   kernels built by this process before: K7r, the sharded scheduler's
+   kernel across ranks (make_sharded_scheduler(group): terms, caps and fill
+   a pass, the collectives between them), over ranks 0-1 and over all
+   four, on bench.py's, dryrun_multichip's and the negative problem and the
+   stream's first round carried 15 rounds, every rank's results equal to
+   K1's and kernel_np's; ring attention over sp = 4 on q, k, v [8, 2048, 8,
+   64] in bf16 and float32, bit-equal to ring_schedule in one process and
+   within 6d's bound of whole attention; Ulysses over sp = 4 against K8's
+   whole form; the expert layer over dp x ep = 1 x 4 and 2 x 2
+   (MoEConfig(), x [8, 2048, 256] bf16) against the one-process layer,
+   routing exactly; 4 pipeline stages of tanh(x @ w) at d 512 over 8
+   microbatches [2, 2048, 512] against the stages in sequence. Then K7r
+   against its plain version step by step over a 2 500-node block, and its
+   steps timed. Its times are those of 4 processes sharing one card
+   (ms_4_processes_on_one_H100_over_gloo), not of cards.
+
 Launch counters are set to 0 just before phase 2 and read after phase 5,
 the model kernels' just before 6b and after 6c (every K8 launch there must
 have gone to the tensor-core kernel), the expert kernels' just
@@ -150,11 +168,11 @@ path's six must have launched its predicted count a step times the 14
 steps, every K8 and K8' launch a tensor-core one and every K10b' launch
 in the rows form, and the expert kernels' again just before 10b and after 10c, where
 each of the six (K9a-c, K9a'-c') must have launched once a step over the
-14 steps: every kernel of each path must have launched in its run. K8's block form runs on no ported
-path yet (the ring across cards is still to port); its entry in the
-kernels line gives its launches on the main path (0) under "launches" and
-those of (d)'s check apart, as "ring_check_launches" and
-"ring_check_launches_tc". The
+14 steps: every kernel of each path must have launched in its run; and
+each of phase 11's ranks sets its counters to 0 before its paths and
+sends them back after: K7r and K8's block form must have launched there
+(the kernels line takes their launches from phase 11, 6d's ring check's
+apart, as "ring_check_launches" and "ring_check_launches_tc"). The
 JSON line before the card's name and power limit lists the kernels; the
 last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
@@ -1262,7 +1280,7 @@ def phase5_gcs(torch, KT, n_nodes=10_000, n_lockstep=25_000, n_pipelined=100_000
 # the largest entry, not each one: there atol is rtol x max |state|.
 KERNEL_TOL = {"f32": (1e-5, 1e-5), "bf16": (2.0 ** -7, 1e-3)}
 # the model kernels that the forward runs; K8's block form belongs to the
-# ring across cards, not written yet, and is checked here on its own
+# ring across ranks (phase 11), and is checked here on its own
 FORWARD_KERNELS = ("attention", "rmsnorm", "rope_split")
 # the model kernels of the line built from attention_sm90.cu (their bf16
 # forms, as timed here; float32 stays on model_kernels.cu)
@@ -1452,8 +1470,8 @@ def _golden_check(torch, PT, tree, golden, dt_name, dev):
 
 
 def ring_schedule(torch, MK, q, k, v, n_shards):
-    """The ring's block steps on one card, as check code (the port's
-    ring_attention across cards is not written yet): query block idx meets,
+    """The ring's block steps in one process, as check code (phase 11 holds
+    the port's ring_attention across ranks to it): query block idx meets,
     at ring step t, the KV block of shard (idx - t) mod n_shards, through
     K8's block form; then o / max(l, 1e-30) in q's dtype."""
     B, S, H, Dh = q.shape
@@ -2741,6 +2759,401 @@ def phase10d_moe_train_checks(torch, PM, EK, ctx):
     return res
 
 
+# ---------------------------------------------- phase 11: the paths across ranks
+
+PHASE11_RANKS = 4
+# phase 11's times are those of 4 processes sharing one card, their
+# collectives staged through the host by gloo: never times across cards
+PHASE11_TIMES_KEY = "ms_4_processes_on_one_H100_over_gloo"
+PHASE11_DEADLINE_S = 300
+K7R_REPLACES = "ray_tpu/sched/kernel_shard.py:54-131"
+K7R_ROUNDS = 15  # the stream's first round, carried as phase 8b carries it
+RING_SHAPE = (8, 2048, 8, 64)  # the flagship's attention, [B, S, H, Dh]
+RING_SEED = 110
+PIPE_D, PIPE_M, PIPE_MB = 512, 8, (2, 2048)  # d_model, microbatches, [B_m, S]
+PIPE_SEED = 111
+
+
+def _digest(*tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(np.ascontiguousarray(t.cpu().numpy() if hasattr(t, "cpu") else t).tobytes())
+    return h.hexdigest()
+
+
+def _k7r_problems():
+    return {"bench": bench_shard_problem(), "dryrun": dryrun_shard_problem(4),
+            "negative": negative_problem()}
+
+
+def _stream_round_counts(first, rnd):
+    return np.maximum(first - rnd * 30, 0).astype(np.int32)
+
+
+def _ring_inputs(torch, dev, shape=RING_SHAPE):
+    rng = np.random.default_rng(RING_SEED)
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+            for _ in range(3)]
+
+
+def _pipe_inputs(torch, dev):
+    rng = np.random.default_rng(PIPE_SEED)
+    w = rng.standard_normal((PHASE11_RANKS, PIPE_D, PIPE_D), dtype=np.float32)
+    x = rng.standard_normal((PIPE_M, *PIPE_MB, PIPE_D), dtype=np.float32)
+    return (torch.from_numpy(w / np.float32(np.sqrt(PIPE_D))).to(dev),
+            torch.from_numpy(x).to(dev))
+
+
+def _pipe_stage(w, x):
+    return (x @ w).tanh()
+
+
+def _phase11_rank(rank, world, tmp, device_type, ring_shape):
+    """One of phase 11's ranks on the one card (or the CPU, to rehearse):
+    every path across ranks, its launch counters from 0 over them, then
+    its results into tmp."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from ray_tpu_torch.models import kernels as MK, moe as PM, moe_kernels as EK
+    from ray_tpu_torch.parallel import make_mesh, pipeline_apply, ulysses_attention
+    from ray_tpu_torch.parallel.ring_attention import ring_attention
+    from ray_tpu_torch.sched import kernel_shard as KS
+
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    else:
+        dev = torch.device("cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=120))
+    try:
+        T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        sync_ = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" else (lambda: None)
+        g2 = dist.new_group([0, 1])  # every rank makes every group, in one order
+        mesh_sp = make_mesh(("sp",), device=dev)
+        mesh_pp = make_mesh(("pp",), device=dev)
+        meshes_ep = {f"{dp}x{ep}": make_mesh(("dp", "ep"), shape=(dp, ep), device=dev)
+                     for dp, ep in ((1, 4), (2, 2))}
+        # inputs, made before the window
+        q, k, v = _ring_inputs(torch, dev, ring_shape)
+        Sb = ring_shape[1] // world
+        blk = slice(rank * Sb, (rank + 1) * Sb)
+        qkv = {dt: [x[:, blk].to(dt).contiguous() for x in (q, k, v)]
+               for dt in (torch.bfloat16, torch.float32)}
+        cfg, tree, _, x32 = _moe_layer(torch, PM, dev)
+        moe = {}
+        for tag, mesh in meshes_ep.items():
+            Gl = MOE_SHAPE[0] // mesh.shape["dp"]
+            d = mesh.axis_index("dp")
+            moe[tag] = (PM.shard_moe_params(tree, cfg, mesh),
+                        x32[d * Gl:(d + 1) * Gl].to(torch.bfloat16).contiguous())
+        w, xs = _pipe_inputs(torch, dev)
+        stream = stream_first_round()
+        out, times, digests = {}, {}, {}
+
+        def timed(name, fn):
+            sync_()
+            t = time.perf_counter()
+            r = fn()
+            sync_()
+            times[name] = (time.perf_counter() - t) * 1e3
+            return r
+
+        dist.barrier()
+        KS.reset_launch_counts()
+        MK.reset_launch_counts()
+        EK.reset_launch_counts()
+        t_window = time.perf_counter()
+        # K7r: the sharded scheduler over ranks 0-1, then over all four
+        for p, group in ((2, g2), (4, dist.group.WORLD)):
+            if rank >= p:
+                continue
+            fn = KS.make_sharded_scheduler(group, device=dev)
+            for name, prob in _k7r_problems().items():
+                a_k, v_k = timed(f"k7r p={p} {name}", lambda: fn(*prob))
+                out[f"k7r_{p}_{name}_a"], out[f"k7r_{p}_{name}_v"] = (a_k.cpu().numpy(),
+                                                                     v_k.cpu().numpy())
+            avail, total, alive, demands, first = stream
+            total, alive, demands = T(total), T(alive), T(demands)
+            av = T(avail)
+            t = time.perf_counter()
+            for rnd in range(K7R_ROUNDS):
+                a_k, av = fn(av, total, alive, demands, T(_stream_round_counts(first, rnd)))
+                digests[f"{p}/stream{rnd}"] = _digest(a_k, av)
+            times[f"k7r p={p} stream {K7R_ROUNDS} rounds"] = (time.perf_counter() - t) * 1e3
+        dist.barrier()
+        k7r_launches = KS.launch_counts()["rank_pass"]
+        # ring attention over sp = 4, bf16 then float32
+        for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            out[f"ring_{name}"] = timed(f"ring {name}", lambda: ring_attention(
+                *qkv[dt], mesh_sp, causal=True)).float().cpu().numpy()
+        ring_launches = dict(launches=MK.block_update.launches,
+                             launches_tc=MK.block_update.launches_tc)
+        out["ulysses_bf16"] = timed("ulysses bf16", lambda: ulysses_attention(
+            *qkv[torch.bfloat16], mesh_sp, causal=True)).float().cpu().numpy()
+        for tag, (local, xb) in moe.items():
+            y, aux = timed(f"moe {tag}", lambda: PM.moe_ffn(local, xb, cfg,
+                                                            mesh=meshes_ep[tag]))
+            out[f"moe_y_{tag}"], out[f"moe_aux_{tag}"] = y.float().cpu().numpy(), float(aux)
+        out["pipe"] = timed("pipeline", lambda: pipeline_apply(
+            _pipe_stage, w, xs, mesh_pp)).cpu().numpy()
+        window_s = time.perf_counter() - t_window
+        launches = {**KS.launch_counts(), **MK.launch_counts(), **EK.launch_counts()}
+        # after the window: each rank's routing of its dp block, for the check
+        for tag, (local, xb) in moe.items():
+            logits = torch.matmul(xb.float(), local.router)
+            route = EK.moe_route(logits, PM._capacity(cfg, MOE_SHAPE[1]))
+            out[f"moe_expert_{tag}"], out[f"moe_slot_{tag}"] = (route[0].cpu().numpy(),
+                                                                route[2].cpu().numpy())
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump({"times": times, "digests": digests, "launches": launches,
+                       "k7r_launches": k7r_launches, "ring": ring_launches,
+                       "window_s": window_s}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _k7r_against_plain(torch, KS, KT, prob, dev):
+    """K7r on the card, every step against its plain version on the CPU
+    from the same state, pass after pass, over one shard of `prob`
+    (_rank_loop, K7r's host loop); raises on any difference of a step's
+    output or of the round's results. Returns (0.0, the passes run)."""
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    avail, total, alive, demands, counts = prob
+    cpu = torch.device("cpu")
+    states = [KS.RankRound(T(avail)[None].to(d), T(total)[None].to(d), T(alive)[None].to(d),
+                           T(demands).to(d), KT.DEFAULT_SPREAD_THRESHOLD) for d in (dev, cpu)]
+
+    def step(mode, c, all_tot=None, **kw):  # every state gets its tensors on its device
+        got, want = (KS.rank_pass(mode, st, c, shard_index=[0], **kw, all_tot=None if all_tot
+                                  is None else all_tot.to(st.dev)) for st in states)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"K7r mode {mode} class {c} {kw}: {got.cpu().tolist()} != "
+                                 f"plain {want.tolist()}")
+        return want
+
+    trace = []
+    KS._rank_loop(step, counts, KT.MAX_PASSES, lambda x: x.sum(dim=0).tolist(), lambda t: t,
+                  trace)
+    for a, b in ((states[0].assigned, states[1].assigned), (states[0].avail, states[1].avail)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("K7r round != plain")
+    return 0.0, len(trace)
+
+
+def _k7r_record(torch, KS, KT, dev):
+    """K7r against its plain version, step by step, over rank 0's block of
+    the stream's first round at p = 4 (2 500 nodes, one shard), then each
+    step timed on the card there, in its first pass, beside the plain
+    versions on the card; the bound of one pass (bytes: the block's rows
+    read, avail written, the class's row of assigned)."""
+    avail, total, alive, demands, counts = stream_first_round()
+    Nl = len(total) // PHASE11_RANKS
+    block = (avail[:Nl], total[:Nl], alive[:Nl], demands, counts)
+    err, passes = _k7r_against_plain(torch, KS, KT, block, dev)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    st = KS.RankRound(T(block[0])[None], T(block[1])[None], T(block[2])[None], T(demands),
+                      KT.DEFAULT_SPREAD_THRESHOLD)
+    c = int(np.flatnonzero(counts > 0)[0])
+    rem = int(counts[c])
+    n_feas = int(KS.rank_pass(KS.TERMS, st, c, refresh=True)[0, 1])
+    tot = KS.rank_pass(KS.CAPS, st, c, remaining=rem, n_feasible=n_feas)
+    steps = {
+        "terms": lambda: KS.rank_pass(KS.TERMS, st, c),
+        "caps": lambda: KS.rank_pass(KS.CAPS, st, c, remaining=rem, n_feasible=n_feas),
+        "fill": lambda: KS.rank_pass(KS.FILL, st, c, nc=c + 1, remaining=rem, all_tot=tot,
+                                     shard_index=[0], more=True),
+    }
+    plain = {
+        "terms": lambda: KS._terms_plain(st, c),
+        "caps": lambda: KS._caps_plain(st, rem, n_feas),
+        "fill": lambda: KS._fill_plain(st, c, c + 1, rem, tot, [0], True),
+    }
+    ms = {name: time_ms(torch, fn, reps=21) for name, fn in steps.items()}
+    # the plain steps in order: caps reads what terms left, fill what caps left
+    plain_ms = {name: time_ms(torch, fn, reps=7) for name, fn in plain.items()}
+    R_ = total.shape[1]
+    rec = {"max_abs_err": err, "ms": sum(ms.values()), "ms_by_step": ms,
+           "plain_ms": sum(plain_ms.values()), "plain_ms_by_step": plain_ms,
+           "library_ms": None, "passes_checked": passes,
+           "bound": bound(3 * Nl * R_ * 4 + Nl + Nl * 4, 0)}
+    log(f"  K7r against plain, step by step over {passes} passes of a {Nl}-node block: "
+        f"equal; one pass {rec['ms']:.4f} ms ({json.dumps(ms)}), plain "
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound'][0]:.6f} ms by bytes")
+    return rec
+
+
+def phase11_ranks(torch, KT, KS, MK, PM, EK, kernel_np, dev, ring_shape=RING_SHAPE):
+    """The paths across ranks: 4 processes on the one card in one gloo
+    group over CUDA tensors, spawned once (the kernels built by this
+    process before); each runs K7r (the sharded scheduler over ranks 0-1
+    and over all four: bench.py's, dryrun_multichip's and the negative
+    problem, and the stream's first round carried 15 rounds), ring
+    attention and Ulysses over sp = 4 on the flagship's q, k, v [8, 2048,
+    8, 64], the expert layer over dp x ep = 1 x 4 and 2 x 2 on MoEConfig()
+    with x [8, 2048, 256] bf16, and 4 pipeline stages of tanh(x @ w) at d
+    512 over 8 microbatches [2, 2048, 512]; then this process checks what
+    they gave against K1 and kernel_np (exactly), ring_schedule (bit for
+    bit) and whole attention, K8's whole form, the one-process expert layer
+    and the stages in sequence."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from ray_tpu_torch.parallel.pipeline import reference_pipeline
+
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    t_phase = time.perf_counter()
+    # K1's results, before the spawn (the card to itself)
+    k1 = {name: [x.cpu().numpy() for x in KT.schedule_classes(*(T(a) for a in prob))]
+          for name, prob in _k7r_problems().items()}
+    avail, total, alive, demands, first = stream_first_round()
+    k1_digests, av = [], T(avail)
+    for rnd in range(K7R_ROUNDS):
+        a, av = KT.schedule_classes(av, T(total), T(alive), T(demands),
+                                    T(_stream_round_counts(first, rnd)))
+        k1_digests.append(_digest(a, av))
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_phase11_rank, args=(PHASE11_RANKS, tmp, dev.type, ring_shape),
+                                 nprocs=PHASE11_RANKS, join=False, start_method="spawn")
+        try:
+            # kernel_np on the host while the ranks run
+            np_ref = {name: kernel_np.schedule_classes(*(np.array(a) for a in prob))
+                      for name, prob in _k7r_problems().items()}
+            np_digests, av_np = [], avail.copy()
+            for rnd in range(K7R_ROUNDS):
+                a, av_np = kernel_np.schedule_classes(av_np, total, alive, demands,
+                                                      _stream_round_counts(first, rnd))
+                np_digests.append(_digest(a, av_np))
+            deadline = time.monotonic() + PHASE11_DEADLINE_S
+            while not ctx.join(timeout=0.5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 11: ranks still running after "
+                                         f"{PHASE11_DEADLINE_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        spawn_s = time.perf_counter() - t_phase
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(PHASE11_RANKS)]
+        info = []
+        for r in range(PHASE11_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                info.append(json.load(f))
+    res = {}
+    # K7r: every rank's whole results against K1's and kernel_np's
+    cells = 0
+    for p in (2, 4):
+        for r in range(p):
+            for name in _k7r_problems():
+                a, v = ranks[r][f"k7r_{p}_{name}_a"], ranks[r][f"k7r_{p}_{name}_v"]
+                for want_a, want_v, ref in ((*k1[name], "K1"), (*np_ref[name], "kernel_np")):
+                    n = int((a != want_a).sum() + (v != want_v).sum())
+                    cells += n
+                    if n:
+                        raise AssertionError(f"K7r p={p} rank {r} {name}: {n} cells != {ref}")
+            for rnd in range(K7R_ROUNDS):
+                got = info[r]["digests"][f"{p}/stream{rnd}"]
+                if got != k1_digests[rnd] or got != np_digests[rnd]:
+                    raise AssertionError(f"K7r p={p} rank {r}: stream round {rnd} != K1 / "
+                                         "kernel_np")
+    res["k7r"] = {"differing_cells": cells, "problems": list(_k7r_problems()),
+                  "stream_rounds": K7R_ROUNDS, "ranks": [2, 4]}
+    log(f"  K7r p = 2, 4: {list(_k7r_problems())} and the stream's first round carried "
+        f"{K7R_ROUNDS} rounds, on every rank, == K1 == kernel_np (0 differing cells)")
+    # ring attention: bit-equal to ring_schedule in one process, and within
+    # 6d's bound of whole attention; Ulysses against K8's whole form
+    q, k, v = _ring_inputs(torch, dev, ring_shape)
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        qd, kd, vd = (x.to(dt) for x in (q, k, v))
+        ring = np.concatenate([ranks[r][f"ring_{name}"] for r in range(PHASE11_RANKS)], axis=1)
+        sched = ring_schedule(torch, MK, qd, kd, vd, PHASE11_RANKS).float().cpu().numpy()
+        if not np.array_equal(ring, sched):
+            raise AssertionError(f"ring {name}: != ring_schedule in one process (max abs err "
+                                 f"{float(np.abs(ring - sched).max())})")
+        whole = MK.attention(qd, kd, vd, causal=True).double().cpu().numpy()
+        rtol, atol = KERNEL_TOL[name]
+        err = float(np.abs(ring - whole).max())
+        if (np.abs(ring - whole) > atol + rtol * np.abs(whole)).any():
+            raise AssertionError(f"ring {name}: vs whole attention max abs err {err}")
+        res[f"ring_{name}"] = {"bit_equal_ring_schedule": True, "vs_whole_err": err}
+        if name == "bf16":
+            uly = np.concatenate([ranks[r]["ulysses_bf16"] for r in range(PHASE11_RANKS)],
+                                 axis=1)
+            d = np.abs(uly - whole)
+            if (d > atol + rtol * np.abs(whole)).any():
+                raise AssertionError(f"ulysses: vs K8's whole form max abs err {d.max()}")
+            res["ulysses_bf16"] = {"bit_equal_whole": bool(np.array_equal(uly, whole)),
+                                   "vs_whole_err": float(d.max())}
+    # the expert layer against the one-process layer
+    cfg, tree, _, x32 = _moe_layer(torch, PM, dev)
+    x = x32.to(torch.bfloat16)
+    y1, aux1 = PM.moe_ffn(PM.moe_params_from_numpy(tree, cfg, device=dev), x)
+    route = EK.moe_route(torch.matmul(x.float(), T(tree["router"])),
+                         PM._capacity(cfg, MOE_SHAPE[1]))
+    y1, expert1, slot1 = y1.float().cpu().numpy(), route[0].cpu().numpy(), route[2].cpu().numpy()
+    atol_y, atol_aux = PM.MOE_GOLDEN_TOL["bf16"]
+    for tag, ep in (("1x4", 4), ("2x2", 2)):
+        Gl = MOE_SHAPE[0] // (PHASE11_RANKS // ep)
+        err_y = err_aux = 0.0
+        for r in range(PHASE11_RANKS):
+            blk = slice((r // ep) * Gl, (r // ep + 1) * Gl)
+            if not (np.array_equal(ranks[r][f"moe_expert_{tag}"], expert1[blk])
+                    and np.array_equal(ranks[r][f"moe_slot_{tag}"], slot1[blk])):
+                raise AssertionError(f"moe {tag} rank {r}: routing != one process")
+            err_y = max(err_y, float(np.abs(ranks[r][f"moe_y_{tag}"] - y1[blk]).max()))
+            err_aux = max(err_aux, abs(float(ranks[r][f"moe_aux_{tag}"]) - float(aux1)))
+        if not (err_y <= atol_y and err_aux <= atol_aux):
+            raise AssertionError(f"moe {tag}: y err {err_y} (atol {atol_y}), aux err "
+                                 f"{err_aux} (atol {atol_aux})")
+        res[f"moe_{tag}"] = {"routing_equal": True, "y_err": err_y, "aux_err": err_aux}
+    # the pipeline against the stages in sequence
+    w, xs = _pipe_inputs(torch, dev)
+    seq = reference_pipeline(_pipe_stage, w, xs).cpu().numpy()
+    rtol, atol = KERNEL_TOL["f32"]
+    err = 0.0
+    for r in range(PHASE11_RANKS):
+        d = np.abs(ranks[r]["pipe"] - seq)
+        err = max(err, float(d.max()))
+        if (d > atol + rtol * np.abs(seq)).any():
+            raise AssertionError(f"pipeline rank {r}: max abs err {float(d.max())}")
+    res["pipeline"] = {"vs_sequence_err": err,
+                       "bit_equal": all(np.array_equal(ranks[r]["pipe"], seq)
+                                        for r in range(PHASE11_RANKS))}
+    # launches in the ranks' windows, summed over the ranks
+    launches = {}
+    for i in info:
+        for name, n in i["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    ring_launches = sum(i["ring"]["launches"] for i in info)
+    ring_tc = sum(i["ring"]["launches_tc"] for i in info)
+    if dev.type == "cuda" and (launches["rank_pass"] == 0 or launches["block_update"] == 0):
+        raise AssertionError(f"phase 11: K7r or K8's block form never launched: {launches}")
+    if dev.type == "cuda" and (ring_launches != 2 * PHASE11_RANKS * PHASE11_RANKS
+                               or ring_tc != ring_launches // 2):
+        raise AssertionError(f"phase 11 ring: {ring_launches} block_update launches, "
+                             f"{ring_tc} on the tensor cores")
+    res["launches"] = launches
+    res[PHASE11_TIMES_KEY] = {
+        "by_rank": [i["times"] for i in info],
+        "window_s_by_rank": [i["window_s"] for i in info],
+        "k7r_launches_by_rank": [i["k7r_launches"] for i in info]}
+    res["spawn_and_run_s"] = spawn_s
+    rec = _k7r_record(torch, KS, KT, dev)
+    rec["launches"] = launches["rank_pass"]
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 11 across ranks: {json.dumps({k: v for k, v in res.items() if k != PHASE11_TIMES_KEY})}")
+    log(f"phase 11 {PHASE11_TIMES_KEY}: {json.dumps(res[PHASE11_TIMES_KEY])}")
+    return res, rec
+
+
 def main() -> int:
     try:
         import torch
@@ -2951,6 +3364,13 @@ def main() -> int:
     moe_train_checks = phase10d_moe_train_checks(torch, PM, EK, moe_train_ctx)
     log(f"phase 10d: {time.perf_counter() - t0:.1f} s")
 
+    # the paths across ranks: 4 processes on this card, their counters from
+    # 0 over their window; then the checks of what they gave, here
+    t0 = time.perf_counter()
+    ranks_res, k7r_rec = phase11_ranks(torch, KT, KS, MK, PM, EK, kernel_np, dev)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s (4 processes on one card over gloo), "
+        f"launches {ranks_res['launches']}")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -2981,9 +3401,10 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         }
-        if name not in FORWARD_KERNELS:  # no ported path runs it yet: its
-            # launches stay the forward window's (0); the ring check's apart
-            entry.update(ring_check_launches=check_res["ring_block_update_launches"],
+        if name not in FORWARD_KERNELS:  # the ring across ranks runs it: its
+            # launches are phase 11's; 6d's ring check's stay apart
+            entry.update(launches=ranks_res["launches"][name],
+                         ring_check_launches=check_res["ring_block_update_launches"],
                          ring_check_launches_tc=check_res["ring_block_update_launches_tc"],
                          ms_f32_cuda_core=r["ms_f32_cuda_core"])
         kernels.append(entry)
@@ -3019,13 +3440,22 @@ def main() -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": r["library_ms"],
     })
+    kernels.append({
+        "name": "rank_pass", "route": "cuda", "source": CU_SOURCE,
+        "replaces": K7R_REPLACES, "launches": k7r_rec["launches"],
+        "max_abs_err": k7r_rec["max_abs_err"], "ms": k7r_rec["ms"],
+        "plain_ms": k7r_rec["plain_ms"], "bound_ms": k7r_rec["bound"][0],
+        "bound_by": k7r_rec["bound"][1], "library_ms": k7r_rec["library_ms"],
+        "kernel": "k7r_kernel<MODE> (K7r: terms, caps, fill a pass)",
+        "ms_by_step": k7r_rec["ms_by_step"], "plain_ms_by_step": k7r_rec["plain_ms_by_step"],
+    })
     log(json.dumps({"stream": stream, "gcs": gcs, "forward": fwd_res, "serve": serve_res,
                     "checks": check_res, "moe": moe_res, "moe_serve": moe_serve,
                     "moe_checks": moe_checks, "sharded": shard_res,
                     "sharded_ms_by_shards": r["ms_by_shards"], "train": train_res,
                     "train_actor": train_actor, "train_golden": train_checks,
                     "moe_train": moe_train_res, "moe_train_actor": moe_train_actor,
-                    "moe_train_checks": moe_train_checks,
+                    "moe_train_checks": moe_train_checks, "ranks": ranks_res,
                     "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
                     "attention_ms_f32_cuda_core": model_rec["attention"]["ms_f32_cuda_core"],
                     "attention_bwd_ms_f32_cuda_core":

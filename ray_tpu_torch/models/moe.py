@@ -38,9 +38,21 @@ counterpart in the parameters' ``.grad`` (``moe_grads_to_numpy``), and
 ``parallel.make_optimizer()``'s AdamW steps the layer. Parameters are built
 with ``requires_grad=False``; training turns it on with
 ``requires_grad_(True)``. Otherwise the forward runs without autograd, with
-the same launches as before. Expert parallelism over a mesh (``mesh``,
-``moe_partition_specs``) belongs to the multi-card work (ROADMAP queue 1,
-item 3).
+the same launches as before.
+
+Expert parallelism (``moe_ffn(..., mesh=...)``, forward only): over a
+``parallel.mesh`` with axes "dp" and "ep", each rank passes its "dp" block
+of x (the reference's ``P("dp", None, None)``: the same block on every rank
+of an "ep" line) and holds E / ep experts (``moe_partition_specs``,
+``shard_moe_params``). It routes (K9a) and dispatches (K9b) its tokens,
+sends each "ep" peer the rows of that peer's experts in one all-to-all of
+[E, G_l, C, D], runs its experts' products on what it received, brings the
+slabs back with a second all-to-all and combines (K9c): y is its "dp"
+block. The aux loss is the global one, its sums over every group taken by
+a ``psum`` over "dp". Every rank of an "ep" line routes the same tokens, so
+each expert's products run once for each of the ep copies of the "dp"
+block that reach it, as the reference's layout implies; the backward
+across ranks is the next slice (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -106,9 +118,11 @@ MOE_GRAD_LEAVES = ("router", "w1", "w2", "x")
 MOE_TIE_GAP = 1e-5
 
 
-def _shapes(cfg: MoEConfig) -> Dict[str, tuple]:
+def _shapes(cfg: MoEConfig, experts: Optional[int] = None) -> Dict[str, tuple]:
+    """The weights' shapes, w1 and w2 for `experts` of them (all when None)."""
     E, D, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
-    return {"router": (D, E), "w1": (E, D, F_), "w2": (E, F_, D)}
+    El = experts or E
+    return {"router": (D, E), "w1": (El, D, F_), "w2": (El, F_, D)}
 
 
 def _fan_in(cfg: MoEConfig) -> Dict[str, int]:
@@ -121,9 +135,11 @@ def _capacity(cfg: MoEConfig, S: int) -> int:
 
 class MoE(nn.Module):
     """The expert layer's float32 weights and forward. Built on the card
-    unless `device` says otherwise (raises without one)."""
+    unless `device` says otherwise (raises without one). `experts`: the
+    experts it holds, cfg.n_experts unless it is one rank's share
+    (shard_moe_params)."""
 
-    def __init__(self, cfg: MoEConfig, device=None):
+    def __init__(self, cfg: MoEConfig, device=None, experts: Optional[int] = None):
         super().__init__()
         dev = resolve_device(device, what="the MoE layer")
         if cfg.n_experts > moe_kernels.MAX_EXPERTS:
@@ -132,7 +148,7 @@ class MoE(nn.Module):
         if dev.type == "cuda":
             moe_kernels.LIBRARY.load()  # build the kernels now, not in the first call
         self.cfg = cfg
-        for name, shape in _shapes(cfg).items():
+        for name, shape in _shapes(cfg, experts).items():
             setattr(self, name, nn.Parameter(
                 torch.zeros(shape, dtype=torch.float32, device=dev), requires_grad=False))
 
@@ -223,6 +239,38 @@ def moe_grads_to_numpy(model: MoE) -> Dict:
     return {k: g.detach().to("cpu", torch.float32).numpy().copy() for k, g in grads.items()}
 
 
+def moe_partition_specs() -> Dict[str, tuple]:
+    """The reference's moe_partition_specs as tuples of axis names, one
+    entry a dimension (None: not split): the router whole on every rank,
+    the experts of w1 and w2 split over "ep"."""
+    return {
+        "router": (None, None),
+        "w1": ("ep", None, None),
+        "w2": ("ep", None, None),
+    }
+
+
+def shard_moe_params(params, cfg: MoEConfig, mesh, axis: str = "ep") -> MoE:
+    """This rank's share of the layer by moe_partition_specs: the whole
+    router and the E / ep experts at its coordinate on `axis` of `mesh`
+    (parallel.mesh.make_mesh), from a MoE or the reference's numpy tree of
+    every expert, on the mesh's device. Values are copied bit for bit."""
+    tree = moe_to_numpy(params) if isinstance(params, MoE) else params
+    ep, idx = mesh.shape[axis], mesh.axis_index(axis)
+    if cfg.n_experts % ep:
+        raise ValueError(f"shard_moe_params: {cfg.n_experts} experts over {axis}={ep}")
+    n = cfg.n_experts // ep
+    local = {}
+    for key, spec in moe_partition_specs().items():
+        a = np.asarray(tree[key], np.float32)
+        local[key] = a[idx * n:(idx + 1) * n] if spec[0] == axis else a
+    model = MoE(cfg, mesh.device, experts=n)
+    with torch.no_grad():
+        for key in _KEYS:
+            getattr(model, key).copy_(torch.from_numpy(np.ascontiguousarray(local[key])))
+    return model
+
+
 # ------------------------------------------------------------------ forward
 
 
@@ -273,19 +321,28 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: Optional[MoEConfig] = None,
     (E * sum_e[frac_tokens_e * mean_prob_e]); add it to the task loss.
     Differentiable in x and the parameters when gradients are on and one of
     them requires a gradient; otherwise computed without autograd.
+
+    With `mesh` (a parallel.mesh.Mesh with axes "dp" and "ep"): x is this
+    rank's "dp" block [G/dp, S, D], `params` its experts
+    (shard_moe_params), y its "dp" block and aux the global loss; forward
+    only (raises NotImplementedError under autograd).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_ffn: a mesh (expert parallelism, the all-to-all over 'ep') is the "
-            "multi-card work (ROADMAP queue 1, item 3); pass mesh=None")
     cfg = cfg or params.cfg
     if x.dim() != 3 or x.shape[-1] != cfg.d_model:
         raise ValueError(f"moe_ffn: x {tuple(x.shape)} ([G, S, {cfg.d_model}] needed)")
     if x.device != params.device:
         raise ValueError(f"moe_ffn: x on {x.device}, params on {params.device}")
     x = x.contiguous()
-    if torch.is_grad_enabled() and (x.requires_grad or params.router.requires_grad
-                                    or params.w1.requires_grad or params.w2.requires_grad):
+    grad = torch.is_grad_enabled() and (x.requires_grad or params.router.requires_grad
+                                        or params.w1.requires_grad or params.w2.requires_grad)
+    if mesh is not None:
+        if grad:
+            raise NotImplementedError(
+                "moe_ffn: the mesh form is forward only; its backward across ranks is "
+                "the next slice (ROADMAP queue 1, item 3)")
+        with torch.no_grad():
+            return _moe_ffn_mesh(params, x, cfg, mesh)
+    if grad:
         return _moe_ffn_autograd(params, x, cfg)
     with torch.no_grad():
         return _moe_ffn_forward(params, x, cfg)
@@ -301,6 +358,32 @@ def _moe_ffn_forward(params: MoE, x: torch.Tensor, cfg: MoEConfig):
     out = _expert_matmul(h.to(cfg.dtype), params.w2.to(cfg.dtype))
     y = moe_kernels.moe_combine(out, slot, gate, x.dtype)
     return y, moe_kernels.aux_loss(stats, G * S)[1]
+
+
+def _moe_ffn_mesh(params: MoE, x: torch.Tensor, cfg: MoEConfig, mesh):
+    """The forward over mesh axes "dp" and "ep": routing, dispatch and
+    combine on this rank's tokens; the [E, G_l, C, D] rows to their
+    experts' ranks and back by two all-to-alls over "ep"; the aux loss's
+    sums over every group by a psum over "dp"."""
+    ep, dp = mesh.shape["ep"], mesh.shape["dp"]
+    E = cfg.n_experts
+    if E % ep or params.w1.shape[0] != E // ep:
+        raise ValueError(f"moe_ffn: {params.w1.shape[0]} experts on this rank, "
+                         f"{E} over ep={ep} (shard_moe_params) needed")
+    G, S, _ = x.shape
+    C = _capacity(cfg, S)
+    logits = torch.matmul(x.float(), params.router)  # [G, S, E]
+    _, gate, slot, token_of_slot, stats = moe_kernels.moe_route(logits, C)
+    expert_in = moe_kernels.moe_dispatch(x, token_of_slot, cfg.dtype)  # [E, G, C, D]
+    # my experts' rows from every rank of the ep line: [E/ep, ep * G, C, D]
+    rows = mesh.all_to_all(expert_in, "ep", split_axis=0, concat_axis=1)
+    h = F.gelu(_expert_matmul(rows, params.w1.to(cfg.dtype)), approximate="tanh")
+    out = _expert_matmul(h.to(cfg.dtype), params.w2.to(cfg.dtype))
+    # every expert's output for my groups: [E, G, C, D]
+    out = mesh.all_to_all(out, "ep", split_axis=1, concat_axis=0)
+    y = moe_kernels.moe_combine(out, slot, gate, x.dtype)
+    sums = mesh.psum(stats.sum(0, keepdim=True), "dp")  # [1, 2, E] over every group
+    return y, moe_kernels.aux_loss(sums, dp * G * S)[1]
 
 
 def _moe_ffn_autograd(params: MoE, x: torch.Tensor, cfg: MoEConfig):

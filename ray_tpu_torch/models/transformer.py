@@ -30,7 +30,7 @@ With autograd enabled each block runs under
 body): the backward recomputes a block's forward instead of keeping its
 activations. ``loss_fn`` is differentiable; training lives in
 ``ray_tpu_torch.parallel.tpu_train``. Sharding (``param_partition_specs``)
-belongs to the multi-card work.
+belongs to the dp x tp train step across ranks (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations

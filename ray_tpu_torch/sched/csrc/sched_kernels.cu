@@ -40,6 +40,10 @@
 //                              (the round with the node axis split over p
 //                              shards): K1's kernel on a cluster of p blocks,
 //                              block r owning shard r
+//   K7r sched_k7r_pass         replaces kernel_shard.py:54-131 across
+//                              ranks: one step of a pass (terms, caps, fill)
+//                              on one rank's block of nodes, the collectives
+//                              between the launches the host's
 // Every entry point launches on the stream it is given, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after its launches.
 
@@ -918,6 +922,182 @@ cudaError_t launch_k1(cudaStream_t st, int P, const K1Plan& pl, float* avail,
 // ---------------------------------------------------------------------------
 constexpr int kK7ThreadsRows = 512;     // the rows in shared memory
 constexpr int kK7ThreadsGlobal = 1024;  // the rows in global memory
+
+// ---------------------------------------------------------------------------
+// K7r: K7 across ranks. The node axis is split over the ranks of a process
+// group (ray_tpu/sched/kernel_shard.py:54-131 under shard_map over devices);
+// each rank runs this kernel on its own block of Nl = N / p nodes, and the
+// collectives between the launches are the host's (torch.distributed: gloo
+// on CUDA tensors, or NCCL). One launch runs one step of a pass, by MODE:
+//   kK7rTerms  fit, threshold cap and bucket of the class's pass, and the
+//              block's feasible count (then the host's psum, :105);
+//   kK7rCaps   the final caps from the global feasible count, and the
+//              block's 64 bucket totals (then the all_gather, :75);
+//   kK7rFill   from every rank's totals, the global bucket offsets plus the
+//              earlier ranks' totals (exact int64, where the reference
+//              saturates float32: :75-91), the take, the debit of avail and
+//              the block's placed count (then the psum, :117); in the same
+//              sweep, as K1's sweep does, the terms of the next pass (the
+//              same class, or the next one with tasks), whose feasible count
+//              rides in the same psum.
+// The arithmetic is K1's own: k1_sweep, k1_caps, k1_class, debit and
+// score_bucket over K1's global-memory form of a block's nodes
+// (K1Nodes<false>: the rows in global memory, the per-node state in
+// scratch, kept from launch to launch), and block_exclusive_scan for the
+// offsets; a pass takes the branches K1's does, so decisions and
+// availability equal K1's and kernel_np's exactly.
+//
+// Bound: the latency of a pass, as K1's, and here also the host's two
+// collectives and one read of two scalars a pass; the kernels move
+// ~2 * Nl * R * 4 bytes a pass at most. One block of 1 024 threads a rank
+// (K7's global-memory form at p = 1) keeps every step one launch without a
+// grid barrier.
+// ---------------------------------------------------------------------------
+constexpr int kK7rThreads = 1024;
+constexpr int kK7rWarps = kK7rThreads / 32;
+constexpr int kK7rTerms = 0, kK7rCaps = 1, kK7rFill = 2;
+
+// int32 words of K7r's scratch for a block of Nl nodes: each warp's bucket
+// totals of the pass (int64, read again by the fill), then the per-node
+// state in K1's global-memory layout
+__host__ __device__ inline long long k7r_scratch_words(int Nl, int R) {
+  return 2LL * kK7rWarps * kBuckets + (long long)(k1_block_bytes(Nl, R, false) / 4);
+}
+
+// the block's sum of one value a thread, written by thread 0
+__device__ __forceinline__ long long k7r_block_sum(long long v, long long* s_w) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) s_w[warp] = v;
+  __syncthreads();
+  long long s = 0;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < kK7rWarps; ++w) s += s_w[w];
+  __syncthreads();
+  return s;
+}
+
+// avail, total [Nl, R] and alive [Nl]: this rank's block (avail written by
+// the fills); d_cur the class's demand row, d_next the next class's with
+// tasks (Fill; nullptr: none); assigned the class's row of this rank's
+// [C, Nl]; out: Terms and Fill [placed, feasible], Caps the 64 totals;
+// all_tot [P, 64] every rank's totals (Fill). flag: Terms 1 refreshes every
+// node's utilization and bucket (the round's first launch); Fill bit 0
+// clamps every row (the round's first placing pass), bit 1 lets the class
+// take another pass.
+template <int MODE>
+__global__ void __launch_bounds__(kK7rThreads, 1)
+k7r_kernel(float* __restrict__ avail, const float* __restrict__ total,
+           const uint8_t* __restrict__ alive, const float* __restrict__ d_cur,
+           const float* __restrict__ d_next, int* __restrict__ assigned,
+           int* __restrict__ scratch, long long* __restrict__ out,
+           const long long* __restrict__ all_tot, int Nl, int R, int P, int rank, int remaining,
+           int n_feasible, int flag, float thr, float over_denom) {
+  __shared__ float s_d[2][kMaxR];
+  __shared__ long long s_w[32];
+  __shared__ long long s_off[kBuckets];
+  __shared__ long long s_total;
+  __shared__ uint8_t s_take[kBuckets];
+  __shared__ int s_partial;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  unsigned long long* wtot = reinterpret_cast<unsigned long long*>(scratch);
+  unsigned char* sc = reinterpret_cast<unsigned char*>(scratch + 2 * kK7rWarps * kBuckets);
+  K1Nodes<false> v;
+  v.av = avail;
+  v.tt = total;
+  v.R = R;
+  v.S = k1_col_stride(Nl);
+  v.util = reinterpret_cast<float*>(sc);
+  v.fit = reinterpret_cast<int*>(sc + (size_t)4 * Nl);
+  v.cap = reinterpret_cast<int*>(sc + (size_t)8 * Nl);
+  v.bkt = sc + (size_t)12 * Nl;
+  v.alive = sc + (size_t)13 * Nl;
+  // warp w's nodes: [j0, j1), a whole number of 32-node segments
+  const int cw = 32 * ((Nl + 32 * kK7rWarps - 1) / (32 * kK7rWarps));
+  const int j0 = min(warp * cw, Nl), j1 = min(j0 + cw, Nl);
+
+  if (MODE == kK7rCaps) {
+    const long long share = ((long long)remaining + n_feasible - 1) / n_feasible;
+    k1_caps(v, j0, j1, share, remaining, wtot + (size_t)warp * kBuckets);
+    __syncthreads();  // every warp's totals are in place
+    if (tid < kBuckets) {
+      unsigned long long t = 0;
+      for (int w = 0; w < kK7rWarps; ++w) t += wtot[(size_t)w * kBuckets + tid];
+      out[tid] = (long long)t;
+    }
+    return;
+  }
+  if (tid < R) {
+    s_d[0][tid] = d_cur[tid];
+    if (MODE == kK7rFill && d_next != nullptr) s_d[1][tid] = d_next[tid];
+  }
+  if (MODE == kK7rTerms && flag)
+    for (int j = tid; j < Nl; j += kK7rThreads) v.alive[j] = alive[j];
+  __syncthreads();
+  K1Fill f = {};
+  f.on = false;
+  f.partial = -1;
+  bool next = true;
+  K1Class nc = k1_class(s_d[0], R);
+  long long placed = 0;
+  if (MODE == kK7rFill) {
+    // thread b < 64: bucket b over every rank, and over the ranks before this one
+    long long all = 0, before = 0, bt = 0;
+    if (tid < kBuckets) {
+      for (int q = 0; q < P; ++q) {
+        const long long x = all_tot[(size_t)q * kBuckets + tid];
+        all += x;
+        before += q < rank ? x : 0;
+      }
+      bt = all_tot[(size_t)rank * kBuckets + tid];
+    }
+    if (tid == 0) s_partial = -1;
+    const long long excl = block_exclusive_scan(tid < kBuckets ? all : 0, s_w);
+    if (tid < kBuckets) {
+      const long long o = excl + before;  // this block's first place in bucket b
+      s_off[tid] = o;
+      uint8_t mode = kTakeNone;
+      if (bt > 0 && o < remaining) mode = o + bt <= remaining ? kTakeAll : kTakePart;
+      s_take[tid] = mode;
+      if (mode == kTakePart) s_partial = tid;  // one bucket at most
+      if (tid == kBuckets - 1) s_total = excl + all;
+      const long long t = (long long)remaining - o;  // places of bucket b this block takes
+      placed = t < 0 ? 0 : (t > bt ? bt : t);
+    }
+    __syncthreads();
+    const long long got = min((long long)remaining, s_total);
+    const bool fill = got > 0;
+    const bool same = fill && remaining - got > 0 && (flag & 2);
+    next = same || d_next != nullptr;
+    const K1Class cur = nc;
+    if (!same && d_next != nullptr) nc = k1_class(s_d[1], R);
+    f.on = fill;
+    if (fill) {
+      f.clamp = (flag & 1) != 0;
+      f.cls = cur;
+      f.remaining = remaining;
+      f.mode = s_take;
+      f.partial = s_partial;
+      f.assigned = assigned;
+      f.base = 0;
+      if (f.partial >= 0) {  // places before the warp's first node of that bucket
+        const long long x = lane < warp ? (long long)wtot[(size_t)lane * kBuckets + f.partial] : 0;
+        f.base = s_off[f.partial] + __shfl_sync(kFull, warp_sum(x), 0);
+      }
+    }
+  }
+  int feas = 0;
+  if (f.on || next)
+    feas = k1_sweep(v, j0, j1, f, MODE == kK7rTerms && flag, next, nc, thr, over_denom);
+  const long long n_feas = k7r_block_sum(feas, s_w);
+  const long long n_placed = k7r_block_sum(placed, s_w);
+  if (tid == 0) {
+    out[0] = n_placed;
+    out[1] = n_feas;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // K6: the two-phase [C, N] rounds core (kernel_np.schedule_classes_rounds,
@@ -2404,6 +2584,46 @@ int sched_schedule_classes_sharded(float* avail, const float* total, const uint8
   return (int)launch_k1<false, kK7ThreadsGlobal>(st, P, pl, avail, total, alive, demands,
                                                  counts, assigned, scratch, N, R, C, thr,
                                                  over_denom, max_passes);
+}
+
+// int32 words of K7r's scratch for a rank's block of Nl nodes of R columns
+long long sched_k7r_scratch_words(int Nl, int R) { return k7r_scratch_words(Nl, R); }
+
+// K7r: one step of a pass (mode kK7rTerms, kK7rCaps or kK7rFill) on this
+// rank's block of Nl nodes, one block of kK7rThreads threads; the arguments
+// as k7r_kernel's. `scratch` holds sched_k7r_scratch_words(Nl, R) int32
+// words and keeps the block's per-node state from launch to launch of a
+// round.
+int sched_k7r_pass(int mode, float* avail, const float* total, const uint8_t* alive,
+                   const float* d_cur, const float* d_next, int* assigned, int* scratch,
+                   long long scratch_words, long long* out, const long long* all_tot, int Nl,
+                   int R, int P, int rank, int remaining, int n_feasible, int flag, float thr,
+                   float over_denom, void* stream) {
+  if (R > kMaxR || R < 1 || Nl < 1 || P < 1 || rank < 0 || rank >= P || remaining < 0)
+    return (int)cudaErrorInvalidValue;
+  if (scratch_words < k7r_scratch_words(Nl, R)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == kK7rTerms) {
+    k7r_kernel<kK7rTerms><<<1, kK7rThreads, 0, st>>>(avail, total, alive, d_cur, d_next,
+                                                      assigned, scratch, out, all_tot, Nl, R,
+                                                      P, rank, remaining, n_feasible, flag, thr,
+                                                      over_denom);
+  } else if (mode == kK7rCaps) {
+    if (n_feasible < 1) return (int)cudaErrorInvalidValue;
+    k7r_kernel<kK7rCaps><<<1, kK7rThreads, 0, st>>>(avail, total, alive, d_cur, d_next,
+                                                     assigned, scratch, out, all_tot, Nl, R, P,
+                                                     rank, remaining, n_feasible, flag, thr,
+                                                     over_denom);
+  } else if (mode == kK7rFill) {
+    if (all_tot == nullptr) return (int)cudaErrorInvalidValue;
+    k7r_kernel<kK7rFill><<<1, kK7rThreads, 0, st>>>(avail, total, alive, d_cur, d_next,
+                                                     assigned, scratch, out, all_tot, Nl, R, P,
+                                                     rank, remaining, n_feasible, flag, thr,
+                                                     over_denom);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // K2 and K3: rows mode (kRefreshRows) writes rows `src` [pad, R] into `out`

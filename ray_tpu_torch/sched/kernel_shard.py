@@ -25,8 +25,12 @@ Three forms of the same decomposition:
     view over it.
   - across ranks, ``make_sharded_scheduler(group)``: one shard a rank of a
     ``torch.distributed`` process group, the collectives ``all_reduce`` and
-    ``all_gather`` (CPU tensors on gloo; the NCCL form on CUDA tensors is
-    ROADMAP queue 1, item 3).
+    ``all_gather``. On CPU tensors (gloo) each rank runs the plain
+    ``_sharded_body``; on CUDA tensors K7r (``rank_pass``,
+    csrc/sched_kernels.cu ``k7r_kernel``), K1's arithmetic on the rank's
+    block, one launch a step of a pass (terms, caps, fill), the host's loop
+    (``_rank_body``) running the collectives between them: gloo over CUDA
+    tensors, or NCCL across cards (not yet run on more than one card).
 
 Decisions and availability equal kernel_np.schedule_classes (and K1)
 exactly: the prefixes are exact int64 where the JAX program saturates
@@ -106,7 +110,7 @@ def _check_shards(shards) -> None:
 
 
 def _sharded_body(avail, total, alive, demands, counts, spread_threshold, max_passes,
-                  shard_index, sum_scalar: Callable, gather_buckets: Callable):
+                  shard_index, sum_scalar: Callable, gather_buckets: Callable, trace=None):
     """One round over the local shards, JAX's _sharded_body
     (kernel_shard.py:54-130) spelled out with kernel_np's control flow.
 
@@ -115,7 +119,9 @@ def _sharded_body(avail, total, alive, demands, counts, spread_threshold, max_pa
     counts [C]. sum_scalar(x [P] int64) -> int is the psum over every shard;
     gather_buckets(t [P, B] int64) -> [p, B] the all_gather of every
     shard's bucket totals in shard order. Returns (assigned [C, P, Nl]
-    int32, avail [P, Nl, R] float32); `avail` is not modified."""
+    int32, avail [P, Nl, R] float32); `avail` is not modified. `trace`, a
+    list, receives (class, pass, feasible count, placed count) for each
+    pass that reached the feasible count's psum."""
     dev = avail.device
     avail = avail.clone()
     d_host = demands.detach().to("cpu", torch.float32).numpy()
@@ -131,13 +137,15 @@ def _sharded_body(avail, total, alive, demands, counts, spread_threshold, max_pa
         d = demands[c]
         dpos = d[pos]
         remaining = int(k_host[c])
-        for _ in range(max_passes):
+        for p_ in range(max_passes):
             if remaining <= 0:
                 break
             fit, bucket, under, cap_thresh = _pass_terms(avail, total, alive, pos, dpos,
                                                          consts)
             n_feasible = sum_scalar((fit > 0).sum(dim=1))  # psum (:105)
             if n_feasible == 0:
+                if trace is not None:
+                    trace.append((c, p_, 0, 0))
                 break
             equal_share = -(-remaining // n_feasible)
             cap = torch.where(under, cap_thresh.to(torch.int64), equal_share)
@@ -155,6 +163,8 @@ def _sharded_body(avail, total, alive, demands, counts, spread_threshold, max_pa
                                 bucket.to(torch.int64)[:, None, :])[:, 0]
             take = torch.minimum(torch.clamp(remaining - prev, min=0), cap)
             got = sum_scalar(take.sum(dim=1))  # psum (:117)
+            if trace is not None:
+                trace.append((c, p_, n_feasible, got))
             if got == 0:
                 break
             assigned[c] += take.to(torch.int32)
@@ -241,8 +251,216 @@ def schedule_classes_sharded(avail: torch.Tensor, total: torch.Tensor, alive: to
 
 schedule_classes_sharded.launches = 0
 
+# ------------------------------------------------------------------ K7r
+
+#: K7r's modes, one a step of a pass (csrc/sched_kernels.cu kK7rTerms, ...)
+TERMS, CAPS, FILL = 0, 1, 2
+
+
+class RankRound:
+    """One round's working state of K7r on P local shards of Nl nodes: the
+    availability the fills write (avail [P, Nl, R], a copy), total, alive,
+    assigned [C, P, Nl], and the per-node state a pass leaves for the next
+    step: on the card the kernel's scratch (P = 1, the rank's block), on
+    the CPU the plain versions' fit, cap, bucket and caps by bucket."""
+
+    def __init__(self, avail, total, alive, demands, spread_threshold):
+        self.dev = avail.device
+        self.avail = avail.to(torch.float32).contiguous().clone()
+        self.total = total.to(torch.float32).contiguous()
+        self.alive = alive.to(torch.bool).contiguous()
+        self.demands = demands.to(torch.float32).contiguous()
+        self.d_host = self.demands.detach().to("cpu").numpy()
+        P, Nl, R = self.avail.shape
+        self.assigned = torch.zeros((len(self.d_host), P, Nl), dtype=torch.int32,
+                                    device=self.dev)
+        self.thr = spread_threshold
+        self.consts = _pass_consts(spread_threshold, self.dev)
+        self.fit = self.cap = self.bucket = self.contrib = None  # the plain versions'
+        if self.dev.type == "cuda":
+            if P != 1:
+                raise ValueError(f"K7r runs one shard a rank on the card, not {P}")
+            words = _build.load().sched_k7r_scratch_words(Nl, R)
+            self.scratch = torch.empty(words, dtype=torch.int32, device=self.dev)
+
+
+def _terms_plain(st: RankRound, c: int) -> torch.Tensor:
+    """Plain version of K7r's terms of class c: each node's fit, threshold
+    cap (-1 over the threshold) and bucket; the shards' feasible counts
+    [P] int64."""
+    pos = torch.from_numpy(np.flatnonzero(st.d_host[c] > 0)).to(st.dev)
+    fit, bucket, under, cap_thresh = _pass_terms(st.avail, st.total, st.alive, pos,
+                                                 st.demands[c][pos], st.consts)
+    st.fit, st.bucket = fit, bucket
+    st.cap = torch.where(under, cap_thresh, -1)
+    return (fit > 0).sum(dim=-1)
+
+
+def _caps_plain(st: RankRound, remaining: int, n_feasible: int) -> torch.Tensor:
+    """Plain version of K7r's caps: min(threshold cap or the equal share,
+    fit, remaining); the shards' bucket totals [P, 64] int64."""
+    share = -(-remaining // n_feasible)
+    cap = torch.where(st.cap >= 0, st.cap.to(torch.int64), share)
+    st.cap = torch.clamp(torch.minimum(cap, st.fit.to(torch.int64)), max=remaining)
+    onehot = st.bucket[..., None, :] == torch.arange(SCORE_BUCKETS, device=st.dev)[:, None]
+    st.contrib = onehot * st.cap[..., None, :]  # [P, B, Nl]
+    return st.contrib.sum(dim=-1)
+
+
+def _fill_plain(st: RankRound, c: int, nc: int, remaining: int, all_tot: torch.Tensor,
+                shard_index: torch.Tensor, more: bool) -> torch.Tensor:
+    """Plain version of K7r's fill of class c from every shard's totals
+    all_tot [p, 64]: the global prefix of each node in (bucket, node)
+    order, exact int64, as _sharded_body forms it; the take, the debit
+    and the shards' placed counts; then the next pass's terms (class c
+    again where it placed, has tasks left and `more` passes, else nc;
+    none when nc < 0). Returns [P, 2] int64: placed, next feasible."""
+    within_excl = torch.cumsum(st.contrib, dim=2) - st.contrib
+    before = torch.cumsum(all_tot, dim=0) - all_tot  # earlier shards' totals
+    bucket_tot = all_tot.sum(dim=0)
+    bucket_off = torch.cumsum(bucket_tot, dim=0) - bucket_tot
+    base = bucket_off[None, :] + before[shard_index]  # [P, B]
+    prev = torch.gather(base[:, :, None] + within_excl, 1,
+                        st.bucket.to(torch.int64)[:, None, :])[:, 0]
+    take = torch.minimum(torch.clamp(remaining - prev, min=0), st.cap)
+    got = min(remaining, int(bucket_tot.sum()))
+    if got > 0:
+        st.assigned[c] += take.to(torch.int32)
+        st.avail = torch.maximum(st.avail - take.to(torch.float32)[..., None] * st.demands[c],
+                                 st.consts[3])
+    placed = take.sum(dim=-1)
+    nxt = c if got > 0 and remaining - got > 0 and more else nc
+    feas = _terms_plain(st, nxt) if nxt >= 0 else torch.zeros_like(placed)
+    return torch.stack([placed, feas], dim=-1)
+
+
+def _k7r_launch(mode, st: RankRound, c, nc, remaining, n_feasible, all_tot, rank, flag):
+    """One launch of K7r on the rank's block (P = 1) on the current stream."""
+    lib = _build.load()
+    _, Nl, R = st.avail.shape
+    out = torch.empty(SCORE_BUCKETS if mode == CAPS else 2, dtype=torch.int64, device=st.dev)
+    row = st.demands[c]
+    nxt = st.demands[nc] if nc >= 0 else None
+    p = 1 if all_tot is None else all_tot.shape[0]
+    with torch.cuda.device(st.dev):
+        rc = lib.sched_k7r_pass(
+            mode, st.avail.data_ptr(), st.total.data_ptr(), st.alive.data_ptr(),
+            row.data_ptr(), nxt.data_ptr() if nxt is not None else None,
+            st.assigned[c].data_ptr(), st.scratch.data_ptr(), st.scratch.numel(),
+            out.data_ptr(), all_tot.data_ptr() if all_tot is not None else None,
+            Nl, R, p, rank, int(remaining), int(n_feasible), flag,
+            float(np.float32(st.thr)), float(np.float32(max(1e-6, 1.0 - st.thr))),
+            _stream(st.dev))
+    _check(lib, rc, f"k7r_pass (mode {mode})")
+    return out[None]
+
+
+def rank_pass(mode: int, st: RankRound, c: int, *, nc: int = -1, remaining: int = 0,
+              n_feasible: int = 0, all_tot: torch.Tensor = None, shard_index=None,
+              refresh: bool = False, clamp: bool = False, more: bool = False) -> torch.Tensor:
+    """K7r. One step of a pass of class c on the state's shards, by `mode`:
+
+      TERMS: fit, threshold cap and bucket (`refresh`: the round's first
+             step, every node's utilization and bucket anew); -> [P, 2]
+             int64 (0, feasible count);
+      CAPS:  the final caps for `remaining` tasks over `n_feasible` nodes
+             (> 0); -> [P, 64] int64, the bucket totals;
+      FILL:  from every shard's totals all_tot [p, 64], the shards with
+             global indices `shard_index` take their places, debit avail
+             (`clamp`: the round's first placing pass) and compute the next
+             pass's terms (class c while it placed, has tasks left and
+             `more` passes, else class nc, none when nc < 0); -> [P, 2]
+             int64 (placed count, the next pass's feasible count).
+
+    On the card K7r (one shard, the rank's block), counted in `launches`;
+    on the CPU the plain versions."""
+    if st.dev.type == "cpu":
+        if mode == TERMS:
+            feas = _terms_plain(st, c)
+            return torch.stack([torch.zeros_like(feas), feas], dim=-1)
+        if mode == CAPS:
+            return _caps_plain(st, remaining, n_feasible)
+        return _fill_plain(st, c, nc, remaining, all_tot, shard_index, more)
+    if mode == TERMS:
+        flag = int(refresh)
+    elif mode == FILL:
+        flag = int(clamp) | (int(more) << 1)
+    else:
+        flag = 0
+    rank = int(shard_index[0]) if mode == FILL else 0
+    out = _k7r_launch(mode, st, c, nc, remaining, n_feasible, all_tot, rank, flag)
+    rank_pass.launches += 1
+    return out
+
+
+rank_pass.launches = 0
+
+
+def _rank_loop(step: Callable, counts, max_passes, sum_counts: Callable,
+               gather_buckets: Callable, trace=None) -> None:
+    """The host's loop of a round through K7r's three steps a pass:
+    _sharded_body's round in K1's order of work. Classes with tasks in
+    order, each for at most `max_passes` passes: CAPS, the all_gather of
+    the totals, FILL, and one psum of the placed and next feasible counts,
+    read as two scalars; TERMS at the round's start and after a pass with
+    no feasible node. Every shard takes the same branches, since every
+    scalar it branches on is global.
+
+    step(mode, c, **kw) runs one step of class c (rank_pass's keywords but
+    the state and shard_index); sum_counts(x [P, 2] int64) -> (int, int) is
+    the psum over every shard, gather_buckets(t [P, 64]) -> [p, 64] the
+    all_gather; counts [C]; `trace` as _sharded_body's."""
+    k_host = counts.detach().to("cpu").numpy() if isinstance(counts, torch.Tensor) \
+        else np.asarray(counts)
+    order = [c for c in range(len(k_host)) if k_host[c] > 0]
+    if not order or max_passes <= 0:
+        return
+    following = dict(zip(order, order[1:] + [-1]))
+    c, remaining, p, clamped = order[0], int(k_host[order[0]]), 0, False
+    _, n_feasible = sum_counts(step(TERMS, c, refresh=True))  # psum (:105)
+    while True:
+        nc = following[c]
+        got, same = 0, False
+        if n_feasible > 0:
+            tot = step(CAPS, c, remaining=remaining, n_feasible=n_feasible)
+            all_tot = gather_buckets(tot)  # all_gather (:75)
+            more = p + 1 < max_passes
+            got, feas_next = sum_counts(step(  # psum (:117, and :105 of the next pass)
+                FILL, c, nc=nc, remaining=remaining, all_tot=all_tot, clamp=not clamped,
+                more=more))
+            clamped = clamped or got > 0
+            same = got > 0 and remaining - got > 0 and more
+        if trace is not None:
+            trace.append((c, p, n_feasible, got))
+        if same:
+            remaining, p, n_feasible = remaining - got, p + 1, feas_next
+            continue
+        if nc < 0:
+            break
+        if n_feasible > 0:  # the fill took the next class's terms
+            n_feasible = feas_next
+        else:
+            _, n_feasible = sum_counts(step(TERMS, nc))
+        c, remaining, p = nc, int(k_host[nc]), 0
+
+
+def _rank_body(avail, total, alive, demands, counts, spread_threshold, max_passes,
+               shard_index, sum_counts: Callable, gather_buckets: Callable, trace=None):
+    """One round over the local shards through K7r (_rank_loop). Arguments
+    as _sharded_body's; sum_counts(x [P, 2] int64) -> (int, int) is the
+    psum over every shard. Returns (assigned [C, P, Nl] int32, avail [P,
+    Nl, R] float32); `avail` is not modified."""
+    st = RankRound(avail, total, alive, demands, spread_threshold)
+
+    def step(mode, c, **kw):
+        return rank_pass(mode, st, c, shard_index=shard_index, **kw)
+
+    _rank_loop(step, counts, max_passes, sum_counts, gather_buckets, trace)
+    return st.assigned, st.avail
+
+
 #: the kernels of this module by name, each with its `launches` counter
-KERNELS = {"schedule_classes_sharded": schedule_classes_sharded}
+KERNELS = {"schedule_classes_sharded": schedule_classes_sharded, "rank_pass": rank_pass}
 
 
 def launch_counts() -> dict:
@@ -267,7 +485,8 @@ def _tensor(x, dtype, dev) -> torch.Tensor:
 def _group_round(group, avail, total, alive, demands, counts, thr, max_passes):
     """One round with this rank's block as its one shard: psum is
     all_reduce, the bucket totals' all_gather is all_gather, and the
-    blocks of both results are all-gathered back whole."""
+    blocks of both results are all-gathered back whole. CPU tensors run
+    the plain _sharded_body, CUDA tensors K7r (_rank_body)."""
     import torch.distributed as dist
 
     p = dist.get_world_size(group)
@@ -276,19 +495,23 @@ def _group_round(group, avail, total, alive, demands, counts, thr, max_passes):
     Nl = avail.shape[0] // p
     blk = slice(rank * Nl, (rank + 1) * Nl)
 
-    def sum_scalar(x):
-        s = x.sum().reshape(1)
+    def psum(x):
+        s = x.sum(dim=0)
         dist.all_reduce(s, group=group)
-        return int(s)
+        return s.tolist()
 
     def gather_buckets(t):
         parts = [torch.empty_like(t) for _ in range(p)]
         dist.all_gather(parts, t.contiguous(), group=group)
         return torch.cat(parts, dim=0)
 
-    a, v = _sharded_body(avail[None, blk], total[None, blk], alive[None, blk], demands,
-                         counts, thr, max_passes, torch.tensor([rank]), sum_scalar,
-                         gather_buckets)
+    if avail.device.type == "cuda":
+        a, v = _rank_body(avail[None, blk], total[None, blk], alive[None, blk], demands,
+                          counts, thr, max_passes, [rank], psum, gather_buckets)
+    else:
+        a, v = _sharded_body(avail[None, blk], total[None, blk], alive[None, blk], demands,
+                             counts, thr, max_passes, torch.tensor([rank]), psum,
+                             gather_buckets)
     a_parts = [torch.empty_like(a[:, 0]) for _ in range(p)]
     v_parts = [torch.empty_like(v[0]) for _ in range(p)]
     dist.all_gather(a_parts, a[:, 0].contiguous(), group=group)
@@ -309,16 +532,14 @@ def make_sharded_scheduler(shards=8, *, axis: str = "nodes", max_passes: int = M
     [C,N] int32, new_avail [N,R] float32), taking host arrays or tensors;
     N must divide by the number of shards. Runs on the card unless
     `device="cpu"`; raises without a card. In the group form every rank
-    passes the whole arrays, computes its own block, and gets both results
-    back whole; it takes the CPU (gloo) for now and raises
-    NotImplementedError on CUDA."""
+    passes the whole arrays, computes its own block (on the card through
+    K7r, whose library is built here), and gets both results back whole;
+    the inputs are not modified."""
     dev = resolve_device(device)
     if isinstance(shards, int):
         _check_shards(shards)
     elif dev.type == "cuda":
-        raise NotImplementedError(
-            "the sharded scheduler across ranks on CUDA tensors (NCCL) is ROADMAP "
-            "queue 1, item 3; pass device='cpu' for the gloo form")
+        _build.load()  # build the kernels now, not in the first round
 
     def fn(avail, total, alive, demands, counts,
            thr: float = DEFAULT_SPREAD_THRESHOLD) -> Tuple[torch.Tensor, torch.Tensor]:

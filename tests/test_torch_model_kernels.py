@@ -5,8 +5,9 @@ K8 block_update against ray_tpu.parallel.ring_attention._block_update (the
 state set by a first block, then a causal block below, on and above the
 diagonal, a non-causal one, Sq != Sk); K8 attention against
 reference_attention; the ring's schedule of block steps on one device
-(_ring_schedule below, test code until the port's multi-card
-ring_attention) against ray_tpu's ring_attention over a 4-device CPU mesh; K10a rmsnorm against
+(_ring_schedule below; the port's ring_attention across ranks is
+tests/test_torch_parallel.py's) against ray_tpu's ring_attention over a
+4-device CPU mesh; K10a rmsnorm against
 transformer._rmsnorm; K10b rope_split against the split and _rope.
 
 Tolerances. float32: 1e-5 relative and absolute — the same arithmetic

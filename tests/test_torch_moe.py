@@ -224,9 +224,12 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
 
 
 def test_a_mesh_is_the_multi_card_work():
+    """The mesh form is forward only: under autograd it raises, naming the
+    next slice (its forward across ranks: tests/test_torch_parallel.py)."""
     _, cfg_t, tree, model = _small("f32")
+    x = torch.from_numpy(_x(tree, 8)).requires_grad_(True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.moe_ffn(model, torch.from_numpy(_x(tree, 8)), cfg_t, mesh=object())
+        PM.moe_ffn(model, x, cfg_t, mesh=object())
 
 
 def test_moe_ffn_goes_through_the_kernels_wrappers(monkeypatch):

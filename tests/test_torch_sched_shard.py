@@ -9,7 +9,10 @@ a rank over gloo. Assignments and availability must be exactly equal to the
 references (the JAX program's saturating float32 prefixes and the port's
 exact int64 ones agree while counts stay below 2**23). The CUDA kernel is
 held against the plain version on the card by the `cuda`-marked test and by
-chip_smoke.py phase 8.
+chip_smoke.py phase 8. K7r, the group form's kernel on CUDA tensors (three
+steps a pass), is held here by its plain versions, pass by pass, against
+_sharded_body; on the card by the `cuda` tests below (one process, and 2
+gloo ranks on one card) and by chip_smoke.py phase 11.
 """
 
 import functools
@@ -343,7 +346,7 @@ def test_exported_and_cpu_runs_count_no_launch():
     before = a[0].clone()
     KS.schedule_classes_sharded(*a, shards=4)
     assert torch.equal(a[0], before)  # avail is not modified
-    assert KS.launch_counts() == {"schedule_classes_sharded": 0}
+    assert KS.launch_counts() == {"schedule_classes_sharded": 0, "rank_pass": 0}
     assert "schedule_classes_sharded" not in KT.KERNELS
 
 
@@ -362,10 +365,12 @@ def _gloo_rank(rank, world, init_file, data_file):
         # a second round on the carried availability, the counts halved
         a2, _ = fn(v, *args[1:4], args[4] // 2)
         np.testing.assert_array_equal(a2.numpy(), d["assigned2"])
-        if rank == 0:  # the NCCL form is later work
+        if rank == 0:  # the CUDA group form (K7r) builds its kernels: here, without
+            # nvcc, it stops at the build with the build's own error
             torch.cuda.is_available = lambda: True
-            with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+            with pytest.raises(RuntimeError, match="nvcc") as err:
                 KS.make_sharded_scheduler(dist.group.WORLD, device="cuda:0")
+            assert not isinstance(err.value, NotImplementedError)
     finally:
         dist.destroy_process_group()
 
@@ -477,3 +482,164 @@ def test_cuda_k7_one_block_exchanges_with_itself():
         assert torch.equal(a_k, k1_a) and torch.equal(v_k, k1_v)
         np_a, _ = kernel_np.schedule_classes(avail.copy(), total, alive, demands, counts)
         np.testing.assert_array_equal(a_k.cpu().numpy(), np_a)
+
+
+# ------------------------------------------------------------------ K7r
+
+
+def _k7r_problems():
+    total, alive, demands, counts = _problem(np.random.default_rng(31), 256, 24)
+    dense = ((total * alive[:, None]).astype(np.float32), total, alive, demands, counts * 20)
+    neg = dense[0].copy()
+    neg[3, 3] = -5.0  # a negative entry, cleared by the round's first placing pass
+    return {"dense": dense, "negative_cleared": (neg,) + dense[1:],
+            "bench": bench_problem(), "dryrun": dryrun_problem(),
+            "straddle": straddle_problem(4096), "saturation": saturation_problem()}
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", ["dense", "negative_cleared", "bench", "dryrun", "straddle",
+                                  "saturation"])
+def test_k7r_steps_plain_pass_by_pass_equal_sharded_body(name, p):
+    """K7r's three steps' plain versions (terms, caps, fill with the next
+    pass's terms) in _rank_body's loop, p shards in one process, against
+    _sharded_body: the same (class, pass, feasible count, placed count) at
+    every pass, and the same assignments and availability."""
+    avail, total, alive, demands, counts = _k7r_problems()[name]
+    N = len(total)
+    sh = lambda x: T(x).reshape(p, N // p, *x.shape[1:])  # noqa: E731
+    args = (sh(avail), sh(total), sh(alive), T(demands), T(counts), 0.5, KT.MAX_PASSES,
+            torch.arange(p))
+    want_trace, got_trace = [], []
+    a_ref, v_ref = KS._sharded_body(*args, lambda x: int(x.sum()), lambda t: t,
+                                    trace=want_trace)
+    KS.reset_launch_counts()
+    a, v = KS._rank_body(*args, lambda x: x.sum(dim=0).tolist(), lambda t: t,
+                         trace=got_trace)
+    assert got_trace == want_trace
+    assert torch.equal(a, a_ref) and torch.equal(v, v_ref)
+    assert KS.launch_counts()["rank_pass"] == 0  # plain versions on the CPU
+    assert torch.equal(sh(avail), T(avail).reshape(p, N // p, R))  # not modified
+    if name == "dense":  # classes that take more than one pass
+        assert any(t[1] > 0 for t in want_trace)
+
+
+def test_k7r_modes_match_the_source():
+    src = KT._build.LIBRARY.src.read_text()
+    assert (f"constexpr int kK7rTerms = {KS.TERMS}, kK7rCaps = {KS.CAPS}, "
+            f"kK7rFill = {KS.FILL};") in src
+
+
+def _k7r_steps_on_card_and_cpu(prob, dev):
+    """_rank_loop over one shard, every step on the card (K7r) and on the
+    CPU (its plain version) from the same state; each step's output must
+    be equal. Returns the card's (assigned, avail)."""
+    avail, total, alive, demands, counts = prob
+    states = [KS.RankRound(T(avail)[None].to(d), T(total)[None].to(d), T(alive)[None].to(d),
+                           T(demands).to(d), 0.5) for d in (dev, torch.device("cpu"))]
+
+    def step(mode, c, all_tot=None, **kw):  # every state gets its tensors on its device
+        outs = [KS.rank_pass(mode, st, c, shard_index=[0], **kw, all_tot=None if all_tot
+                             is None else all_tot.to(st.dev)) for st in states]
+        assert torch.equal(outs[0].cpu(), outs[1]), (mode, c, kw)
+        return outs[1]
+
+    KS._rank_loop(step, counts, KT.MAX_PASSES, lambda x: x.sum(dim=0).tolist(), lambda t: t)
+    for a, b in zip((states[0].assigned, states[0].avail), (states[1].assigned, states[1].avail)):
+        assert torch.equal(a.cpu(), b)
+    return states[0].assigned[:, 0], states[0].avail[0]
+
+
+@pytest.mark.cuda
+def test_cuda_k7r_every_step_equals_plain_k1_and_numpy():
+    """On the card, one process: every K7r step (terms, caps, fill) equal to
+    its plain version on the CPU from the same state, pass after pass, on
+    the negative-availability problem, the straddle problem and problems
+    with many passes a class; the round equal to K1 and kernel_np."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    dev = torch.device("cuda")
+    probs = list(_k7r_problems().values())
+    total, alive, demands, counts = _problem(np.random.default_rng(9), 10_000, 256, dense=True)
+    probs.append((total * alive[:, None], total, alive, demands, counts * 40))
+    for avail, total, alive, demands, counts in probs:
+        avail = np.asarray(avail, np.float32)
+        a, v = _k7r_steps_on_card_and_cpu((avail, total, alive, demands, counts), dev)
+        k1_a, k1_v = KT.schedule_classes(*(T(x).to(dev) for x in (avail, total, alive,
+                                                                  demands, counts)))
+        assert torch.equal(a, k1_a) and torch.equal(v, k1_v)
+        np_a, np_v = kernel_np.schedule_classes(avail.copy(), total, alive, demands, counts)
+        np.testing.assert_array_equal(a.cpu().numpy(), np_a)
+        np.testing.assert_array_equal(v.cpu().numpy(), np_v)
+
+
+def _cuda_rank(rank, world, init_file, out_file):
+    """One rank of the 2-rank K7r test on one card: make_sharded_scheduler
+    (group) on CUDA tensors, each problem's results saved by rank 0."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world,
+                            rank=rank)
+    try:
+        fn = KS.make_sharded_scheduler(dist.group.WORLD)
+        out = {}
+        for name, prob in (("negative", _negative_problem()), ("straddle", straddle_problem())):
+            KS.reset_launch_counts()
+            a, v = fn(*prob)
+            out[f"{name}_a"], out[f"{name}_v"] = a.cpu().numpy(), v.cpu().numpy()
+            out[f"{name}_launches"] = np.int64(KS.launch_counts()["rank_pass"])
+        np.savez(f"{out_file}.{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _negative_problem():
+    N = 8
+    total = np.zeros((N, R), np.float32)
+    total[:, 0] = 4.0
+    total[:, 3] = 16.0
+    avail = total.copy()
+    avail[:, 0] = 0.0
+    avail[2, 3] = -3.0
+    demands = np.zeros((2, R), np.float32)
+    demands[0, 0] = 1.0
+    demands[1, 0] = 2.0
+    demands[1, 3] = 1.0
+    return avail, total, np.ones(N, bool), demands, np.array([5, 3], np.int32)
+
+
+@pytest.mark.cuda
+def test_cuda_k7r_on_two_gloo_ranks_on_one_card_equals_k1_and_numpy(tmp_path):
+    """On the card: 2 gloo ranks on the one card, each its block through
+    K7r, on the negative-availability problem (nothing placed, the negative
+    entry kept) and on the straddle problem (the count ends in rank 1's
+    block), equal to K1 and kernel_np; both ranks get the same whole
+    results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
+    KT._build.load()  # build once, before the ranks load it
+    out = str(tmp_path / "res")
+    ctx = mp.start_processes(_cuda_rank, args=(2, str(tmp_path / "rendezvous"), out),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + 180
+    try:
+        while not ctx.join(timeout=0.1):
+            assert time.monotonic() < deadline, "gloo ranks did not finish"
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    res = [np.load(f"{out}.{r}.npz") for r in range(2)]
+    dev = torch.device("cuda")
+    for name, prob in (("negative", _negative_problem()), ("straddle", straddle_problem())):
+        k1_a, k1_v = KT.schedule_classes(*(T(x).to(dev) for x in prob))
+        np_a, np_v = kernel_np.schedule_classes(prob[0].copy(), *prob[1:])
+        for r in range(2):
+            np.testing.assert_array_equal(res[r][f"{name}_a"], k1_a.cpu().numpy())
+            np.testing.assert_array_equal(res[r][f"{name}_v"], k1_v.cpu().numpy())
+            np.testing.assert_array_equal(res[r][f"{name}_a"], np_a)
+            np.testing.assert_array_equal(res[r][f"{name}_v"], np_v)
+            assert res[r][f"{name}_launches"] > 0
+        n = _straddle_node(*prob[:3], prob[4]) if name == "straddle" else 0
+        if name == "straddle":
+            assert n >= len(prob[1]) // 2  # in rank 1's block
+    assert res[0]["negative_v"][2, 3] == -3.0

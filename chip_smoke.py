@@ -159,6 +159,27 @@ caught):
    steps timed. Its times are those of 4 processes sharing one card
    (ms_4_processes_on_one_H100_over_gloo), not of cards.
 
+12. training across ranks: 4 processes spawned again on the one card, one
+   gloo group over CUDA tensors, a deadline of 120 s for the phase (the
+   one-process references included): (a) the dp x tp train step
+   (parallel/tpu_train.py over a port mesh, the Megatron layout) at
+   TransformerConfig() from numpy_params(cfg, 0) on phase 9b's tokens [8,
+   2049]: 3 bf16 steps at dp x tp = 2 x 2, one float32 step there, one bf16
+   step at 1 x 4; each step's loss and the parameters gathered after step 1
+   against the one-process step on the same weights and tokens within
+   TRAIN_GOLDEN_TOL (param over the golden's sampled positions, the share
+   over every entry); every leaf's block bit-equal on every rank that holds
+   it after every step; (b) the expert layer's train step of phase 10
+   (MoEConfig(), x [8, 2048, 256] bf16, AdamW) through moe_ffn(mesh=...) at
+   dp x ep = 2 x 2 and 1 x 4, 3 steps each, against phase 10's one-process
+   step within MOE_GRAD_GOLDEN_TOL["bf16"] (losses, aux, step 1's
+   gradients, the parameters after every step), the routing exact, the
+   replicated leaves bit-equal; (c) on rank 0, K8 and K8' at [4, 2048, 4,
+   64], K10b and K10b' at [4, 2048, 768] with 4 heads, K9a-c and K9a'-c' on
+   its groups, against their plain versions. Each rank's ms a step by the
+   host clock, with its collectives' ms apart, are of 4 processes sharing
+   one card over gloo.
+
 Launch counters are set to 0 just before phase 2 and read after phase 5,
 the model kernels' just before 6b and after 6c (every K8 launch there must
 have gone to the tensor-core kernel), the expert kernels' just
@@ -172,7 +193,10 @@ each of the six (K9a-c, K9a'-c') must have launched once a step over the
 each of phase 11's ranks sets its counters to 0 before its paths and
 sends them back after: K7r and K8's block form must have launched there
 (the kernels line takes their launches from phase 11, 6d's ring check's
-apart, as "ring_check_launches" and "ring_check_launches_tc"). The
+apart, as "ring_check_launches" and "ring_check_launches_tc"); each of
+phase 12's ranks does the same over 12a-12b, where K8, K8', K10a, K10a',
+K10b, K10b', K9a-c and K9a'-c' must each have launched on every rank (the
+kernels line adds their sum over the ranks as "phase12_launches"). The
 JSON line before the card's name and power limit lists the kernels; the
 last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
@@ -181,6 +205,7 @@ port's package is not beside this script.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -3154,6 +3179,484 @@ def phase11_ranks(torch, KT, KS, MK, PM, EK, kernel_np, dev, ring_shape=RING_SHA
     return res, rec
 
 
+PHASE12_DEADLINE_S = 120
+# (tag, dp, tp, dtype name, steps): the dp x tp train step at full width
+MESH_TRAIN_CASES = (("bf16_2x2", 2, 2, "bf16", 3), ("f32_2x2", 2, 2, "f32", 1),
+                    ("bf16_1x4", 1, 4, "bf16", 1))
+MESH_MOE_CASES = ((2, 2), (1, 4))  # dp x ep
+MESH_MOE_STEPS = 3
+PHASE12_KERNELS = TRAIN_KERNELS + tuple(MOE_REPLACES) + ("moe_route_bwd", "moe_dispatch_bwd",
+                                                         "moe_combine_bwd")
+_DTYPES = {"bf16": "bfloat16", "f32": "float32"}
+
+
+class _CollectiveClock:
+    """Wraps a Mesh's collectives so that each call's host time (the stream
+    synchronised before and after it) adds up in `ms`; gloo stages CUDA
+    tensors through the host, which synchronises them anyway."""
+
+    def __init__(self, torch, mesh_cls, dev):
+        self.ms = 0.0
+        sync_ = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" else (lambda: None)
+        for name in ("psum", "all_gather", "all_to_all"):
+            fn = getattr(mesh_cls, name)
+
+            def timed(*args, _fn=fn, **kwargs):
+                sync_()
+                t = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                sync_()
+                self.ms += (time.perf_counter() - t) * 1e3
+                return out
+
+            setattr(mesh_cls, name, timed)
+
+
+def _leaf_digests(PT, model) -> dict:
+    tree = PT.to_numpy(model)
+    leaves = {k: tree[k] for k in ("embed", "unembed", "ln_f")}
+    leaves.update(tree["layers"])
+    return {k: _digest(v) for k, v in leaves.items()}
+
+
+def _phase12_kernels_at_shard_shapes(torch, MK, EK, PM, dev, x_block, router, C, n_tokens):
+    """Rank 0's check, after its window: K8 and K8' at [4, 2048, 4, 64] and
+    K10b and K10b' at [4, 2048, 768] with 4 heads (the 2 x 2 step's shards),
+    bf16; K9a-c and K9a'-c' on the rank's "dp" block of the expert layer;
+    each against its plain version (K8 with KERNEL_TOL, K8' and K10b' as
+    phase 9a holds them, the routing and the gathers exactly, the rest
+    within BWD_TOL of the largest entry)."""
+    g = torch.Generator().manual_seed(12)
+    bf = torch.bfloat16
+    rnd = lambda shape, scale=1.0: (torch.randn(shape, generator=g) * scale).to(dev, bf)  # noqa
+    err = {}
+
+    def close(name, got, want, rtol, atol):
+        gd, wd = got.double(), want.double()
+        atol = max(atol, rtol * float(wd.abs().max()))
+        d = float((gd - wd).abs().max())
+        err[name] = max(err.get(name, 0.0), d)
+        if bool(((gd - wd).abs() > atol + rtol * wd.abs()).any()) \
+                or not bool(torch.isfinite(gd).all()):
+            raise AssertionError(f"phase 12c {name}: kernel != plain (max abs err {d})")
+
+    rtol, atol = KERNEL_TOL["bf16"]
+    q, k, v = (rnd((4, 2048, 4, 64)) for _ in range(3))
+    out, m, l = MK._attention_launch(q, k, v, True, True, stats=True)
+    close("attention", out, MK._attention_rounded_plain(q, k, v, True)[0], rtol, atol)
+    dout = rnd((4, 2048, 4, 64))
+    for got, w in zip(MK.attention_bwd(q, k, v, dout, m, l, True),
+                      MK._attention_bwd_plain(q, k, v, dout, m, l, True)):
+        close("attention_bwd", got, w, rtol, atol)
+    qkv = rnd((4, 2048, 768))
+    for got, w in zip(MK.rope_split(qkv, 4, 10000.0), MK._rope_split_plain(qkv, 4, 10000.0)):
+        close("rope_split", got, w, rtol, atol)
+    dq, dk, dv = (rnd((4, 2048, 4, 64)) for _ in range(3))
+    close("rope_split_bwd", MK.rope_split_bwd(dq, dk, dv, 10000.0),
+          MK._rope_split_bwd_plain(dq, dk, dv, 10000.0), rtol, atol)
+    logits = torch.matmul(x_block.float(), router)
+    got = EK.moe_route(logits, C)
+    err["moe_route"] = _route_err(torch, got, EK._route_plain(logits, C), "phase 12c")
+    _, gate, slot, tos, stats = got
+    cfg = PM.MoEConfig()
+    if not torch.equal(EK.moe_dispatch(x_block, tos, cfg.dtype),
+                       EK._dispatch_plain(x_block, tos, cfg.dtype)):
+        raise AssertionError("phase 12c moe_dispatch: kernel != plain")
+    G, S, D = x_block.shape
+    rows = torch.randn((cfg.n_experts, G, C, D), generator=g).to(dev)
+    if not torch.equal(EK.moe_combine(rows, slot, gate, bf), EK._combine_plain(rows, slot, gate, bf)):
+        raise AssertionError("phase 12c moe_combine: kernel != plain")
+    frac = EK.aux_loss(stats, n_tokens)[0]
+    d_gate = torch.randn((G, S), generator=g).to(dev)
+    d_aux = torch.full((1,), 0.01, device=dev)
+    want = EK._route_bwd_plain(logits, d_gate, frac, d_aux, n_tokens)
+    close("moe_route_bwd", EK.moe_route_bwd(logits, d_gate, frac, d_aux, n_tokens), want, 0.0,
+          EK.BWD_TOL * float(want.abs().max()))
+    d_in = rnd((cfg.n_experts, G, C, D))
+    if not torch.equal(EK.moe_dispatch_bwd(d_in, slot, bf), EK._dispatch_bwd_plain(d_in, slot, bf)):
+        raise AssertionError("phase 12c moe_dispatch_bwd: kernel != plain")
+    dy = rnd((G, S, D))
+    got, want = (f(dy, rows, slot, gate, tos) for f in (EK.moe_combine_bwd, EK._combine_bwd_plain))
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError("phase 12c moe_combine_bwd: d_out != plain")
+    close("moe_combine_bwd", got[1], want[1], 0.0, EK.BWD_TOL * float(want[1].abs().max()))
+    for name in ("moe_dispatch", "moe_combine", "moe_dispatch_bwd"):
+        err[name] = 0.0
+    return err
+
+
+def _phase12_rank(rank, world, tmp, device_type, cfg_kw, batch, seq):
+    """One of phase 12's ranks on the one card (or the CPU, to rehearse):
+    the dp x tp train step (MESH_TRAIN_CASES) and the expert layer's train
+    step over dp x ep (MESH_MOE_CASES), its launch counters from 0 over
+    them, each step timed by the host clock with its collectives apart;
+    then, on rank 0, the kernels at their shard shapes (12c)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from ray_tpu_torch.models import kernels as MK, moe as PM, moe_kernels as EK
+    from ray_tpu_torch.models import transformer as PT
+    from ray_tpu_torch.parallel import make_mesh, mesh as PMESH, tpu_train as TT
+
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    else:
+        dev = torch.device("cpu")
+        torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=PHASE12_DEADLINE_S))
+    try:
+        sync_ = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" else (lambda: None)
+        meshes = {(dp, tp): make_mesh(("dp", "tp"), shape=(dp, tp), device=dev)
+                  for _, dp, tp, _, _ in MESH_TRAIN_CASES}
+        meshes_ep = {(dp, ep): make_mesh(("dp", "ep"), shape=(dp, ep), device=dev)
+                     for dp, ep in MESH_MOE_CASES}
+        cfg16 = PT.TransformerConfig(**cfg_kw)
+        tree = PT.numpy_params(cfg16, TRAIN_SEED)
+        tokens = _train_tokens(cfg16, batch, seq)
+        cfg_m, tree_m, _, x32 = _moe_layer(torch, PM, dev)
+        clock = _CollectiveClock(torch, PMESH.Mesh, dev)
+        out, info = {}, {"losses": {}, "step_ms": {}, "collective_ms": {}, "digests": {}}
+        dist.barrier()
+        MK.reset_launch_counts()
+        EK.reset_launch_counts()
+        t_window = time.perf_counter()
+        for tag, dp, tp, dt, steps in MESH_TRAIN_CASES:
+            cfg = dataclasses.replace(cfg16, dtype=getattr(torch, _DTYPES[dt]))
+            mesh = meshes[(dp, tp)]
+            model = PT.shard_params(tree, cfg, mesh).requires_grad_(True)
+            tx = TT.make_optimizer()
+            state = tx.init(model)
+            step, _ = TT.make_train_step(cfg, mesh, tx, PT.param_partition_specs(cfg))
+            for key in ("losses", "step_ms", "collective_ms", "digests"):
+                info[key][tag] = []
+            for i in range(steps):
+                sync_()
+                clock.ms, t = 0.0, time.perf_counter()
+                loss = float(step(model, state, {"tokens": tokens})[2])
+                sync_()
+                info["step_ms"][tag].append((time.perf_counter() - t) * 1e3)
+                info["collective_ms"][tag].append(clock.ms)
+                info["losses"][tag].append(loss)
+                info["digests"][tag].append(_leaf_digests(PT, model))
+                if i == 0:
+                    whole = PT.gather_params(model, mesh)
+                    if rank == 0:
+                        np.savez(os.path.join(tmp, f"{tag}_params1.npz"), **{
+                            **{k: whole[k] for k in ("embed", "unembed", "ln_f")},
+                            **whole["layers"]})
+                    del whole
+            del model, state
+        train_launches = {**MK.launch_counts()}
+        C = PM._capacity(cfg_m, MOE_SHAPE[1])
+        for dp, ep in MESH_MOE_CASES:
+            tag = f"moe_{dp}x{ep}"
+            mesh = meshes_ep[(dp, ep)]
+            Gl = MOE_SHAPE[0] // dp
+            d = mesh.axis_index("dp")
+            local = PM.shard_moe_params(tree_m, cfg_m, mesh).requires_grad_(True)
+            xb = x32[d * Gl:(d + 1) * Gl].to(torch.bfloat16).requires_grad_(True)
+            tx = TT.make_optimizer(MOE_LR, MOE_WD)
+            state = tx.init(local)
+            for key in ("losses", "step_ms", "collective_ms", "digests"):
+                info[key][tag] = []
+            info.setdefault("moe_aux", {})[tag] = []
+            for i in range(MESH_MOE_STEPS):
+                sync_()
+                clock.ms, t = 0.0, time.perf_counter()
+                local.zero_grad(set_to_none=True)
+                xb.grad = None
+                y, aux = PM.moe_ffn(local, xb, cfg_m, mesh=mesh)
+                task = (y.float() ** 2).mean()
+                ((task + 0.01 * aux) * PM.mesh_loss_scale(mesh)).backward()
+                PM.reduce_moe_grads(local, mesh, xb)
+                if i == 0:
+                    for key, g in PM.moe_grads_to_numpy(local).items():
+                        out[f"{tag}_grad_{key}"] = g
+                    out[f"{tag}_grad_x"] = xb.grad.float().cpu().numpy()
+                tx.update(local, state)
+                sync_()
+                info["step_ms"][tag].append((time.perf_counter() - t) * 1e3)
+                info["collective_ms"][tag].append(clock.ms)
+                info["losses"][tag].append(float(task.detach()))  # this dp block's y ** 2 mean
+                info["moe_aux"][tag].append(float(aux))
+                for key, a in PM.moe_to_numpy(local).items():
+                    out[f"{tag}_param{i}_{key}"] = a
+        window_s = time.perf_counter() - t_window
+        launches = {**MK.launch_counts(), **EK.launch_counts()}
+        # after the window: the routing of step 1 (the initial router) on
+        # each rank's block, and 12c on rank 0
+        router0 = torch.from_numpy(tree_m["router"]).to(dev)
+        for dp, ep in MESH_MOE_CASES:
+            Gl = MOE_SHAPE[0] // dp
+            d = meshes_ep[(dp, ep)].axis_index("dp")
+            xb = x32[d * Gl:(d + 1) * Gl].to(torch.bfloat16)
+            route = EK.moe_route(torch.matmul(xb.float(), router0), C)
+            out[f"moe_{dp}x{ep}_expert"] = route[0].cpu().numpy()
+            out[f"moe_{dp}x{ep}_slot"] = route[2].cpu().numpy()
+        if rank == 0 and dev.type == "cuda":
+            xb = x32[:MOE_SHAPE[0] // 2].to(torch.bfloat16).contiguous()
+            info["kernels_at_shard_shapes"] = _phase12_kernels_at_shard_shapes(
+                torch, MK, EK, PM, dev, xb, router0, C, MOE_SHAPE[0] * MOE_SHAPE[1])
+        info.update(launches=launches, train_launches=train_launches, window_s=window_s)
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+    finally:
+        dist.destroy_process_group()
+
+
+PARAM_SAMPLES, PARAM_POSITION_SEED = 4096, 7  # the training golden's sampling
+_PARAM_LEAVES = ("embed", "unembed", "ln_f", "wqkv", "wo", "w1", "w2", "ln1", "ln2")
+
+
+def _param_errors(got: dict, want_tree: dict) -> dict:
+    """The gathered parameters against the one-process step's, as
+    TRAIN_GOLDEN_TOL bounds them: param the max abs error over the
+    golden's sampled positions (PARAM_SAMPLES a leaf, drawn as
+    tests/test_torch_train.py draws them), param_share the least share of
+    a leaf's entries within 1e-6 over every entry; and param_all, the max
+    over every entry (an entry whose gradient is near AdamW's eps moves by
+    up to lr on a last-bit difference of it), recorded, not bounded."""
+    want = {k: want_tree[k] for k in ("embed", "unembed", "ln_f")}
+    want.update(want_tree["layers"])
+    rng = np.random.default_rng(PARAM_POSITION_SEED)
+    err = {"param": 0.0, "param_all": 0.0, "param_share": 1.0}
+    for k in _PARAM_LEAVES:
+        d = np.abs(np.asarray(got[k]) - want[k]).reshape(-1)
+        pos = rng.choice(d.size, min(PARAM_SAMPLES, d.size), replace=False)
+        err["param"] = max(err["param"], float(d[pos].max()))
+        err["param_all"] = max(err["param_all"], float(d.max()))
+        err["param_share"] = min(err["param_share"], float((d <= 1e-6).mean()))
+    return err
+
+
+MOE_GRAD_POSITION_SEED = 11  # the expert layer's training golden's sampling
+
+
+def _moe_grad_errors(full: dict, want: dict) -> tuple:
+    """Step 1's gradients against the one-process step's as
+    MOE_GRAD_GOLDEN_TOL bounds them: the max abs error over the golden's
+    sampled positions (PARAM_SAMPLES a leaf in MOE_GRAD_LEAVES' order,
+    drawn as tests/test_torch_moe_grads.py draws them) as a share of the
+    leaf's rms; and the same over every entry (a bf16 gradient summed in
+    another order can round one ulp away on its largest entries),
+    recorded, not bounded."""
+    from ray_tpu_torch.models.moe import MOE_GRAD_LEAVES
+
+    rng = np.random.default_rng(MOE_GRAD_POSITION_SEED)
+    err = err_all = 0.0
+    for key in MOE_GRAD_LEAVES:
+        w = want[key].astype(np.float64)
+        rms = float(np.sqrt(np.mean(w ** 2)))
+        d = np.abs(full[key] - w).reshape(-1) / rms
+        pos = rng.choice(d.size, min(PARAM_SAMPLES, d.size), replace=False)
+        err, err_all = max(err, float(d[pos].max())), max(err_all, float(d.max()))
+    return err, err_all
+
+
+def _phase12_references(torch, PT, TT, PM, dev, cfg_kw, batch, seq):
+    """The one-process steps phase 12 is held to, on the card to itself
+    before the spawn: the train step from numpy_params(cfg, 0) on phase 9b's
+    tokens, bf16 (3 steps) and float32 (1), the losses and the parameters
+    after step 1; the expert layer's step of phase 10 from phase 10b's
+    weights and tokens (3 steps), the losses, aux, the gradients of step 1,
+    the parameters after each step and step 1's routing."""
+    ref = {}
+    cfg16 = PT.TransformerConfig(**cfg_kw)
+    tree = PT.numpy_params(cfg16, TRAIN_SEED)
+    tokens = _train_tokens(cfg16, batch, seq)
+    for dt, steps in (("bf16", 3), ("f32", 1)):
+        cfg = dataclasses.replace(cfg16, dtype=getattr(torch, _DTYPES[dt]))
+        model = PT.params_from_numpy(tree, cfg, device=dev).requires_grad_(True)
+        tx = TT.make_optimizer()
+        state = tx.init(model)
+        step, _ = TT.make_train_step(cfg, None, tx)
+        losses = []
+        for i in range(steps):
+            losses.append(float(step(model, state, {"tokens": tokens})[2]))
+            if i == 0:
+                ref[f"{dt}_params1"] = PT.to_numpy(model)
+        ref[f"{dt}_losses"] = losses
+        del model, state
+    from ray_tpu_torch.models import moe_kernels as EK
+
+    cfg_m, tree_m, x32, model, x, tx, state = _moe_train_setup(torch, PM, TT, dev)
+    C = PM._capacity(cfg_m, MOE_SHAPE[1])
+    route = EK.moe_route(torch.matmul(x.detach().float(), model.router.detach()), C)
+    ref["moe_expert"], ref["moe_slot"] = route[0].cpu().numpy(), route[2].cpu().numpy()
+    ref["moe_losses"], ref["moe_aux"], ref["moe_params"] = [], [], []
+    for i in range(MESH_MOE_STEPS):
+        model.zero_grad(set_to_none=True)
+        x.grad = None
+        y, aux = PM.moe_ffn(model, x)
+        loss = _moe_loss(y, aux)
+        loss.backward()
+        if i == 0:
+            ref["moe_grads"] = dict(PM.moe_grads_to_numpy(model),
+                                    x=x.grad.float().cpu().numpy())
+        tx.update(model, state)
+        ref["moe_losses"].append(float(loss.detach()))
+        ref["moe_aux"].append(float(aux.detach()))
+        ref["moe_params"].append(PM.moe_to_numpy(model))
+    return ref
+
+
+def phase12_train_ranks(torch, PT, TT, PM, dev, cfg_kw=None, batch=8, seq=2048):
+    """Training across ranks: 4 processes on the one card in one gloo group
+    over CUDA tensors, spawned once (the kernels built by this process
+    before). (a) the dp x tp train step at TransformerConfig() (bf16, or
+    `cfg_kw` to rehearse) from numpy_params(cfg, 0) on phase 9b's tokens
+    [8, 2049]: 3 steps at dp x tp = 2 x 2, one float32 step there, one
+    step at 1 x 4; each step's loss and the gathered parameters after step 1
+    against the one-process step within TRAIN_GOLDEN_TOL; the leaves
+    replicated over an axis bit-equal on every rank that holds them after
+    every step. (b) the expert layer's train step (phase 10's: MoEConfig(),
+    x [8, 2048, 256] bf16, AdamW) over dp x ep = 2 x 2 and 1 x 4, 3 steps
+    each, against phase 10's one-process step within
+    MOE_GRAD_GOLDEN_TOL["bf16"], the routing exact. (c) rank 0's kernels at
+    their shard shapes against their plain versions. Every kernel of the
+    two steps must have launched on every rank. Each rank's ms a step by
+    the host clock, and its collectives' ms, are of 4 processes sharing one
+    card over gloo."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    cfg_kw = dict(cfg_kw or {})
+    t_phase = time.perf_counter()
+    deadline = time.monotonic() + PHASE12_DEADLINE_S
+    ref = _phase12_references(torch, PT, TT, PM, dev, cfg_kw, batch, seq)
+    ref_s = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory() as tmp:
+        t_spawn = time.perf_counter()
+        ctx = mp.start_processes(_phase12_rank, args=(PHASE11_RANKS, tmp, dev.type, cfg_kw,
+                                                      batch, seq),
+                                 nprocs=PHASE11_RANKS, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=0.5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 12: ranks still running "
+                                         f"{PHASE12_DEADLINE_S} s after the phase began")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        spawn_s = time.perf_counter() - t_spawn
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(PHASE11_RANKS)]
+        info = []
+        for r in range(PHASE11_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                info.append(json.load(f))
+        params1 = {tag: dict(np.load(os.path.join(tmp, f"{tag}_params1.npz")))
+                   for tag, *_ in MESH_TRAIN_CASES}
+    res = {"reference_s": ref_s, "spawn_and_run_s": spawn_s}
+    # (a) the dp x tp step
+    for tag, dp, tp, dt, steps in MESH_TRAIN_CASES:
+        tol = TT.TRAIN_GOLDEN_TOL[dt]
+        want = ref[f"{dt}_losses"]
+        losses = [i["losses"][tag] for i in info]
+        if any(lo != losses[0] for lo in losses):
+            raise AssertionError(f"phase 12a {tag}: the ranks' losses differ: {losses}")
+        loss_err = [abs(a - b) for a, b in zip(losses[0], want)]
+        for i, e in enumerate(loss_err):
+            if not e <= tol["loss" if i == 0 else "loss2"]:
+                raise AssertionError(f"phase 12a {tag} step {i + 1}: loss {losses[0][i]} vs "
+                                     f"one process {want[i]} (err {e})")
+        perr = _param_errors(params1[tag], ref[f"{dt}_params1"])
+        if not (perr["param"] <= tol["param"] and perr["param_share"] >= tol["param_share"]):
+            raise AssertionError(f"phase 12a {tag}: gathered params after step 1 {perr} (tol "
+                                 f"{tol['param']}, {tol['param_share']})")
+        layout = np.arange(PHASE11_RANKS).reshape(dp, tp)
+        for i in range(steps):
+            for leaf, d0 in info[0]["digests"][tag][i].items():
+                split = leaf in ("embed", "unembed", "wqkv", "wo", "w1", "w2")
+                for r in range(PHASE11_RANKS):
+                    holder = int(layout[0, r % tp]) if split else 0
+                    if info[r]["digests"][tag][i][leaf] != info[holder]["digests"][tag][i][leaf]:
+                        raise AssertionError(f"phase 12a {tag} step {i + 1}: {leaf} on rank "
+                                             f"{r} != rank {holder}")
+        res[tag] = {"losses": losses[0], "loss_err": loss_err, **perr,
+                    "replicated_leaves_bit_equal": True}
+    # (b) the expert layer's step
+    tol = PM.MOE_GRAD_GOLDEN_TOL["bf16"]
+    for dp, ep in MESH_MOE_CASES:
+        tag = f"moe_{dp}x{ep}"
+        n, Gl = PM.MoEConfig().n_experts // ep, MOE_SHAPE[0] // dp
+        layout = np.arange(PHASE11_RANKS).reshape(dp, ep)
+        losses = [float(np.mean([info[int(layout[d, 0])]["losses"][tag][i] for d in range(dp)])
+                        + 0.01 * info[0]["moe_aux"][tag][i]) for i in range(MESH_MOE_STEPS)]
+        loss_err = max(abs(a - b) for a, b in zip(losses, ref["moe_losses"]))
+        aux_err = max(abs(info[r]["moe_aux"][tag][i] - ref["moe_aux"][i])
+                      for r in range(PHASE11_RANKS) for i in range(MESH_MOE_STEPS))
+        if not (loss_err <= tol["loss"] and aux_err <= tol["aux"]):
+            raise AssertionError(f"phase 12b {tag}: loss err {loss_err}, aux err {aux_err}")
+        # step 1's gradients, whole: each block from a rank that holds it
+        full = {"router": ranks[0][f"{tag}_grad_router"],
+                "x": np.concatenate([ranks[int(layout[d, 0])][f"{tag}_grad_x"]
+                                     for d in range(dp)])}
+        for key in ("w1", "w2"):
+            full[key] = np.concatenate([ranks[int(layout[0, e])][f"{tag}_grad_{key}"]
+                                        for e in range(ep)])
+        param_err = 0.0
+        share = 1.0
+        for r in range(PHASE11_RANKS):
+            d, e = divmod(r, ep)
+            blk = {"router": slice(None), "w1": slice(e * n, (e + 1) * n),
+                   "w2": slice(e * n, (e + 1) * n), "x": slice(d * Gl, (d + 1) * Gl)}
+            if not (np.array_equal(ranks[r][f"{tag}_expert"], ref["moe_expert"][blk["x"]])
+                    and np.array_equal(ranks[r][f"{tag}_slot"], ref["moe_slot"][blk["x"]])):
+                raise AssertionError(f"phase 12b {tag} rank {r}: routing != one process")
+            for key, b in blk.items():
+                if not np.array_equal(ranks[r][f"{tag}_grad_{key}"], full[key][b]):
+                    raise AssertionError(f"phase 12b {tag}: rank {r}'s gradient of {key} != "
+                                         "the other ranks' that hold it")
+            for i in range(MESH_MOE_STEPS):
+                for key in ("router", "w1", "w2"):
+                    got = ranks[r][f"{tag}_param{i}_{key}"]
+                    diff = np.abs(got - ref["moe_params"][i][key][blk[key]])
+                    param_err = max(param_err, float(diff.max()))
+                    share = min(share, float((diff <= 1e-6).mean()))
+                    holder = 0 if key == "router" else int(layout[0, e])
+                    if not np.array_equal(got, ranks[holder][f"{tag}_param{i}_{key}"]):
+                        raise AssertionError(f"phase 12b {tag} step {i + 1}: {key} on rank {r} "
+                                             f"!= rank {holder}")
+        grad_err, grad_err_all = _moe_grad_errors(full, ref["moe_grads"])
+        if not (grad_err <= tol["grad"] and param_err <= tol["param"]
+                and share >= tol["param_share"]):
+            raise AssertionError(f"phase 12b {tag}: gradients {grad_err} of the rms, params "
+                                 f"max abs err {param_err}, share within 1e-6 {share}")
+        res[tag] = {"losses": losses, "loss_err": loss_err, "aux_err": aux_err,
+                    "grad_err_of_rms": grad_err, "grad_err_of_rms_all": grad_err_all,
+                    "param_err": param_err, "param_share": share, "routing_equal": True,
+                    "replicated_leaves_bit_equal": True}
+    # (c) and the launches: every kernel of the two steps on every rank
+    if dev.type == "cuda":
+        res["kernels_at_shard_shapes_max_abs_err"] = info[0]["kernels_at_shard_shapes"]
+        for r, i in enumerate(info):
+            missing = [k for k in PHASE12_KERNELS if i["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"phase 12 rank {r}: never launched {missing}")
+    launches = {}
+    for i in info:
+        for name, n in i["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    res["launches"] = launches
+    res[PHASE11_TIMES_KEY] = {
+        "step_ms_by_rank": [i["step_ms"] for i in info],
+        "collective_ms_by_rank": [i["collective_ms"] for i in info],
+        "window_s_by_rank": [i["window_s"] for i in info]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12 training across ranks: "
+        f"{json.dumps({k: v for k, v in res.items() if k != PHASE11_TIMES_KEY})}")
+    log(f"phase 12 {PHASE11_TIMES_KEY}: {json.dumps(res[PHASE11_TIMES_KEY])}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3371,6 +3874,13 @@ def main() -> int:
     log(f"phase 11: {time.perf_counter() - t0:.1f} s (4 processes on one card over gloo), "
         f"launches {ranks_res['launches']}")
 
+    # training across ranks: 4 processes on this card, their counters from 0
+    # over their window; then the checks of what they gave, here
+    t0 = time.perf_counter()
+    mesh_train = phase12_train_ranks(torch, PT, TT, PM, dev)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s (4 processes on one card over gloo), "
+        f"launches {mesh_train['launches']}")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -3456,6 +3966,7 @@ def main() -> int:
                     "train_actor": train_actor, "train_golden": train_checks,
                     "moe_train": moe_train_res, "moe_train_actor": moe_train_actor,
                     "moe_train_checks": moe_train_checks, "ranks": ranks_res,
+                    "train_across_ranks": mesh_train,
                     "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
                     "attention_ms_f32_cuda_core": model_rec["attention"]["ms_f32_cuda_core"],
                     "attention_bwd_ms_f32_cuda_core":
@@ -3463,6 +3974,9 @@ def main() -> int:
                     "tc_launches": {"forward": model_tc, "train": train_tc},
                     "round_refresh_enqueued": a_call["view_build"],
                     "card": card}))
+    for entry in kernels:  # phase 12's launches, summed over its four ranks
+        if entry["name"] in PHASE12_KERNELS:
+            entry["phase12_launches"] = mesh_train["launches"][entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -40,10 +40,10 @@ with ``requires_grad=False``; training turns it on with
 ``requires_grad_(True)``. Otherwise the forward runs without autograd, with
 the same launches as before.
 
-Expert parallelism (``moe_ffn(..., mesh=...)``, forward only): over a
-``parallel.mesh`` with axes "dp" and "ep", each rank passes its "dp" block
-of x (the reference's ``P("dp", None, None)``: the same block on every rank
-of an "ep" line) and holds E / ep experts (``moe_partition_specs``,
+Expert parallelism (``moe_ffn(..., mesh=...)``): over a ``parallel.mesh``
+with axes "dp" and "ep", each rank passes its "dp" block of x (the
+reference's ``P("dp", None, None)``: the same block on every rank of an
+"ep" line) and holds E / ep experts (``moe_partition_specs``,
 ``shard_moe_params``). It routes (K9a) and dispatches (K9b) its tokens,
 sends each "ep" peer the rows of that peer's experts in one all-to-all of
 [E, G_l, C, D], runs its experts' products on what it received, brings the
@@ -51,8 +51,20 @@ slabs back with a second all-to-all and combines (K9c): y is its "dp"
 block. The aux loss is the global one, its sums over every group taken by
 a ``psum`` over "dp". Every rank of an "ep" line routes the same tokens, so
 each expert's products run once for each of the ep copies of the "dp"
-block that reach it, as the reference's layout implies; the backward
-across ranks is the next slice (ROADMAP queue 1, item 3).
+block that reach it, as the reference's layout implies.
+
+Its backward runs through the same autograd Functions (K9a'-c', the
+experts' transposes), each all-to-all's backward the inverse all-to-all
+and the aux sums' psum's backward a psum of its cotangent over "dp"; the
+experts' weight gradients stay float32 partial sums until their psum
+(``_ExpertProductPartial``). The
+rule that makes the gradients the reference's: every rank scales its
+local loss by 1 / (dp·ep) (``mesh_loss_scale``), since the global loss is
+the sum of every rank's local loss over dp·ep (each "dp" block is on ep
+ranks and the aux loss on all); then ``reduce_moe_grads`` psums each
+gradient over exactly the axes its leaf is replicated on: the router over
+"dp" and "ep", the experts over "dp", x's block over "ep". Summing the ep
+copies of an expert's rows counts each token once, with that scale.
 """
 
 from __future__ import annotations
@@ -302,14 +314,39 @@ class _ExpertProduct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, w = ctx.saved_tensors
-        E, G, C, K = a.shape
-        g = g.reshape(E, G * C, -1).float()
-        da = dw = None
-        if ctx.needs_input_grad[0]:
-            da = torch.bmm(g, w.float().transpose(1, 2)).to(a.dtype).reshape(a.shape)
-        if ctx.needs_input_grad[1]:
-            dw = torch.bmm(a.reshape(E, G * C, K).float().transpose(1, 2), g).to(w.dtype)
-        return da, dw
+        da, dw = _expert_product_grads(ctx, a, w, g)
+        return da, None if dw is None else dw.to(w.dtype)
+
+
+def _expert_product_grads(ctx, a, w, g):
+    """da rounded to a's dtype, and dw in float32 (not yet rounded)."""
+    E, G, C, K = a.shape
+    g = g.reshape(E, G * C, -1).float()
+    da = dw = None
+    if ctx.needs_input_grad[0]:
+        da = torch.bmm(g, w.float().transpose(1, 2)).to(a.dtype).reshape(a.shape)
+    if ctx.needs_input_grad[1]:
+        dw = torch.bmm(a.reshape(E, G * C, K).float().transpose(1, 2), g)
+    return da, dw
+
+
+class _ExpertProductPartial(torch.autograd.Function):
+    """The mesh form's expert product, from the float32 master weight w
+    (cast to `dtype` inside): the same forward and da as _ExpertProduct;
+    dw stays float32, this rank's partial sum, which reduce_moe_grads sums
+    over "dp" and then rounds to `dtype` once, as the one-device product's
+    dw is rounded once over every group."""
+
+    @staticmethod
+    def forward(ctx, a, w_master, dtype):
+        w = w_master.to(dtype)
+        ctx.save_for_backward(a, w)
+        return _expert_matmul(a, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        return (*_expert_product_grads(ctx, a, w, g), None)
 
 
 def moe_ffn(params: MoE, x: torch.Tensor, cfg: Optional[MoEConfig] = None,
@@ -324,8 +361,9 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: Optional[MoEConfig] = None,
 
     With `mesh` (a parallel.mesh.Mesh with axes "dp" and "ep"): x is this
     rank's "dp" block [G/dp, S, D], `params` its experts
-    (shard_moe_params), y its "dp" block and aux the global loss; forward
-    only (raises NotImplementedError under autograd).
+    (shard_moe_params), y its "dp" block and aux the global loss;
+    differentiable (the module docstring's rule: mesh_loss_scale, then
+    reduce_moe_grads after the backward).
     """
     cfg = cfg or params.cfg
     if x.dim() != 3 or x.shape[-1] != cfg.d_model:
@@ -336,11 +374,7 @@ def moe_ffn(params: MoE, x: torch.Tensor, cfg: Optional[MoEConfig] = None,
     grad = torch.is_grad_enabled() and (x.requires_grad or params.router.requires_grad
                                         or params.w1.requires_grad or params.w2.requires_grad)
     if mesh is not None:
-        if grad:
-            raise NotImplementedError(
-                "moe_ffn: the mesh form is forward only; its backward across ranks is "
-                "the next slice (ROADMAP queue 1, item 3)")
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             return _moe_ffn_mesh(params, x, cfg, mesh)
     if grad:
         return _moe_ffn_autograd(params, x, cfg)
@@ -361,11 +395,17 @@ def _moe_ffn_forward(params: MoE, x: torch.Tensor, cfg: MoEConfig):
 
 
 def _moe_ffn_mesh(params: MoE, x: torch.Tensor, cfg: MoEConfig, mesh):
-    """The forward over mesh axes "dp" and "ep": routing, dispatch and
-    combine on this rank's tokens; the [E, G_l, C, D] rows to their
-    experts' ranks and back by two all-to-alls over "ep"; the aux loss's
-    sums over every group by a psum over "dp"."""
-    ep, dp = mesh.shape["ep"], mesh.shape["dp"]
+    """moe_ffn over mesh axes "dp" and "ep", through the autograd Functions
+    (a graph only where gradients are on): routing, dispatch and combine on
+    this rank's tokens; the [E, G_l, C, D] rows to their experts' ranks and
+    back by two all-to-alls over "ep"; the aux loss's sums over every group
+    by a psum over "dp" (in _Route)."""
+    from ray_tpu_torch.parallel.mesh import Mesh, all_to_all_with_grad
+
+    if not isinstance(mesh, Mesh) or set(mesh.axis_names) != {"dp", "ep"}:
+        raise ValueError(f"moe_ffn: mesh {mesh!r} is not a ray_tpu_torch.parallel.mesh.Mesh "
+                         "with axes 'dp' and 'ep'")
+    ep = mesh.shape["ep"]
     E = cfg.n_experts
     if E % ep or params.w1.shape[0] != E // ep:
         raise ValueError(f"moe_ffn: {params.w1.shape[0]} experts on this rank, "
@@ -373,17 +413,49 @@ def _moe_ffn_mesh(params: MoE, x: torch.Tensor, cfg: MoEConfig, mesh):
     G, S, _ = x.shape
     C = _capacity(cfg, S)
     logits = torch.matmul(x.float(), params.router)  # [G, S, E]
-    _, gate, slot, token_of_slot, stats = moe_kernels.moe_route(logits, C)
-    expert_in = moe_kernels.moe_dispatch(x, token_of_slot, cfg.dtype)  # [E, G, C, D]
+    gate, aux, slot, token_of_slot = moe_kernels._Route.apply(logits, C, mesh)
+    expert_in = moe_kernels._Dispatch.apply(x, token_of_slot, slot, cfg.dtype)  # [E, G, C, D]
     # my experts' rows from every rank of the ep line: [E/ep, ep * G, C, D]
-    rows = mesh.all_to_all(expert_in, "ep", split_axis=0, concat_axis=1)
-    h = F.gelu(_expert_matmul(rows, params.w1.to(cfg.dtype)), approximate="tanh")
-    out = _expert_matmul(h.to(cfg.dtype), params.w2.to(cfg.dtype))
+    rows = all_to_all_with_grad(expert_in, mesh, "ep", 0, 1)
+    h = F.gelu(_ExpertProductPartial.apply(rows, params.w1, cfg.dtype), approximate="tanh")
+    out = _ExpertProductPartial.apply(h.to(cfg.dtype), params.w2, cfg.dtype)
     # every expert's output for my groups: [E, G, C, D]
-    out = mesh.all_to_all(out, "ep", split_axis=1, concat_axis=0)
-    y = moe_kernels.moe_combine(out, slot, gate, x.dtype)
-    sums = mesh.psum(stats.sum(0, keepdim=True), "dp")  # [1, 2, E] over every group
-    return y, moe_kernels.aux_loss(sums, dp * G * S)[1]
+    out = all_to_all_with_grad(out, mesh, "ep", 1, 0)
+    y = moe_kernels._Combine.apply(out, gate, slot, token_of_slot, x.dtype)
+    return y, aux
+
+
+def mesh_loss_scale(mesh) -> float:
+    """The factor 1 / (dp·ep) by which each rank scales its local loss
+    before the backward through moe_ffn(mesh=...) (the module docstring's
+    rule)."""
+    return 1.0 / (mesh.shape["dp"] * mesh.shape["ep"])
+
+
+def reduce_moe_grads(params: MoE, mesh, x: Optional[torch.Tensor] = None) -> None:
+    """After a backward of the local loss scaled by mesh_loss_scale: each
+    gradient psummed, in place, over exactly the axes its leaf is
+    replicated on: the router's, w1's and w2's over "dp" (one flat float32
+    buffer; the experts' float32 partial sums rounded to the expert dtype
+    after it, as the one-device layer rounds their sum once), then the
+    router's and x's (when given, x requiring a gradient) over "ep" (a
+    second). The results are the same bits on every rank that holds the
+    leaf."""
+    grads = [params.router.grad, params.w1.grad, params.w2.grad]
+    if any(g is None for g in grads):
+        raise ValueError("reduce_moe_grads: run a backward through moe_ffn(mesh=...) first")
+    flat = mesh.psum(torch.cat([g.reshape(-1) for g in grads]), "dp")
+    at = 0
+    for i, g in enumerate(grads):
+        part = flat[at:at + g.numel()].view_as(g)
+        g.copy_(part if i == 0 else part.to(params.cfg.dtype))
+        at += g.numel()
+    over_ep = [params.router.grad] + ([] if x is None else [x.grad])
+    flat = mesh.psum(torch.cat([g.reshape(-1).float() for g in over_ep]), "ep")
+    at = 0
+    for g in over_ep:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
 
 
 def _moe_ffn_autograd(params: MoE, x: torch.Tensor, cfg: MoEConfig):

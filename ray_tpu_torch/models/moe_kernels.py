@@ -25,8 +25,10 @@ jax.grad jaxpr forms it (``tests/test_parallel.py:179``):
                          dot product, in one launch
 
 ``_Route``, ``_Dispatch`` and ``_Combine`` are autograd Functions whose
-forwards are K9a-c and whose backwards are K9a'-c'; the layer uses them
-only when it is trained.
+forwards are K9a-c and whose backwards are K9a'-c'; the layer on one device
+uses them only when it is trained, its mesh form always (``_Route`` takes
+the mesh then: the aux loss's sums are psummed over "dp" and its
+cotangent too, the psum's transpose).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback from one to the other.
@@ -47,7 +49,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -341,12 +343,12 @@ def aux_loss(stats: torch.Tensor, n_tokens: int):
 
 
 def _route_bwd_plain(logits: torch.Tensor, d_gate: torch.Tensor, frac_tokens: torch.Tensor,
-                     d_aux: torch.Tensor) -> torch.Tensor:
+                     d_aux: torch.Tensor, n_tokens: Optional[int] = None) -> torch.Tensor:
     """Plain version of K9a', the jaxpr of jax.vjp(moe_ffn) from the gate's
     and aux's cotangents back to the logits, step for step: e = exp(l -
     max) and u = sum_e e as softmax_plain; the gate's cotangent d_gate /
     count on each expert tied at the max (jnp.max's rule); the aux term
-    (frac_tokens * (E * d_aux)) / (G*S), a true division, added to it;
+    (frac_tokens * (E * d_aux)) / n_tokens, a true division, added to it;
     then d_logits = (dp / u + -(sum_e (dp * (1 / (u*u))) * e)) * e."""
     G, S, E = logits.shape
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
@@ -357,7 +359,8 @@ def _route_bwd_plain(logits: torch.Tensor, d_gate: torch.Tensor, frac_tokens: to
     probs = e / u
     tie = (probs == probs.amax(-1, keepdim=True)).float()
     # a device tensor, so that the division is a true division on the card
-    n = torch.full((), float(G * S), dtype=torch.float32, device=logits.device)
+    n = torch.full((), float(G * S if n_tokens is None else n_tokens), dtype=torch.float32,
+                   device=logits.device)
     z = d_aux.reshape(()) * float(E)
     dp = (frac_tokens * z) / n + (d_gate[..., None] / tie.sum(-1, keepdim=True)) * tie
     t = (dp * (1.0 / (u * u))) * e
@@ -368,12 +371,14 @@ def _route_bwd_plain(logits: torch.Tensor, d_gate: torch.Tensor, frac_tokens: to
 
 
 def moe_route_bwd(logits: torch.Tensor, d_gate: torch.Tensor, frac_tokens: torch.Tensor,
-                  d_aux: torch.Tensor) -> torch.Tensor:
+                  d_aux: torch.Tensor, n_tokens: Optional[int] = None) -> torch.Tensor:
     """K9a'. The gradient of K9a's gate and of the aux loss through the
     softmax: logits [G, S, E] float32 (the forward's), d_gate [G, S]
     float32, frac_tokens [E] float32 (the aux loss's token shares, no
     gradient) and d_aux (one float32 element, on the device) -> d_logits
-    [G, S, E] float32. One launch on the card: a group of the next power
+    [G, S, E] float32. `n_tokens`: the tokens the aux loss averages over,
+    G*S unless they span more groups than these (the mesh form's). One
+    launch on the card: a group of the next power
     of two >= E lanes a token (lanes past E idle), one lane an expert; past
     32 experts one warp a token, two experts a lane."""
     dev = device_of(logits, d_gate, frac_tokens, d_aux)
@@ -384,14 +389,15 @@ def moe_route_bwd(logits: torch.Tensor, d_gate: torch.Tensor, frac_tokens: torch
         raise ValueError(f"moe_route_bwd: d_gate {tuple(d_gate.shape)}, frac_tokens "
                          f"{tuple(frac_tokens.shape)}, d_aux {tuple(d_aux.shape)} (float32 "
                          f"[{G}, {S}], [{E}] and one element needed)")
+    n_tokens = G * S if n_tokens is None else int(n_tokens)
     if dev.type == "cpu":
-        return _route_bwd_plain(logits, d_gate, frac_tokens, d_aux)
+        return _route_bwd_plain(logits, d_gate, frac_tokens, d_aux, n_tokens)
     _check_contiguous("moe_route_bwd", logits, d_gate, frac_tokens, d_aux)
     lib = LIBRARY.load()
     d_logits = torch.empty_like(logits)
     with torch.cuda.device(dev):
         rc = lib.moe_route_bwd(logits.data_ptr(), d_gate.data_ptr(), frac_tokens.data_ptr(),
-                               d_aux.data_ptr(), d_logits.data_ptr(), G, S, E, float(G * S),
+                               d_aux.data_ptr(), d_logits.data_ptr(), G, S, E, float(n_tokens),
                                current_stream(dev))
     _check(lib, rc, "moe_route_bwd")
     moe_route_bwd.launches += 1
@@ -517,20 +523,32 @@ class _Route(torch.autograd.Function):
     """K9a and the aux loss, with K9a' as the backward. The outputs with a
     gradient are the gate and the aux loss itself (not the probability
     sums), so that the backward sees aux's cotangent and takes the
-    reference's true division by G*S; slot and token_of_slot carry none."""
+    reference's true division by the tokens; slot and token_of_slot carry
+    none. With a mesh (axis "dp"), logits are this rank's groups: the
+    sums over every group are a psum over "dp" of the rank's, and the
+    backward psums aux's cotangent over "dp", the psum's transpose."""
 
     @staticmethod
-    def forward(ctx, logits, capacity):
+    def forward(ctx, logits, capacity, mesh=None):
         _, gate, slot, token_of_slot, stats = moe_route(logits, capacity)
-        frac_tokens, aux = aux_loss(stats, logits.shape[0] * logits.shape[1])
+        n = logits.shape[0] * logits.shape[1]
+        if mesh is not None:
+            stats = mesh.psum(stats.sum(0, keepdim=True), "dp")  # [1, 2, E], every group
+            n *= mesh.shape["dp"]
+        frac_tokens, aux = aux_loss(stats, n)
         ctx.save_for_backward(logits, frac_tokens)
+        ctx.mesh, ctx.n = mesh, n
         ctx.mark_non_differentiable(slot, token_of_slot)
         return gate, aux, slot, token_of_slot
 
     @staticmethod
     def backward(ctx, d_gate, d_aux, _slot, _token_of_slot):
         logits, frac_tokens = ctx.saved_tensors
-        return moe_route_bwd(logits, d_gate.contiguous(), frac_tokens, d_aux.contiguous()), None
+        d_aux = d_aux.reshape(1).contiguous()
+        if ctx.mesh is not None:
+            d_aux = ctx.mesh.psum(d_aux, "dp")
+        return moe_route_bwd(logits, d_gate.contiguous(), frac_tokens, d_aux,
+                             ctx.n), None, None
 
 
 class _Dispatch(torch.autograd.Function):

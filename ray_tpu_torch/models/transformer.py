@@ -29,8 +29,33 @@ With autograd enabled each block runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` on the scan
 body): the backward recomputes a block's forward instead of keeping its
 activations. ``loss_fn`` is differentiable; training lives in
-``ray_tpu_torch.parallel.tpu_train``. Sharding (``param_partition_specs``)
-belongs to the dp x tp train step across ranks (ROADMAP queue 1, item 3).
+``ray_tpu_torch.parallel.tpu_train``.
+
+Tensor parallelism (``mesh=``, a ``parallel.mesh.Mesh`` with axis "tp"):
+the Megatron layout of ``param_partition_specs``. Each rank holds a
+``Transformer`` built with ``tp`` whose leaves are its shards
+(``shard_params``; ``gather_params`` is the inverse): ``wqkv`` and ``w1``
+column-parallel, ``wo`` and ``w2`` row-parallel, ``embed`` split by columns,
+``unembed`` by rows, the norm scales whole. ``wqkv``'s block is the rank's
+H/tp heads' q, k and v columns, so K10b and K8 run unchanged on its heads
+and ``wo``'s row block lines up with them; it is the one leaf whose block
+differs from what the reference's ``NamedSharding`` gives the rank (that
+is columns [t·3D/tp, (t+1)·3D/tp), all of q and half of k at tp = 2, which
+XLA reshards). The collectives are ``parallel.mesh``'s conjugate pair: a
+block's input goes through ``copy_to`` (its backward psums over "tp"), and
+``wo``'s and ``w2``'s partial products through one ``reduce_from`` each. The
+partial products are float32 (the dtype-rounded values multiplied and
+summed in float32, ``torch.mm(..., out_dtype=float32)`` on the card), summed
+in float32 by the psum and rounded to the dtype once after it, as the
+one-device product rounds once; the sum's order is the only difference.
+The embedding is looked up on the rank's D/tp columns and all-gathered;
+the unembedding all-gathers ``unembed``'s [D/tp, V] rows (in the dtype) and
+multiplies on every rank, its backward keeping the rank's slice of the
+weight's gradient: a gather of V·D/tp values a step, where a psum of the
+partial float32 logits would move [B, S, V]. Every rank of a "tp" line then
+holds the same residual stream, norms, logits and loss, bit for bit, and
+the norm scales' gradients too. The recompute repeats the forward's
+collectives in the backward, in one order on every rank.
 """
 
 from __future__ import annotations
@@ -69,19 +94,21 @@ class TransformerConfig:
 _LAYER_KEYS = ("wqkv", "wo", "w1", "w2", "ln1", "ln2")
 
 
-def _layer_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
+def _layer_shapes(cfg: TransformerConfig, tp: int = 1) -> Dict[str, tuple]:
+    """A block's leaves' shapes; with tp, one rank's shards."""
     D, F_ = cfg.d_model, cfg.d_ff
-    return {"wqkv": (D, 3 * D), "wo": (D, D), "w1": (D, F_), "w2": (F_, D),
-            "ln1": (D,), "ln2": (D,)}
+    return {"wqkv": (D, 3 * D // tp), "wo": (D // tp, D), "w1": (D, F_ // tp),
+            "w2": (F_ // tp, D), "ln1": (D,), "ln2": (D,)}
 
 
 class Block(nn.Module):
-    """One transformer block's float32 weights (norm scales start at 1)."""
+    """One transformer block's float32 weights (norm scales start at 1);
+    with tp, one rank's shards."""
 
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    def __init__(self, cfg: TransformerConfig, device: torch.device, tp: int = 1):
         super().__init__()
         self.cfg = cfg
-        for name, shape in _layer_shapes(cfg).items():
+        for name, shape in _layer_shapes(cfg, tp).items():
             init = torch.ones if name.startswith("ln") else torch.zeros
             setattr(self, name, nn.Parameter(
                 init(shape, dtype=torch.float32, device=device), requires_grad=False))
@@ -92,19 +119,22 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """The flagship transformer's parameters and forward. Built on the card
-    unless `device` says otherwise (raises without one)."""
+    unless `device` says otherwise (raises without one). `tp`: the size of
+    the "tp" axis whose rank's shards it holds (shard_params), 1 for the
+    whole model."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, tp: int = 1):
         super().__init__()
         dev = resolve_device(device, what="the transformer")
+        _check_tp(cfg, tp)
         if dev.type == "cuda":
             kernels.LIBRARY.load()  # build the kernels now, not in the first call
-        self.cfg = cfg
+        self.cfg, self.tp = cfg, tp
         V, D = cfg.vocab_size, cfg.d_model
-        self.embed = nn.Parameter(torch.zeros((V, D), device=dev), requires_grad=False)
-        self.unembed = nn.Parameter(torch.zeros((D, V), device=dev), requires_grad=False)
+        self.embed = nn.Parameter(torch.zeros((V, D // tp), device=dev), requires_grad=False)
+        self.unembed = nn.Parameter(torch.zeros((D // tp, V), device=dev), requires_grad=False)
         self.ln_f = nn.Parameter(torch.ones((D,), device=dev), requires_grad=False)
-        self.blocks = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, dev, tp) for _ in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
@@ -112,6 +142,12 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self, tokens, self.cfg)
+
+
+def _check_tp(cfg: TransformerConfig, tp: int) -> None:
+    if tp < 1 or cfg.n_heads % tp or cfg.d_ff % tp:
+        raise ValueError(f"tp={tp} does not divide the {cfg.n_heads} heads and d_ff "
+                         f"{cfg.d_ff}")
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
@@ -242,6 +278,102 @@ def grads_to_numpy(model: Transformer) -> Dict:
     return _tree(model, lambda p: p.grad)
 
 
+# ------------------------------------------------------------ tensor parallel
+
+
+def param_partition_specs(cfg: TransformerConfig) -> Dict:
+    """The reference's Megatron layout over mesh axis "tp" as tuples of
+    axis names, one entry a dimension of the reference's leaf (layers
+    stacked first; None: not split)."""
+    return {
+        "embed": (None, "tp"),
+        "unembed": ("tp", None),
+        "ln_f": (None,),
+        "layers": {
+            "wqkv": (None, None, "tp"),  # column parallel
+            "wo": (None, "tp", None),    # row parallel
+            "w1": (None, None, "tp"),
+            "w2": (None, "tp", None),
+            "ln1": (None, None),
+            "ln2": (None, None),
+        },
+    }
+
+
+def _qkv_columns(D: int, tp: int, t: int) -> np.ndarray:
+    """The columns of wqkv [D, 3D] that tp rank t holds: its H/tp heads'
+    q, then k, then v columns."""
+    own = np.arange(t * D // tp, (t + 1) * D // tp)
+    return np.concatenate([own, D + own, 2 * D + own])
+
+
+def _shard(a: np.ndarray, name: str, spec: tuple, D: int, tp: int, t: int) -> np.ndarray:
+    """Rank t's block of the reference's leaf `a` under `spec`."""
+    if "tp" not in spec:
+        return a
+    if name == "wqkv":
+        return a[..., _qkv_columns(D, tp, t)]
+    dim = spec.index("tp")
+    n = a.shape[dim] // tp
+    return np.take(a, np.arange(t * n, (t + 1) * n), axis=dim)
+
+
+def shard_params(params, cfg: TransformerConfig, mesh) -> Transformer:
+    """This rank's shard of every leaf by param_partition_specs, from a
+    Transformer or the reference's numpy tree of the whole model, on the
+    mesh's device, copied bit for bit: a Transformer built with tp =
+    mesh.shape["tp"]. wqkv's block is the rank's heads' q, k and v
+    columns, not the reference's NamedSharding block (module docstring)."""
+    tree = to_numpy(params) if isinstance(params, Transformer) else params
+    tp, t = mesh.shape["tp"], mesh.axis_index("tp")
+    specs, D = param_partition_specs(cfg), cfg.d_model
+    local = {k: _shard(np.asarray(tree[k], np.float32), k, specs[k], D, tp, t)
+             for k in ("embed", "unembed", "ln_f")}
+    local["layers"] = {k: _shard(np.asarray(tree["layers"][k], np.float32), k,
+                                 specs["layers"][k], D, tp, t) for k in _LAYER_KEYS}
+    model = Transformer(cfg, mesh.device, tp=tp)
+    with torch.no_grad():
+        for key in ("embed", "unembed", "ln_f"):
+            getattr(model, key).copy_(torch.from_numpy(np.ascontiguousarray(local[key])))
+        for key in _LAYER_KEYS:
+            for blk, a in zip(model.blocks, local["layers"][key]):
+                getattr(blk, key).copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return model
+
+
+def gather_params(model: Transformer, mesh) -> Dict:
+    """The inverse of shard_params: the reference's numpy tree of the whole
+    model, on every rank. A collective over "tp": every rank's sharded
+    leaves in one flat all-gather."""
+    cfg, tp = model.cfg, mesh.shape["tp"]
+    if model.tp != tp:
+        raise ValueError(f"gather_params: shards of tp={model.tp} on a mesh of tp={tp}")
+    mine = to_numpy(model)
+    specs, D = param_partition_specs(cfg), cfg.d_model
+    split = [("embed", mine["embed"], specs["embed"]),
+             ("unembed", mine["unembed"], specs["unembed"])]
+    split += [(k, mine["layers"][k], specs["layers"][k]) for k in _LAYER_KEYS
+              if "tp" in specs["layers"][k]]
+    flat = torch.from_numpy(np.concatenate([a.reshape(-1) for _, a, _ in split]))
+    every = mesh.all_gather(flat.to(mesh.device), "tp").reshape(tp, -1).cpu().numpy()
+    whole = {"ln_f": mine["ln_f"], "layers": {k: mine["layers"][k] for k in ("ln1", "ln2")}}
+    at = 0
+    for name, a, spec in split:
+        parts = [every[t, at:at + a.size].reshape(a.shape) for t in range(tp)]
+        at += a.size
+        if name == "wqkv":
+            full = np.empty(a.shape[:-1] + (3 * D,), np.float32)
+            for t, part in enumerate(parts):
+                full[..., _qkv_columns(D, tp, t)] = part
+        else:
+            full = np.concatenate(parts, axis=spec.index("tp"))
+        if name in ("embed", "unembed"):
+            whole[name] = full
+        else:
+            whole["layers"][name] = full
+    return whole
+
+
 # ------------------------------------------------------------------ forward
 
 
@@ -261,8 +393,10 @@ def _attention(q, k, v, cfg: TransformerConfig):
     return kernels.attention(q, k, v, causal=True, round_probs=True)
 
 
-def _layer(x, blk: Block, cfg: TransformerConfig):
+def _layer(x, blk: Block, cfg: TransformerConfig, mesh=None):
     """One transformer block. x: [B, S, D] in cfg.dtype."""
+    if mesh is not None:
+        return _layer_tp(x, blk, cfg, mesh)
     B, S, D = x.shape
     h = _rmsnorm(x, blk.ln1)
     qkv = torch.matmul(h, blk.wqkv.to(cfg.dtype))
@@ -274,22 +408,84 @@ def _layer(x, blk: Block, cfg: TransformerConfig):
     return x + torch.matmul(ff, blk.w2.to(cfg.dtype))
 
 
+class _PartialProduct(torch.autograd.Function):
+    """a [B, S, K] @ w [K, N], both in the dtype, as a float32 partial sum
+    of a row-parallel product: the dtype-rounded values multiplied and
+    summed in float32 (_unembed_product). Its backward is the one-device
+    product's: the cotangent (the dtype's values, widened by the cast after
+    the psum) back in the dtype, da = g @ w^T and dw = a^T @ g as dtype
+    products."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return _unembed_product(a, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        B, S, K = a.shape
+        g2 = g.reshape(B * S, -1).to(a.dtype)
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g2, w.t()).reshape(B, S, K)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(a.reshape(B * S, K).t(), g2)
+        return da, dw
+
+
+def _layer_tp(x, blk: Block, cfg: TransformerConfig, mesh):
+    """One block on a rank's shards: x [B, S, D] whole (the same on every
+    rank of the "tp" line), the rank's H/tp heads, and one psum over "tp"
+    after each row-parallel product."""
+    from ray_tpu_torch.parallel.mesh import copy_to, reduce_from
+
+    B, S, D = x.shape
+    tp = mesh.shape["tp"]
+    h = copy_to(_rmsnorm(x, blk.ln1), mesh, "tp")
+    qkv = torch.matmul(h, blk.wqkv.to(cfg.dtype))  # [B, S, 3D/tp]: the rank's heads
+    q, k, v = kernels.rope_split(qkv, cfg.n_heads // tp, cfg.rope_theta)
+    attn = _attention(q, k, v, cfg).reshape(B, S, D // tp)
+    part = _PartialProduct.apply(attn, blk.wo.to(cfg.dtype))
+    x = x + reduce_from(part, mesh, "tp").to(cfg.dtype)
+    h = copy_to(_rmsnorm(x, blk.ln2), mesh, "tp")
+    ff = F.gelu(torch.matmul(h, blk.w1.to(cfg.dtype)), approximate="tanh")
+    part = _PartialProduct.apply(ff, blk.w2.to(cfg.dtype))
+    return x + reduce_from(part, mesh, "tp").to(cfg.dtype)
+
+
+def _check_mesh_model(params: "Transformer", mesh) -> None:
+    if "tp" not in mesh.shape or params.tp != mesh.shape["tp"]:
+        raise ValueError(f"forward: shards of tp={params.tp} on a mesh of "
+                         f"{dict(mesh.shape)} (shard_params over the mesh's \"tp\" needed)")
+
+
 def forward(params: Transformer, tokens: torch.Tensor,
-            cfg: Optional[TransformerConfig] = None) -> torch.Tensor:
+            cfg: Optional[TransformerConfig] = None, mesh=None) -> torch.Tensor:
     """tokens [B, S] (int) -> logits [B, S, V] float32. With autograd
     enabled each block is recomputed in the backward (checkpointed), as
-    the reference's jax.checkpoint does; ln_f and the unembedding are not."""
+    the reference's jax.checkpoint does; ln_f and the unembedding are not.
+    With `mesh`, params are this rank's shards (shard_params) and every
+    rank of the "tp" line returns the same logits (module docstring)."""
     cfg = cfg or params.cfg
-    x = params.embed.to(cfg.dtype)[tokens]
+    if mesh is None:
+        x = params.embed.to(cfg.dtype)[tokens]
+        unembed = params.unembed.to(cfg.dtype)
+    else:
+        from ray_tpu_torch.parallel.mesh import gather_from
+
+        _check_mesh_model(params, mesh)
+        x = gather_from(params.embed.to(cfg.dtype)[tokens], mesh, "tp", dim=-1)
+        unembed = gather_from(params.unembed.to(cfg.dtype), mesh, "tp", dim=0)
     remat = torch.is_grad_enabled()
     for blk in params.blocks:
         if remat:
-            x = checkpoint(_layer, x, blk, cfg, use_reentrant=False,
+            x = checkpoint(_layer, x, blk, cfg, mesh, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _layer(x, blk, cfg)
+            x = _layer(x, blk, cfg, mesh)
     x = _rmsnorm(x, params.ln_f)
-    return _Unembed.apply(x, params.unembed.to(cfg.dtype))
+    return _Unembed.apply(x, unembed)
 
 
 def _unembed_product(x, w):
@@ -330,12 +526,14 @@ class _Unembed(torch.autograd.Function):
 
 
 def loss_fn(params: Transformer, batch: Dict,
-            cfg: Optional[TransformerConfig] = None) -> torch.Tensor:
+            cfg: Optional[TransformerConfig] = None, mesh=None) -> torch.Tensor:
     """Next-token cross-entropy. batch: {"tokens": [B, S]}. Differentiable:
     ``loss_fn(...).backward()`` leaves jax.grad(loss_fn)'s counterpart in
-    the parameters' ``.grad`` (for those with requires_grad)."""
+    the parameters' ``.grad`` (for those with requires_grad). With `mesh`,
+    the loss of these tokens on this rank's shards (forward), and the
+    gradients of its shards."""
     tokens = batch["tokens"]
-    logits = forward(params, tokens[:, :-1], cfg)
+    logits = forward(params, tokens[:, :-1], cfg, mesh)
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, targets[..., None])[..., 0]

@@ -19,6 +19,15 @@ one ``all_to_all_single`` with uneven splits: a rank sends its whole tensor
 to its one target and receives from its one source, every other split
 empty; and ``all_to_all`` stacks its chunks into one ``all_to_all_single``.
 
+The methods are not differentiable. Training across ranks goes through the
+module's functions, each an autograd Function whose backward is its
+collective's transpose: Megatron's conjugate pair ``copy_to`` (identity,
+psum backward) and ``reduce_from`` (psum, identity backward);
+``gather_from`` (all-gather, this rank's slice backward) and ``scatter_to``
+(this rank's slice, all-gather backward); and ``all_to_all_with_grad``,
+whose backward is the inverse all-to-all. They call the methods, so the
+methods stay the one place that calls ``torch.distributed``.
+
 Axis conventions (the reference's):
   "dp"  data parallel      "tp"  tensor parallel   "sp"  sequence parallel
   "pp"  pipeline stages    "ep"  expert parallel
@@ -158,6 +167,107 @@ class Mesh:
         dist.all_to_all_single(out, inp, output_split_sizes=out_splits,
                                input_split_sizes=in_splits, group=g)
         return out.reshape(x.shape) if src else torch.zeros_like(x)
+
+
+# ------------------------------------------------ collectives with gradients
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.psum(g, ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _my_slice(mesh: Mesh, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over axis "
+                         f"{axis!r} of size {n}")
+    return x.chunk(n, dim=dim)[mesh.axis_index(axis)].contiguous()
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(x, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _my_slice(ctx.mesh, g, ctx.axis, ctx.dim), None, None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _my_slice(mesh, x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g.contiguous(), ctx.axis, dim=ctx.dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, split_axis, concat_axis)
+        return mesh.all_to_all(x, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        # the inverse exchange: what came from coordinate j goes back to it
+        return mesh.all_to_all(g.contiguous(), axis, concat_axis, split_axis), None, None, \
+            None, None
+
+
+def copy_to(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """`x`, replicated over `axis`, as the input of work split over it
+    (Megatron's f): the identity forward; the backward psums the cotangent
+    over `axis`, so that every rank of the line gets the whole gradient."""
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The psum over `axis` of partial results (Megatron's g), the same bits
+    on every rank; the backward passes the cotangent through, which every
+    rank of the line holds whole."""
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def gather_from(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """``Mesh.all_gather`` along `dim`; the backward takes this rank's slice
+    of the cotangent, which every rank of the line holds whole."""
+    return _GatherFrom.apply(x, mesh, axis, dim)
+
+
+def scatter_to(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's slice along `dim` of `x`, replicated over `axis`; the
+    backward all-gathers the slices' cotangents."""
+    return _ScatterTo.apply(x, mesh, axis, dim)
+
+
+def all_to_all_with_grad(x: torch.Tensor, mesh: Mesh, axis: str, split_axis: int,
+                         concat_axis: int) -> torch.Tensor:
+    """``Mesh.all_to_all``; the backward is the inverse all-to-all (split
+    along `concat_axis`, concatenated along `split_axis`)."""
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
 
 
 def make_mesh(axes: Sequence[str] = ("dp", "tp"), shape: Optional[Sequence[int]] = None,

@@ -1,20 +1,31 @@
 """The compute payload the framework orchestrates: the port of
 ray_tpu/parallel/tpu_train.py.
 
-This slice ports the single-device forward step and the training step on
-one device: ``make_optimizer`` (AdamW, in optax.adamw's order of
-operations), ``make_train_state`` and ``make_train_step``, with the
-reference's names and signatures. The reference's step is one jitted SPMD
-program over a mesh; here it is the forward and backward of ``loss_fn``
-(autograd, with the model's hand-written backward kernels) and the
-optimizer's update, in place, on one device. A mesh of more than one
-device raises: the sharded step is ROADMAP queue 1, item 3.
+The single-device forward step and the training step: ``make_optimizer``
+(AdamW, in optax.adamw's order of operations), ``make_train_state`` and
+``make_train_step``, with the reference's names and signatures. The
+reference's step is one jitted SPMD program over a mesh; here it is the
+forward and backward of ``loss_fn`` (autograd, with the model's
+hand-written backward kernels) and the optimizer's update, in place.
+
+Over a port mesh (``parallel.mesh.Mesh`` with axes "dp" and "tp") every
+rank runs the same step on its shards (``models.transformer.shard_params``,
+the Megatron layout of ``param_partition_specs``): its "dp" block of the
+batch, the "tp" collectives inside the forward and its recompute, then one
+psum over "dp" of a flat buffer of every gradient and the loss, divided by
+dp, and AdamW on the shards, its moments mirroring them. The conjugate "tp"
+collectives give the leaves replicated over "tp" (the norm scales) the
+same gradient on every rank of the line, so nothing is summed over "tp"
+again; and the psum's result is the same bits on every rank, so every
+replicated leaf stays bit-equal across the ranks that hold it. A weight's
+gradient on a rank is its product's own, rounded to the dtype as the
+one-device step's is (for its "dp" block), before the float32 psum.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -28,13 +39,13 @@ from ray_tpu_torch.models.transformer import (
     init_params,
     loss_fn,
     numpy_params,
+    param_partition_specs,
     params_from_numpy,
+    shard_params,
     to_numpy,
 )
+from ray_tpu_torch.parallel.mesh import Mesh
 from ray_tpu_torch.util.device import resolve_device
-
-_MESH_TODO = ("ray_tpu_torch: the training state and step run on one device; a mesh of "
-              "{} devices (the sharded dp x tp step) is ROADMAP.md queue 1, item 3")
 
 # the port's train step (card or CPU) against the JAX package's one-step
 # golden (tests/data/train_golden.npz; train_golden_errors): loss atol;
@@ -69,10 +80,24 @@ def _mesh_size(mesh) -> int:
     return int(size)
 
 
-def _check_mesh(mesh) -> None:
-    n = _mesh_size(mesh)
-    if n != 1:
-        raise NotImplementedError(_MESH_TODO.format(n))
+def _check_mesh(cfg: TransformerConfig, mesh) -> Optional[Mesh]:
+    """The port mesh to shard over, or None for one device (no mesh, or a
+    mesh of one device of any kind). Raises ValueError for a larger mesh
+    that is not a port Mesh with axes ("dp", "tp"), or whose tp does not
+    divide the heads and d_ff."""
+    if mesh is None or (not isinstance(mesh, Mesh) and _mesh_size(mesh) == 1):
+        return None
+    if not isinstance(mesh, Mesh):
+        raise ValueError(f"a mesh of {_mesh_size(mesh)} devices must be a "
+                         f"ray_tpu_torch.parallel.mesh.Mesh, not {type(mesh).__name__}")
+    if mesh.axis_names != ("dp", "tp"):
+        raise ValueError(f"the train step's mesh has axes {mesh.axis_names}, "
+                         "('dp', 'tp') needed")
+    tp = mesh.shape["tp"]
+    if cfg.n_heads % tp or cfg.d_ff % tp:
+        raise ValueError(f"tp={tp} does not divide the {cfg.n_heads} heads and d_ff "
+                         f"{cfg.d_ff}")
+    return mesh
 
 
 @dataclasses.dataclass
@@ -148,37 +173,82 @@ def make_train_state(cfg: TransformerConfig, mesh=None, seed: int = 0, lr: float
     """(params, opt_state, tx, param_shardings) as the reference returns
     them: the model from ``init_params`` with a CPU ``torch.Generator``
     seeded with `seed` (the same weights on any device), with
-    requires_grad on; AdamW's zero state; the optimizer; and None for the
-    shardings. `mesh` is None or a one-device mesh; larger meshes raise
-    NotImplementedError. Runs on the card unless `device` says otherwise."""
-    _check_mesh(mesh)
-    dev = resolve_device(device, what="make_train_state")
-    params = init_params(cfg, torch.Generator().manual_seed(seed), device=dev)
-    params.requires_grad_(True)
+    requires_grad on; AdamW's zero state; the optimizer; and the
+    shardings. Without a mesh (or with one of one device) the shardings are
+    None and it runs on the card unless `device` says otherwise. Over a
+    port Mesh with axes ("dp", "tp"), every rank draws the whole model from
+    the seed and keeps its shard (shard_params) on the mesh's device, so
+    its leaves equal the one-device state's slices; the shardings are
+    param_partition_specs(cfg). Raises ValueError for other meshes of more
+    than one device (_check_mesh)."""
+    mesh = _check_mesh(cfg, mesh)
     tx = make_optimizer(lr)
-    return params, tx.init(params), tx, None
+    if mesh is None:
+        dev = resolve_device(device, what="make_train_state")
+        params = init_params(cfg, torch.Generator().manual_seed(seed), device=dev)
+        shardings = None
+    else:
+        whole = init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+        params = shard_params(whole, cfg, mesh)
+        shardings = param_partition_specs(cfg)
+    params.requires_grad_(True)
+    return params, tx.init(params), tx, shardings
 
 
 def make_train_step(cfg: TransformerConfig, mesh, tx: AdamW, param_shardings=None):
-    """Returns (train_step, batch_sharding=None). train_step(params,
-    opt_state, batch) -> (params, opt_state, loss): the gradients set to
-    None, loss_fn's forward and backward, and the optimizer's update, in
-    place on params and opt_state (the reference donates both). batch is
-    {"tokens": [B, S + 1]} as a numpy array or a tensor; the loss is a
-    0-d float32 tensor on the params' device."""
-    _check_mesh(mesh)
+    """Returns (train_step, batch_sharding). train_step(params, opt_state,
+    batch) -> (params, opt_state, loss): the gradients set to None,
+    loss_fn's forward and backward, and the optimizer's update, in place on
+    params and opt_state (the reference donates both). batch is {"tokens":
+    [B, S + 1]} as a numpy array or a tensor; the loss is a 0-d float32
+    tensor on the params' device.
+
+    Over a port Mesh with axes ("dp", "tp") (_check_mesh), params are the
+    rank's shards (make_train_state) and batch is the global batch, as the
+    reference's step takes it: every rank passes the same tokens and takes
+    its "dp" block (rows [i B/dp, (i+1) B/dp) at axis_index("dp") = i), which
+    batch_sharding = ("dp", None) names. The loss is the global mean, the
+    psum over "dp" of the local means divided by dp; every gradient is
+    psummed over "dp" and divided by dp, all of them and the loss in one
+    flat float32 buffer, one collective a step. Without a mesh
+    batch_sharding is None."""
+    mesh = _check_mesh(cfg, mesh)
 
     def train_step(params: Transformer, opt_state: AdamWState, batch: Dict):
         tokens = torch.as_tensor(batch["tokens"], device=params.device)
+        if mesh is not None:
+            dp, i = mesh.shape["dp"], mesh.axis_index("dp")
+            if tokens.shape[0] % dp:
+                raise ValueError(f"train_step: a batch of {tokens.shape[0]} over dp={dp}")
+            n = tokens.shape[0] // dp
+            tokens = tokens[i * n:(i + 1) * n]
         for p in params.parameters():
             p.grad = None
         with torch.enable_grad():
-            loss = loss_fn(params, {"tokens": tokens}, cfg)
+            loss = loss_fn(params, {"tokens": tokens}, cfg, mesh)
             loss.backward()
+        loss = loss.detach()
+        if mesh is not None and mesh.shape["dp"] > 1:
+            loss = _mean_over_dp(params, loss, mesh)
         tx.update(params, opt_state)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
-    return train_step, None
+    return train_step, (None if mesh is None else ("dp", None))
+
+
+def _mean_over_dp(params: Transformer, loss: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every gradient of params and the loss averaged over "dp", in place
+    for the gradients: one psum of one flat float32 buffer, divided by dp
+    (the leaves in named_parameters' order, the same offsets on every rank
+    of a "tp" line). Returns the mean loss."""
+    grads = [p.grad for p in params.parameters()]
+    flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.reshape(1).float()])
+    flat = mesh.psum(flat, "dp").div_(mesh.shape["dp"])
+    at = 0
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    return flat[at].clone()
 
 
 def opt_state_to_numpy(opt_state: AdamWState) -> Dict:

@@ -1,5 +1,5 @@
 """Every strategy across ranks at small shapes: the port's counterpart of
-``__graft_entry__.dryrun_multichip`` without the dp x tp train step.
+``__graft_entry__.dryrun_multichip``.
 
     python -m ray_tpu_torch.scripts.dryrun_multichip 4            # on the card
     python -m ray_tpu_torch.scripts.dryrun_multichip 4 --device cpu
@@ -8,6 +8,9 @@ Spawns `n_ranks` processes with a file rendezvous, one gloo process group
 (CPU tensors, or CUDA tensors staged through the host by gloo; rank r on
 card r modulo the cards there are, so several ranks may share one card).
 Each rank runs the reference's checks over meshes of every rank:
+  - the dp x tp train step (float32: vocab 512, d_model 128, tp * 2 heads,
+    2 layers, d_ff 256, tokens [dp * 2, 33] from a seed), its loss finite
+    and within 1e-5 of the one-rank step's on the same weights and tokens;
   - ring attention over "sp" against the unsharded reference attention;
   - Ulysses over "sp" against the same;
   - the pipeline over "pp" against the stages applied in sequence;
@@ -31,6 +34,7 @@ import numpy as np
 
 R = 16  # resource columns of the scheduler's problem
 TOL = 1e-4  # the reference's rtol and atol for sp (float32)
+TRAIN_TOL = 1e-5  # the dp x tp step's loss against the one-rank step's (float32)
 
 
 def _sched_problem(n_ranks: int):
@@ -58,7 +62,9 @@ def _checks(n: int, rank: int, dev) -> dict:
     import torch
 
     from ray_tpu_torch.models import moe as PM
-    from ray_tpu_torch.parallel import make_mesh, pipeline_apply, ulysses_attention
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.parallel import make_mesh, make_train_state, make_train_step
+    from ray_tpu_torch.parallel import pipeline_apply, ulysses_attention
     from ray_tpu_torch.parallel.pipeline import reference_pipeline
     from ray_tpu_torch.parallel.ring_attention import reference_attention, ring_attention
     from ray_tpu_torch.sched import kernel_shard as KS, kernel_torch as KT
@@ -67,6 +73,24 @@ def _checks(n: int, rank: int, dev) -> dict:
 
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     res = {}
+    # dp x tp: the train step on every rank's shards, then one rank's step
+    mesh_tp = make_mesh(("dp", "tp"), device=dev)
+    dp, tp = mesh_tp.shape["dp"], mesh_tp.shape["tp"]
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_heads=tp * 2, n_layers=2,
+                            d_ff=256, max_seq_len=64, dtype=torch.float32)
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (dp * 2, 33)).astype(np.int32)
+    params, opt_state, tx, shardings = make_train_state(cfg, mesh_tp)
+    step, _ = make_train_step(cfg, mesh_tp, tx, shardings)
+    loss = step(params, opt_state, {"tokens": T(tokens)})[2]
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"dryrun_multichip: non-finite loss {float(loss)}")
+    params1, opt_state1, tx1, _ = make_train_state(cfg, device=dev)
+    loss1 = make_train_step(cfg, None, tx1)[0](params1, opt_state1, {"tokens": T(tokens)})[2]
+    res["train"] = abs(float(loss) - float(loss1))
+    if not res["train"] <= TRAIN_TOL:
+        raise AssertionError(f"dryrun_multichip: the dp x tp step's loss {float(loss)} != the "
+                             f"one-rank step's {float(loss1)} (tol {TRAIN_TOL})")
+    res["train_loss"] = float(loss)
     # sp: ring attention, then Ulysses (heads divisible by sp)
     mesh_sp = make_mesh(("sp",), device=dev)
     for name, shape, seed in (("ring", (2, n * 8, 2, 16), 1), ("ulysses", (2, n * 8, n, 16), 2)):
@@ -111,7 +135,8 @@ def _checks(n: int, rank: int, dev) -> dict:
     if not torch.equal(a_sh, a_1):
         raise AssertionError("dryrun_multichip: the sharded scheduler's decisions != K1's")
     res["sched_placed"] = int(a_sh.sum())
-    res["meshes"] = {"sp": n, "pp": n, "dp x ep": [dp, ep], "experts": cfg.n_experts}
+    res["meshes"] = {"dp x tp": [mesh_tp.shape["dp"], mesh_tp.shape["tp"]], "sp": n, "pp": n,
+                     "dp x ep": [dp, ep], "experts": cfg.n_experts}
     return res
 
 

@@ -1,12 +1,18 @@
 """Which torch.distributed collectives take CUDA tensors with several
 processes on one card, and what each costs there.
 
-    python -m ray_tpu_torch.scripts.probe_collectives [--ranks 4]
+    python -m ray_tpu_torch.scripts.probe_collectives [--ranks 4] [--only NAME ...]
 
 Each collective runs in a process group of its own (a refused CUDA pointer
 can abort a process, so no collective shares a group with another): gloo
-over `--ranks` processes on card 0, every rank timing 50 calls after one
-warm call by the host clock around a synchronised loop. Then whether NCCL
+over `--ranks` processes on card 0, every rank timing 50 calls (5 of the
+large ones) after one warm call by the host clock around a synchronised
+loop. The large ones are the train step's across ranks at the flagship's
+full width, each over the pairs of ranks {0, 1}, {2, 3} (the lines of a 2 x
+2 mesh): a bf16 all_reduce; one flat float32 buffer the size of a rank's
+gradients at tp = 2 (26 221 056 floats, ~105 MB: the "dp" psum of a step);
+a row-parallel product's float32 partial sum [4, 2048, 512] (the "tp"
+psum); and the all_gather of unembed's bf16 rows [256, 32768]. Then whether NCCL
 takes two ranks on the one card. Prints one line a collective, as
 "<name>: <json by rank>", and the card's name and power limit first.
 The times are those of processes sharing one card, their tensors staged
@@ -30,7 +36,14 @@ BLOCK = (8, 512, 8, 64)  # one K block of the ring over sp = 4 at the flagship's
 COLLECTIVES = ("all_reduce", "all_reduce_int64_read", "all_gather", "all_gather_int64_read",
                "all_gather_into_tensor", "all_gather_block_bf16", "all_to_all_single",
                "all_to_all_single_uneven", "ring_hop_block_bf16", "all_to_all_list",
-               "broadcast", "subgroup_all_reduce", "send_recv")
+               "broadcast", "subgroup_all_reduce", "send_recv", "pair_all_reduce_bf16",
+               "pair_all_reduce_grads_f32", "pair_all_reduce_partial_f32",
+               "pair_all_gather_unembed_bf16")
+#: the train step's collectives at full width (TransformerConfig(), dp x tp 2 x 2)
+GRAD_FLOATS = 26_221_056  # a rank's parameters at tp = 2
+PARTIAL = (4, 2048, 512)  # [B / dp, S, D]
+UNEMBED_ROWS = (256, 32768)  # [D / tp, V]
+LARGE_REPS = 5
 
 
 def _collective(name, rank, world, dev):
@@ -92,9 +105,26 @@ def _collective(name, rank, world, dev):
         return t
 
     sub = None
-    if name == "subgroup_all_reduce":  # every rank makes every group, in one order
+    if name.startswith(("subgroup_", "pair_")):  # every rank makes every group, in one order
         pairs = [dist.new_group([r, r + 1]) for r in range(0, world - 1, 2)]
         sub = pairs[min(rank // 2, len(pairs) - 1)]
+    if name.startswith("pair_"):
+        mate = rank ^ 1
+        big = {"pair_all_reduce_bf16": torch.full(PARTIAL, rank + 1.0, dtype=torch.bfloat16,
+                                                  device=dev),
+               "pair_all_reduce_grads_f32": torch.full((GRAD_FLOATS,), rank + 1.0, device=dev),
+               "pair_all_reduce_partial_f32": torch.full(PARTIAL, rank + 1.0, device=dev)}
+        rows = torch.full(UNEMBED_ROWS, float(rank), dtype=torch.bfloat16, device=dev)
+
+        def pair_gather():
+            parts = [torch.empty_like(rows) for _ in range(2)]
+            dist.all_gather(parts, rows, group=sub)
+            return parts
+
+        if name == "pair_all_gather_unembed_bf16":
+            return pair_gather, lambda p: float(p[mate % 2][0, 0]) == mate
+        t = big[name]
+        return (lambda: reduce(t, sub), lambda y: float(y.reshape(-1)[-1]) == rank + mate + 2)
     total = world * (world + 1) / 2
     table = {
         "all_reduce": (lambda: reduce(x), lambda y: float(y[0]) == total),
@@ -132,11 +162,12 @@ def _gloo_rank(rank, world, tmp, name):
         torch.cuda.synchronize()
         res = {"ok": ok}
         if ok:
+            reps = LARGE_REPS if name.startswith("pair_") else REPS
             t = time.perf_counter()
-            for _ in range(REPS):
+            for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-            res["ms"] = (time.perf_counter() - t) / REPS * 1e3
+            res["ms"] = (time.perf_counter() - t) / reps * 1e3
     except RuntimeError as e:  # a collective gloo refuses with an error
         res = {"ok": False, "error": f"{type(e).__name__}: {str(e)[:300]}"}
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -198,6 +229,8 @@ def _run(target, world, name) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--only", nargs="*", choices=COLLECTIVES, default=None,
+                    help="probe these collectives only (and skip NCCL)")
     args = ap.parse_args(argv)
     import torch
 
@@ -206,11 +239,12 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
-    for name in COLLECTIVES:
+    for name in args.only or COLLECTIVES:
         print(f"gloo {args.ranks} ranks {name}: {json.dumps(_run(_gloo_rank, args.ranks, name))}",
               flush=True)
-    print(f"nccl 2 ranks on one card: {json.dumps(_run(_nccl_rank, 2, 'all_reduce'))}",
-          flush=True)
+    if args.only is None:
+        print(f"nccl 2 ranks on one card: {json.dumps(_run(_nccl_rank, 2, 'all_reduce'))}",
+              flush=True)
     return 0
 
 

@@ -224,12 +224,16 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
 
 
 def test_a_mesh_is_the_multi_card_work():
-    """The mesh form is forward only: under autograd it raises, naming the
-    next slice (its forward across ranks: tests/test_torch_parallel.py)."""
+    """The mesh form takes a port Mesh with axes "dp" and "ep", with or
+    without autograd, and raises for anything else (its forward and
+    backward across ranks: tests/test_torch_parallel.py and
+    tests/test_torch_train_mesh.py)."""
     _, cfg_t, tree, model = _small("f32")
     x = torch.from_numpy(_x(tree, 8)).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="axes 'dp' and 'ep'"):
         PM.moe_ffn(model, x, cfg_t, mesh=object())
+    with pytest.raises(ValueError, match="axes 'dp' and 'ep'"):
+        PM.moe_ffn(model, x.detach(), cfg_t, mesh=object())
 
 
 def test_moe_ffn_goes_through_the_kernels_wrappers(monkeypatch):

@@ -1,5 +1,6 @@
 """ray_tpu_torch's paths across ranks (parallel/mesh, ring_attention,
-ulysses, pipeline, the expert layer's mesh form, the dryrun) held against
+ulysses, pipeline, the expert layer's mesh form, the dryrun with its dp x
+tp train step) held against
 ray_tpu's on the same numpy-seeded inputs.
 
 The JAX side runs on the 8-device virtual CPU mesh that tests/conftest.py
@@ -364,7 +365,9 @@ def test_moe_mesh_equals_jax(ranks, dp, ep):
 
 def test_dryrun_multichip_on_four_cpu_ranks():
     res = DRY.dryrun_multichip(WORLD, device="cpu", timeout_s=DEADLINE_S)
-    assert res["meshes"] == {"sp": 4, "pp": 4, "dp x ep": [2, 2], "experts": 4}
+    assert res["meshes"] == {"dp x tp": [2, 2], "sp": 4, "pp": 4, "dp x ep": [2, 2],
+                             "experts": 4}
     assert res["sched_placed"] > 0
+    assert math.isfinite(res["train_loss"]) and res["train"] <= DRY.TRAIN_TOL
     for key in ("ring", "ulysses", "pipeline", "moe", "moe_aux"):
         assert res[key] <= DRY.TOL, key

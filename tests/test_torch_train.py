@@ -47,6 +47,7 @@ from ray_tpu.models import transformer as JT
 from ray_tpu.parallel import tpu_train as JTT
 from ray_tpu_torch.models import transformer as PT
 from ray_tpu_torch.parallel import make_optimizer, make_train_state, make_train_step
+from ray_tpu_torch.parallel import mesh as PMESH
 from ray_tpu_torch.parallel import tpu_train as PTT
 from ray_tpu_torch.parallel.tpu_train import TRAIN_GOLDEN_TOL
 
@@ -200,11 +201,19 @@ def test_make_train_state_one_device_and_rejects_larger_meshes():
     assert all(torch.equal(a, b) for a, b in zip(params.parameters(), again.parameters()))
     other = make_train_state(cfg, seed=5, device="cpu")[0]
     assert not torch.equal(params.embed, other.embed)
+    # a larger mesh must be a port Mesh ("dp", "tp"), whose tp divides the
+    # heads (tests/test_torch_train_mesh.py runs the sharded step)
     mesh = Mesh(np.array(jax.devices()[:2]).reshape(2, 1), ("dp", "tp"))
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(ValueError, match="ray_tpu_torch.parallel.mesh.Mesh"):
         make_train_state(cfg, mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(ValueError, match="ray_tpu_torch.parallel.mesh.Mesh"):
         make_train_step(cfg, mesh, tx)
+    port_mesh = PMESH.Mesh(("dp", "tp"), (1, 4), np.arange(4).reshape(1, 4), 0,
+                           {"dp": None, "tp": None}, torch.device("cpu"))
+    with pytest.raises(ValueError, match="does not divide the 2 heads"):
+        make_train_state(cfg, port_mesh, device="cpu")
+    with pytest.raises(ValueError, match="does not divide the 2 heads"):
+        make_train_step(cfg, port_mesh, tx)
     step, _ = make_train_step(cfg, _one_device_mesh(), tx)
     tokens = np.random.default_rng(1).integers(0, SMALL["vocab_size"], (2, 17)).astype(np.int32)
     losses = [float(step(params, opt_state, {"tokens": tokens})[2]) for _ in range(3)]

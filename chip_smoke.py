@@ -8,7 +8,8 @@ caught):
 
 0. the card's name and power limit; build the CUDA kernels from
    ray_tpu_torch/sched/csrc and ray_tpu_torch/models/csrc (four sources),
-   one nvcc each, started together (build seconds printed).
+   one nvcc each, and the native object store (ray_tpu_torch/_native,
+   host C++) with one g++, all started together (build seconds printed).
 1. every kernel against its plain PyTorch version on the card, with exact
    equality: K1 on the golden problem of the kernel tests, on seeded random
    problems (dead nodes, masked custom resources, over-subscribed classes)
@@ -180,6 +181,24 @@ caught):
    host clock, with its collectives' ms apart, are of 4 processes sharing
    one card over gloo.
 
+13. cluster mode (ray_tpu_torch.cluster): (a) a Cluster with two node
+   daemons (4 CPUs each, the native shm store each; /dev/shm's room is
+   checked first) whose GCS has the default policy, torch_cuda on the
+   card, with jax_policy_min_cells 0; init(address=...), 2 000 tasks, 8
+   tasks meeting at a file barrier that both nodes must reach, a 200 MB
+   numpy object put and got back bit-equal, a small put/get; the GCS's
+   rounds launch K1 and refresh_view (K2/K3) in this process (K4, the
+   sparse download, is chosen only where a round's classes x nodes
+   exceed 5 x cap, cap >= 1 024 the smallest bucket holding the round's
+   tasks: a round of one class or a few, as here, would need thousands
+   of nodes); (b) phase 6c's ModelServer as an actor of this
+   cluster, in a worker process of its own, the full-width weights put
+   into the object store and passed to its constructor: its answers to
+   6c's 8 requests bit-equal to 6c's, and K8, K10a and K10b launched in
+   that worker (its own counters, sent back); (c) init(cluster=True,
+   num_nodes=2), one round trip, shutdown(), after which no worker process
+   of the phase is alive.
+
 Launch counters are set to 0 just before phase 2 and read after phase 5,
 the model kernels' just before 6b and after 6c (every K8 launch there must
 have gone to the tensor-core kernel), the expert kernels' just
@@ -196,7 +215,10 @@ sends them back after: K7r and K8's block form must have launched there
 apart, as "ring_check_launches" and "ring_check_launches_tc"); each of
 phase 12's ranks does the same over 12a-12b, where K8, K8', K10a, K10a',
 K10b, K10b', K9a-c and K9a'-c' must each have launched on every rank (the
-kernels line adds their sum over the ranks as "phase12_launches"). The
+kernels line adds their sum over the ranks as "phase12_launches"); the
+scheduler kernels' counters are set to 0 just before phase 13a and read
+after it, and the model actor's worker starts at 0 and sends its own back
+("phase13_launches" in the kernels line). The
 JSON line before the card's name and power limit lists the kernels; the
 last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
@@ -1552,7 +1574,32 @@ def phase6b_forward(torch, PT, make_forward_step, dev, batch=8, seq=2048, cfg=No
     return res, ctx
 
 
-def phase6c_serve(torch, PT, make_forward_step, ctx, sizes=None):
+class ModelServer:
+    """User code, served from an actor by phase 6c (local mode) and phase
+    13b (a worker process of a cluster): holds the model on `device` and
+    answers requests with the last position's logits."""
+
+    def __init__(self, weights, cfg, device):
+        from ray_tpu_torch.models import transformer as PT
+        from ray_tpu_torch.parallel import make_forward_step
+
+        self.model = PT.params_from_numpy(weights, cfg, device=device)
+        self.fwd = make_forward_step(cfg) if device.type == "cuda" \
+            else make_forward_step(cfg, device)
+
+    def last_logits(self, tokens):
+        return self.fwd(self.model, tokens)[:, -1].cpu().numpy()
+
+    def pid(self):
+        return os.getpid()
+
+    def launches(self):
+        from ray_tpu_torch.models import kernels as MK
+
+        return MK.launch_counts(), MK.tc_launch_counts()
+
+
+def phase6c_serve(ctx, sizes=None):
     """The main path, served: an actor of ray_tpu_torch.init() (default
     config: the torch_cuda policy on the card) holds the model and answers
     8 requests with the last position's logits. Checked in 6d."""
@@ -1568,19 +1615,7 @@ def phase6c_serve(torch, PT, make_forward_step, ctx, sizes=None):
     else:
         rt.init(num_cpus=8, _system_config={"scheduler_device": "cpu"})
     try:
-        @rt.remote
-        class ModelServer:
-            """User code: holds the model on the card, answers requests."""
-
-            def __init__(self, weights):
-                self.model = PT.params_from_numpy(weights, cfg, device=dev)
-                self.fwd = make_forward_step(cfg) if dev.type == "cuda" \
-                    else make_forward_step(cfg, dev)
-
-            def last_logits(self, tokens):
-                return self.fwd(self.model, tokens)[:, -1].cpu().numpy()
-
-        server = ModelServer.remote(tree)
+        server = rt.remote(ModelServer).remote(tree, cfg, dev)
         t0 = time.perf_counter()
         answers = rt.get([server.last_logits.remote(t) for t in requests], timeout=600)
         t_serve = time.perf_counter() - t0
@@ -3657,6 +3692,220 @@ def phase12_train_ranks(torch, PT, TT, PM, dev, cfg_kw=None, batch=8, seq=2048):
     return res
 
 
+# ------------------------------------------------------------ cluster mode
+
+#: phase 13's kernels in the GCS's process (the scheduler's) and in the
+#: model actor's worker process (the forward's)
+PHASE13_HEAD_KERNELS = ("schedule_classes", "scatter_rows", "delta_clip", "compact_nonzero")
+PHASE13_NODE_CPUS = 4
+PHASE13_TASKS = 2000
+PHASE13_OBJECT_BYTES = 200 * 10**6
+
+
+def _reap(procs, timeout=20.0):
+    """Wait for worker processes the daemons were told to stop; kill any
+    that outlives the deadline. Returns the pids that had to be killed."""
+    killed = []
+    for p in procs:
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            killed.append(p.pid)
+            p.kill()
+            p.wait(timeout=10)
+    return killed
+
+
+def _cluster_procs(c):
+    return [w.proc for d in c.daemons for w in list(d.workers.values())
+            if w.proc is not None]
+
+
+def _shm_room(n_stores, store_bytes):
+    """/dev/shm's free bytes, checked against the stores the phase creates:
+    a segment larger than the mount's room is created (ftruncate reserves
+    nothing) and faults at the first write past it, so the phase fails
+    here instead, with the numbers."""
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    need = n_stores * store_bytes
+    log(f"phase 13 /dev/shm: {free / 2**20:.1f} MiB free, {n_stores} stores of "
+        f"{store_bytes / 2**20:.1f} MiB need {need / 2**20:.1f} MiB")
+    if free < need:
+        raise AssertionError(
+            f"/dev/shm has {free / 2**20:.1f} MiB free; the {n_stores} node stores "
+            f"need {need / 2**20:.1f} MiB: the native object store cannot be created")
+    return free
+
+
+def phase13_cluster(KT, ctx, requests, answers, gpu="cuda"):
+    """Cluster mode on the card: (a) a two-node Cluster (GCS in this
+    process, the default policy torch_cuda on the card) driven through
+    init(address=...); (b) 6c's ModelServer as an actor in a worker
+    process, its answers bit-equal to 6c's; (c) init(cluster=True) and
+    shutdown(). Returns (results, the head's launches, the worker's)."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.config import Config
+
+    overrides = {"jax_policy_min_cells": 0}
+    if gpu != "cuda":
+        overrides["scheduler_device"] = gpu
+    config = Config(overrides)
+    res = {}
+    _shm_room(2, config.object_store_memory_bytes)
+
+    # (a) two nodes, the driver connected by address
+    KT.reset_launch_counts()
+    t0 = time.perf_counter()
+    c = Cluster(config=config)
+    try:
+        policy = c.gcs.policy
+        assert policy.name == "torch_cuda" and policy.device.type == gpu, \
+            f"GCS policy {policy.name} on {policy.device}"
+        for node in ("node-a", "node-b"):
+            c.add_node(num_cpus=PHASE13_NODE_CPUS, node_id=node)
+        c.wait_for_nodes(2, timeout=60)
+        for d in c.daemons:
+            if not d.shm_name or type(d.store).__name__ != "ShmNodeStore":
+                raise AssertionError(f"daemon {d.node_id} is not on the native shm store "
+                                     f"(store {type(d.store).__name__}, shm {d.shm_name})")
+            # session files (spill, DAG channels) stay under TMPDIR's own root
+            for path in (d.store.spill_dir, d.chan_dir):
+                if not path.startswith(os.path.join(tempfile.gettempdir(), "ray_tpu_torch")):
+                    raise AssertionError(f"daemon {d.node_id} writes under {path}")
+        rt.init(address=c.address)
+        res["boot_s"] = time.perf_counter() - t0
+
+        @rt.remote
+        def square(x):
+            return x * x
+
+        t0 = time.perf_counter()
+        got = rt.get([square.remote(i) for i in range(PHASE13_TASKS)], timeout=300)
+        t_tasks = time.perf_counter() - t0
+        assert got == [i * i for i in range(PHASE13_TASKS)], "phase 13 task results differ"
+        res["tasks"] = PHASE13_TASKS
+        res["tasks_per_s"] = PHASE13_TASKS / t_tasks
+
+        with tempfile.TemporaryDirectory() as barrier:
+            @rt.remote(num_cpus=1)
+            def where(barrier_dir):
+                node = os.environ.get("RAY_TPU_NODE_ID")
+                open(os.path.join(barrier_dir, node), "w").close()
+                deadline = time.time() + 60
+                while len(os.listdir(barrier_dir)) < 2:
+                    if time.time() > deadline:
+                        raise TimeoutError(f"only {os.listdir(barrier_dir)} at the barrier")
+                    time.sleep(0.01)
+                return node
+
+            # more tasks than one node's CPUs: those waiting on one node
+            # hold its CPUs, so the rest must be placed on the other
+            nodes = set(rt.get([where.remote(barrier)
+                                for _ in range(2 * PHASE13_NODE_CPUS)], timeout=120))
+        assert nodes == {"node-a", "node-b"}, f"barrier reached by {nodes}"
+
+        arr = np.random.default_rng(130).integers(
+            0, 2**31, PHASE13_OBJECT_BYTES // 4, dtype=np.int32)
+        t0 = time.perf_counter()
+        ref = rt.put(arr)
+        back = rt.get(ref, timeout=120)
+        t_obj = time.perf_counter() - t0
+        assert back.dtype == arr.dtype and back.shape == arr.shape \
+            and np.array_equal(back, arr), "the 200 MB object came back different"
+        res["object_mb"] = arr.nbytes / 1e6
+        res["object_round_trip_mb_per_s"] = arr.nbytes / 1e6 / t_obj
+        del ref, back, arr
+        @rt.remote
+        def attached():
+            # the worker runs as `python -m ray_tpu_torch.cluster.worker`
+            return sys.modules["__main__"]._shm is not None
+
+        if not all(rt.get([attached.remote() for _ in range(16)], timeout=120)):
+            raise AssertionError("a worker did not map its node's shm store")
+        small = {"k": [1, 2, 3], "v": np.arange(10.0)}
+        back = rt.get(rt.put(small), timeout=30)
+        assert back["k"] == small["k"] and np.array_equal(back["v"], small["v"])
+
+        # (b) 6c's ModelServer as an actor in a worker process
+        t0 = time.perf_counter()
+        w_ref = rt.put(ctx["tree"])
+        t_put = time.perf_counter() - t0
+        spilled = {d.node_id: len(getattr(d.store, "_spilled", {})) for d in c.daemons}
+        log(f"phase 13b weights: put in {t_put:.3f} s, objects spilled by node "
+            f"{spilled}, /dev/shm "
+            f"{os.statvfs('/dev/shm').f_bavail * os.statvfs('/dev/shm').f_frsize / 2**20:.1f}"
+            " MiB free")
+        res["weights_spilled"] = spilled
+        t0 = time.perf_counter()
+        server = rt.remote(ModelServer).remote(w_ref, ctx["cfg"], ctx["model"].device)
+        first = rt.get(server.last_logits.remote(requests[0]), timeout=600)
+        res["first_answer_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served = rt.get([server.last_logits.remote(t) for t in requests], timeout=600)
+        res["serve_s"] = time.perf_counter() - t0
+        worker_pid = rt.get(server.pid.remote(), timeout=60)
+        assert worker_pid != os.getpid(), "the model actor runs in the driver's process"
+        res["actor_pid_differs"] = True
+        for i, (a, b) in enumerate(zip([first] + served, [answers[0]] + answers)):
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"phase 13b answer {i} differs from 6c's "
+                                     f"(max |diff| {np.abs(a - b).max()})")
+        worker_launches, worker_tc = rt.get(server.launches.remote(), timeout=60)
+        head_launches = KT.launch_counts()
+    finally:
+        procs = _cluster_procs(c)
+        try:
+            rt.shutdown()
+        finally:
+            c.shutdown()
+            killed = _reap(procs)
+    assert procs and not killed, \
+        f"worker processes still alive 20 s after shutdown (killed): {killed}"
+    log(f"phase 13b model actor: worker launches {worker_launches}, "
+        f"tensor-core {worker_tc}")
+    if gpu == "cuda":
+        for k in ("schedule_classes",):
+            if head_launches[k] == 0:
+                raise AssertionError(f"the GCS's rounds never launched {k}: {head_launches}")
+        if head_launches["scatter_rows"] + head_launches["delta_clip"] == 0:
+            raise AssertionError(f"the GCS's rounds never refreshed the view: {head_launches}")
+        missing = [k for k in FORWARD_KERNELS if worker_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"the model actor's worker never launched {missing}")
+        if worker_tc["attention"] != worker_launches["attention"]:
+            raise AssertionError(f"worker: {worker_launches['attention']} K8 launches, "
+                                 f"{worker_tc['attention']} on the tensor cores")
+
+    # (c) the embedded cluster of init(cluster=True)
+    t0 = time.perf_counter()
+    rt.init(cluster=True, num_nodes=2, _system_config=overrides)
+    try:
+        emb = rt.core.api._embedded_cluster
+        assert len(emb.daemons) == 2 and all(d.shm_name for d in emb.daemons)
+        assert emb.gcs.policy.device.type == gpu
+
+        @rt.remote
+        def echo(x):
+            return x
+
+        assert rt.get(echo.remote("round trip"), timeout=120) == "round trip"
+        procs = _cluster_procs(emb)
+    finally:
+        rt.shutdown()
+    assert rt.core.api._embedded_cluster is None
+    killed = _reap(procs)
+    assert procs and not killed, \
+        f"embedded cluster's workers still alive 20 s after shutdown (killed): {killed}"
+    res["embedded_s"] = time.perf_counter() - t0
+    log(f"phase 13: {json.dumps(res)}")
+    return res, {k: head_launches[k] for k in PHASE13_HEAD_KERNELS}, \
+        {k: worker_launches[k] for k in FORWARD_KERNELS}
+
+
 def main() -> int:
     try:
         import torch
@@ -3683,6 +3932,7 @@ def main() -> int:
     from ray_tpu_torch.models import kernels as MK, transformer as PT
     from ray_tpu_torch.models import moe as PM, moe_kernels as EK
     from ray_tpu_torch.parallel import make_forward_step, tpu_train as TT
+    from ray_tpu_torch import _native
     from ray_tpu_torch.util import cuda_build
 
     card = card_line()
@@ -3690,10 +3940,13 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    libraries = [_build.LIBRARY, MK.LIBRARY, MK.LIBRARY_SM90, EK.LIBRARY]
-    cuda_build.build_all(libraries)  # one nvcc each, together
+    # the cluster's native shm object store (host C++, one g++) beside the
+    # kernels' nvcc builds, all started together
+    libraries = [_build.LIBRARY, MK.LIBRARY, MK.LIBRARY_SM90, EK.LIBRARY,
+                 _native.OBJECT_STORE]
+    cuda_build.build_all(libraries)
     log(f"phase 0 build: {time.perf_counter() - t0:.2f} s (" + "; ".join(
-        f"nvcc {lib.build_seconds:.2f} s -> {lib.library_path().name}"
+        f"{lib.name} {lib.build_seconds:.2f} s -> {lib.library_path().name}"
         for lib in libraries) + ")")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3751,7 +4004,7 @@ def main() -> int:
     log(f"forward [8, 2048] bf16 on {card}: {fwd_res['forward_ms']:.3f} ms, "
         f"{fwd_res['tokens_per_s']:.0f} tokens/s")
     t0 = time.perf_counter()
-    serve_res, requests, answers = phase6c_serve(torch, PT, make_forward_step, ctx)
+    serve_res, requests, answers = phase6c_serve(ctx)
     model_launches = MK.launch_counts()
     log(f"phase 6c: {time.perf_counter() - t0:.1f} s, launches {model_launches}")
     missing = [k for k in FORWARD_KERNELS if model_launches[k] == 0]
@@ -3881,6 +4134,15 @@ def main() -> int:
     log(f"phase 12: {time.perf_counter() - t0:.1f} s (4 processes on one card over gloo), "
         f"launches {mesh_train['launches']}")
 
+    # cluster mode: the GCS in this process (its scheduler kernels' counters
+    # from 0), the model actor in a worker process (its own counters)
+    t0 = time.perf_counter()
+    cluster_res, head13, worker13 = phase13_cluster(KT, ctx, requests, answers)
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s, launches in this process {head13}, "
+        f"in the model actor's worker {worker13}")
+    if guard_records:
+        raise AssertionError(f"invariant guard fired: {guard_records}")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -3966,7 +4228,7 @@ def main() -> int:
                     "train_actor": train_actor, "train_golden": train_checks,
                     "moe_train": moe_train_res, "moe_train_actor": moe_train_actor,
                     "moe_train_checks": moe_train_checks, "ranks": ranks_res,
-                    "train_across_ranks": mesh_train,
+                    "train_across_ranks": mesh_train, "cluster": cluster_res,
                     "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
                     "attention_ms_f32_cuda_core": model_rec["attention"]["ms_f32_cuda_core"],
                     "attention_bwd_ms_f32_cuda_core":
@@ -3977,6 +4239,10 @@ def main() -> int:
     for entry in kernels:  # phase 12's launches, summed over its four ranks
         if entry["name"] in PHASE12_KERNELS:
             entry["phase12_launches"] = mesh_train["launches"][entry["name"]]
+    phase13 = {**head13, **worker13}
+    for entry in kernels:  # phase 13's, in the GCS's process or the actor's
+        if entry["name"] in phase13:
+            entry["phase13_launches"] = phase13[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

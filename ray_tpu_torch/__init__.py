@@ -3,12 +3,14 @@
 The JAX package ``ray_tpu`` is the reference; this package mirrors its
 module paths and names (``ray_tpu_torch/core/runtime.py`` is the
 counterpart of ``ray_tpu/core/runtime.py``) and imports nothing of it.
-This slice holds the local-mode runtime and the scheduling path:
-init/remote/get -> LocalRuntime._schedule_round -> HybridPolicy (policy
-``"torch_cuda"``) -> TorchScheduler -> hand-written CUDA kernels for
-Hopper (sched/csrc/sched_kernels.cu), each beside its plain PyTorch
-version. The cluster scheduler is a *batched assignment kernel*, not a
-per-task C++ loop (reference:
+The scheduling path runs in local mode (init/remote/get ->
+LocalRuntime._schedule_round) and in cluster mode (init(address=...) or
+init(cluster=True): a GCS, node daemons with a native shm object store,
+tasks and actors in worker processes; GcsServer._schedule_round), both
+through HybridPolicy (policy ``"torch_cuda"``) -> TorchScheduler ->
+hand-written CUDA kernels for Hopper (sched/csrc/sched_kernels.cu), each
+beside its plain PyTorch version. The cluster scheduler is a *batched
+assignment kernel*, not a per-task C++ loop (reference:
 src/ray/raylet/scheduling/cluster_resource_scheduler.cc).
 
 Public API surface mirrors the reference's Python core API

@@ -20,14 +20,7 @@ from ray_tpu_torch.core.task_spec import SchedulingStrategy, TaskSpec, new_id
 
 _global_lock = threading.Lock()
 _runtime = None
-
-_CLUSTER_TODO = (
-    "cluster mode (init(address=...) / init(cluster=True)) is not ported "
-    "yet: the GCS head (ray_tpu_torch.cluster.gcs) is, but the node daemon, "
-    "workers, client, shm store and the native object store are the next "
-    "slice of the port (ROADMAP.md, queue 1, item 4); use local mode "
-    "(init() with no address)"
-)
+_embedded_cluster = None
 
 
 def init(
@@ -43,44 +36,104 @@ def init(
     config: Optional[Dict[str, Any]] = None,
     **kwargs,
 ):
-    """Start the runtime.
+    """Start (or connect to) the runtime.
 
-    address=None -> local mode (one in-process node, reference local Ray),
-    the only mode the port has so far: address= and cluster=True raise
-    NotImplementedError until the node daemon and client are ported. By
-    default (scheduling_policy "torch_cuda", scheduler_device "cuda")
-    every device-sized scheduling round runs on the CUDA kernels, and
-    init() raises without a card; ``_system_config={"scheduler_device":
-    "cpu"}`` runs their plain PyTorch versions, ``{"scheduling_policy":
-    "hybrid"}`` the NumPy policy.
+    address=None -> local mode (one in-process node, reference local Ray);
+    address="tcp://host:port" -> connect to a running cluster's control
+    service (multi-node mode, ray_tpu_torch.cluster);
+    cluster=True -> boot an EMBEDDED cluster (in-process GCS + num_nodes
+    daemons with resources_per_node, workers as real subprocesses) and
+    connect to it; shutdown() tears it down.
+
+    By default (scheduling_policy "torch_cuda", scheduler_device "cuda")
+    every device-sized scheduling round, local or in the embedded
+    cluster's GCS, runs on the CUDA kernels, and init() raises without a
+    card; ``_system_config={"scheduler_device": "cpu"}`` runs their plain
+    PyTorch versions, ``{"scheduling_policy": "hybrid"}`` the NumPy policy.
     """
-    global _runtime
+    global _runtime, _embedded_cluster
     if kwargs:
         # silently swallowing typos/unsupported options sent callers to
         # local mode while they believed a flag took effect
         raise TypeError(f"init() got unexpected arguments: {sorted(kwargs)}")
-    if address is not None or cluster:
-        raise NotImplementedError(_CLUSTER_TODO)
     with _global_lock:
         if _runtime is not None:
             if ignore_reinit_error:
+                if cluster and _embedded_cluster is None:
+                    # returning the existing (possibly local-mode) runtime
+                    # would be the believed-a-flag-took-effect trap the
+                    # strict-kwargs check above exists to prevent
+                    raise RuntimeError(
+                        "init(cluster=True, ignore_reinit_error=True): the "
+                        "runtime is already initialized WITHOUT an embedded "
+                        "cluster; shutdown() first"
+                    )
                 return _runtime
             raise RuntimeError("ray_tpu_torch.init() called twice; use shutdown() first")
         if config and _system_config:
             raise TypeError("pass config= or _system_config=, not both")
         config_dict = config or _system_config
+        if cluster:
+            if address is not None:
+                raise TypeError("cluster=True boots its own cluster; "
+                                "drop address= or drop cluster=True")
+            from ray_tpu_torch.core.config import Config
+            from ray_tpu_torch.cluster.cluster_utils import Cluster
+
+            per_node = dict(resources_per_node or {})
+            # num_cpus/num_tpus/resources apply PER NODE here — silently
+            # dropping them would hang tasks that demand those resources
+            per_node.setdefault("CPU", float(num_cpus or 4))
+            if num_tpus is not None:
+                per_node.setdefault("TPU", float(num_tpus))
+            for k, v in (resources or {}).items():
+                per_node.setdefault(k, float(v))
+            n = max(int(num_nodes), 1)
+            c = Cluster(config=Config(config_dict or {}))
+            try:
+                for _ in range(n):
+                    c.add_node(
+                        num_cpus=per_node["CPU"],
+                        resources={k: v for k, v in per_node.items()
+                                   if k != "CPU"},
+                    )
+                c.wait_for_nodes(n)
+            except BaseException:
+                c.shutdown()  # never leak GCS/daemon subprocesses
+                raise
+            _embedded_cluster = c
+            address = c.address
         try:
             config = set_global_config(config_dict)
             res = dict(resources or {})
             if num_tpus is not None:
                 res["TPU"] = float(num_tpus)
-            from ray_tpu_torch.core.runtime import LocalRuntime
+            if address is None:
+                # worker processes inherit the cluster address (reference:
+                # RAY_ADDRESS / ray.init auto-connect inside workers)
+                import os as _os
 
-            _runtime = LocalRuntime(
-                num_cpus=num_cpus, resources=res, config=config
-            )
+                address = _os.environ.get("RAY_TPU_GCS_ADDR") or None
+            if address is None:
+                from ray_tpu_torch.core.runtime import LocalRuntime
+
+                _runtime = LocalRuntime(
+                    num_cpus=num_cpus, resources=res, config=config
+                )
+            else:
+                from ray_tpu_torch.cluster.client import ClusterClient
+
+                _runtime = ClusterClient(address, config=config)
         except BaseException:
+            # a failure past the embedded-cluster boot must not strand its
+            # GCS/daemon/worker subprocesses (a retry would rebind
+            # _embedded_cluster and leak them permanently)
             _runtime = None
+            if _embedded_cluster is not None:
+                try:
+                    _embedded_cluster.shutdown()
+                finally:
+                    _embedded_cluster = None
             raise
         # opt-in tracing (reference: RAY_TRACING_ENABLED installing the
         # span wrappers at init)
@@ -92,13 +145,18 @@ def init(
 
 
 def shutdown():
-    global _runtime
+    global _runtime, _embedded_cluster
     with _global_lock:
         try:
             if _runtime is not None:
                 _runtime.shutdown()
         finally:
             _runtime = None
+            if _embedded_cluster is not None:
+                try:
+                    _embedded_cluster.shutdown()
+                finally:
+                    _embedded_cluster = None
 
 
 def is_initialized() -> bool:

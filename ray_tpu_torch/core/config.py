@@ -10,6 +10,7 @@ env override ``RAY_TPU_<name>``, programmatic override via
 from __future__ import annotations
 
 import os
+import tempfile
 from typing import Any, Dict
 
 # name -> (type, default)  — keep scheduler knobs named like the reference's
@@ -173,7 +174,10 @@ _DEFS: Dict[str, tuple] = {
     "flight_recorder_enabled": (bool, True),
     "flight_recorder_cap": (int, 4096),
     "log_to_driver": (bool, True),
-    "session_dir_root": (str, "/tmp/ray_tpu"),
+    # spill files, DAG channel dirs and runtime envs go under this root:
+    # it follows TMPDIR, and its name keeps the port's files apart from the
+    # reference package's, whose clusters use the same node ids
+    "session_dir_root": (str, os.path.join(tempfile.gettempdir(), "ray_tpu_torch")),
     # task-event log (reference: gcs_task_manager.cc
     # RAY_task_events_max_num_task_in_gcs): recent window kept in memory;
     # everything beyond it aggregates + spills to JSONL so 1M-task runs

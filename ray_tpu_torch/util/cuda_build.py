@@ -13,6 +13,8 @@ Nothing here runs at import: a library is built on its first CUDA use
 (``CudaLibrary.load()``), so importing the package on a machine without
 ``nvcc`` or a card never touches the compiler. ``build_all`` starts one
 ``nvcc`` per library that is not built yet, all at once, and waits for them.
+A host C++ source (the native object store of ``ray_tpu_torch/_native``) is
+built the same way with ``g++``: ``CudaLibrary(..., compiler=gxx)``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 BASE_FLAGS = (
@@ -50,19 +52,27 @@ def nvcc() -> str:
     )
 
 
+def gxx() -> str:
+    return "g++"
+
+
 class CudaLibrary:
-    """One CUDA source, its nvcc flags and its C symbol table
+    """One source, its compiler flags and its C symbol table
     (name -> (argument types, result type); pointers and the stream are
     ``c_void_p``). A process loads one variant of each library: the first
     ``load`` that passes `extra_flags` picks it, and later calls without
-    flags use whatever is loaded."""
+    flags use whatever is loaded. `compiler` names the compiler (``nvcc``
+    by default, ``gxx`` for host C++); `link` goes after the source."""
 
     def __init__(self, name: str, src: Path, flags: Tuple[str, ...],
-                 signatures: Dict[str, tuple]):
+                 signatures: Dict[str, tuple],
+                 compiler: Callable[[], str] = nvcc, link: Tuple[str, ...] = ()):
         self.name = name
         self.src = Path(src)
         self.flags = tuple(flags)
         self.signatures = signatures
+        self.compiler = compiler
+        self.link = tuple(link)
         self._lock = threading.Lock()
         self._lib = None
         self._lib_flags: tuple = ()
@@ -70,15 +80,16 @@ class CudaLibrary:
         self.build_seconds = 0.0
 
     def library_path(self, extra_flags: tuple = ()) -> Path:
-        flags = " ".join(self.flags + tuple(extra_flags))
+        flags = " ".join(self.flags + tuple(extra_flags) + self.link)
         h = hashlib.sha256(self.src.read_bytes() + flags.encode())
         return BUILD_DIR / f"libray_tpu_torch_{self.name}_{h.hexdigest()[:16]}.so"
 
     def _command(self, out: Path, extra_flags: tuple) -> List[str]:
-        return [nvcc(), *self.flags, *extra_flags, "-o", str(out), str(self.src)]
+        return [self.compiler(), *self.flags, *extra_flags, "-o", str(out),
+                str(self.src), *self.link]
 
     def _start_build(self, extra_flags: tuple):
-        """Start nvcc for this library if it is not built; returns
+        """Start the compiler for this library if it is not built; returns
         (process, temporary output, final output, command, start time) or
         None when the library is already there."""
         out = self.library_path(extra_flags)
@@ -96,7 +107,7 @@ class CudaLibrary:
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed building {self.src.name}:\n"
+                f"{Path(cmd[0]).name} failed building {self.src.name}:\n"
                 + " ".join(cmd) + "\n" + stdout + stderr
             )
         os.replace(tmp, out)
@@ -125,7 +136,7 @@ class CudaLibrary:
 
 
 def build_all(libraries: Iterable[CudaLibrary]) -> None:
-    """Build every library not built yet with one nvcc each, all started
+    """Build every library not built yet with one compiler each, all started
     together, then load them all; raise if any build fails."""
     libraries = list(libraries)
     errors = []
@@ -138,7 +149,7 @@ def build_all(libraries: Iterable[CudaLibrary]) -> None:
             if st is not None:
                 try:
                     lib._finish_build(st)
-                except RuntimeError as e:  # wait for every nvcc before raising
+                except RuntimeError as e:  # wait for every build before raising
                     errors.append(str(e))
     finally:
         for lib in libraries:

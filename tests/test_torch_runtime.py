@@ -101,14 +101,6 @@ def test_default_cuda_device_without_cuda_raises(monkeypatch):
             ray_tpu_torch.shutdown()
 
 
-def test_cluster_mode_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ray_tpu_torch.init(address="tcp://localhost:1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ray_tpu_torch.init(cluster=True)
-    assert not ray_tpu_torch.is_initialized()
-
-
 def test_strict_pack_batch_torch_backend_equals_numpy():
     from ray_tpu_torch.sched.bundles import strict_pack_batch
 

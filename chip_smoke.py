@@ -198,6 +198,25 @@ caught):
    that worker (its own counters, sent back); (c) init(cluster=True,
    num_nodes=2), one round trip, shutdown(), after which no worker process
    of the phase is alive.
+14. the serving path (ray_tpu_torch.serve, ray_tpu_torch.dag) in a
+   two-node Cluster of its own (the default policy on the card): node-gpu
+   offers {"GPU": 1}, node-post a CPU stage's resource. (a) serve's fast
+   path: ModelServer deployed with fast_path=True and ray_actor_options
+   {"num_gpus": 1}, the full-width weights put into the object store and
+   bound, its replica on node-gpu; 6c's 8 requests through a
+   DeploymentHandle bit-equal to 6c's answers, fastpath_stats() with
+   completed == submitted, no failure and no duplicate, and one request
+   through the HTTP proxy (serve.run(http_port=0)), bit-equal after
+   JSON; (b) a compiled graph InputNode -> ModelServer.last_logits (an
+   actor asking for the GPU, on node-gpu) -> phase14_post (argmax and
+   checksum, on node-post: the cross-node edge over rpc_dag_push /
+   rpc_dag_pull), 8 execute calls equal to the eager dag.execute and to
+   6c's answers; the same graph with the post stage on node-gpu, whose
+   iterations differ by the edge alone; teardown() leaves no channel file
+   under any daemon's chan_dir, no pinned stage worker, no capacity hold
+   and no DAG; every worker reaped after shutdown. Prints the first
+   answer's seconds, the 8 requests', each graph's median ms an iteration,
+   the cross-node edge's (their difference) and the phase's seconds.
 
 Launch counters are set to 0 just before phase 2 and read after phase 5,
 the model kernels' just before 6b and after 6c (every K8 launch there must
@@ -218,7 +237,12 @@ K10b, K10b', K9a-c and K9a'-c' must each have launched on every rank (the
 kernels line adds their sum over the ranks as "phase12_launches"); the
 scheduler kernels' counters are set to 0 just before phase 13a and read
 after it, and the model actor's worker starts at 0 and sends its own back
-("phase13_launches" in the kernels line). The
+("phase13_launches" in the kernels line); the same for phase 14, where K1
+must launch in this process (K3's launches are reported: it runs only
+where the GCS's rounds overlap) and K8 (every launch on the tensor
+cores), K10a and K10b in the replica's and in the stage's worker
+("phase14_launches" in the kernels line, the forward's kernels summed
+over the two, "phase14_launches_by_process" apart). The
 JSON line before the card's name and power limit lists the kernels; the
 last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
@@ -1575,20 +1599,30 @@ def phase6b_forward(torch, PT, make_forward_step, dev, batch=8, seq=2048, cfg=No
 
 
 class ModelServer:
-    """User code, served from an actor by phase 6c (local mode) and phase
-    13b (a worker process of a cluster): holds the model on `device` and
-    answers requests with the last position's logits."""
+    """User code, served from an actor by phase 6c (local mode), phase 13b
+    (a worker process of a cluster) and phase 14 (a serve replica and a
+    compiled graph's stage): holds the model on `device` and answers
+    requests with the last position's logits."""
 
     def __init__(self, weights, cfg, device):
+        import ray_tpu_torch as rt
         from ray_tpu_torch.models import transformer as PT
         from ray_tpu_torch.parallel import make_forward_step
 
+        if isinstance(weights, rt.ObjectRef):  # bound to a serve deployment
+            weights = rt.get(weights, timeout=600)
         self.model = PT.params_from_numpy(weights, cfg, device=device)
         self.fwd = make_forward_step(cfg) if device.type == "cuda" \
             else make_forward_step(cfg, device)
 
     def last_logits(self, tokens):
         return self.fwd(self.model, tokens)[:, -1].cpu().numpy()
+
+    def __call__(self, payload):
+        """An HTTP request's JSON body {"tokens": [[...]]}: the last
+        position's logits as lists (float32 values, exact in JSON)."""
+        tokens = np.asarray(payload["tokens"], dtype=np.int32)
+        return {"logits": self.last_logits(tokens).tolist()}
 
     def pid(self):
         return os.getpid()
@@ -3906,6 +3940,211 @@ def phase13_cluster(KT, ctx, requests, answers, gpu="cuda"):
         {k: worker_launches[k] for k in FORWARD_KERNELS}
 
 
+#: phase 14's kernels in the GCS's process: K1 (every round) and K3 (a
+#: delta uploaded while an earlier round is still in flight: only where the
+#: post stage's eager tasks happen to overlap, so it is reported, not
+#: required; K2 never runs at two nodes, where any dirty row is half the
+#: view and the view is uploaded whole)
+PHASE14_HEAD_KERNELS = ("schedule_classes", "delta_clip")
+PHASE14_NODES = ("node-gpu", "node-post")
+
+
+def phase14_post(logits):
+    """The compiled graph's CPU stage: the logits passed on, each row's
+    argmax and a float64 checksum."""
+    return {"logits": logits, "argmax": logits.argmax(-1),
+            "checksum": float(logits.astype(np.float64).sum())}
+
+
+def _same_post(got, want):
+    return (got["logits"].dtype == want["logits"].dtype
+            and got["logits"].shape == want["logits"].shape
+            and np.array_equal(got["logits"], want["logits"])
+            and np.array_equal(got["argmax"], want["argmax"])
+            and got["checksum"] == want["checksum"])
+
+
+def _chan_files(c):
+    return sorted(os.path.join(d.chan_dir, f) for d in c.daemons
+                  for f in os.listdir(d.chan_dir))
+
+
+def phase14_serve(KT, ctx, requests, answers, gpu="cuda"):
+    """The serving path on the card, in a two-node Cluster of its own (the
+    GCS's default policy on the card, jax_policy_min_cells 0): node-gpu
+    offers {"GPU": 1}, node-post a CPU stage's resource. (a) serve's fast
+    path: ModelServer deployed with fast_path=True and
+    ray_actor_options={"num_gpus": 1}, the full-width weights through the
+    object store; 6c's 8 requests through a DeploymentHandle, bit-equal to
+    6c's answers; fastpath_stats() completed == submitted, no failure, no
+    duplicate; one request through the HTTP proxy. (b) a compiled graph:
+    InputNode -> ModelServer.last_logits (an actor asking for the GPU) ->
+    phase14_post on node-post (the cross-node edge, over rpc_dag_push /
+    rpc_dag_pull), and the same graph on node-gpu alone; 8 execute calls
+    each equal to 6c's answers, and the eager dag.execute of both graphs
+    too; teardown() leaves no channel file and no stage worker.
+    Returns (results, the head's launches, the replica's, the stage's)."""
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.config import Config
+    from ray_tpu_torch.dag import InputNode
+
+    t_phase = time.perf_counter()
+    overrides = {"jax_policy_min_cells": 0}
+    if gpu != "cuda":
+        overrides["scheduler_device"] = gpu
+    config = Config(overrides)
+    _shm_room(2, config.object_store_memory_bytes)
+    dev = ctx["model"].device
+    want_post = [phase14_post(a) for a in answers]
+    res = {}
+    KT.reset_launch_counts()
+    c = Cluster(config=config)
+    try:
+        c.add_node(num_cpus=PHASE13_NODE_CPUS, node_id=PHASE14_NODES[0],
+                   resources={"GPU": 1, "LOCAL": 1})
+        c.add_node(num_cpus=PHASE13_NODE_CPUS, node_id=PHASE14_NODES[1],
+                   resources={"POST": 1})
+        c.wait_for_nodes(2, timeout=60)
+        rt.init(address=c.address)
+
+        # (a) the fast path, a replica on the GPU node; its constructor gets
+        # the weights from the object store
+        t0 = time.perf_counter()
+        dep = serve.deployment(fast_path=True, ray_actor_options={"num_gpus": 1},
+                               name="ModelServer")(ModelServer)
+        h = serve.run(dep.bind(rt.put(ctx["tree"]), ctx["cfg"], dev), name="model",
+                      route_prefix="/model", http_port=0)
+        first = h.last_logits.remote(requests[0]).result(timeout=600)
+        res["first_answer_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pending = [h.last_logits.remote(t) for t in requests]
+        served = [r.result(timeout=600) for r in pending]
+        res["fastpath_8_requests_s"] = time.perf_counter() - t0
+        hosts = {d.node_id for d in c.daemons for w in list(d.workers.values())
+                 if w.serve_pairs}
+        if hosts != {PHASE14_NODES[0]}:
+            raise AssertionError(f"the fast-path replica is hosted on {hosts}")
+        for i, (a, b) in enumerate(zip([first] + served, [answers[0]] + answers)):
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"phase 14a answer {i} differs from 6c's "
+                                     f"(max |diff| {np.abs(a - b).max()})")
+        stats = h.fastpath_stats()
+        res["fastpath_stats"] = stats
+        if stats is None or stats["completed"] != stats["submitted"] \
+                or stats["failed"] or stats["duplicates"]:
+            raise AssertionError(f"phase 14a fast path stats {stats}")
+        small = min(range(len(requests)), key=lambda i: requests[i].size)
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{serve.http_port()}/model",
+            data=json.dumps({"tokens": requests[small].tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            body = json.loads(resp.read())
+        res["http_request_s"] = time.perf_counter() - t0
+        via_http = np.asarray(body["logits"], dtype=np.float32)
+        if not np.array_equal(via_http, answers[small]):
+            raise AssertionError(f"phase 14a HTTP answer to request {small} differs from 6c's")
+        replica_launches, replica_tc = h.launches.remote().result(timeout=60)
+        serve.shutdown()
+
+        # (b) a compiled graph: the model stage on node-gpu, the post stage
+        # on node-post (the cross-node edge); then the same graph with the
+        # post stage on node-gpu, whose iterations differ by that edge alone.
+        # The weights are put again: the object bound in (a) is freed once
+        # the replica has it (ROADMAP.md, queue 3)
+        t0 = time.perf_counter()
+        w_ref = rt.put(ctx["tree"])
+        model = rt.remote(num_gpus=1)(ModelServer).remote(w_ref, ctx["cfg"], dev)
+        rt.get(model.pid.remote(), timeout=600)  # the stage's actor is up
+        res["stage_actor_s"] = time.perf_counter() - t0
+        graph_ms, dags = {}, {}
+        for where, resources in (("cross_node", {"POST": 1}), ("same_node", {"LOCAL": 1})):
+            t0 = time.perf_counter()
+            post = rt.remote(resources=resources)(phase14_post)
+            with InputNode() as inp:
+                dag = post.bind(model.last_logits.bind(inp))
+            compiled = dag.compile()
+            placed = {p["node_id"] for p in compiled._placements.values()}
+            want_nodes = set(PHASE14_NODES) if where == "cross_node" else {PHASE14_NODES[0]}
+            if placed != want_nodes:
+                raise AssertionError(f"the {where} graph's stages are on {placed}")
+            res[f"{where}_compile_s"] = time.perf_counter() - t0
+            iter_ms, outs = [], []
+            try:
+                for t in requests:
+                    t1 = time.perf_counter()
+                    outs.append(compiled.execute(t, timeout=600))
+                    iter_ms.append((time.perf_counter() - t1) * 1e3)
+            finally:
+                compiled.teardown()
+            for i, (a, w) in enumerate(zip(outs, want_post)):
+                if not _same_post(a, w):
+                    raise AssertionError(f"phase 14b {where} iteration {i}: the compiled "
+                                         "graph's output differs from 6c's answer")
+            dags[where] = dag
+            graph_ms[where] = iter_ms
+            res[f"{where}_first_ms"] = iter_ms[0]
+            res[f"{where}_ms_median"] = float(np.median(iter_ms))
+        # both graphs eagerly, every request at once: the post stage's 16
+        # tasks go through the GCS's rounds while earlier ones complete
+        eager = rt.get([dag.execute(t) for dag in dags.values() for t in requests],
+                       timeout=600)
+        for i, (b, w) in enumerate(zip(eager, want_post * len(dags))):
+            if not _same_post(b, w):
+                raise AssertionError(f"phase 14b eager execute {i} differs from 6c's answer")
+        res["cross_node_edge_ms_median"] = float(
+            np.median(graph_ms["cross_node"]) - np.median(graph_ms["same_node"]))
+        stage_launches, stage_tc = rt.get(model.launches.remote(), timeout=60)
+        deadline = time.time() + 30
+        while True:
+            files = _chan_files(c)
+            pinned = [w.worker_id for d in c.daemons for w in list(d.workers.values())
+                      if w.dag_stages]
+            holds = [k for k in c.gcs.running if k.startswith("dag-hold-")]
+            if not (files or pinned or holds or c.gcs.dags
+                    or any(d._dags for d in c.daemons)):
+                break
+            if time.time() > deadline:
+                raise AssertionError(f"after teardown: channel files {files}, pinned "
+                                     f"workers {pinned}, holds {holds}, dags "
+                                     f"{list(c.gcs.dags)}")
+            time.sleep(0.1)
+        head_launches = KT.launch_counts()
+    finally:
+        procs = _cluster_procs(c)
+        try:
+            serve.shutdown()
+            rt.shutdown()
+        finally:
+            c.shutdown()
+            killed = _reap(procs)
+    assert procs and not killed, \
+        f"worker processes still alive 20 s after shutdown (killed): {killed}"
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14 launches: head {head_launches}; replica {replica_launches}, "
+        f"tensor-core {replica_tc}; stage {stage_launches}, tensor-core {stage_tc}")
+    if gpu == "cuda":
+        if head_launches["schedule_classes"] == 0:
+            raise AssertionError(f"the GCS's rounds never launched K1: {head_launches}")
+        for who, got, tc in (("replica", replica_launches, replica_tc),
+                             ("stage", stage_launches, stage_tc)):
+            missing = [k for k in FORWARD_KERNELS if got[k] == 0]
+            if missing:
+                raise AssertionError(f"the {who}'s worker never launched {missing}")
+            if tc["attention"] != got["attention"]:
+                raise AssertionError(f"{who}: {got['attention']} K8 launches, "
+                                     f"{tc['attention']} on the tensor cores")
+    log(f"phase 14: {json.dumps(res)}")
+    return res, {k: head_launches[k] for k in PHASE14_HEAD_KERNELS}, \
+        {k: replica_launches[k] for k in FORWARD_KERNELS}, \
+        {k: stage_launches[k] for k in FORWARD_KERNELS}
+
+
 def main() -> int:
     try:
         import torch
@@ -4140,6 +4379,20 @@ def main() -> int:
     cluster_res, head13, worker13 = phase13_cluster(KT, ctx, requests, answers)
     log(f"phase 13: {time.perf_counter() - t0:.1f} s, launches in this process {head13}, "
         f"in the model actor's worker {worker13}")
+
+    # the serving path: serve's fast path and a compiled graph in a cluster
+    # of their own; the GCS's counters from 0 in this process, the
+    # replica's and the stage's workers their own
+    t0 = time.perf_counter()
+    serving_res, head14, replica14, stage14 = phase14_serve(KT, ctx, requests, answers)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s, launches in this process {head14}, "
+        f"in the replica's worker {replica14}, in the stage's worker {stage14}")
+    log(f"phase 14 on {card}: first answer {serving_res['first_answer_s']:.3f} s, "
+        f"8 requests through the fast path {serving_res['fastpath_8_requests_s']:.3f} s, "
+        f"compiled graph {serving_res['cross_node_ms_median']:.3f} ms an iteration "
+        f"(same node {serving_res['same_node_ms_median']:.3f} ms), cross-node edge "
+        f"{serving_res['cross_node_edge_ms_median']:.3f} ms, phase "
+        f"{serving_res['phase_s']:.1f} s")
     if guard_records:
         raise AssertionError(f"invariant guard fired: {guard_records}")
 
@@ -4229,6 +4482,7 @@ def main() -> int:
                     "moe_train": moe_train_res, "moe_train_actor": moe_train_actor,
                     "moe_train_checks": moe_train_checks, "ranks": ranks_res,
                     "train_across_ranks": mesh_train, "cluster": cluster_res,
+                    "serving": serving_res,
                     "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
                     "attention_ms_f32_cuda_core": model_rec["attention"]["ms_f32_cuda_core"],
                     "attention_bwd_ms_f32_cuda_core":
@@ -4243,6 +4497,15 @@ def main() -> int:
     for entry in kernels:  # phase 13's, in the GCS's process or the actor's
         if entry["name"] in phase13:
             entry["phase13_launches"] = phase13[entry["name"]]
+    for entry in kernels:  # phase 14's: the GCS's process, the replica's and
+        # the stage's workers (the forward's kernels summed over the two)
+        name = entry["name"]
+        if name in head14:
+            entry["phase14_launches"] = head14[name]
+        if name in replica14:
+            entry["phase14_launches"] = replica14[name] + stage14[name]
+            entry["phase14_launches_by_process"] = {"replica": replica14[name],
+                                                    "stage": stage14[name]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

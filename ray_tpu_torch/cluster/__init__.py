@@ -20,9 +20,15 @@ Processes:
   client:  ClusterClient — the driver runtime behind
            ray_tpu_torch.init(address=...) and init(cluster=True).
 
-The daemon's compiled-DAG handlers and serve fast-path pairs, and the
-worker's DAG loop and serve attach, raise NotImplementedError until the DAG
-layer and serve are ported (ROADMAP.md, queue 1, items 6 and 9).
+Compiled graphs and Serve's fast path ride the same processes: the daemon
+pins a worker to each compiled-DAG stage, owns the channel files under its
+``chan_dir`` (``ray_tpu_torch.dag.channel``) and relays cross-node frames
+(``rpc_dag_push`` / ``rpc_dag_pull``); it builds each fast-path pair's
+request and response channels and hands them to the worker hosting the
+replica (``rpc_serve_attach``). The worker runs a stage's exec loop
+(``dag_loop``) and a replica's ``ReplicaFastPath`` (``serve_attach``); a
+worker's death flags every channel of its stages and pairs closed and
+errored, so a parked driver or client raises ``ChannelClosedError``.
 """
 
 from ray_tpu_torch.cluster.cluster_utils import Cluster

@@ -47,15 +47,6 @@ from ray_tpu_torch.util import metrics as _metrics
 #:   thread's drain (the exact rpc-loop/heartbeat pair the fix covered).
 SEEDED_BUGS: set = set()
 
-_DAG_TODO = (
-    "compiled-DAG stages and channels are not ported yet: the DAG layer "
-    "waits for ROADMAP.md, queue 1, item 6"
-)
-_SERVE_TODO = (
-    "serve fast-path pairs are not ported yet: serve waits for ROADMAP.md, "
-    "queue 1, item 9"
-)
-
 # --- observability (ray_tpu_torch.obs): daemon-side metrics, module-scope.
 # Handler self-time carries an explicit ``node`` tag so the cluster
 # aggregate keeps per-node attribution even in the embedded test topology
@@ -289,13 +280,22 @@ class NodeDaemon:
         self.workers: Dict[str, _Worker] = {}
         self._idle: deque = deque()
         self._task_queue: deque = deque()  # tasks waiting for a worker
-        # compiled-DAG channel files would live under chan_dir, which is
-        # advertised in register_node so same-host drivers map channels
-        # directly; the DAG layer itself is not ported yet (_DAG_TODO)
+        # --- compiled-DAG state (ray_tpu_torch/dag): per-dag pinned stages and
+        # the channel files living on this node. chan_dir is advertised in
+        # register_node so same-host drivers map channels directly.
         self.chan_dir = os.path.join(
             self.config.session_dir_root, "dagchan", self.node_id
         )
         os.makedirs(self.chan_dir, exist_ok=True)
+        self._dags: Dict[str, dict] = {}  # dag_id -> {stages, keys}
+        # serve fast-path pairs homed on this node (ray_tpu_torch/serve/fastpath):
+        # pair_id -> {worker_id, actor_id, keys, paths}; channels live in
+        # _chan_index/_chan_paths like dag edges, so the relay fallback
+        # (rpc_dag_push/rpc_dag_pull) and the death sweep cover them too
+        self._serve_pairs: Dict[str, dict] = {}
+        self._chan_paths: Dict[str, str] = {}  # channel key -> local path
+        self._chan_index: Dict[str, Any] = {}  # key -> Channel this daemon holds
+        self._dag_pending: deque = deque()  # stage specs awaiting a worker
         self._actor_tasks: Dict[str, dict] = {}  # task_id -> meta (actor rpc futures)
         self._pending_rpc: Dict[str, Any] = {}  # task_id -> asyncio future (actor calls)
         self._peer_clients: Dict[str, RpcClient] = {}
@@ -602,6 +602,7 @@ class NodeDaemon:
                 self.workers[worker_id] = w
             w.conn = conn
             self._idle.append(worker_id)
+        self._pump_dag_stages()
         self._pump()
         return {"ok": True, "node_id": self.node_id}
 
@@ -1320,51 +1321,449 @@ class NodeDaemon:
             except OSError:
                 pass
 
-    # --- compiled-DAG stages + channels (reference: ray_tpu/dag — Ray
-    # Compiled Graphs; the daemon pins one worker per stage, owns the
+    # --- compiled-DAG stages + channels (ray_tpu_torch/dag; reference: Ray
+    # Compiled Graphs — the daemon pins one worker per stage, owns the
     # writable end of channels deposited by remote writers, and relays
-    # cross-node frames over dag_push/dag_pull) and serve fast-path pairs
-    # (reference: ray_tpu/serve/fastpath.py; channel files under chan_dir
-    # handed to the worker hosting the replica). Neither is ported yet:
-    # every entry point raises, naming the ROADMAP item it waits for. No
-    # worker ever holds a stage or a pair, so the worker-death sweeps
-    # (_on_worker_disconnect) never reach the two hooks below.
+    # cross-node frames over dag_push/dag_pull) ---
+
+    def _dag_ent(self, dag_id: str) -> dict:
+        with self._lock:
+            return self._dags.setdefault(
+                dag_id, {"stages": {}, "keys": set()}
+            )
 
     def rpc_dag_start_stage(self, p, conn):
-        raise NotImplementedError(_DAG_TODO)
+        """Driver -> daemon: pin a worker and start a compiled-DAG stage's
+        exec loop. Pre-creates daemon-owned deposit channels (in-edges
+        whose writer is remote), then pushes the static loop spec to a
+        dedicated worker; resolves once the worker reports dag_stage_ready."""
+        from ray_tpu_torch.dag.channel import Channel
+
+        if self._stopped:
+            return {"ok": False, "error": "daemon stopping"}
+        dag_id, stage, spec = p["dag_id"], p["stage"], p["spec"]
+        ent = self._dag_ent(dag_id)
+        for c in p.get("own_channels") or ():
+            # the (possibly blocking) shm create runs unlocked; the index
+            # insert re-checks under the lock
+            made = None
+            if c["key"] not in self._chan_index:
+                made = Channel.create(
+                    c["path"], int(p.get("capacity") or 65536), c["key"]
+                )
+            with self._lock:
+                cur = (
+                    self._chan_index.setdefault(c["key"], made)
+                    if made is not None else None
+                )
+                ent["keys"].add(c["key"])
+                self._chan_paths[c["key"]] = c["path"]
+            if made is not None and cur is not made:
+                # lost the race to a concurrent open of the same key:
+                # drop OUR mapping only (close() would set the shared
+                # CLOSED flag and kill the winner's channel)
+                made.detach()
+        with self._lock:
+            for e in list(spec.get("in_edges") or ()) + [
+                e for e in spec.get("out_edges") or () if not e.get("remote")
+            ]:
+                ent["keys"].add(e["key"])
+                self._chan_paths[e["key"]] = e["path"]
+        aid = p.get("actor_id")
+        fut = self.server.loop.create_future()
+        with self._lock:
+            self._pending_rpc[f"dagstage-{dag_id}-{stage}"] = fut
+        if aid:
+            # actor-bound stage: the loop runs on the worker already
+            # hosting the actor (actors stay where they live)
+            with self._lock:
+                w = next(
+                    (w for w in self.workers.values() if w.actor_id == aid),
+                    None,
+                )
+            if w is None or w.conn is None:
+                with self._lock:
+                    self._pending_rpc.pop(f"dagstage-{dag_id}-{stage}", None)
+                return {"ok": False,
+                        "error": f"actor {aid} not hosted on {self.node_id}"}
+            self._dispatch_dag_stage(w, dag_id, stage, spec)
+            return fut
+        with self._lock:
+            w = None
+            while self._idle:
+                w = self.workers.get(self._idle.popleft())
+                if w is not None and w.conn is not None:
+                    break
+                w = None
+            if w is not None:
+                w.busy = True
+        if w is not None:
+            self._dispatch_dag_stage(w, dag_id, stage, spec)
+        else:
+            # no ready worker: park the spec; rpc_worker_ready drains it
+            self._dag_pending.append((dag_id, stage, spec))
+            self._spawn_worker()
+        return fut
+
+    def _pump_dag_stages(self):
+        """Hand parked dag stages to ready workers (called on worker_ready
+        — dag stages outrank the task queue: each one was explicitly
+        provisioned a pinned worker)."""
+        while True:
+            with self._lock:
+                if not self._dag_pending:
+                    return
+                w = None
+                while self._idle:
+                    w = self.workers.get(self._idle.popleft())
+                    if w is not None and w.conn is not None:
+                        break
+                    w = None
+                if w is None:
+                    return
+                w.busy = True
+                dag_id, stage, spec = self._dag_pending.popleft()
+            self._dispatch_dag_stage(w, dag_id, stage, spec)
+
+    def _dispatch_dag_stage(self, w: "_Worker", dag_id: str, stage: int,
+                            spec: dict):
+        w.dag_stages.add((dag_id, stage))
+        self._dag_ent(dag_id)["stages"][stage] = w.worker_id
+        self.server.call_soon(
+            lambda c=w.conn, s=spec: asyncio.ensure_future(
+                c.push("dag_loop", s)
+            )
+        )
 
     def rpc_dag_stage_ready(self, p, conn):
-        raise NotImplementedError(_DAG_TODO)
+        """Worker notify: the exec loop is up, out-channels created."""
+        with self._lock:
+            fut = self._pending_rpc.pop(
+                f"dagstage-{p['dag_id']}-{p['stage']}", None
+            )
+        if fut is not None:
+            self.server.call_soon(
+                lambda: fut.set_result({"ok": True})
+                if not fut.done() else None
+            )
+        return {"ok": True}
 
     def rpc_dag_stage_exit(self, p, conn):
-        raise NotImplementedError(_DAG_TODO)
+        """Worker notify: its exec loop finished (teardown or upstream
+        close) — release the worker pin back to the pool."""
+        worker_id = conn.meta.get("worker_id")
+        with self._lock:
+            w = self.workers.get(worker_id)
+            if w is not None:
+                w.dag_stages.discard((p["dag_id"], p["stage"]))
+                if (
+                    not w.dag_stages and w.actor_id is None
+                    and w.current_task is None and w.busy
+                ):
+                    w.busy = False
+                    self._idle.append(worker_id)
+        ent = self._dags.get(p["dag_id"])
+        if ent is not None:
+            ent["stages"].pop(p["stage"], None)
+        self._pump()
+        return {"ok": True}
 
     def rpc_dag_push(self, p, conn):
-        raise NotImplementedError(_DAG_TODO)
+        """Cross-node edge deposit: a remote writer (worker or driver)
+        hands a frame to the channel this daemon owns. Blocking (channel
+        backpressure) — runs off the event loop."""
+        ch = self._chan_index.get(p["key"])
+        if ch is None:
+            return {"ok": False,
+                    "error": f"no channel {p['key']} on {self.node_id}"}
+        if p.get("close"):
+            ch.close(error=bool(p.get("error")))
+            return {"ok": True}
+        payload = p.get("payload")
+        return self.server.loop.run_in_executor(
+            None, lambda: self._dag_deposit(ch, payload)
+        )
+
+    @staticmethod
+    def _dag_deposit(ch, payload) -> dict:
+        try:
+            ch.write(payload, timeout=60.0)
+            return {"ok": True}
+        except Exception as e:  # noqa: BLE001 - surface to the pusher
+            return {"ok": False, "error": repr(e)}
 
     def rpc_dag_pull(self, p, conn):
-        raise NotImplementedError(_DAG_TODO)
+        """Remote-driver read of an output edge: the daemon attaches the
+        channel's read end locally and consumes on the driver's behalf
+        (the ack word needs a same-host writable mapping)."""
+        timeout = float(p.get("timeout") or 30.0)
+        return self.server.loop.run_in_executor(
+            None, lambda: self._dag_pull_frame(p["key"], timeout)
+        )
+
+    def _dag_pull_frame(self, key: str, timeout: float) -> dict:
+        from ray_tpu_torch.dag.channel import (
+            Channel,
+            ChannelClosedError,
+            ChannelTimeoutError,
+        )
+
+        with self._lock:
+            ch = self._chan_index.get(key)
+            path = self._chan_paths.get(key)
+        if ch is None:
+            if path is None:
+                return {"ok": False, "closed": True}
+            try:
+                opened = Channel.open_wait(path, key, timeout=timeout)
+            except (ChannelClosedError, ChannelTimeoutError):
+                return {"ok": False, "closed": False}
+            with self._lock:
+                ch = self._chan_index.setdefault(key, opened)
+            if ch is not opened:
+                opened.detach()  # racer won; drop our duplicate mapping
+        try:
+            seq, payload = ch.read(timeout=timeout)
+            return {"ok": True, "seq": seq, "payload": payload}
+        except ChannelClosedError:
+            return {"ok": False, "closed": True}
+        except Exception:  # noqa: BLE001 - timeout or torn mapping
+            return {"ok": False, "closed": False}
 
     def rpc_dag_spans(self, p, conn):
-        raise NotImplementedError(_DAG_TODO)
+        """Worker notify: a batch of per-iteration (start, end) spans from
+        a stage's exec loop; relayed to the GCS task-event log so
+        `ray_tpu_torch timeline` shows per-stage occupancy of the hot loop."""
+        try:
+            self.gcs.call_async("dag_spans", {
+                "dag_id": p["dag_id"], "stage": p["stage"],
+                "name": p.get("name"), "base": p.get("base") or 0,
+                "node_id": self.node_id, "spans": p.get("spans") or [],
+            }).add_done_callback(log_rpc_failure)
+        except Exception:  # noqa: BLE001 - gcs reconnecting
+            pass
+        return {"ok": True}
 
     def _on_dag_worker_died(self, w: "_Worker"):
-        raise NotImplementedError(_DAG_TODO)
+        from ray_tpu_torch.dag import channel as _chan
+
+        for dag_id, stage in list(w.dag_stages):
+            ent = self._dags.get(dag_id)
+            if ent is not None:
+                ent["stages"].pop(stage, None)
+                for key in ent["keys"]:
+                    path = self._chan_paths.get(key)
+                    if path:
+                        _chan.poke_error(path)
+            # died before reporting ready: fail the driver's pending
+            # dag_start_stage instead of letting it ride out its timeout
+            with self._lock:
+                fut = self._pending_rpc.pop(
+                    f"dagstage-{dag_id}-{stage}", None
+                )
+            if fut is not None:
+                self.server.call_soon(
+                    lambda f=fut, s=stage: f.set_result({
+                        "ok": False,
+                        "error": f"stage {s} worker died before ready",
+                    }) if not f.done() else None
+                )
+            try:
+                self.gcs.call_async("dag_worker_died", {
+                    "dag_id": dag_id, "stage": stage,
+                    "error": f"dag stage {stage} worker {w.worker_id} died "
+                             f"on {self.node_id} (exit {w.proc.poll() if w.proc else '?'})",
+                }).add_done_callback(log_rpc_failure)
+            except Exception:  # noqa: BLE001 - gcs reconnecting
+                pass
 
     def _on_dag_teardown(self, p):
-        raise NotImplementedError(_DAG_TODO)
+        """GCS push: release the DAG's channels and worker pins on this
+        node. Idempotent — a second teardown finds nothing."""
+        from ray_tpu_torch.dag.channel import Channel
+
+        dag_id = p["dag_id"]
+        with self._lock:
+            ent = self._dags.pop(dag_id, None)
+        if ent is None:
+            return
+        with self._lock:
+            stage_workers = [
+                self.workers.get(wid) for wid in set(ent["stages"].values())
+            ]
+        for w in stage_workers:
+            if w is not None and w.conn is not None:
+                self.server.call_soon(
+                    lambda c=w.conn: asyncio.ensure_future(
+                        c.push("dag_stop", {"dag_id": dag_id})
+                    )
+                )
+        for key in ent["keys"]:
+            with self._lock:
+                ch = self._chan_index.pop(key, None)
+                path = self._chan_paths.pop(key, None)
+            if ch is not None:
+                try:
+                    ch.close()
+                    ch.detach()
+                except Exception:  # noqa: BLE001
+                    pass
+            elif path:
+                # close in place so a still-draining end wakes up
+                try:
+                    c = Channel.open_wait(path, key, timeout=0.01)
+                    c.close()
+                    c.detach()
+                except Exception:  # noqa: BLE001
+                    pass
+            if path:
+                Channel.unlink(path)
+
+    # --- serve fast-path pairs (ray_tpu_torch/serve/fastpath.py): the daemon
+    # creates each pair's request/response channel files under its
+    # chan_dir, registers them for the relay fallback AND its worker-death
+    # sweep, and hands the pair to the worker hosting the replica actor ---
 
     def rpc_serve_attach(self, p, conn):
-        raise NotImplementedError(_SERVE_TODO)
+        """Client -> daemon: build one fast-path pair against the replica
+        actor hosted here. Creates both channels, registers the death
+        poke, pushes the attach spec to the replica's worker, and defers
+        the reply until the worker reports serve_replica_ready — so a
+        successful return means the request plane is LIVE."""
+        from ray_tpu_torch.dag.channel import Channel
+
+        if self._stopped:
+            return {"ok": False, "error": "daemon stopping"}
+        pair_id, aid = p["pair_id"], p["actor_id"]
+        cap = int(p.get("capacity") or 65536)
+        with self._lock:
+            existing = self._serve_pairs.get(pair_id)
+        if existing is not None:
+            # idempotent re-attach (retry-plane resend of the same call)
+            req_path, resp_path = existing["paths"]
+            return {"ok": True, "req_path": req_path,
+                    "resp_path": resp_path}
+        with self._lock:
+            w = next(
+                (w for w in self.workers.values() if w.actor_id == aid),
+                None,
+            )
+        if w is None or w.conn is None:
+            # the actor moved/died between the GCS resolve and this call:
+            # the client refreshes membership and re-routes
+            return {"ok": False, "retry": True,
+                    "error": f"actor {aid} not hosted on {self.node_id}"}
+        keys = (f"{pair_id}-rq", f"{pair_id}-rs")
+        paths = tuple(f"{self.chan_dir}/{k}.chan" for k in keys)
+        for key, path in zip(keys, paths):
+            made = None
+            if key not in self._chan_index:
+                made = Channel.create(path, cap, key)
+            with self._lock:
+                cur = (self._chan_index.setdefault(key, made)
+                       if made is not None else None)
+                self._chan_paths[key] = path
+            if made is not None and cur is not made:
+                made.detach()  # racer won: drop OUR mapping only
+        fut = self.server.loop.create_future()
+        with self._lock:
+            self._pending_rpc[f"servepair-{pair_id}"] = fut
+            self._serve_pairs[pair_id] = {
+                "pair_id": pair_id,
+                "worker_id": w.worker_id,
+                "actor_id": aid,
+                "keys": keys,
+                "paths": paths,
+            }
+            w.serve_pairs.add(pair_id)
+        spec = {
+            "pair_id": pair_id,
+            "actor_id": aid,
+            "req_path": paths[0],
+            "resp_path": paths[1],
+            "batch_max": self.config.serve_fastpath_batch_max,
+            "target_latency_s": self.config.serve_fastpath_target_latency_s,
+        }
+        self.server.call_soon(
+            lambda c=w.conn, s=spec: asyncio.ensure_future(
+                c.push("serve_attach", s)
+            )
+        )
+        return fut
 
     def rpc_serve_replica_ready(self, p, conn):
-        raise NotImplementedError(_SERVE_TODO)
+        """Worker notify: the replica loop attached the pair's channels
+        (or failed to) — resolves the client's pending serve_attach."""
+        pair_id = p["pair_id"]
+        with self._lock:
+            fut = self._pending_rpc.pop(f"servepair-{pair_id}", None)
+            sp = self._serve_pairs.get(pair_id)
+        if fut is None:
+            return {"ok": True}
+        if p.get("ok", True) and sp is not None:
+            reply = {"ok": True, "req_path": sp["paths"][0],
+                     "resp_path": sp["paths"][1]}
+        else:
+            reply = {"ok": False, "retry": True,
+                     "error": p.get("error") or "replica attach failed"}
+        self.server.call_soon(
+            lambda: fut.set_result(reply) if not fut.done() else None
+        )
+        return {"ok": True}
+
+    def _close_serve_pair(self, sp: dict) -> None:
+        """Close + unlink one pair's channels (wakes both ends)."""
+        from ray_tpu_torch.dag.channel import Channel
+
+        for key, path in zip(sp["keys"], sp["paths"]):
+            with self._lock:
+                ch = self._chan_index.pop(key, None)
+                self._chan_paths.pop(key, None)
+            if ch is not None:
+                try:
+                    ch.close()
+                    ch.detach()
+                except Exception:  # noqa: BLE001
+                    pass
+            Channel.unlink(path)
 
     def _on_serve_teardown(self, p):
-        raise NotImplementedError(_SERVE_TODO)
+        """GCS push (client teardown or owner-disconnect sweep): release
+        the pair's channels on this node. Idempotent."""
+        with self._lock:
+            sp = self._serve_pairs.pop(p["pair_id"], None)
+            if sp is not None:
+                w = self.workers.get(sp["worker_id"])
+                if w is not None:
+                    w.serve_pairs.discard(p["pair_id"])
+        if sp is not None:
+            self._close_serve_pair(sp)
 
     def _on_serve_worker_died(self, w: "_Worker"):
-        raise NotImplementedError(_SERVE_TODO)
+        """A worker hosting fast-path replicas died: flag every pair
+        channel CLOSED|ERROR so parked clients wake with
+        ChannelClosedError and reroute — the serve half of the dag death
+        sweep. Entries stay until teardown so the files still unlink."""
+        from ray_tpu_torch.dag import channel as _chan
+
+        with self._lock:
+            pairs = [self._serve_pairs.get(pid)
+                     for pid in list(w.serve_pairs)]
+            futs = [self._pending_rpc.pop(f"servepair-{pid}", None)
+                    for pid in list(w.serve_pairs)]
+        for sp in pairs:
+            if sp is None:
+                continue
+            for path in sp["paths"]:
+                _chan.poke_error(path)
+        for fut in futs:
+            if fut is not None:
+                self.server.call_soon(
+                    lambda f=fut: f.set_result({
+                        "ok": False, "retry": True,
+                        "error": "replica worker died before ready",
+                    }) if not f.done() else None
+                )
 
     # --- 2PC bundle protocol, GCS-initiated (reference:
     # placement_group_resource_manager.cc Prepare/Commit/ReturnBundle;

@@ -364,9 +364,14 @@ def _execute(client: RpcClient, t: dict):
             if aio is not None:
                 value = aio.call(method, args, kwargs)
             else:
-                # no compiled-DAG stage binds an actor before the DAG layer
-                # is ported (_DAG_TODO), so no stage's calls interleave here
-                value = method(*args, **kwargs)
+                # serialize against a compiled-DAG stage bound to this
+                # actor, if any (the dag thread invokes methods directly)
+                lk = _actor_dag_locks.get(t["actor_id"])
+                if lk is not None:
+                    with lk:
+                        value = method(*args, **kwargs)
+                else:
+                    value = method(*args, **kwargs)
             values = _finish_value(client, t, value, num_returns, aio)
         else:
             with _rtenv_mod.applied(env_vars, env_cwd, py_paths=env_paths):
@@ -435,15 +440,190 @@ def _execute(client: RpcClient, t: dict):
 
 # ---- compiled-DAG exec-loop mode (reference: Ray Compiled Graphs — the
 # pinned worker loop in python/ray/dag/compiled_dag_node.py's executors).
-# The DAG layer and its channels are not ported yet (ROADMAP.md, queue 1,
-# item 6): a `dag_loop` push raises instead of running the stage's loop.
+# A worker that receives a `dag_loop` push runs the stage's static loop on
+# a dedicated thread: read every input channel, run the bound function (or
+# the hosted actor's method), write the output channel(s) — no control
+# plane on the hot path, until `dag_stop`/channel close/teardown.
 
-_DAG_TODO = (
-    "compiled-DAG stages (dag_loop) are not ported yet: the DAG layer and "
-    "its channels wait for ROADMAP.md, queue 1, item 6"
-)
+_dag_stops: dict = {}  # (dag_id, stage) -> threading.Event
+# sync (non-asyncio) actors with a DAG stage bound run that stage's method
+# on the dag thread CONCURRENTLY with normal method calls on the task
+# thread(s); this per-actor mutex serializes the two planes so actor state
+# never sees torn updates (async actors already serialize via their loop)
+_actor_dag_locks: dict = {}  # actor_id -> threading.RLock
+
+
+def _on_dag_stop(p: dict):
+    for (dag_id, stage), ev in list(_dag_stops.items()):
+        if dag_id == p["dag_id"]:
+            ev.set()
+
+
 def _dag_loop(client: RpcClient, spec: dict):
-    raise NotImplementedError(_DAG_TODO)
+    from ray_tpu_torch.cluster.rpc import RpcClient as _Rpc
+    from ray_tpu_torch.dag.channel import (
+        Channel,
+        ChannelClosedError,
+        ChannelTimeoutError,
+    )
+    from ray_tpu_torch.dag.compiled import _EdgeArg, _RemoteEdgeWriter
+
+    dag_id, stage = spec["dag_id"], spec["stage"]
+    stop = threading.Event()
+    _dag_stops[(dag_id, stage)] = stop
+    outs: list = []
+    ins: list = []
+    remote_clients: dict = {}
+    error_exit = False
+    spans: list = []  # (start, end) per iteration, for the timeline
+    flushed = 0
+
+    def flush_spans(final=False):
+        nonlocal spans, flushed
+        if spans and (final or len(spans) >= 128):
+            try:
+                client.notify("dag_spans", {
+                    "dag_id": dag_id, "stage": stage,
+                    "name": spec.get("name"), "base": flushed,
+                    "spans": spans,
+                })
+            except Exception:  # noqa: BLE001 - daemon racing teardown
+                pass
+            flushed += len(spans)
+            spans = []
+
+    try:
+        # out channels FIRST (downstream readers poll for the files), then
+        # tell the daemon the stage is up, then block on upstream
+        for e in spec["out_edges"]:
+            if e.get("remote"):
+                # cross-node edge: frames ride the daemon transfer path
+                ck = (e["addr"], e["port"])
+                c = remote_clients.get(ck)
+                if c is None:
+                    c = _Rpc(e["addr"], e["port"],
+                             name=os.environ.get("RAY_TPU_WORKER_ID"),
+                             peer=e.get("node_id") or "daemon")
+                    remote_clients[ck] = c
+                outs.append(_RemoteEdgeWriter(c, e["key"]))
+            else:
+                outs.append(
+                    Channel.create(e["path"], spec["capacity"], e["key"])
+                )
+        client.notify("dag_stage_ready", {"dag_id": dag_id, "stage": stage})
+        ins = [
+            Channel.open_wait(e["path"], e["key"], timeout=60.0,
+                              should_stop=stop.is_set)
+            for e in spec["in_edges"]
+        ]
+        aio = None
+        actor_lk = None
+        if spec.get("actor_id"):
+            inst = _actor_instances.get(spec["actor_id"])
+            if inst is None:
+                raise RuntimeError(
+                    f"actor {spec['actor_id']} not hosted on this worker"
+                )
+            fn = getattr(inst, spec["method_name"])
+            aio = _actor_aio.get(spec["actor_id"])
+            if aio is None:
+                actor_lk = _actor_dag_locks.setdefault(
+                    spec["actor_id"], threading.RLock()
+                )
+        else:
+            fn = serialization.loads(spec["func_b"])
+        args_t, kwargs_t = serialization.loads(spec["args_template"])
+
+        def _subst(a, vals):
+            return vals[a.index] if isinstance(a, _EdgeArg) else a
+
+        while not stop.is_set():
+            raws: list = []
+            recs: list = []
+            try:
+                for ch in ins:
+                    while True:
+                        try:
+                            _seq, data = ch.read(
+                                timeout=0.5, should_stop=stop.is_set
+                            )
+                            break
+                        except ChannelTimeoutError:
+                            if stop.is_set():
+                                raise ChannelClosedError("stage stopping") \
+                                    from None
+                    raws.append(data)
+                    recs.append(serialization.unpack(data))
+            except ChannelClosedError:
+                error_exit = any(
+                    getattr(ch, "errored", False) for ch in ins
+                )
+                break
+            t0 = time.time()
+            err_i = next((i for i, r in enumerate(recs) if r["e"]), None)
+            if err_i is not None:
+                # an upstream stage failed this iteration: forward its
+                # error frame unchanged instead of computing on garbage
+                out_payload = raws[err_i]
+            else:
+                try:
+                    vals = [r["v"] for r in recs]
+                    args = tuple(_subst(a, vals) for a in args_t)
+                    kwargs = {k: _subst(v, vals)
+                              for k, v in kwargs_t.items()}
+                    if aio is not None:
+                        value = aio.call(fn, args, kwargs)
+                    elif actor_lk is not None:
+                        with actor_lk:
+                            value = fn(*args, **kwargs)
+                    else:
+                        value = fn(*args, **kwargs)
+                    out_payload = _pack_value(value)
+                except BaseException as e:  # noqa: BLE001 - becomes the frame
+                    from ray_tpu_torch.core.exceptions import TaskError
+
+                    out_payload = _pack_value(
+                        TaskError(
+                            f"dag stage {spec.get('name')} failed: {e!r}",
+                            traceback.format_exc(),
+                        ),
+                        is_exception=True,
+                    )
+            try:
+                for ch in outs:
+                    ch.write(out_payload, timeout=None,
+                             should_stop=stop.is_set)
+            except ChannelClosedError:
+                break
+            spans.append((t0, time.time()))
+            flush_spans()
+    except BaseException:  # noqa: BLE001 - loop must never kill the worker
+        traceback.print_exc()
+        error_exit = True
+    finally:
+        for ch in outs:
+            try:
+                ch.close(error=error_exit)
+            except Exception:  # noqa: BLE001
+                pass
+        for ch in list(ins) + list(outs):
+            try:
+                ch.detach()
+            except Exception:  # noqa: BLE001
+                pass
+        flush_spans(final=True)
+        _dag_stops.pop((dag_id, stage), None)
+        try:
+            client.notify("dag_stage_exit", {
+                "dag_id": dag_id, "stage": stage,
+            })
+        except Exception:  # noqa: BLE001 - daemon already gone
+            pass
+        for c in remote_clients.values():
+            try:
+                c.close()
+            except Exception:  # noqa: BLE001
+                pass
 
 
 def _metrics_push_loop(client: RpcClient):
@@ -478,27 +658,51 @@ def _on_dag_loop(client: RpcClient):
     return handler
 
 
-# ---- serve fast-path replica loops (reference: ray_tpu/serve/fastpath.py,
-# one ReplicaFastPath per hosted replica actor). Serve is not ported yet
-# (ROADMAP.md, queue 1, item 9): an attach is refused, and the refusal is
-# reported to the daemon as the reference reports a failed attach.
-_SERVE_TODO = (
-    "the serve fast path (serve_attach) is not ported yet: serve waits for "
-    "ROADMAP.md, queue 1, item 9"
-)
+# ---- serve fast-path replica loops (ray_tpu_torch/serve/fastpath.py): one
+# ReplicaFastPath per hosted replica actor drains the request channels the
+# daemon attaches via `serve_attach` pushes — no control plane per request.
+_serve_fp: dict = {}  # actor_id -> ReplicaFastPath
+_serve_fp_lock = threading.Lock()
 
 
 def _serve_attach(client: RpcClient, p: dict):
+    aid = p["actor_id"]
+    # the attach may race the actor's creation task: wait for the instance
+    deadline = time.time() + 30.0
+    inst = _actor_instances.get(aid)
+    while inst is None and time.time() < deadline:
+        time.sleep(0.01)
+        inst = _actor_instances.get(aid)
     try:
-        raise NotImplementedError(_SERVE_TODO)
-    except NotImplementedError as e:
+        if inst is None:
+            raise RuntimeError(f"actor {aid} never materialized here")
+        from ray_tpu_torch.serve.fastpath import ReplicaFastPath
+
+        with _serve_fp_lock:
+            fp = _serve_fp.get(aid)
+            if fp is None:
+                fp = _serve_fp[aid] = ReplicaFastPath(
+                    inst, aio=_actor_aio.get(aid),
+                    batch_max=int(p.get("batch_max") or 64),
+                    target_latency_s=float(
+                        p.get("target_latency_s") or 0.02
+                    ),
+                )
+        fp.attach(p["pair_id"], p["req_path"], p["resp_path"])
+    except BaseException as e:  # noqa: BLE001 - reported to the daemon
         try:
             client.notify("serve_replica_ready", {
                 "pair_id": p["pair_id"], "ok": False, "error": repr(e),
             })
         except Exception:  # noqa: BLE001 - daemon already gone
             pass
-        raise
+        return
+    try:
+        client.notify("serve_replica_ready", {
+            "pair_id": p["pair_id"], "ok": True,
+        })
+    except Exception:  # noqa: BLE001 - daemon already gone
+        pass
 
 
 def _on_serve_attach(client: RpcClient):
@@ -531,6 +735,7 @@ def main():  # pragma: no cover - runs as a subprocess
     client.subscribe("run_task", tasks.put)
     client.subscribe("stream_ack", _on_stream_ack)
     client.subscribe("dag_loop", _on_dag_loop(client))
+    client.subscribe("dag_stop", _on_dag_stop)
     client.subscribe("serve_attach", _on_serve_attach(client))
     client.on_close = lambda: os._exit(0)  # daemon gone -> exit
     # Install the cluster runtime NOW (env RAY_TPU_GCS_ADDR -> ClusterClient)

@@ -263,8 +263,6 @@ def _check_options(opts: Dict[str, Any]):
 
 # ------------------------------------------------------------ remote functions
 
-_DAG_TODO = "the DAG layer (.bind) is not ported yet (ROADMAP.md, queue 1)"
-
 class RemoteFunction:
     """Handle produced by @remote on a function (reference:
     python/ray/remote_function.py)."""
@@ -317,9 +315,13 @@ class RemoteFunction:
         return refs[0] if num_returns == 1 else refs
 
     def bind(self, *args, **kwargs):
-        """Lazy DAG construction (reference: ray.dag — fn.bind); the DAG
-        layer is not ported yet."""
-        raise NotImplementedError(_DAG_TODO)
+        """Lazy DAG construction (reference: ray.dag — fn.bind): returns a
+        FunctionNode instead of submitting; DAGNode arguments become graph
+        edges. ``node.execute(x)`` eager-interprets via .remote();
+        ``node.compile()`` builds a pinned-worker pipeline (ray_tpu_torch.dag)."""
+        from ray_tpu_torch.dag.api import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -347,9 +349,12 @@ class ActorMethod:
         )
 
     def bind(self, *args, **kwargs):
-        """Lazy DAG construction (reference: ray.dag —
-        actor.method.bind); the DAG layer is not ported yet."""
-        raise NotImplementedError(_DAG_TODO)
+        """Lazy DAG construction (reference: ray.dag — actor.method.bind):
+        the resulting stage stays pinned to the worker hosting this actor
+        when the graph is compiled (ray_tpu_torch.dag)."""
+        from ray_tpu_torch.dag.api import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._method_name, args, kwargs)
 
 
 class ActorHandle:

@@ -525,24 +525,39 @@ def test_cluster_mode_connects_and_default_config_needs_the_card(monkeypatch):
         _teardown(c)
 
 
-def test_dag_and_serve_parts_raise_naming_their_roadmap_items(cluster):
+def test_dag_and_serve_parts_raise_naming_their_roadmap_items(cluster, tmp_path):
     """The daemon's DAG handlers and serve attach, and the worker's DAG
-    loop and serve attach, wait for ROADMAP items 6 and 9: each raises
-    NotImplementedError naming its item, never an ImportError."""
+    loop and serve attach, are the reference's (they raised
+    NotImplementedError naming ROADMAP items 6 and 9 before the DAG layer
+    and serve were ported): the daemon answers an unknown dag, channel,
+    pair or actor as the reference's does, the worker's exec loop runs a
+    function stage between two channels until stopped, and its serve
+    attach reports a hosted replica ready."""
+    import threading
+
     from ray_tpu_torch.cluster import worker as W
+    from ray_tpu_torch.core import serialization
+    from ray_tpu_torch.dag.channel import Channel
+    from ray_tpu_torch.dag.compiled import _EdgeArg
 
     d = cluster.add_node(num_cpus=1)
-    for name in ("rpc_dag_start_stage", "rpc_dag_stage_ready", "rpc_dag_stage_exit",
-                 "rpc_dag_push", "rpc_dag_pull", "rpc_dag_spans"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            getattr(d, name)({"dag_id": "d", "stage": 0}, None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        d._on_dag_teardown({"dag_id": "d"})
-    for name in ("rpc_serve_attach", "rpc_serve_replica_ready"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            getattr(d, name)({"pair_id": "p", "actor_id": "a"}, None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        d._on_serve_teardown({"pair_id": "p"})
+
+    class _Conn:
+        meta = {"worker_id": "w-none"}
+
+    assert d.rpc_dag_push({"key": "nope", "payload": b""}, None)["ok"] is False
+    assert d._dag_pull_frame("nope", 0.1) == {"ok": False, "closed": True}
+    assert d.rpc_dag_stage_ready({"dag_id": "d", "stage": 0}, None) == {"ok": True}
+    assert d.rpc_dag_stage_exit({"dag_id": "d", "stage": 0}, _Conn()) == {"ok": True}
+    assert d.rpc_dag_spans({"dag_id": "d", "stage": 0, "spans": []}, None) == {"ok": True}
+    out = d.rpc_dag_start_stage({"dag_id": "d", "stage": 0, "actor_id": "a-none",
+                                 "spec": {"in_edges": [], "out_edges": []}}, None)
+    assert out["ok"] is False and "not hosted" in out["error"]
+    d._on_dag_teardown({"dag_id": "d"})  # nothing to release: a no-op
+    out = d.rpc_serve_attach({"pair_id": "p", "actor_id": "a-none"}, None)
+    assert out["ok"] is False and out["retry"] is True
+    assert d.rpc_serve_replica_ready({"pair_id": "p"}, None) == {"ok": True}
+    d._on_serve_teardown({"pair_id": "p"})
 
     sent = []
 
@@ -550,12 +565,50 @@ def test_dag_and_serve_parts_raise_naming_their_roadmap_items(cluster):
         def notify(self, method, params):
             sent.append((method, params))
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        W._dag_loop(_Client(), {"dag_id": "d", "stage": 0})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        W._serve_attach(_Client(), {"pair_id": "p", "actor_id": "a"})
-    # the refusal reaches the daemon as a failed attach, as the reference's
-    assert sent and sent[0][0] == "serve_replica_ready" and sent[0][1]["ok"] is False
+    # the exec loop: input channel -> x * 3 -> output channel
+    src, dst = str(tmp_path / "in.chan"), str(tmp_path / "out.chan")
+    w_in = Channel.create(src, 256, "in")
+    spec = {"dag_id": "d1", "stage": 0, "name": "triple", "capacity": 256,
+            "actor_id": None, "func_b": serialization.dumps(lambda x: x * 3),
+            "args_template": serialization.dumps(((_EdgeArg(0),), {})),
+            "in_edges": [{"key": "in", "path": src}],
+            "out_edges": [{"key": "out", "path": dst}]}
+    t = threading.Thread(target=W._dag_loop, args=(_Client(), spec), daemon=True)
+    t.start()
+    r_out = Channel.open_wait(dst, "out", timeout=30)
+    for i in range(3):
+        w_in.write(W._pack_value(i), timeout=30)
+        _, frame = r_out.read(timeout=30)
+        assert serialization.unpack(frame) == {"e": False, "v": 3 * i}
+    W._on_dag_stop({"dag_id": "d1"})
+    t.join(30)
+    assert not t.is_alive()
+    kinds = [m for m, _ in sent]
+    assert kinds[0] == "dag_stage_ready" and kinds[-1] == "dag_stage_exit"
+    assert sum(len(p["spans"]) for m, p in sent if m == "dag_spans") == 3
+
+    # the serve attach of a hosted replica: its fast path maps the pair
+    paths = [str(tmp_path / f"p-{k}.chan") for k in ("rq", "rs")]
+    chans = [Channel.create(path, 256, path) for path in paths]
+
+    class _Echo:
+        def __call__(self, x):
+            return x
+
+    sent.clear()
+    W._actor_instances["a-echo"] = _Echo()
+    try:
+        W._serve_attach(_Client(), {"pair_id": "p1", "actor_id": "a-echo",
+                                    "req_path": paths[0], "resp_path": paths[1]})
+        assert sent == [("serve_replica_ready", {"pair_id": "p1", "ok": True})]
+    finally:
+        fp = W._serve_fp.pop("a-echo", None)
+        if fp is not None:
+            fp.stop()
+        W._actor_instances.pop("a-echo", None)
+        for ch in chans:
+            ch.close()
+            ch.detach()
 
 
 def test_model_actor_in_a_worker_matches_jax_forward(cluster):

@@ -217,6 +217,26 @@ caught):
    and no DAG; every worker reaped after shutdown. Prints the first
    answer's seconds, the 8 requests', each graph's median ms an iteration,
    the cross-node edge's (their difference) and the phase's seconds.
+15. the Train library (ray_tpu_torch.train) in a Cluster of its own (the
+   default policy on the card), one node offering {"GPU": 1}, at 9b's
+   full width, seed and tokens: (a) JaxTrainer with one worker asking for
+   the GPU, FailureConfig(max_failures=1), CheckpointConfig(num_to_keep=2):
+   the loop builds make_train_state on prepare_mesh's one-rank mesh,
+   reports each step's loss, checkpoints the parameters and AdamW's state
+   with save_pytree after 4 steps, then raises; the restarted group loads
+   the checkpoint and takes steps 5-6. Every loss bit-equal to 9b's, the
+   checkpoint's checksum (and Result.checkpoint's, loaded here) equal to
+   9b's after 4 steps; the store's spill of the checkpoint's tar is
+   reported. (b) The first attempt's first 2 steps under profile_device in
+   the fresh worker: the trace holds K8 on the tensor cores, K8', K10a' and
+   K10b' (rows), the guard silent, current_accelerator_type() "H100". (c)
+   JaxTrainer with two workers sharing the card (GPU 0.5 each, one gloo
+   group), prepare_mesh(("dp", "tp"), (2, 1)), 3 steps: losses within
+   TRAIN_GOLDEN_TOL["bf16"]["loss"] of 9b's, every leaf bit-equal across
+   the ranks. No worker process alive 20 s after shutdown(). Prints each
+   worker's first-step and set-up seconds, the steps' ms by the host clock,
+   the checkpoint's MB, its save, report and load seconds, the restart's
+   seconds and 15c's step ms a rank.
 
 Launch counters are set to 0 just before phase 2 and read after phase 5,
 the model kernels' just before 6b and after 6c (every K8 launch there must
@@ -242,7 +262,13 @@ must launch in this process (K3's launches are reported: it runs only
 where the GCS's rounds overlap) and K8 (every launch on the tensor
 cores), K10a and K10b in the replica's and in the stage's worker
 ("phase14_launches" in the kernels line, the forward's kernels summed
-over the two, "phase14_launches_by_process" apart). The
+over the two, "phase14_launches_by_process" apart); each of phase 15's
+train workers starts at 0 in its fresh process and its counters are read
+through WorkerGroup.execute when its group shuts down: 15a's two workers
+together must launch each of the training path's six kernels its count a
+step times the 6 steps (every K8 and K8' on the tensor cores, every K10b'
+in rows), and every worker of 15a and 15c each of them ("phase15_launches"
+in the kernels line, "phase15_launches_by_part" apart). The
 JSON line before the card's name and power limit lists the kernels; the
 last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
@@ -3755,7 +3781,7 @@ def _cluster_procs(c):
             if w.proc is not None]
 
 
-def _shm_room(n_stores, store_bytes):
+def _shm_room(n_stores, store_bytes, phase="13"):
     """/dev/shm's free bytes, checked against the stores the phase creates:
     a segment larger than the mount's room is created (ftruncate reserves
     nothing) and faults at the first write past it, so the phase fails
@@ -3763,7 +3789,7 @@ def _shm_room(n_stores, store_bytes):
     st = os.statvfs("/dev/shm")
     free = st.f_bavail * st.f_frsize
     need = n_stores * store_bytes
-    log(f"phase 13 /dev/shm: {free / 2**20:.1f} MiB free, {n_stores} stores of "
+    log(f"phase {phase} /dev/shm: {free / 2**20:.1f} MiB free, {n_stores} stores of "
         f"{store_bytes / 2**20:.1f} MiB need {need / 2**20:.1f} MiB")
     if free < need:
         raise AssertionError(
@@ -4145,6 +4171,381 @@ def phase14_serve(KT, ctx, requests, answers, gpu="cuda"):
         {k: stage_launches[k] for k in FORWARD_KERNELS}
 
 
+# --------------------------------------------- phase 15: the Train library
+
+PHASE15_NODE = "node-gpu"
+PHASE15_STEPS = 6  # 15a: ACTOR_STEPS, the checkpoint, the failure, then the rest
+PHASE15_PROFILED = 2  # 15b: the first attempt's first steps under profile_device
+PHASE15_MESH_STEPS = 3  # 15c: two workers, dp 2 x tp 1
+PHASE15_DEAD_AFTER_S = 20.0
+# 15b: the trace must hold these kernels (CUDA symbols): K8 on the tensor
+# cores, K8' (its two launches), K10a', K10b' in its rows form
+PHASE15_TRACE_KERNELS = {"attention": ("attention_sm90_fwd_kernel",),
+                         "attention_bwd": ("attention_sm90_bwd_dq_kernel",
+                                           "attention_sm90_bwd_dkv_kernel"),
+                         "rmsnorm_bwd": ("rmsnorm_bwd_kernel",),
+                         "rope_split_bwd": ("rope_split_bwd_rows_kernel",)}
+
+
+def _trace_kernel_counts(logdir, symbols):
+    """Kernel records by symbol in the Chrome traces under logdir."""
+    import re
+
+    names = []
+    for f in sorted(os.listdir(logdir)):
+        with open(os.path.join(logdir, f)) as fh:
+            names += [ev.get("name", "") for ev in json.load(fh).get("traceEvents", [])
+                      if ev.get("cat") == "kernel"]
+    return {sym: sum(1 for n in names if re.search(rf"\b{sym}\b", n)) for sym in symbols}
+
+
+def _worker_counts():
+    """A train worker's model-kernel counters (WorkerGroup.execute("run", ...))."""
+    from ray_tpu_torch.models import kernels as MK
+
+    return {"pid": os.getpid(), "launches": MK.launch_counts(), "tc": MK.tc_launch_counts(),
+            "rows": MK.rope_split_bwd.launches_rows}
+
+
+def phase15_loop(config):
+    """15a-b's train loop (one worker): make_train_state on prepare_mesh's
+    one-rank mesh (the card), or the checkpoint's state on a restart; a
+    step and a report each; after ACTOR_STEPS steps a checkpoint of the
+    parameters and AdamW's state (save_pytree), then, on the first attempt,
+    an injected error. The first attempt runs its first PHASE15_PROFILED
+    steps under profile_device. Writes its timings to
+    <trial_dir>/attempt_<pid>.json."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import transformer as PT
+    from ray_tpu_torch.parallel import tpu_train as TT
+    from ray_tpu_torch.util.accelerators import current_accelerator_type
+    from ray_tpu_torch.util.tracing import LostDeviceRecordsError, profile_device
+
+    rec = {"pid": os.getpid(), "loop_start": time.time(), "step_s": {}}
+    t0 = time.perf_counter()
+    ctx = train.get_context()
+    cfg = config["cfg"]
+    mesh = train.prepare_mesh(("dp", "tp"), device=config["device"])
+    ckpt = train.get_checkpoint()
+    rec["resumed"] = ckpt is not None
+    if ckpt is None:
+        params, state, tx, shardings = TT.make_train_state(cfg, mesh, seed=config["seed"])
+    else:
+        t1 = time.perf_counter()
+        tree = train.load_pytree(ckpt)
+        params = PT.params_from_numpy(tree["params"], cfg, device=mesh.device)
+        params.requires_grad_(True)
+        state = TT.opt_state_from_numpy(tree["opt"], params)
+        tx, shardings = TT.make_optimizer(), None
+        rec["load_s"] = time.perf_counter() - t1
+    step, _ = TT.make_train_step(cfg, mesh, tx, shardings)
+    batch = {"tokens": train.prepare_data_shard(config["tokens"], mesh)}
+    rec["setup_s"] = time.perf_counter() - t0
+    rec["accelerator_type"] = current_accelerator_type() if mesh.device.type == "cuda" else None
+    path = os.path.join(ctx.get_trial_dir(), f"attempt_{os.getpid()}.json")
+
+    def take_step(i):
+        t1 = time.perf_counter()
+        _, _, loss = step(params, state, batch)
+        metrics = {"loss": float(loss), "step": i + 1}
+        rec["step_s"][i + 1] = time.perf_counter() - t1
+        if i + 1 != config["checkpoint_after"]:
+            train.report(metrics)
+            return
+        t1 = time.perf_counter()
+        d = os.path.join(ctx.get_trial_dir(), f"wip_{os.getpid()}")
+        out = train.save_pytree({"params": PT.to_numpy(params),
+                                 "opt": TT.opt_state_to_numpy(state)}, d)
+        rec["save_s"] = time.perf_counter() - t1
+        rec["checkpoint_mb"] = sum(os.path.getsize(os.path.join(d, f))
+                                   for f in os.listdir(d)) / 1e6
+        metrics["checksum"] = PT.weights_checksum(PT.to_numpy(params))
+        t1 = time.perf_counter()
+        train.report(metrics, checkpoint=out)
+        rec["report_s"] = time.perf_counter() - t1
+        if not rec["resumed"]:
+            rec["failed_at"] = time.time()
+            with open(path, "w") as f:
+                json.dump(rec, f)
+            raise RuntimeError(f"injected failure after step {i + 1}")
+
+    start = state.count
+    if not rec["resumed"]:
+        profile_dir = os.path.join(ctx.get_trial_dir(), f"profile_{os.getpid()}")
+        try:
+            with profile_device(profile_dir):
+                for i in range(PHASE15_PROFILED):
+                    take_step(i)
+            rec["profile"] = _trace_kernel_counts(
+                profile_dir, [s for v in PHASE15_TRACE_KERNELS.values() for s in v])
+        except LostDeviceRecordsError as e:
+            rec["profile_guard"] = str(e)
+        start = PHASE15_PROFILED
+    for i in range(start, config["steps"]):
+        take_step(i)
+    with open(path, "w") as f:
+        json.dump(rec, f)
+
+
+def phase15_mesh_loop(config):
+    """15c's train loop (two workers): prepare_mesh(("dp", "tp"), (2, 1))
+    over the gloo group JaxBackend formed, make_train_state on it, 9b's
+    global batch through prepare_data_shard, a report a step; every rank
+    writes its losses, its steps' seconds and a sha256 of every leaf to
+    <trial_dir>/rank<r>.json."""
+    import hashlib
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import transformer as PT
+    from ray_tpu_torch.parallel import tpu_train as TT
+
+    rec = {"pid": os.getpid(), "step_s": [], "losses": []}
+    t0 = time.perf_counter()
+    ctx = train.get_context()
+    mesh = train.prepare_mesh(("dp", "tp"), (ctx.get_world_size(), 1), device=config["device"])
+    params, state, tx, shardings = TT.make_train_state(config["cfg"], mesh, seed=config["seed"])
+    step, _ = TT.make_train_step(config["cfg"], mesh, tx, shardings)
+    batch = {"tokens": train.prepare_data_shard(config["tokens"], mesh)}
+    rec["setup_s"] = time.perf_counter() - t0
+    for i in range(config["steps"]):
+        t1 = time.perf_counter()
+        _, _, loss = step(params, state, batch)
+        rec["losses"].append(float(loss))
+        rec["step_s"].append(time.perf_counter() - t1)
+        train.report({"loss": rec["losses"][-1], "step": i + 1})
+    tree = PT.to_numpy(params)
+    leaves = {k: tree[k] for k in ("embed", "unembed", "ln_f")}
+    leaves.update({f"layers.{k}": v for k, v in tree["layers"].items()})
+    rec["digests"] = {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+                      for k, v in leaves.items()}
+    with open(os.path.join(ctx.get_trial_dir(), f"rank{ctx.get_world_rank()}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _pid_alive(pid):
+    """Whether a process runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] not in ("Z", "X")
+    except (FileNotFoundError, ProcessLookupError):
+        return False
+
+
+def _records(path, prefix):
+    """The JSON records a train loop wrote under path, by file name."""
+    out = []
+    for f in sorted(os.listdir(path)):
+        if f.startswith(prefix) and f.endswith(".json"):
+            with open(os.path.join(path, f)) as fh:
+                out.append(json.load(fh))
+    return out
+
+
+def phase15_train(torch, PT, TT, ctx, gpu="cuda"):
+    """The Train library on the card, in a Cluster of its own (the GCS's
+    default policy on the card) with one node offering {"GPU": 1}. (a)
+    JaxTrainer, one worker asking for the GPU, FailureConfig(max_failures
+    =1), CheckpointConfig(num_to_keep=2): phase15_loop takes 9b's steps
+    on 9b's tokens from 9b's seed, checkpoints after ACTOR_STEPS, fails,
+    and the restarted group resumes from the checkpoint: every reported
+    loss bit-equal to 9b's of the same step, the checkpoint's checksum and
+    Result.checkpoint's (load_pytree -> params_from_numpy) equal to 9b's
+    after ACTOR_STEPS; (b) its first steps under profile_device in the
+    fresh worker: the trace holds K8 on the tensor cores, K8', K10a' and
+    K10b' (rows), the guard silent, current_accelerator_type() "H100";
+    (c) JaxTrainer, two workers sharing the card (GPU 0.5 each, one gloo
+    group), dp 2 x tp 1 from 9b's seed on 9b's global batch: losses within
+    TRAIN_GOLDEN_TOL["bf16"]["loss"] of 9b's, every leaf bit-equal across
+    the ranks. Each worker's counters are read through WorkerGroup.execute
+    when its group shuts down. No worker process is alive
+    PHASE15_DEAD_AFTER_S after shutdown(). Returns (results, the launches
+    summed over 15a's two workers, over 15c's two)."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.air import (CheckpointConfig, FailureConfig, RunConfig,
+                                   ScalingConfig)
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.config import Config
+
+    class CountingBackend(train.JaxBackend):
+        """JaxBackend that reads every worker's counters through
+        WorkerGroup.execute, and the node store's stats, before its group
+        shuts down (a killed worker's objects, the spilled checkpoint's
+        tar among them, are freed with it)."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.groups, self.stores = [], []
+
+        def on_shutdown(self, worker_group):
+            self.groups.append(worker_group.execute("run", _worker_counts))
+            store = c.daemons[0].store.stats()
+            self.stores.append({k: store.get(k) for k in ("objects", "spilled", "capacity")})
+            super().on_shutdown(worker_group)
+
+    t_phase = time.perf_counter()
+    overrides = {"jax_policy_min_cells": 0}
+    if gpu != "cuda":
+        overrides["scheduler_device"] = gpu
+    config = Config(overrides)
+    _shm_room(1, config.object_store_memory_bytes, phase="15")
+    cfg, tokens, dev = ctx["cfg"], ctx["tokens"], ctx["dev"]
+    want_losses = ctx["losses"]
+    storage = tempfile.mkdtemp(prefix="phase15_")
+    res = {"store_mb": config.object_store_memory_bytes / 1e6}
+    pids = []
+    c = Cluster(config=config)
+    try:
+        c.add_node(num_cpus=PHASE13_NODE_CPUS, node_id=PHASE15_NODE, resources={"GPU": 1})
+        c.wait_for_nodes(1, timeout=60)
+        rt.init(address=c.address)
+
+        # (a)-(b) one worker, a failure and a resume
+        loop_config = {"cfg": cfg, "tokens": tokens, "seed": TRAIN_SEED,
+                       "steps": PHASE15_STEPS, "checkpoint_after": ACTOR_STEPS,
+                       "device": None if gpu == "cuda" else gpu}
+        backend = CountingBackend()
+        t0 = time.perf_counter()
+        result = train.JaxTrainer(
+            phase15_loop, train_loop_config=loop_config, jax_backend=backend,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=gpu == "cuda"),
+            run_config=RunConfig(name="phase15a", storage_path=storage,
+                                 failure_config=FailureConfig(max_failures=1),
+                                 checkpoint_config=CheckpointConfig(num_to_keep=2))).fit()
+        res["15a_fit_s"] = time.perf_counter() - t0
+        if result.error is not None:
+            raise AssertionError(f"phase 15a: the run failed: {result.error!r}")
+        res["store_by_attempt"] = backend.stores
+        if gpu == "cuda" and not backend.stores[0]["spilled"]:
+            raise AssertionError(f"phase 15a: the checkpoint's tar did not spill from the "
+                                 f"node's store: {backend.stores}")
+        attempts = sorted(_records(result.path, "attempt_"), key=lambda r: r["loop_start"])
+        pids += [r["pid"] for r in attempts]
+        if [r["resumed"] for r in attempts] != [False, True]:
+            raise AssertionError(f"phase 15a: attempts {[r['resumed'] for r in attempts]}, "
+                                 "a first one and a resumed one expected")
+        first, second = attempts
+        got = [m["loss"] for m in result.metrics_history]
+        steps = [m["step"] for m in result.metrics_history]
+        if steps != list(range(1, PHASE15_STEPS + 1)) or got != want_losses[:PHASE15_STEPS]:
+            raise AssertionError(f"phase 15a: steps {steps} losses {got}, 9b's "
+                                 f"{want_losses[:PHASE15_STEPS]}")
+        ck = [m for m in result.metrics_history if "checksum" in m]
+        if len(ck) != 1 or ck[0]["checksum"] != ctx["checksum"]:
+            raise AssertionError(f"phase 15a: the checkpoint's checksum {ck} != 9b's "
+                                 f"{ctx['checksum'][:16]} after {ACTOR_STEPS} steps")
+        tree = train.load_pytree(result.checkpoint)
+        loaded = PT.weights_checksum(PT.to_numpy(PT.params_from_numpy(tree["params"], cfg,
+                                                                      device=dev)))
+        if loaded != ctx["checksum"] or int(tree["opt"]["count"]) != ACTOR_STEPS:
+            raise AssertionError(f"phase 15a: Result.checkpoint's checksum {loaded[:16]} "
+                                 f"(count {tree['opt']['count']}) != 9b's")
+        res["15a"] = {
+            "losses_equal_9b": True, "checksum_equal_9b": True,
+            "first_step_s": [first["step_s"]["1"], second["step_s"][str(ACTOR_STEPS + 1)]],
+            "setup_s": [first["setup_s"], second["setup_s"]],
+            "step_ms_host": [1e3 * first["step_s"][str(i)]
+                             for i in range(PHASE15_PROFILED + 1, ACTOR_STEPS + 1)]
+            + [1e3 * second["step_s"][str(i)]
+               for i in range(ACTOR_STEPS + 2, PHASE15_STEPS + 1)],
+            "checkpoint_mb": first["checkpoint_mb"], "save_s": first["save_s"],
+            "report_s": first["report_s"], "load_s": second["load_s"],
+            "restart_s": second["loop_start"] - first["failed_at"],
+            "fit_s": res["15a_fit_s"]}
+        # (b) the profiled window of the first attempt
+        if "profile_guard" in first:
+            raise AssertionError(f"phase 15b: profile_device's guard fired: "
+                                 f"{first['profile_guard']}")
+        prof = first["profile"]
+        missing = [k for k, syms in PHASE15_TRACE_KERNELS.items()
+                   if not any(prof.get(s) for s in syms)]
+        if missing and gpu == "cuda":
+            raise AssertionError(f"phase 15b: the trace holds no record of {missing}: {prof}")
+        want_type = "H100" if gpu == "cuda" else None
+        if first["accelerator_type"] != want_type or second["accelerator_type"] != want_type:
+            raise AssertionError(f"phase 15b: current_accelerator_type() "
+                                 f"{first['accelerator_type']!r}, {want_type!r} expected")
+        res["15b"] = {"trace_kernels": prof, "guard_fired": False,
+                      "accelerator_type": first["accelerator_type"]}
+        counts_a = [g[0] for g in backend.groups]
+
+        # (c) two workers sharing the card
+        loop_config = {"cfg": cfg, "tokens": tokens, "seed": TRAIN_SEED,
+                       "steps": PHASE15_MESH_STEPS, "device": None if gpu == "cuda" else gpu}
+        backend = CountingBackend(coordinator_port=0)
+        t0 = time.perf_counter()
+        result = train.JaxTrainer(
+            phase15_mesh_loop, train_loop_config=loop_config, jax_backend=backend,
+            scaling_config=ScalingConfig(
+                num_workers=2, resources_per_worker={"GPU": 0.5} if gpu == "cuda" else None),
+            run_config=RunConfig(name="phase15c", storage_path=storage)).fit()
+        res["15c_fit_s"] = time.perf_counter() - t0
+        if result.error is not None:
+            raise AssertionError(f"phase 15c: the run failed: {result.error!r}")
+        ranks = _records(result.path, "rank")
+        pids += [r["pid"] for r in ranks]
+        tol = TT.TRAIN_GOLDEN_TOL["bf16"]["loss"]
+        errs = [abs(a - b) for r in ranks for a, b in zip(r["losses"], want_losses)]
+        if len(ranks) != 2 or len(errs) != 2 * PHASE15_MESH_STEPS or max(errs) > tol:
+            raise AssertionError(f"phase 15c: ranks' losses {[r['losses'] for r in ranks]} "
+                                 f"vs 9b's {want_losses[:PHASE15_MESH_STEPS]} (tolerance {tol})")
+        if ranks[0]["digests"] != ranks[1]["digests"]:
+            differ = [k for k in ranks[0]["digests"]
+                      if ranks[0]["digests"][k] != ranks[1]["digests"][k]]
+            raise AssertionError(f"phase 15c: leaves differ across the ranks: {differ}")
+        res["15c"] = {"losses": [r["losses"] for r in ranks], "max_loss_err": max(errs),
+                      "leaves_bit_equal_across_ranks": True,
+                      "setup_s": [r["setup_s"] for r in ranks],
+                      "first_step_s": [r["step_s"][0] for r in ranks],
+                      "step_ms_host_by_rank": [[1e3 * s for s in r["step_s"][1:]]
+                                               for r in ranks],
+                      "fit_s": res["15c_fit_s"]}
+        counts_c = backend.groups[0]
+    finally:
+        procs = _cluster_procs(c)
+        try:
+            rt.shutdown()
+        finally:
+            c.shutdown()
+            killed = _reap(procs)
+    deadline = time.time() + PHASE15_DEAD_AFTER_S
+    while any(_pid_alive(p) for p in pids) and time.time() < deadline:
+        time.sleep(0.2)
+    alive = [p for p in pids if _pid_alive(p)]
+    if alive or killed:
+        raise AssertionError(f"phase 15: train workers alive {PHASE15_DEAD_AFTER_S} s after "
+                             f"shutdown: {alive}, killed {killed}")
+    res["phase_s"] = time.perf_counter() - t_phase
+
+    def summed(groups):
+        return {k: sum(g["launches"][k] for g in groups) for k in TRAIN_KERNELS}
+
+    launches_a, launches_c = summed(counts_a), summed(counts_c)
+    res["launches"] = {"15a": launches_a, "15a_by_worker": [g["launches"] for g in counts_a],
+                       "15c": launches_c, "15c_by_rank": [g["launches"] for g in counts_c]}
+    log(f"phase 15 launches: 15a {launches_a}; 15c {launches_c}")
+    if gpu == "cuda":
+        want = {k: n * PHASE15_STEPS for k, n in TRAIN_LAUNCHES_PER_STEP.items()}
+        if launches_a != want:
+            raise AssertionError(f"phase 15a: launches {launches_a}, predicted {want}")
+        for who, groups in (("15a", counts_a), ("15c", counts_c)):
+            for g in groups:
+                missing = [k for k in TRAIN_KERNELS if g["launches"][k] == 0]
+                if missing:
+                    raise AssertionError(f"phase {who}: worker {g['pid']} never launched "
+                                         f"{missing}")
+                if any(g["tc"][k] != g["launches"][k] for k in ("attention", "attention_bwd")):
+                    raise AssertionError(f"phase {who}: worker {g['pid']}: K8/K8' launches "
+                                         f"{g['launches']}, on the tensor cores {g['tc']}")
+                if g["rows"] != g["launches"]["rope_split_bwd"]:
+                    raise AssertionError(f"phase {who}: worker {g['pid']}: K10b' not all in "
+                                         "the rows form")
+    log(f"phase 15: {json.dumps(res)}")
+    return res, launches_a, launches_c
+
+
 def main() -> int:
     try:
         import torch
@@ -4396,6 +4797,23 @@ def main() -> int:
     if guard_records:
         raise AssertionError(f"invariant guard fired: {guard_records}")
 
+    # the Train library: JaxTrainer's workers in a cluster of their own, each
+    # worker's model-kernel counters from 0 in its fresh process, read
+    # through WorkerGroup.execute when its group shuts down
+    t0 = time.perf_counter()
+    train_lib, launches15a, launches15c = phase15_train(torch, PT, TT, train_ctx)
+    a, b = train_lib["15a"], train_lib["15c"]
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s, launches in 15a's workers "
+        f"{launches15a}, in 15c's {launches15c}")
+    log(f"phase 15 on {card}: first step {a['first_step_s'][0]:.3f} s and "
+        f"{a['first_step_s'][1]:.3f} s (the resumed worker), set-up {a['setup_s']} s; "
+        f"step {a['step_ms_host']} ms by the host clock; checkpoint "
+        f"{a['checkpoint_mb']:.1f} MB, saved in {a['save_s']:.3f} s, its report "
+        f"{a['report_s']:.3f} s, loaded in {a['load_s']:.3f} s; restart "
+        f"{a['restart_s']:.3f} s; 15c first steps {b['first_step_s']} s, step ms by rank "
+        f"{b['step_ms_host_by_rank']} (2 workers sharing the card over gloo); store "
+        f"{train_lib['store_by_attempt']}; phase {train_lib['phase_s']:.1f} s")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -4482,7 +4900,7 @@ def main() -> int:
                     "moe_train": moe_train_res, "moe_train_actor": moe_train_actor,
                     "moe_train_checks": moe_train_checks, "ranks": ranks_res,
                     "train_across_ranks": mesh_train, "cluster": cluster_res,
-                    "serving": serving_res,
+                    "serving": serving_res, "train_library": train_lib,
                     "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
                     "attention_ms_f32_cuda_core": model_rec["attention"]["ms_f32_cuda_core"],
                     "attention_bwd_ms_f32_cuda_core":
@@ -4506,6 +4924,12 @@ def main() -> int:
             entry["phase14_launches"] = replica14[name] + stage14[name]
             entry["phase14_launches_by_process"] = {"replica": replica14[name],
                                                     "stage": stage14[name]}
+    for entry in kernels:  # phase 15's: 15a's two workers and 15c's two ranks
+        name = entry["name"]
+        if name in launches15a:
+            entry["phase15_launches"] = launches15a[name] + launches15c[name]
+            entry["phase15_launches_by_part"] = {"15a": launches15a[name],
+                                                 "15c": launches15c[name]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -82,10 +82,10 @@ def _mesh_size(mesh) -> int:
 
 def _check_mesh(cfg: TransformerConfig, mesh) -> Optional[Mesh]:
     """The port mesh to shard over, or None for one device (no mesh, or a
-    mesh of one device of any kind). Raises ValueError for a larger mesh
-    that is not a port Mesh with axes ("dp", "tp"), or whose tp does not
-    divide the heads and d_ff."""
-    if mesh is None or (not isinstance(mesh, Mesh) and _mesh_size(mesh) == 1):
+    mesh of one device of any kind, train.prepare_mesh's for one worker
+    too). Raises ValueError for a larger mesh that is not a port Mesh with
+    axes ("dp", "tp"), or whose tp does not divide the heads and d_ff."""
+    if mesh is None or _mesh_size(mesh) == 1:
         return None
     if not isinstance(mesh, Mesh):
         raise ValueError(f"a mesh of {_mesh_size(mesh)} devices must be a "
@@ -180,7 +180,10 @@ def make_train_state(cfg: TransformerConfig, mesh=None, seed: int = 0, lr: float
     the seed and keeps its shard (shard_params) on the mesh's device, so
     its leaves equal the one-device state's slices; the shardings are
     param_partition_specs(cfg). Raises ValueError for other meshes of more
-    than one device (_check_mesh)."""
+    than one device (_check_mesh). A port Mesh of one rank puts the state on
+    its device when `device` is None."""
+    if device is None and isinstance(mesh, Mesh):
+        device = mesh.device
     mesh = _check_mesh(cfg, mesh)
     tx = make_optimizer(lr)
     if mesh is None:
@@ -265,6 +268,25 @@ def opt_state_to_numpy(opt_state: AdamWState) -> Dict:
                 "layers": layers}
 
     return {"count": opt_state.count, "mu": tree(opt_state.mu), "nu": tree(opt_state.nu)}
+
+
+def opt_state_from_numpy(tree: Dict, params: Transformer) -> AdamWState:
+    """The inverse of opt_state_to_numpy: AdamW's state for `params` (on
+    their device) from {"count", "mu", "nu"} as it gives them, bit for
+    bit."""
+    def moments(stacked: Dict) -> Dict[str, torch.Tensor]:
+        out = {}
+        for name, p in params.named_parameters():
+            parts = name.split(".")
+            a = stacked[name] if len(parts) == 1 else stacked["layers"][parts[2]][int(parts[1])]
+            a = np.ascontiguousarray(a, dtype=np.float32)
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"opt_state_from_numpy: {name} has shape {a.shape}, "
+                                 f"{tuple(p.shape)} expected")
+            out[name] = torch.from_numpy(a).to(p.device)
+        return out
+
+    return AdamWState(int(tree["count"]), moments(tree["mu"]), moments(tree["nu"]))
 
 
 def train_golden_errors(golden, dt_name: str, device=None) -> Dict[str, float]:

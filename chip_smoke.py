@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero (no phase's exception is
 caught):
 
 0. the card's name and power limit; build the CUDA kernels from
-   ray_tpu_torch/sched/csrc and ray_tpu_torch/models/csrc (four sources),
+   ray_tpu_torch/sched/csrc, ray_tpu_torch/models/csrc and
+   ray_tpu_torch/rllib/csrc (five sources),
    one nvcc each, and the native object store (ray_tpu_torch/_native,
    host C++) with one g++, all started together (build seconds printed).
 1. every kernel against its plain PyTorch version on the card, with exact
@@ -237,6 +238,23 @@ caught):
    worker's first-step and set-up seconds, the steps' ms by the host clock,
    the checkpoint's MB, its save, report and load seconds, the restart's
    seconds and 15c's step ms a rank.
+16. RLlib and Tune (ray_tpu_torch.rllib, ray_tpu_torch.tune): (a) K11
+   (the sampler with its key split) exactly equal to its plain version
+   (actions, logp's bits, the next key) at B 1 and 2048, A 2 and 7, and
+   over a 512-step key chain; K12 (PG and PPO) and K13 within
+   RL_CARD_TOL, two launches bit-equal; each timed at the main path's
+   shape beside its plain version. (b) Algorithm at the reference's
+   default width (CartPole-v1, hidden 64, 2 runners x 512 steps, batch
+   2048) in a local runtime: 3 iterations each of PG and PPO with the
+   learner and the runners on the card, PPO again with the runners on the
+   CPU, DQN (tests/test_rllib.py:160's configuration) past learning_starts
+   into its updates; each iteration's sample and update seconds by the host
+   clock; then one runner's fragment and one update on the card against
+   the CPU's (equal up to a near-tie, total_loss within 1e-5). (c) A Tuner
+   with ASHA over 4 PPO learning rates, {"CPU": 1, "GPU": 0.25} a trial,
+   4 iterations at most, in a Cluster of its own: every trial reports, its
+   learner launches K12 an iteration, and no worker is alive 20 s after
+   shutdown().
 
 Launch counters are set to 0 just before phase 2 and read after phase 5,
 the model kernels' just before 6b and after 6c (every K8 launch there must
@@ -268,7 +286,11 @@ through WorkerGroup.execute when its group shuts down: 15a's two workers
 together must launch each of the training path's six kernels its count a
 step times the 6 steps (every K8 and K8' on the tensor cores, every K10b'
 in rows), and every worker of 15a and 15c each of them ("phase15_launches"
-in the kernels line, "phase15_launches_by_part" apart). The
+in the kernels line, "phase15_launches_by_part" apart); the RL kernels'
+counters are set to 0 just before phase 16b's four runs and read after
+them, where K11 must have launched once a step of the on-card runners, K12
+once an update of PG and both PPO runs and K13 once a DQN update; 16c's
+trial workers report their own ("phase16c_launches"). The
 JSON line before the card's name and power limit lists the kernels; the
 last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
@@ -4546,6 +4568,377 @@ def phase15_train(torch, PT, TT, ctx, gpu="cuda"):
     return res, launches_a, launches_c
 
 
+# ------------------------------------------------- phase 16: RLlib and Tune
+
+RL_CU_SOURCE = "ray_tpu_torch/rllib/csrc/rllib_kernels.cu"
+#: the RL kernels and the lines of the JAX package each replaces
+RL_REPLACES = {
+    "sample_actions": "ray_tpu/rllib/policy.py:49",
+    "pg_loss": "ray_tpu/rllib/policy.py:71",
+    "dqn_loss": "ray_tpu/rllib/policy.py:160",
+}
+#: K12 and K13 against their plain versions on the card: losses relative,
+#: gradients in units of their rms (the batch summed in another order than
+#: torch.sum; tests/test_torch_rllib_card.py's CARD_TOL)
+RL_CARD_TOL = {"loss_rel": 1e-5, "grad_rms": 1e-5}
+PHASE16_ITERS = 3
+#: tests/test_rllib.py:160's DQN configuration
+PHASE16_DQN = dict(algo="dqn", rollout_fragment_length=256, train_batch_size=128,
+                   num_updates_per_iter=64, lr=1e-3, learning_starts=1_000,
+                   target_sync_every=100, epsilon_decay_steps=4_000)
+#: largest first: trials launch in this order, so the rungs see the fast
+#: learners first and ASHA has slower ones to stop
+PHASE16_TUNE_LRS = (1e-2, 5e-3, 3e-3, 1e-3)
+PHASE16_TUNE_ITERS = 4
+PHASE16_NODE_CPUS = 12  # 4 trials, each its actor and two runners
+
+
+def _rl_pg_inputs(torch, dev, B, A, seed):
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(B, A, generator=g)
+    v = torch.randn(B, generator=g)
+    actions = torch.randint(0, A, (B,), generator=g, dtype=torch.int32)
+    returns = torch.randn(B, generator=g) * 2 + 3
+    mask = (torch.arange(B) < B - B // 5).float()
+    lp = torch.log_softmax(logits, -1).gather(1, actions.long()[:, None])[:, 0]
+    logp_old = lp + torch.randn(B, generator=g) * 0.2 * (torch.rand(B, generator=g) < 0.5)
+    return [t.to(dev) for t in (logits, v, actions, returns, mask, logp_old)]
+
+
+def _rl_close(torch, got, want, what):
+    """Losses within RL_CARD_TOL["loss_rel"], each gradient within
+    RL_CARD_TOL["grad_rms"] of its rms; returns the largest |difference|."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        worst = max(worst, (g - w).abs().max().item())
+        if i == 0:
+            err = ((g - w).abs() / w.abs().clamp_min(1e-30)).max().item()
+            lim = RL_CARD_TOL["loss_rel"]
+        else:
+            rms = w.double().pow(2).mean().sqrt().item()
+            err = (g - w).abs().max().item() / max(rms, 1e-30)
+            lim = RL_CARD_TOL["grad_rms"]
+        if not err <= lim:
+            raise AssertionError(f"phase 16a: {what} output {i} differs from its plain "
+                                 f"version by {err:.3e} (limit {lim})")
+    return worst
+
+
+def phase16a_rl_kernels(torch, RK, prng, dev):
+    """K11-K13 against their plain versions on the card: K11 exactly
+    (actions, logp's bits, the next key) at B 1 and 2048, A 2 and 7, and
+    over a 512-step key chain; K12 in both modes and K13 within
+    RL_CARD_TOL, two launches bit-equal; then each timed by CUDA events at
+    the main path's shapes (K11 [1, 2], K12 [2048, 2] in PPO's mode, K13
+    [128, 2]) beside its plain version, with its bound."""
+    rec = {}
+    g = torch.Generator().manual_seed(16)
+    for B in (1, 2048):
+        for A in (2, 7):
+            for seed in range(4):
+                logits = torch.randn(B, A, generator=g).to(dev)
+                key = prng.PRNGKey(seed * 7919 + B, device=dev)
+                got, want = RK.sample_actions(logits, key), RK.sample_actions_plain(logits, key)
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+                        and torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))):
+                    raise AssertionError(f"phase 16a: K11 at [{B}, {A}] seed {seed} differs "
+                                         "from its plain version")
+    logits = torch.randn(1, 2, generator=g).to(dev)
+    k_card = k_plain = prng.PRNGKey(3_000_010, device=dev)
+    for i in range(512):
+        a, lp, k_card = RK.sample_actions(logits, k_card)
+        b, lq, k_plain = RK.sample_actions_plain(logits, k_plain)
+        if not (torch.equal(k_card, k_plain) and torch.equal(a, b)
+                and torch.equal(lp.view(torch.int32), lq.view(torch.int32))):
+            raise AssertionError(f"phase 16a: K11's key chain differs from plain at step {i}")
+    rec["sample_actions"] = {"max_abs_err": 0.0, "exact": True}
+    worst = 0.0
+    for B, A in ((2048, 2), (1024, 2), (2048, 7)):
+        logits, v, actions, returns, mask, logp_old = _rl_pg_inputs(torch, dev, B, A, B + A)
+        for clip in (None, RK.PPO_CLIP):
+            old = None if clip is None else logp_old
+            args = (logits, v, actions, returns, mask, old, clip)
+            got, again = RK.pg_loss(*args), RK.pg_loss(*args)
+            worst = max(worst, _rl_close(torch, got, RK.pg_loss_plain(*args),
+                                         f"K12 [{B}, {A}] clip {clip}"))
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"phase 16a: K12 [{B}, {A}] clip {clip}: two launches "
+                                     "differ")
+    rec["pg_loss"] = {"max_abs_err": worst}
+    worst = 0.0
+    for B, A in ((128, 2), (128, 7), (2048, 2)):
+        q, qo, qt = (torch.randn(B, A, generator=g).to(dev) * 3 for _ in range(3))
+        acts = torch.randint(0, A, (B,), generator=g, dtype=torch.int32).to(dev)
+        rewards = torch.ones(B, device=dev)
+        dones = (torch.rand(B, generator=g) < 0.1).float().to(dev)
+        args = (q, qo, qt, acts, rewards, dones, 0.99)
+        got, again = RK.dqn_loss(*args), RK.dqn_loss(*args)
+        worst = max(worst, _rl_close(torch, got, RK.dqn_loss_plain(*args), f"K13 [{B}, {A}]"))
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"phase 16a: K13 [{B}, {A}]: two launches differ")
+    rec["dqn_loss"] = {"max_abs_err": worst}
+
+    # times at the main path's shapes (launches here are not the main path's)
+    nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    logits1 = torch.randn(1, 2, generator=g).to(dev)
+    key = prng.PRNGKey(1, device=dev)
+    out = RK.sample_actions(logits1, key)
+    rec["sample_actions"].update(
+        ms=time_ms(torch, lambda: RK.sample_actions(logits1, key), reps=21),
+        plain_ms=time_ms(torch, lambda: RK.sample_actions_plain(logits1, key), reps=21),
+        bound=bound(nb(logits1, key, *out), 3 * 20 * 4 + 16 * logits1.numel()),
+        library_ms=None, shape=[1, 2])
+    logits, v, actions, returns, mask, logp_old = _rl_pg_inputs(torch, dev, 2048, 2, 7)
+    args = (logits, v, actions, returns, mask, logp_old, RK.PPO_CLIP)
+    out = RK.pg_loss(*args)
+    rec["pg_loss"].update(
+        ms=time_ms(torch, lambda: RK.pg_loss(*args), reps=21),
+        plain_ms=time_ms(torch, lambda: RK.pg_loss_plain(*args), reps=21),
+        bound=bound(nb(*args[:6], *out), 60 * logits.numel()),
+        library_ms=None, shape=[2048, 2], mode="ppo",
+        ms_pg_mode=time_ms(torch, lambda: RK.pg_loss(*args[:5], None, None), reps=21))
+    q, qo, qt = (torch.randn(128, 2, generator=g).to(dev) for _ in range(3))
+    acts = torch.randint(0, 2, (128,), generator=g, dtype=torch.int32).to(dev)
+    rewards, dones = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+    dargs = (q, qo, qt, acts, rewards, dones, 0.99)
+    out = RK.dqn_loss(*dargs)
+    rec["dqn_loss"].update(
+        ms=time_ms(torch, lambda: RK.dqn_loss(*dargs), reps=21),
+        plain_ms=time_ms(torch, lambda: RK.dqn_loss_plain(*dargs), reps=21),
+        bound=bound(nb(*dargs[:6], *out), 20 * q.numel()),
+        library_ms=None, shape=[128, 2])
+    for name, r in rec.items():
+        log(f"phase 16a {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.2e} ms by {r['bound'][1]}), max |err| {r['max_abs_err']:.3e}")
+    return rec
+
+
+def _rl_iterations(algo, n):
+    """n iterations of an Algorithm: each one's sample and update s (host
+    clock) and its losses; the algorithm is stopped after."""
+    out = []
+    try:
+        for _ in range(n):
+            r = algo.train()
+            out.append({k: r[k] for k in ("training_iteration", "episode_reward_mean",
+                                          "num_env_steps_sampled", "sample_time_s",
+                                          "update_time_s") if k in r}
+                       | {k: r[k] for k in ("total_loss", "num_updates") if k in r})
+    finally:
+        algo.stop()
+    return out
+
+
+def _rl_fragment_check(torch, RK, prng, gpu):
+    """One runner's 128 steps from one seed on the card and on the CPU
+    (the plain K11): equal up to the first step where the CPU's top-2 gap
+    of logits + Gumbel noise is under RL_TIE_GAP; then the card's learner
+    and the CPU's on that fragment, total_loss within 1e-5 relative."""
+    from ray_tpu_torch.rllib import policy as pol
+    from ray_tpu_torch.rllib.env_runner import EnvRunner
+    from ray_tpu_torch.rllib.learner import Learner
+
+    weights = pol.params_to_numpy(pol.init_params(np.random.default_rng(0), 4, 2, 64,
+                                                  device="cpu"))
+    card = EnvRunner("CartPole-v1", seed=0, rollout_fragment_length=128,
+                     device=gpu).sample(weights)
+    cpu = EnvRunner("CartPole-v1", seed=0, rollout_fragment_length=128,
+                    device="cpu").sample(weights)
+    net = pol.params_from_numpy(weights, "cpu")
+    key = prng.PRNGKey(1)
+    upto = 128
+    for i in range(128):
+        key, bits = prng.split_and_bits(key, (1, 2))
+        s = np.sort((prng.gumbel_of_bits(bits)
+                     + pol.action_logits(net, cpu["obs"][i:i + 1])).numpy()[0])
+        if s[-1] - s[-2] < RK.RL_TIE_GAP:
+            upto = i
+            break
+    for k in ("obs", "actions"):
+        if not np.array_equal(card[k][:upto], cpu[k][:upto]):
+            bad = int(np.flatnonzero((card[k][:upto] != cpu[k][:upto]).reshape(upto, -1)
+                                     .any(1))[0])
+            raise AssertionError(f"phase 16b: the card's fragment's {k} differs from the "
+                                 f"CPU's at step {bad} (near-tie-free up to {upto})")
+    # the logits' last bits differ between the card's products and the CPU's
+    logp_err = float(np.abs(card["logp_old"][:upto] - cpu["logp_old"][:upto]).max())
+    if not logp_err <= 1e-6:
+        raise AssertionError(f"phase 16b: the card's logp differs from the CPU's by {logp_err}")
+    res = {"fragment_steps_equal": upto, "logp_max_abs_err": logp_err}
+    if upto == 128:
+        got = Learner(4, 2, train_batch_size=128, device=gpu).update(card)["total_loss"]
+        want = Learner(4, 2, train_batch_size=128, device="cpu").update(cpu)["total_loss"]
+        if not abs(got - want) <= 1e-5 * abs(want):
+            raise AssertionError(f"phase 16b: the card's update's total_loss {got} vs the "
+                                 f"CPU's {want}")
+        res["total_loss_card_cpu"] = [got, want]
+    return res
+
+
+def phase16b_rllib(torch, RK, prng, gpu="cuda"):
+    """RLlib's Algorithm at the reference's full default width (CartPole-v1,
+    hidden 64, 2 runners x 512 steps, train_batch_size 2048) in a local
+    runtime: PHASE16_ITERS iterations of PG and of PPO with the learner
+    and the runners on the card, PPO again with the runners on the CPU,
+    and DQN (tests/test_rllib.py:160's configuration) past learning_starts
+    into its updates, runners on the card; the RL kernels' counters from 0
+    over the four runs. Then, outside the window, one runner's fragment
+    and one update on the card against the CPU's. Returns (results,
+    launches)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import AlgorithmConfig
+
+    t_phase = time.perf_counter()
+    overrides = {} if gpu == "cuda" else {"scheduler_device": gpu}
+    rt.init(num_cpus=8, _system_config=overrides)
+    res = {}
+    try:
+        RK.reset_launch_counts()
+        on_card = dict(learner_device=gpu, env_runner_device=gpu)
+        res["pg"] = _rl_iterations(AlgorithmConfig(algo="pg", **on_card).build(),
+                                   PHASE16_ITERS)
+        res["ppo"] = _rl_iterations(AlgorithmConfig(algo="ppo", **on_card).build(),
+                                    PHASE16_ITERS)
+        res["ppo_runners_on_cpu"] = _rl_iterations(
+            AlgorithmConfig(algo="ppo", learner_device=gpu, env_runner_device="cpu").build(),
+            PHASE16_ITERS)
+        res["dqn"] = _rl_iterations(AlgorithmConfig(**PHASE16_DQN, **on_card).build(),
+                                    PHASE16_ITERS)
+        launches = RK.launch_counts()
+    finally:
+        rt.shutdown()
+    for name, its in res.items():
+        for r in its:
+            if not np.isfinite(r.get("total_loss", 0.0)):
+                raise AssertionError(f"phase 16b: {name}: a loss is not finite: {r}")
+        log(f"phase 16b {name}: " + "; ".join(
+            f"it {r['training_iteration']}: sample {r['sample_time_s']:.3f} s, update "
+            f"{r['update_time_s']:.4f} s, reward {r['episode_reward_mean']:.1f}" for r in its))
+    if res["dqn"][-1].get("num_updates", 0) == 0:
+        raise AssertionError(f"phase 16b: DQN never updated: {res['dqn']}")
+    dqn_updates = res["dqn"][-1]["num_updates"]
+    steps = 2 * 512
+    # K11 a step of the on-card PG and PPO runners, K12 an update of PG and
+    # both PPO runs, K13 a DQN update
+    want = {"sample_actions": 2 * PHASE16_ITERS * steps if gpu == "cuda" else 0,
+            "pg_loss": 3 * PHASE16_ITERS if gpu == "cuda" else 0,
+            "dqn_loss": dqn_updates if gpu == "cuda" else 0}
+    if launches != want:
+        raise AssertionError(f"phase 16b: RL kernel launches {launches}, predicted {want}")
+    if gpu == "cuda" and not all(launches.values()):
+        raise AssertionError(f"phase 16b: an RL kernel never launched: {launches}")
+    res["check"] = _rl_fragment_check(torch, RK, prng, gpu)
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["launches"] = launches
+    log(f"phase 16b: {json.dumps(res)}")
+    return res, launches
+
+
+def phase16_trial(config):
+    """16c's trainable: PPO at the default width with the learner on the
+    trial's device and the runners on the CPU; a report an iteration with
+    the trial worker's RL kernel counters."""
+    import os as _os
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.rllib import AlgorithmConfig, rllib_kernels as RK
+
+    RK.reset_launch_counts()
+    algo = AlgorithmConfig(algo="ppo", lr=config["lr"], learner_device=config["device"],
+                           env_runner_device="cpu").build()
+    try:
+        for _ in range(config["iters"]):
+            r = algo.train()
+            tune.report({"episode_reward_mean": r["episode_reward_mean"],
+                         "total_loss": r["total_loss"], "sample_time_s": r["sample_time_s"],
+                         "update_time_s": r["update_time_s"], "pid": _os.getpid(),
+                         "launches": RK.launch_counts()})
+    finally:
+        algo.stop()
+
+
+def phase16c_tune(gpu="cuda"):
+    """A Tuner with ASHA (grace 1, reduction 2, max_t PHASE16_TUNE_ITERS)
+    over PHASE16_TUNE_LRS, PPO trials asking {"CPU": 1, "GPU": 0.25}, in a
+    Cluster of its own with one node offering {"GPU": 1}: every trial
+    reports, the sweep finishes without an error, each trial's learner
+    launched K12, and no worker process is alive PHASE15_DEAD_AFTER_S after
+    shutdown(). Returns the results."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air import RunConfig
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.config import Config
+
+    t_phase = time.perf_counter()
+    overrides = {"jax_policy_min_cells": 0}
+    if gpu != "cuda":
+        overrides["scheduler_device"] = gpu
+    config = Config(overrides)
+    _shm_room(1, config.object_store_memory_bytes, phase="16")
+    storage = tempfile.mkdtemp(prefix="phase16_")
+    c = Cluster(config=config)
+    procs = []
+    try:
+        c.add_node(num_cpus=PHASE16_NODE_CPUS, node_id="node-rl", resources={"GPU": 1})
+        c.wait_for_nodes(1, timeout=60)
+        rt.init(address=c.address)
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            phase16_trial,
+            param_space={"lr": tune.grid_search(list(PHASE16_TUNE_LRS)),
+                         "iters": PHASE16_TUNE_ITERS, "device": gpu},
+            tune_config=tune.TuneConfig(
+                metric="episode_reward_mean", mode="max",
+                scheduler=tune.ASHAScheduler(max_t=PHASE16_TUNE_ITERS, grace_period=1,
+                                             reduction_factor=2),
+                resources_per_trial={"CPU": 1, "GPU": 0.25} if gpu == "cuda" else {"CPU": 1}),
+            run_config=RunConfig(name="phase16c", storage_path=storage)).fit()
+        fit_s = time.perf_counter() - t0
+        procs = _cluster_procs(c)
+    finally:
+        procs = procs or _cluster_procs(c)
+        try:
+            rt.shutdown()
+        finally:
+            c.shutdown()
+            killed = _reap(procs, timeout=PHASE15_DEAD_AFTER_S)
+    pids = [p.pid for p in procs]
+    deadline = time.time() + PHASE15_DEAD_AFTER_S
+    while any(_pid_alive(p) for p in pids) and time.time() < deadline:
+        time.sleep(0.2)
+    alive = [p for p in pids if _pid_alive(p)]
+    if alive or killed:
+        raise AssertionError(f"phase 16c: workers alive {PHASE15_DEAD_AFTER_S} s after "
+                             f"shutdown: {alive}, killed {killed}")
+    if grid.errors or len(grid) != len(PHASE16_TUNE_LRS):
+        raise AssertionError(f"phase 16c: {len(grid)} trials, errors {grid.errors}")
+    trials = []
+    for r in grid:
+        h = r.metrics_history
+        if not h:
+            raise AssertionError(f"phase 16c: a trial reported nothing: {r.metrics}")
+        trials.append({"lr": r.metrics["config"]["lr"], "iterations": len(h),
+                       "reward": [m["episode_reward_mean"] for m in h],
+                       "sample_s": [m["sample_time_s"] for m in h],
+                       "update_s": [m["update_time_s"] for m in h],
+                       "launches": h[-1]["launches"]})
+        want = len(h) if gpu == "cuda" else 0
+        if h[-1]["launches"]["pg_loss"] != want:
+            raise AssertionError(f"phase 16c: trial lr {trials[-1]['lr']}: K12 launched "
+                                 f"{h[-1]['launches']['pg_loss']} times in {len(h)} "
+                                 "iterations")
+    stopped = sum(t["iterations"] < PHASE16_TUNE_ITERS for t in trials)
+    best = grid.get_best_result()
+    res = {"trials": trials, "stopped_early": stopped, "fit_s": fit_s,
+           "workers": len(pids), "best_lr": best.metrics["config"]["lr"],
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 16c: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -4573,6 +4966,7 @@ def main() -> int:
     from ray_tpu_torch.models import moe as PM, moe_kernels as EK
     from ray_tpu_torch.parallel import make_forward_step, tpu_train as TT
     from ray_tpu_torch import _native
+    from ray_tpu_torch.rllib import prng, rllib_kernels as RK
     from ray_tpu_torch.util import cuda_build
 
     card = card_line()
@@ -4582,7 +4976,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # the cluster's native shm object store (host C++, one g++) beside the
     # kernels' nvcc builds, all started together
-    libraries = [_build.LIBRARY, MK.LIBRARY, MK.LIBRARY_SM90, EK.LIBRARY,
+    libraries = [_build.LIBRARY, MK.LIBRARY, MK.LIBRARY_SM90, EK.LIBRARY, RK.LIBRARY,
                  _native.OBJECT_STORE]
     cuda_build.build_all(libraries)
     log(f"phase 0 build: {time.perf_counter() - t0:.2f} s (" + "; ".join(
@@ -4814,6 +5208,25 @@ def main() -> int:
         f"{b['step_ms_host_by_rank']} (2 workers sharing the card over gloo); store "
         f"{train_lib['store_by_attempt']}; phase {train_lib['phase_s']:.1f} s")
 
+    # RLlib and Tune: the RL kernels against their plain versions, then the
+    # Algorithm at full width in a local runtime (the counters from 0 over
+    # PG, PPO twice and DQN), then a Tune sweep of PPO trials sharing the card
+    t0 = time.perf_counter()
+    rl_rec = phase16a_rl_kernels(torch, RK, prng, dev)
+    log(f"phase 16a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rllib_res, rl_launches = phase16b_rllib(torch, RK, prng)
+    log(f"phase 16b: {time.perf_counter() - t0:.1f} s, launches {rl_launches}")
+    t0 = time.perf_counter()
+    tune_res = phase16c_tune()
+    log(f"phase 16c: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 16 on {card}: " + "; ".join(
+        f"{name} sample s {[round(r['sample_time_s'], 4) for r in its]}, update s "
+        f"{[round(r['update_time_s'], 4) for r in its]}"
+        for name, its in rllib_res.items() if name in ("pg", "ppo", "ppo_runners_on_cpu", "dqn"))
+        + f"; tune {tune_res['fit_s']:.1f} s over {len(tune_res['trials'])} trials, "
+        f"{tune_res['stopped_early']} stopped by ASHA")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -4892,6 +5305,16 @@ def main() -> int:
         "kernel": "k7r_kernel<MODE> (K7r: terms, caps, fill a pass)",
         "ms_by_step": k7r_rec["ms_by_step"], "plain_ms_by_step": k7r_rec["plain_ms_by_step"],
     })
+    for name, rl in rl_rec.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": RL_CU_SOURCE,
+            "replaces": RL_REPLACES[name], "launches": rl_launches[name],
+            "max_abs_err": rl["max_abs_err"], "ms": rl["ms"], "plain_ms": rl["plain_ms"],
+            "bound_ms": rl["bound"][0], "bound_by": rl["bound"][1],
+            "library_ms": rl["library_ms"], "shape": rl["shape"],
+            **{k: rl[k] for k in ("mode", "ms_pg_mode") if k in rl},
+            "phase16c_launches": sum(t["launches"][name] for t in tune_res["trials"]),
+        })
     log(json.dumps({"stream": stream, "gcs": gcs, "forward": fwd_res, "serve": serve_res,
                     "checks": check_res, "moe": moe_res, "moe_serve": moe_serve,
                     "moe_checks": moe_checks, "sharded": shard_res,
@@ -4901,6 +5324,7 @@ def main() -> int:
                     "moe_train_checks": moe_train_checks, "ranks": ranks_res,
                     "train_across_ranks": mesh_train, "cluster": cluster_res,
                     "serving": serving_res, "train_library": train_lib,
+                    "rllib": rllib_res, "tune": tune_res,
                     "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
                     "attention_ms_f32_cuda_core": model_rec["attention"]["ms_f32_cuda_core"],
                     "attention_bwd_ms_f32_cuda_core":

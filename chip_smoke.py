@@ -239,18 +239,28 @@ caught):
    the checkpoint's MB, its save, report and load seconds, the restart's
    seconds and 15c's step ms a rank.
 16. RLlib and Tune (ray_tpu_torch.rllib, ray_tpu_torch.tune): (a) K11
-   (the sampler with its key split) exactly equal to its plain version
-   (actions, logp's bits, the next key) at B 1 and 2048, A 2 and 7, and
-   over a 512-step key chain; K12 (PG and PPO) and K13 within
-   RL_CARD_TOL, two launches bit-equal; each timed at the main path's
-   shape beside its plain version. (b) Algorithm at the reference's
+   (the runner's whole step: trunk, logits, key split, draw) against its
+   plain version at B 1, 3, 64 x hidden 32, 64, 128 x A 2, 7 and over a
+   512-step key chain: the next key bit for bit, the draws outside
+   RL_TIE_GAP, logp within RL_LOGP_TOL; K12 (PG and PPO) within
+   RL_CARD_TOL; K13 (the whole DQN update: trunks, TD head, backward, Adam)
+   at batch 32 and 128, at 7 actions, and in tiles at batch 2 048 and at
+   hidden 128, over 1 and 5 updates with a target sync: its stats within
+   RL_CARD_TOL, params and moments within DQN_UPDATE_TOL tensor by tensor,
+   the value head bit-equal; every
+   kernel's two launches bit-equal; each timed at the main path's shape
+   beside its plain version. (b) Algorithm at the reference's
    default width (CartPole-v1, hidden 64, 2 runners x 512 steps, batch
    2048) in a local runtime: 3 iterations each of PG and PPO with the
    learner and the runners on the card, PPO again with the runners on the
    CPU, DQN (tests/test_rllib.py:160's configuration) past learning_starts
    into its updates; each iteration's sample and update seconds by the host
-   clock; then one runner's fragment and one update on the card against
-   the CPU's (equal up to a near-tie, total_loss within 1e-5). (c) A Tuner
+   clock; AdamW.update and the policy's trunk never on the card outside
+   PG's and PPO's updates (and the DQN runners' q_values); then one runner's
+   fragment and one update on the card against the CPU's (equal up to a
+   near-tie, logp within RL_LOGP_TOL, total_loss within 1e-5), and a
+   runner step's host time by part and a DQN update's ms
+   (scripts/profile_rllib.py). (c) A Tuner
    with ASHA over 4 PPO learning rates, {"CPU": 1, "GPU": 0.25} a trial,
    4 iterations at most, in a Cluster of its own: every trial reports, its
    learner launches K12 an iteration, and no worker is alive 20 s after
@@ -305,6 +315,7 @@ import logging
 import os
 import subprocess
 import sys
+import threading
 import time
 from typing import NamedTuple
 
@@ -4575,7 +4586,7 @@ RL_CU_SOURCE = "ray_tpu_torch/rllib/csrc/rllib_kernels.cu"
 RL_REPLACES = {
     "sample_actions": "ray_tpu/rllib/policy.py:49",
     "pg_loss": "ray_tpu/rllib/policy.py:71",
-    "dqn_loss": "ray_tpu/rllib/policy.py:160",
+    "dqn_update": "ray_tpu/rllib/policy.py:150",
 }
 #: K12 and K13 against their plain versions on the card: losses relative,
 #: gradients in units of their rms (the batch summed in another order than
@@ -4624,34 +4635,150 @@ def _rl_close(torch, got, want, what):
     return worst
 
 
+def _k11_check(torch, RK, prng, net, obs, key, what, buffers=None):
+    """K11 against its plain version on one step: the next key bit for bit,
+    the draws equal where the plain version's top-2 gap of logits + noise
+    is at least RL_TIE_GAP, logp within RL_LOGP_TOL there. Returns (the
+    largest logp error, rows skipped as near-ties, K11's next key)."""
+    got = RK.sample_actions(net, obs, key, buffers)
+    want = RK.sample_actions_plain(net, obs, key)
+    A = net.wp.shape[1]
+    bits = prng.split_and_bits(key.cpu(), (len(obs), A))[1]
+    with torch.no_grad():
+        logits = (net.trunk(torch.as_tensor(obs).to(net.w1.device)) @ net.wp + net.bp).cpu()
+    s = torch.sort(prng.gumbel_of_bits(bits) + logits, dim=-1).values
+    clean = (s[:, -1] - s[:, -2]) >= RK.RL_TIE_GAP
+    err = (got[1] - want[1].cpu()).abs()[clean].max().item() if clean.any() else 0.0
+    if not (torch.equal(got[2], want[2]) and torch.equal(got[0][clean], want[0].cpu()[clean])
+            and err <= RK.RL_LOGP_TOL):
+        raise AssertionError(f"phase 16a: K11 {what} differs from its plain version (keys "
+                             f"{got[2].tolist()} {want[2].tolist()}, logp {err:.3e})")
+    return err, int((~clean).sum()), got[2]
+
+
+def _k13_check(torch, RK, pol, dev, B, updates, H=64, A=2, lr=1e-3):
+    """K13 against its plain version over `updates` updates at [B, 4] ->
+    hidden H -> A, a target sync after the third (DQNLearner.sync_target):
+    each update's stats within RL_CARD_TOL["loss_rel"] (the loss and mean
+    |td| relative, mean q against mean |q|: its terms have both signs), the
+    params and moments after within DQN_UPDATE_TOL tensor by tensor (the
+    value head bit-equal), and each launch bit-equal to a second launch
+    from the same state. Returns the largest |difference| of a stat or a
+    param."""
+    def clone(net, st):
+        c = pol.params_from_numpy(pol.params_to_numpy(net), dev)
+        return c, type(st)(st.count, {n: t.clone() for n, t in st.mu.items()},
+                           {n: t.clone() for n, t in st.nu.items()})
+
+    opt = pol.make_optimizer(lr)
+    net = pol.init_params(np.random.default_rng(B + A), 4, A, H, device=dev)
+    tnet = pol.init_params(np.random.default_rng(B + A + 1), 4, A, H, device=dev)
+    state = opt.init(net)
+    ref, ref_state = clone(net, state)
+    ref_t = pol.params_from_numpy(pol.params_to_numpy(tnet), dev)
+    rng = np.random.default_rng(B + updates)
+    worst = 0.0
+    for u in range(updates):
+        batch = {"obs": rng.normal(0, 0.5, (B, 4)).astype(np.float32),
+                 "actions": rng.integers(0, A, B).astype(np.int32),
+                 "rewards": np.ones(B, np.float32),
+                 "next_obs": rng.normal(0, 0.5, (B, 4)).astype(np.float32),
+                 "dones": (rng.random(B) < 0.1).astype(np.float32)}
+        with torch.no_grad():
+            q_abs = (ref.trunk(torch.from_numpy(batch["obs"]).to(dev)) @ ref.wp
+                     + ref.bp).abs().mean().item()
+        twin, twin_state = clone(net, state)
+        got = RK.dqn_update(net, tnet, state, opt, batch)
+        again = RK.dqn_update(twin, tnet, twin_state, opt, batch)
+        want = RK.dqn_update_plain(ref, ref_t, ref_state, opt, batch, 0.99).cpu()
+        diff = (got - want).abs()
+        worst = max(worst, diff.max().item())
+        lim = RL_CARD_TOL["loss_rel"]
+        if not (bool((diff[:2] <= lim * want[:2].abs()).all())
+                and diff[2].item() <= lim * q_abs):
+            raise AssertionError(f"phase 16a: K13 [{B}] update {u}: stats {got.tolist()} "
+                                 f"against the plain version's {want.tolist()}")
+        same = torch.equal(got, again) and all(
+            torch.equal(getattr(net, n), getattr(twin, n))
+            and torch.equal(state.mu[n], twin_state.mu[n])
+            and torch.equal(state.nu[n], twin_state.nu[n]) for n in RK.PARAM_NAMES)
+        if not same:
+            raise AssertionError(f"phase 16a: K13 [{B}] update {u}: two launches differ")
+        if u == 2:
+            with torch.no_grad():
+                for t, p in zip(tnet.parameters(), net.parameters()):
+                    t.copy_(p)
+                for t, p in zip(ref_t.parameters(), ref.parameters()):
+                    t.copy_(p)
+    bad, got = RK.dqn_update_mismatch(net, state, ref, ref_state, updates, lr)
+    if bad is not None:
+        raise AssertionError(f"phase 16a: K13 [{B}] over {updates} updates: {bad} ({got})")
+    return max(worst, got["params_max"]), got
+
+
+def _k13_ms_at(torch, RK, pol, dev, B, qnet, tnet, opt):
+    """K13's CUDA-event ms at batch B (the default train_batch_size passes
+    in tiles), from a copy of qnet's state."""
+    net = pol.params_from_numpy(pol.params_to_numpy(qnet), dev)
+    state = opt.init(net)
+    rng = np.random.default_rng(B)
+    batch = {"obs": rng.normal(0, 0.5, (B, 4)).astype(np.float32),
+             "actions": rng.integers(0, net.wp.shape[1], B).astype(np.int32),
+             "rewards": np.ones(B, np.float32),
+             "next_obs": rng.normal(0, 0.5, (B, 4)).astype(np.float32),
+             "dones": (rng.random(B) < 0.1).astype(np.float32)}
+    return time_ms(torch, lambda: RK.dqn_update(net, tnet, state, opt, batch, sync=False),
+                   reps=21)
+
+
 def phase16a_rl_kernels(torch, RK, prng, dev):
-    """K11-K13 against their plain versions on the card: K11 exactly
-    (actions, logp's bits, the next key) at B 1 and 2048, A 2 and 7, and
-    over a 512-step key chain; K12 in both modes and K13 within
-    RL_CARD_TOL, two launches bit-equal; then each timed by CUDA events at
-    the main path's shapes (K11 [1, 2], K12 [2048, 2] in PPO's mode, K13
-    [128, 2]) beside its plain version, with its bound."""
+    """K11-K13 against their plain versions on the card. K11, the runner's
+    whole step, at B 1, 3, 64 x hidden 32, 64, 128 x A 2, 7 (4 keys each)
+    and over a 512-step key chain at the main path's [1, 4] -> 64 -> 2 with
+    a runner's buffers: keys bit for bit, draws outside RL_TIE_GAP, logp
+    within RL_LOGP_TOL, two launches bit-equal; K12 in both modes within
+    RL_CARD_TOL, two launches bit-equal; K13, the whole DQN update, at B 32
+    and 128 (hidden 64, A 2), B 32 at A 7, and in tiles at B 2 048 (the
+    default train_batch_size) and at hidden 128, B 128, each over 1 and 5
+    updates (_k13_check). Then each timed by CUDA
+    events at the main path's shapes (K11 [1, 4] hidden 64 A 2, K12 [2048,
+    2] in PPO's mode, K13 at batch 128, hidden 64, A 2: its staging copy and
+    its launch) beside its plain version, with its bound."""
+    from ray_tpu_torch.rllib import policy as pol
+
     rec = {}
-    g = torch.Generator().manual_seed(16)
-    for B in (1, 2048):
-        for A in (2, 7):
-            for seed in range(4):
-                logits = torch.randn(B, A, generator=g).to(dev)
-                key = prng.PRNGKey(seed * 7919 + B, device=dev)
-                got, want = RK.sample_actions(logits, key), RK.sample_actions_plain(logits, key)
-                if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
-                        and torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))):
-                    raise AssertionError(f"phase 16a: K11 at [{B}, {A}] seed {seed} differs "
-                                         "from its plain version")
-    logits = torch.randn(1, 2, generator=g).to(dev)
+    worst, skipped, rows = 0.0, 0, 0
+    for B in (1, 3, 64):
+        for H in (32, 64, 128):
+            for A in (2, 7):
+                net = pol.init_params(np.random.default_rng(B * A + H), 4, A, H, device=dev)
+                rng = np.random.default_rng(B * A)
+                for seed in range(4):
+                    obs = rng.normal(0, 1.0, (B, 4)).astype(np.float32)
+                    key = prng.PRNGKey(seed * 7919 + B, device=dev)
+                    err, n, _ = _k11_check(torch, RK, prng, net, obs, key,
+                                           f"[{B}, 4] hidden {H} A {A} seed {seed}")
+                    a, b = RK.sample_actions(net, obs, key), RK.sample_actions(net, obs, key)
+                    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                            and torch.equal(a[2], b[2])):
+                        raise AssertionError(f"phase 16a: K11 [{B}, 4] hidden {H} A {A}: "
+                                             "two launches differ")
+                    worst, skipped, rows = max(worst, err), skipped + n, rows + B
+    net = pol.init_params(np.random.default_rng(0), 4, 2, 64, device=dev)
+    buffers = RK.SampleBuffers(dev, 1)
+    rng = np.random.default_rng(16)
     k_card = k_plain = prng.PRNGKey(3_000_010, device=dev)
     for i in range(512):
-        a, lp, k_card = RK.sample_actions(logits, k_card)
-        b, lq, k_plain = RK.sample_actions_plain(logits, k_plain)
-        if not (torch.equal(k_card, k_plain) and torch.equal(a, b)
-                and torch.equal(lp.view(torch.int32), lq.view(torch.int32))):
+        obs = rng.normal(0, 0.5, (1, 4)).astype(np.float32)
+        err, n, k_card = _k11_check(torch, RK, prng, net, obs, k_card, f"chain step {i}",
+                                    buffers)
+        k_plain = RK.sample_actions_plain(net, obs, k_plain)[2]
+        if not torch.equal(k_card, k_plain):
             raise AssertionError(f"phase 16a: K11's key chain differs from plain at step {i}")
-    rec["sample_actions"] = {"max_abs_err": 0.0, "exact": True}
+        worst, skipped, rows = max(worst, err), skipped + n, rows + 1
+    if skipped > 0.001 * rows:
+        raise AssertionError(f"phase 16a: K11: {skipped} of {rows} draws near a tie")
+    rec["sample_actions"] = {"max_abs_err": worst, "near_ties_skipped": skipped, "rows": rows}
     worst = 0.0
     for B, A in ((2048, 2), (1024, 2), (2048, 7)):
         logits, v, actions, returns, mask, logp_old = _rl_pg_inputs(torch, dev, B, A, B + A)
@@ -4665,29 +4792,29 @@ def phase16a_rl_kernels(torch, RK, prng, dev):
                 raise AssertionError(f"phase 16a: K12 [{B}, {A}] clip {clip}: two launches "
                                      "differ")
     rec["pg_loss"] = {"max_abs_err": worst}
-    worst = 0.0
-    for B, A in ((128, 2), (128, 7), (2048, 2)):
-        q, qo, qt = (torch.randn(B, A, generator=g).to(dev) * 3 for _ in range(3))
-        acts = torch.randint(0, A, (B,), generator=g, dtype=torch.int32).to(dev)
-        rewards = torch.ones(B, device=dev)
-        dones = (torch.rand(B, generator=g) < 0.1).float().to(dev)
-        args = (q, qo, qt, acts, rewards, dones, 0.99)
-        got, again = RK.dqn_loss(*args), RK.dqn_loss(*args)
-        worst = max(worst, _rl_close(torch, got, RK.dqn_loss_plain(*args), f"K13 [{B}, {A}]"))
-        if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            raise AssertionError(f"phase 16a: K13 [{B}, {A}]: two launches differ")
-    rec["dqn_loss"] = {"max_abs_err": worst}
+    worst, detail = 0.0, {}
+    for B, H, A in ((32, 64, 2), (128, 64, 2), (32, 64, 7), (2048, 64, 2), (128, 128, 2)):
+        for updates in (1, 5):
+            err, detail[f"B{B}_H{H}_A{A}_x{updates}"] = _k13_check(torch, RK, pol, dev, B,
+                                                                   updates, H, A)
+            worst = max(worst, err)
+    rec["dqn_update"] = {"max_abs_err": worst, "against_plain": detail}
 
     # times at the main path's shapes (launches here are not the main path's)
     nb = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
-    logits1 = torch.randn(1, 2, generator=g).to(dev)
+    O, H, A = 4, 64, 2
+    obs = np.random.default_rng(1).normal(0, 0.5, (1, O)).astype(np.float32)
     key = prng.PRNGKey(1, device=dev)
-    out = RK.sample_actions(logits1, key)
+    policy = [getattr(net, n) for n in RK.POLICY_NAMES]
+    trunk_ops = lambda B: 2 * B * (O * H + H * H + H * A)  # noqa: E731
     rec["sample_actions"].update(
-        ms=time_ms(torch, lambda: RK.sample_actions(logits1, key), reps=21),
-        plain_ms=time_ms(torch, lambda: RK.sample_actions_plain(logits1, key), reps=21),
-        bound=bound(nb(logits1, key, *out), 3 * 20 * 4 + 16 * logits1.numel()),
-        library_ms=None, shape=[1, 2])
+        ms=time_ms(torch, lambda: RK.sample_actions(net, obs, key, buffers, sync=False),
+                   reps=21),
+        plain_ms=time_ms(torch, lambda: RK.sample_actions_plain(net, obs, key), reps=21),
+        # the weights, obs and key read; actions, logp and the next key written
+        bound=bound(nb(*policy) + obs.nbytes + 16 + 1 * 8 + 16,
+                    trunk_ops(1) + 3 * 20 * 4 + 16 * A),
+        library_ms=None, shape=[1, O, H, A])
     logits, v, actions, returns, mask, logp_old = _rl_pg_inputs(torch, dev, 2048, 2, 7)
     args = (logits, v, actions, returns, mask, logp_old, RK.PPO_CLIP)
     out = RK.pg_loss(*args)
@@ -4697,19 +4824,42 @@ def phase16a_rl_kernels(torch, RK, prng, dev):
         bound=bound(nb(*args[:6], *out), 60 * logits.numel()),
         library_ms=None, shape=[2048, 2], mode="ppo",
         ms_pg_mode=time_ms(torch, lambda: RK.pg_loss(*args[:5], None, None), reps=21))
-    q, qo, qt = (torch.randn(128, 2, generator=g).to(dev) for _ in range(3))
-    acts = torch.randint(0, 2, (128,), generator=g, dtype=torch.int32).to(dev)
-    rewards, dones = torch.ones(128, device=dev), torch.zeros(128, device=dev)
-    dargs = (q, qo, qt, acts, rewards, dones, 0.99)
-    out = RK.dqn_loss(*dargs)
-    rec["dqn_loss"].update(
-        ms=time_ms(torch, lambda: RK.dqn_loss(*dargs), reps=21),
-        plain_ms=time_ms(torch, lambda: RK.dqn_loss_plain(*dargs), reps=21),
-        bound=bound(nb(*dargs[:6], *out), 20 * q.numel()),
-        library_ms=None, shape=[128, 2])
+    B = 128
+    opt = pol.make_optimizer(1e-3)
+    qnet = pol.init_params(np.random.default_rng(3), O, A, H, device=dev)
+    tnet = pol.init_params(np.random.default_rng(4), O, A, H, device=dev)
+    state = opt.init(qnet)
+    rng = np.random.default_rng(5)
+    batch = {"obs": rng.normal(0, 0.5, (B, O)).astype(np.float32),
+             "actions": rng.integers(0, A, B).astype(np.int32),
+             "rewards": np.ones(B, np.float32),
+             "next_obs": rng.normal(0, 0.5, (B, O)).astype(np.float32),
+             "dones": (rng.random(B) < 0.1).astype(np.float32)}
+    ms = time_ms(torch, lambda: RK.dqn_update(qnet, tnet, state, opt, batch, sync=False),
+                 reps=21)
+    plain_net = pol.params_from_numpy(pol.params_to_numpy(qnet), dev)
+    plain_state = opt.init(plain_net)
+    plain_ms = time_ms(torch, lambda: RK.dqn_update_plain(plain_net, tnet, plain_state, opt,
+                                                          batch, 0.99), reps=21)
+    params = [getattr(qnet, n) for n in RK.PARAM_NAMES]
+    moments = [state.mu[n] for n in RK.PARAM_NAMES] + [state.nu[n] for n in RK.PARAM_NAMES]
+    target = [getattr(tnet, n) for n in RK.POLICY_NAMES]
+    batch_bytes = sum(a.nbytes for a in batch.values())
+    # read: params, moments, target, batch; written: params, moments, stats.
+    # Operations: the three trunks and heads, the backward's products
+    # (d wp, dz2, d w2, dz1, d w1; the bias sums and tanh's apart)
+    ops = 3 * trunk_ops(B) + 2 * B * (H * A + H * A + H * H + H * H + O * H)
+    rec["dqn_update"].update(
+        ms=ms, plain_ms=plain_ms,
+        bound=bound(2 * nb(*params, *moments) + nb(*target) + batch_bytes + 12, ops),
+        library_ms=None, shape=[B, O, H, A],
+        smem_bytes=RK.dqn_smem_bytes(RK.dqn_tile_rows(B, O, H, A), O, H, A),
+        ms_batch_2048=_k13_ms_at(torch, RK, pol, dev, 2048, qnet, tnet, opt))
     for name, r in rec.items():
         log(f"phase 16a {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.2e} ms by {r['bound'][1]}), max |err| {r['max_abs_err']:.3e}")
+    log(f"phase 16a dqn_update at batch 2048 (in tiles): {rec['dqn_update']['ms_batch_2048']:.4f}"
+        f" ms; against plain {json.dumps(rec['dqn_update']['against_plain'])}")
     return rec
 
 
@@ -4760,9 +4910,10 @@ def _rl_fragment_check(torch, RK, prng, gpu):
                                      .any(1))[0])
             raise AssertionError(f"phase 16b: the card's fragment's {k} differs from the "
                                  f"CPU's at step {bad} (near-tie-free up to {upto})")
-    # the logits' last bits differ between the card's products and the CPU's
+    # the logits' last bits differ between K11's sums on the card and torch's
+    # products on the CPU: RL_LOGP_TOL, as K11 against its plain version
     logp_err = float(np.abs(card["logp_old"][:upto] - cpu["logp_old"][:upto]).max())
-    if not logp_err <= 1e-6:
+    if not logp_err <= RK.RL_LOGP_TOL:
         raise AssertionError(f"phase 16b: the card's logp differs from the CPU's by {logp_err}")
     res = {"fragment_steps_equal": upto, "logp_max_abs_err": logp_err}
     if upto == 128:
@@ -4775,6 +4926,40 @@ def _rl_fragment_check(torch, RK, prng, gpu):
     return res
 
 
+class _CardCalls:
+    """Counts, while started, the calls of AdamW.update, PolicyNet.trunk and
+    policy.q_values made on the card: each is patched with a counting
+    wrapper (the runners are threads of this process in a local runtime)."""
+
+    def __init__(self):
+        self.counts = {"adamw_update": 0, "trunk": 0, "q_values": 0}
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def start(self) -> None:
+        from ray_tpu_torch.parallel.tpu_train import AdamW
+        from ray_tpu_torch.rllib import policy as pol
+
+        for owner, name, label, module_at in ((AdamW, "update", "adamw_update", 1),
+                                              (pol.PolicyNet, "trunk", "trunk", 0),
+                                              (pol, "q_values", "q_values", 0)):
+            fn = getattr(owner, name)
+
+            def counting(*args, _fn=fn, _label=label, _at=module_at, **kwargs):
+                if args[_at].device.type == "cuda":
+                    with self._lock:
+                        self.counts[_label] += 1
+                return _fn(*args, **kwargs)
+
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, counting)
+
+    def stop(self) -> None:
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+
+
 def phase16b_rllib(torch, RK, prng, gpu="cuda"):
     """RLlib's Algorithm at the reference's full default width (CartPole-v1,
     hidden 64, 2 runners x 512 steps, train_batch_size 2048) in a local
@@ -4782,8 +4967,14 @@ def phase16b_rllib(torch, RK, prng, gpu="cuda"):
     and the runners on the card, PPO again with the runners on the CPU,
     and DQN (tests/test_rllib.py:160's configuration) past learning_starts
     into its updates, runners on the card; the RL kernels' counters from 0
-    over the four runs. Then, outside the window, one runner's fragment
-    and one update on the card against the CPU's. Returns (results,
+    over the four runs, and beside them the calls of AdamW.update, of the
+    policy's trunk and of the DQN runners' q_values on the card
+    (_CardCalls): K11's runner steps and K13's updates make none, so the
+    trunk runs on the card once a PG/PPO update (K12's) and once a DQN
+    runner's greedy step, and AdamW.update once a PG/PPO update. Then,
+    outside the window, one runner's fragment and one update on the card
+    against the CPU's, and a runner step's host time by part and DQN's
+    update ms (ray_tpu_torch/scripts/profile_rllib.py). Returns (results,
     launches)."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.rllib import AlgorithmConfig
@@ -4792,8 +4983,10 @@ def phase16b_rllib(torch, RK, prng, gpu="cuda"):
     overrides = {} if gpu == "cuda" else {"scheduler_device": gpu}
     rt.init(num_cpus=8, _system_config=overrides)
     res = {}
+    calls = _CardCalls()
     try:
         RK.reset_launch_counts()
+        calls.start()
         on_card = dict(learner_device=gpu, env_runner_device=gpu)
         res["pg"] = _rl_iterations(AlgorithmConfig(algo="pg", **on_card).build(),
                                    PHASE16_ITERS)
@@ -4806,6 +4999,7 @@ def phase16b_rllib(torch, RK, prng, gpu="cuda"):
                                     PHASE16_ITERS)
         launches = RK.launch_counts()
     finally:
+        calls.stop()
         rt.shutdown()
     for name, its in res.items():
         for r in its:
@@ -4822,12 +5016,29 @@ def phase16b_rllib(torch, RK, prng, gpu="cuda"):
     # both PPO runs, K13 a DQN update
     want = {"sample_actions": 2 * PHASE16_ITERS * steps if gpu == "cuda" else 0,
             "pg_loss": 3 * PHASE16_ITERS if gpu == "cuda" else 0,
-            "dqn_loss": dqn_updates if gpu == "cuda" else 0}
+            "dqn_update": dqn_updates if gpu == "cuda" else 0}
     if launches != want:
         raise AssertionError(f"phase 16b: RL kernel launches {launches}, predicted {want}")
     if gpu == "cuda" and not all(launches.values()):
         raise AssertionError(f"phase 16b: an RL kernel never launched: {launches}")
+    n = calls.counts
+    if n["adamw_update"] != want["pg_loss"] or \
+            n["trunk"] != want["pg_loss"] + n["q_values"]:
+        raise AssertionError(f"phase 16b: on the card {n}: AdamW.update or the trunk ran "
+                             f"outside the PG/PPO updates ({want['pg_loss']}) and the DQN "
+                             "runners' q_values")
+    res["card_calls"] = n
     res["check"] = _rl_fragment_check(torch, RK, prng, gpu)
+    if gpu == "cuda":
+        from ray_tpu_torch.scripts.profile_rllib import dqn_updates as dqn_ms, \
+            runner_step_split
+
+        res["runner_step_split"] = runner_step_split(512)
+        res["dqn_update_host"] = dqn_ms(64)
+        split = res["runner_step_split"]
+        parts = {k: round(v, 1) for k, v in split["us_a_step"].items()}
+        log(f"phase 16b: a runner step's host us by part {json.dumps(parts)}, "
+            f"a DQN update {res['dqn_update_host']['update_ms_median']:.4f} ms")
     res["phase_s"] = time.perf_counter() - t_phase
     res["launches"] = launches
     log(f"phase 16b: {json.dumps(res)}")
@@ -5312,7 +5523,8 @@ def main() -> int:
             "max_abs_err": rl["max_abs_err"], "ms": rl["ms"], "plain_ms": rl["plain_ms"],
             "bound_ms": rl["bound"][0], "bound_by": rl["bound"][1],
             "library_ms": rl["library_ms"], "shape": rl["shape"],
-            **{k: rl[k] for k in ("mode", "ms_pg_mode") if k in rl},
+            **{k: rl[k] for k in ("mode", "ms_pg_mode", "near_ties_skipped", "against_plain",
+                                  "smem_bytes") if k in rl},
             "phase16c_launches": sum(t["launches"][name] for t in tune_res["trials"]),
         })
     log(json.dumps({"stream": stream, "gcs": gcs, "forward": fwd_res, "serve": serve_res,

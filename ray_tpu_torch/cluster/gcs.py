@@ -362,6 +362,23 @@ class GcsServer:
                 for b, nid in zip(pg["bundles"], pg["nodes"]):
                     self._pending_bundle_reapply.append((pid, b, nid))
 
+    def _flush_before_debit(self) -> None:
+        """Runs before every host debit outside a scheduling round
+        (``state.allocate``, a placement group's ``replace_available``;
+        caller holds _lock). A pipelined device window in flight was solved
+        against the availability being debited: flush it first (its plans
+        are debited on the host and dispatched by later rounds), so the
+        debit sees the true availability and fails where there is no
+        room."""
+        if getattr(self.policy, "pipelined", False) and self.policy.has_inflight():
+            self.policy.flush(self.state)
+
+    def _allocate_oob(self, idx: int, demand: np.ndarray) -> bool:
+        """state.allocate outside a scheduling round (caller holds _lock),
+        after _flush_before_debit."""
+        self._flush_before_debit()
+        return self.state.allocate(idx, demand)
+
     def _reapply_bundles_for_node(self, node_id: str):
         """Called under lock when a node (re)registers."""
         idx = self.state.node_index(node_id)
@@ -370,7 +387,7 @@ class GcsServer:
         remaining = []
         for pid, b, nid in self._pending_bundle_reapply:
             if nid == node_id:
-                self.state.allocate(idx, self.space.vector(b))
+                self._allocate_oob(idx, self.space.vector(b))
                 if rpc_mod.TRACE is not None:
                     rpc_mod.TRACE.apply(
                         "pg_reapply", pg=pid, node=nid, res=dict(b)
@@ -1912,12 +1929,14 @@ class GcsServer:
                     # a pipelined device window is in flight: plain
                     # schedule() against the host view would ignore the
                     # window's on-device debits and force a full-window
-                    # discard (see policy.py _flush_pipe). Out-of-band
-                    # allocations through state.allocate are delta-logged
-                    # and ship to the device mid-window — same path the
-                    # special-strategy scheduler uses.
+                    # discard. Flush the window onto the host first, then
+                    # place on the true availability with out-of-band
+                    # allocations (delta-logged, shipped to the device by
+                    # the next round) — as the special-strategy scheduler
+                    # does.
                     from ray_tpu_torch.sched import kernel_np
 
+                    self._flush_before_debit()
                     for c in range(len(func_stages)):
                         feas = kernel_np.feasible_mask(
                             self.state.available, self.state.alive,
@@ -1933,7 +1952,7 @@ class GcsServer:
                         score = np.where(feas, score, np.float32(np.inf))
                         idx = int(np.argmin(score))
                         rows.append(
-                            idx if self.state.allocate(idx, demands[c])
+                            idx if self._allocate_oob(idx, demands[c])
                             else None
                         )
                 else:
@@ -2165,6 +2184,7 @@ class GcsServer:
         Returns node_ids, or None when infeasible right now (PG parked
         PENDING)."""
         mat = np.stack([self.space.vector(b) for b in bundles])
+        self._flush_before_debit()
         nodes_idx, new_avail = bundles_mod.schedule_bundles(
             self.state.available, self.state.total, self.state.alive,
             mat, strategy=strategy,
@@ -2617,7 +2637,7 @@ class GcsServer:
             target = strat.get("node_id")
             idx = self.state.node_index(target)
             node_dead = idx is None or not self.state.alive[idx]
-            if idx is not None and not node_dead and self.state.allocate(idx, demand):
+            if idx is not None and not node_dead and self._allocate_oob(idx, demand):
                 return ("dispatch", (t, idx, demand))
             if strat.get("soft"):
                 # fall back to any feasible node
@@ -2628,7 +2648,7 @@ class GcsServer:
                 )
                 if feas.any():
                     idx = int(np.argmax(feas))
-                    if self.state.allocate(idx, demand):
+                    if self._allocate_oob(idx, demand):
                         return ("dispatch", (t, idx, demand))
                 return ("requeue", None)
             if node_dead:
@@ -2735,7 +2755,7 @@ class GcsServer:
         )
         score = np.where(pick_from, score, np.float32(np.inf))
         idx = int(np.argmin(score))
-        if self.state.allocate(idx, demand):
+        if self._allocate_oob(idx, demand):
             return ("dispatch", (t, idx, demand))
         return ("requeue", None)
 
@@ -3126,7 +3146,7 @@ class GcsServer:
         cands.sort()
         for _susp, nid in cands:
             idx = self.state.node_index(nid)
-            if idx is not None and self.state.allocate(idx, info["demand"]):
+            if idx is not None and self._allocate_oob(idx, info["demand"]):
                 return nid
         return None
 

@@ -134,10 +134,15 @@ class AdamW:
                  for n, p in params.named_parameters()}
         return AdamWState(0, zeros, {n: torch.zeros_like(z) for n, z in zeros.items()})
 
+    @staticmethod
+    def bias_correction(decay: float, count: int) -> np.float32:
+        """1 - decay ** count in float32, as optax computes it."""
+        return np.float32(1) - np.power(np.float32(decay), np.float32(count))
+
     def _bias_correction(self, decay: float, count: int, dev) -> torch.Tensor:
-        # 1 - decay ** count in float32, as optax computes it; a device
-        # tensor, so that the division is a true division on the card too
-        bc = np.float32(1) - np.power(np.float32(decay), np.float32(count))
+        # a device tensor, so that the division is a true division on the
+        # card too
+        bc = self.bias_correction(decay, count)
         return torch.full((), float(bc), dtype=torch.float32, device=dev)
 
     @torch.no_grad()

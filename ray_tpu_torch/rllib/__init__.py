@@ -4,8 +4,9 @@ RLlib (rllib/algorithms/algorithm.py, env/env_runner_group.py,
 core/learner/). The algorithm zoo is deliberately thin (PG, PPO-clip and
 DQN on built-in envs); the ORCHESTRATION — remote sampling fleet, weight
 broadcast, learner group, checkpoints — is the component the survey
-inventories. RLlib's own device algorithms (the sampler, the PG/PPO loss
-head, the DQN TD head) are the CUDA kernels K11-K13 (rllib_kernels.py).
+inventories. RLlib's own device programs (the runner's whole step, the PG/PPO
+loss head, the whole DQN update) are the CUDA kernels K11-K13
+(rllib_kernels.py).
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig

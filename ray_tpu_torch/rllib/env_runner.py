@@ -6,9 +6,10 @@ old WorkerSet) — sampling runs on remote actors; the algorithm broadcasts
 weights and gathers batches.
 
 The runner infers on its own device (the card unless the caller asks for
-the CPU): each environment step runs the trunk and K11, which splits the
-runner's key and draws the action, so the key chain stays on the device
-and a step costs its launches and one sync for the action.
+the CPU): each environment step is one launch of K11 (the trunk, the
+logits, the split of the runner's key and the draw), so the key chain
+stays on the device, and one synchronisation, after which the action and
+its log-probability lie in the runner's own pinned buffers.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ class EnvRunner:
         self.gamma = gamma
         self.device = resolve_device(device, what="the env runner")
         self._net = None
+        self._buffers = None  # K11's pinned outputs and keys, on the card
         self._seed = seed
         self._episodes = 0
         self._samples = 0  # per-call counter feeding key derivation
@@ -57,6 +59,10 @@ class EnvRunner:
         from ray_tpu_torch.rllib import policy as pol, prng
 
         net = self._policy(params)
+        if self.device.type == "cuda" and self._buffers is None:
+            from ray_tpu_torch.rllib.rllib_kernels import SampleBuffers
+
+            self._buffers = SampleBuffers(self.device, 1)
         # keyed by a per-call counter: episode count alone stalls once
         # fragments stop containing episode ends (long trained episodes),
         # which would replay an identical action-noise stream every call
@@ -67,8 +73,9 @@ class EnvRunner:
         obs_buf, act_buf, rew_buf, logp_buf = [], [], [], []
         done_idx = []  # fragment indices where an episode ended
         for i in range(self.rollout_fragment_length):
-            # K11: the reference's split of the key and its draw, one launch
-            a, logp, key = pol.sample_actions(net, self._obs[None, :], key)
+            # K11: the trunk, the reference's split of the key and its
+            # draw, one launch and one synchronisation
+            a, logp, key = pol.sample_actions(net, self._obs[None, :], key, self._buffers)
             a = int(a[0])
             obs_buf.append(self._obs)
             next_obs, r, term, trunc, _ = self.env.step(a)

@@ -3,10 +3,11 @@
 Reference: rllib/core/learner/learner.py (per-learner update step) and
 learner_group.py (the coordination wrapper Train/RLlib share). One Learner
 holds the policy on its device (the card unless the caller asks for the
-CPU) and runs one update a batch over static padded batch shapes: the
-trunk and Adam as torch ops, the loss head and its gradient one kernel (K12
-for PG/PPO, K13 for DQN). Weights leave the learner as dicts of numpy
-arrays, so runners on any device load them.
+CPU) and runs one update a batch over static padded batch shapes: for
+PG/PPO the trunk and Adam as torch ops with the loss head and its gradient
+one kernel (K12); for DQN the whole update one kernel (K13) on the card.
+Weights leave the learner as dicts of numpy arrays, so runners on any
+device load them.
 """
 
 from __future__ import annotations
@@ -130,6 +131,10 @@ class DQNLearner:
             np.random.default_rng(seed), obs_size, num_actions, hidden, device=device
         )
         self.device = self.params.device
+        if self.device.type == "cuda":  # K13's widths, checked before the first update
+            from ray_tpu_torch.rllib.rllib_kernels import dqn_tile_rows
+
+            dqn_tile_rows(1, obs_size, hidden, num_actions)
         self.target_params = pol.params_from_numpy(pol.params_to_numpy(self.params),
                                                    self.device)
         self.optimizer = pol.make_optimizer(lr)

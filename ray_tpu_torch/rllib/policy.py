@@ -2,11 +2,13 @@
 
 Reference structure being matched: rllib/core/learner/learner.py owns the
 train math; rllib/policy/ the action computation. The JAX package jits the
-forward and the whole update into single programs; here the trunk's
-products, tanh and Adam are torch ops under autograd, and RLlib's own
-device algorithms are hand-written kernels (rllib_kernels.py): K11 the
-sampler, K12 the PG/PPO loss head, K13 the DQN TD head, each with its
-gradient written in one launch.
+forward and the whole update into single programs. Here two of them are
+one hand-written kernel each on the card (rllib_kernels.py): K11 the
+runner's whole step (trunk, logits, key split, draw), K13 the whole DQN
+update (trunks, TD head, backward, Adam). PG and PPO keep the trunk's
+products, tanh and Adam as torch ops under autograd, with K12 the loss
+head and its gradient in one launch. On the CPU every program runs its
+plain PyTorch version.
 
 Parameters live in a ``PolicyNet`` module named as the reference's dict
 (w1 b1 w2 b2 wp bp wv bv); ``init_params`` draws them from a numpy
@@ -99,12 +101,14 @@ q_values = action_logits
 
 
 @torch.no_grad()
-def sample_actions(net: PolicyNet, obs, key: torch.Tensor):
+def sample_actions(net: PolicyNet, obs, key: torch.Tensor, buffers=None):
     """Batched categorical sampling with the key split folded in (K11):
     returns (actions, logprobs, next key), equal to the reference's
     ``key, sub = jax.random.split(key)`` then ``sample_actions(params,
-    obs, sub)``."""
-    return RK.sample_actions(action_logits(net, obs).contiguous(), key)
+    obs, sub)``. On the card one launch and one synchronisation; actions
+    and logprobs come back on the host, in `buffers`
+    (rllib_kernels.SampleBuffers) when given."""
+    return RK.sample_actions(net, obs, key, buffers)
 
 
 def make_optimizer(lr: float) -> AdamW:
@@ -140,9 +144,7 @@ def _batch(net: PolicyNet, batch, key, dtype=torch.float32) -> torch.Tensor:
 def _step(net: PolicyNet, loss: torch.Tensor, opt_state: AdamWState,
           optimizer: AdamW) -> None:
     loss.backward()
-    for p in net.parameters():  # a head the loss does not read (DQN's
-        if p.grad is None:      # value head): a zero gradient, as jax.grad's
-            p.grad = torch.zeros_like(p)
+    RK.zero_missing_grads(net)
     optimizer.update(net, opt_state)
 
 
@@ -183,20 +185,10 @@ def dqn_update(net: PolicyNet, target_net: PolicyNet, opt_state: AdamWState, bat
                optimizer: AdamW, gamma: float = 0.99):
     """One Q-learning step over a replay batch: double-DQN (the online
     network picks the next action, the frozen target network values it)
-    with Huber loss, the TD head and its gradient K13. batch: obs [B, O],
-    actions [B], rewards [B], next_obs [B, O], dones [B]."""
-    for p in net.parameters():
-        p.grad = None
-    obs, next_obs = _batch(net, batch, "obs"), _batch(net, batch, "next_obs")
-    actions = _batch(net, batch, "actions", torch.int32)
-    rewards, dones = _batch(net, batch, "rewards"), _batch(net, batch, "dones")
-    with torch.no_grad():
-        qn_online = (net.trunk(next_obs) @ net.wp + net.bp).contiguous()
-        qn_target = (target_net.trunk(next_obs) @ target_net.wp + target_net.bp).contiguous()
-    with torch.enable_grad():
-        q = net.trunk(obs) @ net.wp + net.bp
-        losses = RK.DQNLoss.apply(q, qn_online, qn_target, actions, rewards, dones, gamma)
-        _step(net, losses[0], opt_state, optimizer)
-    losses = losses.detach()
+    with Huber loss and Adam, the whole step K13 on the card (its plain
+    version, torch ops under autograd, on the CPU). batch: obs [B, O],
+    actions [B], rewards [B], next_obs [B, O], dones [B]. net and
+    opt_state are updated in place and returned."""
+    losses = RK.dqn_update(net, target_net, opt_state, optimizer, batch, gamma)
     return net, opt_state, {"total_loss": losses[0], "td_error_abs": losses[1],
                             "q_mean": losses[2]}

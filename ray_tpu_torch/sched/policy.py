@@ -237,11 +237,24 @@ class HybridPolicy(SchedulingPolicy):
         self._pipe_topology = None
         self._rounds_since_full_sync = self.FULL_SYNC_INTERVAL
 
-    def _flush_pipe(self, state):
+    def flush(self, state):
         """Force every in-flight round into the ready buffer (results are
-        dispatched one per subsequent call — never dropped). Runs before
-        any host->device sync: syncing mid-window would overwrite the
-        device's in-flight debits with host values that lack them."""
+        dispatched one per subsequent call — never dropped), each debited
+        on the host. Runs before any host->device sync (syncing mid-window
+        would overwrite the device's in-flight debits with host values
+        that lack them) and before any out-of-band host debit
+        (``state.allocate`` outside a round): a round in flight was solved
+        against the availability being debited, so the two together would
+        overcommit and the guard would discard the round. A window solved
+        for another topology is discarded instead, as schedule_pipelined
+        does."""
+        if (
+            self._pipe
+            and self._pipe_topology is not None
+            and self._pipe_topology != self._topology_of(state)
+        ):
+            self._discard_window(state)
+            return
         while self._pipe:
             plan = self._fetch_one(state)
             if plan is not None:
@@ -267,9 +280,12 @@ class HybridPolicy(SchedulingPolicy):
 
         Safety: the fetched assignment passes the same invariant guard
         as the sync path, checked against the host availability at fetch
-        time (releases since submit only ADD availability, so the check
-        is conservative); on violation the whole pipeline is discarded
-        and the device fully re-synced.
+        time. Between submit and fetch the host's availability only
+        grows: releases add to it, and every out-of-band debit
+        (``state.allocate`` outside a round) is preceded by ``flush``,
+        which fetches the window first. So the check is conservative, and
+        a violation is a kernel fault: the whole pipeline is discarded and
+        the device fully re-synced.
 
         tags: opaque per-class identifiers (the GCS passes its class
         keys) used for the in-flight accounting and handed back with the
@@ -324,7 +340,7 @@ class HybridPolicy(SchedulingPolicy):
                     or self._topology_key != self._topology_of(state)
                 )
                 if self._pipe and needs_full:
-                    self._flush_pipe(state)
+                    self.flush(state)
                 if self._pipe:
                     sched = self._torch
                     delta = state.consume_delta()

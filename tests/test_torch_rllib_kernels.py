@@ -7,11 +7,18 @@ inputs.
   over 512 steps; the Gumbel noise within 4 units of u = ulp(g) + ulp(y) /
   y, y = -log(u) the inner log, within 1 ulp of XLA's (an ulp of the inner
   log near y = 1 is what reaches g, where g's own ulp is far smaller).
-- K11's plain version against ray_tpu.rllib.policy.sample_actions on JAX's
-  logits: draws equal outside RL_TIE_GAP (the top-2 gap of logits + noise;
-  more than 0.1 % of rows skipped fails), logp within 1e-6.
-- K12 (PG and PPO) and K13's plain versions against jax.value_and_grad of
-  the lines they replace (policy.py :71-88, :105-127, :160-179). Total and
+- K11's plain version (the runner's whole step: trunk, logits, split and
+  draw) against ray_tpu.rllib.policy.sample_actions after jax.random.split
+  on the same params, obs and key: the next key equal, draws equal outside
+  RL_TIE_GAP (the top-2 gap of logits + noise; more than 0.1 % of rows
+  skipped fails), logp within 1e-6 (torch's trunk and XLA's differ by an
+  ulp or so); and the wrapper's CPU path bit for bit the head-only plain
+  draw on policy.action_logits it replaced.
+- K12 (PG and PPO) and K13's TD head's plain versions against
+  jax.value_and_grad of the lines they replace (policy.py :71-88,
+  :105-127, :160-179); K13's wrapper on the CPU bit for bit the update
+  policy.dqn_update ran before K13 took the whole update (trunks, DQNLoss,
+  autograd, AdamW), over 3 updates. Total and
   value losses within 1e-6 relative; the policy loss, a mean of terms of
   both signs, within 2e-6 of the mean |term| (float32 sums in XLA's order
   and in torch's differ by that much; both are that far from the float64
@@ -23,6 +30,9 @@ inputs.
   range), 0.8 and 1.2 (the clip ends: a derivative of 3/4 of adv) against
   jax.grad; the Huber gradient at |td| = 1 (1, the tie split in half twice)
   and at td = 0 (0).
+
+- The wrappers' argument checks, and the card's limits (K11's widths,
+  K13's one block of shared memory) as their own functions.
 
 The CUDA kernels are held against these plain versions on the card by
 tests/test_torch_rllib_card.py and chip_smoke.py phase 16.
@@ -36,6 +46,7 @@ import pytest
 import torch
 
 from ray_tpu.rllib import policy as ref_pol
+from ray_tpu_torch.rllib import policy as pol
 from ray_tpu_torch.rllib import prng
 from ray_tpu_torch.rllib import rllib_kernels as RK
 
@@ -157,9 +168,12 @@ def _top2_gap(scores):
 @pytest.mark.parametrize("A", [2, 7])
 @pytest.mark.parametrize("B", [1, 2048])
 def test_sample_actions_plain_equals_jax(B, A):
-    """K11's plain version on the reference's logits and key: the draws
-    equal sample_actions' outside RL_TIE_GAP, logp within 1e-6."""
+    """K11's plain version, the whole runner step, on the reference's
+    params, obs and key: the next key equal to split's first half, the
+    draws equal sample_actions' on split's second outside RL_TIE_GAP, logp
+    within 1e-6."""
     params = _ref_params(3, A)
+    net = pol.params_from_numpy({k: _np(v) for k, v in params.items()}, "cpu")
     rng = np.random.default_rng(B + A)
     skipped = rows = 0
     for seed in range(40 if B == 1 else 3):
@@ -169,7 +183,7 @@ def test_sample_actions_plain_equals_jax(B, A):
         want_a, want_lp = ref_pol.sample_actions(params, obs, sub)
         logits = _np(ref_pol.action_logits(params, obs))
         gap = _top2_gap(_np(jax.random.gumbel(sub, logits.shape)) + logits)
-        a, lp, got_key = RK.sample_actions(T(logits.copy()), prng.PRNGKey(seed))
+        a, lp, got_key = RK.sample_actions(net, obs, prng.PRNGKey(seed))
         assert got_key.tolist() == _np(nxt).astype(np.int64).tolist()
         clean = gap >= RK.RL_TIE_GAP
         np.testing.assert_array_equal(a.numpy()[clean], _np(want_a)[clean])
@@ -179,11 +193,49 @@ def test_sample_actions_plain_equals_jax(B, A):
     assert skipped <= 0.001 * rows, (skipped, rows)
 
 
+@pytest.mark.parametrize("B,A,hidden", [(1, 2, 64), (3, 7, 32), (64, 2, 128)])
+def test_sample_actions_cpu_path_is_the_head_only_plain_draw(B, A, hidden):
+    """The wrapper on the CPU: bit for bit what the port computed before
+    K11 took the trunk, the head-only plain draw on policy.action_logits,
+    over a 64-step key chain."""
+    net = pol.init_params(np.random.default_rng(hidden + A), 4, A, hidden, device="cpu")
+    rng = np.random.default_rng(B)
+    k_got = k_want = prng.PRNGKey(B * 7919)
+    for _ in range(64):
+        obs = rng.normal(0, 1.0, (B, 4)).astype(np.float32)
+        a, lp, k_got = pol.sample_actions(net, obs, k_got)
+        b, lq, k_want = RK.draw_plain(pol.action_logits(net, obs).contiguous(), k_want)
+        assert torch.equal(a, b) and torch.equal(k_got, k_want)
+        assert torch.equal(lp.view(torch.int32), lq.view(torch.int32))
+
+
 def test_sample_actions_wrapper_checks_its_arguments():
+    net = pol.init_params(np.random.default_rng(0), 4, 2, 8, device="cpu")
+    obs = np.zeros((3, 4), np.float32)
     with pytest.raises(ValueError):
-        RK.sample_actions(torch.zeros(3, 2), torch.zeros(2, dtype=torch.int32))
+        RK.sample_actions(net, obs, torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError):
-        RK.sample_actions(torch.zeros(3, RK.MAX_ACTIONS + 1), prng.PRNGKey(0))
+        RK.sample_actions(net, np.zeros((3, 5), np.float32), prng.PRNGKey(0))
+    with pytest.raises(ValueError):
+        RK.sample_actions(net, np.zeros((0, 4), np.float32), prng.PRNGKey(0))
+    wide = pol.init_params(np.random.default_rng(0), 4, RK.MAX_ACTIONS + 1, 8, device="cpu")
+    with pytest.raises(ValueError):
+        RK.sample_actions(wide, obs, prng.PRNGKey(0))
+    with torch.no_grad():
+        net.b1 = torch.nn.Parameter(torch.zeros(9))
+    with pytest.raises(ValueError):
+        RK.sample_actions(net, obs, prng.PRNGKey(0))
+
+
+@pytest.mark.parametrize("O,H,A,ok", [(4, 64, 2, True), (64, 256, 64, True),
+                                      (65, 64, 2, False), (4, 257, 2, False),
+                                      (4, 64, 65, False)])
+def test_sample_actions_card_limits(O, H, A, ok):
+    if ok:
+        RK.policy_sample_limits(O, H, A)
+    else:
+        with pytest.raises(ValueError):
+            RK.policy_sample_limits(O, H, A)
 
 
 # ------------------------------------------------------------------ K12
@@ -352,7 +404,7 @@ def _dqn_case(seed, B, A, ties=False):
 
 
 def _dqn_port(q, qo, qt, batch, gamma=0.99):
-    return RK.dqn_loss(T(q), T(qo), T(qt), T(batch["actions"]), T(batch["rewards"]),
+    return RK.dqn_loss_plain(T(q), T(qo), T(qt), T(batch["actions"]), T(batch["rewards"]),
                        T(batch["dones"]), gamma)
 
 
@@ -390,6 +442,104 @@ def test_huber_gradient_pinned_at_one_and_zero():
     assert (dq.numpy()[:, 0] == 0).all()
 
 
+def _dqn_learner(seed, B, A, hidden=64):
+    rng = np.random.default_rng(seed)
+    net = pol.init_params(np.random.default_rng(seed), 4, A, hidden, device="cpu")
+    tnet = pol.init_params(np.random.default_rng(seed + 1), 4, A, hidden, device="cpu")
+    opt = pol.make_optimizer(1e-3)
+    batch = {"obs": rng.normal(0, 0.5, (B, 4)).astype(np.float32),
+             "actions": rng.integers(0, A, B).astype(np.int32),
+             "rewards": np.ones(B, np.float32),
+             "next_obs": rng.normal(0, 0.5, (B, 4)).astype(np.float32),
+             "dones": (rng.random(B) < 0.1).astype(np.float32)}
+    return net, tnet, opt.init(net), opt, batch
+
+
+def _dqn_update_before_k13(net, tnet, state, opt, batch, gamma=0.99):
+    """policy.dqn_update as the port ran it before K13 took the whole
+    update: the trunks as torch ops, the TD head under autograd, AdamW."""
+    for p in net.parameters():
+        p.grad = None
+    t = {k: torch.as_tensor(v).to(dtype=torch.int32 if k == "actions" else torch.float32)
+         for k, v in batch.items()}
+    with torch.no_grad():
+        qo = (net.trunk(t["next_obs"]) @ net.wp + net.bp).contiguous()
+        qt = (tnet.trunk(t["next_obs"]) @ tnet.wp + tnet.bp).contiguous()
+    q = net.trunk(t["obs"]) @ net.wp + net.bp
+    losses = RK.DQNLoss.apply(q, qo, qt, t["actions"], t["rewards"], t["dones"], gamma)
+    losses[0].backward()
+    for p in net.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    opt.update(net, state)
+    return losses.detach()
+
+
+@pytest.mark.parametrize("B,A", [(128, 2), (32, 7)])
+def test_dqn_update_cpu_path_is_the_update_it_replaced(B, A):
+    net, tnet, state, opt, batch = _dqn_learner(B + A, B, A)
+    ref = pol.params_from_numpy(pol.params_to_numpy(net), "cpu")
+    ref_state = opt.init(ref)
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        got = pol.dqn_update(net, tnet, state, batch, opt)[2]
+        want = _dqn_update_before_k13(ref, tnet, ref_state, opt, batch)
+        assert torch.equal(torch.stack([got["total_loss"], got["td_error_abs"],
+                                        got["q_mean"]]), want)
+        batch = dict(batch, obs=rng.normal(0, 0.5, (B, 4)).astype(np.float32))
+    assert state.count == ref_state.count == 3
+    for n in RK.PARAM_NAMES:
+        assert torch.equal(getattr(net, n), getattr(ref, n)), n
+        assert torch.equal(state.mu[n], ref_state.mu[n]) and torch.equal(state.nu[n],
+                                                                          ref_state.nu[n])
+    assert RK.dqn_update_mismatch(net, state, ref, ref_state, 3, opt.lr)[0] is None
+
+
+def test_dqn_update_mismatch_names_the_bound_broken():
+    net, tnet, state, opt, batch = _dqn_learner(1, 16, 2)
+    pol.dqn_update(net, tnet, state, batch, opt)
+    ref = pol.params_from_numpy(pol.params_to_numpy(net), "cpu")
+    ref_state = type(state)(state.count, {n: t.clone() for n, t in state.mu.items()},
+                            {n: t.clone() for n, t in state.nu.items()})
+    assert RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0] is None
+    with torch.no_grad():
+        ref.w2[0, 0] += 3 * opt.lr
+    assert RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0].startswith("w2: an entry")
+    with torch.no_grad():
+        ref.w2[0, 0] -= 3 * opt.lr
+        ref_state.mu["w2"][0, 0] *= 1.01
+    assert "moment" in RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0]
+    with torch.no_grad():
+        ref_state.mu["w2"][0, 0] /= 1.01
+    assert RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0] is None
+    # a fault confined to one bias vector: 2 of its 16 entries, 0.05 % of
+    # all the params
+    with torch.no_grad():
+        ref.b2[:2] += 1e-5
+    assert RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0].startswith("b2")
+    with torch.no_grad():
+        ref.b2[:2] -= 1e-5
+        ref.bv += 1e-9
+    assert "bv" in RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0]
+
+
+@pytest.mark.parametrize("B,O,H,A,rows", [(128, 4, 64, 2, 128), (2048, 4, 64, 2, 299),
+                                          (32, 4, 128, 7, 9), (128, 4, 128, 2, 16),
+                                          (1, 4, 256, 2, None), (8, 4, 64, 65, None)])
+def test_dqn_update_card_limits(B, O, H, A, rows):
+    """K13's rows a tile: the whole batch where it fits (DQN's 128 at the
+    default width), else as many rows as fit; widths where not one row
+    fits, and too many actions, raise."""
+    if rows is None:
+        with pytest.raises(ValueError):
+            RK.dqn_tile_rows(B, O, H, A)
+        return
+    assert RK.dqn_tile_rows(B, O, H, A) == rows
+    assert RK.dqn_smem_bytes(rows, O, H, A) <= RK.DQN_MAX_SMEM
+    if rows < B:
+        assert RK.dqn_smem_bytes(rows + 1, O, H, A) > RK.DQN_MAX_SMEM
+
+
 def test_loss_wrappers_check_their_arguments():
     z = torch.zeros(4, 2)
     v = torch.zeros(4)
@@ -398,8 +548,14 @@ def test_loss_wrappers_check_their_arguments():
         RK.pg_loss(z, v, acts.long(), v, v)
     with pytest.raises(ValueError):
         RK.pg_loss(z, v, acts, v, v, None, RK.PPO_CLIP)
+    net, tnet, state, opt, batch = _dqn_learner(0, 8, 2)
+    batch["next_obs"] = batch["next_obs"][:7]
     with pytest.raises(ValueError):
-        RK.dqn_loss(z, z[:3], z, acts, v, v, 0.99)
+        RK.dqn_update(net, tnet, state, opt, batch)
+    batch = _dqn_learner(0, 8, 2)[4]
+    batch["actions"] = batch["actions"][:, None]
+    with pytest.raises(ValueError):
+        RK.dqn_update(net, tnet, state, opt, batch)
 
 
 def test_autograd_functions_return_the_saved_gradient():

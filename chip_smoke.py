@@ -242,12 +242,16 @@ caught):
    (the runner's whole step: trunk, logits, key split, draw) against its
    plain version at B 1, 3, 64 x hidden 32, 64, 128 x A 2, 7 and over a
    512-step key chain: the next key bit for bit, the draws outside
-   RL_TIE_GAP, logp within RL_LOGP_TOL; K12 (PG and PPO) within
-   RL_CARD_TOL; K13 (the whole DQN update: trunks, TD head, backward, Adam)
-   at batch 32 and 128, at 7 actions, and in tiles at batch 2 048 and at
-   hidden 128, over 1 and 5 updates with a target sync: its stats within
-   RL_CARD_TOL, params and moments within DQN_UPDATE_TOL tensor by tensor,
-   the value head bit-equal; every
+   RL_TIE_GAP, logp within RL_LOGP_TOL; K12 (the whole PG/PPO update on
+   one cluster: trunk, heads, loss head, backward, Adam) in both modes at
+   batch 5, 128 and 2 048, at 7 actions, at hidden 32, and in tiles at
+   hidden 128, each of 3 updates from the kernel's own state: total and vf
+   within RL_CARD_TOL, pg within RL_CARD_TOL of pg_term_scale, params and
+   moments within UPDATE_TOL tensor by tensor; K13 (the whole DQN update: trunks, TD head, backward,
+   Adam) at batch 32 and 128, at 7 actions, and in tiles at batch 2 048 and
+   at hidden 128, over 1 and 5 updates with a target sync: its stats within
+   RL_CARD_TOL, params and moments within UPDATE_TOL tensor by tensor, the
+   value head bit-equal; every
    kernel's two launches bit-equal; each timed at the main path's shape
    beside its plain version. (b) Algorithm at the reference's
    default width (CartPole-v1, hidden 64, 2 runners x 512 steps, batch
@@ -255,12 +259,12 @@ caught):
    learner and the runners on the card, PPO again with the runners on the
    CPU, DQN (tests/test_rllib.py:160's configuration) past learning_starts
    into its updates; each iteration's sample and update seconds by the host
-   clock; AdamW.update and the policy's trunk never on the card outside
-   PG's and PPO's updates (and the DQN runners' q_values); then one runner's
-   fragment and one update on the card against the CPU's (equal up to a
-   near-tie, logp within RL_LOGP_TOL, total_loss within 1e-5), and a
-   runner step's host time by part and a DQN update's ms
-   (scripts/profile_rllib.py). (c) A Tuner
+   clock; AdamW.update never on the card and the policy's trunk there only
+   in the DQN runners' q_values; then one runner's fragment and one update
+   on the card against the CPU's (equal up to a near-tie, logp within
+   RL_LOGP_TOL, total_loss within 1e-5), and a runner step's host time by
+   part, a PPO update's and a DQN update's ms (scripts/profile_rllib.py).
+   (c) A Tuner
    with ASHA over 4 PPO learning rates, {"CPU": 1, "GPU": 0.25} a trial,
    4 iterations at most, in a Cluster of its own: every trial reports, its
    learner launches K12 an iteration, and no worker is alive 20 s after
@@ -4585,13 +4589,15 @@ RL_CU_SOURCE = "ray_tpu_torch/rllib/csrc/rllib_kernels.cu"
 #: the RL kernels and the lines of the JAX package each replaces
 RL_REPLACES = {
     "sample_actions": "ray_tpu/rllib/policy.py:49",
-    "pg_loss": "ray_tpu/rllib/policy.py:71",
+    "pg_update": "ray_tpu/rllib/policy.py:64",
     "dqn_update": "ray_tpu/rllib/policy.py:150",
 }
-#: K12 and K13 against their plain versions on the card: losses relative,
-#: gradients in units of their rms (the batch summed in another order than
-#: torch.sum; tests/test_torch_rllib_card.py's CARD_TOL)
-RL_CARD_TOL = {"loss_rel": 1e-5, "grad_rms": 1e-5}
+#: K12's PPO mode replaces this line too (ray_tpu/rllib/policy.py ppo_update)
+RL_REPLACES_PPO = "ray_tpu/rllib/policy.py:100"
+#: K12 and K13 against their plain versions on the card: losses relative
+#: (the batch summed in another order than torch.sum;
+#: tests/test_torch_rllib_card.py's CARD_TOL)
+RL_CARD_TOL = {"loss_rel": 1e-5}
 PHASE16_ITERS = 3
 #: tests/test_rllib.py:160's DQN configuration
 PHASE16_DQN = dict(algo="dqn", rollout_fragment_length=256, train_batch_size=128,
@@ -4602,37 +4608,6 @@ PHASE16_DQN = dict(algo="dqn", rollout_fragment_length=256, train_batch_size=128
 PHASE16_TUNE_LRS = (1e-2, 5e-3, 3e-3, 1e-3)
 PHASE16_TUNE_ITERS = 4
 PHASE16_NODE_CPUS = 12  # 4 trials, each its actor and two runners
-
-
-def _rl_pg_inputs(torch, dev, B, A, seed):
-    g = torch.Generator().manual_seed(seed)
-    logits = torch.randn(B, A, generator=g)
-    v = torch.randn(B, generator=g)
-    actions = torch.randint(0, A, (B,), generator=g, dtype=torch.int32)
-    returns = torch.randn(B, generator=g) * 2 + 3
-    mask = (torch.arange(B) < B - B // 5).float()
-    lp = torch.log_softmax(logits, -1).gather(1, actions.long()[:, None])[:, 0]
-    logp_old = lp + torch.randn(B, generator=g) * 0.2 * (torch.rand(B, generator=g) < 0.5)
-    return [t.to(dev) for t in (logits, v, actions, returns, mask, logp_old)]
-
-
-def _rl_close(torch, got, want, what):
-    """Losses within RL_CARD_TOL["loss_rel"], each gradient within
-    RL_CARD_TOL["grad_rms"] of its rms; returns the largest |difference|."""
-    worst = 0.0
-    for i, (g, w) in enumerate(zip(got, want)):
-        worst = max(worst, (g - w).abs().max().item())
-        if i == 0:
-            err = ((g - w).abs() / w.abs().clamp_min(1e-30)).max().item()
-            lim = RL_CARD_TOL["loss_rel"]
-        else:
-            rms = w.double().pow(2).mean().sqrt().item()
-            err = (g - w).abs().max().item() / max(rms, 1e-30)
-            lim = RL_CARD_TOL["grad_rms"]
-        if not err <= lim:
-            raise AssertionError(f"phase 16a: {what} output {i} differs from its plain "
-                                 f"version by {err:.3e} (limit {lim})")
-    return worst
 
 
 def _k11_check(torch, RK, prng, net, obs, key, what, buffers=None):
@@ -4661,7 +4636,7 @@ def _k13_check(torch, RK, pol, dev, B, updates, H=64, A=2, lr=1e-3):
     hidden H -> A, a target sync after the third (DQNLearner.sync_target):
     each update's stats within RL_CARD_TOL["loss_rel"] (the loss and mean
     |td| relative, mean q against mean |q|: its terms have both signs), the
-    params and moments after within DQN_UPDATE_TOL tensor by tensor (the
+    params and moments after within UPDATE_TOL tensor by tensor (the
     value head bit-equal), and each launch bit-equal to a second launch
     from the same state. Returns the largest |difference| of a stat or a
     param."""
@@ -4710,10 +4685,85 @@ def _k13_check(torch, RK, pol, dev, B, updates, H=64, A=2, lr=1e-3):
                     t.copy_(p)
                 for t, p in zip(ref_t.parameters(), ref.parameters()):
                     t.copy_(p)
-    bad, got = RK.dqn_update_mismatch(net, state, ref, ref_state, updates, lr)
+    bad, got = RK.update_mismatch(net, state, ref, ref_state, updates, lr, RK.DQN_ZERO_GRAD)
     if bad is not None:
         raise AssertionError(f"phase 16a: K13 [{B}] over {updates} updates: {bad} ({got})")
     return max(worst, got["params_max"]), got
+
+
+def _rl_pg_batch(B, A, seed):
+    """A padded PG/PPO batch of B rows at obs 4, the last fifth padding."""
+    rng = np.random.default_rng(seed)
+    return {"obs": rng.normal(0, 0.5, (B, 4)).astype(np.float32),
+            "actions": rng.integers(0, A, B).astype(np.int32),
+            "returns": rng.uniform(0, 40, B).astype(np.float32),
+            "logp_old": np.log(rng.uniform(0.3, 0.7, B)).astype(np.float32),
+            "mask": (np.arange(B) < B - B // 5).astype(np.float32)}
+
+
+def _k12_check(torch, RK, pol, dev, B, H, A, clip, updates=3, lr=3e-3):
+    """K12 against its plain version on each of `updates` updates at [B,
+    4] -> hidden H -> A (clip None: PG, else PPO), each from the kernel's
+    own state (chained, PPO's clip ends and Adam's first step carry ulps
+    into later steps): total and vf within RL_CARD_TOL["loss_rel"]
+    relative, pg within it of pg_term_scale (a mean of terms of both
+    signs), the params and moments after within UPDATE_TOL tensor by
+    tensor, and each launch bit-equal to a second launch from the same
+    state. Returns (the largest |difference| of a stat or a param, the
+    worst measured numbers)."""
+    def clone(net, st):
+        c = pol.params_from_numpy(pol.params_to_numpy(net), dev)
+        return c, type(st)(st.count, {n: t.clone() for n, t in st.mu.items()},
+                           {n: t.clone() for n, t in st.nu.items()})
+
+    opt = pol.make_optimizer(lr)
+    net = pol.init_params(np.random.default_rng(B + H + A), 4, A, H, device=dev)
+    state = opt.init(net)
+    worst, lim = 0.0, RL_CARD_TOL["loss_rel"]
+    measured = {"params_max": 0.0, "params_share": 1.0, "moments_rel": 0.0}
+    what = f"K12 [{B}] hidden {H} A {A} {'pg' if clip is None else 'ppo'}"
+    for u in range(updates):
+        batch = _rl_pg_batch(B, A, B + H + u)
+        ref, ref_state = clone(net, state)
+        twin, twin_state = clone(net, state)
+        scale = RK.pg_term_scale(ref, batch, clip)
+        got = RK.pg_update(net, state, opt, batch, clip)
+        again = RK.pg_update(twin, twin_state, opt, batch, clip)
+        want = RK.pg_update_plain(ref, ref_state, opt, batch, clip).cpu()
+        diff = (got - want).abs()
+        worst = max(worst, diff.max().item())
+        if not (diff[0].item() <= lim * abs(want[0].item())
+                and diff[2].item() <= lim * abs(want[2].item())
+                and diff[1].item() <= lim * scale):
+            raise AssertionError(f"phase 16a: {what} update {u}: stats {got.tolist()} against "
+                                 f"the plain version's {want.tolist()} (pg's scale {scale})")
+        same = torch.equal(got, again) and all(
+            torch.equal(getattr(net, n), getattr(twin, n))
+            and torch.equal(state.mu[n], twin_state.mu[n])
+            and torch.equal(state.nu[n], twin_state.nu[n]) for n in RK.PARAM_NAMES)
+        if not same:
+            raise AssertionError(f"phase 16a: {what} update {u}: two launches differ")
+        bad, got = RK.update_mismatch(net, state, ref, ref_state, 1, lr)
+        if bad is not None:
+            raise AssertionError(f"phase 16a: {what} update {u}: {bad} ({got})")
+        measured = {k: (min if k == "params_share" else max)(v, got[k])
+                    for k, v in measured.items()}
+    return max(worst, measured["params_max"]), measured
+
+
+def _k12_ms_at(torch, RK, pol, dev, B, H, clip, A=2):
+    """K12's CUDA-event ms (its staging copy and its launch) at [B, 4] ->
+    H -> A, and its plain version's, each from a state of its own."""
+    opt = pol.make_optimizer(3e-3)
+    batch = _rl_pg_batch(B, A, 7)
+    net = pol.init_params(np.random.default_rng(1), 4, A, H, device=dev)
+    plain = pol.params_from_numpy(pol.params_to_numpy(net), dev)
+    state, plain_state = opt.init(net), opt.init(plain)
+    ms = time_ms(torch, lambda: RK.pg_update(net, state, opt, batch, clip, sync=False),
+                 reps=21)
+    plain_ms = time_ms(torch, lambda: RK.pg_update_plain(plain, plain_state, opt, batch, clip),
+                       reps=21)
+    return ms, plain_ms, net, state, batch
 
 
 def _k13_ms_at(torch, RK, pol, dev, B, qnet, tnet, opt):
@@ -4736,14 +4786,18 @@ def phase16a_rl_kernels(torch, RK, prng, dev):
     whole step, at B 1, 3, 64 x hidden 32, 64, 128 x A 2, 7 (4 keys each)
     and over a 512-step key chain at the main path's [1, 4] -> 64 -> 2 with
     a runner's buffers: keys bit for bit, draws outside RL_TIE_GAP, logp
-    within RL_LOGP_TOL, two launches bit-equal; K12 in both modes within
-    RL_CARD_TOL, two launches bit-equal; K13, the whole DQN update, at B 32
+    within RL_LOGP_TOL, two launches bit-equal; K12, the whole PG/PPO
+    update, in both modes at B 2 048 (the default train_batch_size, hidden
+    64, A 2), B 5 and 128, A 7, hidden 32, and in tiles at hidden 128, each
+    over 3 updates (_k12_check); K13, the whole DQN update, at B 32
     and 128 (hidden 64, A 2), B 32 at A 7, and in tiles at B 2 048 (the
     default train_batch_size) and at hidden 128, B 128, each over 1 and 5
     updates (_k13_check). Then each timed by CUDA
-    events at the main path's shapes (K11 [1, 4] hidden 64 A 2, K12 [2048,
-    2] in PPO's mode, K13 at batch 128, hidden 64, A 2: its staging copy and
-    its launch) beside its plain version, with its bound."""
+    events at the main path's shapes (K11 [1, 4] hidden 64 A 2, K12 at
+    batch 2 048, hidden 64, A 2 in PPO's mode (PG's, batch 128 and hidden
+    128's tiles beside it), K13 at batch 128, hidden 64, A 2: K12's and
+    K13's with their staging copy) beside its plain version, with its
+    bound."""
     from ray_tpu_torch.rllib import policy as pol
 
     rec = {}
@@ -4779,19 +4833,14 @@ def phase16a_rl_kernels(torch, RK, prng, dev):
     if skipped > 0.001 * rows:
         raise AssertionError(f"phase 16a: K11: {skipped} of {rows} draws near a tie")
     rec["sample_actions"] = {"max_abs_err": worst, "near_ties_skipped": skipped, "rows": rows}
-    worst = 0.0
-    for B, A in ((2048, 2), (1024, 2), (2048, 7)):
-        logits, v, actions, returns, mask, logp_old = _rl_pg_inputs(torch, dev, B, A, B + A)
+    worst, detail = 0.0, {}
+    for B, H, A in ((2048, 64, 2), (5, 64, 2), (128, 64, 2), (2048, 64, 7), (2048, 32, 2),
+                    (2048, 128, 2)):
         for clip in (None, RK.PPO_CLIP):
-            old = None if clip is None else logp_old
-            args = (logits, v, actions, returns, mask, old, clip)
-            got, again = RK.pg_loss(*args), RK.pg_loss(*args)
-            worst = max(worst, _rl_close(torch, got, RK.pg_loss_plain(*args),
-                                         f"K12 [{B}, {A}] clip {clip}"))
-            if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                raise AssertionError(f"phase 16a: K12 [{B}, {A}] clip {clip}: two launches "
-                                     "differ")
-    rec["pg_loss"] = {"max_abs_err": worst}
+            err, detail[f"B{B}_H{H}_A{A}_{'pg' if clip is None else 'ppo'}"] = _k12_check(
+                torch, RK, pol, dev, B, H, A, clip)
+            worst = max(worst, err)
+    rec["pg_update"] = {"max_abs_err": worst, "against_plain": detail}
     worst, detail = 0.0, {}
     for B, H, A in ((32, 64, 2), (128, 64, 2), (32, 64, 7), (2048, 64, 2), (128, 128, 2)):
         for updates in (1, 5):
@@ -4815,15 +4864,25 @@ def phase16a_rl_kernels(torch, RK, prng, dev):
         bound=bound(nb(*policy) + obs.nbytes + 16 + 1 * 8 + 16,
                     trunk_ops(1) + 3 * 20 * 4 + 16 * A),
         library_ms=None, shape=[1, O, H, A])
-    logits, v, actions, returns, mask, logp_old = _rl_pg_inputs(torch, dev, 2048, 2, 7)
-    args = (logits, v, actions, returns, mask, logp_old, RK.PPO_CLIP)
-    out = RK.pg_loss(*args)
-    rec["pg_loss"].update(
-        ms=time_ms(torch, lambda: RK.pg_loss(*args), reps=21),
-        plain_ms=time_ms(torch, lambda: RK.pg_loss_plain(*args), reps=21),
-        bound=bound(nb(*args[:6], *out), 60 * logits.numel()),
-        library_ms=None, shape=[2048, 2], mode="ppo",
-        ms_pg_mode=time_ms(torch, lambda: RK.pg_loss(*args[:5], None, None), reps=21))
+    B = 2048
+    ms, plain_ms, pnet, pstate, pbatch = _k12_ms_at(torch, RK, pol, dev, B, H, RK.PPO_CLIP)
+    params = [getattr(pnet, n) for n in RK.PARAM_NAMES]
+    moments = [pstate.mu[n] for n in RK.PARAM_NAMES] + [pstate.nu[n] for n in RK.PARAM_NAMES]
+    # read: params, moments, the batch; written: params, moments, stats.
+    # Operations: the trunk and both heads, the backward's products (d[wp |
+    # wv], dz2, d w2, dz1, d w1; the bias sums, tanh's and the loss head apart)
+    head = H * (A + 1)
+    pg_ops = 2 * B * (O * H + H * H + head) + 2 * B * (head + head + H * H + H * H + O * H)
+    rec["pg_update"].update(
+        ms=ms, plain_ms=plain_ms,
+        bound=bound(2 * nb(*params, *moments) + sum(a.nbytes for a in pbatch.values()) + 12,
+                    pg_ops),
+        library_ms=None, shape=[B, O, H, A], mode="ppo",
+        cluster=list(RK.pg_plan(B, O, H, A)),
+        ms_batch_128=_k12_ms_at(torch, RK, pol, dev, 128, H, RK.PPO_CLIP)[0:2],
+        ms_hidden_128_tiled=_k12_ms_at(torch, RK, pol, dev, B, 128, RK.PPO_CLIP)[0:2])
+    rec["pg_update"]["ms_pg_mode"], rec["pg_update"]["ms_plain_pg_mode"] = _k12_ms_at(
+        torch, RK, pol, dev, B, H, None)[0:2]
     B = 128
     opt = pol.make_optimizer(1e-3)
     qnet = pol.init_params(np.random.default_rng(3), O, A, H, device=dev)
@@ -4860,6 +4919,12 @@ def phase16a_rl_kernels(torch, RK, prng, dev):
             f"{r['bound'][0]:.2e} ms by {r['bound'][1]}), max |err| {r['max_abs_err']:.3e}")
     log(f"phase 16a dqn_update at batch 2048 (in tiles): {rec['dqn_update']['ms_batch_2048']:.4f}"
         f" ms; against plain {json.dumps(rec['dqn_update']['against_plain'])}")
+    r = rec["pg_update"]
+    log(f"phase 16a pg_update: PPO {r['ms']:.4f} ms, PG {r['ms_pg_mode']:.4f} ms (plain "
+        f"{r['plain_ms']:.4f}, {r['ms_plain_pg_mode']:.4f}) at batch 2048 on a cluster of "
+        f"{r['cluster']}; batch 128 {r['ms_batch_128']}, hidden 128 in tiles "
+        f"{r['ms_hidden_128_tiled']} (ms, plain ms); against plain "
+        f"{json.dumps(r['against_plain'])}")
     return rec
 
 
@@ -4969,12 +5034,12 @@ def phase16b_rllib(torch, RK, prng, gpu="cuda"):
     into its updates, runners on the card; the RL kernels' counters from 0
     over the four runs, and beside them the calls of AdamW.update, of the
     policy's trunk and of the DQN runners' q_values on the card
-    (_CardCalls): K11's runner steps and K13's updates make none, so the
-    trunk runs on the card once a PG/PPO update (K12's) and once a DQN
-    runner's greedy step, and AdamW.update once a PG/PPO update. Then,
-    outside the window, one runner's fragment and one update on the card
-    against the CPU's, and a runner step's host time by part and DQN's
-    update ms (ray_tpu_torch/scripts/profile_rllib.py). Returns (results,
+    (_CardCalls): K11's runner steps and K12's and K13's updates make none,
+    so AdamW.update never runs on the card and the trunk only in a DQN
+    runner's greedy step. Then, outside the window, one runner's fragment
+    and one update on the card against the CPU's, and a runner step's host
+    time by part and a PPO and a DQN update's ms
+    (ray_tpu_torch/scripts/profile_rllib.py). Returns (results,
     launches)."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.rllib import AlgorithmConfig
@@ -5015,29 +5080,29 @@ def phase16b_rllib(torch, RK, prng, gpu="cuda"):
     # K11 a step of the on-card PG and PPO runners, K12 an update of PG and
     # both PPO runs, K13 a DQN update
     want = {"sample_actions": 2 * PHASE16_ITERS * steps if gpu == "cuda" else 0,
-            "pg_loss": 3 * PHASE16_ITERS if gpu == "cuda" else 0,
+            "pg_update": 3 * PHASE16_ITERS if gpu == "cuda" else 0,
             "dqn_update": dqn_updates if gpu == "cuda" else 0}
     if launches != want:
         raise AssertionError(f"phase 16b: RL kernel launches {launches}, predicted {want}")
     if gpu == "cuda" and not all(launches.values()):
         raise AssertionError(f"phase 16b: an RL kernel never launched: {launches}")
     n = calls.counts
-    if n["adamw_update"] != want["pg_loss"] or \
-            n["trunk"] != want["pg_loss"] + n["q_values"]:
-        raise AssertionError(f"phase 16b: on the card {n}: AdamW.update or the trunk ran "
-                             f"outside the PG/PPO updates ({want['pg_loss']}) and the DQN "
-                             "runners' q_values")
+    if n["adamw_update"] != 0 or n["trunk"] != n["q_values"]:
+        raise AssertionError(f"phase 16b: on the card {n}: AdamW.update ran, or the trunk "
+                             "outside the DQN runners' q_values")
     res["card_calls"] = n
     res["check"] = _rl_fragment_check(torch, RK, prng, gpu)
     if gpu == "cuda":
         from ray_tpu_torch.scripts.profile_rllib import dqn_updates as dqn_ms, \
-            runner_step_split
+            pg_updates as pg_ms, runner_step_split
 
         res["runner_step_split"] = runner_step_split(512)
+        res["pg_update_host"] = pg_ms(64)
         res["dqn_update_host"] = dqn_ms(64)
         split = res["runner_step_split"]
         parts = {k: round(v, 1) for k, v in split["us_a_step"].items()}
         log(f"phase 16b: a runner step's host us by part {json.dumps(parts)}, "
+            f"a PPO update {res['pg_update_host']['update_ms_median']:.4f} ms, "
             f"a DQN update {res['dqn_update_host']['update_ms_median']:.4f} ms")
     res["phase_s"] = time.perf_counter() - t_phase
     res["launches"] = launches
@@ -5137,9 +5202,9 @@ def phase16c_tune(gpu="cuda"):
                        "update_s": [m["update_time_s"] for m in h],
                        "launches": h[-1]["launches"]})
         want = len(h) if gpu == "cuda" else 0
-        if h[-1]["launches"]["pg_loss"] != want:
+        if h[-1]["launches"]["pg_update"] != want:
             raise AssertionError(f"phase 16c: trial lr {trials[-1]['lr']}: K12 launched "
-                                 f"{h[-1]['launches']['pg_loss']} times in {len(h)} "
+                                 f"{h[-1]['launches']['pg_update']} times in {len(h)} "
                                  "iterations")
     stopped = sum(t["iterations"] < PHASE16_TUNE_ITERS for t in trials)
     best = grid.get_best_result()
@@ -5523,8 +5588,10 @@ def main() -> int:
             "max_abs_err": rl["max_abs_err"], "ms": rl["ms"], "plain_ms": rl["plain_ms"],
             "bound_ms": rl["bound"][0], "bound_by": rl["bound"][1],
             "library_ms": rl["library_ms"], "shape": rl["shape"],
-            **{k: rl[k] for k in ("mode", "ms_pg_mode", "near_ties_skipped", "against_plain",
-                                  "smem_bytes") if k in rl},
+            **{k: rl[k] for k in ("mode", "ms_pg_mode", "ms_plain_pg_mode", "ms_batch_128",
+                                  "ms_hidden_128_tiled", "cluster", "near_ties_skipped",
+                                  "against_plain", "smem_bytes") if k in rl},
+            **({"replaces_ppo": RL_REPLACES_PPO} if name == "pg_update" else {}),
             "phase16c_launches": sum(t["launches"][name] for t in tune_res["trials"]),
         })
     log(json.dumps({"stream": stream, "gcs": gcs, "forward": fwd_res, "serve": serve_res,

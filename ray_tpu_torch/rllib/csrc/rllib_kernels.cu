@@ -1,8 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of RLlib's own device programs
 // (ray_tpu/rllib/policy.py and env_runner.py): the env runner's whole step
-// (trunk, logits, key split, categorical draw), the PG/PPO loss head with
-// its gradient, and the whole DQN update (three trunks, TD head, backward,
-// Adam).
+// (trunk, logits, key split, categorical draw), the whole PG/PPO update
+// (trunk, loss head, backward, Adam) and the whole DQN update (three trunks,
+// TD head, backward, Adam).
 //
 // Built by ray_tpu_torch/rllib/rllib_kernels.py (through util/cuda_build.py)
 // with one nvcc call into a shared library with a plain C interface, loaded
@@ -18,9 +18,10 @@
 // ones PyTorch's own CUDA ops call), and no product is contracted into an
 // FMA, so each step rounds as the plain version's torch op does. No value
 // is summed through an atomic: every sum is one thread's, in a fixed order,
-// or one block's fixed tree in shared memory, so two launches give the same
-// bits. The products are summed in another order than cuBLAS's, so K11's
-// logits and K13's trunks differ from the plain versions' by ulps.
+// or one block's fixed tree, or K12's cluster's partials in rank order, so
+// two launches give the same bits. The products are summed in another order
+// than cuBLAS's, so K11's logits and K12's and K13's trunks differ from the
+// plain versions' by ulps.
 //
 // Kernels:
 //   K11 rl_policy_sample  replaces policy.py :49-57 (sample_actions: the
@@ -59,28 +60,56 @@
 //                     device). Bound: the weights, obs and key read, B*8
 //                     bytes written; at the runner's B = 1 a launch is all
 //                     latency.
-//   K12 rl_pg_loss     replaces policy.py :71-88 (pg_update's loss_fn)
-//                     and :105-127 (ppo_update's, clip given): the masked
-//                     mean and variance of the advantage returns - v, its
-//                     normalisation by sqrt(var) + 1e-6, log_softmax and
-//                     the action's log-probability, the policy term (PG:
-//                     logp * adv; PPO: min(ratio * adv, clip(ratio) * adv)
-//                     with ratio = expf(logp - logp_old)), the value loss
-//                     mean (returns - v)^2, the entropy bonus, total = pg +
-//                     0.5 vf - 0.01 entropy; and in the same launch the
-//                     gradient of total with respect to the logits and v,
-//                     in the order of the reference's jax.value_and_grad:
-//                     jnp.minimum / jnp.clip's ties give each side half
-//                     (lax.min and lax.max are balanced), so a ratio inside
-//                     the clip range sends half its cotangent through each
-//                     product, and a ratio at a clip end a quarter through
-//                     the clipped one. Every "/ n" is a true division.
-//                     Design: one block of 1 024 threads, rows strided over
-//                     the threads: the sums of the mask and of adv * mask,
-//                     then of (adv - mean)^2 * mask, then of the three loss
-//                     terms, each a fixed tree; the gradient rows are
-//                     written in the third pass. Bound: ~(A + 5) * B * 4
-//                     bytes read, (A + 1) * B * 4 written.
+//   K12 rl_pg_update  replaces policy.py :64-97 (pg_update) and :100-136
+//                     (ppo_update, clip given): the whole jitted step in one
+//                     launch. Per row the trunk h1 = tanh(obs @ w1 + b1), h2 =
+//                     tanh(h1 @ w2 + b2), the logits h2 @ wp + bp and v = h2 @
+//                     wv + bv; the masked mean and variance of the advantage
+//                     returns - v over the batch, its normalisation by
+//                     sqrt(var) + 1e-6, log_softmax and the action's
+//                     log-probability, the policy term (PG: logp * adv; PPO:
+//                     min(ratio * adv, clip(ratio) * adv) with ratio =
+//                     expf(logp - logp_old)), the value loss mean (returns -
+//                     v)^2, the entropy bonus, total = pg + 0.5 vf - 0.01
+//                     entropy; the gradient of total as the reference's
+//                     jax.value_and_grad forms it (jnp.minimum / jnp.clip's
+//                     ties give each side half: lax.min and lax.max are
+//                     balanced, so a ratio inside the clip range sends half
+//                     its cotangent through each product, a ratio at a clip
+//                     end a quarter through the clipped one; every "/ n" a
+//                     true division), back through both heads and the shared
+//                     trunk (tanh's backward as dh * (1 - y*y)); and each
+//                     entry's Adam step as K13's. Writes the params and
+//                     moments in place and total, pg, vf into pinned host
+//                     memory. Design: ONE cluster of P blocks of 1 024
+//                     threads (P up to 16, about 64 rows a block: 16 at the
+//                     default batch of 2 048), block r taking rows [r*B/P,
+//                     (r+1)*B/P) and holding the whole network (the value
+//                     head as column A of a [H, A + 1] head), its own partial
+//                     gradient and its rows' logits and v (A + 1 floats a
+//                     row) in its shared memory (106 KB at hidden 64, batch
+//                     2 048: 128 rows a block, one tile). Pass 1 runs each
+//                     tile of R rows through the trunk and heads; the
+//                     cluster then sums n, sum adv * m, and
+//                     after the mean sum c^2 * m: each block its partial
+//                     (every thread's rows in row order, then a fixed warp
+//                     tree), every block reading all P partials through
+//                     DSMEM in rank order, so each holds the same bits. Pass
+//                     2 runs the loss head and its gradient a row a thread,
+//                     then the backward into the block's gradient (each entry
+//                     one thread's sum over the block's rows in row order,
+//                     whatever R is; a tile's trunk is recomputed where the
+//                     block's rows took more than one). Then block r sums
+//                     its slice of the ~4 700 gradient entries over the P
+//                     blocks in rank order and applies Adam to it. No atomic
+//                     anywhere: two launches give the same bits. Limits: the
+//                     network, the gradient, the rows' logits and one row in
+//                     one block (hidden up to 164 at obs 4, 2 actions; at
+//                     hidden 128 and batch 2 048, two tiles a block).
+//                     Bound: ~55 MFLOP at the default width and batch (the
+//                     forward and the backward's products) against ~0.18 MB
+//                     moved: the operations, spread over P SMs' float32
+//                     lanes.
 //   K13 rl_dqn_update  replaces policy.py :150-185 (dqn_update): the whole
 //                     jitted step in one launch. The online trunk and head
 //                     on next_obs, the target network's on next_obs, the
@@ -128,8 +157,11 @@
 //                     and moments written; ~5.7 MFLOP at the default width,
 //                     one SM's float32 lanes the real limit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -317,98 +349,6 @@ __device__ __forceinline__ void log_softmax_row(const float* x, int A, float* e,
   *s_out = s;
 }
 
-// mode 0: PG (logp_old unused), 1: PPO with ratio clipped to [lo, hi].
-__global__ void __launch_bounds__(kLossThreads) pg_loss_kernel(
-    const float* __restrict__ logits, const float* __restrict__ v,
-    const int* __restrict__ actions, const float* __restrict__ returns,
-    const float* __restrict__ mask, const float* __restrict__ logp_old,
-    float* __restrict__ losses, float* __restrict__ dlogits, float* __restrict__ dv, int B,
-    int A, int mode, float lo, float hi) {
-  __shared__ float sh[kLossThreads];
-  const int t = threadIdx.x;
-  const int T = blockDim.x;
-  // pass 1: n = max(sum m, 1), the masked mean of adv = returns - v
-  float sm = 0.0f, sam = 0.0f;
-  for (int b = t; b < B; b += T) {
-    const float m = mask[b];
-    sm = sm + m;
-    sam = sam + (returns[b] - v[b]) * m;
-  }
-  const float n = fmaxf(block_sum(sm, sh), 1.0f);
-  const float mean = block_sum(sam, sh) / n;
-  // pass 2: the masked variance
-  float sv = 0.0f;
-  for (int b = t; b < B; b += T) {
-    const float c = (returns[b] - v[b]) - mean;
-    sv = sv + (c * c) * mask[b];
-  }
-  const float denom = sqrtf(block_sum(sv, sh) / n) + 1e-6f;
-  // the cotangents of total's three terms: 1 for pg, 0.5 for vf, -0.01
-  // for the entropy bonus, each through its "/ n"
-  const float ct_sum_pg = -(1.0f / n);
-  const float ct_sum_vf = 0.5f / n;
-  const float ct_sum_ent = -0.01f / n;
-  // pass 3: the terms and the gradient rows
-  float spg = 0.0f, svf = 0.0f, sent = 0.0f;
-  float e[kMaxActions], lp[kMaxActions];
-  for (int b = t; b < B; b += T) {
-    const float* x = logits + (long long)b * A;
-    const float m = mask[b];
-    const int act = actions[b];
-    float s;
-    log_softmax_row(x, A, e, lp, &s);
-    const float adv = (returns[b] - v[b] - mean) / denom;
-    float ct_act;  // the cotangent of logp[act]
-    if (mode == 0) {
-      spg = spg + (lp[act] * adv) * m;
-      ct_act = (ct_sum_pg * m) * adv;
-    } else {
-      const float ratio = expf(lp[act] - logp_old[b]);
-      const float r_lo = fmaxf(lo, ratio);
-      const float r_clip = fminf(hi, r_lo);
-      const float pa = ratio * adv;
-      const float pb = r_clip * adv;
-      const float surr = fminf(pa, pb);
-      spg = spg + surr * m;
-      const float ct_surr = ct_sum_pg * m;
-      const float ct_pa = ct_surr * balanced(pa, surr, pb);
-      const float ct_pb = ct_surr * balanced(pb, surr, pa);
-      const float w_clip = balanced(r_lo, r_clip, hi) * balanced(ratio, r_lo, lo);
-      const float ct_ratio = ct_pa * adv + (ct_pb * adv) * w_clip;
-      ct_act = ct_ratio * ratio;
-    }
-    const float d = returns[b] - v[b];
-    svf = svf + (d * d) * m;
-    float ent = 0.0f;
-    for (int a = 0; a < A; ++a) ent = ent + expf(lp[a]) * lp[a];
-    ent = -ent;
-    sent = sent + ent * m;
-    // the entropy's cotangent c on each p * logp; then log_softmax's backward
-    const float c = -(ct_sum_ent * m);
-    float g[kMaxActions];
-    float gsum = 0.0f;
-    for (int a = 0; a < A; ++a) {
-      const float p = expf(lp[a]);
-      float ga = c * p + (c * lp[a]) * p;
-      if (a == act) ga = ga + ct_act;
-      g[a] = ga;
-      gsum = gsum + ga;
-    }
-    const float ct_s = -gsum / s;
-    float* dx = dlogits + (long long)b * A;
-    for (int a = 0; a < A; ++a) dx[a] = g[a] + ct_s * e[a];
-    dv[b] = -((ct_sum_vf * m) * (2.0f * d));
-  }
-  const float pg = -block_sum(spg, sh) / n;
-  const float vf = block_sum(svf, sh) / n;
-  const float entb = block_sum(sent, sh) / n;
-  if (t == 0) {
-    losses[0] = (pg + 0.5f * vf) - 0.01f * entb;
-    losses[1] = pg;
-    losses[2] = vf;
-  }
-}
-
 // ------------------------------------------------------------------ K13
 
 // K13's arguments, mirrored field for field by rllib_kernels.py's _DqnArgs.
@@ -505,8 +445,10 @@ __device__ void trunk_and_head(const SmemNet& n, const float* x, float* h1, floa
   __syncthreads();
 }
 
-// AdamW.update's step of entry i of one parameter from its gradient g.
-__device__ __forceinline__ void adam(const DqnArgs& a, int which, long long i, float g) {
+// AdamW.update's step of entry i of one parameter from its gradient g (a:
+// K12's or K13's arguments).
+template <class Args>
+__device__ __forceinline__ void adam(const Args& a, int which, long long i, float g) {
   float* p = a.p[which];
   float* mu = a.mu[which];
   float* nu = a.nu[which];
@@ -652,6 +594,335 @@ __global__ void __launch_bounds__(kLossThreads) dqn_update_kernel(DqnArgs a) {
   for (int e = t; e <= H; e += T) adam(a, e < H ? 6 : 7, e < H ? e : 0, 0.0f);
 }
 
+
+// ------------------------------------------------------------------ K12
+
+// K12's arguments, mirrored field for field by rllib_kernels.py's _PgArgs.
+struct PgArgs {
+  float* p[8];   // w1 b1 w2 b2 wp bp wv bv, updated in place
+  float* mu[8];  // Adam's first moments, in place
+  float* nu[8];  // Adam's second moments, in place
+  // staged batch of B rows: obs [B, O], actions [B] (int32 bits), returns
+  // [B], logp_old [B] (read in PPO's mode only), mask [B]
+  const float* batch;
+  float* stats;  // [3]: total, pg, vf
+  int B, O, H, A;
+  int P;     // the cluster's blocks: block r takes rows [r*B/P, (r+1)*B/P)
+  int R;     // rows a tile: a block passes its rows through shared memory R at a time
+  int mode;  // 0 PG, 1 PPO with the ratio clipped to [lo, hi]
+  float lo, hi, b1, b2, omb1, omb2, eps, bc1, bc2, wd, nlr;
+};
+
+constexpr int kPgThreads = 1024;
+constexpr int kMaxCluster = 16;  // a non-portable cluster size sm_90 allows
+constexpr int kPgSums = 4;       // the most sums one block_sums call takes
+// the warps' partials, the block's exchanged partials (8), the cluster's sums (8)
+constexpr int kPgRed = 32 * kPgSums + 16;
+
+// The network in shared memory: the trunk, then the head [H, A + 1] whose
+// column A is the value head (wv), and its bias [A + 1] (bv last).
+__host__ __device__ inline int pg_net_floats(int O, int H, int A) {
+  return O * H + H + H * (H + 1) + H + (H + 1) * (A + 1);
+}
+
+// The gradient, unpadded, in the network's order: w1 b1 w2 b2, the head, its bias.
+__host__ __device__ inline int pg_grad_floats(int O, int H, int A) {
+  return O * H + H + H * H + H + (H + 1) * (A + 1);
+}
+
+// Shared memory of K12 with at most Q rows a block, R a tile: the network,
+// the gradient, the block's rows' logits and v, the tile's obs, h1 and h2
+// (rows padded to H + 1), and the reductions' scratch.
+__host__ __device__ inline long long pg_smem_floats(int Q, int R, int O, int H, int A) {
+  return (long long)pg_net_floats(O, H, A) + pg_grad_floats(O, H, A) + (long long)Q * (A + 1) +
+         (long long)R * (O + 2 * (H + 1)) + kPgRed;
+}
+
+__device__ void load_pg_net(const SmemNet& n, const PgArgs& a, int O, int H, int A) {
+  const int t = threadIdx.x, T = blockDim.x, W = A + 1;
+  for (int e = t; e < O * H; e += T) n.w1[e] = a.p[0][e];
+  for (int e = t; e < H; e += T) n.b1[e] = a.p[1][e];
+  for (int e = t; e < H * H; e += T) n.w2[(e / H) * (H + 1) + e % H] = a.p[2][e];
+  for (int e = t; e < H; e += T) n.b2[e] = a.p[3][e];
+  for (int e = t; e < H * W; e += T) {
+    const int j = e / W, c = e - j * W;
+    n.wp[e] = c < A ? a.p[4][j * A + c] : a.p[6][j];
+  }
+  for (int c = t; c < W; c += T) n.bp[c] = c < A ? a.p[5][c] : a.p[7][0];
+}
+
+// Entry e of the gradient's layout as (parameter, index): the head's column
+// A is wv, its bias's entry A is bv.
+__device__ __forceinline__ void pg_entry(int e, int O, int H, int A, int* which, int* idx) {
+  const int W = A + 1;
+  const int n0 = O * H, n1 = n0 + H, n2 = n1 + H * H, n3 = n2 + H, n4 = n3 + H * W;
+  if (e < n0) {
+    *which = 0;
+    *idx = e;
+  } else if (e < n1) {
+    *which = 1;
+    *idx = e - n0;
+  } else if (e < n2) {
+    *which = 2;
+    *idx = e - n1;
+  } else if (e < n3) {
+    *which = 3;
+    *idx = e - n2;
+  } else if (e < n4) {
+    const int f = e - n3, j = f / W, c = f - j * W;
+    *which = c < A ? 4 : 6;
+    *idx = c < A ? j * A + c : j;
+  } else {
+    const int c = e - n4;
+    *which = c < A ? 5 : 7;
+    *idx = c < A ? c : 0;
+  }
+}
+
+// The sums over the block of N values a thread: a fixed shuffle tree in each
+// warp, then every thread adds the warps' partials in warp order, so every
+// thread holds the same bits.
+template <int N>
+__device__ __forceinline__ void block_sums(float (&v)[N], float* red) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float x = v[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x = x + __shfl_down_sync(0xffffffffu, x, o);
+    if (lane == 0) red[w * N + i] = x;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = 0.0f;
+    for (int k = 0; k < nw; ++k) s = s + red[k * N + i];
+    v[i] = s;
+  }
+  __syncthreads();
+}
+
+// Slots [i0, i1) of part[], summed over the cluster's blocks in rank order
+// (DSMEM reads) into sums[]: every block gets the same bits. Called after the
+// cluster.sync() that follows the partials' writes.
+__device__ __forceinline__ void cluster_sums(cg::cluster_group& cluster, float* part,
+                                             float* sums, int i0, int i1, int P) {
+  const int i = i0 + (int)threadIdx.x;
+  if (i < i1) {
+    float s = 0.0f;
+    for (int r = 0; r < P; ++r) s = s + cluster.map_shared_rank(part, r)[i];
+    sums[i] = s;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kPgThreads) pg_update_kernel(PgArgs a) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int B = a.B, O = a.O, H = a.H, A = a.A, P = a.P, R = a.R, W = A + 1, L = H + 1;
+  const int t = threadIdx.x, T = blockDim.x;
+  const int Q = (B + P - 1) / P;
+  const int G = pg_grad_floats(O, H, A);
+  SmemNet net;  // wp, bp: the head [H, W] and its bias [W]
+  float* gw1 = carve_net(smem, &net, O, H, W);
+  float* gb1 = gw1 + O * H;
+  float* gw2 = gb1 + H;
+  float* gb2 = gw2 + H * H;
+  float* gh = gb2 + H;
+  float* gbh = gh + H * W;
+  float* kp = gbh + W;      // [Q, W]: the block's rows' logits and v, then their gradient
+  float* x = kp + Q * W;    // [R, O]
+  float* h1 = x + R * O;    // [R, L]
+  float* h2 = h1 + R * L;   // [R, L]
+  float* red = h2 + R * L;  // block_sums' scratch
+  float* part = red + 32 * kPgSums;
+  float* sums = part + 8;
+  const int row0 = (int)((long long)rank * B / P);
+  const int rows = (int)((long long)(rank + 1) * B / P) - row0;
+  const float* obs = a.batch;
+  const int* actions = reinterpret_cast<const int*>(a.batch + (long long)B * O);
+  const float* returns = a.batch + (long long)B * (O + 1);
+  const float* logp_old = returns + B;
+  const float* mask = logp_old + B;
+
+  load_pg_net(net, a, O, H, A);
+  for (int e = t; e < G; e += T) gw1[e] = 0.0f;
+  __syncthreads();
+  // pass 1: each tile's trunk and heads; the rows' logits and v kept (with
+  // one tile its h1, h2 too, for pass 2)
+  const bool one_tile = rows <= R;
+  for (int r0 = 0; r0 < rows; r0 += R) {
+    const int M = min(R, rows - r0);
+    for (int e = t; e < M * O; e += T) x[e] = obs[(long long)(row0 + r0) * O + e];
+    __syncthreads();
+    trunk_and_head(net, x, h1, h2, kp + r0 * W, M, O, H, W);
+  }
+
+  // the cluster's n = max(sum m, 1) and mean of adv = returns - v, then
+  // its masked variance
+  float s2[2] = {0.0f, 0.0f};
+  for (int i = t; i < rows; i += T) {
+    const float m = mask[row0 + i];
+    s2[0] = s2[0] + m;
+    s2[1] = s2[1] + (returns[row0 + i] - kp[i * W + A]) * m;
+  }
+  block_sums(s2, red);
+  if (t == 0) {
+    part[0] = s2[0];
+    part[1] = s2[1];
+  }
+  cluster.sync();
+  cluster_sums(cluster, part, sums, 0, 2, P);
+  const float n = fmaxf(sums[0], 1.0f);
+  const float mean = sums[1] / n;
+  float s1[1] = {0.0f};
+  for (int i = t; i < rows; i += T) {
+    const float c = (returns[row0 + i] - kp[i * W + A]) - mean;
+    s1[0] = s1[0] + (c * c) * mask[row0 + i];
+  }
+  block_sums(s1, red);
+  if (t == 0) part[2] = s1[0];
+  cluster.sync();
+  cluster_sums(cluster, part, sums, 2, 3, P);
+  const float denom = sqrtf(sums[2] / n) + 1e-6f;
+  // the cotangents of total's three terms: 1 for pg, 0.5 for vf, -0.01 for
+  // the entropy bonus, each through its "/ n"
+  const float ct_sum_pg = -(1.0f / n);
+  const float ct_sum_vf = 0.5f / n;
+  const float ct_sum_ent = -0.01f / n;
+
+  // pass 2: a tile's loss head and its gradient rows, then the backward
+  float s3[3] = {0.0f, 0.0f, 0.0f};
+  float ex[kMaxActions], lp[kMaxActions];
+  for (int r0 = 0; r0 < rows; r0 += R) {
+    const int M = min(R, rows - r0);
+    float* dl = kp + r0 * W;
+    if (!one_tile) {  // the same code on the same rows: the same bits as pass 1
+      for (int e = t; e < M * O; e += T) x[e] = obs[(long long)(row0 + r0) * O + e];
+      __syncthreads();
+      trunk_and_head(net, x, h1, h2, dl, M, O, H, W);
+    }
+    for (int b = t; b < M; b += T) {
+      const int row = row0 + r0 + b;
+      float* xr = dl + b * W;  // the row's logits and v, then their gradient
+      const float m = mask[row];
+      const int act = actions[row];
+      float s;
+      log_softmax_row(xr, A, ex, lp, &s);
+      const float d = returns[row] - xr[A];
+      const float adv = (d - mean) / denom;
+      float ct_act;  // the cotangent of logp[act]
+      if (a.mode == 0) {
+        s3[0] = s3[0] + (lp[act] * adv) * m;
+        ct_act = (ct_sum_pg * m) * adv;
+      } else {
+        const float ratio = expf(lp[act] - logp_old[row]);
+        const float r_lo = fmaxf(a.lo, ratio);
+        const float r_clip = fminf(a.hi, r_lo);
+        const float pa = ratio * adv;
+        const float pb = r_clip * adv;
+        const float surr = fminf(pa, pb);
+        s3[0] = s3[0] + surr * m;
+        const float ct_surr = ct_sum_pg * m;
+        const float ct_pa = ct_surr * balanced(pa, surr, pb);
+        const float ct_pb = ct_surr * balanced(pb, surr, pa);
+        const float w_clip = balanced(r_lo, r_clip, a.hi) * balanced(ratio, r_lo, a.lo);
+        const float ct_ratio = ct_pa * adv + (ct_pb * adv) * w_clip;
+        ct_act = ct_ratio * ratio;
+      }
+      s3[1] = s3[1] + (d * d) * m;
+      float ent = 0.0f;
+      for (int k = 0; k < A; ++k) ent = ent + expf(lp[k]) * lp[k];
+      s3[2] = s3[2] + (-ent) * m;
+      // the entropy's cotangent c on each p * logp; then log_softmax's
+      // backward (lp[k] becomes the gradient g[k] once read)
+      const float c = -(ct_sum_ent * m);
+      float gsum = 0.0f;
+      for (int k = 0; k < A; ++k) {
+        const float p = expf(lp[k]);
+        float gk = c * p + (c * lp[k]) * p;
+        if (k == act) gk = gk + ct_act;
+        lp[k] = gk;
+        gsum = gsum + gk;
+      }
+      const float ct_s = -gsum / s;
+      for (int k = 0; k < A; ++k) xr[k] = lp[k] + ct_s * ex[k];
+      xr[A] = -((ct_sum_vf * m) * (2.0f * d));
+    }
+    __syncthreads();
+    // the heads: d[wp | wv] += h2^T [dlogits | dv], d[bp | bv] += their sums
+    block_mm(h2, 1, L, dl, W, 1, H, W, M, [&](int j, int c) { return gh[j * W + c]; },
+             [&](int j, int c, float s) { gh[j * W + c] = s; });
+    for (int c = t; c < W; c += T) {
+      float s = gbh[c];
+      for (int b = 0; b < M; ++b) s = s + dl[b * W + c];
+      gbh[c] = s;
+    }
+    __syncthreads();
+    // dz2 = ([dlogits | dv] @ [wp | wv]^T) * (1 - h2^2), into h2
+    block_mm(dl, W, 1, net.wp, 1, W, M, H, W, Zero(), [&](int b, int j, float s) {
+      const float y = h2[b * L + j];
+      h2[b * L + j] = s * (1.0f - y * y);
+    });
+    __syncthreads();
+    // d w2 += h1^T dz2, d b2 += the sum of dz2
+    block_mm(h1, 1, L, h2, L, 1, H, H, M, [&](int i, int j) { return gw2[i * H + j]; },
+             [&](int i, int j, float s) { gw2[i * H + j] = s; });
+    for (int j = t; j < H; j += T) {
+      float s = gb2[j];
+      for (int b = 0; b < M; ++b) s = s + h2[b * L + j];
+      gb2[j] = s;
+    }
+    __syncthreads();
+    // dz1 = (dz2 @ w2^T) * (1 - h1^2), into h1
+    block_mm(h2, L, 1, net.w2, 1, L, M, H, H, Zero(), [&](int b, int i, float s) {
+      const float y = h1[b * L + i];
+      h1[b * L + i] = s * (1.0f - y * y);
+    });
+    __syncthreads();
+    // d w1 += obs^T dz1, d b1 += the sum of dz1
+    block_mm(x, 1, O, h1, L, 1, O, H, M, [&](int k, int i) { return gw1[k * H + i]; },
+             [&](int k, int i, float s) { gw1[k * H + i] = s; });
+    for (int i = t; i < H; i += T) {
+      float s = gb1[i];
+      for (int b = 0; b < M; ++b) s = s + h1[b * L + i];
+      gb1[i] = s;
+    }
+    __syncthreads();
+  }
+  block_sums(s3, red);
+  if (t == 0) {
+    part[3] = s3[0];
+    part[4] = s3[1];
+    part[5] = s3[2];
+  }
+  cluster.sync();  // every block's loss partials and gradient complete
+  if (rank == 0) {
+    cluster_sums(cluster, part, sums, 3, 6, P);
+    if (t == 0) {
+      const float pg = -sums[3] / n;
+      const float vf = sums[4] / n;
+      const float entb = sums[5] / n;
+      a.stats[0] = (pg + 0.5f * vf) - 0.01f * entb;
+      a.stats[1] = pg;
+      a.stats[2] = vf;
+    }
+  }
+  // Adam on this block's slice of the entries, each gradient entry the sum
+  // of the P blocks' partials in rank order
+  const int e0 = (int)((long long)G * rank / P);
+  const int e1 = (int)((long long)G * (rank + 1) / P);
+  for (int e = e0 + t; e < e1; e += T) {
+    float g = 0.0f;
+    for (int r = 0; r < P; ++r) g = g + cluster.map_shared_rank(gw1, r)[e];
+    int which, idx;
+    pg_entry(e, O, H, A, &which, &idx);
+    adam(a, which, idx, g);
+  }
+  cluster.sync();  // no block exits while a peer still reads its shared memory
+}
+
 }  // namespace
 
 extern "C" {
@@ -694,16 +965,43 @@ int rl_policy_sample(const float* const* params, const float* obs, int obs_stage
   return (int)cudaGetLastError();
 }
 
-// K12: losses [3] = total, pg, vf; dlogits [B, A]; dv [B]. mode 0 PG, 1 PPO.
-int rl_pg_loss(const float* logits, const float* v, const int* actions, const float* returns,
-               const float* mask, const float* logp_old, float* losses, float* dlogits,
-               float* dv, int B, int A, int mode, float lo, float hi, void* stream) {
-  if (B <= 0 || A <= 0 || A > kMaxActions || mode < 0 || mode > 1 ||
-      (mode == 1 && logp_old == nullptr)) {
+// K12: one PG (mode 0) or PPO (mode 1) update, params and moments in place,
+// stats [3]. args is a PgArgs (a void pointer, as K13's). One cluster of P
+// blocks: P, R and the shared memory are mirrored by rllib_kernels.py's
+// pg_plan, whose limit check raises.
+int rl_pg_update(const void* args, void* stream) {
+  const PgArgs& a = *static_cast<const PgArgs*>(args);
+  if (a.B <= 0 || a.O <= 0 || a.H <= 0 || a.A <= 0 || a.A > kMaxActions || a.P <= 0 ||
+      a.P > kMaxCluster || a.P > a.B || a.R <= 0 || a.mode < 0 || a.mode > 1) {
     return (int)cudaErrorInvalidValue;
   }
-  pg_loss_kernel<<<1, kLossThreads, 0, (cudaStream_t)stream>>>(
-      logits, v, actions, returns, mask, logp_old, losses, dlogits, dv, B, A, mode, lo, hi);
+  const int Q = (a.B + a.P - 1) / a.P;
+  const long long bytes = pg_smem_floats(Q, a.R, a.O, a.H, a.A) * (long long)sizeof(float);
+  if (a.R > Q || bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  static int opted_in = 0;  // the attributes are per function: set them once
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pg_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(pg_update_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = 1;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)a.P;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a.P, 1, 1);
+  cfg.blockDim = dim3(kPgThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, pg_update_kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

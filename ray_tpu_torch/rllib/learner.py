@@ -3,9 +3,10 @@
 Reference: rllib/core/learner/learner.py (per-learner update step) and
 learner_group.py (the coordination wrapper Train/RLlib share). One Learner
 holds the policy on its device (the card unless the caller asks for the
-CPU) and runs one update a batch over static padded batch shapes: for
-PG/PPO the trunk and Adam as torch ops with the loss head and its gradient
-one kernel (K12); for DQN the whole update one kernel (K13) on the card.
+CPU) and runs one update a batch over static padded batch shapes: on the
+card each update is one kernel launch, K12 for PG/PPO (the sampled batch
+written into pinned memory with its padding and mask, one copy across) and
+K13 for DQN; on the CPU their plain versions.
 Weights leave the learner as dicts of numpy arrays, so runners on any
 device load them.
 """
@@ -31,6 +32,10 @@ class Learner:
             np.random.default_rng(seed), obs_size, num_actions, hidden, device=device
         )
         self.device = self.params.device
+        if self.device.type == "cuda":  # K12's widths, checked before the first update
+            from ray_tpu_torch.rllib.rllib_kernels import pg_plan
+
+            pg_plan(train_batch_size, obs_size, hidden, num_actions)
         self.optimizer = pol.make_optimizer(lr)
         self.opt_state = self.optimizer.init(self.params)
         self._updates = 0
@@ -46,26 +51,6 @@ class Learner:
 
         pol.load_params(self.params, params)
 
-    def _pad(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """Pad to the static train_batch_size so every update has one shape
-        (masked math ignores the padding)."""
-        n = len(batch["obs"])
-        size = self.train_batch_size
-        if n > size:
-            batch = {k: v[:size] for k, v in batch.items()}
-            n = size
-        out = {}
-        for k in ("obs", "actions", "returns", "logp_old"):
-            v = batch[k]
-            pad_shape = (size - n,) + v.shape[1:]
-            out[k] = torch.from_numpy(
-                np.concatenate([v, np.zeros(pad_shape, v.dtype)])
-            ).to(self.device)
-        mask = np.zeros(size, np.float32)
-        mask[:n] = 1.0
-        out["mask"] = torch.from_numpy(mask).to(self.device)
-        return out
-
     def update(self, batch: Dict[str, np.ndarray]) -> Dict[str, float]:
         from ray_tpu_torch.rllib import policy as pol
 
@@ -80,10 +65,12 @@ class Learner:
                 "length or raise train_batch_size",
                 flush=True,
             )
-        padded = self._pad(batch)
+        # padded to the static train_batch_size so every update has one
+        # shape (masked math ignores the padding); the excess is cut
         fn = pol.ppo_update if self.algo == "ppo" else pol.pg_update
         self.params, self.opt_state, stats = fn(
-            self.params, self.opt_state, padded, self.optimizer
+            self.params, self.opt_state, batch, self.optimizer,
+            rows=self.train_batch_size,
         )
         self._updates += 1
         return {k: float(v) for k, v in stats.items()} | {

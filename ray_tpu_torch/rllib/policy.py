@@ -2,13 +2,13 @@
 
 Reference structure being matched: rllib/core/learner/learner.py owns the
 train math; rllib/policy/ the action computation. The JAX package jits the
-forward and the whole update into single programs. Here two of them are
-one hand-written kernel each on the card (rllib_kernels.py): K11 the
-runner's whole step (trunk, logits, key split, draw), K13 the whole DQN
-update (trunks, TD head, backward, Adam). PG and PPO keep the trunk's
-products, tanh and Adam as torch ops under autograd, with K12 the loss
-head and its gradient in one launch. On the CPU every program runs its
-plain PyTorch version.
+forward and the whole update into single programs. Here each of them is
+one hand-written kernel launch on the card (rllib_kernels.py): K11 the
+runner's whole step (trunk, logits, key split, draw), K12 the whole PG or
+PPO update (trunk, both heads, loss head, backward, Adam) on one cluster
+of blocks, K13 the whole DQN update (trunks, TD head, backward, Adam). On
+the CPU every program runs its plain PyTorch version: torch ops under
+autograd and AdamW.
 
 Parameters live in a ``PolicyNet`` module named as the reference's dict
 (w1 b1 w2 b2 wp bp wv bv); ``init_params`` draws them from a numpy
@@ -137,48 +137,27 @@ def opt_state_to_numpy(state: AdamWState) -> Dict:
             "nu": {n: t.detach().cpu().numpy() for n, t in state.nu.items()}}
 
 
-def _batch(net: PolicyNet, batch, key, dtype=torch.float32) -> torch.Tensor:
-    return torch.as_tensor(batch[key]).to(device=net.device, dtype=dtype).contiguous()
+def _pg_stats(losses) -> Dict[str, torch.Tensor]:
+    return {"total_loss": losses[0], "pg_loss": losses[1], "vf_loss": losses[2]}
 
 
-def _step(net: PolicyNet, loss: torch.Tensor, opt_state: AdamWState,
-          optimizer: AdamW) -> None:
-    loss.backward()
-    RK.zero_missing_grads(net)
-    optimizer.update(net, opt_state)
-
-
-def _pg_or_ppo(net, opt_state, batch, optimizer, clip):
-    for p in net.parameters():
-        p.grad = None
-    obs = _batch(net, batch, "obs")
-    actions = _batch(net, batch, "actions", torch.int32)
-    returns, mask = _batch(net, batch, "returns"), _batch(net, batch, "mask")
-    logp_old = None if clip is None else _batch(net, batch, "logp_old")
-    with torch.enable_grad():
-        h = net.trunk(obs)
-        logits = h @ net.wp + net.bp
-        v = (h @ net.wv + net.bv).squeeze(-1)
-        losses = RK.PGLoss.apply(logits, v, actions, returns, mask, logp_old, clip)
-        _step(net, losses[0], opt_state, optimizer)
-    losses = losses.detach()
-    return net, opt_state, {"total_loss": losses[0], "pg_loss": losses[1],
-                            "vf_loss": losses[2]}
-
-
-def pg_update(net: PolicyNet, opt_state: AdamWState, batch, optimizer: AdamW):
-    """REINFORCE with a learned value baseline, one step: the loss head and
-    its gradient are K12 in its PG mode. batch: obs [B, O], actions [B],
-    returns [B] (reward-to-go), mask [B] (1 for real transitions, 0 for
-    padding). net and opt_state are updated in place and returned."""
-    return _pg_or_ppo(net, opt_state, batch, optimizer, None)
+def pg_update(net: PolicyNet, opt_state: AdamWState, batch, optimizer: AdamW, rows=None):
+    """REINFORCE with a learned value baseline, one step: the whole update
+    K12 in its PG mode on the card (its plain version, torch ops under
+    autograd, on the CPU). batch: obs [B, O], actions [B], returns [B]
+    (reward-to-go), mask [B] (1 for real transitions, 0 for padding); or a
+    sampled batch without a mask, padded (or cut) to `rows` rows. net and
+    opt_state are updated in place and returned."""
+    losses = RK.pg_update(net, opt_state, optimizer, batch, None, rows=rows)
+    return net, opt_state, _pg_stats(losses)
 
 
 def ppo_update(net: PolicyNet, opt_state: AdamWState, batch, optimizer: AdamW,
-               clip: float = RK.PPO_CLIP):
+               clip: float = RK.PPO_CLIP, rows=None):
     """PPO-clip surrogate, one epoch over the batch (K12's PPO mode);
     batch additionally carries old logprobs (behavior policy)."""
-    return _pg_or_ppo(net, opt_state, batch, optimizer, clip)
+    losses = RK.pg_update(net, opt_state, optimizer, batch, clip, rows=rows)
+    return net, opt_state, _pg_stats(losses)
 
 
 def dqn_update(net: PolicyNet, target_net: PolicyNet, opt_state: AdamWState, batch,

@@ -8,18 +8,21 @@ built on first CUDA use) each beside its plain PyTorch version.
                       (prng.py is its plain version's arithmetic) and
                       log_softmax at the drawn action; returns the next key,
                       so the key chain stays on the device
-  K12 pg_loss         policy.py :71-88 (pg_update) and :105-127
-                      (ppo_update): the loss head past the trunk and its
-                      gradient with respect to the logits and the value
+  K12 pg_update       policy.py :64-97 (pg_update) and :100-136
+                      (ppo_update): the whole PG/PPO update in one cluster
+                      launch: the trunk and both heads, the masked advantage
+                      normalisation, the loss head, the backward through
+                      both heads and the trunk and the Adam step of every
+                      parameter, the batch's rows spread over the cluster's
+                      blocks
   K13 dqn_update      policy.py :150-185: the whole DQN update in one
                       launch: three trunks, the double-DQN TD head and Huber
                       loss, the backward through the online trunk and the
                       Adam step of every parameter
 
-K12 writes the loss and its gradient in one launch: ``PGLoss`` is an
-autograd Function whose backward scales that saved gradient by the incoming
-cotangent of the total loss; PG's and PPO's trunk and Adam stay torch ops
-(policy.py).
+K12 and K13 each take one pinned copy of the batch in (PgStaging,
+DqnStaging) and write their stats into pinned host memory, read after one
+synchronisation; params and moments are updated in place on the card.
 
 The plain versions spell out the reference's steps and the gradients of
 its ``jax.value_and_grad``: jax.nn.log_softmax as x - max - log(sum exp(x -
@@ -28,8 +31,10 @@ with lax.min / lax.max's balanced gradient (half to each side at a tie:
 every PPO row whose ratio lies inside the clip range on the first epoch,
 the clip ends, |td| = 1); every division of a tensor a true division of two
 tensors (``tensor / python_scalar`` multiplies by the reciprocal on CUDA).
-K11's plain version is the trunk as torch ops and ``draw_plain``; K13's is
-the update as torch ops under autograd with ``DQNLoss`` and AdamW.
+K11's plain version is the trunk as torch ops and ``draw_plain``; K12's and
+K13's are the update as torch ops under autograd (``PGLoss``, ``DQNLoss``:
+autograd Functions whose backward scales the head's gradient by the total
+loss's cotangent) with AdamW.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback from one to the
@@ -64,6 +69,15 @@ NVCC_FLAGS = cuda_build.BASE_FLAGS + ("--fmad=false",)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+class _PgArgs(ctypes.Structure):
+    """K12's argument block: csrc/rllib_kernels.cu's PgArgs, field for field."""
+    _fields_ = [("p", _P * 8), ("mu", _P * 8), ("nu", _P * 8), ("batch", _P), ("stats", _P),
+                ("B", _I), ("O", _I), ("H", _I), ("A", _I), ("P", _I), ("R", _I),
+                ("mode", _I)] + [
+                (name, _F) for name in ("lo", "hi", "b1", "b2", "omb1", "omb2", "eps", "bc1",
+                                        "bc2", "wd", "nlr")]
+
+
 class _DqnArgs(ctypes.Structure):
     """K13's argument block: csrc/rllib_kernels.cu's DqnArgs, field for field."""
     _fields_ = [("p", _P * 8), ("mu", _P * 8), ("nu", _P * 8), ("tgt", _P * 6),
@@ -75,7 +89,7 @@ class _DqnArgs(ctypes.Structure):
 
 _SIGNATURES = {
     "rl_policy_sample": ([_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "rl_pg_loss": ([_P] * 9 + [_I, _I, _I, _F, _F, _P], _I),
+    "rl_pg_update": ([ctypes.POINTER(_PgArgs), _P], _I),
     "rl_dqn_update": ([ctypes.POINTER(_DqnArgs), _P], _I),
     "rl_stream_sync": ([_P], _I),
     "rl_device_pointer": ([_P, ctypes.POINTER(_P)], _I),
@@ -91,9 +105,15 @@ MAX_OBS = 64
 #: K11: observations of at most this many floats ride in the kernel's
 #: arguments; wider ones are staged in pinned memory the card reads
 ARG_OBS = 256
-#: K13: one block's shared memory on sm_90 (csrc kMaxSmem)
-DQN_MAX_SMEM = 232_448
+#: K12, K13: one block's shared memory on sm_90 (csrc kMaxSmem)
+MAX_SMEM = 232_448
 _LOSS_THREADS = 1024
+#: K12: at most 16 blocks a cluster (a non-portable size sm_90 allows: csrc
+#: kMaxCluster), and about this many rows a block below that
+PG_MAX_CLUSTER = 16
+PG_ROWS_A_BLOCK = 64
+#: K12's reduction scratch (csrc kPgRed)
+_PG_RED = 32 * 4 + 16
 #: a draw may differ from JAX's only where the top-2 gap of logits + Gumbel
 #: noise is below this (logf on the card, XLA's log, and the logits' last
 #: bits differ by an ulp); as MOE_TIE_GAP for the expert layer's routing
@@ -105,8 +125,9 @@ RL_TIE_GAP = 1e-5
 #: by 9.5e-7), and log_softmax at the draw carries that into logp through
 #: both x - max and log(sum); the draws agree outside RL_TIE_GAP
 RL_LOGP_TOL = 4e-6
-#: K13 against its plain version on the card. The stats within 1e-5
-#: relative (RL_CARD_TOL: sums in another order). The params and moments:
+#: K12 and K13 against their plain versions on the card. The stats within
+#: 1e-5 relative (RL_CARD_TOL: sums in another order; K12's policy loss, a
+#: mean of terms of both signs, of pg_term_scale). The params and moments:
 #: the trunks' products summed in another order move the gradient g by
 #: ulps, which Adam's moments carry at their own scale (mu, nu within
 #: "moments_rel" of their largest entry); at Adam's first step u = g / |g|,
@@ -115,12 +136,14 @@ RL_LOGP_TOL = 4e-6
 #: its plain value ("params_lr_units", the outer bound: it catches a NaN or
 #: a wild entry), and at least "params_share" of its entries, all but one
 #: where that allows none, within "params_abs" (as MOE_GRAD_GOLDEN_TOL's
-#: "98 % within"). The value head, whose gradient is 0, bit-equal.
-DQN_UPDATE_TOL = {"moments_rel": 1e-4, "params_lr_units": 2.0, "params_abs": 1e-6,
+#: "98 % within"). DQN's value head, whose gradient is 0, bit-equal.
+UPDATE_TOL = {"moments_rel": 1e-4, "params_lr_units": 2.0, "params_abs": 1e-6,
                   "params_share": 0.98}
 #: PPO's clip range (policy.py :100 ppo_update's default)
 PPO_CLIP = 0.2
 _PG, _PPO = 0, 1
+#: the parameters DQN's loss does not read: their gradient is exactly 0
+DQN_ZERO_GRAD = ("wv", "bv")
 #: the policy's tensors K11 reads, and every parameter K13 updates, in the
 #: reference's params-dict order
 POLICY_NAMES = ("w1", "b1", "w2", "b2", "wp", "bp")
@@ -137,21 +160,6 @@ def _check(lib, rc: int, kernel: str) -> None:
     if rc != 0:
         msg = lib.rl_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: {msg} ({rc})")
-
-
-def _check_rows(what: str, x: torch.Tensor) -> None:
-    if x.dim() != 2 or x.dtype != torch.float32 or min(x.shape) == 0 \
-            or x.shape[1] > MAX_ACTIONS:
-        raise ValueError(f"{what}: {tuple(x.shape)} {x.dtype} (float32 [B, A], 0 < A <= "
-                         f"{MAX_ACTIONS}, needed)")
-
-
-def _check_vectors(what: str, B: int, **vectors) -> None:
-    for name, t in vectors.items():
-        want = torch.int32 if name == "actions" else torch.float32
-        if t.shape != (B,) or t.dtype != want:
-            raise ValueError(f"{what}: {name} {tuple(t.shape)} {t.dtype} ({want} [{B}] "
-                             "needed)")
 
 
 def _contiguous(what: str, *tensors) -> None:
@@ -420,51 +428,14 @@ def pg_loss_plain(logits, v, actions, returns, mask, logp_old=None, clip=None):
     return torch.stack([total, pg, vf]), dlogits, dv
 
 
-def pg_loss(logits, v, actions, returns, mask, logp_old=None, clip=None):
-    """K12. logits [B, A], v, returns, mask [B] float32, actions [B] int32,
-    and for PPO (clip a float, e.g. PPO_CLIP) logp_old [B] -> (losses [3]
-    = total, pg, vf; dlogits [B, A]; dv [B]): the loss of pg_update (clip
-    None) or ppo_update and its gradient with respect to logits and v."""
-    _check_rows("pg_loss", logits)
-    B, A = logits.shape
-    vecs = dict(v=v, actions=actions, returns=returns, mask=mask)
-    if clip is not None:
-        if logp_old is None:
-            raise ValueError("pg_loss: PPO (clip given) needs logp_old")
-        vecs["logp_old"] = logp_old
-    _check_vectors("pg_loss", B, **vecs)
-    dev = device_of(logits, *vecs.values())
-    if dev.type == "cpu":
-        return pg_loss_plain(logits, v, actions, returns, mask, logp_old, clip)
-    _contiguous("pg_loss", logits, *vecs.values())
-    lib = LIBRARY.load()
-    losses = torch.empty(3, dtype=torch.float32, device=dev)
-    dlogits = torch.empty_like(logits)
-    dv = torch.empty_like(v)
-    mode = _PG if clip is None else _PPO
-    lo, hi = (0.0, 0.0) if clip is None else (1 - clip, 1 + clip)
-    with torch.cuda.device(dev):
-        rc = lib.rl_pg_loss(logits.data_ptr(), v.data_ptr(), actions.data_ptr(),
-                            returns.data_ptr(), mask.data_ptr(),
-                            None if clip is None else logp_old.data_ptr(), losses.data_ptr(),
-                            dlogits.data_ptr(), dv.data_ptr(), B, A, mode, lo, hi,
-                            current_stream(dev))
-    _check(lib, rc, "pg_loss")
-    _count(pg_loss)
-    return losses, dlogits, dv
-
-
-pg_loss.launches = 0
-
-
 class PGLoss(torch.autograd.Function):
-    """losses [3] = total, pg, vf of K12; the backward gives logits and v
-    K12's gradient of total scaled by total's cotangent."""
+    """losses [3] = total, pg, vf of pg_loss_plain; the backward gives
+    logits and v its gradient of total scaled by total's cotangent."""
 
     @staticmethod
     def forward(ctx, logits, v, actions, returns, mask, logp_old, clip):
-        losses, dlogits, dv = pg_loss(logits.detach(), v.detach(), actions, returns, mask,
-                                      logp_old, clip)
+        losses, dlogits, dv = pg_loss_plain(logits.detach(), v.detach(), actions, returns, mask,
+                                            logp_old, clip)
         ctx.save_for_backward(dlogits, dv)
         return losses
 
@@ -472,6 +443,278 @@ class PGLoss(torch.autograd.Function):
     def backward(ctx, g):
         dlogits, dv = ctx.saved_tensors
         return dlogits * g[0], dv * g[0], None, None, None, None, None
+
+
+def zero_missing_grads(net) -> None:
+    for p in net.parameters():  # a head the loss does not read (DQN's
+        if p.grad is None:      # value head): a zero gradient, as jax.grad's
+            p.grad = torch.zeros_like(p)
+
+
+def pg_update_plain(net, opt_state, optimizer, batch, clip=None):
+    """Plain version of K12: the trunk and both heads as torch ops, the
+    loss head PGLoss, autograd's backward, then optimizer.update (AdamW).
+    batch: a padded batch (obs [B, O], actions, returns, mask [B], and
+    logp_old [B] for PPO; numpy or tensors); opt_state is updated in place
+    with net. Returns the stats [3] (total, pg, vf) on the policy's
+    device."""
+    dev = net.w1.device
+
+    def tensor(name, dtype=torch.float32):
+        return torch.as_tensor(batch[name]).to(device=dev, dtype=dtype).contiguous()
+
+    for p in net.parameters():
+        p.grad = None
+    obs = tensor("obs")
+    actions = tensor("actions", torch.int32)
+    returns, mask = tensor("returns"), tensor("mask")
+    logp_old = None if clip is None else tensor("logp_old")
+    with torch.enable_grad():
+        h = net.trunk(obs)
+        logits = h @ net.wp + net.bp
+        v = (h @ net.wv + net.bv).squeeze(-1)
+        losses = PGLoss.apply(logits, v, actions, returns, mask, logp_old, clip)
+        losses[0].backward()
+    zero_missing_grads(net)
+    optimizer.update(net, opt_state)
+    return losses.detach()
+
+
+#: K12's batch: the keys, their kinds and whether a row is an observation,
+#: in the order PgStaging packs them
+PG_BATCH = (("obs", "f", True), ("actions", "i", False), ("returns", "f", False),
+            ("logp_old", "f", False), ("mask", "f", False))
+
+
+def _pg_batch(batch, O: int, A: int, clip, rows):
+    """The batch's arrays as numpy, each checked (shape, kind, actions in
+    range), and (B, n): the rows of the update and the batch's own rows
+    that go into it. A batch with a mask is padded already (B = n = its
+    rows); one without is a sampled batch, padded (or cut) to `rows` rows
+    (its own by default) with the mask 1 on its real ones."""
+    if "obs" not in batch or "actions" not in batch or "returns" not in batch:
+        raise ValueError("pg_update: the batch needs obs, actions and returns")
+    if clip is not None and "logp_old" not in batch:
+        raise ValueError("pg_update: PPO (clip given) needs logp_old")
+    if "mask" in batch and rows is not None:
+        raise ValueError("pg_update: rows pads a sampled batch; this one has a mask")
+    out = {}
+    n = None
+    for name, kind, wide in PG_BATCH:
+        if name not in batch:
+            continue
+        v = batch[name]
+        v = v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+        n = len(v) if n is None else n
+        want = (n, O) if wide else (n,)
+        if v.shape != want or not np.issubdtype(v.dtype, np.integer if kind == "i"
+                                                else np.floating):
+            raise ValueError(f"pg_update: {name} {v.shape} {v.dtype} ({want} "
+                             f"{'integer' if kind == 'i' else 'float'} needed)")
+        out[name] = np.ascontiguousarray(v, np.int32 if kind == "i" else np.float32)
+    acts = out["actions"]
+    if n == 0 or acts.min() < 0 or acts.max() >= A:
+        raise ValueError(f"pg_update: {n} rows, actions outside [0, {A})")
+    B = n if rows is None else int(rows)
+    return out, B, min(n, B)
+
+
+def pad_batch(arrays, B: int, n: int):
+    """A sampled batch's first n rows padded with zeros to B rows, and its
+    mask (1 on those rows): the plain version's input, as the learner
+    padded it before K12 took the whole update. A batch with a mask is
+    returned as it is."""
+    if "mask" in arrays:
+        return arrays
+    out = {k: np.concatenate([v[:n], np.zeros((B - n,) + v.shape[1:], v.dtype)])
+           for k, v in arrays.items()}
+    out["mask"] = (np.arange(B) < n).astype(np.float32)
+    return out
+
+
+def pg_cluster_blocks(B: int) -> int:
+    """K12's cluster size for a batch of B rows: the least power of two
+    that gives a block at most PG_ROWS_A_BLOCK rows, at most
+    PG_MAX_CLUSTER."""
+    P = 1
+    while P < PG_MAX_CLUSTER and P * PG_ROWS_A_BLOCK < B:
+        P *= 2
+    return P
+
+
+def pg_smem_bytes(Q: int, R: int, O: int, H: int, A: int) -> int:
+    """K12's shared memory with at most Q rows a block and R a tile (csrc
+    pg_smem_floats): the network (the value head as column A of the head,
+    w2's rows padded to H + 1), its gradient, the block's rows' logits and
+    v, the tile's obs, h1 and h2 (padded), and the reductions' scratch."""
+    W = A + 1
+    net = O * H + H + H * (H + 1) + H + (H + 1) * W
+    grad = O * H + H + H * H + H + (H + 1) * W
+    return 4 * (net + grad + Q * W + R * (O + 2 * (H + 1)) + _PG_RED)
+
+
+def pg_plan(B: int, O: int, H: int, A: int):
+    """(P, R): K12's cluster of P blocks for a batch of B rows, each block
+    passing its rows through shared memory R at a time (all of them where
+    they fit). Raises where not one row fits beside the network, its
+    gradient and the block's rows' logits, or past MAX_ACTIONS actions."""
+    P = pg_cluster_blocks(B)
+    Q = -(-B // P)
+    fixed = pg_smem_bytes(Q, 0, O, H, A)
+    rows = (MAX_SMEM - fixed) // (pg_smem_bytes(Q, 1, O, H, A) - fixed)
+    if not 0 < A <= MAX_ACTIONS or B < 1 or rows < 1:
+        raise ValueError(
+            f"pg_update on the card: batch {B}, obs {O}, hidden {H}, actions {A}: the "
+            f"network, its gradient and a block's {Q} rows' logits with one row need "
+            f"{pg_smem_bytes(Q, 1, O, H, A)} bytes of one block's shared memory (at most "
+            f"{MAX_SMEM}: hidden up to 164 at obs 4, 2 actions and batch 2 048), "
+            f"and at most {MAX_ACTIONS} actions")
+    return P, min(Q, rows)
+
+
+def pack_pg_batch(h: np.ndarray, arrays, B: int, O: int, n: int) -> None:
+    """K12's staged batch written into h (float32, B * O + 4 * B): obs [B,
+    O], actions [B] (int32 bits), returns, logp_old, mask [B]; each the
+    first n rows of its array and zeros after them (pad_batch's padding);
+    without a mask the mask is 1 on those rows; without logp_old (PG) its
+    room is left as it is."""
+    obs = h[:B * O].reshape(B, O)
+    obs[:n] = arrays["obs"][:n]
+    obs[n:] = 0.0
+    at = B * O
+    for name, kind, _ in PG_BATCH[1:]:
+        seg = h[at:at + B].view(np.int32) if kind == "i" else h[at:at + B]
+        at += B
+        if name in arrays:
+            seg[:n] = arrays[name][:n]
+        elif name == "mask":
+            seg[:n] = 1.0
+        else:
+            continue
+        seg[n:] = 0
+
+
+class _Staging:
+    """A learner's buffers on one card: one pinned host buffer of n floats
+    the batch is packed into and its device copy, so a batch crosses in one
+    copy; pinned stats [3] the kernel writes; the argument block, rebuilt
+    when a tensor moves."""
+
+    def __init__(self, dev, n: int):
+        lib = LIBRARY.load()
+        self.dev = torch.device(dev)
+        self.host = torch.empty(n, dtype=torch.float32, pin_memory=True)
+        self.device = torch.empty(n, dtype=torch.float32, device=self.dev)
+        self.stats = torch.empty(3, dtype=torch.float32, pin_memory=True)
+        self._stats_ptr = _device_pointer(lib, self.stats)
+        self._args = (None, None)
+
+    def args(self, tensors):
+        """The argument block for params, moments (and K13's target)."""
+        ptrs = tuple(t.data_ptr() for t in tensors)
+        if self._args[0] != ptrs:
+            a = self._struct()
+            a.p[:], a.mu[:], a.nu[:] = ptrs[:8], ptrs[8:16], ptrs[16:24]
+            if len(ptrs) > 24:
+                a.tgt[:] = ptrs[24:]
+            a.batch, a.stats = self.device.data_ptr(), self._stats_ptr
+            self._args = (ptrs, a)
+        return self._args[1]
+
+
+class PgStaging(_Staging):
+    """K12's buffers: the batch's rows written straight into the pinned
+    buffer, padding included (obs, actions, returns, logp_old, mask)."""
+
+    _struct = _PgArgs
+
+    def __init__(self, dev, B: int, O: int):
+        super().__init__(dev, B * O + 4 * B)
+        self.B, self.O = B, O
+
+    def pack(self, arrays, n: int) -> None:
+        pack_pg_batch(self.host.numpy(), arrays, self.B, self.O, n)
+        self.device.copy_(self.host, non_blocking=True)
+
+
+_PG_STAGING = weakref.WeakKeyDictionary()
+
+
+def _check_value_head(what: str, params, H: int) -> None:
+    if tuple(params[6].shape) != (H, 1) or tuple(params[7].shape) != (1,) or any(
+            t.dtype != torch.float32 for t in params[6:]):
+        raise ValueError(f"{what}: the value head must be wv [H, 1], bv [1] float32")
+
+
+def pg_update(net, opt_state, optimizer, batch, clip=None, sync: bool = True, rows=None):
+    """K12. One PG (clip None) or PPO (clip a float, e.g. PPO_CLIP) update
+    of pg_update_plain's arguments in one launch on the card: params and
+    moments in place, opt_state.count advanced, the batch staged by one
+    pinned copy, one synchronisation for the stats. batch: obs [B, O],
+    actions [B] int, returns [B], mask [B], and logp_old [B] for PPO (numpy
+    or tensors); or a sampled batch without a mask, padded (or cut) to
+    `rows` rows with the mask 1 on its real ones. Returns the stats [3]
+    (total, pg, vf), on the CPU from the card. sync False leaves the
+    synchronisation to the caller (timing by CUDA events) and returns the
+    pinned stats the kernel writes, not readable before it."""
+    O, H, A = _policy_shapes("pg_update", net)
+    params = [getattr(net, n) for n in PARAM_NAMES]
+    _check_value_head("pg_update", params, H)
+    arrays, B, n = _pg_batch(batch, O, A, clip, rows)
+    moments = [opt_state.mu[k] for k in PARAM_NAMES] + [opt_state.nu[k] for k in PARAM_NAMES]
+    dev = device_of(*params, *moments)
+    if dev.type == "cpu":
+        return pg_update_plain(net, opt_state, optimizer, pad_batch(arrays, B, n), clip)
+    P, R = pg_plan(B, O, H, A)
+    tensors = params + moments
+    _contiguous("pg_update", *tensors)
+    staging = _PG_STAGING.get(net)
+    if staging is None or (staging.dev, staging.B, staging.O) != (dev, B, O):
+        staging = _PG_STAGING[net] = PgStaging(dev, B, O)
+    lib = LIBRARY.load()
+    opt_state.count += 1
+    a = staging.args(tensors)
+    a.B, a.O, a.H, a.A, a.P, a.R = B, O, H, A, P, R
+    a.mode = _PG if clip is None else _PPO
+    a.lo, a.hi = (0.0, 0.0) if clip is None else (1 - clip, 1 + clip)
+    _adam_args(a, optimizer, opt_state.count)
+    with _on(dev), torch.no_grad():
+        stream = current_stream(dev)
+        staging.pack(arrays, n)
+        rc = lib.rl_pg_update(ctypes.byref(a), stream)
+        _check(lib, rc, "pg_update")
+        _count(pg_update)
+        if not sync:
+            return staging.stats
+        _check(lib, lib.rl_stream_sync(stream), "pg_update")
+    return staging.stats.clone()
+
+
+pg_update.launches = 0
+
+
+@torch.no_grad()
+def pg_term_scale(net, batch, clip=None) -> float:
+    """The mean |term| of the policy loss at net's parameters on a padded
+    batch (pg_update_plain's): the scale its float32 sums round at. The
+    policy loss is a mean of terms of both signs, near 0 where the
+    advantages are normalised, so two computations of it are held to this
+    scale and not to its own size."""
+    dev = net.w1.device
+    t = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    h = net.trunk(t["obs"].float())
+    logits = h @ net.wp + net.bp
+    adv = t["returns"].float() - (h @ net.wv + net.bv).squeeze(-1)
+    m = t["mask"].float()
+    n = torch.clamp_min(m.sum(), 1.0)
+    c = adv - (adv * m).sum() / n
+    adv = c / (torch.sqrt((c * c * m).sum() / n) + 1e-6)
+    act = log_softmax_plain(logits)[3].gather(1, t["actions"].long()[:, None])[:, 0]
+    if clip is None:
+        terms = act * adv
+    else:
+        terms = ppo_surrogate(torch.exp(act - t["logp_old"].float()), adv, clip)[0]
+    return float((terms * m).abs().sum() / n)
 
 
 # ------------------------------------------------------------------ K13
@@ -556,20 +799,14 @@ def dqn_tile_rows(B: int, O: int, H: int, A: int) -> int:
     the batch in tiles). Raises where not one row fits beside the two
     networks and the gradient, or past MAX_ACTIONS actions."""
     fixed = dqn_smem_bytes(0, O, H, A)
-    rows = (DQN_MAX_SMEM - fixed) // (dqn_smem_bytes(1, O, H, A) - fixed)
+    rows = (MAX_SMEM - fixed) // (dqn_smem_bytes(1, O, H, A) - fixed)
     if not 0 < A <= MAX_ACTIONS or rows < 1:
         raise ValueError(
             f"dqn_update on the card: obs {O}, hidden {H}, actions {A}: the two networks "
             f"and the gradient with one row need {dqn_smem_bytes(1, O, H, A)} bytes of one "
-            f"block's shared memory (at most {DQN_MAX_SMEM}: hidden up to 135 at obs 4 "
+            f"block's shared memory (at most {MAX_SMEM}: hidden up to 135 at obs 4 "
             f"and 2 actions), and at most {MAX_ACTIONS} actions")
     return min(B, rows)
-
-
-def zero_missing_grads(net) -> None:
-    for p in net.parameters():  # a head the loss does not read (DQN's
-        if p.grad is None:      # value head): a zero gradient, as jax.grad's
-            p.grad = torch.zeros_like(p)
 
 
 def dqn_update_plain(net, target_net, opt_state, optimizer, batch, gamma: float):
@@ -600,21 +837,15 @@ def dqn_update_plain(net, target_net, opt_state, optimizer, batch, gamma: float)
     return losses.detach()
 
 
-class DqnStaging:
-    """K13's buffers for one learner on one card: one pinned host buffer
-    the batch is packed into (obs, next_obs, rewards, dones, actions) and
-    its device copy, so a batch crosses in one copy; pinned stats the
-    kernel writes; the argument block, rebuilt when a tensor moves."""
+class DqnStaging(_Staging):
+    """K13's buffers: the batch packed into the pinned buffer (obs,
+    next_obs, rewards, dones, actions)."""
+
+    _struct = _DqnArgs
 
     def __init__(self, dev, B: int, O: int):
-        lib = LIBRARY.load()
-        n = 2 * B * O + 3 * B
-        self.dev, self.B, self.O = torch.device(dev), B, O
-        self.host = torch.empty(n, dtype=torch.float32, pin_memory=True)
-        self.device = torch.empty(n, dtype=torch.float32, device=self.dev)
-        self.stats = torch.empty(3, dtype=torch.float32, pin_memory=True)
-        self._stats_ptr = _device_pointer(lib, self.stats)
-        self._args = (None, None)
+        super().__init__(dev, 2 * B * O + 3 * B)
+        self.B, self.O = B, O
 
     def pack(self, arrays) -> None:
         h = self.host.numpy()
@@ -625,17 +856,18 @@ class DqnStaging:
             at += v.size
         self.device.copy_(self.host, non_blocking=True)
 
-    def args(self, tensors) -> _DqnArgs:
-        ptrs = tuple(t.data_ptr() for t in tensors)
-        if self._args[0] != ptrs:
-            a = _DqnArgs()
-            a.p[:], a.mu[:], a.nu[:], a.tgt[:] = ptrs[:8], ptrs[8:16], ptrs[16:24], ptrs[24:]
-            a.batch, a.stats = self.device.data_ptr(), self._stats_ptr
-            self._args = (ptrs, a)
-        return self._args[1]
-
 
 _STAGING = weakref.WeakKeyDictionary()
+
+
+def _adam_args(a, optimizer, count: int) -> None:
+    """AdamW.update's constants at step `count` into K12's or K13's block
+    (the bias corrections float32, as optax computes them)."""
+    a.b1, a.b2 = optimizer.b1, optimizer.b2
+    a.omb1, a.omb2 = 1 - optimizer.b1, 1 - optimizer.b2
+    a.eps, a.wd, a.nlr = optimizer.eps, optimizer.weight_decay, -optimizer.lr
+    a.bc1 = optimizer.bias_correction(optimizer.b1, count)
+    a.bc2 = optimizer.bias_correction(optimizer.b2, count)
 
 
 def dqn_update(net, target_net, opt_state, optimizer, batch, gamma: float = 0.99,
@@ -652,8 +884,7 @@ def dqn_update(net, target_net, opt_state, optimizer, batch, gamma: float = 0.99
     B = len(batch["obs"])
     arrays = _dqn_batch(batch, B, O)
     params = [getattr(net, n) for n in PARAM_NAMES]
-    if tuple(params[6].shape) != (H, 1) or tuple(params[7].shape) != (1,):
-        raise ValueError("dqn_update: the value head must be wv [H, 1], bv [1]")
+    _check_value_head("dqn_update", params, H)
     target = [getattr(target_net, n) for n in POLICY_NAMES]
     for t, p in zip(target, params):
         if t.shape != p.shape or t.dtype != p.dtype:
@@ -674,11 +905,7 @@ def dqn_update(net, target_net, opt_state, optimizer, batch, gamma: float = 0.99
     a = staging.args(tensors)
     a.B, a.O, a.H, a.A, a.R = B, O, H, A, R
     a.gamma = gamma
-    a.b1, a.b2 = optimizer.b1, optimizer.b2
-    a.omb1, a.omb2 = 1 - optimizer.b1, 1 - optimizer.b2
-    a.eps, a.wd, a.nlr = optimizer.eps, optimizer.weight_decay, -optimizer.lr
-    a.bc1 = optimizer.bias_correction(optimizer.b1, opt_state.count)
-    a.bc2 = optimizer.bias_correction(optimizer.b2, opt_state.count)
+    _adam_args(a, optimizer, opt_state.count)
     with _on(dev), torch.no_grad():
         stream = current_stream(dev)
         staging.pack(arrays)
@@ -694,13 +921,15 @@ def dqn_update(net, target_net, opt_state, optimizer, batch, gamma: float = 0.99
 dqn_update.launches = 0
 
 
-def dqn_update_mismatch(net, opt_state, ref_net, ref_state, updates: int, lr: float):
-    """How far K13's state (net, opt_state) lies from its plain version's
-    (ref_net, ref_state) after `updates` updates at learning rate `lr`,
-    held to DQN_UPDATE_TOL tensor by tensor: (a description of the first
-    bound broken, or None; the measured numbers). The value head wv, bv
-    and its moments must be bit-equal: its gradient is exactly 0."""
-    tol = DQN_UPDATE_TOL
+def update_mismatch(net, opt_state, ref_net, ref_state, updates: int, lr: float,
+                    zero_grad=()):
+    """How far K12's or K13's state (net, opt_state) lies from its plain
+    version's (ref_net, ref_state) after `updates` updates at learning rate
+    `lr`, held to UPDATE_TOL tensor by tensor: (a description of the first
+    bound broken, or None; the measured numbers). The parameters named in
+    `zero_grad` (DQN_ZERO_GRAD for K13, none for K12) and their moments
+    must be bit-equal: their gradient is exactly 0."""
+    tol = UPDATE_TOL
     got = {"params_max": 0.0, "params_share": 1.0, "moments_rel": 0.0}
     bad = None
     if opt_state.count != ref_state.count:
@@ -708,7 +937,7 @@ def dqn_update_mismatch(net, opt_state, ref_net, ref_state, updates: int, lr: fl
     for n in PARAM_NAMES:
         mine = (getattr(net, n), opt_state.mu[n], opt_state.nu[n])
         ref = (getattr(ref_net, n), ref_state.mu[n], ref_state.nu[n])
-        if n in ("wv", "bv"):
+        if n in zero_grad:
             if bad is None and not all(torch.equal(m, r.to(m.device)) for m, r in zip(mine, ref)):
                 bad = f"{n} or its moments not bit-equal to plain (its gradient is 0)"
             continue
@@ -736,7 +965,7 @@ def dqn_update_mismatch(net, opt_state, ref_net, ref_state, updates: int, lr: fl
 #: the kernels of this module by name, each with its `launches` counter
 KERNELS = {
     "sample_actions": sample_actions,
-    "pg_loss": pg_loss,
+    "pg_update": pg_update,
     "dqn_update": dqn_update,
 }
 

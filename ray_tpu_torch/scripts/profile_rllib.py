@@ -1,5 +1,5 @@
-"""Where an RLlib runner step and a DQN update spend their host time on the
-card.
+"""Where an RLlib runner step and a PPO and a DQN update spend their host
+time on the card.
 
     python ray_tpu_torch/scripts/profile_rllib.py [--steps 512] [--updates 64] [--root DIR]
 
@@ -17,13 +17,16 @@ step, and the rest of the loop (the reads of the action and the
 log-probability). Then whole fragments: one runner alone, and two runners
 in two threads of one process, as the Algorithm's actors run in a local
 runtime: what the second adds to a step is the GIL's and the card's
-sharing. DQN: `updates` updates of DQNLearner at batch 128
-(tests/test_rllib.py:160's), each by the host clock (the learner reads
-its stats, so each ends synchronised).
+sharing. PPO: `updates` updates of Learner at the default width
+(train_batch_size 2 048, hidden 64), each on one iteration's sampled batch
+of 1 024 rows (2 runners x 512 steps, padded by the learner). DQN:
+`updates` updates of DQNLearner at batch 128 (tests/test_rllib.py:160's).
+Each update by the host clock (the learner reads its stats, so each ends
+synchronised).
 
 Prints one JSON line: the card's name and power limit, microseconds a
-step by part, the fragments' microseconds a step, and the DQN update's
-milliseconds. Needs a CUDA device.
+step by part, the fragments' microseconds a step, and the PPO and DQN
+updates' milliseconds. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -137,6 +140,39 @@ def fragments(steps: int = 512) -> dict:
     return {"one_runner_us_a_step": alone, "two_runner_threads_us_a_step": both}
 
 
+def _host_ms(update, batches, warm: int = 4) -> dict:
+    """update(b) timed by the host clock on each batch after the first
+    `warm`: the median and mean ms."""
+    for b in batches[:warm]:
+        update(b)
+    ms = []
+    for b in batches[warm:]:
+        t0 = time.perf_counter()
+        update(b)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"update_ms_median": float(np.median(ms)), "update_ms_mean": float(np.mean(ms)),
+            "updates": len(ms)}
+
+
+def pg_updates(updates: int = 64, rows: int = 1024) -> dict:
+    """Learner.update's host ms for PPO at the default width (obs 4, hidden
+    64, 2 actions, train_batch_size 2 048) on sampled batches of `rows`
+    rows, one update at a time (each ends in a read of its stats)."""
+    from ray_tpu_torch.rllib.learner import Learner
+
+    rng = np.random.default_rng(0)
+    learner = Learner(4, 2, algo="ppo", device="cuda")
+
+    def batch():
+        return {"obs": rng.normal(0, 0.5, (rows, 4)).astype(np.float32),
+                "actions": rng.integers(0, 2, rows).astype(np.int32),
+                "returns": rng.uniform(0, 40, rows).astype(np.float32),
+                "logp_old": np.log(rng.uniform(0.3, 0.7, rows)).astype(np.float32)}
+
+    out = _host_ms(learner.update, [batch() for _ in range(updates + 4)])
+    return out | {"rows": rows, "train_batch_size": learner.train_batch_size}
+
+
 def dqn_updates(updates: int = 64) -> dict:
     """DQNLearner.update's host ms at batch 128 (each ends in a read)."""
     from ray_tpu_torch.rllib.learner import DQNLearner
@@ -152,16 +188,7 @@ def dqn_updates(updates: int = 64) -> dict:
                 "next_obs": rng.normal(0, 0.5, (B, 4)).astype(np.float32),
                 "dones": (rng.random(B) < 0.1).astype(np.float32)}
 
-    batches = [batch() for _ in range(updates + 4)]
-    for b in batches[:4]:
-        learner.update(b)
-    ms = []
-    for b in batches[4:]:
-        t0 = time.perf_counter()
-        learner.update(b)
-        ms.append((time.perf_counter() - t0) * 1e3)
-    return {"update_ms_median": float(np.median(ms)), "update_ms_mean": float(np.mean(ms)),
-            "updates": updates}
+    return _host_ms(learner.update, [batch() for _ in range(updates + 4)])
 
 
 def main(argv=None) -> int:
@@ -181,7 +208,8 @@ def main(argv=None) -> int:
     out = {"card": _card_line(), "root": args.root or "this checkout",
            "package": ray_tpu_torch.__file__,
            "runner_step": runner_step_split(args.steps),
-           "fragments": fragments(args.steps), "dqn": dqn_updates(args.updates)}
+           "fragments": fragments(args.steps), "ppo": pg_updates(args.updates),
+           "dqn": dqn_updates(args.updates)}
     print(json.dumps(out), flush=True)
     return 0
 

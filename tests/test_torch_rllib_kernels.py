@@ -14,11 +14,13 @@ inputs.
   skipped fails), logp within 1e-6 (torch's trunk and XLA's differ by an
   ulp or so); and the wrapper's CPU path bit for bit the head-only plain
   draw on policy.action_logits it replaced.
-- K12 (PG and PPO) and K13's TD head's plain versions against
+- K12's (PG and PPO) and K13's loss heads' plain versions against
   jax.value_and_grad of the lines they replace (policy.py :71-88,
-  :105-127, :160-179); K13's wrapper on the CPU bit for bit the update
-  policy.dqn_update ran before K13 took the whole update (trunks, DQNLoss,
-  autograd, AdamW), over 3 updates. Total and
+  :105-127, :160-179); K12's and K13's wrappers on the CPU bit for bit the
+  updates policy.pg_update / ppo_update / dqn_update ran before each took
+  the whole update (trunks, PGLoss or DQNLoss, autograd, AdamW), over 3
+  updates, and Learner.update bit for bit its form with the learner's own
+  padding; K12's pinned batch layout against that padding. Total and
   value losses within 1e-6 relative; the policy loss, a mean of terms of
   both signs, within 2e-6 of the mean |term| (float32 sums in XLA's order
   and in torch's differ by that much; both are that far from the float64
@@ -32,7 +34,9 @@ inputs.
   and at td = 0 (0).
 
 - The wrappers' argument checks, and the card's limits (K11's widths,
-  K13's one block of shared memory) as their own functions.
+  K12's cluster and K13's one block of shared memory) as their own
+  functions; the check of a card's update against its plain version
+  (update_mismatch) names the bound a fault breaks.
 
 The CUDA kernels are held against these plain versions on the card by
 tests/test_torch_rllib_card.py and chip_smoke.py phase 16.
@@ -49,6 +53,7 @@ from ray_tpu.rllib import policy as ref_pol
 from ray_tpu_torch.rllib import policy as pol
 from ray_tpu_torch.rllib import prng
 from ray_tpu_torch.rllib import rllib_kernels as RK
+from ray_tpu_torch.rllib.learner import Learner
 
 T = torch.from_numpy
 EPS32 = 2.0**-24
@@ -335,9 +340,9 @@ def _assert_pg_matches(losses, dl, dv, want, logits, v, batch, ppo):
 def test_pg_loss_plain_equals_value_and_grad(ppo, A, B, n_real):
     logits, v, batch = _pg_case(B + A + n_real, B, A, n_real)
     want = _pg_grad(logits, v, batch, ppo)
-    got = RK.pg_loss(T(logits), T(v), T(batch["actions"]), T(batch["returns"]),
-                     T(batch["mask"]), T(batch["logp_old"]) if ppo else None,
-                     RK.PPO_CLIP if ppo else None)
+    got = RK.pg_loss_plain(T(logits), T(v), T(batch["actions"]), T(batch["returns"]),
+                           T(batch["mask"]), T(batch["logp_old"]) if ppo else None,
+                           RK.PPO_CLIP if ppo else None)
     _assert_pg_matches(*got, want, logits, v, batch, ppo)
 
 
@@ -347,8 +352,8 @@ def test_ppo_first_epoch_ties_every_row():
     half of the cotangent."""
     logits, v, batch = _pg_case(5, 1024, 2, 1024, first_epoch=True)
     want = _pg_grad(logits, v, batch, True)
-    got = RK.pg_loss(T(logits), T(v), T(batch["actions"]), T(batch["returns"]),
-                     T(batch["mask"]), T(batch["logp_old"]), RK.PPO_CLIP)
+    got = RK.pg_loss_plain(T(logits), T(v), T(batch["actions"]), T(batch["returns"]),
+                           T(batch["mask"]), T(batch["logp_old"]), RK.PPO_CLIP)
     _assert_pg_matches(*got, want, logits, v, batch, True)
     lp = RK.log_softmax_plain(T(logits))[3]
     ratio = torch.exp(lp.gather(1, T(batch["actions"]).long()[:, None])[:, 0]
@@ -371,6 +376,241 @@ def test_ppo_surrogate_gradient_at_ties_and_clip_ends(r, adv):
     assert got == want, (got, want)
     if (r, adv) == (1.2, 2.0):
         assert got == 1.5
+
+
+# ------------------------------------------------------------------ K12's update
+
+
+def _pg_learner(seed, B, A, hidden=64, n=None):
+    """A policy on the CPU, its Adam state, the optimizer and a padded
+    batch of B rows (the first n real)."""
+    rng = np.random.default_rng(seed)
+    net = pol.init_params(np.random.default_rng(seed), 4, A, hidden, device="cpu")
+    opt = pol.make_optimizer(3e-3)
+    n = B if n is None else n
+    batch = {"obs": rng.normal(0, 0.5, (B, 4)).astype(np.float32),
+             "actions": rng.integers(0, A, B).astype(np.int32),
+             "returns": rng.uniform(0, 40, B).astype(np.float32),
+             "logp_old": np.log(rng.uniform(0.3, 0.7, B)).astype(np.float32),
+             "mask": (np.arange(B) < n).astype(np.float32)}
+    return net, opt.init(net), opt, batch
+
+
+def _pg_update_before_k12(net, state, opt, batch, clip):
+    """policy.pg_update / ppo_update as the port ran them before K12 took
+    the whole update: the trunk and both heads as torch ops, PGLoss under
+    autograd, AdamW."""
+    for p in net.parameters():
+        p.grad = None
+    t = {k: torch.as_tensor(v).to(dtype=torch.int32 if k == "actions" else torch.float32)
+         .contiguous() for k, v in batch.items()}
+    h = net.trunk(t["obs"])
+    logits = h @ net.wp + net.bp
+    v = (h @ net.wv + net.bv).squeeze(-1)
+    losses = RK.PGLoss.apply(logits, v, t["actions"], t["returns"], t["mask"],
+                             None if clip is None else t["logp_old"], clip)
+    losses[0].backward()
+    for p in net.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    opt.update(net, state)
+    return losses.detach()
+
+
+def _assert_same_state(net, state, ref, ref_state):
+    assert state.count == ref_state.count
+    for n in RK.PARAM_NAMES:
+        assert torch.equal(getattr(net, n), getattr(ref, n)), n
+        assert torch.equal(state.mu[n], ref_state.mu[n]), n
+        assert torch.equal(state.nu[n], ref_state.nu[n]), n
+
+
+@pytest.mark.parametrize("ppo", [False, True], ids=["pg", "ppo"])
+@pytest.mark.parametrize("B,A,n", [(256, 2, 256), (128, 7, 100), (5, 3, 5)])
+def test_pg_update_cpu_path_is_the_update_it_replaced(ppo, B, A, n):
+    net, state, opt, batch = _pg_learner(B + A, B, A, n=n)
+    ref = pol.params_from_numpy(pol.params_to_numpy(net), "cpu")
+    ref_state = opt.init(ref)
+    clip = RK.PPO_CLIP if ppo else None
+    fn = pol.ppo_update if ppo else pol.pg_update
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        got = fn(net, state, batch, opt)[2]
+        want = _pg_update_before_k12(ref, ref_state, opt, batch, clip)
+        assert torch.equal(torch.stack([got["total_loss"], got["pg_loss"], got["vf_loss"]]),
+                           want)
+        batch = dict(batch, obs=rng.normal(0, 0.5, (B, 4)).astype(np.float32))
+    assert state.count == 3
+    _assert_same_state(net, state, ref, ref_state)
+    assert RK.update_mismatch(net, state, ref, ref_state, 3, opt.lr)[0] is None
+
+
+def _learner_pad_before_k12(batch, size):
+    """Learner._pad as it was: the batch cut to size, zeros concatenated,
+    the mask 1 on the real rows."""
+    n = len(batch["obs"])
+    if n > size:
+        batch = {k: v[:size] for k, v in batch.items()}
+        n = size
+    out = {k: torch.from_numpy(np.concatenate([batch[k], np.zeros((size - n,)
+                                                                  + batch[k].shape[1:],
+                                                                  batch[k].dtype)]))
+           for k in ("obs", "actions", "returns", "logp_old")}
+    mask = np.zeros(size, np.float32)
+    mask[:n] = 1.0
+    out["mask"] = torch.from_numpy(mask)
+    return out
+
+
+@pytest.mark.parametrize("algo", ["pg", "ppo"])
+@pytest.mark.parametrize("n", [100, 128, 200])
+def test_learner_update_cpu_path_is_the_update_it_replaced(algo, n):
+    """Learner.update on the CPU, the sampled batch padded (or cut) to
+    train_batch_size inside K12's wrapper: bit for bit its form before K12
+    (the learner's own padding, then the update as torch ops), over 3
+    updates."""
+    learner = Learner(4, 2, algo=algo, train_batch_size=128, device="cpu")
+    ref = pol.params_from_numpy(learner.get_weights(), "cpu")
+    opt = pol.make_optimizer(3e-3)
+    ref_state = opt.init(ref)
+    rng = np.random.default_rng(n)
+    for _ in range(3):
+        batch = {"obs": rng.normal(0, 0.5, (n, 4)).astype(np.float32),
+                 "actions": rng.integers(0, 2, n).astype(np.int32),
+                 "returns": rng.uniform(0, 40, n).astype(np.float32),
+                 "logp_old": np.log(rng.uniform(0.3, 0.7, n)).astype(np.float32)}
+        got = learner.update(batch)
+        want = _pg_update_before_k12(ref, ref_state, opt, _learner_pad_before_k12(batch, 128),
+                                     RK.PPO_CLIP if algo == "ppo" else None)
+        assert [got["total_loss"], got["pg_loss"], got["vf_loss"]] == want.tolist()
+        assert got["num_env_steps_trained"] == min(n, 128)
+    _assert_same_state(learner.params, learner.opt_state, ref, ref_state)
+
+
+@pytest.mark.parametrize("ppo", [False, True], ids=["pg", "ppo"])
+@pytest.mark.parametrize("n,rows", [(100, 128), (128, 128), (200, 128), (64, None)])
+def test_pg_staging_layout_is_the_padded_batch(ppo, n, rows):
+    """K12's pinned batch (pack_pg_batch, over stale contents) read back
+    field by field equals pad_batch's padding of the same batch, the
+    plain version's input; PG leaves logp_old's room as it was."""
+    batch = _pg_learner(n, n, 3)[3]
+    if rows is not None:
+        del batch["mask"]
+    if not ppo:
+        del batch["logp_old"]
+    arrays, B, m = RK._pg_batch(batch, 4, 3, RK.PPO_CLIP if ppo else None, rows)
+    assert (B, m) == ((rows, min(n, rows)) if rows else (n, n))
+    h = np.full(B * 4 + 4 * B, 7.0, np.float32)
+    RK.pack_pg_batch(h, arrays, B, 4, m)
+    want = RK.pad_batch(arrays, B, m)
+    np.testing.assert_array_equal(h[:4 * B].reshape(B, 4), want["obs"])
+    np.testing.assert_array_equal(h[4 * B:5 * B].view(np.int32), want["actions"])
+    np.testing.assert_array_equal(h[5 * B:6 * B], want["returns"])
+    if ppo:
+        np.testing.assert_array_equal(h[6 * B:7 * B], want["logp_old"])
+    else:
+        assert (h[6 * B:7 * B] == 7.0).all()
+    np.testing.assert_array_equal(h[7 * B:], want["mask"])
+    assert want["mask"].sum() == m
+
+
+PG_BAD_ARGS = ["ppo_without_logp_old", "obs_width", "short_returns", "float_actions",
+               "int_obs", "action_past_A", "negative_action", "mask_and_rows", "no_returns",
+               "no_rows", "value_head_width"]
+
+
+@pytest.mark.parametrize("case", PG_BAD_ARGS)
+def test_pg_update_wrapper_checks_its_arguments(case):
+    """Each bad argument raises before anything moves: the params and
+    Adam's count as they were."""
+    net, state, opt, batch = _pg_learner(0, 8, 3)
+    clip, rows = None, None
+    if case == "ppo_without_logp_old":
+        batch.pop("logp_old")
+        clip = RK.PPO_CLIP
+    elif case == "obs_width":
+        batch["obs"] = batch["obs"][:, :3]
+    elif case == "short_returns":
+        batch["returns"] = batch["returns"][:-1]
+    elif case == "float_actions":
+        batch["actions"] = batch["actions"].astype(np.float32)
+    elif case == "int_obs":
+        batch["obs"] = batch["obs"].astype(np.int32)
+    elif case == "action_past_A":
+        batch["actions"][0] = 3
+    elif case == "negative_action":
+        batch["actions"][0] = -1
+    elif case == "mask_and_rows":
+        rows = 16
+    elif case == "no_returns":
+        batch.pop("returns")
+    elif case == "no_rows":
+        batch = {k: v[:0] for k, v in batch.items()}
+    elif case == "value_head_width":
+        net.wv = torch.nn.Parameter(torch.zeros(64, 2))
+    before = pol.params_to_numpy(net)
+    with pytest.raises(ValueError):
+        RK.pg_update(net, state, opt, batch, clip, rows=rows)
+    assert state.count == 0
+    for k, v in pol.params_to_numpy(net).items():
+        np.testing.assert_array_equal(v, before[k])
+
+
+@pytest.mark.parametrize("B,O,H,A,plan", [
+    (2048, 4, 64, 2, (16, 128)), (2048, 4, 128, 2, (16, 85)), (2048, 4, 32, 7, (16, 128)),
+    (1024, 4, 64, 2, (16, 64)), (256, 4, 64, 2, (4, 64)), (128, 4, 64, 2, (2, 64)),
+    (5, 4, 64, 2, (1, 5)), (8192, 4, 64, 2, (16, 350)), (2048, 4, 164, 2, (16, 2)),
+    (2048, 4, 165, 2, None), (128, 4, 256, 2, None), (8, 4, 64, 65, None),
+    (10**6, 4, 64, 2, None)])
+def test_pg_update_card_limits(B, O, H, A, plan):
+    """K12's cluster and its rows a tile: P blocks of at most 64 rows up to
+    16 blocks; a block's rows in one tile where they fit (the default
+    2 048 at hidden 64), else as many as fit (hidden 128: 85 of 128);
+    widths or batches where not one row fits, and too many actions, raise
+    (as Learner raises at build time on the card)."""
+    if plan is None:
+        with pytest.raises(ValueError):
+            RK.pg_plan(B, O, H, A)
+        return
+    assert RK.pg_plan(B, O, H, A) == plan
+    P, R = plan
+    Q = -(-B // P)
+    assert P * RK.PG_ROWS_A_BLOCK >= B or P == RK.PG_MAX_CLUSTER
+    assert RK.pg_smem_bytes(Q, R, O, H, A) <= RK.MAX_SMEM
+    if R < Q:
+        assert RK.pg_smem_bytes(Q, R + 1, O, H, A) > RK.MAX_SMEM
+
+
+def test_pg_update_mismatch_holds_the_value_head_to_the_bounds():
+    """For K12 no tensor is held bit-equal (both heads carry a gradient):
+    a value head an ulp or so off passes, one 3 lr off is named."""
+    net, state, opt, batch = _pg_learner(2, 16, 2)
+    pol.pg_update(net, state, batch, opt)
+    ref = pol.params_from_numpy(pol.params_to_numpy(net), "cpu")
+    ref_state = type(state)(state.count, {n: t.clone() for n, t in state.mu.items()},
+                            {n: t.clone() for n, t in state.nu.items()})
+    assert RK.update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0] is None
+    with torch.no_grad():
+        ref.bv += 1e-9
+    assert RK.update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0] is None
+    assert RK.update_mismatch(net, state, ref, ref_state, 1, opt.lr,
+                              RK.DQN_ZERO_GRAD)[0].startswith("bv")
+    with torch.no_grad():
+        ref.wv[0, 0] += 3 * opt.lr
+    assert RK.update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0].startswith("wv: an entry")
+
+
+@pytest.mark.parametrize("ppo", [False, True], ids=["pg", "ppo"])
+def test_pg_term_scale_is_the_mean_abs_term(ppo):
+    """pg_term_scale, the scale a card's policy loss is held to, against
+    the float64 mean |term| of the reference's lines."""
+    net, _, _, batch = _pg_learner(3, 256, 3, n=200)
+    with torch.no_grad():
+        h = net.trunk(T(batch["obs"]))
+        logits, v = (h @ net.wp + net.bp).numpy(), (h @ net.wv + net.bv)[:, 0].numpy()
+    want = _pg_term_scale(logits, v, batch, ppo)
+    got = RK.pg_term_scale(net, batch, RK.PPO_CLIP if ppo else None)
+    assert want > 0.1 and abs(got - want) <= 1e-5 * want
 
 
 # ------------------------------------------------------------------ K13
@@ -492,35 +732,38 @@ def test_dqn_update_cpu_path_is_the_update_it_replaced(B, A):
         assert torch.equal(getattr(net, n), getattr(ref, n)), n
         assert torch.equal(state.mu[n], ref_state.mu[n]) and torch.equal(state.nu[n],
                                                                           ref_state.nu[n])
-    assert RK.dqn_update_mismatch(net, state, ref, ref_state, 3, opt.lr)[0] is None
+    assert RK.update_mismatch(net, state, ref, ref_state, 3, opt.lr,
+                              RK.DQN_ZERO_GRAD)[0] is None
 
 
 def test_dqn_update_mismatch_names_the_bound_broken():
     net, tnet, state, opt, batch = _dqn_learner(1, 16, 2)
+    zero = RK.DQN_ZERO_GRAD
     pol.dqn_update(net, tnet, state, batch, opt)
     ref = pol.params_from_numpy(pol.params_to_numpy(net), "cpu")
     ref_state = type(state)(state.count, {n: t.clone() for n, t in state.mu.items()},
                             {n: t.clone() for n, t in state.nu.items()})
-    assert RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0] is None
+    assert RK.update_mismatch(net, state, ref, ref_state, 1, opt.lr, zero)[0] is None
     with torch.no_grad():
         ref.w2[0, 0] += 3 * opt.lr
-    assert RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0].startswith("w2: an entry")
+    assert RK.update_mismatch(net, state, ref, ref_state, 1, opt.lr,
+                              zero)[0].startswith("w2: an entry")
     with torch.no_grad():
         ref.w2[0, 0] -= 3 * opt.lr
         ref_state.mu["w2"][0, 0] *= 1.01
-    assert "moment" in RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0]
+    assert "moment" in RK.update_mismatch(net, state, ref, ref_state, 1, opt.lr, zero)[0]
     with torch.no_grad():
         ref_state.mu["w2"][0, 0] /= 1.01
-    assert RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0] is None
+    assert RK.update_mismatch(net, state, ref, ref_state, 1, opt.lr, zero)[0] is None
     # a fault confined to one bias vector: 2 of its 16 entries, 0.05 % of
     # all the params
     with torch.no_grad():
         ref.b2[:2] += 1e-5
-    assert RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0].startswith("b2")
+    assert RK.update_mismatch(net, state, ref, ref_state, 1, opt.lr, zero)[0].startswith("b2")
     with torch.no_grad():
         ref.b2[:2] -= 1e-5
         ref.bv += 1e-9
-    assert "bv" in RK.dqn_update_mismatch(net, state, ref, ref_state, 1, opt.lr)[0]
+    assert "bv" in RK.update_mismatch(net, state, ref, ref_state, 1, opt.lr, zero)[0]
 
 
 @pytest.mark.parametrize("B,O,H,A,rows", [(128, 4, 64, 2, 128), (2048, 4, 64, 2, 299),
@@ -535,19 +778,19 @@ def test_dqn_update_card_limits(B, O, H, A, rows):
             RK.dqn_tile_rows(B, O, H, A)
         return
     assert RK.dqn_tile_rows(B, O, H, A) == rows
-    assert RK.dqn_smem_bytes(rows, O, H, A) <= RK.DQN_MAX_SMEM
+    assert RK.dqn_smem_bytes(rows, O, H, A) <= RK.MAX_SMEM
     if rows < B:
-        assert RK.dqn_smem_bytes(rows + 1, O, H, A) > RK.DQN_MAX_SMEM
+        assert RK.dqn_smem_bytes(rows + 1, O, H, A) > RK.MAX_SMEM
 
 
 def test_loss_wrappers_check_their_arguments():
-    z = torch.zeros(4, 2)
-    v = torch.zeros(4)
-    acts = torch.zeros(4, dtype=torch.int32)
+    net, state, opt, batch = _pg_learner(0, 4, 2)
     with pytest.raises(ValueError):
-        RK.pg_loss(z, v, acts.long(), v, v)
+        RK.pg_update(net, state, opt, dict(batch, actions=batch["actions"].astype(np.float32)))
     with pytest.raises(ValueError):
-        RK.pg_loss(z, v, acts, v, v, None, RK.PPO_CLIP)
+        RK.pg_update(net, state, opt, {k: v for k, v in batch.items() if k != "logp_old"},
+                     RK.PPO_CLIP)
+    assert state.count == 0
     net, tnet, state, opt, batch = _dqn_learner(0, 8, 2)
     batch["next_obs"] = batch["next_obs"][:7]
     with pytest.raises(ValueError):
@@ -567,7 +810,7 @@ def test_autograd_functions_return_the_saved_gradient():
     args = (T(batch["actions"]), T(batch["returns"]), T(batch["mask"]))
     losses = RK.PGLoss.apply(lg, vt, *args, None, None)
     (2.0 * losses[0] + 5.0 * losses[1]).backward()
-    _, dl, dv = RK.pg_loss(T(logits), T(v), *args)
+    _, dl, dv = RK.pg_loss_plain(T(logits), T(v), *args)
     assert torch.equal(lg.grad, dl * 2.0) and torch.equal(vt.grad, dv * 2.0)
     q, qo, qt, b = _dqn_case(3, 16, 2)
     qg = T(q).requires_grad_(True)

@@ -269,6 +269,31 @@ caught):
    4 iterations at most, in a Cluster of its own: every trial reports, its
    learner launches K12 an iteration, and no worker is alive 20 s after
    shutdown().
+17. Data, Workflow and the host utilities (ray_tpu_torch.data, .workflow,
+   .util.queue, .util.multiprocessing) around the flagship forward and
+   train step: (a) in a local runtime, tokens [64, 2048] through
+   data.from_numpy(...).repartition(8).map_batches(Predictor, compute=
+   ActorPoolStrategy(size=2), batch_size=8), each actor making the
+   flagship's weights from the golden's seed (checksum checked): each
+   row's argmax and float64 sum of the last logits bit-equal to 6b's
+   forward on the same batches, sort("pred") equal to numpy's stable
+   argsort and groupby("pred").count() to numpy's counts; where pyarrow or
+   pandas is installed the pipeline runs again in a process where neither
+   can be imported (this script with --phase17a-no-arrow), bit-equal; (b)
+   in a Cluster of its own (one node offering {"GPU": 1}), tokens [64,
+   2049] through from_numpy(...).random_shuffle(seed=24).repartition(1),
+   materialized, passed to JaxTrainer's one worker (asking for the GPU)
+   through train_loop_config: 8 make_train_step steps on its
+   iter_torch_batches(batch_size=8) on the card, each loss bit-equal to
+   9b's step from 9b's seed on the same Dataset's iter_batches here, each
+   step's wait for its batch beside its ms; (c) in a local runtime, a
+   workflow step(load) -> step(forward) -> step(summarize) whose summarize
+   raises while a flag file exists: run raises, resume reruns summarize
+   only (the forward's launches do not move), its result equal to the
+   direct forward's; (d) a Queue(maxsize=2) carrying 4 token batches from
+   a producer task to this process, which runs the forward, and
+   Pool(2).map running it over the same batches, both equal to the direct
+   forward. Each part's seconds are printed, the phase within 150 s.
 
 Launch counters are set to 0 just before phase 2 and read after phase 5,
 the model kernels' just before 6b and after 6c (every K8 launch there must
@@ -304,7 +329,15 @@ in the kernels line, "phase15_launches_by_part" apart); the RL kernels'
 counters are set to 0 just before phase 16b's four runs and read after
 them, where K11 must have launched once a step of the on-card runners, K12
 once an update of PG and both PPO runs and K13 once a DQN update; 16c's
-trial workers report their own ("phase16c_launches"). The
+trial workers report their own ("phase16c_launches"); the model kernels'
+counters are set to 0 just before 17a's map_batches run and read after it
+(its launches 8 forwards' worth, every K8 on the tensor cores), just before
+17c's run and after its resume, just before 17d and after it, each of the
+three with K8, K10a and K10b launched, and 17b's train worker starts at 0
+in its fresh process and sends its counters back through
+WorkerGroup.execute: each of the training path's six its count a step
+times 8 ("phase17_launches" in the kernels line, the parts summed,
+"phase17_launches_by_part" apart). The
 JSON line before the card's name and power limit lists the kernels; the
 last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
@@ -5215,12 +5248,593 @@ def phase16c_tune(gpu="cuda"):
     return res
 
 
+# ------------------------------------ phase 17: Data, Workflow, the host utilities
+
+PHASE17_ROWS = 64
+PHASE17_BLOCKS = 8
+PHASE17_BATCH = 8
+PHASE17_POOL = 2
+PHASE17_TOKEN_SEED = 170  # 17a's tokens [64, 2048]
+PHASE17_TRAIN_TOKEN_SEED = 171  # 17b's tokens [64, 2049]
+PHASE17_SHUFFLE_SEED = 24
+PHASE17_HOST_SEED = 172  # 17c's and 17d's token batches
+PHASE17_HOST_BATCHES = 4
+PHASE17_BUDGET_S = 150.0
+PHASE17_NO_ARROW_ARG = "--phase17a-no-arrow"
+# the forward's kernels a forward call launches (6 layers): K8 one a block,
+# K10a two a block and ln_f, K10b one a block
+PHASE17_FORWARD_KERNELS = ("attention", "rmsnorm", "rope_split")
+_PHASE17_MODELS = {}  # (config, device) -> (model, fwd): this process's forward
+_PHASE17_MODELS_LOCK = threading.Lock()
+_PHASE17_CALLS = []  # Predictor's set-up seconds and calls' ms, this process's
+
+
+def _phase17_config(PT, cfg_kw):
+    """The flagship TransformerConfig() for None, else a small one (the
+    rehearsal on the CPU; its dtype by name)."""
+    if cfg_kw is None:
+        return PT.TransformerConfig()
+    import torch
+
+    kw = dict(cfg_kw)
+    kw["dtype"] = getattr(torch, kw.pop("dtype", "bfloat16"))
+    return PT.TransformerConfig(**kw)
+
+
+def _phase17_weights(PT, cfg):
+    """The weights from the golden's numpy seed; at the flagship's config
+    their checksum is held to the golden's first, as 6b does."""
+    golden = np.load(GOLDEN_PATH)
+    tree = PT.numpy_params(cfg, int(golden["weight_seed"]))
+    if cfg == PT.TransformerConfig():
+        checksum = PT.weights_checksum(tree)
+        if checksum != str(golden["checksum"]):
+            raise AssertionError(f"phase 17: numpy_params gave other weights than the "
+                                 f"golden's (checksum {checksum[:16]})")
+    return tree
+
+
+def _phase17_model(cfg_kw, device):
+    """This process's forward at cfg_kw on device, built once (weights from
+    the golden's seed); phase 17 seeds it with 6b's model on the card."""
+    from ray_tpu_torch.models import transformer as PT
+    from ray_tpu_torch.parallel import make_forward_step
+
+    key = (json.dumps(cfg_kw, sort_keys=True), str(device))
+    with _PHASE17_MODELS_LOCK:
+        if key not in _PHASE17_MODELS:
+            import torch
+
+            cfg = _phase17_config(PT, cfg_kw)
+            dev = torch.device(device)
+            model = PT.params_from_numpy(_phase17_weights(PT, cfg), cfg, device=dev)
+            _PHASE17_MODELS[key] = (model, make_forward_step(cfg, dev))
+        return _PHASE17_MODELS[key]
+
+
+def _last_position(logits):
+    """Per row the argmax of the last position's logits and the float64 sum
+    of that row's last logits."""
+    last = logits[:, -1].float().cpu().numpy()
+    return last.argmax(-1).astype(np.int64), last.astype(np.float64).sum(-1)
+
+
+class Predictor:
+    """17a's map_batches class: one instance an actor of the pool, which
+    makes the flagship's weights itself from the golden's seed (checksum
+    held to the golden's) and runs make_forward_step on the card."""
+
+    def __init__(self, cfg_kw, device):
+        import torch
+
+        from ray_tpu_torch.models import transformer as PT
+        from ray_tpu_torch.parallel import make_forward_step
+
+        t0 = time.perf_counter()
+        cfg = _phase17_config(PT, cfg_kw)
+        dev = torch.device(device)
+        self.model = PT.params_from_numpy(_phase17_weights(PT, cfg), cfg, device=dev)
+        self.fwd = make_forward_step(cfg, dev)
+        _PHASE17_CALLS.append(("setup_s", time.perf_counter() - t0))
+
+    def __call__(self, batch):
+        t0 = time.perf_counter()
+        pred, total = _last_position(self.fwd(self.model, batch["tokens"]))
+        _PHASE17_CALLS.append(("call_ms", 1e3 * (time.perf_counter() - t0)))
+        return {"pred": pred, "logit_sum": total}
+
+
+def _columns(ds):
+    """A dataset's columns, its batches concatenated in order."""
+    batches = list(ds.iter_batches(batch_size=PHASE17_BATCH))
+    return {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+
+
+def _phase17a_tokens(vocab, seq):
+    return np.random.default_rng(PHASE17_TOKEN_SEED).integers(
+        0, vocab, (PHASE17_ROWS, seq)).astype(np.int32)
+
+
+def phase17a_pipeline(data, tokens, cfg_kw, device):
+    """17a's pipeline: the tokens in 8 blocks, the Predictor on a pool of 2
+    actors, 8-row batches; materialized once, then sorted and grouped.
+    Returns (the 8 batches as the pipeline cut them, the output's columns,
+    sort("pred")'s columns, groupby("pred").count() as a dict, seconds of
+    the map_batches run)."""
+    base = data.from_numpy(tokens, column="tokens").repartition(PHASE17_BLOCKS)
+    batches = [b["tokens"] for b in base.iter_batches(batch_size=PHASE17_BATCH)]
+    t0 = time.perf_counter()
+    out = base.map_batches(Predictor, compute=data.ActorPoolStrategy(size=PHASE17_POOL),
+                           batch_size=PHASE17_BATCH,
+                           fn_constructor_args=(cfg_kw, device)).materialize()
+    data_s = time.perf_counter() - t0
+    got = _columns(out)
+    srt = _columns(out.sort("pred"))
+    counts = {r["pred"]: r["count"] for r in out.groupby("pred").count().take_all()}
+    return batches, got, srt, counts, data_s
+
+
+def phase17a_no_arrow_main() -> int:
+    """17a's pipeline in a process where pyarrow and pandas cannot be
+    imported (chip_smoke.py --phase17a-no-arrow '<json>'): prints its
+    results as one JSON line."""
+    sys.modules["pyarrow"] = None
+    sys.modules["pandas"] = None
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+
+    args = json.loads(sys.argv[2])
+    tokens = _phase17a_tokens(args["vocab"], args["seq"])
+    if args["device"].startswith("cuda"):
+        rt.init(num_cpus=8)
+    else:
+        rt.init(num_cpus=8, _system_config={"scheduler_device": "cpu"})
+    try:
+        _, got, srt, counts, _ = phase17a_pipeline(data, tokens, args["cfg_kw"], args["device"])
+    finally:
+        rt.shutdown()
+    print(json.dumps({"pred": got["pred"].tolist(), "logit_sum": got["logit_sum"].tolist(),
+                      "sorted_pred": srt["pred"].tolist(),
+                      "counts": {str(k): v for k, v in counts.items()},
+                      "pyarrow": sys.modules.get("pyarrow") is not None,
+                      "pandas": sys.modules.get("pandas") is not None}), flush=True)
+    return 0
+
+
+def phase17a_data(torch, MK, ctx, cfg_kw=None, seq=2048, gpu="cuda"):
+    """Batch inference through Data in a local runtime (the default config
+    on the card): from_numpy(tokens [64, seq]).repartition(8).map_batches(
+    Predictor, ActorPoolStrategy(size=2), batch_size=8), with the model
+    kernels' counters from 0 over the map_batches run; each row's argmax
+    and float64 logit sum bit-equal to 6b's forward on the same 8-row
+    batches, sort("pred") equal to numpy's stable argsort of them and
+    groupby("pred").count() to numpy's counts, and the window's launches
+    8 forwards' worth (every K8 on the tensor cores). Where pyarrow or
+    pandas is installed, the pipeline runs again in a process that cannot
+    import them, bit-equal. Returns (results, launches)."""
+    import importlib.util
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+
+    t_part = time.perf_counter()
+    cfg, fwd, model = ctx["cfg"], ctx["fwd"], ctx["model"]
+    dev = model.device
+    tokens = _phase17a_tokens(cfg.vocab_size, seq)
+    rt.init(num_cpus=8, _system_config={} if gpu == "cuda" else {"scheduler_device": gpu})
+    try:
+        del _PHASE17_CALLS[:]
+        MK.reset_launch_counts()
+        batches, got, srt, counts, data_s = phase17a_pipeline(data, tokens, cfg_kw, str(dev))
+        launches, tc = MK.launch_counts(), MK.tc_launch_counts()
+        calls = list(_PHASE17_CALLS)
+    finally:
+        rt.shutdown()
+    # the direct forward on the same batches, outside the window
+    MK.reset_launch_counts()
+    direct = [_last_position(fwd(model, b)) for b in batches[:1]]
+    per_forward = MK.launch_counts()
+    direct += [_last_position(fwd(model, b)) for b in batches[1:]]
+    pred = np.concatenate([d[0] for d in direct])
+    total = np.concatenate([d[1] for d in direct])
+    if not (np.array_equal(got["pred"], pred) and np.array_equal(got["logit_sum"], total)):
+        bad = int((got["pred"] != pred).sum() + (got["logit_sum"] != total).sum())
+        raise AssertionError(f"phase 17a: {bad} outputs of the pipeline differ from the "
+                             "direct forward's on the same batches")
+    order = np.argsort(pred, kind="stable")
+    if not (np.array_equal(srt["pred"], pred[order])
+            and np.array_equal(srt["logit_sum"], total[order])):
+        raise AssertionError("phase 17a: sort('pred') differs from numpy's stable argsort")
+    keys, n = np.unique(pred, return_counts=True)
+    if counts != dict(zip(keys.tolist(), n.tolist())):
+        raise AssertionError(f"phase 17a: groupby('pred').count() {counts} differs from numpy")
+    n_batches = len(batches)
+    want = {k: n_batches * per_forward[k] for k in PHASE17_FORWARD_KERNELS}
+    got_l = {k: launches[k] for k in PHASE17_FORWARD_KERNELS}
+    if gpu == "cuda" and (got_l != want or tc["attention"] != launches["attention"]
+                          or min(got_l.values()) == 0):
+        raise AssertionError(f"phase 17a: the pool's launches {got_l} (tensor cores {tc}), "
+                             f"{n_batches} forwards' {want} predicted")
+    setup = [v for k, v in calls if k == "setup_s"]
+    call_ms = [v for k, v in calls if k == "call_ms"]
+    res = {"rows": PHASE17_ROWS, "seq": seq, "batches": n_batches,
+           "bit_equal_direct": True, "sort_equal_numpy": True, "groupby_equal_numpy": True,
+           "groups": len(counts), "map_batches_s": data_s,
+           "rows_per_s": PHASE17_ROWS / data_s,
+           "tokens_per_s": PHASE17_ROWS * seq / data_s,
+           "actor_setup_s": setup, "call_ms_host": call_ms,
+           "rows_per_s_after_setup": PHASE17_ROWS / max(data_s - max(setup), 1e-9),
+           "launches": got_l, "launches_tc": tc["attention"]}
+    blocked = [m for m in ("pyarrow", "pandas") if importlib.util.find_spec(m) is not None]
+    res["installed_here"] = blocked
+    if blocked:  # prove the path needs neither: the pipeline again without them
+        arg = json.dumps({"vocab": cfg.vocab_size, "seq": seq, "cfg_kw": cfg_kw,
+                          "device": str(dev)})
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               PHASE17_NO_ARROW_ARG, arg], capture_output=True, text=True,
+                              timeout=300, cwd=HERE)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 17a without {blocked}: exit {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+        sub = json.loads(proc.stdout.strip().splitlines()[-1])
+        if sub["pyarrow"] or sub["pandas"]:
+            raise AssertionError(f"phase 17a without {blocked}: they were imported: {sub}")
+        if (sub["pred"] != pred.tolist() or sub["logit_sum"] != total.tolist()
+                or sub["sorted_pred"] != pred[order].tolist()
+                or sub["counts"] != {str(k): v for k, v in counts.items()}):
+            raise AssertionError(f"phase 17a without {blocked}: results differ")
+        res["no_arrow_subprocess_s"] = time.perf_counter() - t0
+    elif any(sys.modules.get(m) is not None for m in ("pyarrow", "pandas")):
+        raise AssertionError("phase 17a: pyarrow or pandas was imported")
+    res["part_s"] = time.perf_counter() - t_part
+    log(f"phase 17a: {json.dumps(res)}")
+    return res, launches
+
+
+def phase17b_loop(config):
+    """17b's train loop (one worker asking for the GPU): make_train_state on
+    prepare_mesh's one-rank mesh from 9b's seed, then one step a batch of
+    the Dataset from train_loop_config, drawn by iter_torch_batches onto
+    the mesh's device; a report a step. Writes each step's wait for its
+    batch (the iterator's next() alone), its ms (host clock, the loss read
+    back) and its report's ms to <trial_dir>/data_<pid>.json."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.parallel import tpu_train as TT
+
+    rec = {"pid": os.getpid(), "wait_ms": [], "step_ms": [], "report_ms": [], "devices": []}
+    ctx = train.get_context()
+    mesh = train.prepare_mesh(("dp", "tp"), device=config["device"])
+    params, state, tx, shardings = TT.make_train_state(config["cfg"], mesh, seed=config["seed"])
+    step, _ = TT.make_train_step(config["cfg"], mesh, tx, shardings)
+    it = iter(config["dataset"].iter_torch_batches(batch_size=config["batch"],
+                                                   device=mesh.device))
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        t1 = time.perf_counter()
+        rec["wait_ms"].append(1e3 * (t1 - t0))
+        rec["devices"].append(str(batch["tokens"].device))
+        _, _, loss = step(params, state, {"tokens": batch["tokens"]})
+        loss = float(loss)
+        t2 = time.perf_counter()
+        rec["step_ms"].append(1e3 * (t2 - t1))
+        train.report({"loss": loss, "step": len(rec["step_ms"])})
+        rec["report_ms"].append(1e3 * (time.perf_counter() - t2))
+    with open(os.path.join(ctx.get_trial_dir(), f"data_{os.getpid()}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase17b_train(torch, PT, TT, dev, cfg=None, seq=2048, gpu="cuda"):
+    """Data into the Train library, in a Cluster of its own (the default
+    policy on the card) with one node offering {"GPU": 1}: tokens [64, seq
+    + 1] through from_numpy(...).random_shuffle(seed=24).repartition(1)
+    (one block: the shuffle's partitions hold random row counts, and
+    batches never span blocks), materialized here and passed to
+    JaxTrainer's one worker through train_loop_config; the worker takes a make_train_step
+    step on each of its 8 batches (one epoch). Here the same Dataset's
+    iter_batches gives the same shuffled batches, which 9b's step from
+    9b's seed takes on the card: the 8 losses bit-equal. The worker's
+    counters are read through WorkerGroup.execute when its group shuts
+    down: each training kernel its count a step times 8. Returns
+    (results, the worker's launches)."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.config import Config
+
+    class CountingBackend(train.JaxBackend):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.groups = []
+
+        def on_shutdown(self, worker_group):
+            self.groups.append(worker_group.execute("run", _worker_counts))
+            super().on_shutdown(worker_group)
+
+    t_part = time.perf_counter()
+    cfg = cfg or PT.TransformerConfig()
+    tokens = np.random.default_rng(PHASE17_TRAIN_TOKEN_SEED).integers(
+        0, cfg.vocab_size, (PHASE17_ROWS, seq + 1)).astype(np.int32)
+    overrides = {"jax_policy_min_cells": 0}
+    if gpu != "cuda":
+        overrides["scheduler_device"] = gpu
+    config = Config(overrides)
+    _shm_room(1, config.object_store_memory_bytes, phase="17b")
+    storage = tempfile.mkdtemp(prefix="phase17_")
+    c = Cluster(config=config)
+    pids = []
+    try:
+        c.add_node(num_cpus=PHASE13_NODE_CPUS, node_id=PHASE15_NODE, resources={"GPU": 1})
+        c.wait_for_nodes(1, timeout=60)
+        rt.init(address=c.address)
+        # materialized here: an exchange run inside the worker from blocks
+        # this process owns frees them (ROADMAP queue 3)
+        ds = data.from_numpy(tokens, column="tokens").random_shuffle(
+            seed=PHASE17_SHUFFLE_SEED).repartition(1).materialize()
+        backend = CountingBackend()
+        t0 = time.perf_counter()
+        result = train.JaxTrainer(
+            phase17b_loop, jax_backend=backend,
+            train_loop_config={"cfg": cfg, "seed": TRAIN_SEED, "dataset": ds,
+                               "batch": PHASE17_BATCH,
+                               "device": None if gpu == "cuda" else gpu},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=gpu == "cuda"),
+            run_config=RunConfig(name="phase17b", storage_path=storage)).fit()
+        fit_s = time.perf_counter() - t0
+        if result.error is not None:
+            raise AssertionError(f"phase 17b: the run failed: {result.error!r}")
+        recs = _records(result.path, "data_")
+        pids += [r["pid"] for r in recs]
+        # the same Dataset's batches, here: 9b's step from 9b's seed on them
+        batches = [np.array(b["tokens"]) for b in ds.iter_batches(batch_size=PHASE17_BATCH)]
+    finally:
+        procs = _cluster_procs(c)
+        try:
+            rt.shutdown()
+        finally:
+            c.shutdown()
+            killed = _reap(procs)
+    deadline = time.time() + PHASE15_DEAD_AFTER_S
+    while any(_pid_alive(p) for p in pids) and time.time() < deadline:
+        time.sleep(0.2)
+    alive = [p for p in pids if _pid_alive(p)]
+    if alive or killed:
+        raise AssertionError(f"phase 17b: train workers alive {PHASE15_DEAD_AFTER_S} s "
+                             f"after shutdown: {alive}, killed {killed}")
+    if len(recs) != 1:
+        raise AssertionError(f"phase 17b: {len(recs)} worker records, one expected")
+    rec = recs[0]
+    rows = sorted(int(r) for b in batches for r in b[:, 0])
+    if [b.shape for b in batches] != [(PHASE17_BATCH, seq + 1)] * (PHASE17_ROWS // PHASE17_BATCH) \
+            or rows != sorted(int(r) for r in tokens[:, 0]):
+        raise AssertionError(f"phase 17b: the shuffled batches {[b.shape for b in batches]} "
+                             "are not the 64 rows in 8 batches of 8")
+    params, state, tx, shardings = TT.make_train_state(cfg, seed=TRAIN_SEED, device=dev)
+    step, _ = TT.make_train_step(cfg, None, tx, shardings)
+    want = [float(step(params, state, {"tokens": b})[2]) for b in batches]
+    got = [m["loss"] for m in result.metrics_history]
+    if got != want:
+        raise AssertionError(f"phase 17b: the worker's losses {got} differ from 9b's step on "
+                             f"the same batches {want}")
+    want_dev = str(dev) if gpu == "cuda" else "cpu"
+    if set(rec["devices"]) != {want_dev}:
+        raise AssertionError(f"phase 17b: iter_torch_batches gave tensors on {rec['devices']}")
+    counts = backend.groups[0][0]
+    launches = {k: counts["launches"][k] for k in TRAIN_KERNELS}
+    if gpu == "cuda":
+        want_l = {k: n * len(batches) for k, n in TRAIN_LAUNCHES_PER_STEP.items()}
+        if launches != want_l:
+            raise AssertionError(f"phase 17b: the worker's launches {launches}, predicted "
+                                 f"{want_l}")
+        if any(counts["tc"][k] != counts["launches"][k] for k in ("attention", "attention_bwd")):
+            raise AssertionError(f"phase 17b: K8/K8' not all on the tensor cores: {counts}")
+    res = {"steps": len(got), "losses": got, "losses_bit_equal_9b_step": True,
+           "shuffle_seed": PHASE17_SHUFFLE_SEED, "fit_s": fit_s,
+           "first_wait_ms": rec["wait_ms"][0], "wait_ms": rec["wait_ms"][1:],
+           "step_ms": rec["step_ms"], "first_step_ms": rec["step_ms"][0],
+           "report_ms": rec["report_ms"],
+           "wait_share_after_first": sum(rec["wait_ms"][1:]) / (
+               sum(rec["wait_ms"][1:]) + sum(rec["step_ms"][1:])),
+           "batch_device": rec["devices"][0], "launches": launches,
+           "part_s": time.perf_counter() - t_part}
+    log(f"phase 17b: {json.dumps(res)}")
+    return res, launches
+
+
+def _touch(path):
+    n = int(open(path).read()) if os.path.exists(path) else 0
+    with open(path, "w") as f:
+        f.write(str(n + 1))
+
+
+def _wf_load(seed, rows, seq, vocab, marker):
+    """17c's first step: a seeded token batch."""
+    _touch(marker + ".load")
+    return np.random.default_rng(seed).integers(0, vocab, (rows, seq)).astype(np.int32)
+
+
+def _wf_forward(tokens, cfg_kw, device, marker):
+    """17c's second step: the forward on the card, inside its task; the
+    last position's logits. The workflow pickles its DAG into storage, this
+    function by value where the script runs as __main__, so the model is
+    looked up in this script's module when the step runs: a global named
+    here would be pickled with it (the cache's lock cannot be)."""
+    _touch(marker + ".forward")
+    model, fwd = sys.modules[__name__]._phase17_model(cfg_kw, device)
+    return fwd(model, tokens)[:, -1].float().cpu().numpy()
+
+
+def _wf_summarize(last, marker):
+    """17c's third step: per row the argmax and the float64 sum; raises
+    while the flag file exists."""
+    _touch(marker + ".summarize")
+    if os.path.exists(marker + ".flag"):
+        raise RuntimeError("injected failure in summarize (the flag file exists)")
+    return last.argmax(-1).astype(np.int64), last.astype(np.float64).sum(-1)
+
+
+def _pool_forward(tokens, cfg_kw, device):
+    model, fwd = _phase17_model(cfg_kw, device)
+    return _last_position(fwd(model, tokens))
+
+
+def _queue_producer(q, batches):
+    for b in batches:
+        q.put(b, timeout=60)
+    return len(batches)
+
+
+def phase17cd_host(torch, MK, ctx, cfg_kw=None, seq=2048, gpu="cuda"):
+    """(c) Workflow in a local runtime (the default config on the card):
+    step(load) -> step(forward) -> step(summarize), the forward on the
+    card inside its task; summarize raises while a flag file exists, so
+    run raises; resume after the flag is gone reruns summarize only (load
+    and forward ran once: their results come from storage, and the
+    forward's launches do not move), and its result equals 6b's forward.
+    (d) the host utilities: a Queue(maxsize=2) carries 4 token batches from
+    a producer task to this process, which runs the forward; Pool(2).map
+    runs the forward over the same batches in tasks; both equal 6b's
+    forward. The model kernels' counters from 0 over each part. Returns
+    (results, launches by part)."""
+    import functools
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.util.multiprocessing import Pool
+    from ray_tpu_torch.util.queue import Queue
+
+    cfg, fwd, model = ctx["cfg"], ctx["fwd"], ctx["model"]
+    dev = model.device
+    key = (json.dumps(cfg_kw, sort_keys=True), str(dev))
+    with _PHASE17_MODELS_LOCK:  # the tasks' forward is 6b's model
+        _PHASE17_MODELS.setdefault(key, (model, fwd))
+    rng = np.random.default_rng(PHASE17_HOST_SEED)
+    batches = [rng.integers(0, cfg.vocab_size, (PHASE17_BATCH, seq)).astype(np.int32)
+               for _ in range(PHASE17_HOST_BATCHES)]
+    direct = [_last_position(fwd(model, b)) for b in batches]
+    root = tempfile.mkdtemp(prefix="phase17c_")
+    marker = os.path.join(root, "steps")
+    res, launches = {}, {}
+    rt.init(num_cpus=8, _system_config={} if gpu == "cuda" else {"scheduler_device": gpu})
+    try:
+        # (c)
+        t0 = time.perf_counter()
+        open(marker + ".flag", "w").close()
+        loaded = workflow.step(_wf_load)(PHASE17_HOST_SEED + 1, PHASE17_BATCH, seq,
+                                         cfg.vocab_size, marker)
+        dag = workflow.step(_wf_summarize, max_retries=0)(
+            workflow.step(_wf_forward)(loaded, cfg_kw, str(dev), marker), marker)
+        MK.reset_launch_counts()
+        try:
+            workflow.run(dag, "phase17c", storage_root=root)
+        except Exception as e:  # noqa: BLE001 - the injected failure, checked below
+            failure = repr(e)
+        else:
+            raise AssertionError("phase 17c: run did not raise the injected failure")
+        if "injected failure in summarize" not in failure:
+            raise AssertionError(f"phase 17c: run raised {failure}, not the injected failure")
+        after_run = MK.launch_counts()
+        status = workflow.list_all(root)
+        os.remove(marker + ".flag")
+        got = workflow.resume("phase17c", storage_root=root)
+        after_resume = MK.launch_counts()
+        runs = {s: int(open(f"{marker}.{s}").read()) for s in ("load", "forward", "summarize")}
+        if runs != {"load": 1, "forward": 1, "summarize": 2}:
+            raise AssertionError(f"phase 17c: steps ran {runs}; resume must rerun summarize only")
+        if after_resume != after_run:
+            raise AssertionError(f"phase 17c: the forward's launches moved on resume: "
+                                 f"{after_run} -> {after_resume}")
+        tokens = _wf_load(PHASE17_HOST_SEED + 1, PHASE17_BATCH, seq, cfg.vocab_size,
+                          marker + ".check")
+        want = _last_position(fwd(model, tokens))
+        if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+            raise AssertionError("phase 17c: the workflow's result differs from the direct "
+                                 "forward's")
+        if status != [{"workflow_id": "phase17c", "status": "FAILED", "steps_done": 2}] \
+                or workflow.list_all(root)[0]["status"] != "FINISHED":
+            raise AssertionError(f"phase 17c: statuses {status}, {workflow.list_all(root)}")
+        launches["17c"] = {k: after_resume[k] for k in PHASE17_FORWARD_KERNELS}
+        res["17c"] = {"run_raised": True, "steps_run": runs, "equal_direct": True,
+                      "status_after_run": status[0]["status"],
+                      "launches_after_run": launches["17c"],
+                      "launches_moved_on_resume": False,
+                      "part_s": time.perf_counter() - t0}
+        # (d)
+        t0 = time.perf_counter()
+        MK.reset_launch_counts()
+        q = Queue(maxsize=2)
+        producer = rt.remote(_queue_producer).remote(q, batches)
+        from_queue = []
+        for _ in batches:
+            from_queue.append(_last_position(fwd(model, q.get(timeout=60))))
+        if rt.get(producer, timeout=60) != len(batches) or not q.empty():
+            raise AssertionError("phase 17d: the producer or the queue did not finish")
+        q.shutdown()
+        queue_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        with Pool(PHASE17_POOL) as pool:
+            from_pool = pool.map(functools.partial(_pool_forward, cfg_kw=cfg_kw,
+                                                   device=str(dev)), batches)
+        pool_s = time.perf_counter() - t1
+        after_d = MK.launch_counts()
+        for what, outs in (("queue", from_queue), ("pool", from_pool)):
+            for (p, s), (wp, ws) in zip(outs, direct):
+                if not (np.array_equal(p, wp) and np.array_equal(s, ws)):
+                    raise AssertionError(f"phase 17d: the {what}'s forward differs from the "
+                                         "direct one")
+        launches["17d"] = {k: after_d[k] for k in PHASE17_FORWARD_KERNELS}
+        res["17d"] = {"batches": len(batches), "queue_equal_direct": True,
+                      "pool_equal_direct": True, "queue_s": queue_s, "pool_s": pool_s,
+                      "part_s": time.perf_counter() - t0}
+    finally:
+        rt.shutdown()
+    if gpu == "cuda":
+        for part, got_l in launches.items():
+            if min(got_l.values()) == 0:
+                raise AssertionError(f"phase {part}: a forward kernel never launched: {got_l}")
+    log(f"phase 17c-d: {json.dumps(res)}, launches {launches}")
+    return res, launches
+
+
+def phase17(torch, PT, TT, MK, ctx, cfg_kw=None, seq=2048, gpu="cuda"):
+    """Phase 17: 17a-17d in turn, each part's seconds logged, the phase
+    within PHASE17_BUDGET_S. Returns (results, launches by part)."""
+    t0 = time.perf_counter()
+    res, by_part = {}, {}
+    res["17a"], launches_a = phase17a_data(torch, MK, ctx, cfg_kw, seq, gpu)
+    by_part["17a"] = {k: launches_a[k] for k in PHASE17_FORWARD_KERNELS}
+    cfg = ctx["cfg"]
+    res["17b"], by_part["17b"] = phase17b_train(torch, PT, TT, ctx["model"].device, cfg, seq,
+                                                gpu)
+    host, host_launches = phase17cd_host(torch, MK, ctx, cfg_kw, seq, gpu)
+    res.update(host)
+    by_part.update(host_launches)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 17 seconds: " + ", ".join(f"{p} {res[p]['part_s']:.1f}"
+                                          for p in ("17a", "17b", "17c", "17d"))
+        + f"; phase {res['phase_s']:.1f}")
+    if gpu == "cuda" and res["phase_s"] > PHASE17_BUDGET_S:
+        raise AssertionError(f"phase 17 took {res['phase_s']:.1f} s, over its "
+                             f"{PHASE17_BUDGET_S} s")
+    return res, by_part
+
+
 def main() -> int:
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == [PHASE17_NO_ARROW_ARG]:  # 17a's subprocess (the CPU rehearsal's too)
+        sys.path.insert(0, HERE)
+        return phase17a_no_arrow_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -5503,6 +6117,20 @@ def main() -> int:
         + f"; tune {tune_res['fit_s']:.1f} s over {len(tune_res['trials'])} trials, "
         f"{tune_res['stopped_early']} stopped by ASHA")
 
+    # Data, Workflow and the host utilities: batch inference through an
+    # actor pool, a Dataset into a train worker, a durable workflow, a queue
+    # and a pool, each with the model kernels' counters from 0 over its part
+    t0 = time.perf_counter()
+    data_res, launches17 = phase17(torch, PT, TT, MK, ctx)
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s, launches by part {launches17}")
+    a17, b17 = data_res["17a"], data_res["17b"]
+    log(f"phase 17 on {card}: 17a {a17['rows_per_s']:.1f} rows/s through Data "
+        f"({a17['tokens_per_s']:.0f} tokens/s; {a17['rows_per_s_after_setup']:.1f} rows/s "
+        f"after the actors' set-up {a17['actor_setup_s']} s) against 6b's "
+        f"{fwd_res['tokens_per_s']:.0f} tokens/s direct; 17b the worker's wait for a batch "
+        f"{b17['wait_ms']} ms (first {b17['first_wait_ms']:.1f}) against its steps "
+        f"{b17['step_ms']} ms; phase {data_res['phase_s']:.1f} s")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -5603,7 +6231,7 @@ def main() -> int:
                     "moe_train_checks": moe_train_checks, "ranks": ranks_res,
                     "train_across_ranks": mesh_train, "cluster": cluster_res,
                     "serving": serving_res, "train_library": train_lib,
-                    "rllib": rllib_res, "tune": tune_res,
+                    "rllib": rllib_res, "tune": tune_res, "data_workflow": data_res,
                     "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
                     "attention_ms_f32_cuda_core": model_rec["attention"]["ms_f32_cuda_core"],
                     "attention_bwd_ms_f32_cuda_core":
@@ -5633,6 +6261,13 @@ def main() -> int:
             entry["phase15_launches"] = launches15a[name] + launches15c[name]
             entry["phase15_launches_by_part"] = {"15a": launches15a[name],
                                                  "15c": launches15c[name]}
+    for entry in kernels:  # phase 17's: 17a's pool, 17b's train worker, 17c's
+        # workflow task, 17d's queue and pool
+        name = entry["name"]
+        if name in TRAIN_KERNELS:
+            by_part = {p: launches17[p].get(name, 0) for p in ("17a", "17b", "17c", "17d")}
+            entry["phase17_launches"] = sum(by_part.values())
+            entry["phase17_launches_by_part"] = by_part
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

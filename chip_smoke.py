@@ -9,8 +9,9 @@ caught):
 0. the card's name and power limit; build the CUDA kernels from
    ray_tpu_torch/sched/csrc, ray_tpu_torch/models/csrc and
    ray_tpu_torch/rllib/csrc (five sources),
-   one nvcc each, and the native object store (ray_tpu_torch/_native,
-   host C++) with one g++, all started together (build seconds printed).
+   one nvcc each, and the native object store and the dashboard's native
+   client (ray_tpu_torch/_native, host C++) with one g++ each, all started
+   together (build seconds printed).
 1. every kernel against its plain PyTorch version on the card, with exact
    equality: K1 on the golden problem of the kernel tests, on seeded random
    problems (dead nodes, masked custom resources, over-subscribed classes)
@@ -209,7 +210,9 @@ caught):
    completed == submitted, no failure and no duplicate, and one request
    through the HTTP proxy (serve.run(http_port=0)), bit-equal after
    JSON; (b) a compiled graph InputNode -> ModelServer.last_logits (an
-   actor asking for the GPU, on node-gpu) -> phase14_post (argmax and
+   actor asking for the GPU, on node-gpu, bound to (a)'s weights' ref
+   again: the controller forwarded it into the replica, and the directory
+   must still list the object) -> phase14_post (argmax and
    checksum, on node-post: the cross-node edge over rpc_dag_push /
    rpc_dag_pull), 8 execute calls equal to the eager dag.execute and to
    6c's answers; the same graph with the post stage on node-gpu, whose
@@ -282,7 +285,8 @@ caught):
    can be imported (this script with --phase17a-no-arrow), bit-equal; (b)
    in a Cluster of its own (one node offering {"GPU": 1}), tokens [64,
    2049] through from_numpy(...).random_shuffle(seed=24).repartition(1),
-   materialized, passed to JaxTrainer's one worker (asking for the GPU)
+   lazy, passed to JaxTrainer's one worker (asking for the GPU), where the
+   shuffle's exchange runs from the blocks this process put,
    through train_loop_config: 8 make_train_step steps on its
    iter_torch_batches(batch_size=8) on the card, each loss bit-equal to
    9b's step from 9b's seed on the same Dataset's iter_batches here, each
@@ -294,6 +298,39 @@ caught):
    a producer task to this process, which runs the forward, and
    Pool(2).map running it over the same batches, both equal to the direct
    forward. Each part's seconds are printed, the phase within 150 s.
+18. the autoscaler, the state API and the dashboard (ray_tpu_torch.
+   autoscaler, .util.state, .dashboard, _native/native_client.cc): (a) the
+   launch decision at config_5's scale (the stream fleet with its last 20 %
+   held back, the first round's demand, one node type with the held-back
+   rows' resources and max_workers 2 000): get_nodes_to_launch (kernel_np
+   on the host) gives the launch counts, K1 on the card on the same
+   hypothetical matrix gives assigned and avail bit-equal to kernel_np's
+   at spread threshold 1.0, 0.0, 0.25 and 0.75, and so the same launches;
+   K1 held to kernel_np at those thresholds on phase 1's problems too;
+   kernel_np's host ms beside K1's; (b) the v1 Autoscaler over a Cluster
+   (the GCS here, torch_cuda on the card) with a FakeNodeProvider and no
+   node at the start, types cpu2 {"CPU": 2} (max 4) and gpu {"CPU": 1,
+   "GPU": 1} (max 1), idle timeout 2 s: 8 one-CPU tasks, 2 num_gpus=1
+   tasks each running phase 0's K1 in its worker on a problem made by a
+   task (so it comes through a node's store), assigned and avail equal to
+   kernel_np's, then 400 tiny tasks; (d) with the scale-down paused, the
+   dashboard head and the native client over (b)'s cluster: rt_get of
+   /api/nodes, /api/summary and /api/cluster_resources equal to the state
+   API's, rt_call of a port function equal to the direct call,
+   rt_submit_job of an entrypoint that connects by the address and runs a
+   task SUCCEEDED with its log, dump_timeline with one complete event a
+   finished task; then every launched node terminated within the idle
+   timeout plus 15 s, no task started on a draining node, no worker alive
+   20 s after shutdown(); (c) AutoscalerV2 in the same shape plus a
+   STRICT_PACK group whose bundles sum to one cpu2 node (it brings that
+   node up; its debits through the GCS's _flush_before_debit), every
+   instance's history legal and ending TERMINATED; (e) where PyYAML
+   imports, cluster_up from a YAML with a head and two workers (the head's
+   GCS, in a process of its own, runs its rounds on the card: the process
+   maps the scheduler library), a task's round trip, cluster_down leaving
+   no process; else a line says PyYAML is absent. The topology changes
+   and the pipelined windows discarded for another topology are printed,
+   the invariant guard must stay silent, the phase within 90 s.
 
 Launch counters are set to 0 just before phase 2 and read after phase 5,
 the model kernels' just before 6b and after 6c (every K8 launch there must
@@ -337,7 +374,11 @@ three with K8, K10a and K10b launched, and 17b's train worker starts at 0
 in its fresh process and sends its counters back through
 WorkerGroup.execute: each of the training path's six its count a step
 times 8 ("phase17_launches" in the kernels line, the parts summed,
-"phase17_launches_by_part" apart). The
+"phase17_launches_by_part" apart); the scheduler kernels' counters are set
+to 0 just before 18b and read after 18c (the GCS's process: K1 must launch
+and K2 or K3 refresh the view, as in phase 13; K4 is reported,
+"phase18_launches"), and each of 18b's GPU
+tasks counts K1 in its worker ("phase18_gpu_task_launches"). The
 JSON line before the card's name and power limit lists the kernels; the
 last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
@@ -498,6 +539,29 @@ def saturation_problem(N=1000):
     return (total * alive[:, None]).astype(np.float32), total, alive, demands, counts
 
 
+def stream_first_round():
+    """config_5's first round: the stream fleet with its last 20 % held back
+    (bench.py config_5), a tenth of each class's count."""
+    total5, alive5, demands5, counts5 = build_stream_problem(np.random.default_rng(5))
+    alive_s = alive5.copy()
+    alive_s[int(len(alive_s) * 0.8):] = False
+    first = np.floor(counts5 / 10).astype(np.int32)
+    return (total5 * alive_s[:, None], total5, alive_s, demands5, first)
+
+
+def k1_problems():
+    """Phase 1's K1 problems before its layout edges: golden, random, and
+    the stream's first round and full backlog (the first round last but one,
+    as phase 1 times it)."""
+    problems = [("golden", golden_problem())]
+    problems += [(f"random{s}", random_problem(s)) for s in (1, 2, 3)]
+    total5, alive5, demands5, counts5 = build_stream_problem(np.random.default_rng(5))
+    problems.append(("stream_first_round", stream_first_round()))
+    problems.append(("stream_full_backlog", (total5.copy(), total5, alive5,
+                                             demands5, counts5)))
+    return problems
+
+
 def k1_edge_problems():
     """K1's layout edges: N not a multiple of the cluster, N past what the
     blocks' shared memory holds (the rows in global memory), R = 5 (the
@@ -592,16 +656,8 @@ def phase1_kernels(torch, KT, KS, kernel_np, dev):
             raise AssertionError(f"{name}: kernel != plain (max abs err {d})")
 
     # K1 on golden, random and stream problems
-    problems = [("golden", golden_problem())]
-    problems += [(f"random{s}", random_problem(s)) for s in (1, 2, 3)]
-    total5, alive5, demands5, counts5 = build_stream_problem(np.random.default_rng(5))
-    alive_s = alive5.copy()
-    alive_s[int(len(alive_s) * 0.8):] = False
-    first = np.floor(counts5 / 10).astype(np.int32)
-    problems.append(("stream_first_round", (total5 * alive_s[:, None], total5,
-                                            alive_s, demands5, first)))
-    problems.append(("stream_full_backlog", (total5.copy(), total5, alive5,
-                                             demands5, counts5)))
+    problems = k1_problems()
+    total5, first = problems[-1][1][1], problems[-2][1][4]
     for name, (avail, total, alive, demands, counts) in problems + k1_edge_problems():
         args = (T(avail), T(total), T(alive), T(demands), T(counts))
         a_k, v_k = KT.schedule_classes(*args)
@@ -4112,7 +4168,8 @@ def phase14_serve(KT, ctx, requests, answers, gpu="cuda"):
         t0 = time.perf_counter()
         dep = serve.deployment(fast_path=True, ray_actor_options={"num_gpus": 1},
                                name="ModelServer")(ModelServer)
-        h = serve.run(dep.bind(rt.put(ctx["tree"]), ctx["cfg"], dev), name="model",
+        w_ref = rt.put(ctx["tree"])
+        h = serve.run(dep.bind(w_ref, ctx["cfg"], dev), name="model",
                       route_prefix="/model", http_port=0)
         first = h.last_logits.remote(requests[0]).result(timeout=600)
         res["first_answer_s"] = time.perf_counter() - t0
@@ -4151,10 +4208,13 @@ def phase14_serve(KT, ctx, requests, answers, gpu="cuda"):
         # (b) a compiled graph: the model stage on node-gpu, the post stage
         # on node-post (the cross-node edge); then the same graph with the
         # post stage on node-gpu, whose iterations differ by that edge alone.
-        # The weights are put again: the object bound in (a) is freed once
-        # the replica has it (ROADMAP.md, queue 3)
+        # The stage binds (a)'s weights again: the controller forwarded the
+        # ref into the replica's constructor, and this process still owns
+        # and holds it
         t0 = time.perf_counter()
-        w_ref = rt.put(ctx["tree"])
+        if not c.gcs.directory.get(w_ref.id):
+            raise AssertionError("phase 14b: the weights bound in 14a were freed while "
+                                 "this process holds their ref")
         model = rt.remote(num_gpus=1)(ModelServer).remote(w_ref, ctx["cfg"], dev)
         rt.get(model.pid.remote(), timeout=600)  # the stage's actor is up
         res["stage_actor_s"] = time.perf_counter() - t0
@@ -5573,10 +5633,10 @@ def phase17b_train(torch, PT, TT, dev, cfg=None, seq=2048, gpu="cuda"):
         c.add_node(num_cpus=PHASE13_NODE_CPUS, node_id=PHASE15_NODE, resources={"GPU": 1})
         c.wait_for_nodes(1, timeout=60)
         rt.init(address=c.address)
-        # materialized here: an exchange run inside the worker from blocks
-        # this process owns frees them (ROADMAP queue 3)
+        # lazy: the shuffle's exchange runs in the train worker, from the
+        # blocks this process put; this process then runs it again below
         ds = data.from_numpy(tokens, column="tokens").random_shuffle(
-            seed=PHASE17_SHUFFLE_SEED).repartition(1).materialize()
+            seed=PHASE17_SHUFFLE_SEED).repartition(1)
         backend = CountingBackend()
         t0 = time.perf_counter()
         result = train.JaxTrainer(
@@ -5826,6 +5886,675 @@ def phase17(torch, PT, TT, MK, ctx, cfg_kw=None, seq=2048, gpu="cuda"):
     return res, by_part
 
 
+# ---------------------------------- phase 18: the autoscaler, state, dashboard
+
+PHASE18_THRESHOLDS = (1.0, 0.0, 0.25, 0.75)  # 0.5 is phase 1's
+PHASE18_MAX_WORKERS = 2000  # 18a's node type: the held-back rows' count
+PHASE18_IDLE_S = 2.0
+PHASE18_TICK_S = 0.3
+PHASE18_TYPES = (("cpu2", {"CPU": 2}, 4), ("gpu", {"CPU": 1, "GPU": 1}, 1))
+PHASE18_CPU_TASKS = 8
+PHASE18_GPU_TASKS = 2
+PHASE18_BURST = 1500  # tiny tasks on the scaled cluster: many short rounds
+PHASE18_TERMINATE_S = PHASE18_IDLE_S + 15.0
+PHASE18_BUDGET_S = 90.0
+#: phase 18's kernels in the GCS's process (K1 every round, K2/K3 the view
+#: refresh, K4 where a round's download is sparse: 0 at a few nodes)
+PHASE18_HEAD_KERNELS = ("schedule_classes", "scatter_rows", "delta_clip", "compact_nonzero")
+
+
+def _stream_node_type(total, live):
+    """18a's node type: the held-back rows' resources, as the column-wise
+    median of the held-back rows that carry the accelerator (every class of
+    the stream fits on it)."""
+    held = total[live:]
+    return np.median(held[held[:, 2] > 0], axis=0).astype(np.float32)
+
+
+def _hypothetical(space, avail, total, alive, demand, node_types, current):
+    """The matrix autoscaler.get_nodes_to_launch builds: the existing rows,
+    then min(headroom, pending tasks) candidate rows of each type; with the
+    demands, counts and each candidate's type."""
+    demands = np.stack([space.vector(d["resources"]) for d in demand])
+    counts = np.array([int(d["count"]) for d in demand], dtype=np.int32)
+    cands, rows = [], []
+    for nt in node_types:
+        for _ in range(min(max(0, nt.max_workers - current.get(nt.name, 0)),
+                           int(counts.sum()))):
+            cands.append(nt.name)
+            rows.append(space.vector(nt.resources))
+    hyp = (np.vstack([avail, np.stack(rows)]), np.vstack([total, np.stack(rows)]),
+           np.concatenate([alive, np.ones(len(cands), bool)]), demands, counts)
+    return hyp, cands
+
+
+def _launches_of(assigned, n_existing, cands):
+    used = assigned.sum(axis=0)
+    out = {}
+    for j, name in enumerate(cands):
+        if used[n_existing + j] > 0:
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _k1_equal_np(KT, kernel_np, T, problem, thr, what):
+    """K1 on the card and kernel_np on the host at spread threshold `thr`:
+    0 differing cells of assigned and avail bit-equal, or this fails.
+    Returns (K1's assigned on the host, kernel_np's host ms, K1's args)."""
+    args = tuple(T(a) for a in problem)
+    t0 = time.perf_counter()
+    a_n, v_n = kernel_np.schedule_classes(problem[0].copy(), *problem[1:],
+                                          spread_threshold=thr)
+    np_ms = 1e3 * (time.perf_counter() - t0)
+    a_k, v_k = KT.schedule_classes(*args, spread_threshold=thr)
+    a_k = a_k.cpu().numpy()
+    diff = int((a_k != a_n).sum())
+    if diff or v_k.cpu().numpy().tobytes() != v_n.tobytes():
+        raise AssertionError(f"phase 18a K1 {what} at spread_threshold {thr}: {diff} cells "
+                             "of assigned differ from kernel_np's, or avail is not bit-equal")
+    return a_k, np_ms, args
+
+
+def phase18a_decision(torch, KT, kernel_np, dev):
+    """The launch decision at config_5's scale: the stream fleet (10 000
+    nodes, 256 classes) with its last 20 % held back, the first round's
+    demand, one node type with the held-back rows' resources and
+    max_workers 2 000. get_nodes_to_launch (kernel_np on the host, spread
+    threshold 1.0) gives the launch counts; K1 on the card, on the same
+    hypothetical matrix, gives assigned and avail bit-equal to kernel_np's
+    at 1.0 and so the same launches, then at 0.0, 0.25 and 0.75; and K1 is
+    held to kernel_np at those four thresholds on phase 1's problems (0.5
+    is phase 1's own). kernel_np's host ms beside K1's CUDA-event ms."""
+    from ray_tpu_torch.autoscaler.autoscaler import NodeTypeConfig, get_nodes_to_launch
+    from ray_tpu_torch.sched.resources import ResourceSpace
+
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    space = ResourceSpace()
+    total5, _, demands5, counts5 = build_stream_problem(np.random.default_rng(5))
+    live = int(len(total5) * 0.8)
+    first = np.floor(counts5 / 10).astype(np.int32)
+    demand = [{"resources": space.unvector(demands5[c]), "count": int(first[c])}
+              for c in range(len(first)) if first[c] > 0]
+    nt = NodeTypeConfig("stream", space.unvector(_stream_node_type(total5, live)),
+                        max_workers=PHASE18_MAX_WORKERS)
+    existing = (total5[:live].copy(), total5[:live], np.ones(live, bool))
+    t0 = time.perf_counter()
+    launch = get_nodes_to_launch(space, *existing, demand, [nt], {})
+    decide_ms = 1e3 * (time.perf_counter() - t0)
+    if not launch or sum(launch.values()) > PHASE18_MAX_WORKERS:
+        raise AssertionError(f"phase 18a: launches {launch}")
+    hyp, cands = _hypothetical(space, *existing, demand, [nt], {})
+    res = {"nodes": len(hyp[0]), "classes": len(hyp[3]), "candidates": len(cands),
+           "node_type": nt.resources, "launch": launch,
+           "get_nodes_to_launch_host_ms": decide_ms, "by_threshold": {}}
+    for thr in PHASE18_THRESHOLDS:
+        a_k, np_ms, args = _k1_equal_np(KT, kernel_np, T, hyp, thr, "on the hypothetical rows")
+        got = _launches_of(a_k, live, cands)
+        if thr == 1.0 and got != launch:
+            raise AssertionError(f"phase 18a: K1's launches {got} != get_nodes_to_launch's "
+                                 f"{launch}")
+        res["by_threshold"][str(thr)] = {
+            "placed": int(a_k.sum()), "launch": got, "kernel_np_host_ms": np_ms,
+            "k1_ms": time_ms(torch, lambda: KT.schedule_classes(*args, spread_threshold=thr))}
+    t0 = time.perf_counter()
+    problems = k1_problems() + k1_edge_problems()
+    for name, problem in problems:
+        for thr in PHASE18_THRESHOLDS:
+            _k1_equal_np(KT, kernel_np, T, problem, thr, name)
+    res["phase1_problems_checked"] = len(problems)
+    res["phase1_problems_s"] = time.perf_counter() - t0
+    log(f"phase 18a: {json.dumps(res)}")
+    return res
+
+
+def phase18_gpu_task(problem, device):
+    """18b's GPU task, in a worker of the autoscaled GPU node: K1 on a
+    problem from the object store, from the library phase 0 built (not
+    rebuilt here, and not the plain version: the count of K1's launches in
+    this process must move). Returns what the driver checks."""
+    import torch
+
+    from ray_tpu_torch.sched import _build, kernel_torch as KT
+
+    dev = torch.device(device)
+    before = KT.launch_counts()["schedule_classes"]
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    a, v = KT.schedule_classes(*(T(x) for x in problem))
+    return {"assigned": a.cpu().numpy(), "avail": v.cpu().numpy(), "device": str(a.device),
+            "launches": KT.launch_counts()["schedule_classes"] - before,
+            "build_seconds": _build.LIBRARY.build_seconds,
+            "library": _build.LIBRARY.library_path().name, "pid": os.getpid(),
+            "node": os.environ.get("RAY_TPU_NODE_ID")}
+
+
+def phase18_problem(seed):
+    """18b's GPU tasks' problems: random_problem's kind at 512 nodes."""
+    return random_problem(seed, N=512, C=16)
+
+
+def phase18_cpu_task(i):
+    time.sleep(0.5)
+    return i * i
+
+
+def phase18_tiny(i):
+    return i + 1
+
+
+class _PolicyLog(logging.Handler):
+    """Counts the torch_cuda policy's discarded pipelined windows and the
+    guard's records."""
+
+    def __init__(self):
+        super().__init__(level=logging.INFO)
+        self.discards, self.guard = 0, []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if "topology changed mid-window" in msg:
+            self.discards += 1
+        if "violated scheduling invariant" in msg:
+            self.guard.append(msg)
+
+
+def _phase18_cluster(gpu):
+    """18b's and 18c's cluster: the GCS here (torch_cuda on `gpu`, every
+    round on the device) and a recording FakeNodeProvider; no node yet."""
+    from ray_tpu_torch.autoscaler import FakeNodeProvider
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.config import Config
+
+    overrides = {"jax_policy_min_cells": 0}
+    if gpu != "cuda":
+        overrides["scheduler_device"] = gpu
+    config = Config(overrides)
+    _shm_room(sum(m for _, _, m in PHASE18_TYPES), config.object_store_memory_bytes,
+              phase="18")
+    c = Cluster(config=config)
+    policy = c.gcs.policy
+    if policy.name != "torch_cuda" or policy.device.type != gpu:
+        c.shutdown()
+        raise AssertionError(f"phase 18: GCS policy {policy.name} on {policy.device}")
+
+    class Provider(FakeNodeProvider):
+        """Records each node's create and terminate times, the demand the
+        GCS reported when it was asked for, and its worker processes (taken
+        before the daemon stops them); counts creates still in flight (a
+        daemon is listed only once it has registered)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.created, self.terminated, self.procs = {}, {}, []
+            self.peak, self.why, self.inflight = {}, {}, 0
+
+        def create_node(self, node_type, resources):
+            with self._lock:
+                self.inflight += 1
+            t = time.perf_counter()
+            st = c.gcs.rpc_autoscaler_state({}, None)
+            why = {"pending_demand": st.get("pending_demand"),
+                   "pending_pgs": len(st.get("pending_pgs") or ()),
+                   "running": {n: v.get("running") for n, v in st["nodes"].items()
+                               if v.get("alive")}}
+            try:
+                nid = super().create_node(node_type, resources)
+            finally:
+                with self._lock:
+                    self.inflight -= 1
+            self.created[nid] = (node_type, t)
+            self.why[nid] = why
+            up = sum(1 for n in self.non_terminated_nodes() if n.startswith(f"auto-{node_type}-"))
+            self.peak[node_type] = max(self.peak.get(node_type, 0), up)
+            return nid
+
+        def terminate_node(self, node_id):
+            d = self._daemons.get(node_id)
+            if d is not None:
+                self.procs += [w.proc for w in list(d.workers.values()) if w.proc is not None]
+                self.terminated.setdefault(node_id, time.perf_counter())
+            super().terminate_node(node_id)
+
+    return c, Provider((c.host, c.gcs.port), config=c.config)
+
+
+def _phase18_teardown(c, provider, scaler, what):
+    """Stop the autoscaler, the driver, the provider's nodes and the
+    cluster; every worker process they started must be gone within 20 s."""
+    import ray_tpu_torch as rt
+
+    procs = _cluster_procs(c) + provider.procs
+    try:
+        if scaler is not None:
+            scaler.shutdown()
+        rt.shutdown()
+        provider.shutdown()
+        procs += provider.procs
+    finally:
+        c.shutdown()
+        killed = _reap(set(procs))
+    if killed:
+        raise AssertionError(f"phase {what}: workers alive 20 s after shutdown: {killed}")
+
+
+def _phase18_wait_down(provider, since, what):
+    deadline = since + PHASE18_TERMINATE_S
+    while (provider.non_terminated_nodes() or provider.inflight) \
+            and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    left = provider.non_terminated_nodes() + ["(starting)"] * provider.inflight
+    if left:
+        raise AssertionError(f"phase {what}: nodes {left} not terminated "
+                             f"{PHASE18_TERMINATE_S} s after the last task")
+    if set(provider.created) != set(provider.terminated):
+        raise AssertionError(f"phase {what}: launched {sorted(provider.created)}, "
+                             f"terminated {sorted(provider.terminated)}; the demand at each "
+                             f"launch {provider.why}")
+    for name, _, most in PHASE18_TYPES:
+        if provider.peak.get(name, 0) > most:
+            raise AssertionError(f"phase {what}: {provider.peak[name]} {name} nodes up at "
+                                 f"once, over max_workers {most}")
+    return time.perf_counter() - since
+
+
+def _drained_task_check(c, rt, what):
+    """No task started on a node after the GCS marked it draining."""
+    from ray_tpu_torch.util.events import list_events
+
+    drained = {e["node_id"]: e["timestamp"] for e in list_events(limit=10_000)
+               if e["label"] == "NODE_DRAINING" and e.get("node_id")}
+    late = [t for t in rt.timeline() if t.get("node_id") in drained
+            and (t.get("start") or 0) > drained[t["node_id"]]]
+    if late:
+        raise AssertionError(f"phase {what}: tasks started on draining nodes: {late[:3]}")
+    return len(drained)
+
+
+def phase18bd_autoscaler(kernel_np, gpu="cuda"):
+    """18b: the v1 Autoscaler over a live Cluster (GCS here, torch_cuda on
+    the card), a FakeNodeProvider and no node at the start; cpu2 {"CPU": 2}
+    (max 4) and gpu {"CPU": 1, "GPU": 1} (max 1). 8 one-CPU tasks and 2
+    num_gpus=1 tasks, each running K1 in its worker on a seeded problem
+    made on the GPU node, its assigned equal to kernel_np's; then 1 500
+    tiny tasks on the scaled cluster. 18d, with the scale-down paused: the dashboard
+    head and the native client (rt_get of /api/nodes, /api/summary,
+    /api/cluster_resources equal to the state API's; rt_call of a port
+    function; rt_submit_job of an entrypoint that connects by the address
+    and runs a task) and dump_timeline. Then every launched node is
+    terminated within the idle timeout plus 15 s. Returns (results, the
+    GPU tasks' K1 launches)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import Autoscaler, NodeTypeConfig
+
+    res = {}
+    t0_phase = time.perf_counter()
+    c, provider = _phase18_cluster(gpu)
+    scaler = None
+    topo0 = c.gcs.state.topology_version
+    try:
+        scaler = Autoscaler((c.host, c.gcs.port), provider,
+                            [NodeTypeConfig(n, r, max_workers=m) for n, r, m in PHASE18_TYPES],
+                            idle_timeout_s=PHASE18_IDLE_S,
+                            update_interval_s=PHASE18_TICK_S).start()
+        rt.init(address=c.address)
+        problems = [phase18_problem(180 + i) for i in range(PHASE18_GPU_TASKS)]
+        want = [kernel_np.schedule_classes(p[0].copy(), *p[1:]) for p in problems]
+        cpu_task = rt.remote(num_cpus=1)(phase18_cpu_task)
+        gpu_task = rt.remote(num_gpus=1)(phase18_gpu_task)
+        make = rt.remote(num_gpus=1)(phase18_problem)
+        t0 = time.perf_counter()
+        cpu_refs = [cpu_task.remote(i) for i in range(PHASE18_CPU_TASKS)]
+        # each problem made by a task on the GPU node, so it reaches the GPU
+        # task through that node's store (a put here, before any node is
+        # up, stays local; an object on a cpu2 node is lost when the
+        # autoscaler terminates that idle node before the GPU task's fresh
+        # worker fetches it, PERF.md PR 25)
+        gpu_refs = [gpu_task.remote(make.remote(180 + i), gpu)
+                    for i in range(PHASE18_GPU_TASKS)]
+        squares = rt.get(cpu_refs, timeout=120)
+        gpu_out = rt.get(gpu_refs, timeout=120)
+        res["load_s"] = time.perf_counter() - t0
+        res["first_launch_s"] = min(t for _, t in provider.created.values()) - t0
+        if squares != [i * i for i in range(PHASE18_CPU_TASKS)]:
+            raise AssertionError(f"phase 18b: CPU task results {squares}")
+        for i, (out, (a_n, v_n)) in enumerate(zip(gpu_out, want)):
+            if not np.array_equal(out["assigned"], a_n) or not np.array_equal(out["avail"], v_n):
+                raise AssertionError(f"phase 18b: GPU task {i}'s K1 differs from kernel_np's")
+            if gpu == "cuda" and (out["launches"] != 1 or out["build_seconds"] != 0.0
+                                  or out["device"] != "cuda:0"):
+                raise AssertionError(f"phase 18b: GPU task {i} did not launch phase 0's K1 "
+                                     f"on the card: {out}")
+        res["gpu_tasks"] = [{k: o[k] for k in ("launches", "build_seconds", "library",
+                                               "device", "node")} for o in gpu_out]
+        if {o["node"] for o in gpu_out} != {n for n, (t, _) in provider.created.items()
+                                            if t == "gpu"}:
+            raise AssertionError(f"phase 18b: GPU tasks ran on {[o['node'] for o in gpu_out]}")
+        t0 = time.perf_counter()
+        tiny = rt.remote(num_cpus=1)(phase18_tiny)
+        if rt.get([tiny.remote(i) for i in range(PHASE18_BURST)], timeout=120) != \
+                list(range(1, PHASE18_BURST + 1)):
+            raise AssertionError("phase 18b: the burst's results differ")
+        res["burst_s"] = time.perf_counter() - t0
+
+        # 18d: the dashboard and the native client while the nodes are up
+        scaler.idle_timeout_s = 3600.0  # scale-down paused
+        t18d = time.perf_counter()
+        res["18d"] = phase18d_dashboard(c, PHASE18_CPU_TASKS + PHASE18_GPU_TASKS
+                                        + PHASE18_BURST)
+        res["18d"]["part_s"] = time.perf_counter() - t18d
+        t_idle = time.perf_counter()
+        scaler.idle_timeout_s = PHASE18_IDLE_S
+        res["scale_down_s"] = _phase18_wait_down(provider, t_idle, "18b")
+        res["nodes_launched"] = sorted(provider.created)
+        res["launched_at_s"] = {n: round(t - t0_phase, 3) for n, (_, t) in provider.created.items()}
+        res["terminated_at_s"] = {n: round(t - t0_phase, 3)
+                                  for n, t in provider.terminated.items()}
+        res["drained_nodes"] = _drained_task_check(c, rt, "18b")
+        res["peak_by_type"] = provider.peak
+    finally:
+        _phase18_teardown(c, provider, scaler, "18b")
+    res["topology_changes"] = c.gcs.state.topology_version - topo0
+    return res, sum(o["launches"] for o in gpu_out)
+
+
+def _take_json(lib, ptr):
+    import ctypes
+
+    if not ptr:
+        raise AssertionError("phase 18d: the native client returned NULL")
+    try:
+        return json.loads(ctypes.string_at(ptr).decode())
+    finally:
+        lib.rt_free(ptr)
+
+
+def _without_stats(nodes):
+    return [{k: v for k, v in n.items() if k != "Stats"} for n in nodes]
+
+
+def phase18d_dashboard(c, n_tasks):
+    """18d over 18b's cluster (its n_tasks finished tasks); see
+    phase18bd_autoscaler."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import _native
+    from ray_tpu_torch.dashboard import DashboardHead
+    from ray_tpu_torch.sched import kernel_torch
+    from ray_tpu_torch.util import state
+
+    lib = _native.load_library("native_client")
+    head = DashboardHead(c.address)
+    res = {}
+    try:
+        host, port = b"127.0.0.1", head.port
+        for attempt in range(3):  # a heartbeat can land between the two reads
+            nodes = _take_json(lib, lib.rt_get(host, port, b"/api/nodes"))
+            summ = _take_json(lib, lib.rt_get(host, port, b"/api/summary"))
+            cres = _take_json(lib, lib.rt_get(host, port, b"/api/cluster_resources"))
+            same = (_without_stats(nodes) == _without_stats(
+                        json.loads(json.dumps(state.list_nodes(), default=str)))
+                    and summ == json.loads(json.dumps(state.summary(), default=str))
+                    and cres == rt.cluster_resources())
+            if same:
+                break
+            time.sleep(0.2)
+        if not same:
+            raise AssertionError(f"phase 18d: the native client's /api/nodes, /api/summary "
+                                 f"or /api/cluster_resources differ from the state API's: "
+                                 f"{nodes} {summ} {cres}")
+        res["nodes_alive"] = summ["nodes_alive"]
+        res["read_attempts"] = attempt + 1
+        body = json.dumps({"func": "ray_tpu_torch.sched.kernel_torch:bucket_size",
+                           "args": [10_000]}).encode()
+        out = _take_json(lib, lib.rt_call(host, port, body))
+        if out != {"result": kernel_torch.bucket_size(10_000)}:
+            raise AssertionError(f"phase 18d: rt_call gave {out}")
+        script = ("import os, ray_tpu_torch as rt; rt.init(address=os.environ['RAY_TPU_ADDRESS']);"
+                  " f = rt.remote(num_cpus=1)(pow);"
+                  " print('job-result', rt.get(f.remote(7, 2), timeout=60)); rt.shutdown()")
+        env = {"PYTHONPATH": HERE + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        t0 = time.perf_counter()
+        job = _take_json(lib, lib.rt_submit_job(host, port, json.dumps(
+            {"entrypoint": f'{sys.executable} -c "{script}"', "env": env}).encode()))
+        deadline = time.time() + 60
+        while True:
+            st = _take_json(lib, lib.rt_get(host, port, f"/api/jobs/{job['job_id']}".encode()))
+            if st["status"] != "RUNNING" or time.time() > deadline:
+                break
+            time.sleep(0.2)
+        logs = _take_json(lib, lib.rt_get(host, port,
+                                          f"/api/jobs/{job['job_id']}/logs".encode()))
+        if st["status"] != "SUCCEEDED" or "job-result 49" not in logs["logs"]:
+            raise AssertionError(f"phase 18d: the job {st}, its log {logs['logs'][-2000:]}")
+        res["job_s"] = time.perf_counter() - t0
+        res["job_status"] = st["status"]
+        with tempfile.TemporaryDirectory() as d:
+            # every task event the GCS kept (its default listing is the last 1 000)
+            path = state.dump_timeline(os.path.join(d, "timeline.json"),
+                                       state.list_tasks(limit=10 * n_tasks))
+            with open(path) as f:
+                trace = json.load(f)
+        mine = {"phase18_cpu_task": PHASE18_CPU_TASKS, "phase18_gpu_task": PHASE18_GPU_TASKS,
+                "phase18_tiny": PHASE18_BURST}
+        got = {name: sum(1 for e in trace if e["name"] == name and e["ph"] == "X"
+                         and e["args"]["status"] == "FINISHED") for name in mine}
+        if got != mine:
+            raise AssertionError(f"phase 18d: the timeline's complete events {got}, "
+                                 f"one a finished task {mine}")
+        res["timeline_events"] = len(trace)
+    finally:
+        head.shutdown()
+    return res
+
+
+def phase18c_autoscaler_v2(gpu="cuda"):
+    """18c: AutoscalerV2 in the same shape, with a pending STRICT_PACK group
+    whose bundles sum to one cpu2 node: it brings that node up. Every
+    instance's history walks legal transitions and ends TERMINATED; the
+    group's debits go through the GCS's _flush_before_debit."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import NodeTypeConfig
+    from ray_tpu_torch.autoscaler.instance_manager import (
+        _TRANSITIONS, AutoscalerV2, InstanceStatus)
+    from ray_tpu_torch.util.placement_group import placement_group, remove_placement_group
+
+    res = {}
+    c, provider = _phase18_cluster(gpu)
+    scaler = None
+    flushes = {"calls": 0, "inflight": 0}
+    inner = c.gcs._flush_before_debit
+
+    def counted():
+        flushes["calls"] += 1
+        flushes["inflight"] += bool(getattr(c.gcs.policy, "pipelined", False)
+                                    and c.gcs.policy.has_inflight())
+        inner()
+
+    c.gcs._flush_before_debit = counted
+    topo0 = c.gcs.state.topology_version
+    try:
+        scaler = AutoscalerV2((c.host, c.gcs.port), provider,
+                              [NodeTypeConfig(n, r, max_workers=m) for n, r, m in PHASE18_TYPES],
+                              idle_timeout_s=PHASE18_IDLE_S,
+                              update_interval_s=PHASE18_TICK_S).start()
+        rt.init(address=c.address)
+        t0 = time.perf_counter()
+        pg = placement_group([{"CPU": 1}, {"CPU": 1}], strategy="STRICT_PACK")
+        if not pg.ready(timeout=60):
+            raise AssertionError("phase 18c: the STRICT_PACK group was not placed")
+        res["pg_ready_s"] = time.perf_counter() - t0
+        up = provider.non_terminated_nodes()
+        if len(up) != 1 or not up[0].startswith("auto-cpu2-"):
+            raise AssertionError(f"phase 18c: the group brought up {up}, one cpu2 expected")
+        cpu_task = rt.remote(num_cpus=1)(phase18_cpu_task)
+        gpu_task = rt.remote(num_gpus=1, num_cpus=1)(phase18_tiny)
+        t0 = time.perf_counter()
+        refs = [cpu_task.remote(i) for i in range(PHASE18_CPU_TASKS)] + \
+            [gpu_task.remote(i) for i in range(PHASE18_GPU_TASKS)]
+        got = rt.get(refs, timeout=120)
+        if got != [i * i for i in range(PHASE18_CPU_TASKS)] + \
+                list(range(1, PHASE18_GPU_TASKS + 1)):
+            raise AssertionError(f"phase 18c: task results {got}")
+        res["load_s"] = time.perf_counter() - t0
+        remove_placement_group(pg)
+        t_down = time.perf_counter()
+        res["scale_down_s"] = _phase18_wait_down(provider, t_down, "18c")
+        # the record turns TERMINATED once the provider's terminate returned
+        while any(i.status == InstanceStatus.TERMINATING for i in scaler.im.instances()) \
+                and time.perf_counter() < t_down + PHASE18_TERMINATE_S:
+            time.sleep(0.05)
+        insts = scaler.im.instances()
+        for inst in insts:
+            walk = [h[2] for h in inst.history]
+            if inst.status != InstanceStatus.TERMINATED or any(
+                    to not in _TRANSITIONS[frm] for _, frm, to, _ in inst.history[1:]):
+                raise AssertionError(f"phase 18c: instance {inst.instance_id} walked {walk}")
+        res["instances"] = len(insts)
+        res["walks"] = sorted({" > ".join(h[2] for h in i.history) for i in insts})
+        res["drained_nodes"] = _drained_task_check(c, rt, "18c")
+        res["peak_by_type"] = provider.peak
+    finally:
+        _phase18_teardown(c, provider, scaler, "18c")
+    if flushes["calls"] == 0:
+        raise AssertionError("phase 18c: the group's debits never went through "
+                             "_flush_before_debit")
+    res["flush_before_debit"] = flushes
+    res["topology_changes"] = c.gcs.state.topology_version - topo0
+    return res
+
+
+def phase18e_launcher(gpu="cuda"):
+    """18e: cluster_up from a YAML with a head and two workers (the head's
+    GCS in a process of its own, on the card by default: its process maps
+    the scheduler kernels' library once a round ran), one task's round
+    trip, cluster_down; no process of the cluster is left. Runs only where
+    PyYAML imports (launcher.py reads the YAML with it)."""
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        log("phase 18e: PyYAML is not installed here; the launcher is held to the CPU "
+            "tests only")
+        return {"pyyaml": False}
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler.launcher import cluster_down, cluster_up, list_clusters
+    from ray_tpu_torch.sched import _build
+
+    res = {"pyyaml": True}
+    name = f"phase18e-{os.getpid()}"
+    with tempfile.TemporaryDirectory() as d:
+        cfg = os.path.join(d, "cluster.yaml")
+        with open(cfg, "w") as f:
+            yaml.safe_dump({"cluster_name": name, "provider": {"type": "local"},
+                            "head_node": {"num_cpus": 2},
+                            "worker_nodes": {"count": 2, "num_cpus": 2}}, f)
+        # the head's GCS reads its config from the environment: every round
+        # on the device, as phase 13's jax_policy_min_cells 0
+        env = {"RAY_TPU_jax_policy_min_cells": "0"}
+        if gpu != "cuda":
+            env["RAY_TPU_scheduler_device"] = gpu
+        old = {k: os.environ.pop(k, None) for k in ("RAY_TPU_scheduler_device",
+                                                      "RAY_TPU_jax_policy_min_cells")}
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        try:
+            up = cluster_up(cfg)
+        finally:
+            for k, v in old.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        res["up_s"] = time.perf_counter() - t0
+        children = []
+        try:
+            if not any(x["cluster_name"] == name for x in list_clusters()):
+                raise AssertionError("phase 18e: list_clusters does not list the cluster")
+            rt.init(address=up["address"])
+            ping = rt.remote(num_cpus=1)(phase18_tiny)
+            if rt.get(ping.remote(41), timeout=120) != 42:
+                raise AssertionError("phase 18e: the task's round trip failed")
+            res["cluster_cpus"] = rt.cluster_resources().get("CPU")
+            rt.shutdown()
+            with open(f"/proc/{up['pids'][0]}/maps") as f:
+                maps = f.read()
+            res["head_maps_sched_library"] = _build.LIBRARY.library_path().name in maps
+            if gpu == "cuda" and not res["head_maps_sched_library"]:
+                raise AssertionError("phase 18e: the head's GCS never loaded the scheduler "
+                                     "kernels' library")
+            children = [int(p) for p in os.listdir("/proc") if p.isdigit()
+                        and _ppid(int(p)) in set(up["pids"])]
+        finally:
+            killed = cluster_down(cfg)
+        deadline = time.time() + 20
+        everything = list(up["pids"]) + children
+        while any(_pid_alive(p) for p in everything) and time.time() < deadline:
+            time.sleep(0.2)
+        alive = [p for p in everything if _pid_alive(p)]
+        if alive or sorted(killed) != sorted(up["pids"]):
+            raise AssertionError(f"phase 18e: after cluster_down alive {alive}, "
+                                 f"killed {killed} of {up['pids']}")
+    res["processes"] = len(everything)
+    res["part_s"] = time.perf_counter() - t0
+    log(f"phase 18e: {json.dumps(res)}")
+    return res
+
+
+def _ppid(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return int(f.read().rsplit(")", 1)[1].split()[1])
+    except (OSError, ValueError, IndexError):
+        return -1
+
+
+def phase18(torch, KT, kernel_np, dev, gpu="cuda"):
+    """Phase 18: 18a, then 18b-18d and 18c with the scheduler kernels'
+    counters from 0 in this process (the GCS's), then 18e; the phase
+    within PHASE18_BUDGET_S. Returns (results, the GCS's launches, the GPU
+    tasks' K1 launches)."""
+    from ray_tpu_torch.sched import policy as policy_mod
+
+    t_phase = time.perf_counter()
+    res = {}
+    t0 = time.perf_counter()
+    res["18a"] = phase18a_decision(torch, KT, kernel_np, dev)
+    res["18a"]["part_s"] = time.perf_counter() - t0
+    plog = logging.getLogger(policy_mod.__name__)
+    watch, level = _PolicyLog(), plog.level
+    plog.addHandler(watch)
+    plog.setLevel(logging.INFO)
+    KT.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        res["18b"], gpu_k1 = phase18bd_autoscaler(kernel_np, gpu)
+        res["18b"]["part_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["18c"] = phase18c_autoscaler_v2(gpu)
+        res["18c"]["part_s"] = time.perf_counter() - t0
+        head = {k: KT.launch_counts()[k] for k in PHASE18_HEAD_KERNELS}
+    finally:
+        plog.removeHandler(watch)
+        plog.setLevel(level)
+    res["discarded_windows"] = watch.discards
+    if watch.guard:
+        raise AssertionError(f"phase 18: the invariant guard fired: {watch.guard}")
+    # phase 13's check: K1 every round, and the view refreshed on the card
+    # (K2 where a few rows changed with no round in flight, K3 where a
+    # delta met a round still in flight: 2 and 4 times in PR 25's runs)
+    if gpu == "cuda" and (head["schedule_classes"] == 0
+                          or head["scatter_rows"] + head["delta_clip"] == 0):
+        raise AssertionError(f"phase 18: the GCS's rounds launched {head}")
+    t0 = time.perf_counter()
+    res["18e"] = phase18e_launcher(gpu)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: {json.dumps(res, default=str)}")
+    if gpu == "cuda" and res["phase_s"] > PHASE18_BUDGET_S:
+        raise AssertionError(f"phase 18 took {res['phase_s']:.1f} s, over its "
+                             f"{PHASE18_BUDGET_S} s")
+    return res, head, gpu_k1
+
+
 def main() -> int:
     try:
         import torch
@@ -5864,10 +6593,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    # the cluster's native shm object store (host C++, one g++) beside the
-    # kernels' nvcc builds, all started together
+    # the cluster's native shm object store and the dashboard's native client
+    # (host C++, one g++ each) beside the kernels' nvcc builds, all started
+    # together
     libraries = [_build.LIBRARY, MK.LIBRARY, MK.LIBRARY_SM90, EK.LIBRARY, RK.LIBRARY,
-                 _native.OBJECT_STORE]
+                 _native.OBJECT_STORE, _native.NATIVE_CLIENT]
     cuda_build.build_all(libraries)
     log(f"phase 0 build: {time.perf_counter() - t0:.2f} s (" + "; ".join(
         f"{lib.name} {lib.build_seconds:.2f} s -> {lib.library_path().name}"
@@ -6131,6 +6861,23 @@ def main() -> int:
         f"{b17['wait_ms']} ms (first {b17['first_wait_ms']:.1f}) against its steps "
         f"{b17['step_ms']} ms; phase {data_res['phase_s']:.1f} s")
 
+    # the autoscaler, the state API and the dashboard: 18a's decision on the
+    # card, then clusters scaled up and down with the GCS's counters from 0
+    t0 = time.perf_counter()
+    scale_res, head18, gpu18 = phase18(torch, KT, kernel_np, dev)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s, launches in this process {head18}, "
+        f"K1 in the GPU tasks' workers {gpu18}")
+    a18, b18, c18 = scale_res["18a"], scale_res["18b"], scale_res["18c"]
+    log(f"phase 18 on {card}: 18a launch {a18['launch']}, kernel_np "
+        f"{a18['by_threshold']['1.0']['kernel_np_host_ms']:.1f} ms on the host against K1 "
+        f"{a18['by_threshold']['1.0']['k1_ms']:.4f} ms; 18b first launch "
+        f"{b18['first_launch_s']:.2f} s after the first submit, scale-down "
+        f"{b18['scale_down_s']:.2f} s, {b18['topology_changes']} topology changes, "
+        f"18c {c18['topology_changes']}, {scale_res['discarded_windows']} pipelined windows "
+        f"discarded for another topology; phase {scale_res['phase_s']:.1f} s")
+    if guard_records:
+        raise AssertionError(f"invariant guard fired: {guard_records}")
+
     replaces = {
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
@@ -6232,6 +6979,7 @@ def main() -> int:
                     "train_across_ranks": mesh_train, "cluster": cluster_res,
                     "serving": serving_res, "train_library": train_lib,
                     "rllib": rllib_res, "tune": tune_res, "data_workflow": data_res,
+                    "autoscaler_state_dashboard": scale_res,
                     "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
                     "attention_ms_f32_cuda_core": model_rec["attention"]["ms_f32_cuda_core"],
                     "attention_bwd_ms_f32_cuda_core":
@@ -6268,6 +7016,13 @@ def main() -> int:
             by_part = {p: launches17[p].get(name, 0) for p in ("17a", "17b", "17c", "17d")}
             entry["phase17_launches"] = sum(by_part.values())
             entry["phase17_launches_by_part"] = by_part
+    for entry in kernels:  # phase 18's: the GCS's process over 18b-18c, and
+        # K1 in the autoscaled GPU node's task workers
+        name = entry["name"]
+        if name in head18:
+            entry["phase18_launches"] = head18[name]
+        if name == "schedule_classes":
+            entry["phase18_gpu_task_launches"] = gpu18
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

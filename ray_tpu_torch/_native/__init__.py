@@ -12,6 +12,7 @@ worker processes can reach first use at the same moment.
 
 from __future__ import annotations
 
+import ctypes
 from pathlib import Path
 
 from ray_tpu_torch.util.cuda_build import BUILD_DIR, CudaLibrary, gxx  # noqa: F401
@@ -23,7 +24,17 @@ LINK = ("-lpthread", "-lrt")
 #: by object_store/store.py
 OBJECT_STORE = CudaLibrary("object_store", _HERE / "object_store.cc", FLAGS, {},
                            compiler=gxx, link=LINK)
-_LIBRARIES = {OBJECT_STORE.name: OBJECT_STORE}
+#: the dashboard's native client (native_client.cc): rt_get, rt_post,
+#: rt_call, rt_submit_job and rt_free over the head's HTTP routes
+_REQ = [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p]
+NATIVE_CLIENT = CudaLibrary("native_client", _HERE / "native_client.cc", FLAGS, {
+    "rt_get": (_REQ, ctypes.c_void_p),
+    "rt_post": (_REQ + [ctypes.c_char_p], ctypes.c_void_p),
+    "rt_call": (_REQ, ctypes.c_void_p),
+    "rt_submit_job": (_REQ, ctypes.c_void_p),
+    "rt_free": ([ctypes.c_void_p], None),
+}, compiler=gxx)
+_LIBRARIES = {lib.name: lib for lib in (OBJECT_STORE, NATIVE_CLIENT)}
 
 
 def library_path(name: str) -> Path:

@@ -146,6 +146,11 @@ class ClusterClient:
         # (oid, borrower) until the borrower releases it or dies.
         self._refcounts: Dict[str, list] = {}  # oid -> [local, pinned]
         self._borrows: Dict[str, set] = {}  # oid -> {borrower worker_ids}
+        # refs another client owns, pinned here only as args of tasks this
+        # client submitted (a borrower forwarding a borrowed ref). Their
+        # pins end without a free: only the owner frees an object, and the
+        # task's executor reports its own borrow to that owner.
+        self._foreign: set = set()
         # output ids of THIS client's in-flight ACTOR calls. Actor calls
         # bypass the GCS (direct client->daemon dispatch), so the GCS's
         # active_outputs can't know a producer exists; deps carrying
@@ -423,6 +428,9 @@ class ClusterClient:
                         continue  # still referenced / pinned
                     self._refcounts.pop(oid, None)
                     self._result_ready.pop(oid, None)
+                    if oid in self._foreign:
+                        self._foreign.discard(oid)
+                        continue
                     drop.append(oid)
                     tid = self._ref_index.get(oid)
                     if tid is not None:
@@ -798,6 +806,11 @@ class ClusterClient:
         # it too (race sanitizer finding — a torn read here would stamp
         # a wrong producing task into the dep's lineage record)
         with self._lock:
+            for ref in [a for a in list(spec.args) + list(spec.kwargs.values())
+                        if isinstance(a, ObjectRef)] + list(nested.values()):
+                if (ref.owner is not None and ref.owner != self.worker_id
+                        and ref.id not in self._ref_index):
+                    self._foreign.add(ref.id)
             for a in list(spec.args) + list(spec.kwargs.values()):
                 if isinstance(a, ObjectRef):
                     deps.append({

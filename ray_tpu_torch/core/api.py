@@ -310,7 +310,8 @@ class RemoteFunction:
             from ray_tpu_torch.core.generator import ObjectRefGenerator
 
             return ObjectRefGenerator(
-                spec.task_id, rt.worker_id, ack=spec.backpressure > 0
+                spec.task_id, rt.worker_id, ack=spec.backpressure > 0,
+                end_ref=refs[0],
             )
         return refs[0] if num_returns == 1 else refs
 
@@ -391,7 +392,7 @@ class ActorHandle:
         if streaming:
             from ray_tpu_torch.core.generator import ObjectRefGenerator
 
-            return ObjectRefGenerator(spec.task_id, rt.worker_id)
+            return ObjectRefGenerator(spec.task_id, rt.worker_id, end_ref=refs[0])
         return refs[0] if nr == 1 else refs
 
     def __getattr__(self, name: str):

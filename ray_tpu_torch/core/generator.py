@@ -47,9 +47,14 @@ class ObjectRefGenerator:
     """Iterator of ObjectRefs for one streaming task's yields."""
 
     def __init__(self, task_id: str, owner_id: Optional[str],
-                 ack: bool = False):
+                 ack: bool = False, end_ref: Optional[ObjectRef] = None):
         self._task_id = task_id
         self._owner = owner_id
+        # the submission's own ref to the end marker, held for the
+        # generator's life: the owner frees an output nobody holds once its
+        # result lands, and a consumer that reaches this generator after
+        # the task finished must still read the count
+        self._end_ref = end_ref
         # acks exist only to widen the producer's backpressure window;
         # skip the per-item runtime call when no window was requested
         self._ack = ack
@@ -77,7 +82,7 @@ class ObjectRefGenerator:
 
         rt = _get_runtime()
         deadline = None if timeout is None else time.time() + timeout
-        end = end_marker_ref(self._task_id, self._owner)
+        end = self._end_ref or end_marker_ref(self._task_id, self._owner)
         while True:
             if self._count is not None and self._i >= self._count:
                 raise StopIteration

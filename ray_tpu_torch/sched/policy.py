@@ -224,16 +224,20 @@ class HybridPolicy(SchedulingPolicy):
         """Drop every in-flight round. With `state`, ALSO drop buffered
         ready plans, crediting their host debits back — used on topology
         changes, where a buffered plan may target a node that no longer
-        exists (its tasks stayed queued and simply reschedule)."""
+        exists (its tasks stayed queued and simply reschedule). A plan
+        covers the rows it was solved for: rows are only ever appended
+        (a node that joined since has none of its debit), so the credit
+        goes to the plan's first rows."""
         self._pipe.clear()
         self._pipe_inflight.clear()
         if state is not None:
             while self._ready:
                 _, demands_r, assigned = self._ready.popleft()
                 taken = assigned.astype(np.float32).T @ demands_r
-                state.available = np.minimum(
-                    state.available + taken, state.total
-                )
+                n = taken.shape[0]
+                avail = state.available.copy()
+                avail[:n] = np.minimum(avail[:n] + taken, state.total[:n])
+                state.available = avail
         self._pipe_topology = None
         self._rounds_since_full_sync = self.FULL_SYNC_INTERVAL
 

@@ -114,6 +114,29 @@ def test_flush_discards_a_window_of_another_topology():
     np.testing.assert_array_equal(st.available[:, 0], np.ones(N_NODES + 1))
 
 
+def test_node_joining_with_plans_buffered_credits_them_back(caplog):
+    """A node joins (an autoscaler's launch) while a fetched plan waits in
+    the ready buffer: the topology change discards the plan and credits its
+    host debit back into the rows it was solved for (rows are only ever
+    appended), the new row stays whole, and the next round places its task
+    once on the grown cluster."""
+    st = _state()
+    pol = HybridPolicy(backend="torch", device="cpu", device_min_cells=0, pipeline_depth=2)
+    pol.schedule_pipelined(st, _one_cpu(), np.ones(1, np.int32), ["a"])
+    pol.flush(st)
+    assert len(pol._ready) == 1 and st.available[:, 0].sum() == N_NODES - 1
+    st.add_node("late", {"CPU": 1})
+    with caplog.at_level(logging.WARNING, logger="ray_tpu_torch.sched.policy"):
+        first = pol.schedule_pipelined(st, _one_cpu(), np.ones(1, np.int32), ["b"])
+        assert not pol._ready
+        if first is None:
+            np.testing.assert_array_equal(st.available[:, 0], np.ones(N_NODES + 1))
+        plans = ([first] if first is not None else []) + _drain(pol, st)
+    assert GUARD not in caplog.text
+    assert [list(p[0]) for p in plans] == [["b"]] and plans[0][2].sum() == 1
+    assert st.available[:, 0].sum() == N_NODES
+
+
 def _submit(gcs, conn, tid, strategy=None):
     spec = {"task_id": tid, "class_key": (("CPU", 1),), "resources": {"CPU": 1},
             "num_returns": 1}

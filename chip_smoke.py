@@ -6555,6 +6555,335 @@ def phase18(torch, KT, kernel_np, dev, gpu="cuda"):
     return res, head, gpu_k1
 
 
+# ------------------------------------------------------- phase 19: analysis
+#
+# The analysis plane over the port: the GCS model checker with its rounds on
+# the card, the channel memory model and the round-trip gates, the runtime
+# sanitizers around a cluster whose GCS rounds run on the card, and the
+# linter's CLI over the whole package.
+
+# the CLI's defaults (`python -m ray_tpu_torch.analysis --explore all`)
+PHASE19_EXPLORE = dict(max_schedules=500, samples=200, max_depth=30, seed=0)
+PHASE19_SEEDED = ("node-reconnect-instance", "register-node-double-book")
+PHASE19_TASKS = 300
+PHASE19_ACTOR_CALLS = 20
+PHASE19_DAG_EXECUTES = 8
+
+
+def _explore_view(res):
+    """What must not depend on where the rounds ran."""
+    return {
+        "schedules_run": res.schedules_run, "dfs_schedules": res.dfs_schedules,
+        "sampled_schedules": res.sampled_schedules,
+        "branches_pruned": res.branches_pruned, "coverage": sorted(res.coverage),
+        "found": res.found,
+        "violation_kinds": sorted(res.violating.violation_kinds) if res.found else [],
+        "shrunk": res.shrunk,
+    }
+
+
+def phase19a_explore(KT, policy_mod, gpu="cuda", explore_kw=None):
+    """19a: every scenario of the GCS model checker at the CLI's defaults
+    with the explored GCS's rounds on `gpu` (one synchronous K1 launch a
+    `sched` step), then again with K1's plain version on the CPU in this
+    process: no violation, and equal counts and coverage scenario by
+    scenario. K1 launches at least once a round that has classes and
+    nodes. Then the seeded double-book: found on the card, shrunk to the
+    CPU run's schedule."""
+    from ray_tpu_torch.analysis import explore as ex
+
+    kw = dict(explore_kw or PHASE19_EXPLORE)
+    rounds = [0]
+    real = policy_mod.HybridPolicy.schedule
+
+    def counted(self, state, demands, counts):
+        if demands.shape[0] and len(state.node_ids):
+            rounds[0] += 1
+        return real(self, state, demands, counts)
+
+    res = {"budget": kw, "scenarios": {}}
+    policy_mod.HybridPolicy.schedule = counted
+    try:
+        for name in sorted(ex.SCENARIOS):
+            KT.reset_launch_counts()
+            rounds[0] = 0
+            t0 = time.perf_counter()
+            card = ex.explore(ex.SCENARIOS[name], device=gpu, **kw)
+            card_s = time.perf_counter() - t0
+            launches = KT.launch_counts()
+            card_rounds = rounds[0]
+            t0 = time.perf_counter()
+            cpu = ex.explore(ex.SCENARIOS[name], device="cpu", **kw)
+            cpu_s = time.perf_counter() - t0
+            if card.found or cpu.found:
+                raise AssertionError(f"phase 19a {name}: a violation "
+                                     f"({card.summary()} / {cpu.summary()})")
+            if _explore_view(card) != _explore_view(cpu):
+                raise AssertionError(f"phase 19a {name}: the card's exploration differs "
+                                     f"from the CPU's: {card.summary()} / {cpu.summary()}")
+            if gpu == "cuda" and launches["schedule_classes"] < card_rounds:
+                raise AssertionError(f"phase 19a {name}: K1 launched "
+                                     f"{launches['schedule_classes']} times in "
+                                     f"{card_rounds} rounds with work")
+            res["scenarios"][name] = {
+                "schedules": card.schedules_run, "dfs": card.dfs_schedules,
+                "sampled": card.sampled_schedules, "coverage": len(card.coverage),
+                "rounds_with_work": card_rounds, "launches": launches,
+                "card_s": card_s, "cpu_s": cpu_s,
+            }
+            log(f"phase 19a {name}: {card.schedules_run} schedules ({card.dfs_schedules} "
+                f"dfs + {card.sampled_schedules} sampled), {len(card.coverage)} coverage "
+                f"pairs, {card_rounds} rounds with work, launches {launches}; "
+                f"{card_s:.2f} s on {gpu}, {cpu_s:.2f} s on the CPU")
+        scenario, bug = PHASE19_SEEDED
+        KT.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = ex.explore(ex.SCENARIOS[scenario], device=gpu, seeded_bugs=[bug], **kw)
+        card_s = time.perf_counter() - t0
+        launches = KT.launch_counts()
+        cpu = ex.explore(ex.SCENARIOS[scenario], device="cpu", seeded_bugs=[bug], **kw)
+        if not card.found or card.shrunk is None:
+            raise AssertionError(f"phase 19a: {bug} not found on {gpu}: {card.summary()}")
+        if _explore_view(card) != _explore_view(cpu):
+            raise AssertionError(f"phase 19a: {bug}'s exploration on {gpu} differs from "
+                                 f"the CPU's: {card.summary()} / {cpu.summary()}")
+        res["seeded"] = {"bug": bug, "scenario": scenario, "schedules": card.schedules_run,
+                         "kinds": sorted(card.violating.violation_kinds),
+                         "shrunk_steps": len(card.shrunk), "launches": launches,
+                         "card_s": card_s}
+    finally:
+        policy_mod.HybridPolicy.schedule = real
+    res["launches"] = {k: sum(s["launches"][k] for s in res["scenarios"].values())
+                       + res["seeded"]["launches"][k] for k in res["seeded"]["launches"]}
+    if gpu == "cuda" and res["launches"]["schedule_classes"] == 0:
+        raise AssertionError("phase 19a: K1 never launched")
+    return res
+
+
+def phase19b_models():
+    """19b: every channel scenario of the memory model clean, each seeded
+    channel bug found; memmodel's AST round trip over the port's
+    dag/channel.py, and the protocol tracer's METHOD_TABLE within the
+    protocol extracted from the port's tree."""
+    from ray_tpu_torch.analysis import invariants, memmodel as mm, protocol
+
+    res = {"scenarios": {}}
+    for name in sorted(mm.CHANNEL_SCENARIOS):
+        r = mm.explore_channel(mm.CHANNEL_SCENARIOS[name])
+        if r.found:
+            raise AssertionError(f"phase 19b: memmodel {name}: {r.summary()}")
+        res["scenarios"][name] = {"schedules": r.schedules_run, "ops": r.ops_covered}
+    res["seeded"] = {}
+    for bug, name in mm.SEEDED_BUG_SCENARIOS:
+        r = mm.explore_channel(mm.CHANNEL_SCENARIOS[name], max_schedules=2000, samples=0,
+                               seeded_bugs=[bug])
+        if not r.found or r.shrunk is None:
+            raise AssertionError(f"phase 19b: memmodel missed {bug}: {r.summary()}")
+        res["seeded"][bug] = {"schedules": r.schedules_run, "shrunk_ops": len(r.shrunk)}
+    drift = mm.verify_op_sequences()
+    if drift:
+        raise AssertionError(f"phase 19b: dag/channel.py's op sequences drifted: {drift}")
+    idx = protocol.extract_protocol([os.path.join(HERE, "ray_tpu_torch")], root=HERE)
+    missing = sorted(set(invariants.METHOD_TABLE) - idx.handler_methods())
+    if missing:
+        raise AssertionError(f"phase 19b: METHOD_TABLE methods without handlers: {missing}")
+    res["handlers"] = len(idx.handlers)
+    return res
+
+
+def phase19_square(x):
+    return x * x
+
+
+class Phase19Counter:
+    def __init__(self):
+        self.n = 0
+
+    def add(self, k):
+        self.n += k
+        return self.n
+
+
+class Phase19Stage:
+    def __init__(self, k):
+        self.k = k
+
+    def apply(self, x):
+        return [v * self.k + 1 for v in x]
+
+
+def phase19c_sanitized_cluster(KT, gpu="cuda"):
+    """19c: the protocol tracer, the race, wait-for and lock-order
+    sanitizers installed in this process before a two-node Cluster whose
+    GCS runs its rounds on `gpu`, pipelined (the default config, rounds of
+    every size on the device); a few hundred tasks, an actor and a
+    compiled graph over two stages; zero races, wait cycles, lock-order
+    cycles and invariant violations, with K1 launched here. Then every
+    race and wait probe, clean and seeded."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.analysis import invariants, racer, sanitizer, waitgraph
+    from ray_tpu_torch.cluster import Cluster
+    from ray_tpu_torch.core.config import Config
+    from ray_tpu_torch.dag import InputNode, channel as chan_mod
+
+    res = {}
+    fd, trace = tempfile.mkstemp(prefix="phase19_trace_", suffix=".jsonl")
+    os.close(fd)
+    overrides = {"jax_policy_min_cells": 0}
+    if gpu != "cuda":
+        overrides["scheduler_device"] = gpu
+    invariants.install(trace)
+    race = racer.RaceSanitizer().install()
+    wait = waitgraph.WaitSanitizer(stall_warn_s=30.0).install()
+    locks = sanitizer.LockOrderSanitizer().install()
+    try:
+        if race.unresolved:
+            raise AssertionError(f"phase 19c: unresolved watch entries {race.unresolved}")
+        if chan_mod.PARKWATCH is not wait:
+            raise AssertionError("phase 19c: the wait sanitizer is not the channels' PARKWATCH")
+        KT.reset_launch_counts()
+        t0 = time.perf_counter()
+        c = Cluster(config=Config(overrides))
+        procs = []
+        try:
+            pol = c.gcs.policy
+            if pol.name != "torch_cuda" or pol.device.type != gpu or not pol.pipelined:
+                raise AssertionError(f"phase 19c: GCS policy {pol.name} on {pol.device}, "
+                                     f"pipelined {pol.pipelined}")
+            for node in ("node-a", "node-b"):
+                c.add_node(num_cpus=4, node_id=node)
+            c.wait_for_nodes(2, timeout=60)
+            rt.init(address=c.address)
+            res["boot_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            square = rt.remote(phase19_square)
+            got = rt.get([square.remote(i) for i in range(PHASE19_TASKS)], timeout=300)
+            if got != [i * i for i in range(PHASE19_TASKS)]:
+                raise AssertionError("phase 19c: task results differ")
+            counter = rt.remote(Phase19Counter).remote()
+            total = rt.get([counter.add.remote(k) for k in range(PHASE19_ACTOR_CALLS)],
+                           timeout=120)[-1]
+            if total != sum(range(PHASE19_ACTOR_CALLS)):
+                raise AssertionError(f"phase 19c: the actor counted {total}")
+            first = rt.remote(Phase19Stage).remote(2)
+            second = rt.remote(Phase19Stage).remote(3)
+            with InputNode() as inp:
+                dag = second.apply.bind(first.apply.bind(inp))
+            compiled = dag.compile()
+            try:
+                for i in range(PHASE19_DAG_EXECUTES):
+                    out = compiled.execute([i, i + 1], timeout=120)
+                    if out != [(v * 2 + 1) * 3 + 1 for v in (i, i + 1)]:
+                        raise AssertionError(f"phase 19c: the compiled graph gave {out}")
+            finally:
+                compiled.teardown()
+            res["workload_s"] = time.perf_counter() - t0
+            for d in c.daemons:  # under the daemon's lock: the racer watches
+                with d._lock:
+                    procs += [w.proc for w in d.workers.values() if w.proc is not None]
+        finally:
+            try:
+                rt.shutdown()
+            finally:
+                c.shutdown()
+                killed = _reap(set(procs))
+        res["launches"] = KT.launch_counts()
+        if killed:
+            raise AssertionError(f"phase 19c: workers alive 20 s after shutdown: {killed}")
+    finally:
+        locks.uninstall()
+        wait.uninstall()
+        race.uninstall()
+        invariants.uninstall()
+    violations = invariants.check_trace(trace)
+    os.unlink(trace)
+    res.update(races=len(race.races), watched_fields=race.report()["watched_fields"],
+               wait_cycles=len(wait.deadlocks), stalls=len(wait.stalls),
+               lock_order_cycles=len(locks.cycles()), invariant_violations=len(violations))
+    if race.races:
+        raise AssertionError(f"phase 19c: races\n{race.format_races()}")
+    if wait.deadlocks:
+        raise AssertionError(f"phase 19c: wait cycles {wait.deadlocks}")
+    if locks.cycles():
+        raise AssertionError(f"phase 19c: lock-order cycles {locks.cycles()}")
+    if violations:
+        raise AssertionError(f"phase 19c: invariant violations "
+                             f"{[v.format() for v in violations][:5]}")
+    if gpu == "cuda" and res["launches"]["schedule_classes"] == 0:
+        raise AssertionError(f"phase 19c: the GCS's rounds launched {res['launches']}")
+    # the probes: each clean run reports nothing, each seeded bug is caught
+    res["probes"] = {}
+    wl = racer.extract_watchlist()
+    for name in sorted(racer.RACE_PROBES):
+        r = racer.run_probe(name, rounds=3, watchlist=wl)
+        if r.detected or r.unresolved:
+            raise AssertionError(f"phase 19c: race probe {name} clean run: {r.summary()}")
+    for bug, _mod, name in racer.SEEDED_RACES:
+        r = racer.run_probe(name, seeded_bugs=[bug], rounds=3, watchlist=wl)
+        if not r.detected:
+            raise AssertionError(f"phase 19c: race probe {name} missed {bug}")
+        res["probes"][bug] = r.rounds
+    for name in sorted(waitgraph.WAIT_PROBES):
+        r = waitgraph.run_probe(name, rounds=2)
+        if r.detected:
+            raise AssertionError(f"phase 19c: wait probe {name} clean run: {r.summary()}")
+    for bug, _mod, name in waitgraph.SEEDED_WAITS:
+        r = waitgraph.run_probe(name, seeded_bugs=(bug,), rounds=3)
+        if not r.detected:
+            raise AssertionError(f"phase 19c: wait probe {name} missed {bug}")
+        res["probes"][bug] = r.rounds
+    return res
+
+
+def phase19d_cli():
+    """19d: `python -m ray_tpu_torch.analysis ray_tpu_torch --format json`
+    against an empty baseline: no new finding, no error, the whole tree."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        baseline = os.path.join(tmp, "baseline.json")
+        with open(baseline, "w") as f:
+            json.dump({"findings": {}}, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ray_tpu_torch.analysis", "ray_tpu_torch",
+             "--format", "json", "--baseline", baseline],
+            cwd=HERE, env={**os.environ, "PYTHONPATH": HERE},
+            capture_output=True, text=True, timeout=300,
+        )
+        secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 19d: the linter exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    data = json.loads(proc.stdout)
+    if data["new"] or data["errors"] or data["files_scanned"] <= 100:
+        raise AssertionError(f"phase 19d: {len(data['new'])} new findings, errors "
+                             f"{data['errors']}, {data['files_scanned']} files")
+    return {"files_scanned": data["files_scanned"], "suppressed": data["suppressed"],
+            "checks": len(data["checks"]), "s": secs}
+
+
+def phase19(KT, policy_mod, gpu="cuda", explore_kw=None):
+    """Phase 19: 19a-19d, each part's seconds; returns the results and the
+    scheduler kernels' launches of 19a (the explorer's rounds) and 19c (the
+    sanitized cluster's GCS)."""
+    t_phase = time.perf_counter()
+    res = {}
+    for part, fn in (("19a", lambda: phase19a_explore(KT, policy_mod, gpu, explore_kw)),
+                     ("19b", phase19b_models),
+                     ("19c", lambda: phase19c_sanitized_cluster(KT, gpu)),
+                     ("19d", phase19d_cli)):
+        t0 = time.perf_counter()
+        res[part] = fn()
+        res[part]["part_s"] = time.perf_counter() - t0
+        log(f"phase {part}: {res[part]['part_s']:.1f} s")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 19: {json.dumps(res, default=str)}")
+    return res, {"19a": res["19a"]["launches"], "19c": res["19c"]["launches"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -6875,6 +7204,25 @@ def main() -> int:
         f"{b18['scale_down_s']:.2f} s, {b18['topology_changes']} topology changes, "
         f"18c {c18['topology_changes']}, {scale_res['discarded_windows']} pipelined windows "
         f"discarded for another topology; phase {scale_res['phase_s']:.1f} s")
+
+    # the analysis plane: the model checker exploring a GCS whose rounds run
+    # K1 on the card, the models and gates, the sanitizers around a cluster
+    # whose GCS runs on the card, the linter over the package
+    t0 = time.perf_counter()
+    analysis_res, launches19 = phase19(KT, policy_mod)
+    a19, c19, d19 = analysis_res["19a"], analysis_res["19c"], analysis_res["19d"]
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s, launches {launches19}")
+    log(f"phase 19 on {card}: 19a {a19['part_s']:.1f} s ("
+        + ", ".join(f"{n} {s['card_s']:.2f} s card / {s['cpu_s']:.2f} s CPU, K1 "
+                    f"{s['launches']['schedule_classes']} in {s['rounds_with_work']} rounds"
+                    for n, s in a19["scenarios"].items())
+        + f"; {a19['seeded']['bug']} found on the card, shrunk to "
+        f"{a19['seeded']['shrunk_steps']} steps), 19b {analysis_res['19b']['part_s']:.1f} s, "
+        f"19c {c19['part_s']:.1f} s ({c19['races']} races over {c19['watched_fields']} "
+        f"fields, {c19['wait_cycles']} wait cycles, {c19['stalls']} stalls, "
+        f"{c19['lock_order_cycles']} lock-order cycles, {c19['invariant_violations']} "
+        f"invariant violations), 19d {d19['s']:.1f} s over {d19['files_scanned']} files; "
+        f"phase {analysis_res['phase_s']:.1f} s")
     if guard_records:
         raise AssertionError(f"invariant guard fired: {guard_records}")
 
@@ -6979,7 +7327,7 @@ def main() -> int:
                     "train_across_ranks": mesh_train, "cluster": cluster_res,
                     "serving": serving_res, "train_library": train_lib,
                     "rllib": rllib_res, "tune": tune_res, "data_workflow": data_res,
-                    "autoscaler_state_dashboard": scale_res,
+                    "autoscaler_state_dashboard": scale_res, "analysis": analysis_res,
                     "attention_ms_unrounded": model_rec["attention"]["ms_unrounded"],
                     "attention_ms_f32_cuda_core": model_rec["attention"]["ms_f32_cuda_core"],
                     "attention_bwd_ms_f32_cuda_core":

@@ -35,7 +35,7 @@ from ray_tpu_torch.core.exceptions import (
 from ray_tpu_torch.core.memory_store import MemoryStore
 from ray_tpu_torch.core.object_ref import ObjectRef
 from ray_tpu_torch.core.task_spec import TaskSpec, new_id
-from ray_tpu_torch.cluster.rpc import ConnectionLost, RetryingRpcClient, RpcClient
+from ray_tpu_torch.cluster.rpc import ConnectionLost, RetryingRpcClient, RpcClient, RpcError
 from ray_tpu_torch.util import metrics as _metrics
 from ray_tpu_torch.util import tracing as _tracing
 
@@ -1251,16 +1251,7 @@ class ClusterClient:
                     and entry.value[0] == "__remote__"
                 ):
                     payload = serialization.pack({"e": False, "v": entry.value})
-                    node = self._pick_put_node()
-                    if node is not None:
-                        daemon = self._daemon(
-                            node["node_id"], node["addr"], node["port"]
-                        )
-                        daemon.call(
-                            "put_object",
-                            {"object_id": oid, "payload": payload},
-                            timeout=self._rpc_timeout,
-                        )
+                    if self._republish(oid, payload):
                         continue
                 # lineage: resubmit the producing task (deduped)
                 ptid = d.get("task")
@@ -1455,12 +1446,32 @@ class ClusterClient:
         self._register_ref(ref)
         return ref
 
-    def _pick_put_node(self):
+    def _republish(self, oid: str, payload: bytes) -> bool:
+        """Put a lost object's cached value back on a live node for a
+        repair. The owner's view can still list a node that is gone (an
+        autoscaler just terminated it): a node that refuses, drops or
+        times out the put is skipped for this repair and the next live
+        node tried. False when no node took it."""
+        tried: set = set()
+        while True:
+            node = self._pick_put_node(exclude=tried)
+            if node is None:
+                return False
+            tried.add(node["node_id"])
+            try:
+                daemon = self._daemon(node["node_id"], node["addr"], node["port"])
+                daemon.call("put_object", {"object_id": oid, "payload": payload},
+                            timeout=self._rpc_timeout)
+                return True
+            except (OSError, RpcError):
+                continue
+
+    def _pick_put_node(self, exclude=()):
         with self._lock:
             alive = [
                 dict(node_id=nid, **{k: n[k] for k in ("addr", "port")})
                 for nid, n in self._nodes.items()
-                if n.get("alive", True)
+                if n.get("alive", True) and nid not in exclude
             ]
             if not alive:
                 return None

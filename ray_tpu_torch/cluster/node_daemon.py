@@ -1347,7 +1347,9 @@ class NodeDaemon:
             # the (possibly blocking) shm create runs unlocked; the index
             # insert re-checks under the lock
             made = None
-            if c["key"] not in self._chan_index:
+            with self._lock:  # the teardown pops the index under it
+                have = c["key"] in self._chan_index
+            if not have:
                 made = Channel.create(
                     c["path"], int(p.get("capacity") or 65536), c["key"]
                 )
@@ -1472,7 +1474,8 @@ class NodeDaemon:
         """Cross-node edge deposit: a remote writer (worker or driver)
         hands a frame to the channel this daemon owns. Blocking (channel
         backpressure) — runs off the event loop."""
-        ch = self._chan_index.get(p["key"])
+        with self._lock:  # the teardown pops the index under it
+            ch = self._chan_index.get(p["key"])
         if ch is None:
             return {"ok": False,
                     "error": f"no channel {p['key']} on {self.node_id}"}
@@ -1657,7 +1660,9 @@ class NodeDaemon:
         paths = tuple(f"{self.chan_dir}/{k}.chan" for k in keys)
         for key, path in zip(keys, paths):
             made = None
-            if key not in self._chan_index:
+            with self._lock:  # the pair's close pops the index under it
+                have = key in self._chan_index
+            if not have:
                 made = Channel.create(path, cap, key)
             with self._lock:
                 cur = (self._chan_index.setdefault(key, made)

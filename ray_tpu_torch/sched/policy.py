@@ -154,6 +154,15 @@ class HybridPolicy(SchedulingPolicy):
     def name(self):
         return "hybrid" if self.backend == "numpy" else "torch_cuda"
 
+    def close(self) -> None:
+        """Drop the device view and any in-flight window; the next round
+        builds a fresh TorchScheduler."""
+        self._pipe.clear()
+        self._pipe_inflight.clear()
+        self._ready.clear()
+        self._torch = None
+        self._topology_key = None
+
     def _torch_sched(self, state: NodeResourceState):
         from ray_tpu_torch.sched.kernel_torch import TorchScheduler
 

@@ -255,6 +255,48 @@ def test_lineage_reconstruction_of_lost_dep():
         _teardown(cluster)
 
 
+def test_owner_republish_skips_a_node_its_view_still_lists():
+    """A small result inlined to its owner, made on node B; B is killed,
+    and the owner's node view still lists B (as when an autoscaler has
+    just terminated it), first in line for the next put. The consumer's
+    fetch fails, and the owner's repair republishes the cached value: the
+    put refused by B must move on to the next live node instead of failing
+    the consumer with ConnectionRefusedError. (The reference's client,
+    ray_tpu/cluster/client.py, fails the consumer here.)"""
+    from ray_tpu_torch.core import api
+
+    cluster = _cluster()
+    cluster.add_node(num_cpus=2)
+    victim = cluster.add_node(num_cpus=2, resources={"victim": 1})
+    ray_tpu_torch.init(address=cluster.address)
+    client = api._get_runtime()
+    try:
+        @ray_tpu_torch.remote(resources={"victim": 0.001})
+        def produce():
+            return 7
+
+        @ray_tpu_torch.remote
+        def consume(x):
+            return x + 1
+
+        src = produce.remote()
+        ray_tpu_torch.wait([src], timeout=15.0)
+        assert client.store.try_get(src) is not None  # inlined at the owner
+        view = dict(client._nodes)
+        cluster.kill_node(victim)
+        deadline = time.time() + 10
+        while time.time() < deadline and client._nodes.get(
+                victim.node_id, {}).get("alive", False):
+            time.sleep(0.05)
+        with client._lock:  # the stale view, B the next pick
+            client._nodes = {victim.node_id: dict(view[victim.node_id], alive=True),
+                             **{k: v for k, v in view.items() if k != victim.node_id}}
+            client._put_rr = -1
+        assert ray_tpu_torch.get(consume.remote(src), timeout=40.0) == 8
+    finally:
+        _teardown(cluster)
+
+
 def test_actor_results_survive_worker_restart():
     """Results an actor produced BEFORE its worker died stay retrievable
     after restart: they live in the node daemon's store, which outlives the

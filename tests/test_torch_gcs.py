@@ -36,6 +36,18 @@ from ray_tpu_torch.sched.kernel_torch import TorchScheduler
 from ray_tpu_torch.sched.policy import make_policy_from_config
 from ray_tpu_torch.sched.resources import NodeResourceState, ResourceSpace
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's xdist workers torch's intra-op threads spin
+    against each other's (one plain K1 call on config_5's round took
+    ~200 s with six processes at once, ~1 s at one thread each). One
+    thread for this module's tests, the count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ALGOS = ["scan", "rounds", "chunked"]
 
 

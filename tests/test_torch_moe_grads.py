@@ -53,6 +53,18 @@ from ray_tpu_torch.parallel import make_optimizer
 from test_torch_moe import golden_inputs, top2_gap  # tests/ is on sys.path
 from test_torch_moe_kernels import jax_route
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's xdist workers torch's intra-op threads spin
+    against each other's (one plain K1 call on config_5's round took
+    ~200 s with six processes at once, ~1 s at one thread each). One
+    thread for this module's tests, the count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMALL = dict(d_model=32, d_ff=64, n_experts=4)
 G, D = 4, SMALL["d_model"]
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -32,6 +32,18 @@ from ray_tpu_torch.sched import kernel_np as port_np
 from ray_tpu_torch.sched import kernel_shard as KS
 from ray_tpu_torch.sched import kernel_torch as KT
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's xdist workers torch's intra-op threads spin
+    against each other's (one plain K1 call on config_5's round took
+    ~200 s with six processes at once, ~1 s at one thread each). One
+    thread for this module's tests, the count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 R = 16
 
 
@@ -353,6 +365,7 @@ def test_exported_and_cpu_runs_count_no_launch():
 def _gloo_rank(rank, world, init_file, data_file):
     """One rank of the gloo test: its block through make_sharded_scheduler
     (group), both results whole, equal to the in-process ones."""
+    torch.set_num_threads(1)  # four ranks share the machine's cores
     dist.init_process_group("gloo", init_method=f"file://{init_file}", world_size=world,
                             rank=rank)
     try:

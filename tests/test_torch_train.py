@@ -51,6 +51,18 @@ from ray_tpu_torch.parallel import mesh as PMESH
 from ray_tpu_torch.parallel import tpu_train as PTT
 from ray_tpu_torch.parallel.tpu_train import TRAIN_GOLDEN_TOL
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """Under the suite's xdist workers torch's intra-op threads spin
+    against each other's (one plain K1 call on config_5's round took
+    ~200 s with six processes at once, ~1 s at one thread each). One
+    thread for this module's tests, the count restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMALL = dict(vocab_size=128, d_model=64, n_heads=2, n_layers=2, d_ff=128, max_seq_len=64)
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 LR = 3e-4

@@ -924,7 +924,7 @@ def measure_rpc_budget(iters: int = 12, warmup: int = 3) -> Dict[str, Any]:
     Shared by ``lint_gate --rpc-budget`` (in-process gate) and
     ``bench.py rpc_budget``.
     """
-    import ray_tpu_torch as ray_tpu
+    import ray_tpu_torch
     from ray_tpu_torch import serve
     from ray_tpu_torch.cluster.cluster_utils import Cluster
     from ray_tpu_torch.dag import InputNode

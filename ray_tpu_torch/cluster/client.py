@@ -943,6 +943,14 @@ class ClusterClient:
                 inflight.discard(seq)
                 flight_cv.notify_all()
 
+        def _may_have_run(seq):
+            # recorded BEFORE _done releases the in-flight slot: the
+            # dispatcher's replay drain wakes on _done, so a later-recorded
+            # max_execed could let a bounced call replay behind this one
+            # (the exact inversion the guard exists to stop)
+            with flight_cv:
+                max_execed[0] = max(max_execed[0], seq)
+
         while True:
             got = q.get()
             if got is None:
@@ -1010,6 +1018,9 @@ class ClusterClient:
                 try:
                     p = f.result()
                 except (ConnectionLost, OSError) as e:
+                    # the call left on the wire and may have run before its
+                    # connection died: the replay guard counts it as run
+                    _may_have_run(seq)
                     _done(seq)
                     # daemon died with the call possibly mid-execution:
                     # at-most-once — fail, never replay (reference: actor
@@ -1021,6 +1032,7 @@ class ClusterClient:
                     self._release_task_deps(meta["task_id"])
                     return
                 except Exception as e:  # noqa: BLE001
+                    _may_have_run(seq)
                     _done(seq)
                     err = TaskError(f"actor call failed: {e!r}")
                     for r in refs:
@@ -1030,14 +1042,8 @@ class ClusterClient:
                     return
                 if p.get("status") != "ACTOR_UNREACHABLE":
                     # a real execution outcome (not a routing bounce):
-                    # feeds the replay-ordering guard above. Recorded
-                    # BEFORE _done releases the in-flight slot — the
-                    # dispatcher's replay drain wakes on _done, so a
-                    # later-recorded max_execed could let a bounced call
-                    # replay behind this one (the exact inversion the
-                    # guard exists to stop).
-                    with flight_cv:
-                        max_execed[0] = max(max_execed[0], seq)
+                    # feeds the replay-ordering guard above
+                    _may_have_run(seq)
                 _done(seq)
                 if p.get("status") == "ACTOR_UNREACHABLE" and \
                         self._maybe_replay_actor_call(actor_id, seq, meta, refs):

@@ -864,6 +864,14 @@ class GcsServer:
                 # still-queued task's replay must dedupe here rather than
                 # burn (or get rejected by) its owner's admission quota
                 return {"ok": True, "duplicate": True}
+            a = self.actors.get(p.get("actor_id")) if p.get("actor_creation") else None
+            if a is not None and a.get("state") == "ALIVE":
+                # the creation of a live actor, sent again after it
+                # finished (its ack lost with a reset connection, resent by
+                # the client's ack watchdog): admitted, it would run a
+                # second live incarnation beside the first and leak the
+                # first one's hold
+                return {"ok": True, "duplicate": True}
             # --- admission controller (README "Overload control"):
             # bounded per-driver in-system ledger. Over the bound the
             # submission is REFUSED with a typed retryable reply — the

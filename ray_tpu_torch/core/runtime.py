@@ -57,6 +57,15 @@ def _env_stepped(gen, _rtenv, env):
         yield item
 
 
+def _cut_by_loop_shutdown(e: BaseException) -> bool:
+    """Whether an async actor's call ended because its event loop shut
+    down (ActorEventLoop.shutdown cancels every in-flight coroutine)."""
+    import asyncio
+    import concurrent.futures
+
+    if isinstance(e, (asyncio.CancelledError, concurrent.futures.CancelledError)):
+        return True
+    return isinstance(e, RuntimeError) and "actor event loop shut down" in str(e)
 
 
 class _ActorState:
@@ -619,9 +628,16 @@ class LocalRuntime:
             status = "FINISHED"
         except BaseException as e:
             tb = traceback.format_exc()
-            self._store_error(
-                spec, TaskError(f"actor method {spec.method_name} failed: {e!r}", tb)
-            )
+            if st.dead and st.aio is not None and _cut_by_loop_shutdown(e):
+                # killed mid-call: the event loop's shutdown cancelled the
+                # call. That is the actor's death, as in cluster mode, where
+                # the worker's exit fails the call; callers that retry on a
+                # dead actor (a serve handle) then retry it
+                err = ActorDiedError(
+                    f"actor {st.actor_id} is dead: {st.death_cause or 'killed'}")
+            else:
+                err = TaskError(f"actor method {spec.method_name} failed: {e!r}", tb)
+            self._store_error(spec, err)
             status = "FAILED"
         with self._lock:
             self._running.pop(spec.task_id, None)

@@ -200,7 +200,8 @@ class _Pair:
     """Client end of one (handle, replica) request plane."""
 
     __slots__ = ("pair_id", "actor_id", "node_id", "req", "resp", "qlock",
-                 "outbox", "flushing", "dead", "inflight", "reader")
+                 "outbox", "flushing", "dead", "inflight", "reader",
+                 "reader_done")
 
     def __init__(self, pair_id: str, actor_id: str, node_id: str, req, resp):
         self.pair_id = pair_id
@@ -216,6 +217,9 @@ class _Pair:
         self.dead = False
         self.inflight = 0
         self.reader: Optional[threading.Thread] = None
+        # set by the reader under the router's lock as it exits: from then
+        # on the pair's stranded requests are swept by whoever fails it
+        self.reader_done = False
 
 
 class FastPathRouter:
@@ -686,6 +690,14 @@ class FastPathRouter:
             except Exception:  # noqa: BLE001
                 pass
             self._detach_req(pair)
+            # a pair another thread failed while this one was reading:
+            # every response the replica wrote has been read above, so
+            # what is still registered here is rerouted now
+            with self._lock:
+                pair.reader_done = True
+                dead = pair.dead
+            if dead and not self._closed:
+                self._fail_pair(pair, "pair failed while its reader read")
 
     def _node_alive(self, node_id: str) -> Optional[bool]:
         alive = getattr(self._rt, "node_alive", None)
@@ -710,21 +722,31 @@ class FastPathRouter:
         re-registered under its SAME request id, so its response — wherever
         it comes from — still delivers exactly once."""
         with self._lock:
-            if pair.dead:
-                return
+            first = not pair.dead
             pair.dead = True
-            self._dead.add(pair.actor_id)
-            if self._pairs.get(pair.actor_id) is pair:
-                del self._pairs[pair.actor_id]
-            stranded = [w for w in self._waiters.values()
-                        if w.pair is pair and not w.done]
+            if first:
+                self._dead.add(pair.actor_id)
+                if self._pairs.get(pair.actor_id) is pair:
+                    del self._pairs[pair.actor_id]
+            # A replica's responses may still sit in the response channel
+            # (a killed replica's last frame, committed before it died):
+            # while the pair's reader runs, it reads them first and fails
+            # the pair again on its way out, which reroutes what is left.
+            # Rerouting them here, ahead of that read, ran each such
+            # request twice and delivered it twice.
+            stranded = []
+            if (pair.reader is None or pair.reader_done
+                    or pair.reader is threading.current_thread()):
+                stranded = [w for w in self._waiters.values()
+                            if w.pair is pair and not w.done]
             for w in stranded:
                 self._waiters.pop(w.rid, None)
                 w.pair = None
-        try:
-            self._rt.serve_teardown(pair.pair_id)
-        except Exception:  # noqa: BLE001 - GCS sweeps on disconnect
-            pass
+        if first:
+            try:
+                self._rt.serve_teardown(pair.pair_id)
+            except Exception:  # noqa: BLE001 - GCS sweeps on disconnect
+                pass
         # channel ends are NOT detached here: the pair's reader thread is
         # (or may be) parked inside resp.read, and detaching under it
         # tears the mapping out of a live poll — the reader notices

@@ -400,11 +400,7 @@ def test_repo_is_clean():
 
 #: What the port's extracted protocol lacks or adds against the
 #: reference's, each with its cause. Any other difference fails.
-PROTOCOL_DIFFERENCES = {
-    # the reference's CLI (ray_tpu/scripts/cli.py) reads the GCS metrics;
-    # the scripts are not ported yet
-    ("calls", "metrics", "ray_tpu/scripts/cli.py"): -2,
-}
+PROTOCOL_DIFFERENCES = {}
 #: config keys only the port defines: ray_tpu_torch/core/config.py:32
 PORT_ONLY_CONFIG_KEYS = {"scheduler_device"}
 

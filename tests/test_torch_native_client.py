@@ -3,13 +3,14 @@ by g++ into build/torch_ext/) against the port's dashboard head: the
 reference's cases (tests/test_native_client.py) with the port's library,
 the named-call gateway running port functions as cluster tasks, REST jobs
 whose entrypoint connects to the port's cluster; and the JAX package's
-own built client against the same head, answering as the port's does.
-The CLI's `job` round trip waits for the port's CLI.
+own built client against the same head, answering as the port's does;
+and the port's CLI's `job` round trip (``python -m ray_tpu_torch job``).
 
 The GCS's policy is torch_cuda with scheduler_device "cpu"."""
 
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -189,3 +190,62 @@ def test_reference_client_answers_as_the_ports(dash, lib, ref_lib):
     bad = json.dumps({"entrypoint": "true", "submission_id": "a/b"}).encode()
     assert _take(lib, lib.rt_submit_job(b"127.0.0.1", dash.port, bad)) == \
         _take(ref_lib, ref_lib.rt_submit_job(b"127.0.0.1", dash.port, bad))
+
+
+def test_job_cli_roundtrip(dash):
+    """tests/test_native_client.py::test_job_cli_roundtrip through the
+    port's CLI: `python -m ray_tpu_torch job submit/status/logs/list/stop`
+    against the live head."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        + os.pathsep + env.get("PYTHONPATH", "")
+    )
+    run = lambda *args: subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", "job",
+         args[0], "--dashboard", f"127.0.0.1:{dash.port}", *args[1:]],
+        capture_output=True, text=True, timeout=120, env=env,
+    )
+    out = run("submit", "--submission-id", "cli-job-1", "--",
+              "echo", "cli-job-output")
+    assert '"job_id": "cli-job-1"' in out.stdout, out.stdout + out.stderr
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        st = run("status", "cli-job-1")
+        if '"SUCCEEDED"' in st.stdout:
+            break
+        time.sleep(0.5)
+    assert '"SUCCEEDED"' in st.stdout, st.stdout + st.stderr
+    logs = run("logs", "cli-job-1")
+    assert "cli-job-output" in logs.stdout
+    lst = run("list")
+    assert "cli-job-1" in lst.stdout
+    # quoting survives the shell round-trip (shlex.join on the client,
+    # shell=True on the head)
+    out = run("submit", "--submission-id", "cli-job-q", "--",
+              sys.executable, "-c", "print('quo ted')")
+    assert '"cli-job-q"' in out.stdout, out.stdout + out.stderr
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        st = run("status", "cli-job-q")
+        if '"SUCCEEDED"' in st.stdout:
+            break
+        time.sleep(0.5)
+    assert '"SUCCEEDED"' in st.stdout, st.stdout + st.stderr
+    assert "quo ted" in run("logs", "cli-job-q").stdout
+    # stop a long-running job through the CLI
+    out = run("submit", "--submission-id", "cli-job-s", "--",
+              sys.executable, "-c", "import time; time.sleep(300)")
+    assert '"cli-job-s"' in out.stdout
+    run("stop", "cli-job-s")
+    deadline = time.time() + 30
+    while time.time() < deadline:
+        st = run("status", "cli-job-s")
+        if '"RUNNING"' not in st.stdout:
+            break
+        time.sleep(0.3)
+    assert '"STOPPED"' in st.stdout or '"FAILED"' in st.stdout, st.stdout
+    # server-side errors surface as clean messages, not tracebacks
+    err = run("status", "no-such-job")
+    assert err.returncode != 0 and "no job" in (err.stdout + err.stderr)
+    assert "Traceback" not in err.stderr

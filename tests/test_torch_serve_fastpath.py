@@ -478,3 +478,88 @@ def test_cuda_small_model_replica_on_the_card():
         assert np.array_equal(g, d)
         np.testing.assert_allclose(g, w, rtol=0, atol=GOLDEN_TOL["f32"][0])
     assert launches["attention"] > 0, launches
+
+
+class _BufferedResponse:
+    """A pair's response end holding one frame the replica committed
+    before it died: read() hands it over once `release` is set, then
+    behaves as a closed, drained channel (the should_stop probe ends it)."""
+
+    def __init__(self, frame):
+        self.frame = frame
+        self.release = threading.Event()
+
+    def read(self, timeout=None, should_stop=None):
+        if self.frame is not None and self.release.wait(timeout=30):
+            frame, self.frame = self.frame, None
+            return 1, frame
+        while not (should_stop and should_stop()):
+            time.sleep(0.01)
+        raise ChannelClosedError("stage stopping")
+
+    def detach(self):
+        pass
+
+
+def _bare_router(rt):
+    """A FastPathRouter with its state and no runtime: the pairs are the
+    test's."""
+    from ray_tpu_torch.serve import fastpath as fp
+
+    router = fp.FastPathRouter.__new__(fp.FastPathRouter)
+    router._rt = rt
+    router.deployment_name = "d"
+    router._lock = threading.Lock()
+    router._stats_lock = threading.Lock()
+    router.stats = {"submitted": 0, "completed": 0, "rerouted": 0, "duplicates": 0,
+                    "failed": 0, "rejected": 0, "shed": 0}
+    router._pairs, router._waiters, router._dead = {}, {}, set()
+    router._closed = False
+    router._m_lat, router._m_key = [], fp._M_REQ_SECONDS.series_key({"deployment": "d"})
+    return router
+
+
+@pytest.mark.parametrize("replica_answered", [True, False])
+def test_failed_pair_reads_what_its_replica_wrote_before_rerouting(replica_answered):
+    """A flusher whose write fails (the replica was killed) fails the pair
+    while the pair's reader may still hold a response the replica committed
+    before it died. The reader reads it first and only what is still
+    unanswered is rerouted: the reference reroutes at once, so the request
+    runs again on another replica and its second answer counts as a
+    duplicate (seen in the serve storm under load). Without a buffered
+    answer, the request is rerouted once the reader has drained."""
+    from ray_tpu_torch.core import serialization
+    from ray_tpu_torch.serve import fastpath as fp
+
+    class Runtime:
+        def serve_teardown(self, pair_id):
+            pass
+
+        def node_alive(self, node_id):
+            return True
+
+    class Writer:
+        def detach(self):
+            pass
+
+    router = _bare_router(Runtime())
+    rerouted = []
+    router._reroute = lambda w, dead_actor, reason: rerouted.append(w.rid)
+    frame = serialization.dumps([("req-1", False, 42)]) if replica_answered else None
+    resp = _BufferedResponse(frame)
+    pair = fp._Pair("pair-1", "actor-1", "node-1", Writer(), resp)
+    w = fp._Waiter("req-1", ("req-1", None, (41,), {}, None))
+    router._pairs["actor-1"] = pair
+    router._waiters["req-1"], w.pair, pair.inflight = w, pair, 1
+    pair.reader = threading.Thread(target=router._read_loop, args=(pair,), daemon=True)
+    pair.reader.start()
+    router._fail_pair(pair, "write failed: replica killed")  # the flusher's call
+    resp.release.set()
+    pair.reader.join(timeout=30)
+    assert not pair.reader.is_alive()
+    if replica_answered:
+        assert w.done and w.value == 42 and not w.is_err
+        assert rerouted == []
+    else:
+        assert not w.done and rerouted == ["req-1"]
+    assert router.stats["duplicates"] == 0 and "req-1" not in router._waiters

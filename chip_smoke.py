@@ -15,7 +15,14 @@ caught):
 1. every kernel against its plain PyTorch version on the card, with exact
    equality: K1 on the golden problem of the kernel tests, on seeded random
    problems (dead nodes, masked custom resources, over-subscribed classes)
-   and on the 10k-node x 256-class stream problem; K2 and K3, the rows
+   and on the 10k-node x 256-class stream problem; K2 and K3 applied by
+   K1 in its own launch (a scan round's refresh), against the plain K2 or
+   K3 then the plain K1, in both of K1's forms (40 000 nodes: the rows in
+   global memory), a short last block, R = 5, negative entries, and
+   indices -1, N, N + 7 dropped; timed in turns at the stream's first round
+   against K1 alone and against the pair a round ran before (K2 or K3
+   alone, then K1), and K1 with no pass in each mode; K1 at phase 20's
+   shapes (4 and 10 nodes, C 16); K2 and K3 alone, the rows
    and delta modes of refresh_view_kernel, K2 at the bucket edges with the
    first and last node among its rows, K3 over negative entries, each
    timed alone (a round's view build, the round then writing the view in
@@ -39,14 +46,19 @@ caught):
    of K10b at the forward's (the profiler loses device records, whole
    sessions once a process has gone a minute without one; PERF.md); and
    a pipelined scan round's launch and copy calls alone and after
-   apply_delta or update_rows: the refresh adds its uploads and one
-   launch, and the round writes the view in place (no device-to-device
-   copy), or this fails.
+   apply_delta or update_rows: the refresh adds its one upload and no
+   launch (K1 applies it), and the round writes the view in place (no
+   device-to-device copy), or this fails.
 2. the 1M-task stream over 10k nodes (20% of the fleet held back, an
    autoscale flip, completions releasing resources) through
    TorchScheduler.schedule_async / fetch / apply_delta / update_rows, with
    the standing invariants asserted on every fetched round; once for each
-   scheduler_kernel_algo (scan K1, rounds K5, chunked K6).
+   scheduler_kernel_algo (scan K1, rounds K5, chunked K6), each with the
+   launch and copy calls of one more round after a delta printed. Under
+   scan every refresh runs in K1's launch but those a later refresh
+   applied before a round came (counted as they happen), or this fails;
+   phases 3-5 and the GCS's scan rounds of phases 13, 18, 19 and 20 allow
+   none alone.
 3. a torch_cuda policy on CUDA and one on the CPU, in lockstep on
    identical 10k-node states, over synchronous and pipelined rounds;
    decisions must be equal every round and the invariant guard silent.
@@ -56,8 +68,13 @@ caught):
    task classes, for each algorithm: (a) a torch_cuda GCS on CUDA and a
    hybrid (NumPy) GCS in lockstep on one submission sequence (6 000
    tasks), placements equal task for task; (b) a pipelined torch_cuda GCS draining every task
-   with nothing leaked; (c) a GCS built with the default config, its
-   scheduler loop live, fed over an RPC connection as a driver feeds it.
+   with nothing leaked, its rounds' launches by kernel printed; then,
+   apart from that timed drain, a second such GCS whose first round and
+   whose round after a release (dirty rows) are profiled, their launch
+   and copy calls printed, with at least one refresh made and, under
+   scan, every one in K1's launch; (c) a GCS built with the
+   default config, its scheduler loop live, fed over an RPC connection as
+   a driver feeds it.
 
 6. the flagship transformer's forward (ray_tpu_torch.models, the default
    TransformerConfig in bf16, weights from a numpy seed): (a) K8 (both
@@ -407,8 +424,11 @@ and K2 or K3 refresh the view, as in phase 13; K4 is reported,
 tasks counts K1 in its worker ("phase18_gpu_task_launches"); phase 19a's
 and 19c's K1-K3 ("phase19_launches") and each of phase 20b's storms'
 ("phase20_launches", by storm apart) go into the line too. The
-JSON line before the card's name and power limit lists the kernels; the
-last line is the result.
+JSON line before the card's name and power limit lists the kernels, K2
+and K3 twice: alone ("scatter_rows", "delta_clip": refresh_view_kernel,
+their launches counting either form, "launches_standalone" apart) and
+applied in K1's launch ("scatter_rows_fused", "delta_clip_fused": ms is
+what they add to K1's, in turns); the last line is the result.
 Exits non-zero without a result when no CUDA device is present or when the
 port's package is not beside this script.
 """
@@ -675,7 +695,7 @@ def bound(bytes_moved, ops, peak_ops_per_s=PEAK_F32_OPS_PER_S):
 def phase1_kernels(torch, KT, KS, kernel_np, dev):
     """Each kernel against its plain version on the card, exact equality."""
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    rec = {name: {"max_abs_err": 0.0} for name in KT.KERNELS}
+    rec = {name: {"max_abs_err": 0.0} for name in (*KT.KERNELS, *FUSED_REFRESH)}
 
     def err(name, a, b):
         d = float((a.to(torch.float64) - b.to(torch.float64)).abs().max()) \
@@ -739,6 +759,9 @@ def phase1_kernels(torch, KT, KS, kernel_np, dev):
         f"{'shared' if plan.rows_in_smem else 'global'} memory, {sum(passes)} passes; "
         f"in turns K1 {k1_ms[0]:.4f}, K7 (p = {PATH_SHARDS}) {k7_ms[0]:.4f}, "
         f"{k7_ms[1]:.4f}, K1 {k1_ms[1]:.4f} ms")
+    phase1_fused_refresh(torch, KT, dev, rec, err, args, [
+        (n, p) for n, p in problems + k1_edge_problems() if n in FUSED_CHECK_PROBLEMS])
+    rec["schedule_classes"]["at_phase20_shapes"] = phase1_k1_small(torch, KT, dev)
 
     # K2 and K3 are refresh_view_kernel's rows and delta modes. K2 at the
     # row buckets' edges, N = 10k, the first and last node among the rows
@@ -876,6 +899,175 @@ def phase1_kernels(torch, KT, KS, kernel_np, dev):
     return rec
 
 
+#: K2 and K3 applied by K1 in its own launch: the kernels line's name of
+#: each, its launch counter in KT.launch_counts(), and its mode
+FUSED_REFRESH = {"scatter_rows_fused": "rows", "delta_clip_fused": "delta"}
+#: phase 1's problems the fused refresh is held on: both of K1's forms (the
+#: rows in global memory at 40 000 nodes), a short last block (10 007), R = 5
+FUSED_CHECK_PROBLEMS = ("golden", "stream_first_round", "n10007", "n40000_global_rows", "r5",
+                        "negative")
+
+
+def refresh_operands(rng, avail, total, mode):
+    """A refresh of `mode` for the view avail [N, R]: rows (1 000 dirty
+    rows, or N - 2 where fewer, the first and last node among them, padded
+    to their bucket with N, and -1 and N + 7 beside; some rows negative,
+    kept verbatim) or a delta of both signs (clipped at 0 and at total)."""
+    N, n_res = total.shape
+    if mode == "rows":
+        n = min(1000, N - 2)
+        pad = next(b for b in (16, 64, 256, 1024, 4096) if n + 2 <= b)
+        idx = np.full(pad, N, np.int32)
+        idx[:n] = rng.permutation(np.concatenate([[0, N - 1], rng.choice(
+            np.arange(1, N - 1), n - 2, replace=False)]))
+        idx[n:n + 2] = (-1, N + 7)
+        rows = rng.integers(0, 60, (pad, n_res)).astype(np.float32)
+        rows[rng.random(rows.shape) < 0.02] = -1.0
+        return idx, rows
+    delta = rng.integers(-30, 30, (N, n_res)).astype(np.float32)
+    delta[rng.random(delta.shape) < 0.3] = 0.0
+    return None, delta
+
+
+def phase1_fused_refresh(torch, KT, dev, rec, err, stream_args, problems):
+    """K1 with K2's or K3's refresh in its own launch against its plain
+    version (the plain K2 or K3, then the plain K1), exactly: on each of
+    `problems` (both of K1's forms: the rows in shared memory and, at 40 000
+    nodes, in global memory; a negative entry) with negative entries added
+    to the view. Then, at the stream's first round (`stream_args`, 10 000 x
+    16, 1 000 dirty rows of pad 1 024, or a delta [10 000, 16]), in turns:
+    K1 alone (on the view, and on the view each refresh leaves, which
+    changes the round's work), K1 with each refresh, and the pair a round ran
+    before (K2 or K3 alone, then K1), each as a round's wrapper calls it (K1
+    on a copy of the view; the pair's K2 on a copy, K3 into a new view, K1
+    in place); and K1 with no pass (max_passes 0: the launch, the refresh,
+    the staging of the rows, the write-back) in each mode."""
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    rng = np.random.default_rng(28)
+    forms = set()
+    for name, (avail, total, alive, demands, counts) in problems:
+        N, n_res = total.shape
+        if N < 3:
+            continue
+        view = avail.copy()
+        view[rng.random(view.shape) < 0.02] = -2.0
+        args = [T(x) for x in (view, total, alive, demands, counts)]
+        forms.add(KT.k1_launch_plan(N, n_res, dev).rows_in_smem)
+        for fused, mode in FUSED_REFRESH.items():
+            idx, src = refresh_operands(rng, view, total, mode)
+            ref = KT.Refresh(mode, None if idx is None else T(idx), T(src))
+            a_k, v_k = KT.schedule_classes(*args, _refresh=ref)
+            a_p, v_p = KT._schedule_classes_plain(*args, refresh=ref)
+            err(fused, a_k, a_p)
+            err(fused, v_k, v_p)
+    if forms != {True, False}:
+        raise AssertionError(f"fused refresh: K1's forms run {forms}, not both")
+    log(f"K1 with K2's / K3's refresh in its launch: {[n for n, _ in problems]}, both forms, "
+        f"negative entries, pad index N, -1 and N + 7 dropped: == plain")
+
+    avail, total = stream_args[0], stream_args[1]
+    N = avail.shape[0]
+    dirty = np.arange(8000, 9000)
+    idx = np.full(1024, N, np.int32)
+    idx[:1000] = dirty
+    rows = np.concatenate([total[8000:9000].cpu().numpy(), np.zeros((24, R), np.float32)])
+    delta = T(np.random.default_rng(3).integers(-300, 300, (N, R)).astype(np.float32))
+    ti, tr = T(idx), T(rows)
+    refs = {"rows": KT.Refresh("rows", ti, tr), "delta": KT.Refresh("delta", None, delta)}
+    rest = stream_args[1:]
+
+    def k2_pair():
+        v = avail.clone()
+        KT.scatter_rows_(v, ti, tr)
+        return KT.schedule_classes(v, *rest, _in_place=True)
+
+    def k3_pair():
+        return KT.schedule_classes(KT.delta_clip(avail, delta, total), *rest, _in_place=True)
+
+    refreshed = {"rows": KT.scatter_rows_(avail.clone(), ti, tr),
+                 "delta": KT.delta_clip(avail, delta, total)}
+    runs = {"k1": lambda: KT.schedule_classes(*stream_args),
+            "k1_on_rows_refreshed": lambda: KT.schedule_classes(refreshed["rows"], *rest),
+            "k1_on_delta_refreshed": lambda: KT.schedule_classes(refreshed["delta"], *rest),
+            "k1_rows": lambda: KT.schedule_classes(*stream_args, _refresh=refs["rows"]),
+            "k1_delta": lambda: KT.schedule_classes(*stream_args, _refresh=refs["delta"]),
+            "k2_then_k1": k2_pair, "k3_then_k1": k3_pair}
+    for mode in (None, "rows", "delta"):
+        runs["k1_no_pass" + (f"_{mode}" if mode else "")] = (
+            lambda mode=mode: KT.schedule_classes(*stream_args, max_passes=0,
+                                                  _refresh=refs.get(mode)))
+    for (name, mode), pair in zip(FUSED_REFRESH.items(), ("k2_then_k1", "k3_then_k1")):
+        a_f, v_f = runs[f"k1_{mode}"]()
+        a_s, v_s = runs[pair]()
+        err(name, a_f, a_s)
+        err(name, v_f, v_s)
+    turns = {k: [] for k in runs}
+    for order in (list(runs), list(reversed(runs))):
+        for k in order:
+            turns[k].append(time_ms(torch, runs[k], reps=11))
+    mean = {k: float(np.mean(v)) for k, v in turns.items()}
+    for name, mode in FUSED_REFRESH.items():
+        pair = "k2_then_k1" if mode == "rows" else "k3_then_k1"
+        # K1's own time on the view the refresh leaves (the rows refreshed
+        # are held-back nodes': no decision changes, but their utilization
+        # and bucket do, and with them the sweeps' work)
+        alone = f"k1_on_{mode}_refreshed"
+        # the bytes the refresh adds to the round: idx and the live rows
+        # read, or the delta read (K1 reads and writes the view anyway)
+        added = 1024 * 4 + 1000 * R * 4 if mode == "rows" else N * R * 4
+        standalone = "scatter_rows" if mode == "rows" else "delta_clip"
+        plain = (lambda: KT._scatter_rows_plain_(avail.clone(), ti, tr)) if mode == "rows" \
+            else (lambda: KT._delta_clip_plain(avail, delta, total))
+        rec[name].update(
+            ms=mean[f"k1_{mode}"] - mean[alone], plain_ms=time_ms(torch, plain, reps=21),
+            library_ms=None, bound=bound(added, 0 if mode == "rows" else 2 * N * R),
+            k1_ms_in_turns=turns[alone], k1_with_refresh_ms_in_turns=turns[f"k1_{mode}"],
+            pair_ms_in_turns=turns[pair], pair_minus_fused_ms=mean[pair] - mean[f"k1_{mode}"],
+            no_pass_ms_in_turns=turns[f"k1_no_pass_{mode}"],
+            no_pass_minus_k1_no_pass_ms=mean[f"k1_no_pass_{mode}"] - mean["k1_no_pass"],
+            kernel=f"schedule_classes_kernel<ROWS, 512, kRefresh{mode.title()}>",
+            standalone=standalone)
+    rec["schedule_classes"]["no_pass_ms_in_turns"] = turns["k1_no_pass"]
+    log("K1 with the refresh in its launch at the stream's first round, in turns (ms): "
+        + "; ".join(f"{k} {' '.join(f'{x:.4f}' for x in v)}" for k, v in turns.items())
+        + "; added by the fused refresh: "
+        + ", ".join(f"{m} {rec[n]['ms']:.4f}" for n, m in FUSED_REFRESH.items()))
+
+
+def phase1_k1_small(torch, KT, dev):
+    """K1 at phase 20's shapes: 4 and 10 nodes (a small cluster's GCS),
+    16 classes (the bucket its rounds pad to); median device ms, its bound."""
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out = {}
+    for N in (4, 10):
+        rng = np.random.default_rng(N)
+        total = np.zeros((N, R), np.float32)
+        total[:, 0] = 4.0
+        total[:, 3] = rng.integers(8, 33, N)
+        demands = np.zeros((16, R), np.float32)
+        demands[:3, 0] = (1.0, 1.0, 2.0)
+        demands[:3, 3] = (0.0, 1.0, 2.0)
+        demands[3:, 0] = float(KT.INF_FIT)  # the padded classes
+        counts = np.zeros(16, np.int32)
+        counts[:3] = (3, 2, 1)
+        args = [T(x) for x in (total.copy(), total, np.ones(N, bool), demands, counts)]
+        a, _ = KT.schedule_classes(*args)
+        passes = []
+        a_p, _ = KT._schedule_classes_plain(*args, passes_out=passes)
+        if not torch.equal(a, a_p):
+            raise AssertionError(f"K1 at {N} nodes != plain")
+        # phase 1's count for K1 at the stream's shape, at this one
+        ops = sum(p * N * (3 * R + 11 * int(q) + 10)
+                  for p, q in zip(passes, (demands > 0).sum(axis=1)))
+        bytes_k1 = 3 * N * R * 4 + N + 16 * R * 4 + 16 * 4 + 16 * N * 4
+        ms = [time_ms(torch, lambda: KT.schedule_classes(*args), reps=21) for _ in range(2)]
+        b = bound(bytes_k1, ops)
+        out[f"n{N}"] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1], "placed": int(a.sum()),
+                        "passes": sum(passes)}
+    log(f"K1 at phase 20's shapes (C 16): {json.dumps(out)}")
+    return out
+
+
 def phase1_rounds(torch, KT, kernel_np, dev, rec, err, k1_problems):
     """K5 and K6 against their plain versions (assignments and availability
     exact) and against kernel_np (assignments exact, availability within
@@ -1002,20 +1194,22 @@ class Enqueued(NamedTuple):
     dtod: int = 0     # device-to-device copies the profiler recorded on the card
 
 
-def kernels_enqueued(torch, fn, sessions=3):
+def kernels_enqueued(torch, fn, sessions=3, warm=True):
     """What one call of fn enqueues on the card, under torch.profiler after
-    a warm call: its launch calls (the runtime's records, on the host's
-    clock) and the names of the kernels recorded on the card (copies and
-    fills by the runtime left out). The profiler loses device records,
+    a warm call (`warm`): its launch calls (the runtime's records, on the
+    host's clock) and the names of the kernels recorded on the card (copies
+    and fills by the runtime left out). The profiler loses device records,
     never launch calls (PERF.md: whole sessions once a process has gone a
     minute without one; 4 of K5's 25 kernels, in each of three sessions),
     so up to `sessions` sessions are taken until one records a kernel for
     every launch call; where none does, the names are the longest
-    record's and `complete` is False."""
+    record's and `complete` is False. Without a warm call, a call that
+    launches nothing is recorded as such; after one, it fails."""
     from torch.profiler import ProfilerActivity, profile
 
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     best = None
     for _ in range(sessions):
@@ -1034,7 +1228,7 @@ def kernels_enqueued(torch, fn, sessions=3):
             best = Enqueued(calls, names, len(names) == calls, copies, dtod)
         if best.complete:
             break
-    if best.launches == 0:
+    if best.launches == 0 and warm:
         raise RuntimeError(f"torch.profiler recorded no launch call in {sessions} sessions")
     return best
 
@@ -1086,8 +1280,9 @@ def round_refresh_enqueued(torch, KT, dev):
     stream's first round), alone and after a refresh: apply_delta ([10 000,
     16]) or update_rows (1 000 rows, the autoscale flip). The round writes
     the view in place: no device-to-device copy is recorded and the view
-    is the same tensor after it; a refresh adds its uploads (one copy a
-    delta, two for rows) and one launch. Anything else fails."""
+    is the same tensor after it; a refresh adds its upload (one copy, idx
+    and rows in one buffer) and no launch (K1 applies it in its own).
+    Anything else fails."""
     avail, total, alive, demands, counts = stream_first_round()
     sched = KT.TorchScheduler(total, alive, device=dev)
     sched.set_available(avail)
@@ -1102,22 +1297,48 @@ def round_refresh_enqueued(torch, KT, dev):
     for what, refresh, uploads in (
             ("round", lambda: None, 0),
             ("apply_delta + round", lambda: sched.apply_delta(delta), 1),
-            ("update_rows + round", lambda: sched.update_rows(idx, total[idx]), 2)):
+            ("update_rows + round", lambda: sched.update_rows(idx, total[idx]), 1)):
         enq = kernels_enqueued(torch, lambda: (refresh(), rnd()))
-        res[what] = {"launches": enq.launches, "copies": enq.copies, "dtod": enq.dtod}
+        res[what] = {"launches": enq.launches, "copies": enq.copies, "dtod": enq.dtod,
+                     "kernels": sorted(set(n[:60] for n in enq.names))}
         base = res["round"]
         if enq.dtod or (enq.launches, enq.copies) != (
-                base["launches"] + (uploads > 0), base["copies"] + uploads):
+                base["launches"], base["copies"] + uploads):
             raise AssertionError(f"{what}: {enq.launches} launches, {enq.copies} copies "
                                  f"({enq.dtod} device to device); the round alone {base}, "
-                                 f"the refresh's uploads {uploads} and one launch")
+                                 f"the refresh's upload {uploads} and no launch")
         log(f"{what}: {enq.launches} kernel launches, {enq.copies} copies a call, "
             f"{enq.dtod} device to device")
     return res
 
 
+def refresh_forms(before, after):
+    """K2's and K3's launches between two KT.launch_counts() readings, by
+    form: {"rows": {"fused": n, "standalone": n}, "delta": {...}}."""
+    d = {k: after[k] - before.get(k, 0) for k in after}
+    return {mode: {"fused": d[fused],
+                   "standalone": d["scatter_rows" if mode == "rows" else "delta_clip"] - d[fused]}
+            for fused, mode in FUSED_REFRESH.items()}
+
+
+def require_fused(forms, what, allowed=None):
+    """Fail unless every refresh of a scan path ran in K1's launch: none
+    alone, but for `allowed` (by mode: refreshes a later refresh applied
+    before any round came)."""
+    allowed = allowed or {}
+    extra = {m: f["standalone"] - allowed.get(m, 0) for m, f in forms.items()}
+    if any(extra.values()):
+        raise AssertionError(f"{what}: refreshes ran alone on the scan path, not in K1's "
+                             f"launch: {forms} (allowed alone {allowed})")
+
+
 def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000, algo="scan"):
-    """The 1M-task stream through TorchScheduler (bench.py's headline)."""
+    """The 1M-task stream through TorchScheduler (bench.py's headline). The
+    scheduler kernels' launches over it are returned (K2 and K3 by form),
+    with the refreshes a later refresh applied before a round came (the
+    only ones a scan round does not apply in K1's launch); then one
+    profiled round after a delta, its launch and copy calls."""
+    before = KT.launch_counts()
     rng = np.random.default_rng(5)
     total, alive, demands, counts = build_stream_problem(
         rng, n_nodes=n_nodes, n_tasks=n_tasks)
@@ -1137,8 +1358,14 @@ def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000, algo="scan"
     inflight_counts = np.zeros_like(backlog)
     round_times = []
     st = {"decisions": 0, "rnd": 0, "host_avail": host_avail,
-          "backlog": backlog, "inflight_counts": inflight_counts}
+          "backlog": backlog, "inflight_counts": inflight_counts,
+          "pending": None, "superseded": {"rows": 0, "delta": 0}}
     scaled_up_at = None
+
+    def refreshed(mode):  # a refresh waits for the next round, or a later refresh
+        if st["pending"]:
+            st["superseded"][st["pending"]] += 1
+        st["pending"] = mode
 
     def fetch_oldest():
         handle, submitted = pipe.pop(0)
@@ -1166,6 +1393,7 @@ def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000, algo="scan"
             for a in due:
                 release += a.astype(np.float32).T @ demands
             sched.apply_delta(release)
+            refreshed("delta")
             st["host_avail"] = np.minimum(st["host_avail"] + release, total)
         if rnd < len(arrivals):
             st["backlog"] = st["backlog"] + arrivals[rnd]
@@ -1176,12 +1404,14 @@ def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000, algo="scan"
             sched.alive = torch.from_numpy(alive.copy()).to(sched.device)
             idx = list(range(up.start, up.stop))
             sched.update_rows(idx, total[idx])
+            refreshed("rows")
             st["host_avail"][idx] = total[idx]
             scaled_up_at = rnd
         submit = np.maximum(st["backlog"] - st["inflight_counts"], 0).astype(np.int32)
         did_work = False
         if submit.sum() > 0:
             pipe.append((sched.schedule_async(demands, submit, algo=algo), submit))
+            st["pending"] = None
             st["inflight_counts"] = st["inflight_counts"] + submit
             did_work = True
         if pipe and (len(pipe) > pipe_depth or submit.sum() == 0):
@@ -1197,6 +1427,17 @@ def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000, algo="scan"
     placed = st["decisions"]
     assert placed == int(counts.sum()), (placed, int(counts.sum()))
     assert np.isfinite(st["host_avail"]).all()
+    # what a round launches: one more after a delta, under torch.profiler
+    zero = np.zeros_like(total)
+
+    def profiled_round():
+        sched.apply_delta(zero)
+        refreshed("delta")
+        sched.fetch(sched.schedule_async(demands, arrivals[0], algo=algo))
+        st["pending"] = None
+
+    enq = kernels_enqueued(torch, profiled_round)
+    forms = refresh_forms(before, KT.launch_counts())
     res = {
         "algo": algo,
         "rounds": len(round_times),
@@ -1206,8 +1447,14 @@ def phase2_stream(torch, KT, dev, n_nodes=10_000, n_tasks=1_000_000, algo="scan"
         "stream_s": t_stream,
         "autoscaled_at_round": scaled_up_at,
         "loop_rounds": st["rnd"],
+        "refreshes": forms,
+        "refreshes_applied_by_a_later_refresh": st["superseded"],
+        "round_after_a_delta": {"launches": enq.launches, "copies": enq.copies,
+                                "kernels": sorted(set(n[:60] for n in enq.names))},
     }
     log(f"phase 2 stream: {json.dumps(res)}")
+    if algo == "scan":
+        require_fused(forms, "phase 2 (scan)", allowed=st["superseded"])
     return res
 
 
@@ -1389,12 +1636,18 @@ def assert_gcs_drained(gcs):
 
 
 def phase5_gcs(torch, KT, n_nodes=10_000, n_lockstep=6_000, n_pipelined=100_000,
-               n_wire=4_000, gpu="cuda"):
+               n_wire=4_000, gpu="cuda", n_profiled=100_000):
     """The GCS scheduling loop at 10k nodes x 256 classes, per algorithm:
     (a) torch_cuda on the card in lockstep with hybrid (NumPy), (b) the
     pipelined torch_cuda GCS, and (c) the wire path into a default GCS.
     The lockstep runs 6 000 tasks (25 000 until phase 20 came, which the
-    script's time limit had no room for, PERF.md)."""
+    script's time limit had no room for, PERF.md). Per algorithm, the
+    scheduler kernels' launches over (a) and (b) and (b)'s GCS rounds. On a
+    card, after (b)'s timed drain, a second pipelined GCS of `n_profiled`
+    tasks: what its first round enqueues under torch.profiler, and the
+    round after a release of 5 % of the running tasks (dirty rows); the
+    refreshes it made (K2 and K3 by form: at least one, and under scan
+    every one in K1's launch, or this fails)."""
     from ray_tpu_torch.cluster import testing
     from ray_tpu_torch.cluster.gcs import GcsServer
     from ray_tpu_torch.cluster.rpc import RpcClient
@@ -1403,6 +1656,7 @@ def phase5_gcs(torch, KT, n_nodes=10_000, n_lockstep=6_000, n_pipelined=100_000,
 
     out = {}
     for algo in KT.ALGOS:
+        before = KT.launch_counts()
         # (a) lockstep: synchronous rounds, every round on the device
         base = {"scheduler_kernel_algo": algo, "scheduler_round_interval_ms": 60_000.0,
                 "jax_policy_min_cells": 0, "jax_policy_pipeline_depth": 0}
@@ -1448,6 +1702,14 @@ def phase5_gcs(torch, KT, n_nodes=10_000, n_lockstep=6_000, n_pipelined=100_000,
             for meta in metas:
                 gcs.rpc_submit_task(meta, conn)
             t_submit = time.perf_counter() - t0
+            rounds = [0]
+            real_round = gcs._schedule_round
+
+            def counted_round():
+                rounds[0] += 1
+                return real_round()
+
+            gcs._schedule_round = counted_round
             t0 = time.perf_counter()
             placed = testing.run_rounds_to_quiescence(gcs, max_rounds=2000,
                                                       drain_fraction=1.0)
@@ -1461,11 +1723,20 @@ def phase5_gcs(torch, KT, n_nodes=10_000, n_lockstep=6_000, n_pipelined=100_000,
                 assert np.allclose(st.available, st.total * st.alive[:, None], atol=1e-3)
         finally:
             gcs.shutdown()
+        after = KT.launch_counts()
+        forms = refresh_forms(before, after)
         rec.update(tasks=n_pipelined, placed=len(placed),
                    submit_per_sec=n_pipelined / t_submit,
-                   decisions_per_sec=len(placed) / t_sched)
+                   decisions_per_sec=len(placed) / t_sched,
+                   pipelined_rounds=rounds[0], refreshes=forms,
+                   launches={k: after[k] - before[k] for k in KT.KERNELS})
+        if gpu == "cuda":
+            rec["profiled"] = _gcs_profiled_rounds(torch, KT, testing, GcsServer, Config,
+                                                   algo, n_nodes, n_profiled)
         out[algo] = rec
         log(f"phase 5 GCS {algo}: {json.dumps(rec)}")
+        if algo == "scan":
+            require_fused(forms, "phase 5 (scan)")
 
     # (c) the wire path: a GCS with the default config (torch_cuda on
     # CUDA), its scheduler loop live, fed over an RPC connection. A
@@ -1474,6 +1745,7 @@ def phase5_gcs(torch, KT, n_nodes=10_000, n_lockstep=6_000, n_pipelined=100_000,
     # node sends it) releases all of them into one round, which the
     # policy solves on the card.
     before = KT.schedule_classes.launches
+    before_wire = KT.launch_counts()
     gcs = GcsServer() if gpu == "cuda" else GcsServer(config=Config({"scheduler_device": gpu}))
     try:
         assert gcs.policy.name == "torch_cuda" and gcs.policy.device.type == gpu
@@ -1520,9 +1792,49 @@ def phase5_gcs(torch, KT, n_nodes=10_000, n_lockstep=6_000, n_pipelined=100_000,
         gcs.shutdown()
     k1 = KT.schedule_classes.launches - before
     assert k1 > 0 or gpu != "cuda", "wire path never reached the CUDA kernel"
-    out["wire"] = {"tasks": n_wire, "classes": 64, "placed_s": t_place, "k1_launches": k1}
+    forms = refresh_forms(before_wire, KT.launch_counts())
+    require_fused(forms, "phase 5c (scan)")
+    out["wire"] = {"tasks": n_wire, "classes": 64, "placed_s": t_place, "k1_launches": k1,
+                   "refreshes": forms}
     log(f"phase 5 GCS wire path: {json.dumps(out['wire'])}")
     return out
+
+
+def _gcs_profiled_rounds(torch, KT, testing, GcsServer, Config, algo, n_nodes, n_tasks):
+    """Phase 5's pipelined GCS again, apart from its timed drain: the
+    launch and copy calls of its first round (the window's first
+    submission) and of the round after its running tasks' first 5 % are
+    released (dirty rows: update_rows, then the round), under
+    torch.profiler, and the refreshes by form from its first round to the
+    end of the second profiled one. At least one refresh, and under scan
+    none alone, or this fails."""
+    cfg = {"scheduler_kernel_algo": algo, "scheduler_round_interval_ms": 60_000.0,
+           "scheduler_device": "cuda"}
+    gcs = GcsServer(config=Config(cfg))
+    try:
+        testing.park_scheduler_loop(gcs)
+        register_gcs_nodes(testing, gcs, n_nodes)
+        conn = testing.FakeConn()
+        for meta in gcs_submissions(n_tasks, seed=8):
+            gcs.rpc_submit_task(meta, conn)
+        before = KT.launch_counts()
+        first = kernels_enqueued(torch, gcs._schedule_round, sessions=1, warm=False)
+        gcs._schedule_round()  # the window's round fetched, its tasks running
+        with gcs._lock:
+            running = sorted(gcs.running)
+        testing.complete_running(gcs, running[: len(running) // 20])
+        after_release = kernels_enqueued(torch, gcs._schedule_round, sessions=1, warm=False)
+        forms = refresh_forms(before, KT.launch_counts())
+    finally:
+        gcs.shutdown()
+    if not sum(f["fused"] + f["standalone"] for f in forms.values()):
+        raise AssertionError(f"phase 5 {algo}: the profiled GCS made no refresh: {forms}")
+    if algo == "scan":
+        require_fused(forms, "phase 5 (scan, profiled rounds)")
+    return {"refreshes": forms, "rounds_enqueued": {
+        name: {"launches": e.launches, "copies": e.copies,
+               "kernels": sorted(set(n[:60] for n in e.names))}
+        for name, e in (("first", first), ("after_release", after_release))}}
 
 
 # ------------------------------------------------------------ phase 6: model
@@ -3913,7 +4225,8 @@ def phase12_train_ranks(torch, PT, TT, PM, dev, cfg_kw=None, batch=8, seq=2048):
 
 #: phase 13's kernels in the GCS's process (the scheduler's) and in the
 #: model actor's worker process (the forward's)
-PHASE13_HEAD_KERNELS = ("schedule_classes", "scatter_rows", "delta_clip", "compact_nonzero")
+PHASE13_HEAD_KERNELS = ("schedule_classes", "scatter_rows", "delta_clip", "compact_nonzero",
+                        *FUSED_REFRESH)
 PHASE13_NODE_CPUS = 4
 PHASE13_TASKS = 2000
 PHASE13_OBJECT_BYTES = 200 * 10**6
@@ -4090,6 +4403,7 @@ def phase13_cluster(KT, ctx, requests, answers, gpu="cuda"):
                 raise AssertionError(f"the GCS's rounds never launched {k}: {head_launches}")
         if head_launches["scatter_rows"] + head_launches["delta_clip"] == 0:
             raise AssertionError(f"the GCS's rounds never refreshed the view: {head_launches}")
+        require_fused(refresh_forms({}, head_launches), "phase 13 (the GCS's scan rounds)")
         missing = [k for k in FORWARD_KERNELS if worker_launches[k] == 0]
         if missing:
             raise AssertionError(f"the model actor's worker never launched {missing}")
@@ -5931,7 +6245,8 @@ PHASE18_TERMINATE_S = PHASE18_IDLE_S + 15.0
 PHASE18_BUDGET_S = 90.0
 #: phase 18's kernels in the GCS's process (K1 every round, K2/K3 the view
 #: refresh, K4 where a round's download is sparse: 0 at a few nodes)
-PHASE18_HEAD_KERNELS = ("schedule_classes", "scatter_rows", "delta_clip", "compact_nonzero")
+PHASE18_HEAD_KERNELS = ("schedule_classes", "scatter_rows", "delta_clip", "compact_nonzero",
+                        *FUSED_REFRESH)
 
 
 def _stream_node_type(total, live):
@@ -6576,6 +6891,7 @@ def phase18(torch, KT, kernel_np, dev, gpu="cuda"):
     if gpu == "cuda" and (head["schedule_classes"] == 0
                           or head["scatter_rows"] + head["delta_clip"] == 0):
         raise AssertionError(f"phase 18: the GCS's rounds launched {head}")
+    require_fused(refresh_forms({}, head), "phase 18 (the GCS's scan rounds)")
     t0 = time.perf_counter()
     res["18e"] = phase18e_launcher(gpu)
     res["phase_s"] = time.perf_counter() - t_phase
@@ -6912,6 +7228,8 @@ def phase19(KT, policy_mod, gpu="cuda", explore_kw=None):
         log(f"phase {part}: {res[part]['part_s']:.1f} s")
     res["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 19: {json.dumps(res, default=str)}")
+    for part in ("19a", "19c"):
+        require_fused(refresh_forms({}, res[part]["launches"]), f"phase {part} (scan rounds)")
     return res, {"19a": res["19a"]["launches"], "19c": res["19c"]["launches"]}
 
 
@@ -6964,7 +7282,7 @@ PHASE20_SOAKS = (
 # 526th task (its seed), which it reaches in 15 s only alone
 PHASE20_GROUPS = (("chaos_soak", "lint_gate", "data_soak", "serve_soak", "workflow_soak"),
                   ("gcs_soak",))
-PHASE20_SCHED_KERNELS = ("schedule_classes", "scatter_rows", "delta_clip")
+PHASE20_SCHED_KERNELS = ("schedule_classes", "scatter_rows", "delta_clip", *FUSED_REFRESH)
 
 
 @contextlib.contextmanager
@@ -7222,6 +7540,7 @@ def phase20b_storms(KT, gpu="cuda"):
                                  f"{json.dumps(rec)}")
         if gpu == "cuda" and launches[name]["schedule_classes"] == 0:
             raise AssertionError(f"phase 20b: K1 never launched in {name}: {got}")
+        require_fused(refresh_forms({}, launches[name]), f"phase 20b {name} (scan rounds)")
     return res, launches
 
 
@@ -7445,10 +7764,12 @@ def main() -> int:
     phase3_policy_lockstep(torch, policy_mod, Config)
     after3 = KT.launch_counts()
     log(f"phase 3: {time.perf_counter() - t0:.1f} s, launches {after3}")
+    require_fused(refresh_forms(after2, after3), "phase 3 (scan)")
     t0 = time.perf_counter()
     phase4_entry_points(torch, KT)
     after4 = KT.launch_counts()
     log(f"phase 4: {time.perf_counter() - t0:.1f} s, launches {after4}")
+    require_fused(refresh_forms(after3, after4), "phase 4 (scan)")
     t0 = time.perf_counter()
     gcs = phase5_gcs(torch, KT)
     launches = KT.launch_counts()
@@ -7724,7 +8045,9 @@ def main() -> int:
         + ", ".join(f"{k} {v}" for k, v in a20["microbenchmark"].items())
         + f"), 20b {scripts_res['20b_s']:.1f} s ("
         + ", ".join(f"{n} {r['s']:.1f} s K1 {launches20[n]['schedule_classes']} K2 "
-                    f"{launches20[n]['scatter_rows']} K3 {launches20[n]['delta_clip']}"
+                    f"{launches20[n]['scatter_rows']} ({launches20[n]['scatter_rows_fused']} "
+                    f"in K1's launch) K3 {launches20[n]['delta_clip']} "
+                    f"({launches20[n]['delta_clip_fused']} in K1's launch)"
                     for n, r in b20.items())
         + f"), 20c {c20['s']:.1f} s and 20d at once {scripts_res['20cd_s']:.1f} s ("
         + ", ".join(f"{n} {r['s']:.1f} s" for n, r in d20.items())
@@ -7737,6 +8060,8 @@ def main() -> int:
         "schedule_classes": "ray_tpu/sched/kernel_jax.py:154",
         "scatter_rows": "ray_tpu/sched/kernel_jax.py:451",
         "delta_clip": "ray_tpu/sched/kernel_jax.py:474",
+        "scatter_rows_fused": "ray_tpu/sched/kernel_jax.py:451",
+        "delta_clip_fused": "ray_tpu/sched/kernel_jax.py:474",
         "compact_nonzero": "ray_tpu/sched/kernel_jax.py:546",
         "schedule_classes_rounds": "ray_tpu/sched/kernel_jax.py:317",
         "schedule_classes_chunked": "ray_tpu/sched/kernel_jax.py:367",
@@ -7751,9 +8076,17 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
         })
-        if "view_build" in r:  # K2 and K3: refresh_view_kernel's modes
+        if "view_build" in r:  # K2 and K3 alone: refresh_view_kernel's modes
             kernels[-1].update(kernel=f"refresh_view_kernel ({modes[name]} mode)",
-                               view_build_ms_in_turns=r["view_build"])
+                               view_build_ms_in_turns=r["view_build"],
+                               launches_standalone=launches[name] - launches[f"{name}_fused"])
+        if name in FUSED_REFRESH:  # K2 and K3 in K1's launch: ms is what they add to it
+            kernels[-1].update({k: r[k] for k in (
+                "kernel", "standalone", "k1_ms_in_turns", "k1_with_refresh_ms_in_turns",
+                "pair_ms_in_turns", "pair_minus_fused_ms", "no_pass_ms_in_turns",
+                "no_pass_minus_k1_no_pass_ms")})
+        if name == "schedule_classes":
+            kernels[-1]["at_phase20_shapes"] = r["at_phase20_shapes"]
     for name, r in model_rec.items():
         entry = {
             "name": name, "route": "cuda",

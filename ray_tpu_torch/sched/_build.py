@@ -26,7 +26,7 @@ _ULL = ctypes.c_ulonglong
 # name -> (argument types, result type); pointers and the stream are c_void_p
 _SIGNATURES = {
     "sched_schedule_classes": (
-        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _F, _I, _P], _I),
+        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _I, _P], _I),
     "sched_k1_cluster_size": ([_I, _I, _P], _I),
     "sched_k1_scratch_words": ([_I, _I, _I], _LL),
     "sched_schedule_classes_sharded": (

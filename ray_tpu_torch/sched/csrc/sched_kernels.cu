@@ -17,12 +17,14 @@
 //                              critical_util, _threshold_cap, _score_bucket,
 //                              _fill_by_bucket, _sat_cumsum); one
 //                              thread-block cluster of 16 (or 8) blocks
-//   K2, K3 sched_refresh_view  replaces kernel_jax.py _scatter_rows (rows
+//   K2, K3                     replace kernel_jax.py _scatter_rows (rows
 //                              mode, K2) and JaxScheduler.apply_delta (delta
-//                              mode, K3): refresh_view_kernel<MODE>, the one
-//                              pass over the view that a refresh adds to a
-//                              round (TorchScheduler's rounds write their
-//                              view in place, without a copy)
+//                              mode, K3): applied by K1 itself, in the launch
+//                              of the scan round that follows the refresh
+//                              (schedule_classes_kernel<ROWS, THREADS, REF>,
+//                              as it stages the view), or alone by
+//                              refresh_view_kernel<MODE> (sched_refresh_view)
+//                              where no K1 follows
 //   K4 sched_compact_nonzero   replaces the sparse download of
 //                              kernel_jax.py JaxScheduler.schedule_async
 //                              (jnp.nonzero(size=cap, fill_value=0) + gather
@@ -199,6 +201,19 @@ __device__ __forceinline__ float debit(float a, float take, float d) {
   return v < 0.f ? 0.f : v;
 }
 
+// A refresh of the view (K2, K3), applied by K1 (REF) or by
+// refresh_view_kernel<MODE>: none, rows (view[idx[i]] = rows[i], indices
+// outside the view dropped) or delta (clip(view + delta, 0, total))
+enum RefreshMode : int { kRefreshNone = 0, kRefreshRows = 1, kRefreshDelta = 2 };
+
+// K3's entry: avail + delta rounded once, then compared with 0 and with
+// total, in that order (jnp.clip)
+__device__ __forceinline__ float refresh_delta(float a, float delta, float t) {
+  float v = __fadd_rn(a, delta);
+  v = v < 0.f ? 0.f : v;
+  return v > t ? t : v;
+}
+
 // ---------------------------------------------------------------------------
 // K1's exchanges are pushed: a block writes what its peers need into their
 // shared memory with st.async, which adds the bytes it wrote to the
@@ -321,6 +336,18 @@ __device__ __forceinline__ void st_async(uint32_t dst, uint4 v, uint32_t bar) {
 //    and the placed total as JAX's sharded round does (global prefix over
 //    buckets + the totals of the ranks before it), from its own shared
 //    memory.
+//  - A refresh of the view that a scan round follows (K2's dirty rows, or
+//    K3's delta: REF) is applied in the round's own launch, by each block
+//    to its own nodes, before the first cluster barrier: with the rows in
+//    shared memory, while staging them (K3's delta added to each entry as
+//    it is read; K2's rows, those of idx in the block's range, written
+//    over the staged copy), so that the refreshed view reaches global
+//    memory with the round's own write-back; with the rows in global
+//    memory, in place, first thing (k1_refresh_block). The round then runs
+//    as without one. A standalone refresh costs about an empty launch
+//    (~5 us; it moves 64 KB-2.5 MB), which no change inside it could
+//    remove; fused, it is a few loads and stores a thread. REF =
+//    kRefreshNone compiles to the kernel without a refresh.
 // A pass is then one sweep over ~40 nodes a warp, one sweep over the caps
 // and two exchanges. Every block takes the same branches: the class order,
 // n_feasible and the placed total are the same in every block.
@@ -596,15 +623,53 @@ __device__ void k1_caps(const K1Nodes<ROWS>& v, int j0, int j1, long long share,
   row[2 * lane + 1] = t1;
 }
 
-template <bool ROWS, int THREADS>
+// K2 or K3 (REF) in the launch of K1 with its rows in global memory, first
+// thing: each block refreshes its own nodes [first, first + nl) of the view
+// in place, before K1 reads them (a block barrier at the end), so that K1
+// then runs as without a refresh. K3: clip(avail + delta, 0, total) on
+// every entry of the block's rows; K2: the entries of idx in the block's
+// range (the padding value N, and any index outside the view, is in no
+// block's range), a thread an entry.
+template <int THREADS, int REF>
+__device__ void k1_refresh_block(float* __restrict__ avail, const float* __restrict__ total,
+                                 const int* __restrict__ ref_idx,
+                                 const float* __restrict__ ref_src, int ref_pad, int N, int R,
+                                 int Nb) {
+  const int tid = threadIdx.x;
+  const int first = (int)cg::this_cluster().block_rank() * Nb;
+  const int nl = max(0, min(Nb, N - first));
+  if constexpr (REF == kRefreshDelta) {
+    const size_t e0 = (size_t)first * R;
+    for (int e = tid; e < nl * R; e += THREADS)
+      avail[e0 + e] = refresh_delta(avail[e0 + e], ref_src[e0 + e], total[e0 + e]);
+  } else {
+    for (int i = tid; i < ref_pad; i += THREADS) {
+      const int n = ref_idx[i];
+      if (n < first || n >= first + nl) continue;
+      for (int r = 0; r < R; ++r) avail[(size_t)n * R + r] = ref_src[(size_t)i * R + r];
+    }
+  }
+  __syncthreads();  // the block's refreshed rows, read by other threads of it next
+}
+
+// ref_idx, ref_src, ref_pad: the refresh of REF (kRefreshRows: idx [pad]
+// and rows [pad, R]; kRefreshDelta: the delta [N, R] in ref_src), last, so
+// that the other parameters keep the offsets (and the kernel without a
+// refresh the code) they had before: inserted before N, they moved every
+// branch of that kernel by one instruction, and K7 at p = 8 took 0.33 %
+// longer on the card
+template <bool ROWS, int THREADS, int REF>
 __global__ void __launch_bounds__(THREADS, 1)
 schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ total,
                         const uint8_t* __restrict__ alive, const float* __restrict__ demands,
                         const int* __restrict__ counts, int* __restrict__ assigned,
                         int* __restrict__ scratch, int N, int R, int C, int Nb, float thr,
-                        float over_denom, int max_passes) {
+                        float over_denom, int max_passes, const int* __restrict__ ref_idx,
+                        const float* __restrict__ ref_src, int ref_pad) {
   constexpr int kWarps = THREADS / 32;
   static_assert(kWarps >= kK1MaxCluster, "warp q sends the bucket totals to block q");
+  if constexpr (REF != kRefreshNone && !ROWS)  // in place, before K1 reads the view
+    k1_refresh_block<THREADS, REF>(avail, total, ref_idx, ref_src, ref_pad, N, R, Nb);
   cg::cluster_group cluster = cg::this_cluster();
   const int P = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -662,12 +727,31 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
     mbar_arm(&s_bar_tot, tot_bytes);
   }
   for (int k = tid; k < kK1CountWindow && k < C; k += THREADS) s_cnt[k] = counts[k];
-  if (ROWS) {
+  if constexpr (ROWS && REF == kRefreshNone) {
     float* tt = v.av + (size_t)R * v.S;
     for (int e = tid; e < nl * R; e += THREADS) {
       const int j = e / R, r = e - j * R;
       v.av[(size_t)r * v.S + j] = avail[(size_t)first * R + e];
       tt[(size_t)r * v.S + j] = total[(size_t)first * R + e];
+    }
+  } else if constexpr (ROWS) {  // the refresh applied to the staged rows
+    float* tt = v.av + (size_t)R * v.S;
+    for (int e = tid; e < nl * R; e += THREADS) {
+      const int j = e / R, r = e - j * R;
+      const float t = total[(size_t)first * R + e];
+      float a = avail[(size_t)first * R + e];
+      if constexpr (REF == kRefreshDelta) a = refresh_delta(a, ref_src[(size_t)first * R + e], t);
+      v.av[(size_t)r * v.S + j] = a;
+      tt[(size_t)r * v.S + j] = t;
+    }
+    if constexpr (REF == kRefreshRows) {
+      __syncthreads();  // the staged rows, written over next by other threads
+      for (int i = tid; i < ref_pad; i += THREADS) {  // idx's entries in the block's range
+        const int j = ref_idx[i] - first;
+        if (j < 0 || j >= nl) continue;
+        const float* row = ref_src + (size_t)i * R;
+        for (int r = 0; r < R; ++r) v.av[(size_t)r * v.S + j] = row[r];
+      }
     }
   }
   for (int j = tid; j < nl; j += THREADS) v.alive[j] = alive[first + j];
@@ -827,7 +911,7 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
     }
   }
   __syncthreads();
-  if (ROWS) {
+  if constexpr (ROWS) {
     for (int e = tid; e < nl * R; e += THREADS) {
       const int j = e / R, r = e - j * R;
       avail[(size_t)first * R + e] = v.av[(size_t)r * v.S + j];
@@ -837,10 +921,10 @@ schedule_classes_kernel(float* __restrict__ avail, const float* __restrict__ tot
   cluster.sync();  // no block exits while a peer's st.async to it may be in flight
 }
 
-template <bool ROWS, int THREADS>
+template <bool ROWS, int THREADS, int REF>
 cudaError_t k1_config(int P, size_t smem, cudaStream_t st, cudaLaunchConfig_t& cfg,
                       cudaLaunchAttribute& attr) {
-  auto kernel = schedule_classes_kernel<ROWS, THREADS>;
+  auto kernel = schedule_classes_kernel<ROWS, THREADS, REF>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
@@ -860,16 +944,18 @@ cudaError_t k1_config(int P, size_t smem, cudaStream_t st, cudaLaunchConfig_t& c
   return cudaSuccess;
 }
 
-// Whether one cluster of P blocks of K1 with this plan fits on the card.
+// Whether one cluster of P blocks of K1 with this plan fits on the card
+// (asked of the kernel without a refresh: a refresh adds no shared memory,
+// and every form holds one block of THREADS an SM)
 template <bool ROWS, int THREADS>
 cudaError_t k1_fits(int P, const K1Plan& pl, bool& fits) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = k1_config<ROWS, THREADS>(P, pl.smem, nullptr, cfg, attr);
+  cudaError_t err = k1_config<ROWS, THREADS, kRefreshNone>(P, pl.smem, nullptr, cfg, attr);
   if (err != cudaSuccess) return err;
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(
-      &clusters, (const void*)schedule_classes_kernel<ROWS, THREADS>, &cfg);
+      &clusters, (const void*)schedule_classes_kernel<ROWS, THREADS, kRefreshNone>, &cfg);
   if (err != cudaSuccess) {  // this size is refused: the caller tries the next
     (void)cudaGetLastError();
     clusters = 0;
@@ -878,20 +964,43 @@ cudaError_t k1_fits(int P, const K1Plan& pl, bool& fits) {
   return cudaSuccess;
 }
 
-template <bool ROWS, int THREADS>
+template <bool ROWS, int THREADS, int REF = kRefreshNone>
 cudaError_t launch_k1(cudaStream_t st, int P, const K1Plan& pl, float* avail,
                       const float* total, const uint8_t* alive, const float* demands,
                       const int* counts, int* assigned, int* scratch, int N, int R, int C,
-                      float thr, float over_denom, int max_passes) {
+                      float thr, float over_denom, int max_passes, const int* ref_idx = nullptr,
+                      const float* ref_src = nullptr, int ref_pad = 0) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = k1_config<ROWS, THREADS>(P, pl.smem, st, cfg, attr);
+  cudaError_t err = k1_config<ROWS, THREADS, REF>(P, pl.smem, st, cfg, attr);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, schedule_classes_kernel<ROWS, THREADS>, avail, total, alive,
-                           demands, counts, assigned, scratch, N, R, C, pl.Nb, thr, over_denom,
-                           max_passes);
+  err = cudaLaunchKernelEx(&cfg, schedule_classes_kernel<ROWS, THREADS, REF>, avail, total,
+                           alive, demands, counts, assigned, scratch, N, R, C, pl.Nb, thr,
+                           over_denom, max_passes, ref_idx, ref_src, ref_pad);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// K1 in form ROWS with the refresh `ref_mode` (RefreshMode) applied in its
+// launch
+template <bool ROWS>
+cudaError_t launch_k1_refresh(cudaStream_t st, int P, const K1Plan& pl, float* avail,
+                              const float* total, const uint8_t* alive, const float* demands,
+                              const int* counts, int* assigned, int* scratch, int N, int R,
+                              int C, float thr, float over_denom, int max_passes, int ref_mode,
+                              const int* ref_idx, const float* ref_src, int ref_pad) {
+  if (ref_mode == kRefreshRows)
+    return launch_k1<ROWS, kK1Threads, kRefreshRows>(st, P, pl, avail, total, alive, demands,
+                                                     counts, assigned, scratch, N, R, C, thr,
+                                                     over_denom, max_passes, ref_idx, ref_src,
+                                                     ref_pad);
+  if (ref_mode == kRefreshDelta)
+    return launch_k1<ROWS, kK1Threads, kRefreshDelta>(st, P, pl, avail, total, alive, demands,
+                                                      counts, assigned, scratch, N, R, C, thr,
+                                                      over_denom, max_passes, ref_idx, ref_src,
+                                                      ref_pad);
+  return launch_k1<ROWS, kK1Threads>(st, P, pl, avail, total, alive, demands, counts, assigned,
+                                     scratch, N, R, C, thr, over_denom, max_passes);
 }
 
 // ---------------------------------------------------------------------------
@@ -2210,23 +2319,22 @@ cudaError_t launch_rounds_phases(cudaStream_t st, float* avail, const float* tot
 }
 
 // ---------------------------------------------------------------------------
-// K2 and K3: refresh_view_kernel<MODE> refreshes the scheduler's view of the
-// cluster, [N, R] float32:
+// K2 and K3 alone: refresh_view_kernel<MODE> refreshes the scheduler's view
+// of the cluster, [N, R] float32, where no scan round follows the refresh
+// (a scan round applies it in K1's launch):
 //   kRefreshRows   K2, in place: out[idx[i], :] = rows[i, :] for every
 //                  idx[i] in [0, N); other indices (the padding value N) are
 //                  dropped, as mode="drop" does; in-range indices are
 //                  distinct. One thread per element of rows, neighbouring
 //                  threads on neighbouring columns of one row. Bound: bytes
 //                  (idx, and each live row read and written).
-//   kRefreshDelta  K3: out = clip(avail + delta, 0, total) on every entry,
-//                  avail + delta rounded once, then compared with 0 and with
-//                  total in that order; a grid-stride elementwise pass.
-//                  Bound: bytes (16 per element).
+//   kRefreshDelta  K3: out = clip(avail + delta, 0, total) on every entry
+//                  (refresh_delta); a grid-stride elementwise pass. out may
+//                  be avail itself (each element read, then written, by one
+//                  thread). Bound: bytes (16 per element).
 // ---------------------------------------------------------------------------
-enum RefreshMode : int { kRefreshRows = 1, kRefreshDelta = 2 };
-
 template <int MODE>
-__global__ void refresh_view_kernel(float* __restrict__ out, const float* __restrict__ avail,
+__global__ void refresh_view_kernel(float* out, const float* avail,
                                     const float* __restrict__ src,
                                     const float* __restrict__ total,
                                     const int* __restrict__ idx, int pad, int N, int R) {
@@ -2242,10 +2350,7 @@ __global__ void refresh_view_kernel(float* __restrict__ out, const float* __rest
   const long long n = (long long)N * R;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
-    float v = __fadd_rn(avail[i], src[i]);
-    v = v < 0.f ? 0.f : v;
-    const float t = total[i];
-    out[i] = v > t ? t : v;
+    out[i] = refresh_delta(avail[i], src[i], total[i]);
   }
 }
 
@@ -2535,24 +2640,36 @@ int sched_k1_cluster_size(int N, int R, int* cluster) {
 long long sched_k1_scratch_words(int N, int R, int P) { return k1_plan(N, R, P).scratch_words; }
 
 // K1 over one cluster of P blocks (16 or 8, sched_k1_cluster_size);
-// `scratch` holds scratch_words int32 words.
+// `scratch` holds scratch_words int32 words. ref_mode (RefreshMode) is the
+// refresh K1 applies to avail before its first sweep: kRefreshRows, idx
+// `ref_idx` [ref_pad] and rows `ref_src` [ref_pad, R]; kRefreshDelta, the
+// delta `ref_src` [N, R]. A refresh needs a launch: with C or N 0 it is
+// refused (the caller applies it with sched_refresh_view).
 int sched_schedule_classes(float* avail, const float* total, const uint8_t* alive,
                            const float* demands, const int* counts, int* assigned,
                            int* scratch, long long scratch_words, int N, int R, int C, int P,
-                           float thr, float over_denom, int max_passes, void* stream) {
+                           float thr, float over_denom, int max_passes, int ref_mode,
+                           const int* ref_idx, const float* ref_src, int ref_pad,
+                           void* stream) {
   if (R > kMaxR || R < 1 || (P != kK1MaxCluster && P != kK1MaxCluster / 2))
+    return (int)cudaErrorInvalidValue;
+  if (ref_mode != kRefreshNone && ref_mode != kRefreshRows && ref_mode != kRefreshDelta)
+    return (int)cudaErrorInvalidValue;
+  if (ref_mode != kRefreshNone && (ref_src == nullptr || C == 0 || N == 0))
+    return (int)cudaErrorInvalidValue;
+  if (ref_mode == kRefreshRows && (ref_idx == nullptr || ref_pad < 0))
     return (int)cudaErrorInvalidValue;
   if (C == 0 || N == 0) return (int)cudaGetLastError();
   const K1Plan pl = k1_plan(N, R, P);
   if (scratch_words < pl.scratch_words) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (pl.rows)
-    return (int)launch_k1<true, kK1Threads>(st, P, pl, avail, total, alive, demands, counts,
-                                            assigned, scratch, N, R, C, thr, over_denom,
-                                            max_passes);
-  return (int)launch_k1<false, kK1Threads>(st, P, pl, avail, total, alive, demands, counts,
-                                           assigned, scratch, N, R, C, thr, over_denom,
-                                           max_passes);
+    return (int)launch_k1_refresh<true>(st, P, pl, avail, total, alive, demands, counts,
+                                        assigned, scratch, N, R, C, thr, over_denom, max_passes,
+                                        ref_mode, ref_idx, ref_src, ref_pad);
+  return (int)launch_k1_refresh<false>(st, P, pl, avail, total, alive, demands, counts,
+                                       assigned, scratch, N, R, C, thr, over_denom, max_passes,
+                                       ref_mode, ref_idx, ref_src, ref_pad);
 }
 
 // K7: K1's kernel over one cluster of P blocks (P in 1, 2, 4, 8, 16; N
@@ -2626,10 +2743,11 @@ int sched_k7r_pass(int mode, float* avail, const float* total, const uint8_t* al
   return (int)cudaGetLastError();
 }
 
-// K2 and K3: rows mode (kRefreshRows) writes rows `src` [pad, R] into `out`
-// [N, R] in place at idx [pad] (avail unused); delta mode (kRefreshDelta)
-// writes clip(avail + delta, 0, total) into out, a tensor of its own, from
-// avail, delta `src` and total, each [N, R].
+// K2 and K3 alone: rows mode (kRefreshRows) writes rows `src` [pad, R] into
+// `out` [N, R] in place at idx [pad] (avail unused); delta mode
+// (kRefreshDelta) writes clip(avail + delta, 0, total) into out (a tensor
+// of its own, or avail itself) from avail, delta `src` and total, each
+// [N, R].
 int sched_refresh_view(float* out, const float* avail, const float* src, const float* total,
                        const int* idx, int pad, int N, int R, int mode, void* stream) {
   if (N < 0 || R < 1 || pad < 0) return (int)cudaErrorInvalidValue;

@@ -9,8 +9,9 @@ it, a plain PyTorch version of the same function:
                        thread-block cluster (k1_plan)
   K2 scatter_rows_     dirty-row refresh of the device availability
   K3 delta_clip        clip(avail + delta, 0, total)
-                       (K2 and K3 are the rows and delta modes of one
-                       kernel, refresh_view_kernel)
+                       (K2 and K3 are applied by K1 in its own launch when
+                       a scan round follows the refresh; alone, they are
+                       the rows and delta modes of refresh_view_kernel)
   K4 compact_nonzero   COO compaction of the [C, N] assignment for download,
                        one cooperative launch (k4_launch_plan)
   K5 schedule_classes_rounds   the fully parallel two-phase [C, N] round
@@ -23,7 +24,8 @@ it, a plain PyTorch version of the same function:
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises — there is no fallback from one to the other.
 Each wrapper carries a plain integer ``launches`` counter, bumped once per
-call that launched its kernel.
+call that launched its kernel; K2's and K3's count every refresh applied on
+the card, and their ``fused`` counters those that K1 applied.
 
 Decisions are bit-identical to kernel_np.schedule_classes (and, for K5/K6,
 to kernel_np.schedule_classes_rounds / _chunked on integer-granular
@@ -36,7 +38,9 @@ TorchScheduler is the twin of kernel_jax.JaxScheduler: the cluster view
 stays resident on the device across rounds, the host pushes dirty rows or
 deltas, and schedule_async / fetch pipeline rounds without a host sync. Its
 rounds write the view in place (the wrappers' private `_in_place`), so no
-round copies the view and a refresh is the one pass over it a round adds.
+round copies the view. A refresh is copied to the card when it is pushed and
+applied later: by the next scan round's K1, in its own launch (the private
+`_refresh`), or by K2/K3 alone before anything else reads the view.
 """
 
 from __future__ import annotations
@@ -156,12 +160,16 @@ def _pass_terms(avail, total, alive, pos, dpos, consts):
 
 def _schedule_classes_plain(avail, total, alive, demands, counts,
                             spread_threshold=DEFAULT_SPREAD_THRESHOLD,
-                            max_passes=MAX_PASSES, passes_out=None):
+                            max_passes=MAX_PASSES, passes_out=None, refresh=None):
     """Plain PyTorch version of K1: kernel_np.schedule_classes, op for op.
-    `passes_out`, a list, receives the number of passes each class ran."""
+    `passes_out`, a list, receives the number of passes each class ran.
+    `refresh` (a Refresh) is applied to the round's copy of avail first, by
+    K2's or K3's plain version, as K1 applies it before its first sweep."""
     dev = avail.device
     avail = avail.to(torch.float32).clone()
     total = total.to(torch.float32)
+    if refresh is not None:
+        avail = _refresh_plain(avail, total, refresh)
     alive = alive.to(torch.bool)
     d_host = demands.detach().to("cpu", torch.float32).numpy()
     k_host = counts.detach().to("cpu").numpy()
@@ -275,20 +283,24 @@ def _round_view(avail: torch.Tensor, in_place: bool) -> torch.Tensor:
 def schedule_classes(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tensor,
                      demands: torch.Tensor, counts: torch.Tensor,
                      spread_threshold: float = DEFAULT_SPREAD_THRESHOLD,
-                     max_passes: int = MAX_PASSES, _in_place: bool = False):
+                     max_passes: int = MAX_PASSES, _in_place: bool = False,
+                     _refresh: Optional["Refresh"] = None):
     """K1. Batched hybrid placement, the semantics of kernel_np.schedule_classes.
 
     avail/total [N, R] float32, alive [N] bool, demands [C, R] float32,
     counts [C] int32. Returns (assigned [C, N] int32, new avail [N, R]
     float32); the input `avail` is not modified, unless `_in_place`
     (TorchScheduler's rounds, which replace their view by the result) lets
-    the kernel write the new avail into it.
+    the kernel write the new avail into it. `_refresh` (TorchScheduler's
+    pending refresh, a Refresh) is applied to the round's view before the
+    round: on a card in K1's own launch, counted as a launch of K2 or K3
+    and as a fused one (where no K1 launches, N or C 0, by K2/K3 alone).
     """
     dev = _device_of(avail, total, alive, demands, counts)
     if dev.type == "cpu":
         return _schedule_classes_plain(
-            avail, total, alive, demands, counts, spread_threshold, max_passes
-        )
+            avail, total, alive, demands, counts, spread_threshold, max_passes,
+            refresh=_refresh)
     N, R = avail.shape
     C = demands.shape[0]
     if total.shape != (N, R) or alive.shape != (N,) or demands.shape != (C, R) \
@@ -298,17 +310,22 @@ def schedule_classes(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tens
             f"alive {tuple(alive.shape)} demands {tuple(demands.shape)} "
             f"counts {tuple(counts.shape)}"
         )
+    if _refresh is not None:
+        _refresh.check(N, R, dev)
     new_avail = _round_view(avail, _in_place)
+    total = total.to(torch.float32).contiguous()
     assigned = torch.zeros((C, N), dtype=torch.int32, device=dev)
     if N == 0 or C == 0:
+        if _refresh is not None:
+            _refresh.apply(new_avail, total)
         return assigned, new_avail
     lib = _build.load()
-    total = total.to(torch.float32).contiguous()
     alive_u8 = alive.to(torch.bool).contiguous()
     demands = demands.to(torch.float32).contiguous()
     counts = counts.to(torch.int32).contiguous()
     plan = k1_launch_plan(N, R, dev)
     scratch = torch.empty(max(plan.scratch_words, 1), dtype=torch.int32, device=dev)
+    ref = _refresh or _NO_REFRESH
     with torch.cuda.device(dev):
         rc = lib.sched_schedule_classes(
             new_avail.data_ptr(), total.data_ptr(), alive_u8.data_ptr(),
@@ -316,10 +333,16 @@ def schedule_classes(avail: torch.Tensor, total: torch.Tensor, alive: torch.Tens
             scratch.data_ptr(), plan.scratch_words, N, R, C, plan.cluster,
             float(np.float32(spread_threshold)),
             float(np.float32(max(1e-6, 1.0 - spread_threshold))),
-            int(max_passes), _stream(dev),
+            int(max_passes), _REFRESH_MODES[ref.mode], _ptr(ref.idx), _ptr(ref.src),
+            ref.pad, _stream(dev),
         )
-    _check(lib, rc, "schedule_classes")
+    _check(lib, rc, "schedule_classes" if _refresh is None
+           else f"schedule_classes (with the {_refresh.mode} refresh)")
     schedule_classes.launches += 1
+    if _refresh is not None:
+        counter = _REFRESH_COUNTERS[_refresh.mode]
+        counter.launches += 1
+        counter.fused += 1
     return assigned, new_avail
 
 
@@ -328,11 +351,16 @@ schedule_classes.launches = 0
 
 # ------------------------------------------------------------------- K2 / K3
 #
-# One kernel, refresh_view_kernel<MODE>, refreshes the view: rows mode (K2)
-# writes dirty rows into it in place, delta mode (K3) writes clip(avail +
-# delta, 0, total) into a new tensor.
+# A refresh of the view: rows mode (K2) writes dirty rows into it in place,
+# delta mode (K3) writes clip(avail + delta, 0, total). K1 applies one in its
+# own launch (schedule_classes' `_refresh`); alone, each is one launch of
+# refresh_view_kernel<MODE>.
 
-_REFRESH_MODES = {"rows": 1, "delta": 2}  # the source's RefreshMode
+_REFRESH_MODES = {None: 0, "rows": 1, "delta": 2}  # the source's RefreshMode
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _refresh_launch(mode, out, avail, src, total=None, idx=None):
@@ -342,13 +370,59 @@ def _refresh_launch(mode, out, avail, src, total=None, idx=None):
     N, R = out.shape
     pad = 0 if idx is None else idx.shape[0]
     lib = _build.load()
-    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
-        rc = lib.sched_refresh_view(ptr(out), ptr(avail), ptr(src), ptr(total), ptr(idx),
+        rc = lib.sched_refresh_view(_ptr(out), _ptr(avail), _ptr(src), _ptr(total), _ptr(idx),
                                     pad, N, R, _REFRESH_MODES[mode], _stream(dev))
     _check(lib, rc, f"refresh_view ({mode})")
-    (scatter_rows_ if mode == "rows" else delta_clip).launches += 1
+    _REFRESH_COUNTERS[mode].launches += 1
     return out
+
+
+class Refresh(NamedTuple):
+    """A refresh of the view not yet applied: mode "rows" (idx [pad] int32,
+    src the rows [pad, R] float32) or "delta" (idx None, src the delta [N, R]
+    float32). `stream`: on a card, the stream its operands were copied on."""
+    mode: Optional[str]
+    idx: Optional[torch.Tensor]
+    src: Optional[torch.Tensor]
+    stream: Optional[object] = None
+
+    @property
+    def pad(self) -> int:
+        return 0 if self.idx is None else int(self.idx.shape[0])
+
+    def check(self, N: int, R: int, dev) -> None:
+        """Raise ValueError where K1 cannot take this refresh for an [N, R]
+        view on `dev`."""
+        want = (self.pad, R) if self.mode == "rows" else (N, R)
+        ok = self.mode in ("rows", "delta") and self.src is not None \
+            and tuple(self.src.shape) == want and self.src.dtype == torch.float32 \
+            and self.src.is_contiguous() and self.src.device == dev
+        if self.mode == "rows":
+            ok = ok and self.idx is not None and self.idx.dtype == torch.int32 \
+                and self.idx.dim() == 1 and self.idx.is_contiguous() and self.idx.device == dev
+        if not ok:
+            raise ValueError(
+                f"refresh {self.mode!r} for a view [{N}, {R}] on {dev}: idx "
+                f"{None if self.idx is None else (tuple(self.idx.shape), self.idx.dtype)}, src "
+                f"{None if self.src is None else (tuple(self.src.shape), self.src.dtype)}")
+
+    def apply(self, view: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+        """Apply this refresh to `view` in place by K2 or K3 alone (their
+        plain versions on the CPU). Returns view."""
+        if self.mode == "rows":
+            return scatter_rows_(view, self.idx, self.src)
+        return delta_clip(view, self.src, total, _in_place=True)
+
+
+_NO_REFRESH = Refresh(None, None, None)
+
+
+def _refresh_plain(avail, total, refresh: Refresh):
+    """K2's (in place) or K3's plain version, as K1 applies `refresh`."""
+    if refresh.mode == "rows":
+        return _scatter_rows_plain_(avail, refresh.idx, refresh.src)
+    return _delta_clip_plain(avail, refresh.src, total)
 
 
 def _scatter_rows_plain_(avail, idx, rows):
@@ -382,6 +456,7 @@ def scatter_rows_(avail: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor):
 
 
 scatter_rows_.launches = 0
+scatter_rows_.fused = 0
 
 
 def _delta_clip_plain(avail, delta, total):
@@ -390,24 +465,33 @@ def _delta_clip_plain(avail, delta, total):
     return torch.minimum(torch.maximum(x, torch.zeros_like(x)), total)
 
 
-def delta_clip(avail: torch.Tensor, delta: torch.Tensor, total: torch.Tensor):
-    """K3. Returns clip(avail + delta, 0, total) as a new [N, R] float32.
-    On a card, refresh_view_kernel in delta mode."""
+def delta_clip(avail: torch.Tensor, delta: torch.Tensor, total: torch.Tensor,
+               _in_place: bool = False):
+    """K3. Returns clip(avail + delta, 0, total) as a new [N, R] float32,
+    or, with `_in_place` (TorchScheduler's view), written into avail, which
+    must then be contiguous float32. On a card, refresh_view_kernel in delta
+    mode."""
     dev = _device_of(avail, delta, total)
+    if _in_place and (avail.dtype != torch.float32 or not avail.is_contiguous()):
+        raise ValueError(f"delta_clip in place: avail {avail.dtype}, contiguous "
+                         f"{avail.is_contiguous()} (contiguous float32 needed)")
     if dev.type == "cpu":
-        return _delta_clip_plain(avail, delta, total)
+        out = _delta_clip_plain(avail, delta, total)
+        return avail.copy_(out) if _in_place else out
     if not (avail.shape == delta.shape == total.shape):
         raise ValueError(
             f"delta_clip: shapes {tuple(avail.shape)} {tuple(delta.shape)} "
             f"{tuple(total.shape)} differ"
         )
     avail = avail.to(torch.float32).contiguous()
-    return _refresh_launch("delta", torch.empty_like(avail), avail,
+    return _refresh_launch("delta", avail if _in_place else torch.empty_like(avail), avail,
                            delta.to(torch.float32).contiguous(),
                            total.to(torch.float32).contiguous())
 
 
 delta_clip.launches = 0
+delta_clip.fused = 0
+_REFRESH_COUNTERS = {"rows": scatter_rows_, "delta": delta_clip}
 
 
 # ------------------------------------------------------------------------- K4
@@ -840,12 +924,17 @@ ALGOS = ("scan", "rounds", "chunked")
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Every kernel's launches by name, and how many of K2's and K3's K1
+    applied in its own launch (scatter_rows_fused, delta_clip_fused)."""
+    out = {name: fn.launches for name, fn in KERNELS.items()}
+    out.update(scatter_rows_fused=scatter_rows_.fused, delta_clip_fused=delta_clip.fused)
+    return out
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    scatter_rows_.fused = delta_clip.fused = 0
 
 
 # --------------------------------------------------------------- scheduler
@@ -855,7 +944,13 @@ class TorchScheduler:
     """Device-resident cluster view (twin of kernel_jax.JaxScheduler): the
     host pushes incremental availability updates (dirty rows, deltas) and
     the full view is re-uploaded only on topology change. The view is its
-    own (every upload is a copy), so its rounds write it in place."""
+    own (every upload is a copy), so its rounds write it in place.
+
+    A refresh (update_rows, apply_delta) is copied to the device when it is
+    pushed and held as pending, at most one at a time: the next scan round
+    applies it in K1's own launch; a second refresh, set_available (which
+    drops it), the rounds and chunked algorithms and any read of `avail`
+    apply it first, by K2/K3 alone."""
 
     # row-index buckets: the scatter is padded to a few static shapes
     _ROW_BUCKETS = (16, 64, 256, 1024, 4096)
@@ -868,72 +963,114 @@ class TorchScheduler:
             _build.load()
         self.total = self._put(np.asarray(total, np.float32))
         self.alive = self._put(np.asarray(alive, bool))
-        self.avail = self.total * self.alive[:, None].to(torch.float32)
+        self._view = self.total * self.alive[:, None].to(torch.float32)
+        self._pending: Optional[Refresh] = None
+
+    @property
+    def avail(self) -> torch.Tensor:
+        """The view [N, R] float32, with the pending refresh applied."""
+        self._flush()
+        return self._view
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         # always a copy: on the CPU .to() would alias the caller's array,
         # which update_rows then scatters into
         return torch.from_numpy(np.array(a, order="C")).to(self.device)
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A refresh's operand on the device, copied now: on a card through
-        page-locked memory from PyTorch's caching host allocator (which
-        reuses a block only after its copy has completed), on the current
-        stream, without blocking the host. NumPy fills the page-locked
-        buffer: PyTorch's CPU copy_ into it took milliseconds a call inside
-        the stream's host loop on the card's machine (PERF.md)."""
-        if self.device.type == "cpu":
-            return self._put(a)
-        host = torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, pin_memory=True)
-        np.copyto(host.numpy(), a)
-        return host.to(self.device, non_blocking=True)
+    def _staged(self, shape, dtype) -> torch.Tensor:
+        """A host buffer a refresh's operands are written into: on a card
+        page-locked, from PyTorch's caching host allocator (which reuses a
+        block only after its copy has completed). NumPy fills it: PyTorch's
+        CPU copy_ into it took milliseconds a call inside the stream's host
+        loop on an H100's host (PERF.md)."""
+        return torch.empty(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
+
+    def _send(self, host: torch.Tensor) -> torch.Tensor:
+        """A staged buffer on the device, copied now, on the current stream,
+        without blocking the host (the CPU's view takes the buffer itself)."""
+        return host if self.device.type == "cpu" else host.to(self.device, non_blocking=True)
+
+    def _hold(self, mode, idx, src):
+        """Make (mode, idx, src), on the device, the pending refresh, after
+        applying the one it replaces."""
+        self._flush()
+        stream = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        self._pending = Refresh(mode, idx, src, stream)
+
+    def _take_pending(self) -> Optional[Refresh]:
+        """The pending refresh, no longer pending, readable on the current
+        stream (its copy was enqueued on the stream it holds)."""
+        ref, self._pending = self._pending, None
+        if ref is not None and ref.stream is not None:
+            cur = torch.cuda.current_stream(self.device)
+            if ref.stream != cur:
+                cur.wait_stream(ref.stream)
+                ref.src.record_stream(cur)  # rows mode: idx shares src's block
+        return ref
+
+    def _flush(self) -> None:
+        """Apply the pending refresh to the view by K2/K3 alone."""
+        ref = self._take_pending()
+        if ref is not None:
+            ref.apply(self._view, self.total)
 
     def set_available(self, avail: np.ndarray):
-        self.avail = self._put(np.asarray(avail, np.float32))
+        """The whole view, uploaded; a pending refresh is dropped."""
+        self._pending = None
+        self._view = self._put(np.asarray(avail, np.float32))
 
     def apply_delta(self, delta: np.ndarray):
         """avail += delta (negative = allocation), clipped to [0, total]."""
-        d = self._upload(np.asarray(delta, np.float32))
-        self.avail = delta_clip(self.avail, d, self.total)
+        delta = np.asarray(delta, np.float32)
+        host = self._staged(delta.shape, torch.float32)
+        np.copyto(host.numpy(), delta)
+        self._hold("delta", None, self._send(host))
 
     def update_rows(self, idx, rows: np.ndarray):
         """Authoritative per-row refresh: avail[idx] = rows (the dirty rows
         of NodeResourceState). Padded indices point one past the end and
-        are dropped by the scatter."""
+        are dropped by the scatter. idx and the rows go to the device in one
+        buffer, by one copy."""
         n = len(idx)
         if n == 0:
             return
-        N = int(self.total.shape[0])
+        N, R = (int(x) for x in self.total.shape)
         if n >= N:
             self.set_available(rows if len(rows) == N else rows[:N])
             return
         pad = next((b for b in self._ROW_BUCKETS if n <= b), n)
-        ii = np.full(pad, N, dtype=np.int32)
+        host = self._staged((pad * (1 + R),), torch.int32)  # idx, then the rows' bits
+        ii = host.numpy()[:pad]
         ii[:n] = np.asarray(idx, dtype=np.int32)
-        vv = np.zeros((pad, self.total.shape[1]), dtype=np.float32)
+        ii[n:] = N
+        vv = host.numpy()[pad:].view(np.float32).reshape(pad, R)
         vv[:n] = rows
-        scatter_rows_(self.avail, self._upload(ii), self._upload(vv))
+        vv[n:] = 0.0
+        buf = self._send(host)
+        self._hold("rows", buf[:pad], buf[pad:].view(torch.float32).view(pad, R))
 
     def _round(self, demands, counts, spread_threshold, algo):
         if algo not in ALGOS:
             raise ValueError(f"scheduler_kernel_algo {algo!r} is not one of {ALGOS}")
         pad = bucket_size(demands.shape[0])
         d, k = pad_problem(np.asarray(demands, np.float32), np.asarray(counts), pad)
-        args = (self.avail, self.total, self.alive, self._put(d), self._put(k),
+        if algo != "scan":
+            self._flush()
+        args = (self._view, self.total, self.alive, self._put(d), self._put(k),
                 spread_threshold)
         kw = {"_in_place": True}  # the round writes the view it replaces
-        if algo == "scan":
-            assigned, self.avail = schedule_classes(*args, **kw)
+        if algo == "scan":  # K1 applies the pending refresh in its launch
+            assigned, self._view = schedule_classes(*args, _refresh=self._take_pending(), **kw)
         else:
             # padded classes demand INF_FIT of resource 0, so they are inert
             # in the matrix passes, but resource 0 must stay in the active
             # set for that guard to execute (as JaxScheduler does)
             active = tuple(int(i) for i in np.flatnonzero((d > 0).any(axis=0)))
             if algo == "rounds":
-                assigned, self.avail = schedule_classes_rounds(
+                assigned, self._view = schedule_classes_rounds(
                     *args, rounds=4, active_idx=active, **kw)
             else:
-                assigned, self.avail = schedule_classes_chunked(
+                assigned, self._view = schedule_classes_chunked(
                     *args, chunk=16, rounds=2, active_idx=active, **kw)
         return assigned[: demands.shape[0]]
 

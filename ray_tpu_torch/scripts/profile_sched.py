@@ -8,6 +8,8 @@
     python -m ray_tpu_torch.scripts.profile_sched ab DIR [DIR ...]
     python -m ray_tpu_torch.scripts.profile_sched e2e DIR [DIR ...]
     python -m ray_tpu_torch.scripts.profile_sched profiler [SCENARIO]
+    python -m ray_tpu_torch.scripts.profile_sched putwait
+    python -m ray_tpu_torch.scripts.profile_sched sass DIR DIR
 
 ``k1``: builds the kernels with ``-DSCHED_K1_PROFILE`` (thread 0 of every
 block sums clock64 cycles per pass phase) and runs K1 at the stream
@@ -38,7 +40,10 @@ three kernels a phase stamp nothing).
 torch.profiler and reports the device's busy and idle share of the
 stream's wall time and device time by kernel name.
 
-``ab``: K5, K6 and K7 (p = 1, 2, 4, 8, without the wrapper's checks) and
+``ab``: K1 alone, K1 with a refresh in its launch where the tree's K1
+takes one (1 000 dirty rows of pad 1 024, or a delta [10 000, 16]) and the
+pair a round ran before (K2 or K3 alone, then K1 in place), K5, K6 and K7
+(p = 1, 2, 4, 8, without the wrapper's checks) and
 K4 (on K1's assignment, with the cap and widths TorchScheduler picks) at
 the stream's first round, K10a' at the train step's [16 384, 512] in bf16
 and f32, K10b at the forward's [8, 2048, 1536] bf16, K10b' at the train
@@ -47,8 +52,10 @@ layer's logits [8, 2048, 8] with C 320, K8's block form on a visible
 [8, 512, 8, 64] block in bf16 and f32, a round's view build as the tree's
 TorchScheduler makes it (K3 on [10 000, 16], K2 at 1 000 rows of pad
 1 024, each followed by the clone of the view where the tree's rounds
-copy it) and a pipelined scan round's launch and copy calls alone and
-after apply_delta or update_rows, from each of the given checkouts of this
+copy it), a pipelined scan round's launch and copy calls alone and
+after apply_delta or update_rows, and that round's host ms on an idle card
+(the refresh call and schedule_async; and to the fetched result), from
+each of the given checkouts of this
 repo, in turns (the trees in order, then in reverse), each run a process
 of its own that builds that tree's kernels: whether each equals its plain
 version (K7: K1; K9a: its integers, and the largest difference of its gate
@@ -59,11 +66,28 @@ medians of three sets of calls
 floor). For comparing versions of the kernels on one card.
 
 ``e2e``: in the same turns, chip_smoke.py's end-to-end paths from each
-tree: the stream's decisions/s under each algorithm (phase 2), the
+tree: the stream's decisions/s and median loop-iteration ms under each
+algorithm (phase 2), the
 pipelined GCS's (phase 5b, 100 000 tasks over 10 000 nodes; 5a's
 lockstep cut to 1 000 tasks), the
 forward's ms (6b), the train step's (9b), and the expert layer's (7b) and
 its train step's (10b), each by events and by the host clock.
+
+``putwait``: whether TorchScheduler.schedule_async waits for the work
+already on the stream: its host ms with the stream idle and behind a sleep
+kernel of ~25 ms, and, in one torch.profiler session of the busy case, the
+host µs of each runtime call it makes that copies or waits (cudaMemcpy*,
+cuda*Synchronize: the demands and counts from pageable memory are blocking
+copies, which synchronise the stream), in order, with the µs from the
+call's start.
+
+``sass``: K1's kernel without a refresh (schedule_classes_kernel's REF =
+kRefreshNone instantiations, K7's included) compiled from the first tree's
+source and from the second's, with the build's flags, and their SASS
+compared instruction for instruction (cuobjdump; the parameters' constant
+bank offsets masked): each form's instruction counts and differing lines;
+and, in the second tree, each refresh instantiation's count beside the one
+without. The source is compiled only, nothing runs.
 
 ``profiler``: whether torch.profiler records device activity after what
 preceded its silence in chip_smoke.py (profiler_scenario), each scenario
@@ -300,6 +324,36 @@ rnd = lambda: sched.fetch(sched.schedule_async(demands, counts))
 out["enqueued_round"] = enqueued(rnd)
 out["enqueued_delta_round"] = enqueued(lambda: (sched.apply_delta(np.zeros_like(total)), rnd()))
 out["enqueued_rows_round"] = enqueued(lambda: (sched.update_rows(dirty, total[dirty]), rnd()))
+# the host's ms for a pipelined scan round on an idle card, alone and after
+# apply_delta or update_rows: to the return of schedule_async (the refresh
+# call and the round's enqueue) and to its fetched result; the view reset
+# before each, three sets of interleaved calls, the median of each
+import time
+host_delta = np.random.default_rng(4).integers(-300, 300, total.shape).astype(np.float32)
+pushes = {"round": lambda: None,
+          "delta_round": lambda: sched.apply_delta(host_delta),
+          "rows_round": lambda: sched.update_rows(dirty, total[dirty])}
+host = {k: ([], []) for k in pushes}
+for _ in range(3):
+    sets = {k: ([], []) for k in pushes}
+    for i in range(103):
+        for k, push in pushes.items():
+            sched.set_available(avail)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            push()
+            h = sched.schedule_async(demands, counts)
+            t1 = time.perf_counter()
+            sched.fetch(h)
+            t2 = time.perf_counter()
+            if i >= 3:  # warm
+                sets[k][0].append((t1 - t0) * 1e3)
+                sets[k][1].append((t2 - t0) * 1e3)
+    for k, (a, b) in sets.items():
+        host[k][0].append(float(np.median(a)))
+        host[k][1].append(float(np.median(b)))
+for k, (a, b) in host.items():
+    out[f"host_{k}_enqueue_ms"], out[f"host_{k}_result_ms"] = a, b
 # a round's view build at the main path's shapes, as this tree's
 # TorchScheduler makes it: the refresh, then a clone of the view where the
 # tree's round wrappers copy it (no private _in_place)
@@ -329,6 +383,38 @@ for name, fn, plain, kw in (
     out[name + "_exact"] = bool(torch.equal(a, a_p) and torch.equal(v, v_p))
     out[name + "_ms"] = [CS.time_ms(torch, lambda: fn(*args, **kw), reps=11) for _ in range(3)]
 k1_a, k1_v = KT.schedule_classes(*args)
+# K1 as a round's wrapper calls it: alone (on a copy of the view), with the
+# refresh in its launch where this tree's K1 takes one, and the pair (K2 on
+# a copy, or K3 into a new view, then K1 in place where the tree's K1 can)
+fused = "_refresh" in inspect.signature(KT.schedule_classes).parameters
+in_place = {} if copies_view else {"_in_place": True}
+def k2_pair():
+    v = av.clone()
+    KT.scatter_rows_(v, ti, tr)
+    return KT.schedule_classes(v, *args[1:], **in_place)
+runs = {"k1": lambda: KT.schedule_classes(*args), "k2_then_k1": k2_pair,
+        "k3_then_k1": lambda: KT.schedule_classes(KT.delta_clip(av, delta, tt), *args[1:],
+                                                  **in_place)}
+# K1 alone on the view each refresh makes (what the fused round adds to)
+views = {"rows": KT.scatter_rows_(av.clone(), ti, tr), "delta": KT.delta_clip(av, delta, tt)}
+runs["k1_on_rows"] = lambda: KT.schedule_classes(views["rows"], *args[1:])
+runs["k1_on_delta"] = lambda: KT.schedule_classes(views["delta"], *args[1:])
+runs["k1_no_pass"] = lambda: KT.schedule_classes(*args, max_passes=0)
+if fused:
+    refs = {"rows": KT.Refresh("rows", ti, tr), "delta": KT.Refresh("delta", None, delta)}
+    runs["k1_rows"] = lambda: KT.schedule_classes(*args, _refresh=refs["rows"])
+    runs["k1_delta"] = lambda: KT.schedule_classes(*args, _refresh=refs["delta"])
+    runs["k1_no_pass_rows"] = lambda: KT.schedule_classes(*args, max_passes=0,
+                                                          _refresh=refs["rows"])
+    runs["k1_no_pass_delta"] = lambda: KT.schedule_classes(*args, max_passes=0,
+                                                           _refresh=refs["delta"])
+    for m, pair in (("rows", "k2_then_k1"), ("delta", "k3_then_k1")):
+        a_f, v_f = runs["k1_" + m]()
+        a_s, v_s = runs[pair]()
+        out[f"k1_{m}_exact"] = bool(torch.equal(a_f, a_s) and torch.equal(v_f, v_s))
+out["k1_takes_a_refresh"] = fused
+for name, fn in runs.items():
+    out[name + "_ms"] = [CS.time_ms(torch, fn, reps=11) for _ in range(3)]
 thr, passes = KT.DEFAULT_SPREAD_THRESHOLD, KT.MAX_PASSES
 for p in KS.SHARDS:
     a, v = KS._launch(*args, thr, passes, p)
@@ -418,8 +504,9 @@ cuda_build.build_all([_build.LIBRARY, MK.LIBRARY, MK.LIBRARY_SM90, EK.LIBRARY])
 dev = torch.device("cuda", 0)
 out = {}
 for algo in KT.ALGOS:
-    out[f"stream_{algo}_decisions_per_s"] = CS.phase2_stream(
-        torch, KT, dev, algo=algo)["decisions_per_sec"]
+    res = CS.phase2_stream(torch, KT, dev, algo=algo)
+    out[f"stream_{algo}_decisions_per_s"] = res["decisions_per_sec"]
+    out[f"stream_{algo}_round_ms_median"] = res["round_ms_median"]
 gcs = CS.phase5_gcs(torch, KT, n_lockstep=1000, n_wire=500)
 for algo in KT.ALGOS:
     out[f"gcs_{algo}_decisions_per_s"] = gcs[algo]["decisions_per_sec"]
@@ -450,6 +537,113 @@ def ab(trees, script=_AB) -> dict:
             raise RuntimeError(f"ab {tree}: {res.stderr[-2000:]}")
         runs.append({"tree": tree, **json.loads(res.stdout.strip().splitlines()[-1])})
     return {"runs": runs}
+
+
+def profile_put_wait() -> dict:
+    """putwait (module docstring): schedule_async's host ms at the stream's
+    first round, the stream idle and behind a sleep kernel, and its copy
+    calls' host µs in one profiled busy call."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.sched import _build, kernel_torch as KT
+
+    _build.load()
+    dev = torch.device("cuda", 0)
+    avail, total, alive, demands, counts = chip_smoke.stream_first_round()
+    sched = KT.TorchScheduler(total, alive, device=dev)
+    sched.set_available(avail)
+    sleep_cycles = 50_000_000
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(sleep_cycles)
+    e.record()
+    torch.cuda.synchronize()
+    out = {"sleep_ms": s.elapsed_time(e), "idle_ms": [], "busy_ms": []}
+    for _ in range(2):  # warm
+        sched.fetch(sched.schedule_async(demands, counts))
+    for _ in range(5):
+        for key in ("idle_ms", "busy_ms"):
+            torch.cuda.synchronize()
+            if key == "busy_ms":
+                torch.cuda._sleep(sleep_cycles)
+            t0 = time.perf_counter()
+            h = sched.schedule_async(demands, counts)
+            out[key].append((time.perf_counter() - t0) * 1e3)
+            sched.fetch(h)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(sleep_cycles)
+        h = sched.schedule_async(demands, counts)
+    sched.fetch(h)
+    calls = sorted((ev for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CPU
+                    and ev.name.startswith("cuda") and ("Memcpy" in ev.name
+                                                        or "Synchronize" in ev.name)),
+                   key=lambda ev: ev.time_range.start)
+    t0 = calls[0].time_range.start if calls else 0
+    out["copy_and_wait_calls_host_us"] = [
+        {"name": ev.name, "at_us": ev.time_range.start - t0,
+         "us": ev.time_range.end - ev.time_range.start} for ev in calls]
+    return out
+
+
+def sass_compare(old_tree: str, new_tree: str) -> dict:
+    """sass (module docstring): K1's instantiations without a refresh in
+    two trees' sources, instruction for instruction."""
+    import difflib
+    import os
+    import re
+    import subprocess
+    import tempfile
+
+    from ray_tpu_torch.sched import _build
+    from ray_tpu_torch.util import cuda_build
+
+    src = os.path.join("ray_tpu_torch", "sched", "csrc", "sched_kernels.cu")
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    objdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+
+    def functions(tree):
+        with tempfile.TemporaryDirectory() as tmp:
+            cubin = os.path.join(tmp, "k.cubin")
+            subprocess.run([cuda_build.nvcc(), *flags, "-cubin", "-o", cubin,
+                            os.path.join(tree, src)], check=True, capture_output=True)
+            text = subprocess.run([objdump, "-sass", cubin], check=True, capture_output=True,
+                                  text=True).stdout
+        out, cur = {}, None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                cur = out.setdefault(m.group(1), [])
+            elif cur is not None and "/*" in line and ";" in line:
+                ins = re.sub(r"/\*[0-9a-f]{4}\*/", "", line.split(";")[0]).strip()
+                cur.append(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][P]", ins))
+        return out
+
+    def pick(fs, rows, threads, ref=None):
+        tail = "E" if ref is None else f"ELi{ref}E"
+        pat = rf"schedule_classes_kernelILb{rows}ELi{threads}{tail}E"
+        return next((v for k, v in fs.items() if re.search(pat, k)), None)
+
+    def differ(a, b):
+        return sum(1 for l in difflib.unified_diff(a, b, lineterm="", n=0)
+                   if l[:1] in "+-" and not l.startswith(("+++", "---")))
+
+    old, new = functions(old_tree), functions(new_tree)
+    res = {}
+    for rows, threads in (("1", "512"), ("0", "512"), ("0", "1024")):
+        a = pick(old, rows, threads) or pick(old, rows, threads, 0)
+        b = pick(new, rows, threads, 0)
+        if a is not None and b is not None:
+            res[f"rows{rows}_{threads}"] = {"old": len(a), "new": len(b),
+                                            "differing_lines": differ(a, b)}
+        for ref in (1, 2):
+            c = pick(new, rows, threads, ref)
+            if c is not None and b is not None:
+                res[f"rows{rows}_{threads}_ref{ref}"] = {"instructions": len(c),
+                                                         "without_refresh": len(b)}
+    return res
 
 
 def profile_stream() -> dict:
@@ -603,6 +797,10 @@ def main(argv) -> int:
         res = ab(argv[2:], _E2E)
     elif what == "profiler":
         res = profiler_scenario(argv[2]) if len(argv) > 2 else profiler_hunt()
+    elif what == "putwait":
+        res = profile_put_wait()
+    elif what == "sass" and len(argv) == 4:
+        res = sass_compare(argv[2], argv[3])
     else:
         print(__doc__, file=sys.stderr)
         return 2

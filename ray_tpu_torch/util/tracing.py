@@ -115,13 +115,15 @@ def span(name: str, **meta):
 
 
 #: each launch counter of the port's kernel wrappers and the CUDA kernels
-#: (symbols) one of its launches runs
+#: (symbols) one of its launches runs (K2 and K3 run alone or in K1's launch)
 _COUNTER_KERNELS = {
     "schedule_classes": ("schedule_classes_kernel",),
     "schedule_classes_sharded": ("schedule_classes_kernel",),
     "rank_pass": ("k7r_kernel",),
-    "scatter_rows": ("refresh_view_kernel",),
-    "delta_clip": ("refresh_view_kernel",),
+    "scatter_rows": ("refresh_view_kernel", "schedule_classes_kernel"),
+    "delta_clip": ("refresh_view_kernel", "schedule_classes_kernel"),
+    "scatter_rows_fused": ("schedule_classes_kernel",),
+    "delta_clip_fused": ("schedule_classes_kernel",),
     "compact_nonzero": ("compact_nonzero_kernel",),
     "schedule_classes_rounds": ("rounds_caps_kernel", "rounds_prefix_kernel",
                                 "rounds_trim_kernel"),

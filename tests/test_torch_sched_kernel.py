@@ -410,6 +410,41 @@ REFRESH_SEQUENCES = {
 }
 
 
+REFRESHES = ("rows", "delta")
+
+
+def expected_refreshes(ops, algo):
+    """The launches the refreshes of `ops` (REFRESH_SEQUENCES' steps) cost,
+    then a round of `algo`: {"standalone": {"rows": n, "delta": n}, "fused":
+    {...}} before the round (key "before") and after it ("after"), and the
+    refresh left pending before the round ("pending", a mode or None). A
+    refresh waits; a second refresh or a read applies it alone,
+    set_available (and the whole-view update_rows) drops it; a scan round
+    applies it in K1's launch."""
+    count = {"standalone": dict.fromkeys(REFRESHES, 0), "fused": dict.fromkeys(REFRESHES, 0)}
+    pending = None
+    for op in ops:
+        if op in REFRESHES or op == "read":
+            if pending:
+                count["standalone"][pending] += 1
+            pending = op if op in REFRESHES else None
+        elif op in ("set", "rows_all"):
+            pending = None
+    before = {k: dict(v) for k, v in count.items()}
+    if pending:
+        count["fused" if algo == "scan" else "standalone"][pending] += 1
+    return {"before": before, "after": count, "pending": pending}
+
+
+def refresh_counts():
+    """The launch counters of K2 and K3 by form, from KT.launch_counts()."""
+    c = KT.launch_counts()
+    fused = {"rows": c["scatter_rows_fused"], "delta": c["delta_clip_fused"]}
+    return {"standalone": {"rows": c["scatter_rows"] - fused["rows"],
+                           "delta": c["delta_clip"] - fused["delta"]},
+            "fused": fused}
+
+
 def _refresh_sequence_views(N, seed):
     """A JaxScheduler and a TorchScheduler (CPU) on one seeded view with
     negative entries (over-released resources), as set_available leaves
@@ -776,13 +811,17 @@ def test_cuda_refresh_view_every_mode_equals_plain():
 def test_cuda_refresh_sequences_equal_cpu(algo):
     """On the card: each refresh sequence and two rounds (schedule, or
     schedule_async and fetch) give the CPU TorchScheduler's decisions and
-    avail bit for bit; each refresh is one launch of its mode, and a round
-    writes the view in place (no copy of it)."""
+    avail bit for bit; each refresh is one launch of its mode, counted by
+    form (expected_refreshes): alone where a later refresh or a read
+    applied it or the algorithm is not scan, in K1's launch where a scan
+    round did, none where set_available dropped it; the view is one tensor
+    throughout (rounds and refreshes write it in place)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; runs on the card (see README)")
     N = 4000
     for seq in sorted(REFRESH_SEQUENCES):
         ops = REFRESH_SEQUENCES[seq]
+        want_counts = expected_refreshes(ops, algo)
         for call in ("schedule", "schedule_async"):
             rng, _, cpu = _refresh_sequence_views(N, 11)
             card = KT.load_cluster_view(cpu.total.numpy(), cpu.alive.numpy(),
@@ -790,12 +829,10 @@ def test_cuda_refresh_sequences_equal_cpu(algo):
             KT.reset_launch_counts()
             for a, b in zip(_apply(ops, card, N, 5), _apply(ops, cpu, N, 5)):
                 np.testing.assert_array_equal(a, b)
-            launched = KT.launch_counts()
-            assert launched["scatter_rows"] == ops.count("rows"), (seq, launched)
-            assert launched["delta_clip"] == ops.count("delta"), (seq, launched)
+            assert refresh_counts() == want_counts["before"], (seq, KT.launch_counts())
+            view = card._view
             for _ in range(2):
                 demands, counts = _class_problem(rng, 9, 400)
-                view = card.avail
                 if call == "schedule":
                     got = card.schedule(demands, counts, algo=algo)
                     want = cpu.schedule(demands, counts, algo=algo)
@@ -803,6 +840,7 @@ def test_cuda_refresh_sequences_equal_cpu(algo):
                     got = card.fetch(card.schedule_async(demands, counts, algo=algo))
                     want = cpu.fetch(cpu.schedule_async(demands, counts, algo=algo))
                 np.testing.assert_array_equal(got, want)
-                assert card.avail is view, (seq, call)
+                assert card._view is view, (seq, call)
+            assert refresh_counts() == want_counts["after"], (seq, call, KT.launch_counts())
             assert torch.equal(card.avail.cpu(), cpu.avail), (seq, call)
     torch.cuda.synchronize()
